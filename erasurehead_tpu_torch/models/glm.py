@@ -1,0 +1,81 @@
+"""Convex GLM models: logistic regression and least-squares linear regression.
+
+The reference's two model families: a dense parameter vector ``beta`` trained
+by (accelerated) gradient descent on row-sharded data. Gradients follow the
+reference's *sum* (not mean) convention, so per-partition gradients add
+linearly, which is what makes "message = linear combination of partition
+gradients" work. Same closed forms as erasurehead_tpu/models/glm.py:
+
+  - logistic gradient  -X^T (y / (exp((X beta) * y) + 1))  (src/naive.py:137-139)
+  - linear gradient    -2 X^T (y - X beta)                 (src/naive.py:341-346)
+  - logistic loss      sum softplus(-y * X beta)           (src/util.py:136-137)
+  - squared loss       sum (y - X beta)^2                  (src/util.py:139-141)
+
+X may carry leading batch dimensions ([..., n, F] with y [..., n]); the
+gradient then comes back per batch entry ([..., F]).
+
+Deviation from the JAX package: :meth:`init_params` draws from a seeded
+``torch.Generator``, which cannot reproduce JAX's threefry ``jax.random.normal``
+draw. Runs that must start where a JAX run starts pass its draw to
+``train.trainer.train(init_params=...)``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F_nn
+
+from erasurehead_tpu_torch.ops.features import matvec, rmatvec
+
+
+class _GLMBase:
+    def init_params(
+        self, seed: int, n_features: int, device="cpu"
+    ) -> torch.Tensor:
+        """Standard-normal float32 init from a seeded torch.Generator."""
+        gen = torch.Generator().manual_seed(int(seed))
+        return torch.randn(n_features, generator=gen).to(device)
+
+    def predict(self, params, X):
+        return matvec(X, params)
+
+    def loss_mean(self, params, X, y):
+        return self.loss_sum(params, X, y) / y.shape[-1]
+
+
+class LogisticModel(_GLMBase):
+    """Binary logistic regression with labels in {-1, +1}."""
+
+    name = "logistic"
+
+    def margin_residual(self, margins, y):
+        """r such that grad_sum = -X^T r, written the reference's way:
+        y / (exp(m*y) + 1)  (src/naive.py:137-139)."""
+        return y / (torch.exp(margins * y) + 1.0)
+
+    def grad_sum(self, params, X, y):
+        r = self.margin_residual(matvec(X, params), y)
+        return -rmatvec(X, r)
+
+    def loss_sum(self, params, X, y):
+        # softplus rather than the reference's literal log(1+exp(.)), which
+        # overflows float32 for large negative margins
+        return F_nn.softplus(-y * matvec(X, params)).sum(-1)
+
+
+class LinearModel(_GLMBase):
+    """Least-squares linear regression (kc_house_data task)."""
+
+    name = "linear"
+
+    def margin_residual(self, margins, y):
+        """r such that grad_sum = -X^T r: 2 (y - X beta)."""
+        return 2.0 * (y - margins)
+
+    def grad_sum(self, params, X, y):
+        r = self.margin_residual(matvec(X, params), y)
+        return -rmatvec(X, r)
+
+    def loss_sum(self, params, X, y):
+        resid = y - matvec(X, params)
+        return (resid**2).sum(-1)

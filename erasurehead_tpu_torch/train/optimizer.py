@@ -1,0 +1,78 @@
+"""GD, accelerated GD and Adam updates on a parameter tensor.
+
+Update rules being matched (src/naive.py:113-122, as in
+erasurehead_tpu/train/optimizer.py):
+  GD:   beta <- (1 - 2*alpha*eta_i) * beta - (eta_i / n) * g
+  AGD (Nesterov-style, theta_i = 2/(i+2)):
+        y      = (1 - theta) * beta + theta * u
+        beta+  = y - (eta_i / n) * g - 2*alpha*eta_i * beta
+        u     <- beta + (beta+ - beta) / theta
+  ADAM (beyond the reference): Adam on g/n + 2*alpha*beta.
+where g is the *sum* gradient over collected samples and n is the total
+sample count. Each update returns a new state; nothing is updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from erasurehead_tpu_torch.utils.config import UpdateRule
+
+
+class OptState(NamedTuple):
+    params: torch.Tensor
+    # AGD's u sequence; for ADAM the (mu, nu) moment pair; unused by GD
+    momentum: object
+
+
+def init_state(params: torch.Tensor, rule: UpdateRule = UpdateRule.AGD) -> OptState:
+    zeros = torch.zeros_like(params)
+    if UpdateRule(rule) == UpdateRule.ADAM:
+        return OptState(params=params, momentum=(zeros, torch.zeros_like(params)))
+    return OptState(params=params, momentum=zeros)
+
+
+def gd_update(state: OptState, g, eta: float, alpha: float, n_samples: int, i) -> OptState:
+    mult = eta / n_samples
+    new = (1.0 - 2.0 * alpha * eta) * state.params - mult * g
+    return OptState(params=new, momentum=state.momentum)
+
+
+def agd_update(state: OptState, g, eta: float, alpha: float, n_samples: int, i) -> OptState:
+    mult = eta / n_samples
+    theta = 2.0 / (i + 2.0)
+    b, u = state.params, state.momentum
+    y = (1.0 - theta) * b + theta * u
+    b_next = y - mult * g - 2.0 * alpha * eta * b
+    u_next = b + (b_next - b) / theta
+    return OptState(params=b_next, momentum=u_next)
+
+
+def adam_update(state: OptState, g, eta: float, alpha: float, n_samples: int, i) -> OptState:
+    """Adam on the objective the GD rule descends (mean loss +
+    alpha*||params||^2); bias correction uses t = i+1. The corrections
+    1 - b**t are taken in float32, as the JAX package takes them: at small t
+    they cancel about three digits, so double precision would not match."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    t = np.float32(i + 1.0)
+    mu, nu = state.momentum
+    p = state.params
+    grad = g / n_samples + 2.0 * alpha * p
+    m_new = b1 * mu + (1.0 - b1) * grad
+    v_new = b2 * nu + (1.0 - b2) * grad * grad
+    m_hat = m_new / (np.float32(1.0) - np.float32(b1) ** t)
+    v_hat = v_new / (np.float32(1.0) - np.float32(b2) ** t)
+    p_new = p - eta * m_hat / (torch.sqrt(v_hat) + eps)
+    return OptState(params=p_new, momentum=(m_new, v_new))
+
+
+def make_update_fn(rule: UpdateRule):
+    rule = UpdateRule(rule)
+    if rule == UpdateRule.GD:
+        return gd_update
+    if rule == UpdateRule.ADAM:
+        return adam_update
+    return agd_update

@@ -1,0 +1,174 @@
+"""Typed run configuration: the main-path subset of the JAX package's RunConfig.
+
+Same field names, defaults and validation messages as
+erasurehead_tpu/utils/config.py::RunConfig for the fields this port runs:
+the five reference schemes with full (or first-k) collection, the two GLM
+families, GD/AGD/ADAM updates, the faithful and deduped compute modes, float32
+or bfloat16 data, and the fused-kernel switch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Optional, Sequence
+
+import numpy as np
+
+
+class Scheme(str, enum.Enum):
+    """The reference's collection/coding strategies that this port runs."""
+
+    NAIVE = "naive"  # wait for all workers               (src/naive.py)
+    CYCLIC_MDS = "cyccoded"  # exact coding, cyclic MDS code      (src/coded.py)
+    FRC = "repcoded"  # exact coding, fractional repetition (src/replication.py)
+    APPROX = "approx"  # approximate gradient coding (AGC)  (src/approximate_coding.py)
+    AVOID_STRAGGLERS = "avoidstragg"  # ignore-stragglers baseline (src/avoidstragg.py)
+
+
+def as_scheme(name) -> Scheme:
+    if isinstance(name, Scheme):
+        return name
+    try:
+        return Scheme(name)
+    except ValueError:
+        raise ValueError(
+            f"unknown scheme {name!r}; ported schemes: "
+            f"{[s.value for s in Scheme]}"
+        ) from None
+
+
+class UpdateRule(str, enum.Enum):
+    GD = "GD"
+    AGD = "AGD"  # Nesterov-style accelerated GD (src/naive.py:116-122)
+    ADAM = "ADAM"
+
+
+class ModelKind(str, enum.Enum):
+    LOGISTIC = "logistic"
+    LINEAR = "linear"
+
+
+class ComputeMode(str, enum.Enum):
+    """How worker messages are materialized on the device.
+
+    FAITHFUL: every logical worker computes the gradient of each of its
+    (possibly redundant) partitions, as the reference cluster did.
+    DEDUPED: each partition gradient is computed once and the decode x coding
+    coefficients fold into per-partition weights
+    (CodingLayout.fold_slot_weights): the same decoded gradient at 1/(s+1)
+    the work.
+    """
+
+    FAITHFUL = "faithful"
+    DEDUPED = "deduped"
+
+
+# Learning-rate schedules the reference keeps in comments (main.py:36-46).
+def constant_schedule(value: float, rounds: int) -> np.ndarray:
+    return value * np.ones(rounds)
+
+
+def inverse_time_schedule(eta0: float, t0: float, rounds: int) -> np.ndarray:
+    return np.array([eta0 * t0 / (i + t0) for i in range(1, rounds + 1)])
+
+
+def exponential_decay_schedule(eta0: float, decay: float, rounds: int) -> np.ndarray:
+    return np.array([eta0 * decay**i for i in range(1, rounds + 1)])
+
+
+#: Per-dataset presets recorded in the reference (main.py:36-46 for the lr
+#: schedules; run_approx_coding.sh:26-36 for shapes).
+DATASET_PRESETS = {
+    "amazon": dict(lr=("constant", 10.0), n_rows=26210, n_cols=241915, model=ModelKind.LOGISTIC),
+    "covtype": dict(lr=("constant", 0.1), n_rows=396112, n_cols=15509, model=ModelKind.LOGISTIC),
+    "kc_house_data": dict(lr=("exp", 0.1, 0.98), n_rows=17290, n_cols=27654, model=ModelKind.LINEAR),
+    "dna": dict(lr=("constant", 0.1), n_rows=400000, n_cols=6890, model=ModelKind.LOGISTIC),
+    "artificial": dict(lr=("constant", 10.0), n_rows=4096, n_cols=100, model=ModelKind.LOGISTIC),
+}
+DATASET_PRESETS["amazon-dataset"] = DATASET_PRESETS["amazon"]
+DATASET_PRESETS["dna-dataset"] = DATASET_PRESETS["dna"]
+
+
+@dataclasses.dataclass
+class RunConfig:
+    """Everything needed to reproduce one training run."""
+
+    scheme: Scheme = Scheme.NAIVE
+    model: ModelKind = ModelKind.LOGISTIC
+    n_workers: int = 8  # reference: n_procs - 1 (the master is rank 0)
+    n_stragglers: int = 1
+    rounds: int = 100  # num_itrs, main.py:32
+    num_collect: Optional[int] = None  # AGC stop count; None => n_workers
+    add_delay: bool = True  # inject the seeded exponential straggler delays
+    delay_mean: float = 0.5  # seconds; src/naive.py:146
+    update_rule: UpdateRule = UpdateRule.AGD
+    alpha: Optional[float] = None  # l2 coeff; None => 1/n_samples (main.py:34)
+    lr_schedule: Optional[Sequence[float]] = None  # None => dataset preset
+    dataset: str = "artificial"
+    n_rows: int = 4096
+    n_cols: int = 100
+    input_dir: Optional[str] = None  # on-disk data; None => generate in-memory
+    compute_mode: ComputeMode = ComputeMode.FAITHFUL
+    seed: int = 0  # data, generator matrix and the port's own params init
+    # DATA dtype: bfloat16 halves the bytes the gradient pass streams; params
+    # and optimizer updates always run in float32
+    dtype: str = "float32"
+    # the fused gradient kernel (ops/kernels.py): "auto" and "on" (both kept
+    # for parity with the JAX package) route the stack through it; "off"
+    # takes the two-pass PyTorch gradient
+    use_pallas: str = "auto"
+
+    def __post_init__(self):
+        self.scheme = as_scheme(self.scheme)
+        self.model = ModelKind(self.model)
+        self.update_rule = UpdateRule(self.update_rule)
+        self.compute_mode = ComputeMode(self.compute_mode)
+        if self.use_pallas not in ("auto", "on", "off"):
+            raise ValueError(
+                f"use_pallas must be auto/on/off, got {self.use_pallas!r}"
+            )
+        if self.dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"dtype must be float32/bfloat16, got {self.dtype!r}"
+            )
+        if self.num_collect is None:
+            self.num_collect = self.n_workers
+        if self.dataset not in DATASET_PRESETS:
+            raise ValueError(
+                f"unknown dataset {self.dataset!r}; known: {sorted(DATASET_PRESETS)}"
+            )
+        if self.scheme in (Scheme.FRC, Scheme.APPROX) and self.n_workers % (
+            self.n_stragglers + 1
+        ):
+            raise ValueError(
+                f"scheme={self.scheme.value!r} needs (n_stragglers+1) | "
+                f"n_workers for its fractional-repetition layout (reference "
+                f"guard src/replication.py:24-26); got n_workers="
+                f"{self.n_workers}, n_stragglers={self.n_stragglers}"
+            )
+
+    @property
+    def effective_alpha(self) -> float:
+        return self.alpha if self.alpha is not None else 1.0 / self.n_rows
+
+    def resolve_lr_schedule(self) -> np.ndarray:
+        if self.lr_schedule is not None:
+            lr = np.asarray(self.lr_schedule, dtype=np.float64)
+            if lr.ndim == 0:
+                lr = np.full(self.rounds, float(lr))
+            if lr.shape != (self.rounds,):
+                raise ValueError(
+                    f"lr_schedule must be a scalar or have {self.rounds} "
+                    f"entries, got shape {lr.shape}"
+                )
+            return lr
+        preset = DATASET_PRESETS[self.dataset]
+        kind, *args = preset["lr"]
+        if kind == "constant":
+            return constant_schedule(args[0], self.rounds)
+        if kind == "inv":
+            return inverse_time_schedule(args[0], args[1], self.rounds)
+        if kind == "exp":
+            return exponential_decay_schedule(args[0], args[1], self.rounds)
+        raise ValueError(f"unknown lr schedule kind {kind!r}")

@@ -1,0 +1,167 @@
+"""The port's fused GLM gradient against the JAX package's Pallas kernel.
+
+On the CPU the wrapper takes its plain PyTorch version (the CUDA kernel has
+no interpret mode); the JAX side runs its Pallas kernel in interpret mode
+with a multi-block grid (``block_rows=16``) and its two-pass oracle. The
+cases are those of tests/test_kernels.py, with its tolerance: rtol 1e-5,
+atol 1e-4 (float32 sums in a different order). The card itself is checked
+by the ``cuda``-marked test, which skips where there is no card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from erasurehead_tpu.ops import kernels as j_kernels
+from erasurehead_tpu_torch.ops import kernels as t_kernels
+from erasurehead_tpu_torch.parallel import step as t_step
+
+RTOL, ATOL = 1e-5, 1e-4
+
+
+def _case(M, R, F, seed=7):
+    rng = np.random.default_rng(seed + M * 1000 + R * 10 + F)
+    X = rng.standard_normal((M, R, F)).astype(np.float32)
+    y = np.sign(rng.standard_normal((M, R))).astype(np.float32)
+    b = rng.standard_normal(F).astype(np.float32)
+    w = rng.standard_normal(M).astype(np.float32)
+    return b, X, y, w
+
+
+def _both(b, X, y, w, kind, x_dtype=torch.float32):
+    tX = torch.from_numpy(X).to(x_dtype)
+    got = t_kernels.fused_glm_grad(
+        torch.from_numpy(b), tX, torch.from_numpy(y), torch.from_numpy(w), kind
+    )
+    return got, tX
+
+
+@pytest.mark.parametrize("kind", t_kernels.GLM_KINDS)
+@pytest.mark.parametrize("shape", [(6, 40, 32), (3, 17, 128), (1, 8, 64)])
+def test_fused_matches_jax_kernel_and_oracle(kind, shape):
+    b, X, y, w = _case(*shape)
+    before = dict(t_kernels.LAUNCHES)
+    got, _ = _both(b, X, y, w, kind)
+    assert t_kernels.LAUNCHES == before  # the CPU path launches nothing
+    assert got.dtype == torch.float32 and got.shape == (shape[2],)
+    jargs = tuple(map(jnp.asarray, (b, X, y, w)))
+    pallas = j_kernels.fused_glm_grad(*jargs, kind, interpret=True, block_rows=16)
+    oracle = j_kernels.reference_glm_grad(*jargs, kind)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("kind", t_kernels.GLM_KINDS)
+def test_fused_bf16_stream_matches_f32_oracle(kind):
+    """A bfloat16 stack is upcast once and contracted in float32: it matches
+    the float32 oracle on the bf16-rounded data to float32 tolerance."""
+    b, X, y, w = _case(4, 33, 64)
+    got, tX = _both(b, X, y, w, kind, torch.bfloat16)
+    Xr = tX.float().numpy()  # the bf16-rounded values, as float32
+    want = j_kernels.reference_glm_grad(*map(jnp.asarray, (b, Xr, y, w)), kind)
+    jb = jnp.asarray(X).astype(jnp.bfloat16)
+    pallas = j_kernels.fused_glm_grad(
+        jnp.asarray(b), jb, jnp.asarray(y), jnp.asarray(w), kind,
+        interpret=True, block_rows=16,
+    )
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=RTOL, atol=ATOL)
+
+
+def test_zero_weight_slots_drop_out():
+    """A slot with weight 0 (an erased message) contributes nothing."""
+    b, X, y, w = _case(4, 24, 32)
+    w[2] = 0.0
+    got, _ = _both(b, X, y, w, "logistic")
+    keep = [0, 1, 3]
+    want = j_kernels.reference_glm_grad(
+        *map(jnp.asarray, (b, X[keep], y[keep], w[keep])), "logistic"
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("lead", [(3, 2), (6,)])
+def test_fused_grad_fn_flattens_leading_dims(lead):
+    """make_fused_grad_fn takes a [W, S, R, F] or [P, R, F] stack with
+    [W, S] / [P] weights, as the JAX package's make_fused_grad_fn does."""
+    M = int(np.prod(lead))
+    b, X, y, w = _case(M, 20, 16)
+    fn = t_step.make_fused_grad_fn("logistic")
+    got = fn(
+        torch.from_numpy(b),
+        torch.from_numpy(X.reshape(lead + X.shape[1:])),
+        torch.from_numpy(y.reshape(lead + y.shape[1:])),
+        torch.from_numpy(w.reshape(lead)),
+    )
+    want = j_kernels.reference_glm_grad(*map(jnp.asarray, (b, X, y, w)), "logistic")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("kind", t_kernels.GLM_KINDS)
+def test_wrapper_takes_wide_stacks(kind):
+    """Any F: rows wider than the kernel's registers take its re-read path
+    on the card, so the wrapper refuses no width."""
+    b, X, y, w = _case(2, 9, 2500)
+    X /= np.float32(50.0)  # unit-scale margins, as for the narrow cases
+    got, _ = _both(b, X, y, w, kind)
+    want = j_kernels.reference_glm_grad(*map(jnp.asarray, (b, X, y, w)), kind)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize(
+    "bad",
+    [
+        dict(X=torch.zeros(2, 3, 4, dtype=torch.float64)),
+        dict(X=torch.zeros(2, 3)),
+        dict(X=torch.zeros(2, 0, 4), y=torch.zeros(2, 0)),
+        dict(y=torch.zeros(2, 4)),
+        dict(w=torch.zeros(3)),
+        dict(beta=torch.zeros(4, dtype=torch.float64)),
+        dict(kind="probit"),
+    ],
+)
+def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
+    args = dict(
+        beta=torch.zeros(4), X=torch.zeros(2, 3, 4), y=torch.zeros(2, 3),
+        w=torch.zeros(2), kind="logistic",
+    )
+    args.update(bad)
+    with pytest.raises(ValueError):
+        t_kernels.fused_glm_grad(**args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (6, 40, 32), (3, 17, 128), (5, 300, 17), (90, 4400, 128),
+        (3, 300, 2048),  # wider than a lane's registers: one re-read tile
+        (2, 70, 5001),  # three tiles, F % 4 != 0: the scalar wide path
+    ],
+)
+def test_cuda_kernel_matches_plain_version(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, X, y, w = _case(*shape)
+    w[::2] = 0.0
+    args = (
+        torch.from_numpy(b).cuda(), torch.from_numpy(X).to(dtype).cuda(),
+        torch.from_numpy(y).cuda(), torch.from_numpy(w).cuda(),
+    )
+    for kind in t_kernels.GLM_KINDS:
+        before = t_kernels.LAUNCHES["fused_glm_grad"]
+        got = t_kernels.fused_glm_grad(*args, kind)
+        again = t_kernels.fused_glm_grad(*args, kind)
+        want = t_kernels.reference_glm_grad(*args, kind)
+        # float32 sums in another order: within 1e-5 of the sum of |terms|
+        Xf = args[1].float()
+        s = t_kernels._residual(kind, torch.einsum("mrf,f->mr", Xf, args[0]), args[2])
+        scale = torch.einsum("mrf,mr->f", Xf.abs(), (s * args[3][:, None]).abs())
+        torch.cuda.synchronize()
+        assert t_kernels.LAUNCHES["fused_glm_grad"] == before + 2
+        assert torch.equal(got, again)  # no atomics: reruns are bitwise
+        assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
