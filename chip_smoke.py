@@ -4,23 +4,33 @@
 
 Phases, one JSON line each:
 
-  1. device  - the card's name and power limit (nvidia-smi);
-  2. build   - compile every CUDA kernel of the main path from the sources in
-               this checkout (nvcc, sm_90a) and time it;
-  3. check   - each kernel against its plain PyTorch version on the card, at
-               ragged, zero-weight, bfloat16 and main-path shapes;
-  4. main    - the paper's experiment through the CLI a user calls: approx
-               coding, W=30, s=2, num_collect=15, 132,000 x 128 synthetic GMM
-               rows, AGD, 100 rounds, faithful stack, on the card; the kernel
-               launch counts are set to 0 just before and read just after;
-               then the same run on the CPU, whose replayed training loss the
-               card's must match to relative 1e-4 in every round;
-  5. time    - each kernel, its plain version and its bound at the main
-               path's shapes, then the kernel's wide (re-read) path at two
-               widths off the main path;
-  6. profile - device time by kernel over one more training run of the main
-               path, from torch.profiler, and the device's busy share of the
-               round loop.
+  1. device    - the card's name and power limit (nvidia-smi);
+  2. build     - compile both CUDA kernels from the sources in this checkout
+                 (one nvcc per source, started together, sm_90a) and time it;
+  3. check     - each kernel against its plain PyTorch version on the card:
+                 fused_glm_grad within tolerance at ragged, zero-weight,
+                 bfloat16 and main-path shapes; fused_block_decode bitwise at
+                 ragged, zero-weight and bfloat16 shapes, the deep path's six
+                 leaves and deepmlp's W_in at the covtype width;
+  4. main      - the paper's experiment through the CLI a user calls: approx
+                 coding, W=30, s=2, num_collect=15, 132,000 x 128 synthetic
+                 GMM rows, AGD, 100 rounds, faithful stack, on the card; the
+                 kernel launch counts are set to 0 just before and read just
+                 after; then the same run on the CPU, whose replayed training
+                 loss the card's must match to relative 1e-4 in every round;
+  5. deep      - the layer-coded deepmlp path at the same data width through
+                 the CLI (100 rounds, fused block decode), counts read as in
+                 ``main``; then its first 10 rounds on the card and on the CPU,
+                 replayed losses within relative 1e-4;
+  6. moe, glm_layer - short layer-coded runs of the moe family and of the
+                 logistic model at the same width, with their launch counts;
+  7. time      - each kernel, its plain version, the library call where one
+                 computes the same function, and the bound, at its path's
+                 shapes; fused_glm_grad's wide (re-read) path at two widths
+                 off the main path;
+  8. profile   - device time by kernel over one more training run of the GLM
+                 main path and of the deep path, from torch.profiler, and the
+                 device's busy share of each round loop.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -53,6 +63,22 @@ MAIN_ARGS = [
 ]
 ROUNDS = 100
 MAIN_SHAPE = (90, 4400, 128)  # [W * (s+1), rows per partition, F]
+# the layer-coded deep path: deepmlp (hidden 32, 4 layers) at the same data.
+# GD, not the Quickstart's AGD: the reference's AGD starts its u sequence at
+# 0 with theta_0 = 1, so its first iterate is -(lr/n) g_0, which puts a tanh
+# network at the all-zero saddle, where its loss stays at log 2 (the JAX
+# package's AGD does the same)
+DEEP_ARGS = MAIN_ARGS[:MAIN_ARGS.index("--update-rule")] + [
+    "--update-rule", "GD", "--lr", "0.5", "--compute-mode", "faithful",
+    "--add-delay", "--quiet", "--model", "deepmlp", "--layer-coding", "on",
+    "--block-decode", "fused",
+]
+SHORT_ROUNDS = 10  # the deep path's card-vs-CPU comparison
+LAYER_ROUNDS = 20  # the moe and glm_layer runs
+# M = 90 slots; per-slot leaf sizes of deepmlp at F = 128 in sorted-key order
+# (W, W_in, b, b_in, b_out, w_out), and its W_in at the covtype preset's width
+DEEP_LEAVES = (4096, 4096, 128, 32, 1, 32)
+COVTYPE_W_IN = 15509 * 32
 # rows wider than the kernel's registers: one re-read tile, and the covtype
 # preset's width (eight tiles)
 WIDE_SHAPES = ((30, 4400, 2048), (6, 2200, 15509))
@@ -148,9 +174,17 @@ def glm_bound_ms(M, R, F, x_itemsize) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def run_main(cli, out_dir, device) -> dict:
-    if cli.main(MAIN_ARGS + ["--output-dir", out_dir, "--device", device]) != 0:
-        raise AssertionError(f"cli.main failed on {device}")
+def with_rounds(args, rounds):
+    i = args.index("--rounds")
+    return args[:i + 1] + [str(rounds)] + args[i + 2:]
+
+
+def run_main(cli, out_dir, device, args=MAIN_ARGS) -> dict:
+    """One CLI run; its five artifacts must exist, be finite and have the
+    run's shape."""
+    if cli.main(args + ["--output-dir", out_dir, "--device", device]) != 0:
+        raise AssertionError(f"cli.main failed on {device}: {args}")
+    rounds = int(args[args.index("--rounds") + 1])
     prefix = "approx_acc_2"
     paths = {a: os.path.join(out_dir, f"{prefix}_{a}.dat") for a in ARTIFACTS}
     missing = [p for p in paths.values() if not os.path.exists(p)]
@@ -160,37 +194,72 @@ def run_main(cli, out_dir, device) -> dict:
         manifest = json.load(f)
     arts = {a: np.loadtxt(p, ndmin=1) for a, p in paths.items()}
     for a in ("training_loss", "testing_loss", "auc", "timeset"):
-        if arts[a].shape != (ROUNDS,) or not np.isfinite(arts[a]).all():
+        if arts[a].shape != (rounds,) or not np.isfinite(arts[a]).all():
             raise AssertionError(f"{a}: shape {arts[a].shape} or non-finite values")
-    if arts["worker_timeset"].shape != (ROUNDS, 30):
+    if arts["worker_timeset"].shape != (rounds, 30):
         raise AssertionError(f"worker_timeset shape {arts['worker_timeset'].shape}")
     return dict(arts=arts, manifest=manifest)
 
 
-def profile_train(cli) -> dict:
-    """Where a round's time goes, over more runs of the main path's training
-    (after the launch counts were read): one warm run without the profiler
+def counted_run(cli, kernels, out_dir, args, want) -> dict:
+    """A run on the card with every launch count set to 0 just before it
+    and read just after; the counts must be exactly ``want``."""
+    kernels.reset_launches()
+    run = run_main(cli, out_dir, "cuda", args)
+    run["launches"] = dict(kernels.LAUNCHES)
+    if run["launches"] != want:
+        raise AssertionError(f"{args} launched {run['launches']}, want {want}")
+    return run
+
+
+def compare_runs(gpu, cpu) -> dict:
+    """The card's replayed training loss within relative 1e-4 of the CPU
+    run's in every round, and byte-identical simulated clocks."""
+    g_loss, c_loss = gpu["arts"]["training_loss"], cpu["arts"]["training_loss"]
+    rel = np.abs(g_loss - c_loss) / np.abs(c_loss)
+    same_clock = (
+        gpu["arts"]["timeset"].tobytes() == cpu["arts"]["timeset"].tobytes()
+        and gpu["arts"]["worker_timeset"].tobytes() == cpu["arts"]["worker_timeset"].tobytes()
+    )
+    if not (rel <= 1e-4).all():
+        raise AssertionError(f"card vs CPU training loss differs by up to {rel.max():.3g}")
+    if not same_clock:
+        raise AssertionError("card and CPU runs disagree on the simulated clocks")
+    return dict(max_rel_loss_diff_vs_cpu=float(rel.max()), same_clocks_as_cpu=same_clock)
+
+
+def check_falls(run) -> list:
+    loss = run["arts"]["training_loss"]
+    if not loss[-1] < loss[0]:
+        raise AssertionError(f"training loss did not fall: {loss[0]} -> {loss[-1]}")
+    return [float(loss[0]), float(loss[-1])]
+
+
+def profile_train(cli, args) -> dict:
+    """Where a round's time goes, over more runs of a path's training (after
+    the launch counts were read): one warm run without the profiler
     (steps/s), then one under torch.profiler, whose device activities in the
     round loop (kernels and device-to-device copies; the stack's upload
     before the loop and the profiler's own buffer events are left out) give
     the device's busy share of the loop."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from erasurehead_tpu_torch.train import trainer
 
-    cfg = cli._flags_to_config(cli._flags_parser().parse_args(MAIN_ARGS))
+    cfg = cli._flags_to_config(cli._flags_parser().parse_args(args))
     ds = cli.load_dataset(cfg)
     warm = trainer.train(cfg, ds)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res = trainer.train(cfg, ds)
     rows = []
     for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "cuda_time_total", 0.0)
-        if dev_us and ev.key and not ev.key.startswith(
-            ("cuda", "aten::", "Memcpy HtoD", "Activity Buffer")
-        ):
+        # device-side events only (kernels, copies, memsets): a CPU op's
+        # device time repeats its kernels' time
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = device_us(ev)
+        if dev_us and ev.key and not ev.key.startswith(("Memcpy HtoD", "Activity Buffer")):
             rows.append((ev.key, dev_us, ev.count))
     rows.sort(key=lambda r: -r[1])
     total_us = sum(r[1] for r in rows)
@@ -200,8 +269,100 @@ def profile_train(cli) -> dict:
         profiled_loop_wall_ms=res.wall_time * 1e3,
         device_ms_in_loop=total_us / 1e3 if total_us else None,
         device_busy_share=total_us / (res.wall_time * 1e6) if total_us else None,
-        top=[dict(name=k[:70], ms=us / 1e3, count=c) for k, us, c in rows[:10]],
+        # device time of the port's own kernels; the rest is PyTorch's
+        # (per-slot autodiff products, elementwise, optimizer, copies)
+        kernel_ms={name: sum(us for k, us, _ in rows if tag in k) / 1e3
+                   for name, tag in (("fused_glm_grad", "glm_grad"),
+                                     ("fused_block_decode", "block_decode"))},
+        top=[dict(name=k[:70], ms=us / 1e3, count=c) for k, us, c in rows[:12]],
     )
+
+
+def check_decode(kernels, M, D, dtype, seed, zero_every=0):
+    """Kernel vs plain version: bitwise equal, and bitwise on a rerun. The
+    max abs error is also shown against 1e-6 * sum_m |w_m g_md|."""
+    gen = torch.Generator().manual_seed(seed)
+    g = torch.randn(M, D, generator=gen).to(dtype).cuda()
+    w = torch.randn(M, generator=gen).cuda()
+    if zero_every:
+        w[::zero_every] = 0.0
+    got = kernels.fused_block_decode(w, g)
+    again = kernels.fused_block_decode(w, g)
+    want = kernels.reference_block_decode(w, g)
+    scale = (w.to(dtype).float()[:, None] * g.float()).abs().sum(0)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    rec = dict(
+        kernel="fused_block_decode", shape=[M, D], dtype=str(dtype).split(".")[-1],
+        zero_weight_slots=int((w == 0).sum()), max_abs_err=float(err.max()),
+        max_err_over_tol=float((err / (1e-6 * scale).clamp_min(1e-30)).max()),
+        bitwise_vs_plain=bool(torch.equal(got, want)),
+        bitwise_rerun=bool(torch.equal(got, again)),
+    )
+    emit("check", **rec)
+    if not (rec["bitwise_vs_plain"] and rec["bitwise_rerun"]):
+        raise AssertionError(f"fused_block_decode is not bitwise its plain version: {rec}")
+    return rec
+
+
+def decode_bound_ms(M, D, itemsize=4) -> tuple[float, str]:
+    """Least time for one decode: g, w read once and out written once over
+    HBM bandwidth, vs its 2 float32 operations per element of g."""
+    nbytes = M * D * itemsize + 4 * M + D * itemsize
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * M * D / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_us(ev) -> float:
+    """An event's device time in microseconds (the attribute's name moved
+    between PyTorch versions)."""
+    us = getattr(ev, "device_time_total", None)
+    return us if us is not None else getattr(ev, "cuda_time_total", 0.0)
+
+
+def device_ms(fn, n) -> float:
+    """Device time of one call of ``fn``: its device-side events (kernels,
+    copies) summed under torch.profiler over ``n`` calls, over ``n``. CUDA
+    events around back-to-back calls would also count the gaps in which the
+    card waits for the host to launch the next call, which is most of a
+    small call's time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(device_us(ev) for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+    return us / n / 1e3
+
+
+def time_decode(kernels, M, D) -> dict:
+    """The kernel, its plain version and the library call ``g.t() @ w``
+    (one cuBLAS GEMV, never called by the port), float32, in turns: device
+    time per call (profiler), and time per call back to back (CUDA events),
+    which a host-bound call's launch cost sets."""
+    gen = torch.Generator().manual_seed(7)
+    g = torch.randn(M, D, generator=gen).cuda()
+    w = torch.randn(M, generator=gen).cuda()
+    n = 200 if D < 100_000 else 50
+    fns = dict(
+        kernel=(lambda: kernels.fused_block_decode(w, g), n),
+        plain=(lambda: kernels.reference_block_decode(w, g), max(5, n // 10)),
+        library=(lambda: g.t() @ w, n),
+    )
+    dev, call = {}, {}
+    for name in ("kernel", "plain", "library", "library", "plain", "kernel"):
+        fn, reps = fns[name]
+        dev.setdefault(name, []).append(device_ms(fn, reps))
+        call.setdefault(name, []).append(time_ms(fn, reps))
+    bound, by = decode_bound_ms(M, D)
+    return dict(shape=[M, D], kernel_ms=min(dev["kernel"]), plain_ms=min(dev["plain"]),
+                library_ms=min(dev["library"]), bound_ms=bound, bound_by=by,
+                call_ms={k: min(v) for k, v in call.items()},
+                kernel_ms_both=dev["kernel"])
 
 
 def main() -> int:
@@ -217,7 +378,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels.load_library()
-    emit("build", kernels=["fused_glm_grad"], seconds=time.perf_counter() - t0,
+    emit("build", kernels=sorted(kernels.LAUNCHES), seconds=time.perf_counter() - t0,
          library=os.path.relpath(str(kernels.library_path()), HERE))
 
     checks = []
@@ -239,36 +400,62 @@ def main() -> int:
         c["max_abs_err"] for c in checks
         if c["shape"] == list(MAIN_SHAPE) and c["dtype"] == "float32" and c["kind"] == "logistic"
     )
+    decode_checks = []
+    for i, (M, D) in enumerate(((1, 7), (3, 128), (9, 515), (6, 200))):
+        for dtype in (torch.float32, torch.bfloat16):
+            decode_checks.append(check_decode(kernels, M, D, dtype, seed=200 + i))
+    decode_checks.append(check_decode(kernels, 9, 515, torch.float32, 210, zero_every=2))
+    decode_checks.append(check_decode(kernels, 90, 4096, torch.bfloat16, 211, zero_every=2))
+    for i, D in enumerate(DEEP_LEAVES + (COVTYPE_W_IN,)):
+        decode_checks.append(check_decode(kernels, 90, D, torch.float32, 220 + i, zero_every=2))
+    decode_err = max(c["max_abs_err"] for c in decode_checks)
 
+    both0 = {name: 0 for name in kernels.LAUNCHES}
     with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-") as tmp:
-        kernels.reset_launches()
-        gpu = run_main(cli, os.path.join(tmp, "cuda"), "cuda")
-        launches = dict(kernels.LAUNCHES)
-        if launches["fused_glm_grad"] != ROUNDS:
-            raise AssertionError(f"main path launched {launches} (want {ROUNDS} fused_glm_grad)")
+        gpu = counted_run(cli, kernels, os.path.join(tmp, "cuda"), MAIN_ARGS,
+                          {**both0, "fused_glm_grad": ROUNDS})
+        launches = gpu["launches"]
         cpu = run_main(cli, os.path.join(tmp, "cpu"), "cpu")
-    g_loss, c_loss = gpu["arts"]["training_loss"], cpu["arts"]["training_loss"]
-    rel = np.abs(g_loss - c_loss) / np.abs(c_loss)
-    same_clock = (
-        gpu["arts"]["timeset"].tobytes() == cpu["arts"]["timeset"].tobytes()
-        and gpu["arts"]["worker_timeset"].tobytes() == cpu["arts"]["worker_timeset"].tobytes()
-    )
-    emit(
-        "main", args=MAIN_ARGS, launches=launches,
-        steps_per_sec=gpu["manifest"]["steps_per_sec"],
-        wall_time_s=gpu["manifest"]["wall_time"],
-        cpu_steps_per_sec=cpu["manifest"]["steps_per_sec"],
-        train_loss_first_last=[float(g_loss[0]), float(g_loss[-1])],
-        final_auc=float(gpu["arts"]["auc"][-1]),
-        max_rel_loss_diff_vs_cpu=float(rel.max()), same_clocks_as_cpu=same_clock,
-        decode_error_mean=gpu["manifest"].get("decode_error_mean"),
-    )
-    if not (rel <= 1e-4).all():
-        raise AssertionError(f"card vs CPU training loss differs by up to {rel.max():.3g}")
-    if not same_clock:
-        raise AssertionError("card and CPU runs disagree on the simulated clocks")
-    if not g_loss[-1] < g_loss[0]:
-        raise AssertionError(f"training loss did not fall: {g_loss[0]} -> {g_loss[-1]}")
+        emit(
+            "main", args=MAIN_ARGS, launches=launches,
+            steps_per_sec=gpu["manifest"]["steps_per_sec"],
+            wall_time_s=gpu["manifest"]["wall_time"],
+            cpu_steps_per_sec=cpu["manifest"]["steps_per_sec"],
+            train_loss_first_last=check_falls(gpu),
+            final_auc=float(gpu["arts"]["auc"][-1]),
+            decode_error_mean=gpu["manifest"].get("decode_error_mean"),
+            **compare_runs(gpu, cpu),
+        )
+
+        deep = counted_run(cli, kernels, os.path.join(tmp, "deep"), DEEP_ARGS,
+                           {**both0, "fused_block_decode": ROUNDS * len(DEEP_LEAVES)})
+        short = with_rounds(DEEP_ARGS, SHORT_ROUNDS)
+        deep_gpu10 = run_main(cli, os.path.join(tmp, "deep10_cuda"), "cuda", short)
+        deep_cpu10 = run_main(cli, os.path.join(tmp, "deep10_cpu"), "cpu", short)
+        emit(
+            "deep", args=DEEP_ARGS, launches=deep["launches"],
+            steps_per_sec=deep["manifest"]["steps_per_sec"],
+            wall_time_s=deep["manifest"]["wall_time"],
+            train_loss_first_last=check_falls(deep),
+            final_auc=float(deep["arts"]["auc"][-1]),
+            short_rounds=SHORT_ROUNDS,
+            cpu_steps_per_sec=deep_cpu10["manifest"]["steps_per_sec"],
+            **compare_runs(deep_gpu10, deep_cpu10),
+        )
+
+        layer_runs = {
+            "moe": (["--model", "moe"], len(DEEP_LEAVES)),  # moe also has six leaves
+            "glm_layer": (["--model", "logistic"], 1),
+        }
+        for phase, (model_args, leaves) in layer_runs.items():
+            args = with_rounds(MAIN_ARGS, LAYER_ROUNDS) + model_args + ["--layer-coding", "on"]
+            run = counted_run(cli, kernels, os.path.join(tmp, phase), args,
+                              {**both0, "fused_block_decode": LAYER_ROUNDS * leaves})
+            emit(phase, args=args, launches=run["launches"],
+                 steps_per_sec=run["manifest"]["steps_per_sec"],
+                 train_loss_first_last=[float(run["arts"]["training_loss"][0]),
+                                        float(run["arts"]["training_loss"][-1])],
+                 final_auc=float(run["arts"]["auc"][-1]))
 
     # times at the main path's shapes (compare launches do not count)
     b, X, y, w = make_inputs(*MAIN_SHAPE, torch.float32, seed=100)
@@ -294,9 +481,22 @@ def main() -> int:
              plain_ms=p_ms, bound_ms=bound, bound_by=by)
         del b, X, y, w
 
-    emit("profile", **profile_train(cli))
+    decode_times = [time_decode(kernels, 90, D) for D in DEEP_LEAVES]
+    for rec in decode_times:
+        emit("time", kernel="fused_block_decode", **rec)
+    emit("time_wide", kernel="fused_block_decode", **time_decode(kernels, 90, COVTYPE_W_IN))
+    per_round = {k: sum(r[k] for r in decode_times)
+                 for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    per_round["call_ms"] = {k: sum(r["call_ms"][k] for r in decode_times)
+                            for k in decode_times[0]["call_ms"]}
+    emit("time_round", kernel="fused_block_decode", leaves=list(DEEP_LEAVES), **per_round)
+
+    emit("profile", path="main", **profile_train(cli, MAIN_ARGS))
+    deep_profile = profile_train(cli, DEEP_ARGS)
+    emit("profile", path="deep", **deep_profile)
 
     kernel_ms_best = min(kernel_ms, kernel_ms_2)
+    decode_bound, decode_by = decode_bound_ms(90, sum(DEEP_LEAVES))
     line = {"kernels": [{
         "name": "fused_glm_grad",
         "route": "cuda",
@@ -311,6 +511,22 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "steps_per_sec": gpu["manifest"]["steps_per_sec"],
+    }, {
+        "name": "fused_block_decode",
+        "route": "cuda",
+        "source": "erasurehead_tpu_torch/csrc/fused_block_decode.cu",
+        "replaces": "erasurehead_tpu/ops/kernels.py:252",
+        "tpu_kernel": "erasurehead_tpu/ops/kernels.py:_decode_kernel",
+        "launches": deep["launches"]["fused_block_decode"],
+        "max_abs_err": decode_err,
+        # one round's six launches at the deep path's leaves, summed
+        "ms": per_round["kernel_ms"],
+        "plain_ms": per_round["plain_ms"],
+        # bytes of one round's decode moved once: 90 x 8385 floats in one pass
+        "bound_ms": decode_bound,
+        "bound_by": decode_by,
+        "library_ms": per_round["library_ms"],
+        "steps_per_sec": deep["manifest"]["steps_per_sec"],
     }]}
     print(json.dumps(line))
     print(card)

@@ -6,6 +6,15 @@ Named flags, as the JAX package's CLI takes them::
         --stragglers 2 --num-collect 15 --rounds 100 --rows 132000 \\
         --cols 128 --add-delay --output-dir results/
 
+The deep families train layer-coded, each round's decode going through the
+decode kernel (GD: the reference's AGD starts a tanh network at its all-zero
+saddle, where the loss stays at log 2)::
+
+    python -m erasurehead_tpu_torch.cli --scheme approx --workers 30 \\
+        --stragglers 2 --num-collect 15 --rows 132000 --cols 128 \\
+        --rounds 100 --update-rule GD --lr 0.5 --add-delay \\
+        --model deepmlp --layer-coding on --block-decode fused
+
 Run flow: generate the synthetic dataset, train on the device (``cuda``
 unless ``--device cpu``), replay the eval, write the five artifacts and the
 manifest into ``--output-dir`` (default ``<input_dir>/.../results/``, the
@@ -50,9 +59,27 @@ def _flags_parser() -> argparse.ArgumentParser:
     p.add_argument("--delay-mean", type=float, default=0.5)
     p.add_argument("--compute-mode", default="faithful", choices=["faithful", "deduped"])
     p.add_argument("--use-pallas", default="auto", choices=["auto", "on", "off"],
-                   help="fused one-pass gradient kernel (ops/kernels.py): "
-                        "auto/on route dense GLM stacks through it, off "
-                        "takes the two-pass PyTorch gradient")
+                   help="fused one-pass GLM gradient kernel "
+                        "(ops/kernels.fused_glm_grad): auto/on route dense "
+                        "GLM stacks through it (unless --layer-coding on), "
+                        "off takes the two-pass PyTorch gradient; on needs "
+                        "a GLM")
+    p.add_argument("--layer-coding", default="auto", choices=["auto", "on", "off"],
+                   help="per-layer (blockwise) gradient coding "
+                        "(parallel/step.make_layer_block_grad_fn): per-slot "
+                        "gradient trees decode leaf by leaf (DeepMLP layers "
+                        "and MoE expert shards are individual coded blocks); "
+                        "auto is off")
+    p.add_argument("--block-decode", default="auto",
+                   choices=["auto", "fused", "treewise"],
+                   help="blockwise-decode lowering under --layer-coding: "
+                        "'fused' decodes each gradient leaf, 'treewise' the "
+                        "packed per-layer block table, both through the "
+                        "decode kernel (ops/kernels.fused_block_decode) and "
+                        "bitwise equal; auto is fused")
+    p.add_argument("--deep-layers", type=int, default=0,
+                   help="hidden-layer count for --model deepmlp (0 = the "
+                        "model default)")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                    help="DATA dtype (params/updates stay float32)")
     p.add_argument("--seed", type=int, default=0)
@@ -86,6 +113,9 @@ def _flags_to_config(ns: argparse.Namespace) -> RunConfig:
         input_dir=ns.input_dir,
         compute_mode=ns.compute_mode,
         use_pallas=ns.use_pallas,
+        layer_coding=ns.layer_coding,
+        block_decode=ns.block_decode,
+        deep_layers=ns.deep_layers,
         dtype=ns.dtype,
         seed=ns.seed,
     )

@@ -14,6 +14,10 @@ gradients" work. Same closed forms as erasurehead_tpu/models/glm.py:
 X may carry leading batch dimensions ([..., n, F] with y [..., n]); the
 gradient then comes back per batch entry ([..., F]).
 
+:class:`MarginClassifierBase` is the shared loss of the non-GLM classifier
+families (models/mlp.py, deep_mlp.py, moe.py): softplus loss on ``predict``'s
+margin, gradients by autodiff (``torch.func.grad``).
+
 Deviation from the JAX package: :meth:`init_params` draws from a seeded
 ``torch.Generator``, which cannot reproduce JAX's threefry ``jax.random.normal``
 draw. Runs that must start where a JAX run starts pass its draw to
@@ -22,10 +26,68 @@ draw. Runs that must start where a JAX run starts pass its draw to
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F_nn
 
 from erasurehead_tpu_torch.ops.features import matvec, rmatvec
+
+
+def params_from_numpy(tree, device="cpu"):
+    """A params tree of numpy arrays as the port's tensors (float32, on
+    ``device``): a dict maps key by key, anything else is one tensor. This
+    carries a JAX run's draw across (``np.asarray`` of each leaf), and the
+    port's own numpy-seeded inits go through it too."""
+
+    def one(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    if isinstance(tree, dict):
+        return {k: one(v) for k, v in tree.items()}
+    return one(tree)
+
+
+def normal_init(seed: int, shapes: dict, device="cpu"):
+    """Params from ``shapes``, which maps key -> (shape, scale): standard
+    normal times the scale, or zeros where the scale is 0. One numpy
+    Generator draws the leaves in the dict's order.
+
+    Deviation from the JAX package: its families draw from threefry keys,
+    which numpy cannot reproduce; the scales are the same. Runs that must
+    start where a JAX run starts pass its draw to
+    ``train.trainer.train(init_params=...)``."""
+    rng = np.random.default_rng(int(seed))
+    out = {}
+    for key, (shape, scale) in shapes.items():
+        out[key] = (
+            rng.standard_normal(shape) * scale if scale else np.zeros(shape)
+        )
+    return params_from_numpy(out, device)
+
+
+class MarginClassifierBase:
+    """Logistic-margin loss of the non-GLM classifier families (the JAX
+    package's models/glm.py::MarginClassifierBase): params are a dict of
+    tensors, ``predict`` maps one [n, F] batch to [n] margins, labels are in
+    {-1, +1}.
+
+    ``grads_via_loss``: the gradient is autodiff of the summed loss, not a
+    closed form, so the step takes the monolithic path's gradient as one
+    ``torch.func.grad`` of the weighted loss (parallel/step.py)."""
+
+    grads_via_loss = True
+
+    def loss_sum(self, params, X, y):
+        # logaddexp(0, z) is jax.nn.softplus; torch's softplus switches to
+        # the identity above its threshold (20) and differs there
+        z = -y * self.predict(params, X)
+        return torch.logaddexp(torch.zeros_like(z), z).sum()
+
+    def loss_mean(self, params, X, y):
+        return self.loss_sum(params, X, y) / y.shape[0]
+
+    def grad_sum(self, params, X, y):
+        return torch.func.grad(self.loss_sum)(params, X, y)
 
 
 class _GLMBase:

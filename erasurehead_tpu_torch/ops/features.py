@@ -23,7 +23,8 @@ def _f32(X: torch.Tensor) -> torch.Tensor:
 
 
 def matvec(X: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """X @ v for dense X [..., n, F] and v [F]: [..., n]."""
+    """X @ v for dense X [..., n, F] and v [F] ([..., n]) or a weight
+    matrix v [F, H] ([..., n, H])."""
     return torch.matmul(_f32(X), v)
 
 

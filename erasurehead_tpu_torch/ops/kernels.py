@@ -1,27 +1,37 @@
-"""The decoded GLM gradient as one hand-written CUDA kernel for Hopper.
+"""The port's hand-written CUDA kernels for Hopper, and their plain versions.
 
-The coded-GD step is bandwidth-bound: the per-slot GLM gradient needs a
-margin matvec ``p = X @ beta`` and a transpose matvec ``g = X^T @ s(p, y)``,
-two reads of the feature stack X when written as two products. The kernel in
-``csrc/fused_glm_grad.cu`` fuses margin -> residual -> weighted
-transpose-accumulate into ONE pass over X and folds the per-slot decode
-weights in, so the *decoded* gradient
+B1, the decoded GLM gradient (``csrc/fused_glm_grad.cu``). The coded-GD step
+is bandwidth-bound: the per-slot GLM gradient needs a margin matvec
+``p = X @ beta`` and a transpose matvec ``g = X^T @ s(p, y)``, two reads of
+the feature stack X when written as two products. The kernel fuses
+margin -> residual -> weighted transpose-accumulate into ONE pass over X and
+folds the per-slot decode weights in, so the *decoded* gradient
 
     g = sum_m w_m * sum_r s(p_{m,r}, y_{m,r}) * X[m, r, :]
 
 comes out of a single streaming read. s is the residual:
   logistic: s = -y / (exp(p*y) + 1)
   linear:   s = -2 * (y - p)
-
 It is the port of the Pallas TPU kernel erasurehead_tpu/ops/kernels.py::_kernel
-(``fused_glm_grad``); the source file says how its design differs.
+(``fused_glm_grad``).
 
-:func:`fused_glm_grad` launches the kernel for CUDA tensors and raises on
-anything it does not take; for CPU tensors it computes the same function with
-:func:`reference_glm_grad`, the plain two-pass PyTorch version. The kernel is
-compiled with ``nvcc`` for ``sm_90a`` at first use into ``build/`` at the root
-of the checkout, keyed by a hash of the sources and flags, and loaded with
-ctypes. A build failure raises; there is no fallback.
+B2, the blockwise decode (``csrc/fused_block_decode.cu``): one leaf's decoded
+gradient ``out[D] = sum_m w[m] * g[m, D]`` from its per-slot gradients, the
+decode of the layer-coded step (parallel/step.make_layer_block_grad_fn). It
+is the port of erasurehead_tpu/ops/kernels.py::_decode_kernel
+(``fused_block_decode``). The JAX trainer lowers that decode through XLA and
+reaches its Pallas kernel only when asked (``use_pallas=True``); in the port
+the decode on a CUDA tensor is always this kernel.
+
+Each source file says how its design differs from the TPU kernel.
+:func:`fused_glm_grad` and :func:`fused_block_decode` launch their kernels
+for CUDA tensors and raise on anything they do not take; for CPU tensors
+they compute the same function with their plain PyTorch versions
+(:func:`reference_glm_grad`, :func:`reference_block_decode`). The kernels are
+compiled with ``nvcc`` for ``sm_90a`` at first use, one ``nvcc`` per source
+started together, and linked into one library in ``build/`` at the root of
+the checkout, keyed by a hash of the sources and flags, loaded with ctypes.
+A build failure raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -40,15 +50,17 @@ GLM_KINDS = ("logistic", "linear")
 
 #: launches of each kernel since the last :func:`reset_launches` (incremented
 #: only where a kernel is really launched, never on the CPU path)
-LAUNCHES = {"fused_glm_grad": 0}
+LAUNCHES = {"fused_glm_grad": 0, "fused_block_decode": 0}
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG_DIR / "csrc" / "fused_glm_grad.cu",)
+_SOURCES = (
+    _PKG_DIR / "csrc" / "fused_glm_grad.cu",
+    _PKG_DIR / "csrc" / "fused_block_decode.cu",
+)
 _BUILD_DIR = _PKG_DIR.parent / "build" / "erasurehead_tpu_torch"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 
@@ -99,26 +111,46 @@ def _source_key() -> str:
 
 def library_path() -> Path:
     """Where the built shared library for the current sources lives."""
-    return _BUILD_DIR / f"fused_glm_grad-{_source_key()}.so"
+    return _BUILD_DIR / f"eh_kernels-{_source_key()}.so"
 
 
 def _build() -> Path:
     """Compile the kernel library if the current sources have no build yet.
 
-    Writes ``<name>.so`` and the compiler's report (``-Xptxas -v``: registers,
+    One ``nvcc -c`` per source, all started together, then one link. Writes
+    ``<name>.so`` and the compilers' reports (``-Xptxas -v``: registers,
     shared memory, spills) as ``<name>.log`` beside it. Raises on failure."""
     so = library_path()
     if so.exists():
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [_BUILD_DIR / f"{tag}.{src.stem}.o" for src in _SOURCES]
+    cmds = [
+        [nvcc, *_NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o), str(src)]
+        for src, o in zip(_SOURCES, objs)
+    ]
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(f"$ {' '.join(c)}\n{o}" for c, o in zip(cmds, outs))
+    failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+    tmp = _BUILD_DIR / f"{tag}.tmp.so"
+    if not failed:
+        link = [nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log += f"$ {' '.join(link)}\n{proc.stdout}"
+        if proc.returncode != 0:
+            failed = [link]
+    for o in objs:
+        o.unlink(missing_ok=True)
     so.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log[-4000:]}")
+        raise RuntimeError(f"nvcc failed: {' '.join(failed[0])}\n{log[-4000:]}")
     os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
     return so
 
@@ -132,14 +164,18 @@ def _library() -> ctypes.CDLL:
     lib.eh_fused_glm_grad.restype = ctypes.c_int
     lib.eh_fused_glm_grad_scratch_floats.argtypes = [ctypes.c_int] * 3
     lib.eh_fused_glm_grad_scratch_floats.restype = ctypes.c_longlong
+    lib.eh_fused_block_decode.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.eh_fused_block_decode.restype = ctypes.c_int
     lib.eh_cuda_error_string.argtypes = [ctypes.c_int]
     lib.eh_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def load_library() -> None:
-    """Build (if needed) and load the kernel library now, outside any timed
-    region."""
+    """Build (if needed) and load the kernel library (both kernels) now,
+    outside any timed region."""
     _library()
 
 
@@ -212,4 +248,68 @@ def fused_glm_grad(
         msg = lib.eh_cuda_error_string(rc).decode()
         raise RuntimeError(f"fused_glm_grad launch failed: CUDA error {rc} ({msg})")
     LAUNCHES["fused_glm_grad"] += 1
+    return out
+
+
+def reference_block_decode(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the decode kernel, step for step: w in g's
+    dtype, widened to float32 with g, then ``acc = acc + w[m] * g[m]`` for
+    m in order (one rounded multiply and one rounded add each), rounded to
+    g's dtype once at the end. Bitwise equal to the kernel."""
+    w32 = w.to(g.dtype).float()
+    g32 = g.float()
+    acc = torch.zeros(g.shape[1], dtype=torch.float32, device=g.device)
+    for m in range(g.shape[0]):
+        acc = acc + w32[m] * g32[m]
+    return acc.to(g.dtype)
+
+
+def _check_decode(w, g) -> None:
+    if w.dtype != torch.float32:
+        raise ValueError(f"fused_block_decode: w must be float32, got {w.dtype}")
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            f"fused_block_decode: g must be float32 or bfloat16, got {g.dtype}"
+        )
+    if w.dim() != 1 or g.dim() != 2 or g.shape[0] != w.shape[0]:
+        raise ValueError(
+            "fused_block_decode: need w [M] and g [M, D], got "
+            f"{tuple(w.shape)} and {tuple(g.shape)}"
+        )
+    if min(g.shape) < 1:
+        raise ValueError(f"fused_block_decode: g must be non-empty, got {tuple(g.shape)}")
+    if w.device != g.device:
+        raise ValueError(f"fused_block_decode: w is on {w.device}, g on {g.device}")
+    for name, t in (("w", w), ("g", g)):
+        if not t.is_contiguous():
+            raise ValueError(f"fused_block_decode: {name} must be contiguous")
+
+
+def fused_block_decode(
+    w: torch.Tensor,  # [M] float32 decode weight per slot, in reduction order
+    g: torch.Tensor,  # [M, D] float32 or bfloat16 per-slot flattened gradients
+) -> torch.Tensor:
+    """Decoded leaf gradient ``sum_m w[m] * g[m, :]``: [D] in g's dtype.
+
+    ``w`` must already be flattened in the order of the contraction it
+    replaces (s-major for the faithful "ws" contract, parallel/step.py).
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    :func:`reference_block_decode`."""
+    _check_decode(w, g)
+    if g.device.type == "cpu":
+        return reference_block_decode(w, g)
+    if g.device.type != "cuda":
+        raise ValueError(f"fused_block_decode: unsupported device {g.device}")
+    lib = _library()
+    M, D = g.shape
+    out = torch.empty(D, dtype=g.dtype, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    rc = lib.eh_fused_block_decode(
+        w.data_ptr(), g.data_ptr(), out.data_ptr(), M, D,
+        0 if g.dtype == torch.float32 else 1, stream,
+    )
+    if rc != 0:
+        msg = lib.eh_cuda_error_string(rc).decode()
+        raise RuntimeError(f"fused_block_decode launch failed: CUDA error {rc} ({msg})")
+    LAUNCHES["fused_block_decode"] += 1
     return out

@@ -7,7 +7,8 @@ of its logical workers, contracts them with the collection weights, and a
 onto the one device, so the ``psum`` is the identity and a round's device
 work is one op: the decoded gradient of the whole stack.
 
-Three forms of that op, each a function ``(params, X, y, weights) -> [F]``:
+The forms of that op, each a function ``(params, X, y, weights) -> grads``
+(an [F] tensor for a GLM, a dict of tensors for the deep families):
 
   - :func:`make_faithful_grad_fn`: every worker computes each of its
     (possibly redundant) slot gradients of the worker-major [W, S, rows, F]
@@ -16,10 +17,15 @@ Three forms of that op, each a function ``(params, X, y, weights) -> [F]``:
     partition-major [P, rows, F] stack once, contracted with the folded [P]
     partition weights;
   - :func:`make_fused_grad_fn`: either stack, leading dims flattened into M
-    slots, through the one-pass kernel (ops/kernels.fused_glm_grad).
+    slots, through the one-pass kernel (ops/kernels.fused_glm_grad);
+  - :func:`make_layer_block_grad_fn`: per-layer (blockwise) gradient coding:
+    per-slot gradient trees, decoded leaf by leaf through the decode kernel
+    (ops/kernels.fused_block_decode).
 
-The first two are the two-pass PyTorch form, the counterpart of the JAX
-package's own XLA lowering.
+The first two are the monolithic PyTorch form, the counterpart of the JAX
+package's own XLA lowering. For the autodiff families (``grads_via_loss``)
+it is one ``torch.func.grad`` of the weighted summed loss, as in the JAX
+package's ``_weighted_loss_grad`` (without its psum: one device).
 """
 
 from __future__ import annotations
@@ -29,7 +35,28 @@ from typing import Callable
 import numpy as np
 import torch
 
-GradFn = Callable[..., torch.Tensor]  # (params, X, y, weights) -> [F]
+from erasurehead_tpu_torch.ops import blocks as blocks_lib
+from erasurehead_tpu_torch.ops import kernels
+
+GradFn = Callable[..., object]  # (params, X, y, weights) -> [F] or dict
+
+
+def _grads_via_loss(model) -> bool:
+    return getattr(model, "grads_via_loss", False)
+
+
+def _weighted_loss_grad(model, params, Xs, ys, ws, contract: str):
+    """Gradient of sum_slots w_slot * loss_sum(params, X_slot, y_slot): the
+    decoded gradient of an autodiff family in one backward pass (the JAX
+    package's step._weighted_loss_grad on one device)."""
+
+    def total(p):
+        per = model.loss_sum
+        for _ in contract:
+            per = torch.func.vmap(per, in_dims=(None, 0, 0))
+        return (ws.float() * per(p, Xs, ys)).sum()
+
+    return torch.func.grad(total)(params)
 
 
 def _weighted_sum(weights: torch.Tensor, grads: torch.Tensor, contract: str):
@@ -44,12 +71,14 @@ def make_faithful_grad_fn(model) -> GradFn:
     partitions' worth of matvec work each round.
 
     Args of the returned fn:
-      params: [F] float32.
+      params: [F] float32, or the deep families' dict of tensors.
       Xw, yw: worker-major stacks [W, S, rows, F] / [W, S, rows].
       slot_weights: [W, S] decode x coding weight per slot message.
     """
 
     def grad(params, Xw, yw, slot_weights):
+        if _grads_via_loss(model):
+            return _weighted_loss_grad(model, params, Xw, yw, slot_weights, "ws")
         per_slot = model.grad_sum(params, Xw, yw)  # [W, S, F]
         return _weighted_sum(slot_weights, per_slot, "ws")
 
@@ -62,12 +91,14 @@ def make_deduped_grad_fn(model) -> GradFn:
     faithful mode at 1/(s+1) the work.
 
     Args of the returned fn:
-      params: [F] float32.
+      params: [F] float32, or the deep families' dict of tensors.
       Xp, yp: partition-major stacks [P, rows, F] / [P, rows].
       part_weights: [P] folded per-partition weights.
     """
 
     def grad(params, Xp, yp, part_weights):
+        if _grads_via_loss(model):
+            return _weighted_loss_grad(model, params, Xp, yp, part_weights, "p")
         per_part = model.grad_sum(params, Xp, yp)  # [P, F]
         return _weighted_sum(part_weights, per_part, "p")
 
@@ -79,7 +110,6 @@ def make_fused_grad_fn(kind: str) -> GradFn:
     above on dense GLM stacks: the worker-major [W, S, rows, F] or the
     partition-major [P, rows, F] stack, leading dims flattened into kernel
     slots (views, no copy)."""
-    from erasurehead_tpu_torch.ops import kernels
 
     def grad(params, Xs, ys, ws):
         M = int(np.prod(Xs.shape[:-2]))
@@ -92,6 +122,140 @@ def make_fused_grad_fn(kind: str) -> GradFn:
         )
 
     return grad
+
+
+# Whether layer_coding="auto" resolves to the blockwise decode: off, as in
+# the JAX package (its step.LAYER_CODING_DEFAULT); "on" forces it.
+LAYER_CODING_DEFAULT = False
+
+# Whether block_decode="auto" takes the fused per-leaf lowering. The JAX
+# package resolves "auto" through its tune plane and falls back to treewise;
+# the tune plane is not ported, and the fused form is the one whose decode is
+# one kernel launch per leaf with no packed table, so "auto" is fused here.
+BLOCK_DECODE_FUSED_DEFAULT = True
+
+_MODEL_AXES = ("seq_axis", "tp_axis", "pp_axis", "ep_axis")
+
+
+def supports_layer_coding(model) -> bool:
+    """Can this model's gradients take the blockwise decode?
+
+    Deviation from the JAX package, whose gate refuses every autodiff family
+    on jax >= 0.6: there, per-slot ``jax.grad`` w.r.t. replicated params
+    inside ``shard_map`` implicitly psums cotangents per slot position, so
+    per-slot grads would double-count. The port runs on one device with no
+    ``shard_map`` and no implicit psum: per-slot ``torch.func.grad`` is
+    exact for every family it has (the GLMs, mlp, deepmlp, moe). The other
+    JAX exclusion, model-internal mesh axes, stays; the port's models have
+    none."""
+    return all(getattr(model, ax, None) is None for ax in _MODEL_AXES)
+
+
+def resolve_layer_coding(layer_coding: str, model) -> bool:
+    """Should this run decode per layer block? ("on" validity is the
+    caller's concern: this resolves the choice, it does not raise.)"""
+    if not supports_layer_coding(model):
+        return False
+    if layer_coding == "on":
+        return True
+    if layer_coding == "off":
+        return False
+    return LAYER_CODING_DEFAULT
+
+
+def resolve_block_decode(block_decode: str) -> bool:
+    """Fused per-leaf decode (True) or the packed treewise table (False)?
+    Both reduce through the same kernel in the same order, so they are
+    bitwise equal: a pure lowering choice."""
+    if block_decode == "fused":
+        return True
+    if block_decode == "treewise":
+        return False
+    return BLOCK_DECODE_FUSED_DEFAULT
+
+
+def warm_autodiff() -> None:
+    """Run ``torch.func``'s vmap and grad once on a tiny CPU input. Their
+    first call imports their machinery, which takes seconds: set-up, to be
+    paid before a timed round loop starts."""
+    fn = torch.func.vmap(torch.func.grad(lambda a, b: (a * b).sum()), in_dims=(None, 0))
+    fn(torch.zeros(1), torch.zeros(1, 1))
+
+
+def per_slot_grads(model, params, Xs, ys, n_lead: int):
+    """Every slot's gradient tree, leaves [*lead, *leaf_shape]: one
+    ``model.grad_sum`` per slot under ``torch.func.vmap`` (params
+    unbatched), the ``n_lead`` leading dims of the stack flattened into one
+    batch dim for the vmap and restored after."""
+    lead = tuple(Xs.shape[:n_lead])
+    M = int(np.prod(lead))
+    Xf = Xs.reshape((M,) + tuple(Xs.shape[n_lead:]))
+    yf = ys.reshape((M,) + tuple(ys.shape[n_lead:]))
+    grads = torch.func.vmap(model.grad_sum, in_dims=(None, 0, 0))(params, Xf, yf)
+    return blocks_lib.tree_map(lambda l: l.reshape(lead + tuple(l.shape[1:])), grads)
+
+
+def _slot_major(leaf: torch.Tensor, contract: str, M: int) -> torch.Tensor:
+    """[*lead, ...] -> contiguous [M, D] in the contract's reduction order:
+    s-major for the faithful "ws" contract, as-is for "p" (a view). The
+    s-major form is a copy of the leaf (3 MB a round for deepmlp at the
+    flagship stack), which a strided read in the kernel would save."""
+    if contract == "ws":
+        leaf = leaf.transpose(0, 1)
+    return leaf.reshape(M, -1).contiguous()
+
+
+def _flat_weights(ws: torch.Tensor, contract: str) -> torch.Tensor:
+    """The slot weights flattened in the same order as :func:`_slot_major`."""
+    return (ws.t() if contract == "ws" else ws).reshape(-1).contiguous()
+
+
+def _layer_block_body(model, spec, contract: str) -> GradFn:
+    """Treewise lowering of the blockwise step (the JAX package's
+    step._layer_block_local_body): every slot's gradient tree packs into the
+    zero-padded [M, L, width] block table (ops/blocks.py), which decodes
+    with ONE call of the decode kernel over [M, L * width]."""
+
+    def grad(params, Xs, ys, ws):
+        grads = per_slot_grads(model, params, Xs, ys, len(contract))
+        table = blocks_lib.tree_to_blocks(grads, spec)  # [*lead, L, width]
+        wf = _flat_weights(ws, contract)
+        M = wf.shape[0]
+        g = kernels.fused_block_decode(wf, _slot_major(table, contract, M))
+        return blocks_lib.blocks_to_tree(g.reshape(spec.n_blocks, spec.width), spec)
+
+    return grad
+
+
+def _fused_layer_block_body(model, spec, contract: str) -> GradFn:
+    """Fused lowering of the blockwise step (the JAX package's
+    step._fused_layer_block_local_body): no block table; each leaf's
+    [M, D_leaf] slot view decodes through its own call of the decode kernel,
+    leaves in sorted-key order. The same scalars meet in the same order as
+    in the treewise lowering, so the two are bitwise equal."""
+
+    def grad(params, Xs, ys, ws):
+        grads = per_slot_grads(model, params, Xs, ys, len(contract))
+        wf = _flat_weights(ws, contract)
+        M = wf.shape[0]
+        out = []
+        for leaf, shape in zip(blocks_lib.tree_leaves(grads), spec.leaf_shapes):
+            g = kernels.fused_block_decode(wf, _slot_major(leaf, contract, M))
+            out.append(g.reshape(shape))
+        return blocks_lib.tree_unflatten(spec.keys, out)
+
+    return grad
+
+
+def make_layer_block_grad_fn(model, spec, *, faithful: bool, fused: bool) -> GradFn:
+    """Per-layer (blockwise) decoded gradient: drop-in for
+    make_faithful_grad_fn / make_deduped_grad_fn on any model, taking the
+    faithful worker-major stack with [W, S] weights or the partition-major
+    stack with [P] weights. ``fused`` picks the lowering
+    (:func:`resolve_block_decode`); on CUDA both decode through the kernel."""
+    contract = "ws" if faithful else "p"
+    body = _fused_layer_block_body if fused else _layer_block_body
+    return body(model, spec, contract)
 
 
 def expand_slot_weights(

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from erasurehead_tpu_torch.models import metrics
+from erasurehead_tpu_torch.ops import blocks
 from erasurehead_tpu_torch.utils.config import ModelKind
 
 
@@ -30,26 +31,29 @@ class EvalResult:
 def replay(
     model,
     model_kind: ModelKind,
-    params_history: torch.Tensor,
+    params_history,
     X_train,
     y_train,
     X_test,
     y_test,
 ) -> EvalResult:
-    """Loss (and AUC for classifiers) of every iterate in the [R, F] history,
-    on the history's device. Dense numpy or tensor data."""
-    dev = params_history.device
+    """Loss (and AUC for classifiers) of every iterate in the history (an
+    [R, F] tensor, or a dict of [R, ...] tensors for the deep families),
+    through ``model.loss_mean`` and ``model.predict``, on the history's
+    device. Dense numpy or tensor data."""
+    leaves = blocks.tree_leaves(params_history)
+    dev = leaves[0].device
 
     def put(a):
         return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
 
     X_train, y_train, X_test, y_test = map(put, (X_train, y_train, X_test, y_test))
     is_regression = ModelKind(model_kind) == ModelKind.LINEAR
-    R = params_history.shape[0]
+    R = leaves[0].shape[0]
     out = torch.empty((3, R), dtype=torch.float32, device=dev)
     with torch.no_grad():
         for i in range(R):
-            params = params_history[i]
+            params = blocks.tree_map(lambda h: h[i], params_history)
             out[0, i] = model.loss_mean(params, X_train, y_train)
             pred_test = model.predict(params, X_test)
             if is_regression:

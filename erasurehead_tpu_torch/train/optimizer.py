@@ -1,4 +1,4 @@
-"""GD, accelerated GD and Adam updates on a parameter tensor.
+"""GD, accelerated GD and Adam updates on a parameter tensor or a dict of them.
 
 Update rules being matched (src/naive.py:113-122, as in
 erasurehead_tpu/train/optimizer.py):
@@ -10,6 +10,8 @@ erasurehead_tpu/train/optimizer.py):
   ADAM (beyond the reference): Adam on g/n + 2*alpha*beta.
 where g is the *sum* gradient over collected samples and n is the total
 sample count. Each update returns a new state; nothing is updated in place.
+A dict of tensors (the deep families) updates leaf by leaf with the same
+arithmetic as a bare tensor.
 """
 
 from __future__ import annotations
@@ -19,36 +21,48 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from erasurehead_tpu_torch.ops.blocks import tree_map
 from erasurehead_tpu_torch.utils.config import UpdateRule
 
 
 class OptState(NamedTuple):
-    params: torch.Tensor
+    params: object  # a tensor, or a dict of tensors
     # AGD's u sequence; for ADAM the (mu, nu) moment pair; unused by GD
     momentum: object
 
 
-def init_state(params: torch.Tensor, rule: UpdateRule = UpdateRule.AGD) -> OptState:
-    zeros = torch.zeros_like(params)
+def init_state(params, rule: UpdateRule = UpdateRule.AGD) -> OptState:
+    zeros = tree_map(torch.zeros_like, params)
     if UpdateRule(rule) == UpdateRule.ADAM:
-        return OptState(params=params, momentum=(zeros, torch.zeros_like(params)))
+        return OptState(params=params, momentum=(zeros, tree_map(torch.zeros_like, params)))
     return OptState(params=params, momentum=zeros)
+
+
+def _field(out, k: int):
+    """Field k of every leaf's result tuple, as a tree."""
+    return tree_map(lambda t: t[k], out)
 
 
 def gd_update(state: OptState, g, eta: float, alpha: float, n_samples: int, i) -> OptState:
     mult = eta / n_samples
-    new = (1.0 - 2.0 * alpha * eta) * state.params - mult * g
-    return OptState(params=new, momentum=state.momentum)
+
+    def leaf(p, gl):
+        return (1.0 - 2.0 * alpha * eta) * p - mult * gl
+
+    return OptState(params=tree_map(leaf, state.params, g), momentum=state.momentum)
 
 
 def agd_update(state: OptState, g, eta: float, alpha: float, n_samples: int, i) -> OptState:
     mult = eta / n_samples
     theta = 2.0 / (i + 2.0)
-    b, u = state.params, state.momentum
-    y = (1.0 - theta) * b + theta * u
-    b_next = y - mult * g - 2.0 * alpha * eta * b
-    u_next = b + (b_next - b) / theta
-    return OptState(params=b_next, momentum=u_next)
+
+    def leaf(b, u, gl):
+        y = (1.0 - theta) * b + theta * u
+        b_next = y - mult * gl - 2.0 * alpha * eta * b
+        return b_next, b + (b_next - b) / theta
+
+    out = tree_map(leaf, state.params, state.momentum, g)
+    return OptState(params=_field(out, 0), momentum=_field(out, 1))
 
 
 def adam_update(state: OptState, g, eta: float, alpha: float, n_samples: int, i) -> OptState:
@@ -59,14 +73,17 @@ def adam_update(state: OptState, g, eta: float, alpha: float, n_samples: int, i)
     b1, b2, eps = 0.9, 0.999, 1e-8
     t = np.float32(i + 1.0)
     mu, nu = state.momentum
-    p = state.params
-    grad = g / n_samples + 2.0 * alpha * p
-    m_new = b1 * mu + (1.0 - b1) * grad
-    v_new = b2 * nu + (1.0 - b2) * grad * grad
-    m_hat = m_new / (np.float32(1.0) - np.float32(b1) ** t)
-    v_hat = v_new / (np.float32(1.0) - np.float32(b2) ** t)
-    p_new = p - eta * m_hat / (torch.sqrt(v_hat) + eps)
-    return OptState(params=p_new, momentum=(m_new, v_new))
+
+    def leaf(p, m, v, gl):
+        grad = gl / n_samples + 2.0 * alpha * p
+        m_new = b1 * m + (1.0 - b1) * grad
+        v_new = b2 * v + (1.0 - b2) * grad * grad
+        m_hat = m_new / (np.float32(1.0) - np.float32(b1) ** t)
+        v_hat = v_new / (np.float32(1.0) - np.float32(b2) ** t)
+        return p - eta * m_hat / (torch.sqrt(v_hat) + eps), m_new, v_new
+
+    out = tree_map(leaf, state.params, mu, nu, g)
+    return OptState(params=_field(out, 0), momentum=(_field(out, 1), _field(out, 2)))
 
 
 def make_update_fn(rule: UpdateRule):

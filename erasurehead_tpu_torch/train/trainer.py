@@ -6,16 +6,28 @@ collection/decode weights, learning-rate schedule. Data plane (the device):
 per round, the decoded gradient of the stack (parallel/step.py) and the
 GD/AGD/Adam update; the iterate history stays on the device.
 
-``use_pallas`` "auto" (the default) and "on" both route the stack through
-the fused kernel (ops/kernels.fused_glm_grad, one launch per round on CUDA)
-and raise where it declines; "off" takes the two-pass PyTorch gradient.
+Which gradient lowering a round takes (the JAX trainer's dispatch,
+erasurehead_tpu/train/trainer.py:941-985, on one device):
+  - a GLM with ``use_pallas`` "auto" (the default) or "on" routes the stack
+    through the fused kernel (ops/kernels.fused_glm_grad, one launch per
+    round on CUDA) and raises where it declines, unless ``layer_coding`` is
+    "on"; ``use_pallas="on"`` on any other model raises;
+  - otherwise ``layer_coding`` "on" takes the blockwise decode
+    (step.make_layer_block_grad_fn): per-slot gradient trees decoded by the
+    decode kernel (ops/kernels.fused_block_decode), one launch per leaf per
+    round ("fused") or one per round ("treewise");
+  - otherwise the monolithic PyTorch gradient (step.make_faithful_grad_fn /
+    make_deduped_grad_fn).
+
+Params are the GLM's [F] tensor or the deep families' dict of tensors; the
+iterate history is then an [R, F] tensor or a dict of [R, ...] tensors.
 
 Timing artifacts keep two clocks apart, as the JAX package does:
   - ``timeset``/``worker_times``: *simulated* cluster seconds from the
     arrival model;
   - ``wall_time``/``steps_per_sec``: real seconds of the round loop, between
     two ``torch.cuda.synchronize()`` calls on the card (the kernel library is
-    built and loaded before the clock starts).
+    built and loaded, and ``torch.func`` imported, before the clock starts).
 """
 
 from __future__ import annotations
@@ -29,9 +41,12 @@ import torch
 
 from erasurehead_tpu_torch.data.sharding import partition_stack, worker_stack
 from erasurehead_tpu_torch.data.synthetic import Dataset
-from erasurehead_tpu_torch.models.glm import LinearModel, LogisticModel
+from erasurehead_tpu_torch.models.deep_mlp import DeepMLPModel
+from erasurehead_tpu_torch.models.glm import LinearModel, LogisticModel, params_from_numpy
+from erasurehead_tpu_torch.models.mlp import MLPModel
+from erasurehead_tpu_torch.models.moe import MoEModel
 from erasurehead_tpu_torch.obs import decode as obs_decode
-from erasurehead_tpu_torch.ops import codes, kernels
+from erasurehead_tpu_torch.ops import blocks, codes, kernels
 from erasurehead_tpu_torch.parallel import collect, step as step_lib, straggler
 from erasurehead_tpu_torch.train import optimizer
 from erasurehead_tpu_torch.utils.config import (
@@ -66,6 +81,15 @@ def build_model(cfg: RunConfig):
         return LogisticModel()
     if cfg.model == ModelKind.LINEAR:
         return LinearModel()
+    if cfg.model == ModelKind.MLP:
+        return MLPModel()
+    if cfg.model == ModelKind.DEEPMLP:
+        # cfg.deep_layers sweeps the family's depth (0 = model default)
+        if cfg.deep_layers:
+            return DeepMLPModel(n_layers=cfg.deep_layers)
+        return DeepMLPModel()
+    if cfg.model == ModelKind.MOE:
+        return MoEModel()
     raise ValueError(f"unknown model {cfg.model}")
 
 
@@ -81,8 +105,9 @@ def default_arrivals(cfg: RunConfig) -> np.ndarray:
 class TrainResult:
     """Everything the reference's master holds at the end of a run."""
 
-    params_history: torch.Tensor  # [rounds, F] on the run's device (the betaset)
-    final_params: torch.Tensor  # [F]
+    # [rounds, F] on the run's device (the betaset), or a dict of [rounds, ...]
+    params_history: object
+    final_params: object  # [F], or a dict of tensors
     timeset: np.ndarray  # [rounds] simulated iteration wall-clock
     worker_times: np.ndarray  # [rounds, W] simulated arrivals, -1 sentinel
     collected: np.ndarray  # [rounds, W]
@@ -95,8 +120,10 @@ class TrainResult:
     final_state: optimizer.OptState = None
     # [rounds] per-round decode-error norm ||pw - 1||/sqrt(P) (obs/decode.py)
     decode_error: Optional[np.ndarray] = None
-    # did the round loop go through the fused kernel's wrapper?
+    # did the round loop go through the fused GLM kernel's wrapper?
     fused: bool = False
+    # did it take the blockwise (layer-coded) decode?
+    layer_coded: bool = False
 
 
 def _data_dtype(cfg: RunConfig) -> torch.dtype:
@@ -105,6 +132,25 @@ def _data_dtype(cfg: RunConfig) -> torch.dtype:
 
 def _to_device(a: np.ndarray, device, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+
+def _apply_layer_coding(cfg: RunConfig, model, grad_fn, params_template, faithful: bool):
+    """Swap in the blockwise decode (step.make_layer_block_grad_fn) per
+    ``cfg.layer_coding``; ``cfg.block_decode`` picks its lowering. Returns
+    (grad_fn, layer_coded)."""
+    if cfg.layer_coding == "on" and not step_lib.supports_layer_coding(model):
+        raise ValueError(
+            "layer_coding='on' needs a model whose per-slot gradients are "
+            "exact (no model-internal mesh axes) - got "
+            f"model={getattr(model, 'name', type(model).__name__)!r}"
+        )
+    if not step_lib.resolve_layer_coding(cfg.layer_coding, model):
+        return grad_fn, False
+    spec = blocks.model_block_spec(model, params_template)
+    fused = step_lib.resolve_block_decode(cfg.block_decode)
+    return step_lib.make_layer_block_grad_fn(
+        model, spec, faithful=faithful, fused=fused
+    ), True
 
 
 def train(
@@ -119,9 +165,11 @@ def train(
     """Run one full training run for ``cfg`` on ``dataset``.
 
     ``device`` defaults to ``cuda`` and raises when there is no card;
-    ``device="cpu"`` runs the same loop on the CPU, where the fused
-    gradient takes its plain PyTorch version. ``init_params`` ([F]) replaces
-    the port's own seeded init, e.g. with a JAX run's draw for parity.
+    ``device="cpu"`` runs the same loop on the CPU, where the kernels take
+    their plain PyTorch versions. ``init_params`` (an [F] array, or a dict
+    of numpy arrays for the deep families) replaces the port's own seeded
+    init, e.g. with a JAX run's draw for parity (models/glm.
+    params_from_numpy).
     ``arrivals``/``schedule`` replace the default arrival draw and the
     scheme's collection rule."""
     dev = resolve_device(device)
@@ -159,30 +207,48 @@ def train(
     y = _to_device(yh, dev, data_dtype).float()
     weights = _to_device(weights_h, dev, torch.float32)
 
-    use_fused = cfg.use_pallas != "off"
-    if use_fused:
-        reason = kernels.unsupported_reason(X.reshape((-1,) + tuple(X.shape[-2:])))
-        if reason is not None:  # no quiet fallback to the two-pass gradient
-            raise ValueError(
-                f"the fused kernel declines this stack ({reason}); "
-                "use_pallas='off' takes the two-pass gradient"
-            )
-        grad_fn = step_lib.make_fused_grad_fn(model.name)
-        if dev.type == "cuda":
-            kernels.load_library()  # build before the clock starts
-    elif faithful:
-        grad_fn = step_lib.make_faithful_grad_fn(model)
-    else:
-        grad_fn = step_lib.make_deduped_grad_fn(model)
-
     if init_params is None:
         params0 = model.init_params(cfg.seed, dataset.n_features, dev)
     else:
-        params0 = torch.tensor(np.asarray(init_params, np.float32), device=dev)
+        params0 = params_from_numpy(init_params, dev)
+
+    if faithful:
+        grad_fn = step_lib.make_faithful_grad_fn(model)
+    else:
+        grad_fn = step_lib.make_deduped_grad_fn(model)
+    use_fused = False
+    if cfg.use_pallas != "off":
+        # a forced blockwise decode wins over the fused GLM kernel
+        if model.name in kernels.GLM_KINDS and cfg.layer_coding != "on":
+            reason = kernels.unsupported_reason(X.reshape((-1,) + tuple(X.shape[-2:])))
+            if reason is not None:  # no quiet fallback to the two-pass gradient
+                raise ValueError(
+                    f"the fused kernel declines this stack ({reason}); "
+                    "use_pallas='off' takes the two-pass gradient"
+                )
+            grad_fn = step_lib.make_fused_grad_fn(model.name)
+            use_fused = True
+        elif cfg.use_pallas == "on":
+            raise ValueError(
+                "use_pallas='on' needs a dense logistic/linear stack; "
+                f"got model={model.name!r}, X={type(X).__name__}"
+            )
+    layer_coded = False
+    if not use_fused:
+        grad_fn, layer_coded = _apply_layer_coding(cfg, model, grad_fn, params0, faithful)
+    # set-up before the clock starts: build the kernels, import torch.func
+    if dev.type == "cuda" and (use_fused or layer_coded):
+        kernels.load_library()
+    if layer_coded or getattr(model, "grads_via_loss", False):
+        step_lib.warm_autodiff()
+
     state = optimizer.init_state(params0, cfg.update_rule)
     update_fn = optimizer.make_update_fn(cfg.update_rule)
     lr32 = lr.astype(np.float32)
-    history = torch.empty((cfg.rounds, dataset.n_features), dtype=torch.float32, device=dev)
+    history = blocks.tree_map(
+        lambda p: torch.empty((cfg.rounds,) + tuple(p.shape), dtype=torch.float32, device=dev),
+        params0,
+    )
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -190,7 +256,7 @@ def train(
     for i in range(cfg.rounds):
         g = grad_fn(state.params, X, y, weights[i])
         state = update_fn(state, g, float(lr32[i]), alpha, n_train, float(i))
-        history[i] = state.params
+        blocks.tree_map(lambda h, p: h[i].copy_(p), history, state.params)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
@@ -211,4 +277,5 @@ def train(
         final_state=state,
         decode_error=decode_err,
         fused=use_fused,
+        layer_coded=layer_coded,
     )

@@ -3,8 +3,9 @@
 Same field names, defaults and validation messages as
 erasurehead_tpu/utils/config.py::RunConfig for the fields this port runs:
 the five reference schemes with full (or first-k) collection, the two GLM
-families, GD/AGD/ADAM updates, the faithful and deduped compute modes, float32
-or bfloat16 data, and the fused-kernel switch.
+families and the unsharded mlp, deepmlp and moe families, GD/AGD/ADAM
+updates, the faithful and deduped compute modes, float32 or bfloat16 data,
+the fused-kernel switch and the per-layer (blockwise) gradient coding knobs.
 """
 
 from __future__ import annotations
@@ -47,6 +48,9 @@ class UpdateRule(str, enum.Enum):
 class ModelKind(str, enum.Enum):
     LOGISTIC = "logistic"
     LINEAR = "linear"
+    MLP = "mlp"  # two-layer tanh MLP (models/mlp.py)
+    DEEPMLP = "deepmlp"  # L stacked tanh layers (models/deep_mlp.py)
+    MOE = "moe"  # dense softmax-gated experts (models/moe.py)
 
 
 class ComputeMode(str, enum.Enum):
@@ -114,10 +118,25 @@ class RunConfig:
     # DATA dtype: bfloat16 halves the bytes the gradient pass streams; params
     # and optimizer updates always run in float32
     dtype: str = "float32"
-    # the fused gradient kernel (ops/kernels.py): "auto" and "on" (both kept
-    # for parity with the JAX package) route the stack through it; "off"
-    # takes the two-pass PyTorch gradient
+    # the fused GLM gradient kernel (ops/kernels.fused_glm_grad): "auto" and
+    # "on" (both kept for parity with the JAX package) route a GLM's stack
+    # through it unless layer_coding is "on"; "on" needs a GLM; "off" takes
+    # the two-pass PyTorch gradient
     use_pallas: str = "auto"
+    # per-layer (blockwise) gradient coding (parallel/step.
+    # make_layer_block_grad_fn): each slot's gradient decodes leaf by leaf
+    # (DeepMLP layers and MoE expert shards are individual coded blocks,
+    # ops/blocks.py). "on" forces it; "auto" resolves through
+    # step.LAYER_CODING_DEFAULT (off, as in the JAX package)
+    layer_coding: str = "auto"
+    # the blockwise decode's lowering (parallel/step.resolve_block_decode):
+    # "fused" decodes each leaf's [M, D] slot view, "treewise" the packed
+    # [M, L * width] block table, both through the one decode kernel
+    # (ops/kernels.fused_block_decode); "auto" takes "fused". Inert unless
+    # the run decodes blockwise
+    block_decode: str = "auto"
+    # hidden-layer count for the deepmlp family; 0 = the model's default (4)
+    deep_layers: int = 0
 
     def __post_init__(self):
         self.scheme = as_scheme(self.scheme)
@@ -127,6 +146,24 @@ class RunConfig:
         if self.use_pallas not in ("auto", "on", "off"):
             raise ValueError(
                 f"use_pallas must be auto/on/off, got {self.use_pallas!r}"
+            )
+        if self.layer_coding not in ("auto", "on", "off"):
+            raise ValueError(
+                f"layer_coding must be auto/on/off, got {self.layer_coding!r}"
+            )
+        if self.layer_coding == "on" and self.use_pallas == "on":
+            raise ValueError(
+                "layer_coding='on' and use_pallas='on' both force a "
+                "gradient lowering; force at most one"
+            )
+        if self.block_decode not in ("auto", "fused", "treewise"):
+            raise ValueError(
+                f"block_decode must be auto/fused/treewise, got "
+                f"{self.block_decode!r}"
+            )
+        if self.deep_layers < 0:
+            raise ValueError(
+                f"deep_layers must be >= 0, got {self.deep_layers}"
             )
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(

@@ -1,11 +1,16 @@
-"""The port's fused GLM gradient against the JAX package's Pallas kernel.
+"""The port's two kernels against the JAX package's Pallas kernels.
 
-On the CPU the wrapper takes its plain PyTorch version (the CUDA kernel has
+On the CPU each wrapper takes its plain PyTorch version (a CUDA kernel has
 no interpret mode); the JAX side runs its Pallas kernel in interpret mode
-with a multi-block grid (``block_rows=16``) and its two-pass oracle. The
-cases are those of tests/test_kernels.py, with its tolerance: rtol 1e-5,
-atol 1e-4 (float32 sums in a different order). The card itself is checked
-by the ``cuda``-marked test, which skips where there is no card.
+and its XLA oracle. The cases are those of tests/test_kernels.py.
+
+fused_glm_grad: rtol 1e-5, atol 1e-4, the JAX tests' tolerance (float32
+sums in a different order). fused_block_decode: float32 within
+1e-6 * sum_m |w_m g_md| + 1e-7 per column (the port sums the slots in order,
+XLA's dot in its own order); bfloat16 within one bfloat16 ulp of the result
+(both round a float32 sum once). The card itself is checked by the
+``cuda``-marked tests, which skip where there is no card: there the kernel
+must equal its plain version bitwise.
 """
 
 import jax.numpy as jnp
@@ -165,3 +170,103 @@ def test_cuda_kernel_matches_plain_version(shape, dtype):
         assert t_kernels.LAUNCHES["fused_glm_grad"] == before + 2
         assert torch.equal(got, again)  # no atomics: reruns are bitwise
         assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
+
+
+# ---------------------------------------------------------------------------
+# fused_block_decode (kernel B2)
+
+DECODE_SHAPES = [(6, 200), (3, 128), (1, 7), (9, 515), (5, 300)]
+
+
+def _decode_case(M, D, seed=3, zero_every=0):
+    rng = np.random.default_rng(seed + 100 * M + D)
+    g = rng.standard_normal((M, D)).astype(np.float32)
+    w = rng.standard_normal(M).astype(np.float32)
+    if zero_every:
+        w[::zero_every] = 0.0
+    return w, g
+
+
+def _jax_decodes(w, g, jdtype):
+    jw, jg = jnp.asarray(w), jnp.asarray(g).astype(jdtype)
+    xla = j_kernels.fused_block_decode(jw, jg)
+    pallas = j_kernels.fused_block_decode(jw, jg, use_pallas=True, interpret=True)
+    return [np.asarray(a.astype(jnp.float32)) for a in (xla, pallas)]
+
+
+@pytest.mark.parametrize("zero_every", [0, 2])
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_block_decode_f32_matches_jax(shape, zero_every):
+    w, g = _decode_case(*shape, zero_every=zero_every)
+    before = dict(t_kernels.LAUNCHES)
+    got = t_kernels.fused_block_decode(torch.from_numpy(w), torch.from_numpy(g))
+    assert t_kernels.LAUNCHES == before  # the CPU path launches nothing
+    assert got.dtype == torch.float32 and tuple(got.shape) == (shape[1],)
+    tol = 1e-6 * np.abs(w[:, None] * g).sum(0) + 1e-7
+    for want in _jax_decodes(w, g, jnp.float32):
+        assert (np.abs(got.numpy() - want) <= tol).all()
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_block_decode_bf16_matches_jax(shape):
+    """w is rounded to bfloat16 first, the sum is float32, the result is
+    rounded to bfloat16 once: within one bfloat16 ulp of JAX's."""
+    w, g = _decode_case(*shape, zero_every=3)
+    tg = torch.from_numpy(g).to(torch.bfloat16)
+    got = t_kernels.fused_block_decode(torch.from_numpy(w), tg)
+    assert got.dtype == torch.bfloat16
+    got32 = got.float().numpy()
+    # one ulp of a bfloat16 value v is 2**(exponent(v) - 7)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(got32), 1e-30))) - 7)
+    for want in _jax_decodes(w, g, jnp.bfloat16):
+        assert (np.abs(got32 - want) <= ulp).all()
+
+
+def test_block_decode_plain_version_sums_slots_in_order():
+    """The plain version is the kernel's arithmetic: one rounded multiply
+    and one rounded add per slot, slots in order."""
+    w, g = _decode_case(9, 515)
+    got = t_kernels.reference_block_decode(torch.from_numpy(w), torch.from_numpy(g))
+    acc = np.zeros(515, np.float32)
+    for m in range(9):
+        acc = (acc + np.float32(w[m]) * g[m]).astype(np.float32)
+    assert got.numpy().tobytes() == acc.tobytes()
+
+
+@pytest.mark.parametrize(
+    "bad",
+    [
+        dict(w=torch.zeros(3, dtype=torch.float64)),
+        dict(g=torch.zeros(3, 4, dtype=torch.float16)),
+        dict(w=torch.zeros(2)),
+        dict(g=torch.zeros(3, 4, 1)),
+        dict(g=torch.zeros(3, 0)),
+        dict(g=torch.zeros(4, 3).t()),
+    ],
+)
+def test_block_decode_refuses_what_the_kernel_does_not_take(bad):
+    args = dict(w=torch.zeros(3), g=torch.zeros(3, 4))
+    args.update(bad)
+    with pytest.raises(ValueError):
+        t_kernels.fused_block_decode(**args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape",
+    DECODE_SHAPES + [(90, 4096), (90, 128), (90, 32), (90, 1), (7, 4098)],
+)
+def test_cuda_block_decode_bitwise_equals_plain_version(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    w, g = _decode_case(*shape, zero_every=4)
+    tw, tg = torch.from_numpy(w).cuda(), torch.from_numpy(g).to(dtype).cuda()
+    before = t_kernels.LAUNCHES["fused_block_decode"]
+    got = t_kernels.fused_block_decode(tw, tg)
+    again = t_kernels.fused_block_decode(tw, tg)
+    want = t_kernels.reference_block_decode(tw, tg)
+    torch.cuda.synchronize()
+    assert t_kernels.LAUNCHES["fused_block_decode"] == before + 2
+    assert got.dtype == dtype
+    assert torch.equal(got, want) and torch.equal(got, again)
