@@ -6,12 +6,18 @@ Phases, one JSON line each:
 
   1. device    - the card's name and power limit (nvidia-smi);
   2. build     - compile both CUDA kernels from the sources in this checkout
-                 (one nvcc per source, started together, sm_90a) and time it;
+                 (one nvcc per source, started together, sm_90a), and beside
+                 it the decode kernel's raced variants, and time it;
   3. check     - each kernel against its plain PyTorch version on the card:
                  fused_glm_grad within tolerance at ragged, zero-weight,
                  bfloat16 and main-path shapes; fused_block_decode bitwise at
                  ragged, zero-weight and bfloat16 shapes, the deep path's six
-                 leaves and deepmlp's W_in at the covtype width;
+                 leaves and deepmlp's W_in at the covtype width, one leaf a
+                 launch; then the multi-leaf launch bitwise on deepmlp's and
+                 moe's six leaves in the [30, 3, ...] slot layout, more slots
+                 than one shared-memory stage holds, bfloat16, the covtype
+                 width, the partition-major layout and more leaves than one
+                 launch takes;
   4. main      - the paper's experiment through the CLI a user calls: approx
                  coding, W=30, s=2, num_collect=15, 132,000 x 128 synthetic
                  GMM rows, AGD, 100 rounds, faithful stack, on the card; the
@@ -19,16 +25,28 @@ Phases, one JSON line each:
                  after; then the same run on the CPU, whose replayed training
                  loss the card's must match to relative 1e-4 in every round;
   5. deep      - the layer-coded deepmlp path at the same data width through
-                 the CLI (100 rounds, fused block decode), counts read as in
-                 ``main``; then its first 10 rounds on the card and on the CPU,
-                 replayed losses within relative 1e-4;
+                 the CLI (100 rounds, fused block decode: one launch a round),
+                 counts read as in ``main``; then its first 10 rounds on the
+                 card and on the CPU, replayed losses within relative 1e-4, and
+                 the same 10 rounds with ``--block-decode treewise`` on the
+                 card, whose five artifacts must equal the fused run's
+                 bitwise;
   6. moe, glm_layer - short layer-coded runs of the moe family and of the
                  logistic model at the same width, with their launch counts;
-  7. time      - each kernel, its plain version, the library call where one
+  7. decode_ops - deepmlp's and moe's real per-slot leaves from
+                 torch.func.vmap(grad) on the card: each must be contiguous
+                 (the kernel reads them in place), and their decode must be
+                 one kernel on the device and nothing else (no copy);
+  8. time      - each kernel, its plain version, the library call where one
                  computes the same function, and the bound, at its path's
                  shapes; fused_glm_grad's wide (re-read) path at two widths
-                 off the main path;
-  8. profile   - device time by kernel over one more training run of the GLM
+                 off the main path; the decode per leaf and per round (one
+                 launch against six cuBLAS GEMVs);
+  9. race      - the decode kernel against builds with one design choice
+                 reversed (register loads for cp.async, staged only, streamed
+                 only), at a deep round and at widths around the threshold
+                 between staged and streamed leaves;
+ 10. profile   - device time by kernel over one more training run of the GLM
                  main path and of the deep path, from torch.profiler, and the
                  device's busy share of each round loop.
 
@@ -43,11 +61,13 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -73,12 +93,22 @@ DEEP_ARGS = MAIN_ARGS[:MAIN_ARGS.index("--update-rule")] + [
     "--add-delay", "--quiet", "--model", "deepmlp", "--layer-coding", "on",
     "--block-decode", "fused",
 ]
-SHORT_ROUNDS = 10  # the deep path's card-vs-CPU comparison
+SHORT_ROUNDS = 10  # the deep path's card-vs-CPU and fused-vs-treewise comparisons
 LAYER_ROUNDS = 20  # the moe and glm_layer runs
 # M = 90 slots; per-slot leaf sizes of deepmlp at F = 128 in sorted-key order
 # (W, W_in, b, b_in, b_out, w_out), and its W_in at the covtype preset's width
 DEEP_LEAVES = (4096, 4096, 128, 32, 1, 32)
 COVTYPE_W_IN = 15509 * 32
+SLOTS = (30, 3)  # the faithful stack's [W, S] slot layout
+# builds of the decode kernel with one design choice reversed (timed only):
+# tiles staged through registers instead of cp.async; every leaf staged; every
+# 16-byte-aligned leaf streamed
+VARIANTS = {
+    "register_loads": ("-DEH_DECODE_REGISTER_LOADS",),
+    "staged_only": ("-DEH_STREAM_MIN_ROW_BYTES=(1LL<<62)",),
+    "streamed_only": ("-DEH_STREAM_MIN_ROW_BYTES=16",),
+}
+RACE_WIDTHS = (131072, 262144, 393216, COVTYPE_W_IN)  # one leaf, [90, D] float32
 # rows wider than the kernel's registers: one re-read tile, and the covtype
 # preset's width (eight tiles)
 WIDE_SHAPES = ((30, 4400, 2048), (6, 2200, 15509))
@@ -274,7 +304,10 @@ def profile_train(cli, args) -> dict:
         kernel_ms={name: sum(us for k, us, _ in rows if tag in k) / 1e3
                    for name, tag in (("fused_glm_grad", "glm_grad"),
                                      ("fused_block_decode", "block_decode"))},
-        top=[dict(name=k[:70], ms=us / 1e3, count=c) for k, us, c in rows[:12]],
+        top=[dict(name=k[:100], ms=us / 1e3, count=c) for k, us, c in rows[:16]],
+        # every copy on the device in the loop (the decode makes none)
+        copies=[dict(name=k[:100], ms=us / 1e3, count=c) for k, us, c in rows
+                if "copy" in k.lower() or k.startswith("Memcpy")],
     )
 
 
@@ -321,48 +354,195 @@ def device_us(ev) -> float:
 
 
 def device_ms(fn, n) -> float:
-    """Device time of one call of ``fn``: its device-side events (kernels,
-    copies) summed under torch.profiler over ``n`` calls, over ``n``. CUDA
-    events around back-to-back calls would also count the gaps in which the
-    card waits for the host to launch the next call, which is most of a
-    small call's time."""
+    """Device time of one call of ``fn`` from torch.profiler over ``n``
+    calls: for each kernel (or copy) on the device, its mean time per
+    record times its records per call. CUDA events around back-to-back calls
+    would also count the gaps in which the card waits for the host to launch
+    the next call, which is most of a small call's time. The profiler may
+    lose a record or two of a window (seen on the card: 199 of 200), which
+    the mean does not feel; a profile that lost more is taken again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(device_us(ev) for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
-    return us / n / 1e3
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
+               and not ev.key.startswith("Activity Buffer")]
+        per_call = [round(ev.count / n) for ev in evs]
+        if evs and all(k >= 1 and abs(ev.count - k * n) <= 2 for ev, k in zip(evs, per_call)):
+            return sum(device_us(ev) / ev.count * k for ev, k in zip(evs, per_call)) / 1e3
+    raise AssertionError(f"the profiler lost device events: {[(ev.key, ev.count) for ev in evs]}")
+
+
+def time_turns(fns) -> tuple[dict, dict]:
+    """Each of ``fns`` ({name: (fn, calls)}) in turns a, b, ..., ..., b, a:
+    device time per call (profiler) and time per call back to back (CUDA
+    events), which a host-bound call's launch cost sets. The best of the
+    two turns of each."""
+    names = list(fns)
+    dev, call = {}, {}
+    for name in names + names[::-1]:
+        fn, reps = fns[name]
+        dev.setdefault(name, []).append(device_ms(fn, reps))
+        call.setdefault(name, []).append(time_ms(fn, reps))
+    return {k: min(v) for k, v in dev.items()}, {k: min(v) for k, v in call.items()}
 
 
 def time_decode(kernels, M, D) -> dict:
-    """The kernel, its plain version and the library call ``g.t() @ w``
-    (one cuBLAS GEMV, never called by the port), float32, in turns: device
-    time per call (profiler), and time per call back to back (CUDA events),
-    which a host-bound call's launch cost sets."""
+    """The one-leaf kernel, its plain version and the library call
+    ``g.t() @ w`` (one cuBLAS GEMV, never called by the port), float32."""
     gen = torch.Generator().manual_seed(7)
     g = torch.randn(M, D, generator=gen).cuda()
     w = torch.randn(M, generator=gen).cuda()
     n = 200 if D < 100_000 else 50
-    fns = dict(
+    dev, call = time_turns(dict(
         kernel=(lambda: kernels.fused_block_decode(w, g), n),
         plain=(lambda: kernels.reference_block_decode(w, g), max(5, n // 10)),
         library=(lambda: g.t() @ w, n),
-    )
-    dev, call = {}, {}
-    for name in ("kernel", "plain", "library", "library", "plain", "kernel"):
-        fn, reps = fns[name]
-        dev.setdefault(name, []).append(device_ms(fn, reps))
-        call.setdefault(name, []).append(time_ms(fn, reps))
+    ))
     bound, by = decode_bound_ms(M, D)
-    return dict(shape=[M, D], kernel_ms=min(dev["kernel"]), plain_ms=min(dev["plain"]),
-                library_ms=min(dev["library"]), bound_ms=bound, bound_by=by,
-                call_ms={k: min(v) for k, v in call.items()},
-                kernel_ms_both=dev["kernel"])
+    return dict(shape=[M, D], kernel_ms=dev["kernel"], plain_ms=dev["plain"],
+                library_ms=dev["library"], bound_ms=bound, bound_by=by, call_ms=call)
+
+
+def slot_leaves(shapes, dtype, seed, lead=SLOTS, zero_every=2):
+    """Random [*lead] slot weights (every ``zero_every``-th 0) and leaves
+    [*lead, *shape] on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    ws = torch.randn(*lead, generator=gen)
+    ws.view(-1)[::zero_every] = 0.0
+    leaves = [torch.randn(*lead, *s, generator=gen).to(dtype).cuda() for s in shapes]
+    return ws.cuda(), leaves
+
+
+def check_decode_leaves(kernels, shapes, dtype, seed, lead=SLOTS, lib=None) -> dict:
+    """The multi-leaf launch (of ``lib``; the port's own build when None) vs
+    its plain version: bitwise, bitwise on a rerun, one launch per 32
+    leaves."""
+    ws, leaves = slot_leaves(shapes, dtype, seed, lead)
+    lib = lib or kernels._library()
+    before = kernels.LAUNCHES["fused_block_decode"]
+    got = kernels._launch_decode(lib, ws, leaves)
+    again = kernels._launch_decode(lib, ws, leaves)
+    launches = (kernels.LAUNCHES["fused_block_decode"] - before) // 2
+    want = kernels.reference_block_decode_leaves(ws, leaves)
+    torch.cuda.synchronize()
+    errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
+    rec = dict(
+        kernel="fused_block_decode_leaves", slots=list(lead), leaves=len(shapes),
+        leaf_shapes=[list(s) for s in shapes[:8]], dtype=str(dtype).split(".")[-1],
+        zero_weight_slots=int((ws == 0).sum()), max_abs_err=max(errs),
+        launches_per_call=launches,
+        bitwise_vs_plain=all(torch.equal(a, b) for a, b in zip(got, want)),
+        bitwise_rerun=all(torch.equal(a, b) for a, b in zip(got, again)),
+    )
+    emit("check", **rec)
+    if not (rec["bitwise_vs_plain"] and rec["bitwise_rerun"]):
+        raise AssertionError(f"fused_block_decode_leaves is not bitwise its plain version: {rec}")
+    if launches != math.ceil(len(shapes) / lib.eh_fused_block_decode_max_leaves()):
+        raise AssertionError(f"{len(shapes)} leaves took {launches} launches")
+    return rec
+
+
+def time_round(kernels, shapes) -> dict:
+    """A deep round's decode: the one multi-leaf launch, its plain version
+    (s-major copies, then the slot loop), and the library yardstick, one
+    cuBLAS GEMV ``g.t() @ w`` per leaf (summed), float32, [30, 3] slots."""
+    ws, leaves = slot_leaves(shapes, torch.float32, seed=8)
+    M, wf = ws.numel(), ws.reshape(-1)
+    flat = [leaf.reshape(M, -1) for leaf in leaves]  # views, no copy
+    dev, call = time_turns(dict(
+        kernel=(lambda: kernels.fused_block_decode_leaves(ws, leaves), 200),
+        plain=(lambda: kernels.reference_block_decode_leaves(ws, leaves), 10),
+        library=(lambda: [g.t() @ wf for g in flat], 200),
+    ))
+    bound, by = decode_bound_ms(M, sum(g.shape[1] for g in flat))
+    return dict(leaves=[g.shape[1] for g in flat], kernel_ms=dev["kernel"],
+                plain_ms=dev["plain"], library_ms=dev["library"], bound_ms=bound,
+                bound_by=by, call_ms=call)
+
+
+def race_designs(kernels, shapes) -> list:
+    """The decode kernel's port build against its VARIANTS, in turns,
+    device time per launch: a deep round's six leaves in the [30, 3] layout,
+    and one [90, D] float32 leaf at each of RACE_WIDTHS (the staged/streamed
+    threshold lies between them). Each variant is first checked bitwise."""
+    libs = {"port": kernels._library(), **{k: kernels._library(d) for k, d in VARIANTS.items()}}
+    cases = [("deep_round", shapes, SLOTS, 200)]
+    cases += [(f"D{D}", [(D,)], (90,), 50) for D in RACE_WIDTHS]
+    out = []
+    for case, case_shapes, lead, n in cases:
+        for lib in libs.values():
+            check_decode_leaves(kernels, case_shapes, torch.float32, seed=400, lead=lead, lib=lib)
+        ws, leaves = slot_leaves(case_shapes, torch.float32, seed=9, lead=lead)
+        dev, _ = time_turns({name: ((lambda lib=lib: kernels._launch_decode(lib, ws, leaves)), n)
+                             for name, lib in libs.items()})
+        bound, _ = decode_bound_ms(ws.numel(), sum(leaf.numel() for leaf in leaves) // ws.numel())
+        rec = dict(case=case, bound_ms=bound, **{f"{k}_ms": v for k, v in dev.items()})
+        emit("race", **rec)
+        out.append(rec)
+    return out
+
+
+def leaf_shapes(model_name) -> list:
+    """Per-slot leaf shapes of a port model at the main path's width, in
+    sorted-key order (the decode's leaf order)."""
+    from erasurehead_tpu_torch.ops import blocks
+    from erasurehead_tpu_torch.train import trainer
+    from erasurehead_tpu_torch.utils.config import RunConfig
+
+    model = trainer.build_model(RunConfig(model=model_name))
+    return [tuple(leaf.shape) for leaf in blocks.tree_leaves(model.init_params(0, MAIN_SHAPE[2]))]
+
+
+def decode_ops(kernels, model_name) -> dict:
+    """A model's real per-slot leaves on the card, as torch.func.vmap(grad)
+    returns them at the flagship [30, 3, 4400, 128] stack: each must be
+    contiguous (the kernel reads them in place; the wrapper refuses any
+    other), and their decode must be exactly one kernel on the device per
+    call, with no copy beside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from erasurehead_tpu_torch.ops import blocks
+    from erasurehead_tpu_torch.parallel import step
+    from erasurehead_tpu_torch.train import trainer
+    from erasurehead_tpu_torch.utils.config import RunConfig
+
+    model = trainer.build_model(RunConfig(model=model_name))
+    params = model.init_params(0, MAIN_SHAPE[2], "cuda")
+    _, X, y, w = make_inputs(*MAIN_SHAPE, torch.float32, seed=300)
+    lead = SLOTS
+    leaves = blocks.tree_leaves(step.per_slot_grads(
+        model, params, X.reshape(lead + MAIN_SHAPE[1:]), y.reshape(lead + MAIN_SHAPE[1:2]), 2))
+    ws = w.reshape(lead)
+    contiguous = [leaf.is_contiguous() for leaf in leaves]
+    if not all(contiguous):
+        raise AssertionError(f"{model_name}: non-contiguous per-slot leaves {contiguous}")
+    calls = 20
+    kernels.fused_block_decode_leaves(ws, leaves)
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES["fused_block_decode"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            kernels.fused_block_decode_leaves(ws, leaves)
+        torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["fused_block_decode"] - before
+    # the profile may lose a record; the launch count does not
+    ops = {ev.key: ev.count for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA and not ev.key.startswith("Activity Buffer")}
+    rec = dict(model=model_name, leaf_shapes=[list(leaf.shape) for leaf in leaves],
+               contiguous=contiguous, calls=calls, launches=launches, device_ops=ops)
+    emit("decode_ops", **rec)
+    if launches != calls or len(ops) != 1 or "block_decode" not in next(iter(ops)):
+        raise AssertionError(f"{model_name}: {calls} decodes ran {ops} on the device "
+                             f"in {launches} launches, not one kernel a call")
+    return rec
 
 
 def main() -> int:
@@ -377,9 +557,13 @@ def main() -> int:
          kind=name, count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    kernels.load_library()
+    with ThreadPoolExecutor(1 + len(VARIANTS)) as pool:  # the port's build and the variants'
+        for build in [pool.submit(kernels._library, d) for d in ((), *VARIANTS.values())]:
+            build.result()
     emit("build", kernels=sorted(kernels.LAUNCHES), seconds=time.perf_counter() - t0,
-         library=os.path.relpath(str(kernels.library_path()), HERE))
+         library=os.path.relpath(str(kernels.library_path()), HERE),
+         variants={k: os.path.relpath(str(kernels.library_path(d)), HERE)
+                   for k, d in VARIANTS.items()})
 
     checks = []
     cases = [
@@ -408,6 +592,20 @@ def main() -> int:
     decode_checks.append(check_decode(kernels, 90, 4096, torch.bfloat16, 211, zero_every=2))
     for i, D in enumerate(DEEP_LEAVES + (COVTYPE_W_IN,)):
         decode_checks.append(check_decode(kernels, 90, D, torch.float32, 220 + i, zero_every=2))
+    deep_shapes, moe_shapes = leaf_shapes("deepmlp"), leaf_shapes("moe")
+    leaf_cases = [
+        (deep_shapes, torch.float32, SLOTS),  # the deep path's round
+        (deep_shapes, torch.bfloat16, SLOTS),
+        (moe_shapes, torch.float32, SLOTS),  # the moe run's round
+        (deep_shapes, torch.float32, (200, 3)),  # M = 600: ten stages
+        (deep_shapes, torch.bfloat16, (200, 3)),
+        ([(7,), (4098,), ()], torch.float32, (43, 3)),  # M = 129: one past a stage
+        ([(COVTYPE_W_IN,)], torch.float32, SLOTS),
+        (deep_shapes, torch.float32, (90,)),  # partition-major
+        ([(d,) for d in range(1, 41)], torch.float32, SLOTS),  # two launches
+    ]
+    for i, (shapes, dtype, lead) in enumerate(leaf_cases):
+        decode_checks.append(check_decode_leaves(kernels, shapes, dtype, 240 + i, lead))
     decode_err = max(c["max_abs_err"] for c in decode_checks)
 
     both0 = {name: 0 for name in kernels.LAUNCHES}
@@ -427,11 +625,19 @@ def main() -> int:
             **compare_runs(gpu, cpu),
         )
 
+        # one decode launch a round, whatever the leaf count
         deep = counted_run(cli, kernels, os.path.join(tmp, "deep"), DEEP_ARGS,
-                           {**both0, "fused_block_decode": ROUNDS * len(DEEP_LEAVES)})
+                           {**both0, "fused_block_decode": ROUNDS})
         short = with_rounds(DEEP_ARGS, SHORT_ROUNDS)
         deep_gpu10 = run_main(cli, os.path.join(tmp, "deep10_cuda"), "cuda", short)
         deep_cpu10 = run_main(cli, os.path.join(tmp, "deep10_cpu"), "cpu", short)
+        treewise = short[:short.index("fused")] + ["treewise"]
+        deep_tree10 = counted_run(cli, kernels, os.path.join(tmp, "deep10_treewise"), treewise,
+                                  {**both0, "fused_block_decode": SHORT_ROUNDS})
+        same = {a: deep_tree10["arts"][a].tobytes() == deep_gpu10["arts"][a].tobytes()
+                for a in ARTIFACTS}
+        if not all(same.values()):
+            raise AssertionError(f"treewise vs fused artifacts differ on the card: {same}")
         emit(
             "deep", args=DEEP_ARGS, launches=deep["launches"],
             steps_per_sec=deep["manifest"]["steps_per_sec"],
@@ -441,16 +647,15 @@ def main() -> int:
             short_rounds=SHORT_ROUNDS,
             cpu_steps_per_sec=deep_cpu10["manifest"]["steps_per_sec"],
             **compare_runs(deep_gpu10, deep_cpu10),
+            treewise_launches=deep_tree10["launches"],
+            treewise_artifacts_bitwise_equal_fused=same,
         )
 
-        layer_runs = {
-            "moe": (["--model", "moe"], len(DEEP_LEAVES)),  # moe also has six leaves
-            "glm_layer": (["--model", "logistic"], 1),
-        }
-        for phase, (model_args, leaves) in layer_runs.items():
+        for phase, model_args in (("moe", ["--model", "moe"]),
+                                  ("glm_layer", ["--model", "logistic"])):
             args = with_rounds(MAIN_ARGS, LAYER_ROUNDS) + model_args + ["--layer-coding", "on"]
             run = counted_run(cli, kernels, os.path.join(tmp, phase), args,
-                              {**both0, "fused_block_decode": LAYER_ROUNDS * leaves})
+                              {**both0, "fused_block_decode": LAYER_ROUNDS})
             emit(phase, args=args, launches=run["launches"],
                  steps_per_sec=run["manifest"]["steps_per_sec"],
                  train_loss_first_last=[float(run["arts"]["training_loss"][0]),
@@ -481,22 +686,19 @@ def main() -> int:
              plain_ms=p_ms, bound_ms=bound, bound_by=by)
         del b, X, y, w
 
-    decode_times = [time_decode(kernels, 90, D) for D in DEEP_LEAVES]
-    for rec in decode_times:
-        emit("time", kernel="fused_block_decode", **rec)
+    ops = [decode_ops(kernels, m) for m in ("deepmlp", "moe")]
+    for D in DEEP_LEAVES:
+        emit("time", kernel="fused_block_decode", **time_decode(kernels, 90, D))
     emit("time_wide", kernel="fused_block_decode", **time_decode(kernels, 90, COVTYPE_W_IN))
-    per_round = {k: sum(r[k] for r in decode_times)
-                 for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
-    per_round["call_ms"] = {k: sum(r["call_ms"][k] for r in decode_times)
-                            for k in decode_times[0]["call_ms"]}
-    emit("time_round", kernel="fused_block_decode", leaves=list(DEEP_LEAVES), **per_round)
+    per_round = time_round(kernels, deep_shapes)
+    emit("time_round", kernel="fused_block_decode_leaves", **per_round)
+    race = race_designs(kernels, deep_shapes)
 
     emit("profile", path="main", **profile_train(cli, MAIN_ARGS))
     deep_profile = profile_train(cli, DEEP_ARGS)
     emit("profile", path="deep", **deep_profile)
 
     kernel_ms_best = min(kernel_ms, kernel_ms_2)
-    decode_bound, decode_by = decode_bound_ms(90, sum(DEEP_LEAVES))
     line = {"kernels": [{
         "name": "fused_glm_grad",
         "route": "cuda",
@@ -519,14 +721,16 @@ def main() -> int:
         "tpu_kernel": "erasurehead_tpu/ops/kernels.py:_decode_kernel",
         "launches": deep["launches"]["fused_block_decode"],
         "max_abs_err": decode_err,
-        # one round's six launches at the deep path's leaves, summed
+        # a deep round's decode: one launch for its six leaves
         "ms": per_round["kernel_ms"],
         "plain_ms": per_round["plain_ms"],
         # bytes of one round's decode moved once: 90 x 8385 floats in one pass
-        "bound_ms": decode_bound,
-        "bound_by": decode_by,
+        "bound_ms": per_round["bound_ms"],
+        "bound_by": per_round["bound_by"],
+        # six cuBLAS GEMVs, one per leaf
         "library_ms": per_round["library_ms"],
         "steps_per_sec": deep["manifest"]["steps_per_sec"],
+        "leaves_contiguous": all(all(r["contiguous"]) for r in ops),
     }]}
     print(json.dumps(line))
     print(card)

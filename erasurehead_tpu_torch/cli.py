@@ -67,15 +67,16 @@ def _flags_parser() -> argparse.ArgumentParser:
     p.add_argument("--layer-coding", default="auto", choices=["auto", "on", "off"],
                    help="per-layer (blockwise) gradient coding "
                         "(parallel/step.make_layer_block_grad_fn): per-slot "
-                        "gradient trees decode leaf by leaf (DeepMLP layers "
+                        "gradient trees decode per leaf (DeepMLP layers "
                         "and MoE expert shards are individual coded blocks); "
                         "auto is off")
     p.add_argument("--block-decode", default="auto",
                    choices=["auto", "fused", "treewise"],
                    help="blockwise-decode lowering under --layer-coding: "
-                        "'fused' decodes each gradient leaf, 'treewise' the "
-                        "packed per-layer block table, both through the "
-                        "decode kernel (ops/kernels.fused_block_decode) and "
+                        "'fused' decodes every gradient leaf in place, "
+                        "'treewise' the packed per-layer block table, each "
+                        "in one launch a round of the decode kernel "
+                        "(ops/kernels.fused_block_decode_leaves) and "
                         "bitwise equal; auto is fused")
     p.add_argument("--deep-layers", type=int, default=0,
                    help="hidden-layer count for --model deepmlp (0 = the "

@@ -1,103 +1,127 @@
-// Decoded leaf gradient of the blockwise (layer-coded) step, for Hopper (sm_90a).
+// Decoded leaf gradients of the blockwise (layer-coded) step, for Hopper
+// (sm_90a): every leaf of a round in one launch.
 //
 // Replaces the Pallas TPU kernel erasurehead_tpu/ops/kernels.py::_decode_kernel
-// (launched by erasurehead_tpu/ops/kernels.py::fused_block_decode). It computes
+// (launched by erasurehead_tpu/ops/kernels.py::fused_block_decode). For each
+// leaf of a table of up to kMaxLeaves leaves it computes
 //
-//     out[d] = sum_m w[m] * g[m, d],   m = 0 .. M-1 in order,
+//     out[d] = sum_m w_m * g[j(m), d],   m = 0 .. M-1 in order,
 //
-// for w [M] float32 and g [M, D] float32 or bfloat16; out is [D] in g's
-// type. For bfloat16 g, w is first rounded to bfloat16 (the JAX package's
-// w.astype(g.dtype)), both operands are widened to float32, the sum runs in
-// float32, and the result is rounded to bfloat16 once at the end.
+// over M = W * S slots. The slot weights ws and each leaf g lie as the
+// per-slot gradients come out of the step: ws [W, S] float32 and
+// g [W, S, D] (row j = w * S + s at g + j * D). The faithful "ws" contract
+// reduces s-major, m = s * W + w, so slot m reads row j(m) = (m % W) * S +
+// m / W of ws and of g in place: no transposed copy. The partition-major "p"
+// contract is the case S = 1 (j = m), and so is the single-leaf entry
+// (ops/kernels.fused_block_decode). g is float32 or bfloat16 and out is [D]
+// in g's type. For bfloat16 g, w is first rounded to bfloat16 (the JAX
+// package's w.astype(g.dtype)), both operands are widened to float32, the
+// sum runs in float32, and the result is rounded to bfloat16 once at the end.
 //
-// Rounding. Every step is acc = __fadd_rn(acc, __fmul_rn(w[m], g[m, d])):
+// Rounding. Every step is acc = __fadd_rn(acc, __fmul_rn(w_m, g[j(m), d])):
 // one rounded multiply and one rounded add, never contracted into an FMA,
-// slots in order. The plain PyTorch version (ops/kernels.py::
-// reference_block_decode) takes the same steps, so the two are bitwise
-// equal, and the treewise and fused lowerings of the step, which both
-// reduce through this kernel, are bitwise equal to each other.
+// slots in order, one thread per column. The plain PyTorch version
+// (ops/kernels.py::reference_block_decode on the s-major copy) takes the
+// same steps, so the two are bitwise equal, and the treewise and fused
+// lowerings of the step, which both reduce through this kernel, are bitwise
+// equal to each other. Splitting M across threads would change the rounding,
+// so the slots are never split.
 //
-// Bound: the kernel does 2 operations per element of g and moves
-// M*D*sizeof(g) + 4*M + D*sizeof(out) bytes, so bytes bound it. At the deep
-// path's six leaves (M = 90, D = 4096, 4096, 128, 32, 32, 1, float32) that
-// is about 3.0 MB a round, 0.9 us at the H100 SXM's 3.35 TB/s: far below
-// one launch's cost, so the kernel is launch-bound there.
+// Bound: 2 operations per element of g against M*D*sizeof(g) + 4*M +
+// D*sizeof(out) bytes, so bytes bound it. A deep round (M = 90; leaves of
+// D = 4096, 4096, 128, 32, 1, 32 float32) moves 3.02 MB: 0.91 us at the H100
+// SXM's 3.35 TB/s. At that size a launch is latency, not bandwidth.
 //
-// Design. The TPU kernel ran one HIGHEST-precision dot over a column block
-// of up to 2048 columns (sized for VMEM) per grid step. Here a column
-// belongs to exactly one thread, which walks the M slots in order: no
-// atomics, no reduction across threads or blocks, no scratch, and reruns
-// are bitwise identical. Each thread owns VEC adjacent columns: VEC = 4
-// (one 16-byte load per slot) for float32 when D % 4 == 0 and both pointers
-// are 16-byte aligned; VEC = 2 (one __nv_bfloat162) for bfloat16 when
-// D % 2 == 0 and the pointers are 4-byte aligned; VEC = 1 otherwise.
-// Neighbouring threads own neighbouring columns, so each slot's row is read
-// coalesced. The ragged tail of D is masked in the kernel.
+// Design against that latency:
+//  - One launch per round. The leaf table (g and out pointers, D, each
+//    leaf's first tile) travels by value in the kernel's parameters as a
+//    __grid_constant__ struct: no copy to the device, no extra launch. A
+//    block finds its (leaf, column tile) from the tiles' prefix sums.
+//  - All of a tile's loads in flight at once. A block owns a tile of
+//    kTileBytes per row (64 float32 or 128 bfloat16 columns), so a
+//    [90, 4096] float32 leaf spreads over 64 blocks, and its kThreads
+//    threads stage the [M, tile] slab of g and the M weights into shared
+//    memory in one burst of 16-byte cp.async copies (each slot's row index
+//    computed once, so a copy's address costs a shared load and a
+//    multiply-add). Then thread t sums column t over the slots in order
+//    from shared memory (90 dependent adds: a fraction of a microsecond).
+//    Where M exceeds kOneStageRows, the slots stage in chunks of
+//    kChunkRows, in order, double-buffered: chunk c + 1 is in flight while
+//    chunk c is summed.
+//  - cp.async, not TMA: a tensor map per leaf would be built on the host at
+//    every call (host work on a loop that is already host-bound), would
+//    need 128 bytes per leaf in the parameters, and the slot order of the
+//    "ws" contract gathers rows in a stride pattern that one box does not
+//    describe. cp.async needs only the pointers already in the table.
+//    Built with -DEH_DECODE_REGISTER_LOADS, the slab is staged by plain
+//    16-byte loads through registers instead (cooperative vector loads);
+//    chip_smoke.py races the two. On the H100 cp.async staged a deep round
+//    about 1.3x faster (PERF.md has the numbers): a register load must
+//    return before its store to shared memory can issue.
+//  - Very wide leaves stream. Staging pays a fixed latency per tile and
+//    leaves a tile's bytes idle while it sums; on a leaf whose rows reach
+//    kStreamMinRowBytes (deepmlp's W_in at the covtype width: 1.99 MB) the
+//    card's bandwidth sets the time instead, and a tile of kThreads * 16
+//    bytes per row streams through registers, each thread walking the slots
+//    in order with several loads in flight (the previous design of this
+//    kernel). The same rounded steps in the same order: the result does not
+//    depend on the path. chip_smoke.py races staged-only and streamed-only
+//    builds (-DEH_STREAM_MIN_ROW_BYTES) at widths on both sides of the
+//    threshold; on the H100 staging was the faster or level below it, and
+//    only streaming kept [90, 496288] above 85% of its bound in every call.
+//  - Rows whose 16-byte pieces are not aligned (D * sizeof(g) % 16 != 0,
+//    or g not 16-byte aligned, e.g. a D = 1 leaf) stage element by element.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kTileBytes = 256;     // one tile row: 64 float32 / 128 bfloat16 columns
+constexpr int kThreads = 256;       // a block: all stage, one thread per column sums
+constexpr int kMaxLeaves = 32;      // leaves per launch
+constexpr int kOneStageRows = 128;  // M up to this stages in one burst
+constexpr int kChunkRows = 64;      // beyond it: chunks of this many slots, two buffers
+#ifndef EH_STREAM_MIN_ROW_BYTES
+#define EH_STREAM_MIN_ROW_BYTES (1536 * 1024)
+#endif
+// leaves with rows at least this wide stream through registers instead
+constexpr long long kStreamMinRowBytes = EH_STREAM_MIN_ROW_BYTES;
 
-template <typename T, int VEC>
-struct Cols;
-
-template <>
-struct Cols<float, 4> {
-  __device__ __forceinline__ static void load(const float* p, float (&v)[4]) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  }
-  __device__ __forceinline__ static void store(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
+struct Leaf {
+  const void* g;         // [W, S, D]
+  void* out;             // [D]
+  long long D;
+  long long first_tile;  // tiles of the leaves before this one
+  int vec;               // rows are read as 16-byte pieces
+  int stream;            // tiles of kThreads * 16 bytes stream through registers
 };
 
-template <>
-struct Cols<float, 1> {
-  __device__ __forceinline__ static void load(const float* p, float (&v)[1]) {
-    v[0] = __ldg(p);
-  }
-  __device__ __forceinline__ static void store(float* p, const float (&v)[1]) {
-    *p = v[0];
-  }
+struct LeafTable {
+  Leaf leaf[kMaxLeaves];
+  int n;
 };
 
-template <>
-struct Cols<__nv_bfloat16, 2> {
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float (&v)[2]) {
-    const unsigned int bits = __ldg(reinterpret_cast<const unsigned int*>(p));
-    const float2 q =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits));
-    v[0] = q.x;
-    v[1] = q.y;
-  }
-  __device__ __forceinline__ static void store(__nv_bfloat16* p,
-                                               const float (&v)[2]) {
-    __nv_bfloat162 q;
-    q.x = __float2bfloat16_rn(v[0]);
-    q.y = __float2bfloat16_rn(v[1]);
-    *reinterpret_cast<__nv_bfloat162*>(p) = q;
-  }
-};
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
 
-template <>
-struct Cols<__nv_bfloat16, 1> {
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float (&v)[1]) {
-    const unsigned short bits =
-        __ldg(reinterpret_cast<const unsigned short*>(p));
-    v[0] = __bfloat162float(__ushort_as_bfloat16(bits));
-  }
-  __device__ __forceinline__ static void store(__nv_bfloat16* p,
-                                               const float (&v)[1]) {
-    *p = __float2bfloat16_rn(v[0]);
-  }
-};
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // w in g's type, widened: float32 as is, bfloat16 rounded first
 template <typename T>
@@ -113,38 +137,171 @@ __device__ __forceinline__ float slot_weight<__nv_bfloat16>(float w) {
   return __bfloat162float(__float2bfloat16_rn(w));
 }
 
-// One thread per VEC adjacent columns. The entry takes VEC > 1 only when
-// D % VEC == 0, so a thread's columns lie all below D or all past it, and
-// `col < D` masks the grid's ragged tail.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// Slot m of the s-major order reads row j(m) = w * S + s of [W, S, ...].
+__device__ __forceinline__ long long slot_row(int m, int W, int S) {
+  return static_cast<long long>(m % W) * S + m / W;
+}
+
+// Stage slots [m0, m0 + n) of the tile [col0, col0 + cols) into one buffer:
+// g rows to gs[n][kCols], their weights to wsm[n]. One commit group. Each
+// slot's row is computed once (slot_rows[], shared); then thread t copies
+// 16-byte piece t % kPieces of every kThreads / kPieces-th row, so a piece's
+// address costs one shared load and one multiply-add.
+template <typename T>
+__device__ __forceinline__ void stage(const Leaf& leaf, const float* __restrict__ ws,
+                                      int W, int S, int m0, int n, long long col0,
+                                      int cols, T* gs, float* wsm, int* slot_rows) {
+  constexpr int kCols = kTileBytes / sizeof(T);
+  const T* g = static_cast<const T*>(leaf.g) + col0;
+  for (int r = threadIdx.x; r < n; r += kThreads) {
+    const long long j = slot_row(m0 + r, W, S);
+    slot_rows[r] = static_cast<int>(j);
+#ifdef EH_DECODE_REGISTER_LOADS
+    wsm[r] = __ldg(ws + j);
+#else
+    cp_async4(wsm + r, ws + j);
+#endif
+  }
+  __syncthreads();
+  if (leaf.vec) {
+    // cols * sizeof(T) is a multiple of 16 here: D * sizeof(T) is, and
+    // col0 is a multiple of the tile
+    constexpr int kPer = 16 / sizeof(T), kPieces = kTileBytes / 16;
+    const int c = threadIdx.x % kPieces;
+    if (c * kPer < cols) {
+      for (int r = threadIdx.x / kPieces; r < n; r += kThreads / kPieces) {
+        const T* src = g + slot_rows[r] * leaf.D + c * kPer;
+#ifdef EH_DECODE_REGISTER_LOADS
+        *reinterpret_cast<uint4*>(gs + r * kCols + c * kPer) =
+            __ldg(reinterpret_cast<const uint4*>(src));
+#else
+        cp_async16(gs + r * kCols + c * kPer, src);
+#endif
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < n * cols; i += kThreads) {
+      const int r = i / cols;
+      const int c = i - r * cols;
+      gs[r * kCols + c] = g[slot_rows[r] * leaf.D + c];
+    }
+  }
+  cp_async_commit();
+}
+
+// 16 bytes of g widened to float32, and 16 / sizeof(T) sums stored in T
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(h[k]);
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
+  }
+}
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-    block_decode(const float* __restrict__ w, const T* __restrict__ g,
-                 T* __restrict__ out, int M, long long D) {
-  const long long col =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * VEC;
-  if (col >= D) return;
+__device__ __forceinline__ void store_cols(T* p, const float (&v)[VEC]) {
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) store(p + k, v[k]);
+}
+
+// A streamed tile: thread t owns 16 bytes of columns and walks the slots in
+// order, reading each slot's row in place with up to four loads in flight.
+// No shared memory and no barrier: on a leaf this wide the card's bandwidth,
+// not one tile's latency, sets the time, and loads stay in flight all along.
+template <typename T>
+__device__ __forceinline__ void stream_tile(const Leaf& leaf, const float* __restrict__ ws,
+                                            int W, int S, long long col0) {
+  constexpr int VEC = 16 / sizeof(T);
+  const long long col = col0 + static_cast<long long>(threadIdx.x) * VEC;
+  if (col >= leaf.D) return;
+  const T* g = static_cast<const T*>(leaf.g) + col;
   float acc[VEC];
 #pragma unroll
   for (int k = 0; k < VEC; ++k) acc[k] = 0.0f;
-  const T* p = g + col;
+  int w = 0, s = 0;  // slot m = s * W + w reads row w * S + s
 #pragma unroll 4
-  for (int m = 0; m < M; ++m) {
-    const float wm = slot_weight<T>(__ldg(w + m));
+  for (int m = 0; m < W * S; ++m) {
+    const long long j = static_cast<long long>(w) * S + s;
+    const float wm = slot_weight<T>(__ldg(ws + j));
     float v[VEC];
-    Cols<T, VEC>::load(p + static_cast<long long>(m) * D, v);
+    load16(g + j * leaf.D, v);
 #pragma unroll
     for (int k = 0; k < VEC; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(wm, v[k]));
+    if (++w == W) {
+      w = 0;
+      ++s;
+    }
   }
-  Cols<T, VEC>::store(out + col, acc);
+  store_cols<T, VEC>(static_cast<T*>(leaf.out) + col, acc);
 }
 
-template <typename T, int VEC>
-void launch(const float* w, const void* g, void* out, int M, long long D,
-            cudaStream_t stream) {
-  const long long groups = (D + VEC - 1) / VEC;
-  const unsigned blocks = static_cast<unsigned>((groups + kThreads - 1) / kThreads);
-  block_decode<T, VEC><<<blocks, kThreads, 0, stream>>>(
-      w, static_cast<const T*>(g), static_cast<T*>(out), M, D);
+// One block per (leaf, column tile). A staged tile: kThreads stage it, and
+// thread t < cols sums column t. A streamed tile: see stream_tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    block_decode_leaves(const __grid_constant__ LeafTable table,
+                        const float* __restrict__ ws, int W, int S) {
+  constexpr int kCols = kTileBytes / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  int li = 0;
+  while (li + 1 < table.n && blockIdx.x >= table.leaf[li + 1].first_tile) ++li;
+  const Leaf& leaf = table.leaf[li];
+  if (leaf.stream) {
+    stream_tile<T>(leaf, ws, W, S, (blockIdx.x - leaf.first_tile) * (kThreads * 16 / sizeof(T)));
+    return;
+  }
+  const long long col0 = (blockIdx.x - leaf.first_tile) * kCols;
+  const int cols = static_cast<int>(min(static_cast<long long>(kCols), leaf.D - col0));
+
+  const int M = W * S;
+  const int rows = M <= kOneStageRows ? M : kChunkRows;  // slots per stage
+  const int chunks = (M + rows - 1) / rows;
+  const int bufs = chunks > 1 ? 2 : 1;
+  T* gs = reinterpret_cast<T*>(smem);  // [bufs][rows][kCols]
+  float* wsm = reinterpret_cast<float*>(smem + bufs * rows * kTileBytes);  // [bufs][rows]
+  // [bufs][rows]: a fast thread stages chunk c + 1 while others still read
+  // chunk c's rows
+  int* rowj = reinterpret_cast<int*>(wsm + bufs * rows);
+
+  stage<T>(leaf, ws, W, S, 0, min(rows, M), col0, cols, gs, wsm, rowj);
+  float acc = 0.0f;
+  const int t = threadIdx.x;
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      const int b = (c + 1) & 1, m0 = (c + 1) * rows;
+      stage<T>(leaf, ws, W, S, m0, min(rows, M - m0), col0, cols,
+               gs + b * rows * kCols, wsm + b * rows, rowj + b * rows);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t < cols) {
+      const int b = c & 1, n = min(rows, M - c * rows);
+      const T* col = gs + b * rows * kCols + t;
+      const float* wc = wsm + b * rows;
+#pragma unroll 8
+      for (int r = 0; r < n; ++r)
+        acc = __fadd_rn(acc, __fmul_rn(slot_weight<T>(wc[r]), widen(col[r * kCols])));
+    }
+    __syncthreads();  // buffer c & 1 is staged again at c + 2
+  }
+  if (t < cols) store(static_cast<T*>(leaf.out) + col0 + t, acc);
 }
 
 bool aligned(const void* p, uintptr_t bytes) {
@@ -155,29 +312,43 @@ bool aligned(const void* p, uintptr_t bytes) {
 
 extern "C" {
 
-// out[D] = sum_m w[m] * g[m, :] on `stream`. dtype: 0 = float32,
-// 1 = bfloat16 (g and out). Returns cudaGetLastError() after the launch
-// (0 = success).
-int eh_fused_block_decode(const void* w, const void* g, void* out, int M,
-                          long long D, int dtype, void* stream_ptr) {
-  if (M < 1 || D < 1 || (dtype != 0 && dtype != 1))
+int eh_fused_block_decode_max_leaves() { return kMaxLeaves; }
+
+// For each of the n leaves: out[i][D[i]] = sum over the W * S slots, s-major,
+// of ws[w, s] * g[i][w, s, :], in ONE launch on `stream`. dtype: 0 = float32,
+// 1 = bfloat16 (every g and out). Returns cudaGetLastError() after the
+// launch (0 = success), or cudaErrorInvalidValue without launching.
+int eh_fused_block_decode_leaves(const void* ws, const void* const* g, void* const* out,
+                                 const long long* D, int n, int W, int S, int dtype,
+                                 void* stream_ptr) {
+  if (n < 1 || n > kMaxLeaves || W < 1 || S < 1 ||
+      static_cast<long long>(W) * S > INT_MAX || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  // grid.x is at most 2^31 - 1 blocks
-  if ((D + kThreads - 1) / kThreads > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const float* wf = static_cast<const float*>(w);
-  if (dtype == 0) {
-    if (D % 4 == 0 && aligned(g, 16) && aligned(out, 16))
-      launch<float, 4>(wf, g, out, M, D, stream);
-    else
-      launch<float, 1>(wf, g, out, M, D, stream);
-  } else {
-    if (D % 2 == 0 && aligned(g, 4) && aligned(out, 4))
-      launch<__nv_bfloat16, 2>(wf, g, out, M, D, stream);
-    else
-      launch<__nv_bfloat16, 1>(wf, g, out, M, D, stream);
+  const int itemsize = dtype == 0 ? 4 : 2;
+  const long long cols = kTileBytes / itemsize;
+  LeafTable table{};
+  table.n = n;
+  long long tiles = 0;
+  for (int i = 0; i < n; ++i) {
+    if (D[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const bool vec = (D[i] * itemsize) % 16 == 0 && aligned(g[i], 16);
+    const bool stream = vec && D[i] * itemsize >= kStreamMinRowBytes;
+    table.leaf[i] = Leaf{g[i], out[i], D[i], tiles, vec, stream};
+    const long long tile_cols = stream ? kThreads * 16 / itemsize : cols;
+    tiles += (D[i] + tile_cols - 1) / tile_cols;
   }
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);  // grid.x
+  const int M = W * S;
+  const int rows = M <= kOneStageRows ? M : kChunkRows;
+  const size_t smem = static_cast<size_t>(M <= kOneStageRows ? 1 : 2) * rows *
+                      (kTileBytes + sizeof(float) + sizeof(int));
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const float* wf = static_cast<const float*>(ws);
+  const unsigned blocks = static_cast<unsigned>(tiles);
+  if (dtype == 0)
+    block_decode_leaves<float><<<blocks, kThreads, smem, stream>>>(table, wf, W, S);
+  else
+    block_decode_leaves<__nv_bfloat16><<<blocks, kThreads, smem, stream>>>(table, wf, W, S);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,23 +15,26 @@ comes out of a single streaming read. s is the residual:
 It is the port of the Pallas TPU kernel erasurehead_tpu/ops/kernels.py::_kernel
 (``fused_glm_grad``).
 
-B2, the blockwise decode (``csrc/fused_block_decode.cu``): one leaf's decoded
-gradient ``out[D] = sum_m w[m] * g[m, D]`` from its per-slot gradients, the
-decode of the layer-coded step (parallel/step.make_layer_block_grad_fn). It
-is the port of erasurehead_tpu/ops/kernels.py::_decode_kernel
+B2, the blockwise decode (``csrc/fused_block_decode.cu``): every leaf's
+decoded gradient ``out[D] = sum_m w_m * g[m, D]`` from its per-slot
+gradients, the decode of the layer-coded step
+(parallel/step.make_layer_block_grad_fn), all leaves of a round in one
+launch, each leaf read in place in the step's [W, S, D] slot layout. It is
+the port of erasurehead_tpu/ops/kernels.py::_decode_kernel
 (``fused_block_decode``). The JAX trainer lowers that decode through XLA and
 reaches its Pallas kernel only when asked (``use_pallas=True``); in the port
 the decode on a CUDA tensor is always this kernel.
 
 Each source file says how its design differs from the TPU kernel.
-:func:`fused_glm_grad` and :func:`fused_block_decode` launch their kernels
-for CUDA tensors and raise on anything they do not take; for CPU tensors
-they compute the same function with their plain PyTorch versions
-(:func:`reference_glm_grad`, :func:`reference_block_decode`). The kernels are
-compiled with ``nvcc`` for ``sm_90a`` at first use, one ``nvcc`` per source
-started together, and linked into one library in ``build/`` at the root of
-the checkout, keyed by a hash of the sources and flags, loaded with ctypes.
-A build failure raises; there is no fallback.
+:func:`fused_glm_grad`, :func:`fused_block_decode_leaves` and the one-leaf
+:func:`fused_block_decode` launch their kernels for CUDA tensors and raise
+on anything they do not take; for CPU tensors they compute the same
+function with their plain PyTorch versions (:func:`reference_glm_grad`,
+:func:`reference_block_decode_leaves`, :func:`reference_block_decode`). The
+kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one ``nvcc``
+per source started together, and linked into one library in ``build/`` at
+the root of the checkout, keyed by a hash of the sources and flags, loaded
+with ctypes. A build failure raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -100,27 +103,28 @@ def _nvcc() -> str:
     )
 
 
-def _source_key() -> str:
+def _source_key(defines: tuple[str, ...]) -> str:
     h = hashlib.sha256()
     for src in _SOURCES:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(_NVCC_FLAGS).encode())
+    h.update(" ".join(_NVCC_FLAGS + defines).encode())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    """Where the built shared library for the current sources lives."""
-    return _BUILD_DIR / f"eh_kernels-{_source_key()}.so"
+def library_path(defines: tuple[str, ...] = ()) -> Path:
+    """Where the built shared library for the current sources (and extra
+    ``-D`` flags, empty for the port's own build) lives."""
+    return _BUILD_DIR / f"eh_kernels-{_source_key(defines)}.so"
 
 
-def _build() -> Path:
+def _build(defines: tuple[str, ...]) -> Path:
     """Compile the kernel library if the current sources have no build yet.
 
     One ``nvcc -c`` per source, all started together, then one link. Writes
     ``<name>.so`` and the compilers' reports (``-Xptxas -v``: registers,
     shared memory, spills) as ``<name>.log`` beside it. Raises on failure."""
-    so = library_path()
+    so = library_path(defines)
     if so.exists():
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -128,7 +132,7 @@ def _build() -> Path:
     nvcc = _nvcc()
     objs = [_BUILD_DIR / f"{tag}.{src.stem}.o" for src in _SOURCES]
     cmds = [
-        [nvcc, *_NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o), str(src)]
+        [nvcc, *_NVCC_FLAGS, *defines, "-Xptxas", "-v", "-c", "-o", str(o), str(src)]
         for src, o in zip(_SOURCES, objs)
     ]
     procs = [
@@ -156,18 +160,22 @@ def _build() -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(_build()))
+def _library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The kernel library, built with the extra ``-D`` flags ``defines``
+    (the port runs the build without any; chip_smoke.py times a variant)."""
+    lib = ctypes.CDLL(str(_build(defines)))
     lib.eh_fused_glm_grad.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p
     ]
     lib.eh_fused_glm_grad.restype = ctypes.c_int
     lib.eh_fused_glm_grad_scratch_floats.argtypes = [ctypes.c_int] * 3
     lib.eh_fused_glm_grad_scratch_floats.restype = ctypes.c_longlong
-    lib.eh_fused_block_decode.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+    lib.eh_fused_block_decode_leaves.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
-    lib.eh_fused_block_decode.restype = ctypes.c_int
+    lib.eh_fused_block_decode_leaves.restype = ctypes.c_int
+    lib.eh_fused_block_decode_max_leaves.argtypes = []
+    lib.eh_fused_block_decode_max_leaves.restype = ctypes.c_int
     lib.eh_cuda_error_string.argtypes = [ctypes.c_int]
     lib.eh_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -292,24 +300,110 @@ def fused_block_decode(
     """Decoded leaf gradient ``sum_m w[m] * g[m, :]``: [D] in g's dtype.
 
     ``w`` must already be flattened in the order of the contraction it
-    replaces (s-major for the faithful "ws" contract, parallel/step.py).
-    CUDA tensors launch the kernel (or raise); CPU tensors take
-    :func:`reference_block_decode`."""
+    replaces. CUDA tensors launch the decode kernel as a one-leaf table with
+    S = 1 (or raise); CPU tensors take :func:`reference_block_decode`."""
     _check_decode(w, g)
     if g.device.type == "cpu":
         return reference_block_decode(w, g)
     if g.device.type != "cuda":
         raise ValueError(f"fused_block_decode: unsupported device {g.device}")
-    lib = _library()
-    M, D = g.shape
-    out = torch.empty(D, dtype=g.dtype, device=g.device)
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    rc = lib.eh_fused_block_decode(
-        w.data_ptr(), g.data_ptr(), out.data_ptr(), M, D,
-        0 if g.dtype == torch.float32 else 1, stream,
-    )
-    if rc != 0:
-        msg = lib.eh_cuda_error_string(rc).decode()
-        raise RuntimeError(f"fused_block_decode launch failed: CUDA error {rc} ({msg})")
-    LAUNCHES["fused_block_decode"] += 1
-    return out
+    return _launch_decode(_library(), w, [g])[0]
+
+
+def _s_major(ws: torch.Tensor):
+    """The slot weights flattened in reduction order, and a function taking
+    a leaf [*ws.shape, ...] to its [M, D] rows in that order: s-major for
+    the faithful [W, S] contract (a copy), as-is for a [P] vector (a view)."""
+    if ws.dim() == 2:
+        return ws.t().reshape(-1), lambda leaf: leaf.transpose(0, 1).reshape(ws.numel(), -1)
+    return ws, lambda leaf: leaf.reshape(ws.numel(), -1)
+
+
+def reference_block_decode_leaves(ws: torch.Tensor, leaves) -> list:
+    """Plain PyTorch version of the multi-leaf decode: each leaf's s-major
+    copy through :func:`reference_block_decode`. Bitwise equal to the
+    kernel, which reads the same rows in place."""
+    wf, rows = _s_major(ws)
+    return [
+        reference_block_decode(wf, rows(leaf)).reshape(leaf.shape[ws.dim():])
+        for leaf in leaves
+    ]
+
+
+def _check_leaves(ws, leaves) -> None:
+    name = "fused_block_decode_leaves"
+    if ws.dtype != torch.float32:
+        raise ValueError(f"{name}: ws must be float32, got {ws.dtype}")
+    if ws.dim() not in (1, 2) or ws.numel() < 1:
+        raise ValueError(f"{name}: need ws [W, S] or [P], got {tuple(ws.shape)}")
+    if not ws.is_contiguous():
+        raise ValueError(f"{name}: ws must be contiguous")
+    if not leaves:
+        raise ValueError(f"{name}: no leaves")
+    for i, leaf in enumerate(leaves):
+        if leaf.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"{name}: leaf {i} must be float32 or bfloat16, got {leaf.dtype}")
+        if leaf.dtype != leaves[0].dtype:
+            raise ValueError(
+                f"{name}: leaves of mixed dtypes ({leaves[0].dtype}, {leaf.dtype})"
+            )
+        if tuple(leaf.shape[:ws.dim()]) != tuple(ws.shape):
+            raise ValueError(
+                f"{name}: leaf {i} of shape {tuple(leaf.shape)} does not lead "
+                f"with the slots' {tuple(ws.shape)}"
+            )
+        if leaf.numel() < 1:
+            raise ValueError(f"{name}: leaf {i} is empty")
+        if leaf.device != ws.device:
+            raise ValueError(f"{name}: leaf {i} is on {leaf.device}, ws on {ws.device}")
+        if not leaf.is_contiguous():
+            raise ValueError(f"{name}: leaf {i} must be contiguous")
+
+
+def fused_block_decode_leaves(ws: torch.Tensor, leaves) -> list:
+    """Every leaf's decoded gradient in one launch: for each leaf
+    [*ws.shape, *shape], the sum over the slots of ``ws * leaf`` in the
+    contract's reduction order, [*shape] in the leaf's dtype.
+
+    ``ws`` is the faithful contract's [W, S] slot weights (reduced s-major,
+    slot m = s * W + w, as the JAX package's einsum) or the partition-major
+    [P] weights (as-is). The kernel reads each leaf in place in that layout;
+    leaves must share one dtype and be contiguous. A table longer than the
+    kernel's cap takes further launches, each counted. CUDA tensors launch
+    the kernel (or raise); CPU tensors take
+    :func:`reference_block_decode_leaves`."""
+    leaves = list(leaves)
+    _check_leaves(ws, leaves)
+    if ws.device.type == "cpu":
+        return reference_block_decode_leaves(ws, leaves)
+    if ws.device.type != "cuda":
+        raise ValueError(f"fused_block_decode_leaves: unsupported device {ws.device}")
+    return _launch_decode(_library(), ws, leaves)
+
+
+def _launch_decode(lib: ctypes.CDLL, ws: torch.Tensor, leaves: list) -> list:
+    """Launch the decode kernel of ``lib`` on checked CUDA tensors: one
+    launch per ``eh_fused_block_decode_max_leaves()`` leaves."""
+    W, S = (tuple(ws.shape) + (1,))[:2]
+    outs = [
+        torch.empty(leaf.shape[ws.dim():], dtype=leaf.dtype, device=leaf.device)
+        for leaf in leaves
+    ]
+    dtype = 0 if leaves[0].dtype == torch.float32 else 1
+    stream = torch.cuda.current_stream(ws.device).cuda_stream
+    cap = lib.eh_fused_block_decode_max_leaves()
+    for i in range(0, len(leaves), cap):
+        part = range(i, min(i + cap, len(leaves)))
+        n = len(part)
+        rc = lib.eh_fused_block_decode_leaves(
+            ws.data_ptr(),
+            (ctypes.c_void_p * n)(*(leaves[k].data_ptr() for k in part)),
+            (ctypes.c_void_p * n)(*(outs[k].data_ptr() for k in part)),
+            (ctypes.c_longlong * n)(*(outs[k].numel() for k in part)),
+            n, W, S, dtype, stream,
+        )
+        if rc != 0:
+            msg = lib.eh_cuda_error_string(rc).decode()
+            raise RuntimeError(f"fused_block_decode launch failed: CUDA error {rc} ({msg})")
+        LAUNCHES["fused_block_decode"] += 1
+    return outs

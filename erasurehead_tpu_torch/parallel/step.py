@@ -19,8 +19,8 @@ The forms of that op, each a function ``(params, X, y, weights) -> grads``
   - :func:`make_fused_grad_fn`: either stack, leading dims flattened into M
     slots, through the one-pass kernel (ops/kernels.fused_glm_grad);
   - :func:`make_layer_block_grad_fn`: per-layer (blockwise) gradient coding:
-    per-slot gradient trees, decoded leaf by leaf through the decode kernel
-    (ops/kernels.fused_block_decode).
+    per-slot gradient trees, every leaf decoded in place through one launch
+    of the decode kernel a round (ops/kernels.fused_block_decode_leaves).
 
 The first two are the monolithic PyTorch form, the counterpart of the JAX
 package's own XLA lowering. For the autodiff families (``grads_via_loss``)
@@ -130,8 +130,8 @@ LAYER_CODING_DEFAULT = False
 
 # Whether block_decode="auto" takes the fused per-leaf lowering. The JAX
 # package resolves "auto" through its tune plane and falls back to treewise;
-# the tune plane is not ported, and the fused form is the one whose decode is
-# one kernel launch per leaf with no packed table, so "auto" is fused here.
+# the tune plane is not ported, and the fused form is the one whose decode
+# reads the leaves in place with no packed table, so "auto" is fused here.
 BLOCK_DECODE_FUSED_DEFAULT = True
 
 _MODEL_AXES = ("seq_axis", "tp_axis", "pp_axis", "ep_axis")
@@ -195,53 +195,32 @@ def per_slot_grads(model, params, Xs, ys, n_lead: int):
     return blocks_lib.tree_map(lambda l: l.reshape(lead + tuple(l.shape[1:])), grads)
 
 
-def _slot_major(leaf: torch.Tensor, contract: str, M: int) -> torch.Tensor:
-    """[*lead, ...] -> contiguous [M, D] in the contract's reduction order:
-    s-major for the faithful "ws" contract, as-is for "p" (a view). The
-    s-major form is a copy of the leaf (3 MB a round for deepmlp at the
-    flagship stack), which a strided read in the kernel would save."""
-    if contract == "ws":
-        leaf = leaf.transpose(0, 1)
-    return leaf.reshape(M, -1).contiguous()
-
-
-def _flat_weights(ws: torch.Tensor, contract: str) -> torch.Tensor:
-    """The slot weights flattened in the same order as :func:`_slot_major`."""
-    return (ws.t() if contract == "ws" else ws).reshape(-1).contiguous()
-
-
 def _layer_block_body(model, spec, contract: str) -> GradFn:
     """Treewise lowering of the blockwise step (the JAX package's
     step._layer_block_local_body): every slot's gradient tree packs into the
-    zero-padded [M, L, width] block table (ops/blocks.py), which decodes
-    with ONE call of the decode kernel over [M, L * width]."""
+    zero-padded [*lead, L, width] block table (ops/blocks.py), which decodes
+    as a one-leaf table: one launch of the decode kernel a round."""
 
     def grad(params, Xs, ys, ws):
         grads = per_slot_grads(model, params, Xs, ys, len(contract))
         table = blocks_lib.tree_to_blocks(grads, spec)  # [*lead, L, width]
-        wf = _flat_weights(ws, contract)
-        M = wf.shape[0]
-        g = kernels.fused_block_decode(wf, _slot_major(table, contract, M))
-        return blocks_lib.blocks_to_tree(g.reshape(spec.n_blocks, spec.width), spec)
+        (g,) = kernels.fused_block_decode_leaves(ws, [table])
+        return blocks_lib.blocks_to_tree(g, spec)
 
     return grad
 
 
 def _fused_layer_block_body(model, spec, contract: str) -> GradFn:
     """Fused lowering of the blockwise step (the JAX package's
-    step._fused_layer_block_local_body): no block table; each leaf's
-    [M, D_leaf] slot view decodes through its own call of the decode kernel,
-    leaves in sorted-key order. The same scalars meet in the same order as
-    in the treewise lowering, so the two are bitwise equal."""
+    step._fused_layer_block_local_body): no block table; every leaf of the
+    per-slot gradient tree, as ``per_slot_grads`` returns it, decodes in
+    place in one launch of the decode kernel a round, leaves in sorted-key
+    order. The same scalars meet in the same order as in the treewise
+    lowering, so the two are bitwise equal."""
 
     def grad(params, Xs, ys, ws):
         grads = per_slot_grads(model, params, Xs, ys, len(contract))
-        wf = _flat_weights(ws, contract)
-        M = wf.shape[0]
-        out = []
-        for leaf, shape in zip(blocks_lib.tree_leaves(grads), spec.leaf_shapes):
-            g = kernels.fused_block_decode(wf, _slot_major(leaf, contract, M))
-            out.append(g.reshape(shape))
+        out = kernels.fused_block_decode_leaves(ws, blocks_lib.tree_leaves(grads))
         return blocks_lib.tree_unflatten(spec.keys, out)
 
     return grad

@@ -13,9 +13,10 @@ erasurehead_tpu/train/trainer.py:941-985, on one device):
     round on CUDA) and raises where it declines, unless ``layer_coding`` is
     "on"; ``use_pallas="on"`` on any other model raises;
   - otherwise ``layer_coding`` "on" takes the blockwise decode
-    (step.make_layer_block_grad_fn): per-slot gradient trees decoded by the
-    decode kernel (ops/kernels.fused_block_decode), one launch per leaf per
-    round ("fused") or one per round ("treewise");
+    (step.make_layer_block_grad_fn): per-slot gradient trees decoded in
+    place by the decode kernel (ops/kernels.fused_block_decode_leaves), one
+    launch per round for all leaves ("fused") or for the packed block table
+    ("treewise");
   - otherwise the monolithic PyTorch gradient (step.make_faithful_grad_fn /
     make_deduped_grad_fn).
 

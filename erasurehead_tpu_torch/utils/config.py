@@ -124,15 +124,16 @@ class RunConfig:
     # the two-pass PyTorch gradient
     use_pallas: str = "auto"
     # per-layer (blockwise) gradient coding (parallel/step.
-    # make_layer_block_grad_fn): each slot's gradient decodes leaf by leaf
+    # make_layer_block_grad_fn): each slot's gradient decodes per leaf
     # (DeepMLP layers and MoE expert shards are individual coded blocks,
     # ops/blocks.py). "on" forces it; "auto" resolves through
     # step.LAYER_CODING_DEFAULT (off, as in the JAX package)
     layer_coding: str = "auto"
     # the blockwise decode's lowering (parallel/step.resolve_block_decode):
-    # "fused" decodes each leaf's [M, D] slot view, "treewise" the packed
-    # [M, L * width] block table, both through the one decode kernel
-    # (ops/kernels.fused_block_decode); "auto" takes "fused". Inert unless
+    # "fused" decodes every leaf in place, "treewise" the packed
+    # [*lead, L, width] block table, each in one launch a round of the
+    # decode kernel (ops/kernels.fused_block_decode_leaves); "auto" takes
+    # "fused". Inert unless
     # the run decodes blockwise
     block_decode: str = "auto"
     # hidden-layer count for the deepmlp family; 0 = the model's default (4)
