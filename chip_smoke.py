@@ -6,8 +6,7 @@ Phases, one JSON line each:
 
   1. device    - the card's name and power limit (nvidia-smi);
   2. build     - compile both CUDA kernels from the sources in this checkout
-                 (one nvcc per source, started together, sm_90a), and beside
-                 it the decode kernel's raced variants, and time it;
+                 (one nvcc per source, started together, sm_90a), and time it;
   3. check     - each kernel against its plain PyTorch version on the card:
                  fused_glm_grad within tolerance at ragged, zero-weight,
                  bfloat16 and main-path shapes; fused_block_decode bitwise at
@@ -40,13 +39,11 @@ Phases, one JSON line each:
   8. time      - each kernel, its plain version, the library call where one
                  computes the same function, and the bound, at its path's
                  shapes; fused_glm_grad's wide (re-read) path at two widths
-                 off the main path; the decode per leaf and per round (one
-                 launch against six cuBLAS GEMVs);
-  9. race      - the decode kernel against builds with one design choice
-                 reversed (register loads for cp.async, staged only, streamed
-                 only), at a deep round and at widths around the threshold
-                 between staged and streamed leaves;
- 10. profile   - device time by kernel over one more training run of the GLM
+                 off the main path; the decode per leaf, per round (one
+                 launch against six cuBLAS GEMVs) and off the deep path at
+                 one wide leaf on each side of the width from which the
+                 kernel streams rows instead of staging them;
+  9. profile   - device time by kernel over one more training run of the GLM
                  main path and of the deep path, from torch.profiler, and the
                  device's busy share of each round loop.
 
@@ -67,7 +64,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -99,16 +95,10 @@ LAYER_ROUNDS = 20  # the moe and glm_layer runs
 # (W, W_in, b, b_in, b_out, w_out), and its W_in at the covtype preset's width
 DEEP_LEAVES = (4096, 4096, 128, 32, 1, 32)
 COVTYPE_W_IN = 15509 * 32
+# a [90, D] float32 leaf with 1 MiB rows: staged, where COVTYPE_W_IN's rows
+# (1.9 MiB) stream (the kernel's kStreamMinRowBytes is 1.5 MiB)
+STAGED_WIDE = 262144
 SLOTS = (30, 3)  # the faithful stack's [W, S] slot layout
-# builds of the decode kernel with one design choice reversed (timed only):
-# tiles staged through registers instead of cp.async; every leaf staged; every
-# 16-byte-aligned leaf streamed
-VARIANTS = {
-    "register_loads": ("-DEH_DECODE_REGISTER_LOADS",),
-    "staged_only": ("-DEH_STREAM_MIN_ROW_BYTES=(1LL<<62)",),
-    "streamed_only": ("-DEH_STREAM_MIN_ROW_BYTES=16",),
-}
-RACE_WIDTHS = (131072, 262144, 393216, COVTYPE_W_IN)  # one leaf, [90, D] float32
 # rows wider than the kernel's registers: one re-read tile, and the covtype
 # preset's width (eight tiles)
 WIDE_SHAPES = ((30, 4400, 2048), (6, 2200, 15509))
@@ -420,15 +410,13 @@ def slot_leaves(shapes, dtype, seed, lead=SLOTS, zero_every=2):
     return ws.cuda(), leaves
 
 
-def check_decode_leaves(kernels, shapes, dtype, seed, lead=SLOTS, lib=None) -> dict:
-    """The multi-leaf launch (of ``lib``; the port's own build when None) vs
-    its plain version: bitwise, bitwise on a rerun, one launch per 32
-    leaves."""
+def check_decode_leaves(kernels, shapes, dtype, seed, lead=SLOTS) -> dict:
+    """The multi-leaf wrapper the step calls vs its plain version: bitwise,
+    bitwise on a rerun, one launch per 32 leaves."""
     ws, leaves = slot_leaves(shapes, dtype, seed, lead)
-    lib = lib or kernels._library()
     before = kernels.LAUNCHES["fused_block_decode"]
-    got = kernels._launch_decode(lib, ws, leaves)
-    again = kernels._launch_decode(lib, ws, leaves)
+    got = kernels.fused_block_decode_leaves(ws, leaves)
+    again = kernels.fused_block_decode_leaves(ws, leaves)
     launches = (kernels.LAUNCHES["fused_block_decode"] - before) // 2
     want = kernels.reference_block_decode_leaves(ws, leaves)
     torch.cuda.synchronize()
@@ -444,7 +432,7 @@ def check_decode_leaves(kernels, shapes, dtype, seed, lead=SLOTS, lib=None) -> d
     emit("check", **rec)
     if not (rec["bitwise_vs_plain"] and rec["bitwise_rerun"]):
         raise AssertionError(f"fused_block_decode_leaves is not bitwise its plain version: {rec}")
-    if launches != math.ceil(len(shapes) / lib.eh_fused_block_decode_max_leaves()):
+    if launches != math.ceil(len(shapes) / kernels._library().eh_fused_block_decode_max_leaves()):
         raise AssertionError(f"{len(shapes)} leaves took {launches} launches")
     return rec
 
@@ -465,28 +453,6 @@ def time_round(kernels, shapes) -> dict:
     return dict(leaves=[g.shape[1] for g in flat], kernel_ms=dev["kernel"],
                 plain_ms=dev["plain"], library_ms=dev["library"], bound_ms=bound,
                 bound_by=by, call_ms=call)
-
-
-def race_designs(kernels, shapes) -> list:
-    """The decode kernel's port build against its VARIANTS, in turns,
-    device time per launch: a deep round's six leaves in the [30, 3] layout,
-    and one [90, D] float32 leaf at each of RACE_WIDTHS (the staged/streamed
-    threshold lies between them). Each variant is first checked bitwise."""
-    libs = {"port": kernels._library(), **{k: kernels._library(d) for k, d in VARIANTS.items()}}
-    cases = [("deep_round", shapes, SLOTS, 200)]
-    cases += [(f"D{D}", [(D,)], (90,), 50) for D in RACE_WIDTHS]
-    out = []
-    for case, case_shapes, lead, n in cases:
-        for lib in libs.values():
-            check_decode_leaves(kernels, case_shapes, torch.float32, seed=400, lead=lead, lib=lib)
-        ws, leaves = slot_leaves(case_shapes, torch.float32, seed=9, lead=lead)
-        dev, _ = time_turns({name: ((lambda lib=lib: kernels._launch_decode(lib, ws, leaves)), n)
-                             for name, lib in libs.items()})
-        bound, _ = decode_bound_ms(ws.numel(), sum(leaf.numel() for leaf in leaves) // ws.numel())
-        rec = dict(case=case, bound_ms=bound, **{f"{k}_ms": v for k, v in dev.items()})
-        emit("race", **rec)
-        out.append(rec)
-    return out
 
 
 def leaf_shapes(model_name) -> list:
@@ -557,13 +523,9 @@ def main() -> int:
          kind=name, count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1 + len(VARIANTS)) as pool:  # the port's build and the variants'
-        for build in [pool.submit(kernels._library, d) for d in ((), *VARIANTS.values())]:
-            build.result()
+    kernels.load_library()
     emit("build", kernels=sorted(kernels.LAUNCHES), seconds=time.perf_counter() - t0,
-         library=os.path.relpath(str(kernels.library_path()), HERE),
-         variants={k: os.path.relpath(str(kernels.library_path(d)), HERE)
-                   for k, d in VARIANTS.items()})
+         library=os.path.relpath(str(kernels.library_path()), HERE))
 
     checks = []
     cases = [
@@ -689,10 +651,10 @@ def main() -> int:
     ops = [decode_ops(kernels, m) for m in ("deepmlp", "moe")]
     for D in DEEP_LEAVES:
         emit("time", kernel="fused_block_decode", **time_decode(kernels, 90, D))
-    emit("time_wide", kernel="fused_block_decode", **time_decode(kernels, 90, COVTYPE_W_IN))
+    for D, path in ((STAGED_WIDE, "staged"), (COVTYPE_W_IN, "streamed")):
+        emit("time_wide", kernel="fused_block_decode", path=path, **time_decode(kernels, 90, D))
     per_round = time_round(kernels, deep_shapes)
     emit("time_round", kernel="fused_block_decode_leaves", **per_round)
-    race = race_designs(kernels, deep_shapes)
 
     emit("profile", path="main", **profile_train(cli, MAIN_ARGS))
     deep_profile = profile_train(cli, DEEP_ARGS)

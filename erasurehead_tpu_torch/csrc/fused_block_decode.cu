@@ -52,12 +52,11 @@
 //    every call (host work on a loop that is already host-bound), would
 //    need 128 bytes per leaf in the parameters, and the slot order of the
 //    "ws" contract gathers rows in a stride pattern that one box does not
-//    describe. cp.async needs only the pointers already in the table.
-//    Built with -DEH_DECODE_REGISTER_LOADS, the slab is staged by plain
-//    16-byte loads through registers instead (cooperative vector loads);
-//    chip_smoke.py races the two. On the H100 cp.async staged a deep round
-//    about 1.3x faster (PERF.md has the numbers): a register load must
-//    return before its store to shared memory can issue.
+//    describe. cp.async needs only the pointers already in the table. It
+//    also beat staging through registers (cooperative 16-byte vector loads,
+//    then stores to shared memory): on the H100 a deep round took 1.3x
+//    longer that way (PERF.md), since a register load must return before
+//    its store to shared memory can issue.
 //  - Very wide leaves stream. Staging pays a fixed latency per tile and
 //    leaves a tile's bytes idle while it sums; on a leaf whose rows reach
 //    kStreamMinRowBytes (deepmlp's W_in at the covtype width: 1.99 MB) the
@@ -65,10 +64,10 @@
 //    bytes per row streams through registers, each thread walking the slots
 //    in order with several loads in flight (the previous design of this
 //    kernel). The same rounded steps in the same order: the result does not
-//    depend on the path. chip_smoke.py races staged-only and streamed-only
-//    builds (-DEH_STREAM_MIN_ROW_BYTES) at widths on both sides of the
-//    threshold; on the H100 staging was the faster or level below it, and
-//    only streaming kept [90, 496288] above 85% of its bound in every call.
+//    depend on the path. On the H100, staging was the faster or level below
+//    the threshold, and only streaming kept [90, 496288] above 85% of its
+//    bound in every call; the gap there is about the spread between calls
+//    (PERF.md). chip_smoke.py times one width on each side.
 //  - Rows whose 16-byte pieces are not aligned (D * sizeof(g) % 16 != 0,
 //    or g not 16-byte aligned, e.g. a D = 1 leaf) stage element by element.
 
@@ -84,11 +83,8 @@ constexpr int kThreads = 256;       // a block: all stage, one thread per column
 constexpr int kMaxLeaves = 32;      // leaves per launch
 constexpr int kOneStageRows = 128;  // M up to this stages in one burst
 constexpr int kChunkRows = 64;      // beyond it: chunks of this many slots, two buffers
-#ifndef EH_STREAM_MIN_ROW_BYTES
-#define EH_STREAM_MIN_ROW_BYTES (1536 * 1024)
-#endif
 // leaves with rows at least this wide stream through registers instead
-constexpr long long kStreamMinRowBytes = EH_STREAM_MIN_ROW_BYTES;
+constexpr long long kStreamMinRowBytes = 1536 * 1024;
 
 struct Leaf {
   const void* g;         // [W, S, D]
@@ -164,11 +160,7 @@ __device__ __forceinline__ void stage(const Leaf& leaf, const float* __restrict_
   for (int r = threadIdx.x; r < n; r += kThreads) {
     const long long j = slot_row(m0 + r, W, S);
     slot_rows[r] = static_cast<int>(j);
-#ifdef EH_DECODE_REGISTER_LOADS
-    wsm[r] = __ldg(ws + j);
-#else
     cp_async4(wsm + r, ws + j);
-#endif
   }
   __syncthreads();
   if (leaf.vec) {
@@ -179,12 +171,7 @@ __device__ __forceinline__ void stage(const Leaf& leaf, const float* __restrict_
     if (c * kPer < cols) {
       for (int r = threadIdx.x / kPieces; r < n; r += kThreads / kPieces) {
         const T* src = g + slot_rows[r] * leaf.D + c * kPer;
-#ifdef EH_DECODE_REGISTER_LOADS
-        *reinterpret_cast<uint4*>(gs + r * kCols + c * kPer) =
-            __ldg(reinterpret_cast<const uint4*>(src));
-#else
         cp_async16(gs + r * kCols + c * kPer, src);
-#endif
       }
     }
   } else {

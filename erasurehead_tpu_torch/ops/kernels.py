@@ -103,28 +103,27 @@ def _nvcc() -> str:
     )
 
 
-def _source_key(defines: tuple[str, ...]) -> str:
+def _source_key() -> str:
     h = hashlib.sha256()
     for src in _SOURCES:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(_NVCC_FLAGS + defines).encode())
+    h.update(" ".join(_NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def library_path(defines: tuple[str, ...] = ()) -> Path:
-    """Where the built shared library for the current sources (and extra
-    ``-D`` flags, empty for the port's own build) lives."""
-    return _BUILD_DIR / f"eh_kernels-{_source_key(defines)}.so"
+def library_path() -> Path:
+    """Where the built shared library for the current sources lives."""
+    return _BUILD_DIR / f"eh_kernels-{_source_key()}.so"
 
 
-def _build(defines: tuple[str, ...]) -> Path:
+def _build() -> Path:
     """Compile the kernel library if the current sources have no build yet.
 
     One ``nvcc -c`` per source, all started together, then one link. Writes
     ``<name>.so`` and the compilers' reports (``-Xptxas -v``: registers,
     shared memory, spills) as ``<name>.log`` beside it. Raises on failure."""
-    so = library_path(defines)
+    so = library_path()
     if so.exists():
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -132,7 +131,7 @@ def _build(defines: tuple[str, ...]) -> Path:
     nvcc = _nvcc()
     objs = [_BUILD_DIR / f"{tag}.{src.stem}.o" for src in _SOURCES]
     cmds = [
-        [nvcc, *_NVCC_FLAGS, *defines, "-Xptxas", "-v", "-c", "-o", str(o), str(src)]
+        [nvcc, *_NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o), str(src)]
         for src, o in zip(_SOURCES, objs)
     ]
     procs = [
@@ -160,10 +159,8 @@ def _build(defines: tuple[str, ...]) -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def _library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The kernel library, built with the extra ``-D`` flags ``defines``
-    (the port runs the build without any; chip_smoke.py times a variant)."""
-    lib = ctypes.CDLL(str(_build(defines)))
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_build()))
     lib.eh_fused_glm_grad.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p
     ]
@@ -272,27 +269,6 @@ def reference_block_decode(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return acc.to(g.dtype)
 
 
-def _check_decode(w, g) -> None:
-    if w.dtype != torch.float32:
-        raise ValueError(f"fused_block_decode: w must be float32, got {w.dtype}")
-    if g.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(
-            f"fused_block_decode: g must be float32 or bfloat16, got {g.dtype}"
-        )
-    if w.dim() != 1 or g.dim() != 2 or g.shape[0] != w.shape[0]:
-        raise ValueError(
-            "fused_block_decode: need w [M] and g [M, D], got "
-            f"{tuple(w.shape)} and {tuple(g.shape)}"
-        )
-    if min(g.shape) < 1:
-        raise ValueError(f"fused_block_decode: g must be non-empty, got {tuple(g.shape)}")
-    if w.device != g.device:
-        raise ValueError(f"fused_block_decode: w is on {w.device}, g on {g.device}")
-    for name, t in (("w", w), ("g", g)):
-        if not t.is_contiguous():
-            raise ValueError(f"fused_block_decode: {name} must be contiguous")
-
-
 def fused_block_decode(
     w: torch.Tensor,  # [M] float32 decode weight per slot, in reduction order
     g: torch.Tensor,  # [M, D] float32 or bfloat16 per-slot flattened gradients
@@ -300,14 +276,14 @@ def fused_block_decode(
     """Decoded leaf gradient ``sum_m w[m] * g[m, :]``: [D] in g's dtype.
 
     ``w`` must already be flattened in the order of the contraction it
-    replaces. CUDA tensors launch the decode kernel as a one-leaf table with
-    S = 1 (or raise); CPU tensors take :func:`reference_block_decode`."""
-    _check_decode(w, g)
-    if g.device.type == "cpu":
-        return reference_block_decode(w, g)
-    if g.device.type != "cuda":
-        raise ValueError(f"fused_block_decode: unsupported device {g.device}")
-    return _launch_decode(_library(), w, [g])[0]
+    replaces. The one-leaf, partition-major (S = 1) case of
+    :func:`fused_block_decode_leaves`, with its checks and dispatch."""
+    if w.dim() != 1 or g.dim() != 2:
+        raise ValueError(
+            "fused_block_decode: need w [M] and g [M, D], got "
+            f"{tuple(w.shape)} and {tuple(g.shape)}"
+        )
+    return fused_block_decode_leaves(w, [g])[0]
 
 
 def _s_major(ws: torch.Tensor):
@@ -378,12 +354,7 @@ def fused_block_decode_leaves(ws: torch.Tensor, leaves) -> list:
         return reference_block_decode_leaves(ws, leaves)
     if ws.device.type != "cuda":
         raise ValueError(f"fused_block_decode_leaves: unsupported device {ws.device}")
-    return _launch_decode(_library(), ws, leaves)
-
-
-def _launch_decode(lib: ctypes.CDLL, ws: torch.Tensor, leaves: list) -> list:
-    """Launch the decode kernel of ``lib`` on checked CUDA tensors: one
-    launch per ``eh_fused_block_decode_max_leaves()`` leaves."""
+    lib = _library()
     W, S = (tuple(ws.shape) + (1,))[:2]
     outs = [
         torch.empty(leaf.shape[ws.dim():], dtype=leaf.dtype, device=leaf.device)
