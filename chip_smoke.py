@@ -9,10 +9,12 @@ Phases, one JSON line each:
                  (one nvcc per source, started together, sm_90a), and time it;
   3. check     - each kernel against its plain PyTorch version on the card:
                  fused_glm_grad within tolerance at ragged, zero-weight,
-                 bfloat16 and main-path shapes; fused_block_decode bitwise at
-                 ragged, zero-weight and bfloat16 shapes, the deep path's six
-                 leaves and deepmlp's W_in at the covtype width, one leaf a
-                 launch; then the multi-leaf launch bitwise on deepmlp's and
+                 bfloat16 and main-path shapes, and at the partial schemes'
+                 [180, 1100, 128] and sparsegraph's [210, 4400, 128] stacks
+                 with their round weights' zero pattern; fused_block_decode
+                 bitwise at ragged, zero-weight and bfloat16 shapes, the deep
+                 path's six leaves and deepmlp's W_in at the covtype width,
+                 one leaf a launch; then the multi-leaf launch bitwise on deepmlp's and
                  moe's six leaves in the [30, 3, ...] slot layout, more slots
                  than one shared-memory stage holds, bfloat16, the covtype
                  width, the partition-major layout and more leaves than one
@@ -32,18 +34,40 @@ Phases, one JSON line each:
                  bitwise;
   6. moe, glm_layer - short layer-coded runs of the moe family and of the
                  logistic model at the same width, with their launch counts;
-  7. decode_ops - deepmlp's and moe's real per-slot leaves from
+  7. schemes   - the other schemes of the registry through the CLI at the main
+                 path's data and width: partialcyccoded and partialrepcoded
+                 (--partitions-per-worker 6), randreg, expander and
+                 sparsegraph (--num-collect 15), deadline (--deadline 0.5) and
+                 approx --decode optimal; each 100 rounds on the card with
+                 exactly 100 fused_glm_grad launches and none of the decode
+                 kernel, its loss falling, then 10 rounds on the card and on
+                 the CPU: replayed losses within relative 1e-4, simulated
+                 clocks byte-equal;
+  8. legacy    - the reference's 13-positional form and the named-flag form of
+                 one run (approx, W=8, s=1, collect 4, 10 rounds) on one
+                 reference layout written by data/io.write_reference_layout
+                 (artificial preset, 4,096 x 100): bitwise-equal artifacts,
+                 10 launches each;
+  9. input_dir - the partialrepcoded run of ``schemes`` again, on a reference
+                 layout of the same 132,000 x 128 data under
+                 ``--input-dir`` (the ``partial/120`` leaf), read from its
+                 ``.npy`` sidecars: 100 launches, five artifacts bitwise
+                 equal to the generated-data run's, and the load's time;
+  10. decode_ops - deepmlp's and moe's real per-slot leaves from
                  torch.func.vmap(grad) on the card: each must be contiguous
                  (the kernel reads them in place), and their decode must be
                  one kernel on the device and nothing else (no copy);
-  8. time      - each kernel, its plain version, the library call where one
+  11. time     - each kernel, its plain version, the library call where one
                  computes the same function, and the bound, at its path's
-                 shapes; fused_glm_grad's wide (re-read) path at two widths
+                 shapes (fused_glm_grad also at the partial and sparsegraph
+                 stacks, and on sparsegraph's nonzero-weight slots alone:
+                 the share of its time spent on zero-weight slots);
+                 fused_glm_grad's wide (re-read) path at two widths
                  off the main path; the decode per leaf, per round (one
                  launch against six cuBLAS GEMVs) and off the deep path at
                  one wide leaf on each side of the width from which the
                  kernel streams rows instead of staging them;
-  9. profile   - device time by kernel over one more training run of the GLM
+  12. profile  - device time by kernel over one more training run of the GLM
                  main path and of the deep path, from torch.profiler, and the
                  device's busy share of each round loop.
 
@@ -57,6 +81,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -89,7 +114,32 @@ DEEP_ARGS = MAIN_ARGS[:MAIN_ARGS.index("--update-rule")] + [
     "--add-delay", "--quiet", "--model", "deepmlp", "--layer-coding", "on",
     "--block-decode", "fused",
 ]
-SHORT_ROUNDS = 10  # the deep path's card-vs-CPU and fused-vs-treewise comparisons
+SHORT_ROUNDS = 10  # the card-vs-CPU and fused-vs-treewise comparisons
+# the schemes phase: every other registry scheme at the main path's data
+SCHEME_BASE = [
+    "--workers", "30", "--stragglers", "2", "--rounds", "100", "--rows", "132000",
+    "--cols", "128", "--update-rule", "AGD", "--compute-mode", "faithful",
+    "--add-delay", "--quiet",
+]
+SCHEME_RUNS = (  # (name, scheme flags, B1's [M, R, F])
+    ("partialcyccoded", ["--scheme", "partialcyccoded", "--partitions-per-worker", "6"],
+     (180, 1100, 128)),
+    ("partialrepcoded", ["--scheme", "partialrepcoded", "--partitions-per-worker", "6"],
+     (180, 1100, 128)),
+    ("randreg", ["--scheme", "randreg", "--num-collect", "15"], (90, 4400, 128)),
+    ("expander", ["--scheme", "expander", "--num-collect", "15"], (90, 4400, 128)),
+    ("sparsegraph", ["--scheme", "sparsegraph", "--num-collect", "15"], (210, 4400, 128)),
+    ("deadline", ["--scheme", "deadline", "--deadline", "0.5"], (30, 4400, 128)),
+    ("approx_optimal", ["--scheme", "approx", "--num-collect", "15", "--decode", "optimal"],
+     (90, 4400, 128)),
+)
+PARTIAL_SHAPE, SPARSE_SHAPE = (180, 1100, 128), (210, 4400, 128)
+# the legacy phase: approx, W = 8 (n_procs 9), s = 1, collect 4, on a written
+# reference layout of the artificial preset (4,096 x 100)
+LEGACY_ROWS, LEGACY_COLS, LEGACY_W = 4096, 100, 8
+# the input_dir phase: this schemes run again, on its data written as a
+# reference layout (partial/<(p - s) W> = partial/120)
+INPUT_DIR_RUN = "partialrepcoded"
 LAYER_ROUNDS = 20  # the moe and glm_layer runs
 # M = 90 slots; per-slot leaf sizes of deepmlp at F = 128 in sorted-key order
 # (W, W_in, b, b_in, b_out, w_out), and its W_in at the covtype preset's width
@@ -145,10 +195,13 @@ def make_inputs(M, R, F, dtype, seed, zero_every=0):
     return b, X, y, w
 
 
-def check_glm(kernels, shape, dtype, kind, zero_every, seed):
+def check_glm(kernels, shape, dtype, kind, zero_every, seed, weights=None):
     """Kernel vs plain version: |err| <= 1e-5 * sum_r |w s x| + 1e-6 per
-    column, the float32 rounding of sums taken in another order."""
+    column, the float32 rounding of sums taken in another order.
+    ``weights`` (a numpy [M] array) replaces the random slot weights."""
     b, X, y, w = make_inputs(*shape, dtype, seed, zero_every)
+    if weights is not None:
+        w = torch.from_numpy(weights).cuda()
     got = kernels.fused_glm_grad(b, X, y, w, kind)
     again = kernels.fused_glm_grad(b, X, y, w, kind)
     want = kernels.reference_glm_grad(b, X, y, w, kind)
@@ -199,13 +252,21 @@ def with_rounds(args, rounds):
     return args[:i + 1] + [str(rounds)] + args[i + 2:]
 
 
-def run_main(cli, out_dir, device, args=MAIN_ARGS) -> dict:
+def parse_config(cli, args):
+    return cli._flags_to_config(cli._flags_parser().parse_args(args))
+
+
+def run_main(cli, out_dir, device, args=MAIN_ARGS, prefix=None, workers=30) -> dict:
     """One CLI run; its five artifacts must exist, be finite and have the
-    run's shape."""
+    run's shape. ``prefix`` defaults to the named-flag run's artifact
+    prefix."""
     if cli.main(args + ["--output-dir", out_dir, "--device", device]) != 0:
         raise AssertionError(f"cli.main failed on {device}: {args}")
     rounds = int(args[args.index("--rounds") + 1])
-    prefix = "approx_acc_2"
+    if prefix is None:
+        from erasurehead_tpu_torch.train.artifacts import run_prefix
+
+        prefix = run_prefix(parse_config(cli, args))
     paths = {a: os.path.join(out_dir, f"{prefix}_{a}.dat") for a in ARTIFACTS}
     missing = [p for p in paths.values() if not os.path.exists(p)]
     if missing:
@@ -216,16 +277,16 @@ def run_main(cli, out_dir, device, args=MAIN_ARGS) -> dict:
     for a in ("training_loss", "testing_loss", "auc", "timeset"):
         if arts[a].shape != (rounds,) or not np.isfinite(arts[a]).all():
             raise AssertionError(f"{a}: shape {arts[a].shape} or non-finite values")
-    if arts["worker_timeset"].shape != (rounds, 30):
+    if arts["worker_timeset"].shape != (rounds, workers):
         raise AssertionError(f"worker_timeset shape {arts['worker_timeset'].shape}")
     return dict(arts=arts, manifest=manifest)
 
 
-def counted_run(cli, kernels, out_dir, args, want) -> dict:
+def counted_run(cli, kernels, out_dir, args, want, **kw) -> dict:
     """A run on the card with every launch count set to 0 just before it
     and read just after; the counts must be exactly ``want``."""
     kernels.reset_launches()
-    run = run_main(cli, out_dir, "cuda", args)
+    run = run_main(cli, out_dir, "cuda", args, **kw)
     run["launches"] = dict(kernels.LAUNCHES)
     if run["launches"] != want:
         raise AssertionError(f"{args} launched {run['launches']}, want {want}")
@@ -267,7 +328,7 @@ def profile_train(cli, args) -> dict:
 
     from erasurehead_tpu_torch.train import trainer
 
-    cfg = cli._flags_to_config(cli._flags_parser().parse_args(args))
+    cfg = parse_config(cli, args)
     ds = cli.load_dataset(cfg)
     warm = trainer.train(cfg, ds)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -511,6 +572,184 @@ def decode_ops(kernels, model_name) -> dict:
     return rec
 
 
+def scheme_slot_weights(cli, args) -> np.ndarray:
+    """The run's [R, W * S] float32 slot weights, from the port's host
+    control plane (layout, arrivals, collection rule, decode), as the trainer
+    builds them."""
+    from erasurehead_tpu_torch.parallel import step
+    from erasurehead_tpu_torch.train import trainer
+
+    cfg = parse_config(cli, args)
+    layout = trainer.build_layout(cfg)
+    sched = trainer.build_schedule(cfg, trainer.default_arrivals(cfg), layout)
+    w = step.expand_slot_weights(sched.message_weights, layout.coeffs, layout.slot_is_coded)
+    return w.reshape(cfg.rounds, -1).astype(np.float32)
+
+
+def schemes_phase(cli, kernels, tmp, both0) -> list:
+    """Each of SCHEME_RUNS through the CLI: 100 rounds on the card with the
+    counts read as in ``main``, its loss falling; then 10 rounds on the card
+    and on the CPU, held to each other."""
+    rows = []
+    for name, flags, shape in SCHEME_RUNS:
+        args = flags + SCHEME_BASE
+        w = scheme_slot_weights(cli, args)
+        if w.shape[1] != shape[0]:
+            raise AssertionError(f"{name}: {w.shape[1]} slots, want {shape[0]}")
+        t0 = time.perf_counter()
+        run = counted_run(cli, kernels, os.path.join(tmp, name), args,
+                          {**both0, "fused_glm_grad": ROUNDS})
+        short = with_rounds(args, SHORT_ROUNDS)
+        gpu10 = run_main(cli, os.path.join(tmp, name + "10_cuda"), "cuda", short)
+        cpu10 = run_main(cli, os.path.join(tmp, name + "10_cpu"), "cpu", short)
+        rec = dict(
+            run=name, args=args, launches=run["launches"], stack=list(shape),
+            steps_per_sec=run["manifest"]["steps_per_sec"],
+            wall_time_s=run["manifest"]["wall_time"],
+            zero_weight_slot_share=float((w == 0).mean()),
+            train_loss_first_last=check_falls(run),
+            final_auc=float(run["arts"]["auc"][-1]),
+            decode_error_mean=run["manifest"].get("decode_error_mean"),
+            sim_total_time=run["manifest"]["sim_total_time"],
+            **compare_runs(gpu10, cpu10),
+            phase_seconds=time.perf_counter() - t0,
+        )
+        emit("schemes", **rec)
+        rows.append(rec)
+    return rows
+
+
+def legacy_phase(cli, kernels, tmp, both0) -> dict:
+    """The 13-positional form and the named-flag form of one run on one
+    written reference layout: 10 launches each, bitwise-equal artifacts."""
+    from erasurehead_tpu_torch.data import io as data_io
+    from erasurehead_tpu_torch.data.synthetic import generate_gmm
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "legacy_data")
+    layout_dir = os.path.join(root, "artificial-data", f"{LEGACY_ROWS}x{LEGACY_COLS}",
+                              str(LEGACY_W))
+    data_io.write_reference_layout(
+        generate_gmm(LEGACY_ROWS, LEGACY_COLS, LEGACY_W, seed=0), layout_dir, LEGACY_W)
+    write_s = time.perf_counter() - t0
+    rounds = ["--rounds", str(SHORT_ROUNDS), "--quiet"]
+    legacy_args = [str(LEGACY_W + 1), str(LEGACY_ROWS), str(LEGACY_COLS), root, "0",
+                   "artificial", "1", "1", "0", "3", "4", "1", "AGD"] + rounds
+    flag_args = ["--scheme", "approx", "--workers", str(LEGACY_W), "--stragglers", "1",
+                 "--num-collect", "4", "--rows", str(LEGACY_ROWS), "--cols", str(LEGACY_COLS),
+                 "--input-dir", root, "--add-delay", "--update-rule", "AGD"] + rounds
+    want = {**both0, "fused_glm_grad": SHORT_ROUNDS}
+    kw = dict(prefix="approx_acc_1", workers=LEGACY_W)
+    legacy = counted_run(cli, kernels, os.path.join(tmp, "legacy_out"), legacy_args, want, **kw)
+    if not os.path.exists(os.path.join(layout_dir, "1.dat.npy")):
+        raise AssertionError("the legacy run did not read the written layout")
+    flags = counted_run(cli, kernels, os.path.join(tmp, "flags_out"), flag_args, want, **kw)
+    same = {a: legacy["arts"][a].tobytes() == flags["arts"][a].tobytes() for a in ARTIFACTS}
+    same_files = all(
+        open(os.path.join(tmp, "legacy_out", f"approx_acc_1_{a}.dat"), "rb").read()
+        == open(os.path.join(tmp, "flags_out", f"approx_acc_1_{a}.dat"), "rb").read()
+        for a in ARTIFACTS)
+    rec = dict(legacy_args=legacy_args, flag_args=flag_args,
+               launches=[legacy["launches"], flags["launches"]],
+               artifacts_bitwise_equal=same, artifact_files_equal=same_files,
+               train_loss_first_last=check_falls(legacy),
+               write_layout_s=write_s, phase_seconds=time.perf_counter() - t0)
+    emit("legacy", **rec)
+    if not (all(same.values()) and same_files):
+        raise AssertionError(f"legacy and named-flag artifacts differ: {same}")
+    return rec
+
+
+def write_sidecar_layout(dataset, out_dir, n_partitions) -> None:
+    """A dense reference layout whose text files are empty placeholders and
+    whose ``.npy`` sidecars hold what parsing the full text gives (float64),
+    written after the placeholders so that data/io.load_dense_text takes its
+    warm, memory-mapped path. Writing 132,000 x 128 values as text would take
+    longer than the rest of the phase; the legacy phase covers the cold
+    parse."""
+    os.makedirs(out_dir, exist_ok=True)
+    rows = dataset.n_samples // n_partitions
+    files = {f"{i + 1}.dat": dataset.X_train[i * rows:(i + 1) * rows]
+             for i in range(n_partitions)}
+    files.update({"label.dat": dataset.y_train[:rows * n_partitions],
+                  "test_data.dat": dataset.X_test, "label_test.dat": dataset.y_test})
+    for fname in files:
+        open(os.path.join(out_dir, fname), "w").close()
+    for fname, m in files.items():
+        np.save(os.path.join(out_dir, fname + ".npy"), np.asarray(m, dtype=np.float64))
+
+
+def input_dir_phase(cli, kernels, tmp, both0) -> dict:
+    """INPUT_DIR_RUN through ``--input-dir`` at the flagship width: the
+    loaded data equals the generated data, 100 launches, and the five
+    artifacts equal the schemes phase's generated-data run bitwise."""
+    from erasurehead_tpu_torch.train.artifacts import run_prefix
+
+    t0 = time.perf_counter()
+    flags = {name: f for name, f, _ in SCHEME_RUNS}[INPUT_DIR_RUN]
+    root = os.path.join(tmp, "input_dir_data")
+    args = flags + SCHEME_BASE + ["--input-dir", root]
+    cfg = parse_config(cli, args)
+    path, n_parts = cli.dataset_dir(cfg), cli.n_partitions(cfg)
+    generated = cli.load_dataset(dataclasses.replace(cfg, input_dir=None))
+    write_sidecar_layout(generated, path, n_parts)
+    write_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    loaded = cli.load_dataset(cfg)
+    load_s = time.perf_counter() - t1
+    fields = ("X_train", "y_train", "X_test", "y_test")
+    same_data = {f: np.array_equal(np.asarray(getattr(loaded, f), np.float64),
+                                   np.asarray(getattr(generated, f), np.float64))
+                 for f in fields}
+    del generated, loaded
+    if not all(same_data.values()):
+        raise AssertionError(f"the layout under --input-dir loads other data: {same_data}")
+    out = os.path.join(tmp, "input_dir_out")
+    run = counted_run(cli, kernels, out, args, {**both0, "fused_glm_grad": ROUNDS})
+    prefix = run_prefix(cfg)
+    same = {a: open(os.path.join(out, f"{prefix}_{a}.dat"), "rb").read()
+            == open(os.path.join(tmp, INPUT_DIR_RUN, f"{prefix}_{a}.dat"), "rb").read()
+            for a in ARTIFACTS}
+    rec = dict(run=INPUT_DIR_RUN, args=args, layout=os.path.relpath(path, root),
+               partitions=n_parts, launches=run["launches"], loaded_equals_generated=same_data,
+               artifacts_bitwise_equal_generated=same,
+               train_loss_first_last=check_falls(run),
+               steps_per_sec=run["manifest"]["steps_per_sec"],
+               write_sidecars_s=write_s, warm_load_s=load_s,
+               phase_seconds=time.perf_counter() - t0)
+    emit("input_dir", **rec)
+    if not all(same.values()):
+        raise AssertionError(f"--input-dir and generated-data artifacts differ: {same}")
+    return rec
+
+
+def time_scheme_stack(kernels, shape, w, label) -> dict:
+    """B1, its plain version and its bound at a scheme's stack with one
+    round's weights; on the sparsegraph stack also B1 on that round's
+    nonzero-weight slots alone (what skipping zero-weight slots would leave)."""
+    b, X, y, _ = make_inputs(*shape, torch.float32, seed=102)
+    wt = torch.from_numpy(w).cuda()
+    k = [time_ms(lambda: kernels.fused_glm_grad(b, X, y, wt, "logistic"))]
+    p = [time_ms(lambda: kernels.reference_glm_grad(b, X, y, wt, "logistic"))]
+    k.append(time_ms(lambda: kernels.fused_glm_grad(b, X, y, wt, "logistic")))
+    p.append(time_ms(lambda: kernels.reference_glm_grad(b, X, y, wt, "logistic")))
+    bound, by = glm_bound_ms(*shape, 4)
+    rec = dict(kernel="fused_glm_grad", stack=label, shape=list(shape), kernel_ms=k,
+               plain_ms=p, bound_ms=bound, bound_by=by,
+               zero_weight_slots=int((wt == 0).sum()))
+    if label == "sparsegraph":
+        nz = (wt != 0).nonzero().reshape(-1)
+        Xn, yn, wn = X[nz].contiguous(), y[nz].contiguous(), wt[nz].contiguous()
+        nz_ms = time_ms(lambda: kernels.fused_glm_grad(b, Xn, yn, wn, "logistic"))
+        rec.update(nonzero_slots=int(nz.numel()), nonzero_only_kernel_ms=nz_ms,
+                   nonzero_only_bound_ms=glm_bound_ms(int(nz.numel()), *shape[1:], 4)[0],
+                   zero_slot_time_share=1.0 - nz_ms / min(k))
+        del Xn, yn
+    emit("time", **rec)
+    del X, y
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -569,6 +808,19 @@ def main() -> int:
     for i, (shapes, dtype, lead) in enumerate(leaf_cases):
         decode_checks.append(check_decode_leaves(kernels, shapes, dtype, 240 + i, lead))
     decode_err = max(c["max_abs_err"] for c in decode_checks)
+    # B1 at the new schemes' stacks, with round 0's weights of each
+    stack_w = {}
+    flags_of = {name: flags for name, flags, _ in SCHEME_RUNS}
+    for label, flags, shape in (("partial", flags_of["partialcyccoded"], PARTIAL_SHAPE),
+                                ("sparsegraph", flags_of["sparsegraph"], SPARSE_SHAPE)):
+        stack_w[label] = scheme_slot_weights(cli, flags + with_rounds(SCHEME_BASE, 1))[0]
+        for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+            for kind in kernels.GLM_KINDS:
+                checks.append(check_glm(kernels, shape, dtype, kind, 0, 30 + i,
+                                        weights=stack_w[label]))
+    main_err = max(main_err, max(c["max_abs_err"] for c in checks
+                                 if c["shape"] in (list(PARTIAL_SHAPE), list(SPARSE_SHAPE))
+                                 and c["dtype"] == "float32" and c["kind"] == "logistic"))
 
     both0 = {name: 0 for name in kernels.LAUNCHES}
     with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-") as tmp:
@@ -624,6 +876,12 @@ def main() -> int:
                                         float(run["arts"]["training_loss"][-1])],
                  final_auc=float(run["arts"]["auc"][-1]))
 
+        t_schemes = time.perf_counter()
+        scheme_rows = schemes_phase(cli, kernels, tmp, both0)
+        legacy = legacy_phase(cli, kernels, tmp, both0)
+        on_disk = input_dir_phase(cli, kernels, tmp, both0)
+        new_phases_s = time.perf_counter() - t_schemes
+
     # times at the main path's shapes (compare launches do not count)
     b, X, y, w = make_inputs(*MAIN_SHAPE, torch.float32, seed=100)
     Xb = X.to(torch.bfloat16)
@@ -648,6 +906,9 @@ def main() -> int:
              plain_ms=p_ms, bound_ms=bound, bound_by=by)
         del b, X, y, w
 
+    stack_times = {label: time_scheme_stack(kernels, shape, stack_w[label], label)
+                   for label, shape in (("partial", PARTIAL_SHAPE), ("sparsegraph", SPARSE_SHAPE))}
+
     ops = [decode_ops(kernels, m) for m in ("deepmlp", "moe")]
     for D in DEEP_LEAVES:
         emit("time", kernel="fused_block_decode", **time_decode(kernels, 90, D))
@@ -667,7 +928,14 @@ def main() -> int:
         "source": "erasurehead_tpu_torch/csrc/fused_glm_grad.cu",
         "replaces": "erasurehead_tpu/ops/kernels.py:68",
         "tpu_kernel": "erasurehead_tpu/ops/kernels.py:_kernel",
-        "launches": launches["fused_glm_grad"],
+        # the main path's 100, each schemes run's 100 and the input_dir run's
+        "launches": launches["fused_glm_grad"]
+        + sum(r["launches"]["fused_glm_grad"] for r in scheme_rows)
+        + on_disk["launches"]["fused_glm_grad"],
+        "launches_by_path": {"main": launches["fused_glm_grad"],
+                             **{r["run"]: r["launches"]["fused_glm_grad"] for r in scheme_rows},
+                             "legacy": [n["fused_glm_grad"] for n in legacy["launches"]],
+                             "input_dir": on_disk["launches"]["fused_glm_grad"]},
         "max_abs_err": main_err,
         "ms": kernel_ms_best,
         "plain_ms": min(plain_ms, plain_ms_2),  # the two-pass torch yardstick
@@ -675,6 +943,11 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "steps_per_sec": gpu["manifest"]["steps_per_sec"],
+        "scheme_stacks": {label: dict(shape=r["shape"], ms=min(r["kernel_ms"]),
+                                      plain_ms=min(r["plain_ms"]), bound_ms=r["bound_ms"])
+                          for label, r in stack_times.items()},
+        "sparsegraph_zero_slot_time_share": stack_times["sparsegraph"]["zero_slot_time_share"],
+        "schemes_legacy_input_dir_phase_s": new_phases_s,
     }, {
         "name": "fused_block_decode",
         "route": "cuda",

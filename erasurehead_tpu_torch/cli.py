@@ -1,6 +1,8 @@
 """Command-line entry point of the PyTorch/CUDA port.
 
-Named flags, as the JAX package's CLI takes them::
+Two invocation forms, as the JAX package's CLI takes them.
+
+1. **Named flags**::
 
     python -m erasurehead_tpu_torch.cli --scheme approx --workers 30 \\
         --stragglers 2 --num-collect 15 --rounds 100 --rows 132000 \\
@@ -15,25 +17,124 @@ saddle, where the loss stays at log 2)::
         --rounds 100 --update-rule GD --lr 0.5 --add-delay \\
         --model deepmlp --layer-coding on --block-decode fused
 
-Run flow: generate the synthetic dataset, train on the device (``cuda``
+   ``--scheme`` takes every name of the scheme registry
+   (erasurehead_tpu_torch/schemes/): naive, cyccoded, repcoded, approx,
+   avoidstragg, randreg, sparsegraph, expander, deadline (with
+   ``--deadline``), partialcyccoded and partialrepcoded (with
+   ``--partitions-per-worker``), and any registered extension.
+   ``--decode optimal`` refits each round's decode weights by least squares
+   to the actual arrival set.
+
+2. **Legacy positional**: the reference's 13-argument calling convention
+   (main.py:20-27)::
+
+       python -m erasurehead_tpu_torch.cli n_procs n_rows n_cols input_dir \\
+           is_real dataset is_coded n_stragglers partitions coded_ver \\
+           num_collect add_delay update_rule [--rounds N] [--device cpu] \\
+           [--output-dir DIR] [--quiet]
+
+   Dispatch parity (main.py:62-92): is_coded=0 -> naive; coded_ver 0 ->
+   cyclic MDS (partial if partitions>0), 1 -> FRC (partial if partitions>0),
+   2 -> avoidstragg, 3 -> AGC; dataset "kc_house_data" selects the linear
+   model. The optional trailing flags are the port's: the 13 arguments carry
+   no round count, device or output directory.
+
+Run flow: load the reference-layout dataset under ``--input-dir`` if it is
+there, else generate the synthetic one (a real dataset, any but
+``artificial``, raises without its layout); train on the device (``cuda``
 unless ``--device cpu``), replay the eval, write the five artifacts and the
 manifest into ``--output-dir`` (default ``<input_dir>/.../results/``, the
-reference's layout).
-
-Not ported yet: the reference's 13-positional-argument form and the on-disk
-reference-layout loader; a run whose ``--input-dir`` holds such a layout
-raises instead of training on synthetic data.
+reference's layout). A CSR (``.npz``) layout loads but is refused when the
+trainer stacks it: the port stacks dense features only.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
+from erasurehead_tpu_torch import schemes as schemes_lib
+from erasurehead_tpu_torch.data import io as data_io
 from erasurehead_tpu_torch.data.synthetic import Dataset, generate_gmm, generate_linear
 from erasurehead_tpu_torch.train import artifacts, evaluate, trainer
-from erasurehead_tpu_torch.utils.config import ModelKind, RunConfig, Scheme
+from erasurehead_tpu_torch.utils.config import ModelKind, RunConfig
+
+#: legacy (is_coded=1) dispatch: coded_ver -> scheme, without and with
+#: partitions (main.py:62-92)
+_LEGACY_CODED = {0: "cyccoded", 1: "repcoded", 2: "avoidstragg", 3: "approx"}
+_LEGACY_PARTIAL = {1: "partialrepcoded", 0: "partialcyccoded"}
+
+
+def _legacy_to_config(argv: list[str]) -> RunConfig:
+    """Map the reference's 13 positional args onto a RunConfig."""
+    (
+        n_procs, n_rows, n_cols, input_dir, is_real, dataset, is_coded,
+        n_stragglers, partitions, coded_ver, num_collect, add_delay,
+        update_rule,
+    ) = argv
+    n_procs, n_rows, n_cols = int(n_procs), int(n_rows), int(n_cols)
+    is_real, is_coded = int(is_real), int(is_coded)
+    n_stragglers, partitions, coded_ver = (
+        int(n_stragglers), int(partitions), int(coded_ver),
+    )
+    num_collect, add_delay = int(num_collect), int(add_delay)
+
+    if not is_coded:
+        scheme = "naive"
+    elif partitions:
+        if coded_ver not in _LEGACY_PARTIAL:
+            raise SystemExit(
+                f"coded_ver={coded_ver} invalid with partitions>0 "
+                f"(0=partial coded, 1=partial replication; main.py:64-68)"
+            )
+        scheme = _LEGACY_PARTIAL[coded_ver]
+    else:
+        if coded_ver not in _LEGACY_CODED:
+            raise SystemExit(
+                f"coded_ver={coded_ver} invalid (0=cyclic MDS, 1=FRC, "
+                f"2=avoidstragg, 3=AGC; main.py:70-87)"
+            )
+        scheme = _LEGACY_CODED[coded_ver]
+    model = (
+        ModelKind.LINEAR if dataset == "kc_house_data" else ModelKind.LOGISTIC
+    )
+    return RunConfig(
+        scheme=scheme,
+        model=model,
+        n_workers=n_procs - 1,  # reference: rank 0 is the master
+        n_stragglers=n_stragglers,
+        num_collect=num_collect if num_collect > 0 else None,
+        add_delay=bool(add_delay),
+        update_rule=update_rule,
+        dataset=dataset if is_real else "artificial",
+        n_rows=n_rows,
+        n_cols=n_cols,
+        input_dir=input_dir,
+        is_real_data=bool(is_real),
+        partitions_per_worker=partitions,
+    )
+
+
+def _legacy_options_parser() -> argparse.ArgumentParser:
+    """The port's optional flags after the 13 legacy positionals."""
+    p = argparse.ArgumentParser(prog="erasurehead_tpu_torch (legacy form)")
+    p.add_argument("--rounds", type=int, default=None)
+    p.add_argument("--output-dir", default=None)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--quiet", action="store_true")
+    return p
+
+
+def _is_legacy(argv: list[str]) -> bool:
+    """The 13-positional form: 13 leading arguments none of which is a flag,
+    then nothing or only flags."""
+    return (
+        len(argv) >= 13
+        and not any(a.startswith("--") for a in argv[:13])
+        and (len(argv) == 13 or argv[13].startswith("--"))
+    )
 
 
 def _flags_parser() -> argparse.ArgumentParser:
@@ -41,11 +142,22 @@ def _flags_parser() -> argparse.ArgumentParser:
         prog="erasurehead_tpu_torch",
         description="Straggler-tolerant coded gradient descent on an NVIDIA GPU",
     )
-    p.add_argument("--scheme", default="naive", choices=[s.value for s in Scheme])
+    # --scheme choices come from the registry, so entry-point-registered
+    # schemes appear here without touching this file
+    p.add_argument("--scheme", default="naive", choices=schemes_lib.names())
     p.add_argument("--model", default=None, choices=[m.value for m in ModelKind])
     p.add_argument("--workers", type=int, default=8)
     p.add_argument("--stragglers", type=int, default=1)
     p.add_argument("--num-collect", type=int, default=None)
+    p.add_argument("--deadline", type=float, default=None,
+                   help="per-round collection deadline in simulated "
+                        "seconds (scheme=deadline)")
+    p.add_argument("--decode", default="fixed", choices=["fixed", "optimal"],
+                   help="decode-weight policy: 'optimal' refits the "
+                        "collection weights per round to the actual "
+                        "arrival set (least squares over the layout's "
+                        "effective coding matrix, arXiv:2006.09638); "
+                        "'fixed' keeps the scheme's own weights")
     p.add_argument("--rounds", type=int, default=100)
     p.add_argument("--dataset", default="artificial")
     p.add_argument("--rows", type=int, default=4096)
@@ -57,6 +169,7 @@ def _flags_parser() -> argparse.ArgumentParser:
     p.add_argument("--alpha", type=float, default=None, help="l2 coefficient")
     p.add_argument("--add-delay", action="store_true")
     p.add_argument("--delay-mean", type=float, default=0.5)
+    p.add_argument("--partitions-per-worker", type=int, default=0)
     p.add_argument("--compute-mode", default="faithful", choices=["faithful", "deduped"])
     p.add_argument("--use-pallas", default="auto", choices=["auto", "on", "off"],
                    help="fused one-pass GLM gradient kernel "
@@ -102,6 +215,8 @@ def _flags_to_config(ns: argparse.Namespace) -> RunConfig:
         n_workers=ns.workers,
         n_stragglers=ns.stragglers,
         num_collect=ns.num_collect,
+        deadline=ns.deadline,
+        decode=ns.decode,
         rounds=ns.rounds,
         add_delay=ns.add_delay,
         delay_mean=ns.delay_mean,
@@ -112,6 +227,8 @@ def _flags_to_config(ns: argparse.Namespace) -> RunConfig:
         n_rows=ns.rows,
         n_cols=ns.cols,
         input_dir=ns.input_dir,
+        is_real_data=ns.input_dir is not None and ns.dataset != "artificial",
+        partitions_per_worker=ns.partitions_per_worker,
         compute_mode=ns.compute_mode,
         use_pallas=ns.use_pallas,
         layer_coding=ns.layer_coding,
@@ -122,48 +239,56 @@ def _flags_to_config(ns: argparse.Namespace) -> RunConfig:
     )
 
 
+def n_partitions(cfg: RunConfig) -> int:
+    """The dataset's partition count: W, or (p - s) * W for the partial
+    schemes (the JAX CLI's count)."""
+    if not cfg.partitions_per_worker:
+        return cfg.n_workers
+    return (cfg.partitions_per_worker - cfg.n_stragglers) * cfg.n_workers
+
+
 def dataset_dir(cfg: RunConfig) -> str | None:
     """The reference's on-disk dataset directory for this config
     (path synthesis: main.py:59-60, generate_data.py:59-62)."""
     if not cfg.input_dir:
         return None
     sub = (
-        f"artificial-data/{cfg.n_rows}x{cfg.n_cols}"
-        if cfg.dataset == "artificial"
-        else cfg.dataset
+        cfg.dataset
+        if cfg.is_real_data
+        else f"artificial-data/{cfg.n_rows}x{cfg.n_cols}"
     )
-    return os.path.join(cfg.input_dir, sub, str(cfg.n_workers))
-
-
-def _has_reference_layout(path: str | None) -> bool:
-    """True iff ``path`` holds partition 1 of a reference layout."""
-    return path is not None and (
-        os.path.exists(os.path.join(path, "1.dat"))
-        or os.path.exists(os.path.join(path, "1.npz"))
+    leaf = (
+        str(cfg.n_workers)
+        if not cfg.partitions_per_worker
+        else f"partial/{n_partitions(cfg)}"
     )
+    return os.path.join(cfg.input_dir, sub, leaf)
 
 
 def load_dataset(cfg: RunConfig) -> Dataset:
-    """The in-memory synthetic dataset for this config.
+    """The reference-layout directory if present, else the in-memory
+    synthetic dataset.
 
-    Raises where the config names on-disk data: the reference-layout loader
-    is not ported yet, and training on synthetic data under a real dataset's
-    name would be worse than failing."""
+    A config that names a real dataset (any but ``"artificial"``) raises
+    when its layout is not on disk, with or without ``--input-dir``:
+    training on synthetic data under a real dataset's name would be worse
+    than failing. (The JAX CLI generates synthetic data when no
+    ``--input-dir`` is given; the port refuses.) A CSR (``.npz``) layout
+    loads here and is refused where the trainer stacks it
+    (data/sharding.partition_stack): sparse stacks are not ported."""
+    P = n_partitions(cfg)
     path = dataset_dir(cfg)
-    if _has_reference_layout(path):
-        raise NotImplementedError(
-            f"{path!r} holds a reference-layout dataset, but the on-disk "
-            "loader (erasurehead_tpu/data/io.py) is not ported yet; run "
-            "without --input-dir to train on generated data"
-        )
+    if data_io.has_reference_layout(path):
+        return data_io.read_reference_layout(path, P)
     if cfg.dataset != "artificial":
-        raise NotImplementedError(
-            f"dataset {cfg.dataset!r} is real data, which needs the on-disk "
-            "loader (not ported yet); only 'artificial' is generated"
+        raise FileNotFoundError(
+            f"real dataset {cfg.dataset!r} not found at {path!r}; pass its "
+            "reference layout with --input-dir (write one with "
+            "erasurehead_tpu_torch.data.io.write_reference_layout)"
         )
     if cfg.model == ModelKind.LINEAR:
-        return generate_linear(cfg.n_rows, cfg.n_cols, cfg.n_workers, cfg.seed)
-    return generate_gmm(cfg.n_rows, cfg.n_cols, cfg.n_workers, cfg.seed)
+        return generate_linear(cfg.n_rows, cfg.n_cols, P, cfg.seed)
+    return generate_gmm(cfg.n_rows, cfg.n_cols, P, cfg.seed)
 
 
 def run(cfg: RunConfig, output_dir: str | None = None, quiet: bool = False,
@@ -193,6 +318,13 @@ def run(cfg: RunConfig, output_dir: str | None = None, quiet: bool = False,
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if _is_legacy(argv):
+        cfg = _legacy_to_config(argv[:13])
+        opts = _legacy_options_parser().parse_args(argv[13:])
+        if opts.rounds is not None:
+            cfg = dataclasses.replace(cfg, rounds=opts.rounds)
+        run(cfg, output_dir=opts.output_dir, quiet=opts.quiet, device=opts.device)
+        return 0
     ns = _flags_parser().parse_args(argv)
     run(
         _flags_to_config(ns),

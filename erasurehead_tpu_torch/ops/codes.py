@@ -1,8 +1,8 @@
 """Coding-theory core: data-assignment layouts, generator matrices, decode weights.
 
-Host-side numpy, the main-path subset of erasurehead_tpu/ops/codes.py with the
-same arithmetic, so layouts and decode weights match the JAX package byte for
-byte. A *layout* describes which data partitions each logical worker holds
+Host-side numpy, the layouts and host decode of erasurehead_tpu/ops/codes.py
+with the same arithmetic and the same random draws, so layouts and decode
+weights match the JAX package byte for byte. A *layout* describes which data partitions each logical worker holds
 and with which linear-coding coefficient it folds each partition's gradient
 into the single message it "sends"; *decode weights* recover (exactly or
 approximately) the full-batch gradient from a subset of worker messages.
@@ -14,6 +14,8 @@ code):
   - generator matrix B for exact gradient coding: src/util.py:64-83
   - fractional-repetition (FRC) assignment: src/replication.py:46-49,
     src/approximate_coding.py:47-50
+  - partial two-slice layouts (unique uncoded partitions + a coded band):
+    src/partial_coded.py:20-43,125-126 and src/partial_replication.py:24-50
   - lstsq decode over the completed subset: src/coded.py:147-149
 """
 
@@ -32,9 +34,9 @@ class CodingLayout:
     Each of the ``n_workers`` logical workers holds ``n_slots`` partition
     slots. Slot ``s`` of worker ``w`` holds global partition
     ``assignment[w, s]`` and contributes ``coeffs[w, s] * grad(partition)`` to
-    the worker's transmitted message. ``slot_is_coded[s] == False`` marks a
-    separate (uncoded, always required) slot of the partial schemes, which
-    this port does not run yet; every ported layout has only coded slots.
+    the worker's transmitted message. Partial ("two-part") schemes mark some
+    slots as *separate* (uncoded, always required by the master) via
+    ``slot_is_coded[s] == False``.
     """
 
     name: str
@@ -66,8 +68,26 @@ class CodingLayout:
             return self.n_workers
         return int(self.groups.max()) + 1
 
+    @property
+    def storage_overhead(self) -> float:
+        """Copies of the dataset stored across workers (1.0 = uncoded)."""
+        return self.assignment.size / self.n_partitions
+
+    @property
+    def uncoded_frac(self) -> float:
+        """Partial-scheme timing model: the uncoded ("separate") part is
+        sent when its slots are done, i.e. at this fraction of the worker's
+        full compute time (parallel/collect.collect_partial)."""
+        n_sep = int((~np.asarray(self.slot_is_coded)).sum())
+        return n_sep / self.n_slots
+
     def effective_matrix(self) -> np.ndarray:
-        """[W, n_partitions] matrix E with ``message = E @ partition_grads``."""
+        """[W, n_partitions] matrix E with ``message = E @ partition_grads``.
+
+        Row w scatters ``coeffs[w, :]`` into the partition columns this
+        worker holds (coded slots only; separate slots form their own
+        always-on message in partial schemes).
+        """
         E = np.zeros((self.n_workers, self.n_partitions))
         for w in range(self.n_workers):
             for s in range(self.n_slots):
@@ -187,6 +207,195 @@ def frc_layout(n_workers: int, n_stragglers: int) -> CodingLayout:
         assignment=assignment.astype(np.int32),
         coeffs=np.ones((W, s + 1)),
         slot_is_coded=np.ones(s + 1, dtype=bool),
+        n_stragglers=s,
+        groups=groups,
+    )
+
+
+def random_regular_layout(
+    n_workers: int, n_stragglers: int, seed: int = 0
+) -> CodingLayout:
+    """Sparse random d-regular bipartite assignment, d = s+1 ("randreg";
+    arXiv 1711.06771).
+
+    W partitions; each worker holds d distinct partitions and each partition
+    sits on d distinct workers (d superimposed random perfect matchings).
+    All coefficients 1; the decode is the least-squares combination of
+    whichever messages arrive over the 0/1 incidence matrix B. A matching
+    that would hand a worker a duplicate partition is redrawn, up to 200
+    times; past that the layout falls back to d shifts of one random
+    permutation. The draws are the JAX package's, call for call.
+    """
+    W, d = n_workers, n_stragglers + 1
+    if d > W:
+        raise ValueError(f"degree {d} exceeds n_workers {W}")
+    rng = np.random.default_rng(seed)
+    assignment = np.empty((W, d), dtype=np.int64)
+
+    def _draw() -> bool:
+        for k in range(d):
+            for _ in range(200):
+                perm = rng.permutation(W)
+                if k == 0 or not any(
+                    perm[w] in assignment[w, :k] for w in range(W)
+                ):
+                    assignment[:, k] = perm
+                    break
+            else:
+                return False
+        return True
+
+    if not _draw():
+        sigma = rng.permutation(W)
+        for k in range(d):
+            assignment[:, k] = (sigma + k) % W
+    B = np.zeros((W, W))
+    B[np.arange(W)[:, None], assignment] = 1.0
+    return CodingLayout(
+        name="randreg",
+        n_workers=W,
+        n_partitions=W,
+        assignment=assignment.astype(np.int32),
+        coeffs=np.ones((W, d)),
+        slot_is_coded=np.ones(d, dtype=bool),
+        n_stragglers=n_stragglers,
+        B=B,
+    )
+
+
+def sparse_graph_layout(
+    n_workers: int, n_stragglers: int, seed: int = 0
+) -> CodingLayout:
+    """Sparse random bipartite-graph code ("sparsegraph"; arXiv 1711.06771).
+
+    Each of the W partitions lands on exactly d = s+1 workers drawn
+    uniformly at random (one ``rng.choice(W, d, replace=False)`` per
+    partition), so worker loads come out ragged. The fixed-shape [W, S] slot
+    table takes S = the maximum worker degree and pads lighter workers with
+    zero-coefficient slots holding partition 0: they add nothing to messages,
+    decode folds or the effective matrix, only redundant gradient compute.
+    ``w = 1/d`` decodes the exact gradient at full collection; under
+    straggling the first-``num_collect`` lstsq rule over the 0/1 incidence
+    B degrades gracefully.
+    """
+    W, d = n_workers, n_stragglers + 1
+    if d > W:
+        raise ValueError(f"degree {d} exceeds n_workers {W}")
+    rng = np.random.default_rng(seed)
+    holders = [rng.choice(W, size=d, replace=False) for _ in range(W)]
+    per_worker: list[list[int]] = [[] for _ in range(W)]
+    for p, ws in enumerate(holders):
+        for w in ws:
+            per_worker[int(w)].append(p)
+    S = max(1, max(len(ps) for ps in per_worker))
+    assignment = np.zeros((W, S), dtype=np.int32)
+    coeffs = np.zeros((W, S))
+    for w, ps in enumerate(per_worker):
+        assignment[w, : len(ps)] = ps
+        coeffs[w, : len(ps)] = 1.0
+    layout = CodingLayout(
+        name="sparse_graph",
+        n_workers=W,
+        n_partitions=W,
+        assignment=assignment,
+        coeffs=coeffs,
+        slot_is_coded=np.ones(S, dtype=bool),
+        n_stragglers=n_stragglers,
+    )
+    # the 0/1 incidence matrix is the effective coding matrix here
+    return dataclasses.replace(layout, B=layout.effective_matrix())
+
+
+def expander_layout(n_workers: int, n_stragglers: int) -> CodingLayout:
+    """Deterministic circulant expander-style code ("expander"; arXiv
+    1707.03858).
+
+    Worker w holds the d = s+1 partitions ``w + floor(j*W/d) mod W``:
+    evenly spread circulant chords, d-regular on both sides, one
+    seed-independent layout. Coefficients 1; first-``num_collect`` lstsq
+    decoding as for sparsegraph and randreg.
+    """
+    W, d = n_workers, n_stragglers + 1
+    if d > W:
+        raise ValueError(f"degree {d} exceeds n_workers {W}")
+    offsets = np.array([(j * W) // d for j in range(d)], dtype=np.int64)
+    assignment = (np.arange(W)[:, None] + offsets[None, :]) % W
+    layout = CodingLayout(
+        name="expander",
+        n_workers=W,
+        n_partitions=W,
+        assignment=assignment.astype(np.int32),
+        coeffs=np.ones((W, d)),
+        slot_is_coded=np.ones(d, dtype=bool),
+        n_stragglers=n_stragglers,
+    )
+    return dataclasses.replace(layout, B=layout.effective_matrix())
+
+
+def partial_cyclic_layout(
+    n_workers: int,
+    n_partitions_per_worker: int,
+    n_stragglers: int,
+    seed: int = 0,
+) -> CodingLayout:
+    """Partial coded ("partialcyccoded"): unique uncoded slots + cyclic coded band.
+
+    Worker w holds n_sep = p-s-1 unique partitions (global ids n_sep*w + i,
+    src/partial_coded.py:33-36) plus s+1 partitions of a shared W-partition
+    coded band (global ids n_sep*W + (w + j) mod W, src/partial_coded.py:38-43),
+    the coded slots scaled by B[w, (w + j) mod W]. The master requires all
+    uncoded parts and decodes the coded band from any W-s coded parts.
+    """
+    W, p, s = n_workers, n_partitions_per_worker, n_stragglers
+    n_sep = p - s - 1
+    if n_sep < 1:
+        raise ValueError("need n_partitions_per_worker >= n_stragglers + 2")
+    B = cyclic_generator_matrix(W, s, seed)
+    w = np.arange(W)[:, None]
+    sep = n_sep * w + np.arange(n_sep)[None, :]
+    band = (w + np.arange(s + 1)[None, :]) % W
+    assignment = np.concatenate([sep, n_sep * W + band], axis=1)
+    coeffs = np.concatenate(
+        [np.ones((W, n_sep)), np.take_along_axis(B, band, axis=1)], axis=1
+    )
+    return CodingLayout(
+        name="partial_cyclic",
+        n_workers=W,
+        n_partitions=n_sep * W + W,
+        assignment=assignment.astype(np.int32),
+        coeffs=coeffs,
+        slot_is_coded=np.arange(p) >= n_sep,
+        n_stragglers=s,
+        B=B,
+    )
+
+
+def partial_frc_layout(
+    n_workers: int, n_partitions_per_worker: int, n_stragglers: int
+) -> CodingLayout:
+    """Partial replication ("partialrepcoded"): unique slots + FRC coded band.
+
+    The same unique slice as partial_cyclic; every member of group a holds
+    the same s+1 band partitions n_sep*W + a*(s+1) + b, b in 0..s, unscaled
+    (src/partial_replication.py:44-50). The master requires all uncoded
+    parts plus one coded part per group.
+    """
+    W, p, s = n_workers, n_partitions_per_worker, n_stragglers
+    n_sep = p - s - 1
+    if n_sep < 1:
+        raise ValueError("need n_partitions_per_worker >= n_stragglers + 2")
+    groups = _frc_groups(W, s)
+    w = np.arange(W)[:, None]
+    sep = n_sep * w + np.arange(n_sep)[None, :]
+    band = groups[:, None] * (s + 1) + np.arange(s + 1)[None, :]
+    assignment = np.concatenate([sep, n_sep * W + band], axis=1)
+    return CodingLayout(
+        name="partial_frc",
+        n_workers=W,
+        n_partitions=n_sep * W + W,
+        assignment=assignment.astype(np.int32),
+        coeffs=np.ones((W, p)),
+        slot_is_coded=np.arange(p) >= n_sep,
         n_stragglers=s,
         groups=groups,
     )

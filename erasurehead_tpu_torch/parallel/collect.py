@@ -19,6 +19,14 @@ Stop conditions being reproduced (file:line in the original ErasureHead code):
   FRC            first arrival of every group          src/replication.py:143-155
   AGC            num_collect arrivals OR all groups    src/approximate_coding.py:144-158
   avoidstragg    first W-s, unbiasedness rescale       src/avoidstragg.py:106-116
+  partial MDS    all uncoded parts AND >= W-s coded    src/partial_coded.py:174-194
+  partial FRC    all uncoded parts AND 1 coded/group   src/partial_replication.py:166-187
+
+and the beyond-reference rules of the JAX package: first-k with the
+least-squares-optimal decode (randreg, sparsegraph, expander), deadline
+collection, and the ``decode="optimal"`` refit of any scheme's weights
+(arXiv:2006.09638). Which rule a scheme takes is its registry descriptor's
+(erasurehead_tpu_torch/schemes/); train/trainer.build_schedule applies it.
 
 Tie-breaking: arrivals are processed in ascending (t, worker index) order.
 """
@@ -31,7 +39,6 @@ import numpy as np
 
 from erasurehead_tpu_torch.ops import codes
 from erasurehead_tpu_torch.ops.codes import CodingLayout
-from erasurehead_tpu_torch.utils.config import Scheme, as_scheme
 
 NEVER = -1.0  # reference sentinel for "not collected" (src/coded.py:171-173)
 
@@ -62,6 +69,18 @@ def _rank(t: np.ndarray) -> np.ndarray:
     return ranks
 
 
+def _group_winners(t: np.ndarray, groups: np.ndarray) -> np.ndarray:
+    """[R, W] bool: is worker the earliest arrival of its group (index tie-break)."""
+    R, W = t.shape
+    n_groups = int(groups.max()) + 1
+    win = np.zeros((R, W), dtype=bool)
+    for g in range(n_groups):
+        members = np.flatnonzero(groups == g)
+        best = members[np.argmin(t[:, members], axis=1)]  # argmin: first index wins
+        win[np.arange(R), best] = True
+    return win
+
+
 def _stamp(t: np.ndarray, collected: np.ndarray) -> np.ndarray:
     return np.where(collected, t, NEVER)
 
@@ -77,26 +96,12 @@ def collect_all(t: np.ndarray) -> CollectionSchedule:
     )
 
 
-def _first_k_lstsq(t: np.ndarray, B: np.ndarray, k: int) -> CollectionSchedule:
-    """Stop at the k-th arrival, lstsq-decode over the received rows of B."""
-    ranks = _rank(t)
-    collected = ranks < k
-    weights = codes.mds_decode_weights_host(B, collected)
-    kth_time = np.where(ranks == k - 1, t, -np.inf).max(axis=1)
-    return CollectionSchedule(
-        message_weights=weights,
-        sim_time=kth_time,
-        worker_times=_stamp(t, collected),
-        collected=collected,
-    )
-
-
 def collect_first_k_mds(
     t: np.ndarray, B: np.ndarray, n_stragglers: int
 ) -> CollectionSchedule:
     """Exact MDS coding: stop at the first W-s arrivals, solve decode weights
     over exactly that set."""
-    return _first_k_lstsq(t, B, t.shape[1] - n_stragglers)
+    return collect_first_k_optimal(t, B, t.shape[1] - n_stragglers)
 
 
 def collect_frc(t: np.ndarray, groups: np.ndarray) -> CollectionSchedule:
@@ -140,6 +145,25 @@ def collect_agc(
     )
 
 
+def collect_first_k_optimal(
+    t: np.ndarray, B: np.ndarray, num_collect: int
+) -> CollectionSchedule:
+    """Optimal-decoding AGC (arXiv 2006.09638): stop at the first
+    ``num_collect`` arrivals and take the least-squares combination of
+    their messages, the weights minimizing ||w^T B - 1||_2 over the
+    received rows of the incidence matrix."""
+    ranks = _rank(t)
+    collected = ranks < num_collect
+    weights = codes.mds_decode_weights_host(B, collected)
+    kth_time = np.where(ranks == num_collect - 1, t, -np.inf).max(axis=1)
+    return CollectionSchedule(
+        message_weights=weights,
+        sim_time=kth_time,
+        worker_times=_stamp(t, collected),
+        collected=collected,
+    )
+
+
 def collect_avoidstragg(t: np.ndarray, n_stragglers: int) -> CollectionSchedule:
     """Ignore-stragglers baseline: sum the first W-s uncoded gradients and
     rescale by W/(W-s) for unbiasedness (src/avoidstragg.py:116)."""
@@ -156,32 +180,124 @@ def collect_avoidstragg(t: np.ndarray, n_stragglers: int) -> CollectionSchedule:
     )
 
 
-def _sched_agc(t, layout, num_collect):
-    if num_collect is None:
-        raise ValueError("AGC needs num_collect")
-    return collect_agc(t, layout.groups, num_collect)
+def collect_deadline(t: np.ndarray, deadline: float) -> CollectionSchedule:
+    """Deadline-based collection: the master takes every gradient that
+    arrived by ``deadline`` simulated seconds into the round and rescales by
+    W/collected for unbiasedness. A round where all workers arrive early
+    stops at the last arrival; otherwise the master waits out the deadline.
+    A round with zero arrivals applies a zero gradient (all weights 0) and
+    costs the deadline."""
+    R, W = t.shape
+    collected = t <= deadline
+    cnt = collected.sum(axis=1)
+    weights = collected * (W / np.maximum(cnt, 1)[:, None])
+    all_in = cnt == W
+    sim = np.where(all_in, t.max(axis=1, initial=-np.inf), deadline)
+    return CollectionSchedule(
+        message_weights=weights,
+        sim_time=sim,
+        worker_times=_stamp(t, collected),
+        collected=collected,
+    )
 
 
-#: scheme -> host collection rule (the dispatch of the JAX package's scheme
-#: registry, schemes/builtin.py, for the ported schemes)
-_RULES = {
-    Scheme.NAIVE: lambda t, layout, num_collect: collect_all(t),
-    Scheme.CYCLIC_MDS: lambda t, layout, num_collect: collect_first_k_mds(
-        t, layout.B, layout.n_stragglers
-    ),
-    Scheme.FRC: lambda t, layout, num_collect: collect_frc(t, layout.groups),
-    Scheme.APPROX: _sched_agc,
-    Scheme.AVOID_STRAGGLERS: lambda t, layout, num_collect: collect_avoidstragg(
-        t, layout.n_stragglers
-    ),
-}
-
-
-def build_schedule(
-    scheme,
+def collect_partial(
     t: np.ndarray,
     layout: CodingLayout,
-    num_collect: int | None = None,
+    variant: str,  # "mds" | "frc"
 ) -> CollectionSchedule:
-    """The scheme's collection schedule over the arrival matrix ``t``."""
-    return _RULES[as_scheme(scheme)](t, layout, num_collect)
+    """Two-part schemes: every worker sends its uncoded part when its unique
+    partitions are done, its coded part when the rest are; the master needs
+    all uncoded parts plus enough coded parts (W-s for the MDS decode,
+    src/partial_coded.py:174-194; one per group for FRC,
+    src/partial_replication.py:166-187).
+
+    A worker's full compute finishes at t[r, w]; its uncoded part (n_sep of
+    n_slots partitions) is sent at the same fraction of that time.
+    ``message_weights`` weight only the coded messages: the step weights
+    separate slots 1.0 unconditionally (step.expand_slot_weights).
+    """
+    R, W = t.shape
+    s = layout.n_stragglers
+    t_first, t_second = layout.uncoded_frac * t, t
+    # event replay of the two-message Waitany loop: 2W events per round
+    # (each worker's uncoded part at t_first, coded part at t_second) in a
+    # stable ascending (time, part, worker) order; the loop exits at the
+    # first event satisfying both stop conditions, and the coded parts
+    # processed by then join the decode
+    times = np.concatenate([t_first, t_second], axis=1)  # [R, 2W]; first W = uncoded
+    order = _order(times)
+    is_second = order >= W  # [R, 2W]: is the j-th processed event a coded part?
+    cnt_first = np.cumsum(~is_second, axis=1)
+    cnt_second = np.cumsum(is_second, axis=1)
+    if variant == "mds":
+        second_ok = cnt_second >= W - s
+    else:
+        # one coded part per group (partial FRC): per-event group coverage
+        onehot = np.eye(layout.n_groups, dtype=np.int64)[
+            np.asarray(layout.groups)
+        ]  # [W, G]
+        oh_events = onehot[order % W] * is_second[..., None]  # [R, 2W, G]
+        second_ok = (np.cumsum(oh_events, axis=1) >= 1).all(axis=2)
+    done = (cnt_first >= W) & second_ok  # always True at the last event
+    stop_idx = done.argmax(axis=1)
+    stop_ev = np.take_along_axis(order, stop_idx[:, None], axis=1)
+    stop = np.take_along_axis(times, stop_ev, axis=1)[:, 0]
+    sec_taken = is_second & (np.arange(2 * W) <= stop_idx[:, None])
+    completed = np.zeros((R, W), dtype=bool)
+    rr, jj = np.nonzero(sec_taken)
+    completed[rr, order[rr, jj] % W] = True
+    if variant == "mds":
+        # the reference solves over all completed coded parts at loop exit
+        # (src/partial_coded.py:192-193), possibly more than W-s rows
+        weights = codes.mds_decode_weights_host(layout.B, completed)
+    elif variant == "frc":
+        # only each group's first coded arrival is summed
+        # (src/partial_replication.py:173-180)
+        win = _group_winners(t_second, layout.groups)
+        weights = (win & completed).astype(np.float64)
+    else:
+        raise ValueError(f"unknown partial variant {variant!r}")
+    # worker_timeset: -1 for workers whose coded part never arrived
+    # (src/partial_coded.py:210-212)
+    return CollectionSchedule(
+        message_weights=weights,
+        sim_time=stop,
+        worker_times=_stamp(t_second, completed),
+        collected=completed,
+    )
+
+
+def optimal_decode_weights_host(E: np.ndarray, masks: np.ndarray) -> np.ndarray:
+    """Least-squares collection weights fit to the actual arrival sets, the
+    optimal decoder of arXiv:2006.09638.
+
+    ``E`` is the layout's [W, P] effective coding matrix; for each round's
+    completion mask the returned row minimizes ``||w^T E - 1||_2`` over
+    weights supported on the collected workers (the weight-space decode
+    error obs/decode.py reports). Host float64; each distinct mask is solved
+    once, in ``np.unique`` order.
+    """
+    E = np.asarray(E, dtype=np.float64)
+    masks = np.asarray(masks, dtype=bool)
+    ones = np.ones(E.shape[1])
+    uniq, inverse = np.unique(masks, axis=0, return_inverse=True)
+    out = np.zeros((uniq.shape[0], E.shape[0]))
+    for k in range(uniq.shape[0]):
+        live = np.flatnonzero(uniq[k])
+        if live.size:
+            out[k, live] = np.linalg.lstsq(E[live, :].T, ones, rcond=None)[0]
+    return out[inverse.reshape(-1)]
+
+
+def optimal_decode_schedule(
+    schedule: CollectionSchedule, layout: CodingLayout
+) -> CollectionSchedule:
+    """``decode="optimal"``: keep the schedule's stop condition (who was
+    collected, when the master exited) and refit only the decode weights
+    to each round's actual arrival set."""
+    weights = optimal_decode_weights_host(
+        layout.effective_matrix(), schedule.collected
+    )
+    return dataclasses.replace(schedule, message_weights=weights)
+

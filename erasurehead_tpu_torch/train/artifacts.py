@@ -26,23 +26,20 @@ import numpy as np
 from erasurehead_tpu_torch.obs.events import arrival_summary
 from erasurehead_tpu_torch.train.evaluate import EvalResult
 from erasurehead_tpu_torch.train.trainer import TrainResult
-from erasurehead_tpu_torch.utils.config import RunConfig, Scheme
-
-#: reference filename stems (src/naive.py:203 "naive_acc", src/coded.py:250-254
-#: "coded_acc_%d", src/replication.py "replication_acc_%d"); the rest are
-#: "<scheme>_acc_%d"
-_STEMS = {
-    Scheme.NAIVE: "naive_acc",
-    Scheme.CYCLIC_MDS: "coded_acc",
-    Scheme.FRC: "replication_acc",
-}
-
+from erasurehead_tpu_torch.utils.config import RunConfig
 
 def run_prefix(cfg: RunConfig) -> str:
-    """Reference filename prefix: the stem, then "_<n_stragglers>" for every
-    scheme but naive (the reference's one suffix-free scheme)."""
-    stem = _STEMS.get(cfg.scheme, f"{cfg.scheme.value}_acc")
-    if cfg.scheme == Scheme.NAIVE:
+    """Reference filename prefix, from the scheme's registry descriptor
+    (``artifact_stem``, ``artifact_straggler_suffix``, ``partial``):
+    "naive_acc", "coded_acc_<s>", partial schemes "<stem>_<s>_<p>", every
+    other scheme "<stem or name_acc>_<s>"."""
+    from erasurehead_tpu_torch import schemes
+
+    desc = schemes.get(cfg.scheme)
+    stem = desc.artifact_stem or f"{desc.name}_acc"
+    if desc.partial:
+        return f"{stem}_{cfg.n_stragglers}_{cfg.partitions_per_worker}"
+    if not desc.artifact_straggler_suffix:
         return stem
     return f"{stem}_{cfg.n_stragglers}"
 

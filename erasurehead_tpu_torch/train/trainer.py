@@ -40,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from erasurehead_tpu_torch import schemes
 from erasurehead_tpu_torch.data.sharding import partition_stack, worker_stack
 from erasurehead_tpu_torch.data.synthetic import Dataset
 from erasurehead_tpu_torch.models.deep_mlp import DeepMLPModel
@@ -54,27 +55,31 @@ from erasurehead_tpu_torch.utils.config import (
     ComputeMode,
     ModelKind,
     RunConfig,
-    Scheme,
 )
 from erasurehead_tpu_torch.utils.device import resolve_device
 
-#: scheme -> layout (the JAX package's scheme registry, schemes/builtin.py,
-#: for the ported schemes)
-_LAYOUTS = {
-    Scheme.NAIVE: lambda cfg: codes.uncoded_layout(cfg.n_workers),
-    Scheme.CYCLIC_MDS: lambda cfg: codes.cyclic_mds_layout(
-        cfg.n_workers, cfg.n_stragglers, seed=cfg.seed
-    ),
-    Scheme.FRC: lambda cfg: codes.frc_layout(cfg.n_workers, cfg.n_stragglers),
-    Scheme.APPROX: lambda cfg: codes.frc_layout(cfg.n_workers, cfg.n_stragglers),
-    Scheme.AVOID_STRAGGLERS: lambda cfg: codes.uncoded_layout(
-        cfg.n_workers, n_stragglers=cfg.n_stragglers
-    ),
-}
-
 
 def build_layout(cfg: RunConfig) -> codes.CodingLayout:
-    return _LAYOUTS[cfg.scheme](cfg)
+    """Scheme -> layout through its registry descriptor
+    (erasurehead_tpu_torch/schemes/)."""
+    return schemes.get(cfg.scheme).build_layout(cfg)
+
+
+def build_schedule(
+    cfg: RunConfig, t: np.ndarray, layout: codes.CodingLayout
+) -> collect.CollectionSchedule:
+    """The scheme's collection schedule over the arrival matrix ``t``,
+    through its registry descriptor. ``cfg.decode == "optimal"`` refits the
+    decode weights per round to the actual arrival set on schemes with an
+    ``optimal_decode`` hook; the partial two-part layouts keep their fixed
+    weights."""
+    desc = schemes.get(cfg.scheme)
+    sched = desc.build_schedule(
+        t, layout, num_collect=cfg.num_collect, deadline=cfg.deadline
+    )
+    if cfg.decode == "optimal" and desc.optimal_decode is not None:
+        sched = desc.optimal_decode(sched, layout)
+    return sched
 
 
 def build_model(cfg: RunConfig):
@@ -182,9 +187,7 @@ def train(
     if arrivals is None:
         arrivals = default_arrivals(cfg)
     if schedule is None:
-        schedule = collect.build_schedule(
-            cfg.scheme, arrivals, layout, num_collect=cfg.num_collect
-        )
+        schedule = build_schedule(cfg, arrivals, layout)
     decode_err = obs_decode.decode_error_series(layout, schedule.message_weights)
     slot_w = step_lib.expand_slot_weights(
         schedule.message_weights, layout.coeffs, np.asarray(layout.slot_is_coded)

@@ -1,11 +1,12 @@
-"""Typed run configuration: the main-path subset of the JAX package's RunConfig.
+"""Typed run configuration: the JAX package's RunConfig, as far as the port runs it.
 
 Same field names, defaults and validation messages as
 erasurehead_tpu/utils/config.py::RunConfig for the fields this port runs:
-the five reference schemes with full (or first-k) collection, the two GLM
-families and the unsharded mlp, deepmlp and moe families, GD/AGD/ADAM
-updates, the faithful and deduped compute modes, float32 or bfloat16 data,
-the fused-kernel switch and the per-layer (blockwise) gradient coding knobs.
+every scheme of the scheme registry (erasurehead_tpu_torch/schemes/) with
+its fixed or least-squares-optimal decode, the two GLM families and the
+unsharded mlp, deepmlp and moe families, GD/AGD/ADAM updates, the faithful
+and deduped compute modes, float32 or bfloat16 data, the fused-kernel
+switch and the per-layer (blockwise) gradient coding knobs.
 """
 
 from __future__ import annotations
@@ -16,27 +17,76 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from erasurehead_tpu_torch import schemes
+
 
 class Scheme(str, enum.Enum):
-    """The reference's collection/coding strategies that this port runs."""
+    """The seven collection/coding strategies of the reference plus the
+    beyond-reference builtins.
+
+    The enum is the BUILTIN subset of the scheme registry
+    (erasurehead_tpu_torch/schemes/): behavior (layout builder, collection
+    rule, capability flags) lives in each scheme's SchemeDescriptor, and
+    third-party schemes registered through the
+    ``erasurehead_tpu_torch.schemes`` entry-point group are equally valid
+    ``RunConfig.scheme`` values (they resolve to :class:`ExtensionScheme`
+    tags instead of enum members).
+    """
 
     NAIVE = "naive"  # wait for all workers               (src/naive.py)
     CYCLIC_MDS = "cyccoded"  # exact coding, cyclic MDS code      (src/coded.py)
     FRC = "repcoded"  # exact coding, fractional repetition (src/replication.py)
     APPROX = "approx"  # approximate gradient coding (AGC)  (src/approximate_coding.py)
     AVOID_STRAGGLERS = "avoidstragg"  # ignore-stragglers baseline (src/avoidstragg.py)
+    PARTIAL_CYCLIC = "partialcyccoded"  # two-part coded   (src/partial_coded.py)
+    PARTIAL_FRC = "partialrepcoded"  # two-part replicated (src/partial_replication.py)
+    # sparse random d-regular code with least-squares-optimal decoding
+    # (arXiv 1711.06771 + 2006.09638)
+    RANDOM_REGULAR = "randreg"
+    # deadline collection: whatever arrived by a fixed per-round deadline,
+    # rescaled for unbiasedness
+    DEADLINE = "deadline"
+    # sparse random bipartite-graph code: each partition on exactly s+1
+    # uniformly drawn workers, ragged worker loads
+    SPARSE_GRAPH = "sparsegraph"
+    # deterministic circulant expander-style code (arXiv 1707.03858)
+    EXPANDER = "expander"
 
 
-def as_scheme(name) -> Scheme:
-    if isinstance(name, Scheme):
+class ExtensionScheme(str):
+    """A registry-registered scheme name outside the builtin enum.
+
+    Reads like a :class:`Scheme` member wherever the port reads one
+    (``.value`` returns the name; string equality and hashing follow the
+    name). Constructed only by :func:`as_scheme` after a registry
+    membership check."""
+
+    __slots__ = ()
+
+    @property
+    def value(self) -> str:
+        return str(self)
+
+    def __repr__(self) -> str:
+        return f"<ExtensionScheme {str(self)!r}>"
+
+
+def as_scheme(name) -> "Scheme | ExtensionScheme":
+    """Resolve a scheme value: builtin names map to :class:`Scheme`
+    members, registry-registered third-party names to
+    :class:`ExtensionScheme` tags; anything else raises a ValueError
+    naming the registered schemes."""
+    if isinstance(name, (Scheme, ExtensionScheme)):
         return name
     try:
         return Scheme(name)
     except ValueError:
-        raise ValueError(
-            f"unknown scheme {name!r}; ported schemes: "
-            f"{[s.value for s in Scheme]}"
-        ) from None
+        pass
+    if schemes.is_registered(str(name)):
+        return ExtensionScheme(name)
+    raise ValueError(
+        f"unknown scheme {name!r}; registered schemes: {schemes.names()}"
+    )
 
 
 class UpdateRule(str, enum.Enum):
@@ -113,6 +163,8 @@ class RunConfig:
     n_rows: int = 4096
     n_cols: int = 100
     input_dir: Optional[str] = None  # on-disk data; None => generate in-memory
+    is_real_data: bool = False
+    partitions_per_worker: int = 0  # >0 selects partial schemes' slot count
     compute_mode: ComputeMode = ComputeMode.FAITHFUL
     seed: int = 0  # data, generator matrix and the port's own params init
     # DATA dtype: bfloat16 halves the bytes the gradient pass streams; params
@@ -138,6 +190,15 @@ class RunConfig:
     block_decode: str = "auto"
     # hidden-layer count for the deepmlp family; 0 = the model's default (4)
     deep_layers: int = 0
+    # per-round collection deadline in simulated seconds (scheme="deadline")
+    deadline: Optional[float] = None
+    # decode-weight policy (arXiv:2006.09638): "fixed" keeps the scheme's own
+    # collection weights; "optimal" refits them per round by least squares
+    # to the actual arrival set over the layout's effective coding matrix
+    # (parallel/collect.optimal_decode_schedule). Schemes without an
+    # optimal_decode hook (the partial two-part layouts) keep their fixed
+    # weights
+    decode: str = "fixed"
 
     def __post_init__(self):
         self.scheme = as_scheme(self.scheme)
@@ -170,21 +231,20 @@ class RunConfig:
             raise ValueError(
                 f"dtype must be float32/bfloat16, got {self.dtype!r}"
             )
+        if self.decode not in ("fixed", "optimal"):
+            raise ValueError(
+                f"decode must be fixed/optimal, got {self.decode!r}"
+            )
         if self.num_collect is None:
             self.num_collect = self.n_workers
         if self.dataset not in DATASET_PRESETS:
             raise ValueError(
                 f"unknown dataset {self.dataset!r}; known: {sorted(DATASET_PRESETS)}"
             )
-        if self.scheme in (Scheme.FRC, Scheme.APPROX) and self.n_workers % (
-            self.n_stragglers + 1
-        ):
-            raise ValueError(
-                f"scheme={self.scheme.value!r} needs (n_stragglers+1) | "
-                f"n_workers for its fractional-repetition layout (reference "
-                f"guard src/replication.py:24-26); got n_workers="
-                f"{self.n_workers}, n_stragglers={self.n_stragglers}"
-            )
+        # scheme-specific invariants (partial partition counts, positive
+        # deadlines, third-party knobs) live on the scheme's registry
+        # descriptor
+        schemes.get(self.scheme).validate(self)
 
     @property
     def effective_alpha(self) -> float:

@@ -5,6 +5,8 @@ synthetic data, layouts, arrival schedules, collection schedules, slot
 weights and decode-error series must be identical bytes, not merely close.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -17,13 +19,27 @@ from erasurehead_tpu.train import trainer as j_trainer
 from erasurehead_tpu.utils import config as j_config
 from erasurehead_tpu_torch.data import synthetic as t_synthetic
 from erasurehead_tpu_torch.obs import decode as t_decode
-from erasurehead_tpu_torch.parallel import collect as t_collect
 from erasurehead_tpu_torch.parallel import step as t_step
 from erasurehead_tpu_torch.parallel import straggler as t_straggler
 from erasurehead_tpu_torch.train import trainer as t_trainer
 from erasurehead_tpu_torch.utils import config as t_config
 
-SCHEMES = ("naive", "approx", "repcoded", "cyccoded", "avoidstragg")
+SCHEMES = (
+    "naive", "approx", "repcoded", "cyccoded", "avoidstragg",
+    "partialcyccoded", "partialrepcoded", "randreg", "sparsegraph",
+    "expander", "deadline",
+)
+
+
+def _extras(scheme, s):
+    """The scheme-specific knobs each grid point runs under: two slot counts
+    for the partial schemes, three deadlines for deadline collection (the
+    first catches no worker in any round)."""
+    if scheme.startswith("partial"):
+        return [dict(partitions_per_worker=s + 2), dict(partitions_per_worker=s + 3)]
+    if scheme == "deadline":
+        return [dict(deadline=1e-9), dict(deadline=0.3), dict(deadline=1.5)]
+    return [{}]
 
 
 def _same(a, b):
@@ -33,10 +49,10 @@ def _same(a, b):
     assert a.tobytes() == b.tobytes()
 
 
-def _cfgs(scheme, W, s, collect, seed):
+def _cfgs(scheme, W, s, collect, seed, **extra):
     kw = dict(
         scheme=scheme, n_workers=W, n_stragglers=s, num_collect=collect,
-        rounds=12, seed=seed, add_delay=True,
+        rounds=12, seed=seed, add_delay=True, **extra,
     )
     return j_config.RunConfig(**kw), t_config.RunConfig(**kw)
 
@@ -62,7 +78,14 @@ GRID = [
 
 @pytest.mark.parametrize("scheme,W,s,collect,seed", GRID)
 def test_layout_schedule_and_weights_bytes(scheme, W, s, collect, seed):
-    jcfg, tcfg = _cfgs(scheme, W, s, collect, seed)
+    """Layouts, arrivals, collection schedules under the fixed and the
+    optimal decode, slot weights and decode errors: the same bytes."""
+    for extra in _extras(scheme, s):
+        jcfg, tcfg = _cfgs(scheme, W, s, collect, seed, **extra)
+        _check_control_plane(jcfg, tcfg)
+
+
+def _check_control_plane(jcfg, tcfg):
     jl, tl = j_trainer.build_layout(jcfg), t_trainer.build_layout(tcfg)
     for field in ("assignment", "coeffs", "slot_is_coded"):
         _same(getattr(tl, field), getattr(jl, field))
@@ -71,30 +94,35 @@ def test_layout_schedule_and_weights_bytes(scheme, W, s, collect, seed):
             assert getattr(tl, field) is None
         else:
             _same(getattr(tl, field), getattr(jl, field))
-    assert (tl.n_workers, tl.n_partitions, tl.n_stragglers) == (
-        jl.n_workers, jl.n_partitions, jl.n_stragglers
+    assert (tl.n_workers, tl.n_partitions, tl.n_stragglers, tl.name) == (
+        jl.n_workers, jl.n_partitions, jl.n_stragglers, jl.name
+    )
+    assert (tl.storage_overhead, tl.uncoded_frac) == (
+        jl.storage_overhead, jl.uncoded_frac
     )
     _same(tl.effective_matrix(), jl.effective_matrix())
 
     t_arr = t_trainer.default_arrivals(tcfg)
     _same(t_arr, j_straggler.arrival_schedule(
-        jcfg.rounds, W, True, jcfg.delay_mean
+        jcfg.rounds, jcfg.n_workers, True, jcfg.delay_mean
     ))
 
-    js = j_collect.build_schedule(scheme, t_arr, jl, num_collect=collect)
-    ts = t_collect.build_schedule(scheme, t_arr, tl, num_collect=collect)
-    for field in ("message_weights", "sim_time", "worker_times", "collected"):
-        _same(getattr(ts, field), getattr(js, field))
+    for decode in ("fixed", "optimal"):
+        kw = dict(num_collect=jcfg.num_collect, deadline=jcfg.deadline, decode=decode)
+        js = j_collect.build_schedule(jcfg.scheme.value, t_arr, jl, **kw)
+        ts = t_trainer.build_schedule(dataclasses.replace(tcfg, decode=decode), t_arr, tl)
+        for field in ("message_weights", "sim_time", "worker_times", "collected"):
+            _same(getattr(ts, field), getattr(js, field))
 
-    args = (js.message_weights, jl.coeffs, np.asarray(jl.slot_is_coded))
-    jw = np.asarray(j_step.expand_slot_weights(*args))
-    tw = t_step.expand_slot_weights(*args)
-    _same(tw, jw)
-    _same(tl.fold_slot_weights(tw), jl.fold_slot_weights(jw))
-    _same(
-        t_decode.decode_error_series(tl, ts.message_weights),
-        j_decode.decode_error_series(jl, js.message_weights),
-    )
+        args = (js.message_weights, jl.coeffs, np.asarray(jl.slot_is_coded))
+        jw = np.asarray(j_step.expand_slot_weights(*args))
+        tw = t_step.expand_slot_weights(*args)
+        _same(tw, jw)
+        _same(tl.fold_slot_weights(tw), jl.fold_slot_weights(jw))
+        _same(
+            t_decode.decode_error_series(tl, ts.message_weights),
+            j_decode.decode_error_series(jl, js.message_weights),
+        )
 
 
 @pytest.mark.parametrize("add_delay", [True, False])
@@ -120,6 +148,12 @@ def test_reference_delay_schedule_bytes():
         dict(scheme="approx", n_workers=7, n_stragglers=1),
         dict(scheme="repcoded", n_workers=9, n_stragglers=3),
         dict(dataset="nope"),
+        dict(decode="best"),
+        dict(scheme="nope"),
+        dict(scheme="deadline"),
+        dict(scheme="deadline", deadline=-1.0),
+        dict(scheme="partialcyccoded", n_stragglers=2, partitions_per_worker=3),
+        dict(scheme="partialrepcoded"),
     ],
 )
 def test_config_validation_messages_match(kw):
@@ -146,7 +180,8 @@ def test_config_defaults_and_lr_match(kw):
     assert tcfg.num_collect == jcfg.num_collect
     for field in (
         "n_workers", "n_stragglers", "rounds", "add_delay", "delay_mean",
-        "n_rows", "n_cols", "seed", "dtype", "use_pallas",
+        "n_rows", "n_cols", "seed", "dtype", "use_pallas", "deadline",
+        "decode", "partitions_per_worker", "is_real_data",
     ):
         assert getattr(tcfg, field) == getattr(jcfg, field), field
     for field in ("scheme", "model", "update_rule", "compute_mode"):

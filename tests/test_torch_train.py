@@ -163,10 +163,20 @@ def test_cli_writes_the_jax_artifact_names(tmp_path):
 
 
 def test_cli_refuses_an_on_disk_dataset(tmp_path):
-    layout_dir = tmp_path / "artificial-data" / "64x8" / "4"
-    layout_dir.mkdir(parents=True)
-    (layout_dir / "1.dat").write_text("0\n")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """A CSR (.npz) reference layout loads, and the trainer refuses it where
+    it stacks the partitions: the port stacks dense features only."""
+    import scipy.sparse as sps
+
+    from erasurehead_tpu_torch.data import io as t_io
+    from erasurehead_tpu_torch.data.synthetic import Dataset
+
+    dense = generate_gmm(64, 8, n_partitions=4, seed=0)
+    sparse = Dataset(
+        sps.csr_matrix(dense.X_train), dense.y_train,
+        sps.csr_matrix(dense.X_test), dense.y_test,
+    )
+    t_io.write_reference_layout(sparse, str(tmp_path / "artificial-data" / "64x8" / "4"), 4)
+    with pytest.raises(ValueError, match="sparse stacks are not ported"):
         t_cli.main([
             "--workers", "4", "--rows", "64", "--cols", "8", "--rounds", "1",
             "--input-dir", str(tmp_path), "--device", "cpu", "--quiet",
