@@ -69,7 +69,40 @@ Phases, one JSON line each:
                  kernel streams rows instead of staging them;
   12. profile  - device time by kernel over one more training run of the GLM
                  main path and of the deep path, from torch.profiler, and the
-                 device's busy share of each round loop.
+                 device's busy share of each round loop;
+  13. cohort_check - the cohort decode (fused_block_decode_cohort, one launch
+                 for every leaf of B trajectories) bitwise equal to its plain
+                 version and to B one-trajectory launches: deepmlp's and moe's
+                 leaves at [B, 30, 3, ...] for B = 1, 4, 28, float32 and
+                 bfloat16, the [B, P] contract, 40 leaves (two launches), and
+                 the leaves torch.func.vmap gives on the card for B = 4
+                 (contiguous, or copied by the step: the copies are counted);
+  14. compare_deduped - experiments.compare over the seven schemes of the
+                 JAX cohort tests x seeds 0-3 (28 trajectories), deduped
+                 [30, 4400, 128], 100 rounds, batch "auto": as many cohort
+                 dispatches as plan_cohorts plans, no kernel launch; each
+                 seed-0 row's replayed loss within relative 1e-4 of the same
+                 scheme's sequential card run (compare, batch "off": 100
+                 fused_glm_grad launches each), its simulated clock and
+                 decode error the same bytes; the first 10 rounds of the
+                 cohort on the card and on the CPU within relative 1e-4;
+  15. compare_faithful - the seven schemes, seed 0, faithful: dispatches and
+                 fused_glm_grad launches as plan_cohorts predicts (groups of
+                 two or more batch, singletons run 100 launches each);
+  16. straggler_sweep - {"approx": [1, 2], "cyccoded": [1, 2, 3]}, deduped:
+                 the JAX labels and collect counts, losses falling;
+  17. cohort_deep - deepmlp layer-coded (fused decode), GD, four trajectories
+                 (lr 0.5 and 0.25 x seeds 0 and 1) on the faithful
+                 [30, 3, 4400, 128] stack through trainer.train_cohort:
+                 exactly one decode launch a round for the whole cohort, each
+                 member's replayed loss within relative 1e-4 of its
+                 sequential card run and its control-plane arrays the same
+                 bytes, 10 rounds card vs CPU within 1e-4;
+  18. time_cohort, profile_cohort - the cohort decode at B = 4 and 28 against
+                 B one-trajectory launches, one torch.bmm per leaf and its
+                 bound; 28 fused_glm_grad launches at [30, 4400, 128]; device
+                 time per round of the 28-trajectory cohort (profiler) against
+                 its bound (X read once), its busy share and steps/s.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -152,6 +185,22 @@ SLOTS = (30, 3)  # the faithful stack's [W, S] slot layout
 # rows wider than the kernel's registers: one re-read tile, and the covtype
 # preset's width (eight tiles)
 WIDE_SHAPES = ((30, 4400, 2048), (6, 2200, 15509))
+# the cohort phases: the seven schemes of the JAX cohort tests at the main
+# path's data, W = 30, s = 2, AGD at the artificial preset's lr (10)
+COHORT_SCHEMES = {
+    "naive": {}, "cyccoded": {}, "repcoded": {}, "approx": {"num_collect": 15},
+    "avoidstragg": {}, "randreg": {"num_collect": 15}, "deadline": {"deadline": 0.5},
+}
+COHORT_BASE = dict(n_workers=30, n_stragglers=2, n_rows=132000, n_cols=128,
+                   update_rule="AGD", add_delay=True)
+COHORT_SEEDS = (0, 1, 2, 3)
+DEDUPED_SHAPE = (30, 4400, 128)  # [P, rows per partition, F]
+SWEEP_GRID = {"approx": [1, 2], "cyccoded": [1, 2, 3]}
+# the JAX harness's labels and collect counts for SWEEP_GRID at W = 30
+SWEEP_WANT = [("approx_s1", 15), ("approx_s2", 15), ("cyccoded_s1", 30),
+              ("cyccoded_s2", 30), ("cyccoded_s3", 30)]
+# the deep cohort: DEEP_ARGS' run at (lr, seed) = (0.5, 0), (0.5, 1), (0.25, 0), (0.25, 1)
+DEEP_COHORT = [(lr, seed) for lr in (0.5, 0.25) for seed in (0, 1)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 ARTIFACTS = ("training_loss", "testing_loss", "auc", "timeset", "worker_timeset")
@@ -316,31 +365,57 @@ def check_falls(run) -> list:
     return [float(loss[0]), float(loss[-1])]
 
 
-def profile_train(cli, args) -> dict:
-    """Where a round's time goes, over more runs of a path's training (after
-    the launch counts were read): one warm run without the profiler
-    (steps/s), then one under torch.profiler, whose device activities in the
-    round loop (kernels and device-to-device copies; the stack's upload
-    before the loop and the profiler's own buffer events are left out) give
-    the device's busy share of the loop."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profiled(body):
+    """torch.profiler over ``body()`` run twice: a warm-up pass whose records
+    are dropped, then the recorded pass. On the card a fresh profiler window
+    loses its first device records (seen: 4 of 200 calls, and every record
+    of a 20-call window); the warm-up pass takes that loss. Returns the
+    profiler and the recorded pass's result."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            out = body()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof, out
+
+
+def device_events(prof) -> list:
+    """The profile's device-side events (kernels, copies, memsets; a CPU
+    op's device time repeats its kernels' time), without the profiler's own
+    records (its buffers, the schedule's step markers)."""
+    from torch.autograd import DeviceType
+
+    return [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
+            and not ev.key.startswith(("Activity Buffer", "ProfilerStep"))]
+
+
+def profile_train(cli, args) -> dict:
+    """profile_run of one path's trainer.train run."""
     from erasurehead_tpu_torch.train import trainer
 
     cfg = parse_config(cli, args)
     ds = cli.load_dataset(cfg)
-    warm = trainer.train(cfg, ds)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res = trainer.train(cfg, ds)
+    return profile_run(lambda: trainer.train(cfg, ds))
+
+
+def profile_run(run) -> dict:
+    """Where a round's time goes, over more runs of a path's training (after
+    the launch counts were read): ``run()`` once warm without the profiler
+    (steps/s), then once under torch.profiler, whose device activities in the
+    round loop (kernels and device-to-device copies; the stack's upload
+    before the loop and the profiler's own buffer events are left out) give
+    the device's busy share of the loop. ``run`` returns a TrainResult (a
+    cohort's first member: all share the cohort's clock)."""
+    warm = run()
+    prof, res = profiled(run)
+    cfg = res.config
     rows = []
-    for ev in prof.key_averages():
-        # device-side events only (kernels, copies, memsets): a CPU op's
-        # device time repeats its kernels' time
-        if ev.device_type != DeviceType.CUDA:
-            continue
+    for ev in device_events(prof):
         dev_us = device_us(ev)
-        if dev_us and ev.key and not ev.key.startswith(("Memcpy HtoD", "Activity Buffer")):
+        if dev_us and ev.key and not ev.key.startswith("Memcpy HtoD"):
             rows.append((ev.key, dev_us, ev.count))
     rows.sort(key=lambda r: -r[1])
     total_us = sum(r[1] for r in rows)
@@ -349,6 +424,7 @@ def profile_train(cli, args) -> dict:
         warm_steps_per_sec=warm.steps_per_sec,
         profiled_loop_wall_ms=res.wall_time * 1e3,
         device_ms_in_loop=total_us / 1e3 if total_us else None,
+        device_ms_per_round=total_us / 1e3 / cfg.rounds if total_us else None,
         device_busy_share=total_us / (res.wall_time * 1e6) if total_us else None,
         # device time of the port's own kernels; the rest is PyTorch's
         # (per-slot autodiff products, elementwise, optimizer, copies)
@@ -410,22 +486,17 @@ def device_ms(fn, n) -> float:
     record times its records per call. CUDA events around back-to-back calls
     would also count the gaps in which the card waits for the host to launch
     the next call, which is most of a small call's time. The profiler may
-    lose a record or two of a window (seen on the card: 199 of 200), which
-    the mean does not feel; a profile that lost more is taken again."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    lose a few records of a window (seen on the card: 199 and 196 of 200),
+    which the mean does not feel; a profile that lost more than 2% is taken
+    again."""
     fn()
     torch.cuda.synchronize()
     for _ in range(5):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
-               and not ev.key.startswith("Activity Buffer")]
+        prof, _ = profiled(lambda: [fn() for _ in range(n)])
+        evs = device_events(prof)
         per_call = [round(ev.count / n) for ev in evs]
-        if evs and all(k >= 1 and abs(ev.count - k * n) <= 2 for ev, k in zip(evs, per_call)):
+        if evs and all(k >= 1 and abs(ev.count - k * n) <= max(2, k * n // 50)
+                       for ev, k in zip(evs, per_call)):
             return sum(device_us(ev) / ev.count * k for ev, k in zip(evs, per_call)) / 1e3
     raise AssertionError(f"the profiler lost device events: {[(ev.key, ev.count) for ev in evs]}")
 
@@ -533,9 +604,6 @@ def decode_ops(kernels, model_name) -> dict:
     contiguous (the kernel reads them in place; the wrapper refuses any
     other), and their decode must be exactly one kernel on the device per
     call, with no copy beside it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from erasurehead_tpu_torch.ops import blocks
     from erasurehead_tpu_torch.parallel import step
     from erasurehead_tpu_torch.train import trainer
@@ -555,14 +623,12 @@ def decode_ops(kernels, model_name) -> dict:
     kernels.fused_block_decode_leaves(ws, leaves)
     torch.cuda.synchronize()
     before = kernels.LAUNCHES["fused_block_decode"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            kernels.fused_block_decode_leaves(ws, leaves)
-        torch.cuda.synchronize()
-    launches = kernels.LAUNCHES["fused_block_decode"] - before
+    prof, _ = profiled(lambda: [kernels.fused_block_decode_leaves(ws, leaves)
+                                for _ in range(calls)])
+    # the warm-up pass and the recorded pass
+    launches = (kernels.LAUNCHES["fused_block_decode"] - before) // 2
     # the profile may lose a record; the launch count does not
-    ops = {ev.key: ev.count for ev in prof.key_averages()
-           if ev.device_type == DeviceType.CUDA and not ev.key.startswith("Activity Buffer")}
+    ops = {ev.key: ev.count for ev in device_events(prof)}
     rec = dict(model=model_name, leaf_shapes=[list(leaf.shape) for leaf in leaves],
                contiguous=contiguous, calls=calls, launches=launches, device_ops=ops)
     emit("decode_ops", **rec)
@@ -750,6 +816,341 @@ def time_scheme_stack(kernels, shape, w, label) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# trajectory cohorts
+
+
+def cohort_leaves(shapes, dtype, seed, B, lead=SLOTS, zero_every=2):
+    """Random [B, *lead] slot weights (every ``zero_every``-th of each
+    trajectory 0) and leaves [B, *lead, *shape] on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    ws = torch.randn(B, *lead, generator=gen)
+    ws.view(B, -1)[:, ::zero_every] = 0.0
+    leaves = [torch.randn(B, *lead, *s, generator=gen).to(dtype).cuda() for s in shapes]
+    return ws.cuda(), leaves
+
+
+def check_cohort_decode(kernels, ws, leaves, label) -> dict:
+    """The cohort launch the step calls vs its plain version and vs B
+    one-trajectory launches: bitwise, one launch per 32 leaves."""
+    B, contract = ws.shape[0], "ws" if ws.dim() == 3 else "p"
+    before = kernels.LAUNCHES["fused_block_decode"]
+    got = kernels.fused_block_decode_cohort(ws, leaves, contract)
+    launches = kernels.LAUNCHES["fused_block_decode"] - before
+    want = kernels.reference_block_decode_cohort(ws, leaves, contract)
+    per = [kernels.fused_block_decode_leaves(ws[b], [leaf[b] for leaf in leaves])
+           for b in range(B)]
+    torch.cuda.synchronize()
+    rec = dict(
+        kernel="fused_block_decode_cohort", case=label, B=B, slots=list(ws.shape[1:]),
+        leaves=len(leaves), dtype=str(leaves[0].dtype).split(".")[-1],
+        launches_per_call=launches,
+        max_abs_err=max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)),
+        bitwise_vs_plain=all(torch.equal(a, b) for a, b in zip(got, want)),
+        bitwise_vs_one_trajectory_launches=all(
+            torch.equal(out[b], per[b][i]) for i, out in enumerate(got) for b in range(B)),
+    )
+    emit("cohort_check", **rec)
+    if not (rec["bitwise_vs_plain"] and rec["bitwise_vs_one_trajectory_launches"]):
+        raise AssertionError(f"fused_block_decode_cohort is not bitwise: {rec}")
+    if launches != math.ceil(len(leaves) / kernels._library().eh_fused_block_decode_max_leaves()):
+        raise AssertionError(f"{len(leaves)} leaves took {launches} launches")
+    return rec
+
+
+def cohort_vmap_leaves(kernels, model_name, B=4) -> dict:
+    """A model's real per-slot leaves for a B-trajectory cohort on the card,
+    as the step's torch.func.vmap over the params gives them at the flagship
+    [30, 3, 4400, 128] stack: whether each is contiguous, the decode of the
+    leaves the step hands the kernel (each made contiguous) bitwise equal to
+    its plain version, and the device ops of that decode: one kernel a call,
+    plus one copy per non-contiguous leaf."""
+    from erasurehead_tpu_torch.ops import blocks
+    from erasurehead_tpu_torch.parallel import step
+    from erasurehead_tpu_torch.train import trainer
+    from erasurehead_tpu_torch.utils.config import RunConfig
+
+    model = trainer.build_model(RunConfig(model=model_name))
+    params = blocks.tree_map(lambda *l: torch.stack(l), *[
+        model.init_params(seed, MAIN_SHAPE[2], "cuda") for seed in range(B)])
+    _, X, y, _ = make_inputs(*MAIN_SHAPE, torch.float32, seed=310)
+    Xs, ys = X.reshape(SLOTS + MAIN_SHAPE[1:]), y.reshape(SLOTS + MAIN_SHAPE[1:2])
+    ws, _ = cohort_leaves([], torch.float32, seed=311, B=B)
+    leaves = blocks.tree_leaves(torch.func.vmap(
+        lambda p: step.per_slot_grads(model, p, Xs, ys, 2))(params))
+    contiguous = [leaf.is_contiguous() for leaf in leaves]
+    rec = check_cohort_decode(kernels, ws, [leaf.contiguous() for leaf in leaves],
+                              f"{model_name}_vmap")
+
+    def decode():  # as the step calls it
+        kernels.fused_block_decode_cohort(ws, [leaf.contiguous() for leaf in leaves], "ws")
+
+    calls = 20
+    decode()
+    torch.cuda.synchronize()
+    prof, _ = profiled(lambda: [decode() for _ in range(calls)])
+    ops = {ev.key: ev.count for ev in device_events(prof)}
+    kernel_calls = sum(n for k, n in ops.items() if "block_decode" in k)
+    copies = sum(n for k, n in ops.items() if "block_decode" not in k)
+    out = dict(model=model_name, B=B, leaf_shapes=[list(leaf.shape) for leaf in leaves],
+               contiguous=contiguous, calls=calls, device_ops=ops,
+               copies_per_call=copies / calls, bitwise_vs_plain=rec["bitwise_vs_plain"])
+    emit("cohort_decode_ops", **out)
+    # the profile may lose a record or two of a window
+    if abs(kernel_calls - calls) > 2 or abs(copies - calls * contiguous.count(False)) > 2:
+        raise AssertionError(f"{model_name}: {calls} cohort decodes ran {ops} on the device")
+    return out
+
+
+def cohort_configs(mode, seeds, rounds=ROUNDS) -> dict:
+    """label -> RunConfig: the seven schemes x ``seeds`` at the main path's
+    data, scheme-major."""
+    from erasurehead_tpu_torch.utils.config import RunConfig
+
+    return {f"{s}_seed{seed}": RunConfig(scheme=s, seed=seed, compute_mode=mode, rounds=rounds,
+                                         **COHORT_BASE, **extra)
+            for s, extra in COHORT_SCHEMES.items() for seed in seeds}
+
+
+def planned(experiments, configs) -> tuple:
+    """plan_cohorts' groups that dispatch as cohorts under batch "auto" (two
+    or more), and the labels that run sequentially."""
+    plan = experiments.plan_cohorts(configs)
+    batched = [labels for labels, ok in plan if ok and len(labels) >= 2]
+    sequential = [label for labels, ok in plan if not (ok and len(labels) >= 2)
+                  for label in labels]
+    return plan, batched, sequential
+
+
+def counted_compare(kernels, experiments, configs, ds, want, **kw) -> dict:
+    """experiments.compare on the card with every launch count and every
+    harness counter set to 0 just before and read just after; the launch
+    counts must be exactly ``want``."""
+    experiments.reset_counters()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rows = experiments.compare(configs, ds, **kw)
+    out = dict(rows=rows, seconds=time.perf_counter() - t0, launches=dict(kernels.LAUNCHES),
+               counters=dict(experiments.COUNTERS))
+    if out["launches"] != want:
+        raise AssertionError(f"compare launched {out['launches']}, want {want}")
+    return out
+
+
+def max_rel(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a) - np.asarray(b)) / np.abs(np.asarray(b))))
+
+
+def losses_fall(rows) -> dict:
+    out = {r.label: [float(r.training_loss[0]), float(r.training_loss[-1])] for r in rows}
+    bad = {k: v for k, v in out.items() if not v[1] < v[0]}
+    if bad:
+        raise AssertionError(f"training loss did not fall: {bad}")
+    return out
+
+
+def compare_deduped_phase(kernels, experiments, ds, both0) -> dict:
+    """The 28-trajectory deduped compare as one planned cohort, held to the
+    sequential seed-0 runs on the card and to the CPU for 10 rounds."""
+    t0 = time.perf_counter()
+    configs = cohort_configs("deduped", COHORT_SEEDS)
+    plan, batched, sequential = planned(experiments, configs)
+    run = counted_compare(kernels, experiments, configs, ds, both0, batch="auto")
+    rows, counters = run["rows"], run["counters"]
+    if (counters["cohort.dispatches"] != len(batched) or len(rows) != 28
+            or counters["cohort.trajectories"] != 28 or sequential):
+        raise AssertionError(f"compare_deduped planned {plan}, counted {counters}")
+    seq_cfgs = {label: cfg for label, cfg in configs.items() if cfg.seed == 0}
+    seq = counted_compare(kernels, experiments, seq_cfgs, ds,
+                          {**both0, "fused_glm_grad": ROUNDS * len(seq_cfgs)}, batch="off")
+    by_label = {r.label: r for r in rows}
+    vs_seq = {r.label: max_rel(by_label[r.label].training_loss, r.training_loss)
+              for r in seq["rows"]}
+    # the control plane is the host's, per trajectory: the same bytes
+    same_control = {r.label: by_label[r.label].timeset.tobytes() == r.timeset.tobytes()
+                     and by_label[r.label].decode_error_mean == r.decode_error_mean
+                     for r in seq["rows"]}
+    short = cohort_configs("deduped", COHORT_SEEDS, SHORT_ROUNDS)
+    gpu10 = experiments.compare(short, ds, batch="auto")
+    cpu10 = experiments.compare(short, ds, batch="auto", device="cpu")
+    vs_cpu = max(max_rel(g.training_loss, c.training_loss) for g, c in zip(gpu10, cpu10))
+    rec = dict(
+        trajectories=len(rows), plan=[[len(labels), ok] for labels, ok in plan],
+        counters=counters, launches=run["launches"],
+        sequential_launches=seq["launches"], sequential_counters=seq["counters"],
+        cohort=rows[0].cache,
+        # aggregate steps/s of the cohort (R * B / its wall clock), and the
+        # sequential runs' own steps/s
+        cohort_steps_per_sec=rows[0].real_steps_per_sec,
+        sequential_steps_per_sec={r.label: r.real_steps_per_sec for r in seq["rows"]},
+        compare_seconds=run["seconds"], sequential_compare_seconds=seq["seconds"],
+        max_rel_loss_vs_sequential=vs_seq, max_rel_loss_vs_cpu_10_rounds=vs_cpu,
+        control_plane_equal_sequential=same_control,
+        decode_error_mean={r.label: r.decode_error_mean for r in rows if r.config.seed == 0},
+        train_loss_first_last=losses_fall(rows),
+        phase_seconds=time.perf_counter() - t0,
+    )
+    emit("compare_deduped", **rec)
+    if max(vs_seq.values()) > 1e-4 or vs_cpu > 1e-4:
+        raise AssertionError(f"cohort losses differ: {vs_seq}, card vs CPU {vs_cpu}")
+    if not all(same_control.values()):
+        raise AssertionError(f"cohort and sequential control planes differ: {same_control}")
+    return rec
+
+
+def compare_faithful_phase(kernels, experiments, ds, both0) -> dict:
+    """The seven schemes, seed 0, faithful: groups of two or more batch,
+    singletons run sequentially through fused_glm_grad."""
+    t0 = time.perf_counter()
+    configs = cohort_configs("faithful", (0,))
+    plan, batched, sequential = planned(experiments, configs)
+    run = counted_compare(kernels, experiments, configs, ds,
+                          {**both0, "fused_glm_grad": ROUNDS * len(sequential)}, batch="auto")
+    counters = run["counters"]
+    if (counters["cohort.dispatches"] != len(batched)
+            or counters["cohort.sequential_runs"] != len(sequential)):
+        raise AssertionError(f"compare_faithful planned {plan}, counted {counters}")
+    rec = dict(plan=[[labels, ok] for labels, ok in plan], counters=counters,
+               launches=run["launches"],
+               lowering={r.label: r.cache and r.cache["cohort_lowering"] for r in run["rows"]},
+               steps_per_sec={r.label: r.real_steps_per_sec for r in run["rows"]},
+               train_loss_first_last=losses_fall(run["rows"]),
+               compare_seconds=run["seconds"], phase_seconds=time.perf_counter() - t0)
+    emit("compare_faithful", **rec)
+    return rec
+
+
+def straggler_sweep_phase(kernels, experiments, ds, both0) -> dict:
+    """SWEEP_GRID through experiments.straggler_sweep, deduped: the JAX
+    harness's labels and collect counts, one planned cohort, losses falling."""
+    from erasurehead_tpu_torch.utils.config import RunConfig
+
+    t0 = time.perf_counter()
+    base = RunConfig(compute_mode="deduped", rounds=ROUNDS, **COHORT_BASE)
+    experiments.reset_counters()
+    kernels.reset_launches()
+    rows = experiments.straggler_sweep(base, ds, SWEEP_GRID, batch="auto")
+    launches, counters = dict(kernels.LAUNCHES), dict(experiments.COUNTERS)
+    _, batched, _ = planned(experiments, {r.label: r.config for r in rows})
+    got = [(r.label, r.config.num_collect) for r in rows]
+    rec = dict(grid=SWEEP_GRID, labels_num_collect=got, launches=launches, counters=counters,
+               time_to_target={r.label: r.time_to_target for r in rows},
+               sim_total_time={r.label: r.sim_total_time for r in rows},
+               train_loss_first_last=losses_fall(rows), phase_seconds=time.perf_counter() - t0)
+    emit("straggler_sweep", **rec)
+    if got != SWEEP_WANT or launches != both0 or counters["cohort.dispatches"] != len(batched):
+        raise AssertionError(f"straggler_sweep: {rec}")
+    return rec
+
+
+def replayed_loss(res, ds) -> np.ndarray:
+    from erasurehead_tpu_torch.train import evaluate, trainer
+
+    n = res.n_train
+    return evaluate.replay(trainer.build_model(res.config), res.config.model,
+                           res.params_history, ds.X_train[:n], ds.y_train[:n],
+                           ds.X_test, ds.y_test).training_loss
+
+
+def cohort_deep_phase(cli, kernels, ds, both0) -> dict:
+    """DEEP_ARGS' run at four (lr, seed) variants as one train_cohort on the
+    faithful stack: one decode launch a round for the whole cohort, each
+    member held to its sequential card run, 10 rounds card vs CPU."""
+    from erasurehead_tpu_torch.train import trainer
+
+    t0 = time.perf_counter()
+    base = parse_config(cli, DEEP_ARGS)
+    cfgs = [dataclasses.replace(base, lr_schedule=lr, seed=seed) for lr, seed in DEEP_COHORT]
+    kernels.reset_launches()
+    res = trainer.train_cohort(cfgs, ds)
+    launches = dict(kernels.LAUNCHES)
+    if launches != {**both0, "fused_block_decode": ROUNDS}:
+        raise AssertionError(f"cohort_deep launched {launches}")
+    losses = [replayed_loss(r, ds) for r in res]
+    seq = [trainer.train(c, ds) for c in cfgs]
+    vs_seq = [max_rel(a, replayed_loss(s, ds)) for a, s in zip(losses, seq)]
+    same_control = [all(np.asarray(getattr(a, f)).tobytes() == np.asarray(getattr(b, f)).tobytes()
+                        for f in ("timeset", "worker_times", "collected", "decode_error"))
+                    for a, b in zip(res, seq)]
+    short = [dataclasses.replace(c, rounds=SHORT_ROUNDS) for c in cfgs]
+    gpu10 = trainer.train_cohort(short, ds)
+    cpu10 = trainer.train_cohort(short, ds, device="cpu")
+    vs_cpu = max(max_rel(replayed_loss(g, ds), replayed_loss(c, ds)) for g, c in zip(gpu10, cpu10))
+    rec = dict(
+        variants=[list(v) for v in DEEP_COHORT], stack=[*SLOTS, *MAIN_SHAPE[1:]],
+        launches=launches, cohort=res[0].cohort,
+        cohort_steps_per_sec=res[0].steps_per_sec,
+        sequential_steps_per_sec=[s.steps_per_sec for s in seq],
+        max_rel_loss_vs_sequential=vs_seq, max_rel_loss_vs_cpu_10_rounds=vs_cpu,
+        control_plane_equal_sequential=same_control,
+        train_loss_first_last=[[float(l[0]), float(l[-1])] for l in losses],
+        phase_seconds=time.perf_counter() - t0,
+    )
+    emit("cohort_deep", **rec)
+    if max(vs_seq) > 1e-4 or vs_cpu > 1e-4:
+        raise AssertionError(f"deep cohort losses differ: {vs_seq}, card vs CPU {vs_cpu}")
+    if not all(l[-1] < l[0] for l in losses):
+        raise AssertionError("a deep cohort member's training loss did not fall")
+    if not all(same_control):
+        raise AssertionError(f"deep cohort and sequential control planes differ: {same_control}")
+    return rec
+
+
+def time_cohort_decode(kernels, shapes, B) -> dict:
+    """A deep cohort round's decode at B trajectories, float32 [B, 30, 3]
+    slots: the one cohort launch, B one-trajectory launches, the library
+    yardstick (one torch.bmm per leaf, never called by the port), the plain
+    version (CUDA events: a host-bound Python loop) and the bound: each
+    trajectory's bytes once."""
+    ws, leaves = cohort_leaves(shapes, torch.float32, seed=9, B=B)
+    M = ws[0].numel()
+    flat = [leaf.reshape(B, M, -1) for leaf in leaves]  # views, no copy
+    wrow = ws.reshape(B, 1, M)
+    dev, call = time_turns(dict(
+        kernel=(lambda: kernels.fused_block_decode_cohort(ws, leaves, "ws"), 200),
+        per_trajectory=(lambda: [kernels.fused_block_decode_leaves(ws[b], [l[b] for l in leaves])
+                                 for b in range(B)], max(20, 200 // B)),
+        library=(lambda: [torch.bmm(wrow, g) for g in flat], 200),
+    ))
+    plain_ms = time_ms(lambda: kernels.reference_block_decode_cohort(ws, leaves, "ws"), n=2)
+    D = sum(g.shape[2] for g in flat)
+    nbytes = B * (M * D + M + D) * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * B * M * D / FP32_FLOPS * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    rec = dict(B=B, leaves=[g.shape[2] for g in flat], kernel_ms=dev["kernel"],
+               per_trajectory_launches_ms=dev["per_trajectory"], library_ms=dev["library"],
+               plain_ms=plain_ms, bound_ms=bound, bound_by=by, bytes=nbytes, call_ms=call)
+    emit("time_cohort", kernel="fused_block_decode_cohort", **rec)
+    return rec
+
+
+def time_cohort_glm(kernels, B=28) -> dict:
+    """One deduped cohort round's gradient at B trajectories: the cohort
+    matmul body the path runs (two float32 cuBLAS GEMMs) against B launches
+    of fused_glm_grad at [30, 4400, 128], and the bound: X read once."""
+    from erasurehead_tpu_torch.models.glm import LogisticModel
+    from erasurehead_tpu_torch.parallel import step
+
+    _, X, y, _ = make_inputs(*DEDUPED_SHAPE, torch.float32, seed=103)
+    gen = torch.Generator().manual_seed(104)
+    betas = (torch.randn(B, DEDUPED_SHAPE[2], generator=gen) * 0.1).cuda()
+    ws = torch.rand(B, DEDUPED_SHAPE[0], generator=gen).cuda()
+    grad = step.cohort_matmul_grad_fn(LogisticModel())
+    dev, call = time_turns(dict(
+        cohort_matmul=(lambda: grad(betas, X, y, ws), 50),
+        b1_x_B=(lambda: [kernels.fused_glm_grad(betas[b], X, y, ws[b], "logistic")
+                         for b in range(B)], 10),
+    ))
+    nbytes = X.numel() * 4 + y.numel() * 4 + (betas.numel() + ws.numel()) * 4 + betas.numel() * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    rec = dict(B=B, shape=list(DEDUPED_SHAPE), cohort_matmul_ms=dev["cohort_matmul"],
+               b1_x_B_ms=dev["b1_x_B"], bound_ms=bound, bound_by="bytes",
+               b1_one_launch_bound_ms=glm_bound_ms(*DEDUPED_SHAPE, 4)[0], call_ms=call)
+    emit("time_cohort", kernel="cohort_matmul", **rec)
+    del X, y
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -882,6 +1283,29 @@ def main() -> int:
         on_disk = input_dir_phase(cli, kernels, tmp, both0)
         new_phases_s = time.perf_counter() - t_schemes
 
+    # trajectory cohorts: the decode's trajectory axis, then the harness
+    from erasurehead_tpu_torch.train import experiments
+
+    t_cohort = time.perf_counter()
+    cohort_checks = []
+    for i, (model_name, shapes) in enumerate((("deepmlp", deep_shapes), ("moe", moe_shapes))):
+        for B in (1, 4, 28):
+            for dtype in (torch.float32, torch.bfloat16):
+                ws, leaves = cohort_leaves(shapes, dtype, seed=400 + 40 * i + B, B=B)
+                cohort_checks.append(check_cohort_decode(kernels, ws, leaves, f"{model_name}_B{B}"))
+    ws, leaves = cohort_leaves(deep_shapes, torch.float32, seed=490, B=4, lead=(90,))
+    cohort_checks.append(check_cohort_decode(kernels, ws, leaves, "deepmlp_partition_major"))
+    ws, leaves = cohort_leaves([(d,) for d in range(1, 41)], torch.float32, seed=491, B=3)
+    cohort_checks.append(check_cohort_decode(kernels, ws, leaves, "40_leaves"))
+    del ws, leaves
+    vmap_ops = [cohort_vmap_leaves(kernels, m) for m in ("deepmlp", "moe")]
+    cohort_ds = cli.load_dataset(parse_config(cli, MAIN_ARGS))
+    deduped = compare_deduped_phase(kernels, experiments, cohort_ds, both0)
+    faithful = compare_faithful_phase(kernels, experiments, cohort_ds, both0)
+    sweep = straggler_sweep_phase(kernels, experiments, cohort_ds, both0)
+    deep_cohort = cohort_deep_phase(cli, kernels, cohort_ds, both0)
+    cohort_phases_s = time.perf_counter() - t_cohort
+
     # times at the main path's shapes (compare launches do not count)
     b, X, y, w = make_inputs(*MAIN_SHAPE, torch.float32, seed=100)
     Xb = X.to(torch.bfloat16)
@@ -921,6 +1345,16 @@ def main() -> int:
     deep_profile = profile_train(cli, DEEP_ARGS)
     emit("profile", path="deep", **deep_profile)
 
+    cohort_decode_times = {B: time_cohort_decode(kernels, deep_shapes, B) for B in (4, 28)}
+    cohort_glm_time = time_cohort_glm(kernels)
+    from erasurehead_tpu_torch.train import trainer
+
+    cohort_cfgs = list(cohort_configs("deduped", COHORT_SEEDS).values())
+    cohort_profile = profile_run(lambda: trainer.train_cohort(cohort_cfgs, cohort_ds)[0])
+    cohort_profile["bound_ms_per_round"] = cohort_glm_time["bound_ms"]
+    cohort_profile["aggregate_steps_per_sec"] = cohort_profile["warm_steps_per_sec"]
+    emit("profile", path="compare_deduped_cohort", **cohort_profile)
+
     kernel_ms_best = min(kernel_ms, kernel_ms_2)
     line = {"kernels": [{
         "name": "fused_glm_grad",
@@ -928,14 +1362,24 @@ def main() -> int:
         "source": "erasurehead_tpu_torch/csrc/fused_glm_grad.cu",
         "replaces": "erasurehead_tpu/ops/kernels.py:68",
         "tpu_kernel": "erasurehead_tpu/ops/kernels.py:_kernel",
-        # the main path's 100, each schemes run's 100 and the input_dir run's
+        # the main path's 100, each schemes run's 100, the input_dir run's,
+        # and the cohort harness's sequential runs (compare_deduped's seed-0
+        # runs with batch "off", compare_faithful's singletons)
         "launches": launches["fused_glm_grad"]
         + sum(r["launches"]["fused_glm_grad"] for r in scheme_rows)
-        + on_disk["launches"]["fused_glm_grad"],
+        + on_disk["launches"]["fused_glm_grad"]
+        + deduped["sequential_launches"]["fused_glm_grad"]
+        + faithful["launches"]["fused_glm_grad"],
         "launches_by_path": {"main": launches["fused_glm_grad"],
                              **{r["run"]: r["launches"]["fused_glm_grad"] for r in scheme_rows},
                              "legacy": [n["fused_glm_grad"] for n in legacy["launches"]],
-                             "input_dir": on_disk["launches"]["fused_glm_grad"]},
+                             "input_dir": on_disk["launches"]["fused_glm_grad"],
+                             "compare_deduped_cohort": deduped["launches"]["fused_glm_grad"],
+                             "compare_deduped_sequential":
+                                 deduped["sequential_launches"]["fused_glm_grad"],
+                             "compare_faithful": faithful["launches"]["fused_glm_grad"],
+                             "straggler_sweep": sweep["launches"]["fused_glm_grad"],
+                             "cohort_deep": deep_cohort["launches"]["fused_glm_grad"]},
         "max_abs_err": main_err,
         "ms": kernel_ms_best,
         "plain_ms": min(plain_ms, plain_ms_2),  # the two-pass torch yardstick
@@ -948,14 +1392,25 @@ def main() -> int:
                           for label, r in stack_times.items()},
         "sparsegraph_zero_slot_time_share": stack_times["sparsegraph"]["zero_slot_time_share"],
         "schemes_legacy_input_dir_phase_s": new_phases_s,
+        # a 28-trajectory deduped cohort round: the cohort matmul the path
+        # runs instead, against 28 launches of this kernel
+        "cohort_round": {k: cohort_glm_time[k] for k in (
+            "B", "shape", "cohort_matmul_ms", "b1_x_B_ms", "bound_ms")},
     }, {
         "name": "fused_block_decode",
         "route": "cuda",
         "source": "erasurehead_tpu_torch/csrc/fused_block_decode.cu",
         "replaces": "erasurehead_tpu/ops/kernels.py:252",
         "tpu_kernel": "erasurehead_tpu/ops/kernels.py:_decode_kernel",
-        "launches": deep["launches"]["fused_block_decode"],
-        "max_abs_err": decode_err,
+        # the deep path's 100 and the deep cohort's 100 (one a round for
+        # its four trajectories)
+        "launches": deep["launches"]["fused_block_decode"]
+        + deep_cohort["launches"]["fused_block_decode"],
+        "launches_by_path": {"deep": deep["launches"]["fused_block_decode"],
+                             "cohort_deep": deep_cohort["launches"]["fused_block_decode"],
+                             "compare_deduped": deduped["launches"]["fused_block_decode"],
+                             "compare_faithful": faithful["launches"]["fused_block_decode"]},
+        "max_abs_err": max(decode_err, max(c["max_abs_err"] for c in cohort_checks)),
         # a deep round's decode: one launch for its six leaves
         "ms": per_round["kernel_ms"],
         "plain_ms": per_round["plain_ms"],
@@ -966,6 +1421,12 @@ def main() -> int:
         "library_ms": per_round["library_ms"],
         "steps_per_sec": deep["manifest"]["steps_per_sec"],
         "leaves_contiguous": all(all(r["contiguous"]) for r in ops),
+        "cohort_leaves_contiguous": all(all(r["contiguous"]) for r in vmap_ops),
+        # a deep cohort round's decode: one launch for B trajectories
+        "cohort": {f"B{B}": {k: r[k] for k in (
+            "kernel_ms", "per_trajectory_launches_ms", "library_ms", "plain_ms", "bound_ms")}
+            for B, r in cohort_decode_times.items()},
+        "cohort_phases_s": cohort_phases_s,
     }]}
     print(json.dumps(line))
     print(card)

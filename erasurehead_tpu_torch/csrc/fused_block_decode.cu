@@ -1,5 +1,6 @@
 // Decoded leaf gradients of the blockwise (layer-coded) step, for Hopper
-// (sm_90a): every leaf of a round in one launch.
+// (sm_90a): every leaf of a round in one launch, for one trajectory or for a
+// cohort of B trajectories at once.
 //
 // Replaces the Pallas TPU kernel erasurehead_tpu/ops/kernels.py::_decode_kernel
 // (launched by erasurehead_tpu/ops/kernels.py::fused_block_decode). For each
@@ -70,6 +71,17 @@
 //    (PERF.md). chip_smoke.py times one width on each side.
 //  - Rows whose 16-byte pieces are not aligned (D * sizeof(g) % 16 != 0,
 //    or g not 16-byte aligned, e.g. a D = 1 leaf) stage element by element.
+//
+// Trajectory cohorts (train/trainer.train_cohort). A cohort of B trajectories
+// shares one data stack, so each leaf arrives as [B, W, S, D] and the weights
+// as [B, W, S]: trajectory b's slots sit at ws + b * M and g + b * M * D, and
+// its result at out + b * D. The grid gains a second dimension, blockIdx.y =
+// b, so one launch decodes every leaf of every trajectory of a round: the
+// cohort's decode costs one launch a round, not B. Each (trajectory, leaf,
+// tile) block does exactly what the one-trajectory launch does (B = 1), in
+// the same order, so the cohort launch is bitwise equal to B one-trajectory
+// launches and to the plain version's per-trajectory loop. The bound is the
+// bytes once, B times those of one trajectory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -238,6 +250,8 @@ __device__ __forceinline__ void stream_tile(const Leaf& leaf, const float* __res
 
 // One block per (leaf, column tile). A staged tile: kThreads stage it, and
 // thread t < cols sums column t. A streamed tile: see stream_tile.
+// blockIdx.y is the trajectory: its weights, slots and results lie at the
+// offsets of the [B, ...] layout.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     block_decode_leaves(const __grid_constant__ LeafTable table,
@@ -247,7 +261,12 @@ __global__ void __launch_bounds__(kThreads)
 
   int li = 0;
   while (li + 1 < table.n && blockIdx.x >= table.leaf[li + 1].first_tile) ++li;
-  const Leaf& leaf = table.leaf[li];
+  const int M = W * S;
+  const long long traj = blockIdx.y;
+  Leaf leaf = table.leaf[li];
+  leaf.g = static_cast<const T*>(leaf.g) + traj * M * leaf.D;
+  leaf.out = static_cast<T*>(leaf.out) + traj * leaf.D;
+  ws += traj * M;
   if (leaf.stream) {
     stream_tile<T>(leaf, ws, W, S, (blockIdx.x - leaf.first_tile) * (kThreads * 16 / sizeof(T)));
     return;
@@ -255,7 +274,6 @@ __global__ void __launch_bounds__(kThreads)
   const long long col0 = (blockIdx.x - leaf.first_tile) * kCols;
   const int cols = static_cast<int>(min(static_cast<long long>(kCols), leaf.D - col0));
 
-  const int M = W * S;
   const int rows = M <= kOneStageRows ? M : kChunkRows;  // slots per stage
   const int chunks = (M + rows - 1) / rows;
   const int bufs = chunks > 1 ? 2 : 1;
@@ -301,14 +319,16 @@ extern "C" {
 
 int eh_fused_block_decode_max_leaves() { return kMaxLeaves; }
 
-// For each of the n leaves: out[i][D[i]] = sum over the W * S slots, s-major,
-// of ws[w, s] * g[i][w, s, :], in ONE launch on `stream`. dtype: 0 = float32,
+// For each of the B trajectories and each of the n leaves:
+// out[i][b, :D[i]] = sum over the W * S slots, s-major, of
+// ws[b, w, s] * g[i][b, w, s, :], all in ONE launch on `stream` (B = 1: one
+// trajectory's [W, S] weights and [W, S, D] leaves). dtype: 0 = float32,
 // 1 = bfloat16 (every g and out). Returns cudaGetLastError() after the
 // launch (0 = success), or cudaErrorInvalidValue without launching.
 int eh_fused_block_decode_leaves(const void* ws, const void* const* g, void* const* out,
-                                 const long long* D, int n, int W, int S, int dtype,
+                                 const long long* D, int n, int W, int S, int B, int dtype,
                                  void* stream_ptr) {
-  if (n < 1 || n > kMaxLeaves || W < 1 || S < 1 ||
+  if (n < 1 || n > kMaxLeaves || W < 1 || S < 1 || B < 1 || B > 65535 ||
       static_cast<long long>(W) * S > INT_MAX || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const int itemsize = dtype == 0 ? 4 : 2;
@@ -331,11 +351,11 @@ int eh_fused_block_decode_leaves(const void* ws, const void* const* g, void* con
                       (kTileBytes + sizeof(float) + sizeof(int));
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const float* wf = static_cast<const float*>(ws);
-  const unsigned blocks = static_cast<unsigned>(tiles);
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(B));
   if (dtype == 0)
-    block_decode_leaves<float><<<blocks, kThreads, smem, stream>>>(table, wf, W, S);
+    block_decode_leaves<float><<<grid, kThreads, smem, stream>>>(table, wf, W, S);
   else
-    block_decode_leaves<__nv_bfloat16><<<blocks, kThreads, smem, stream>>>(table, wf, W, S);
+    block_decode_leaves<__nv_bfloat16><<<grid, kThreads, smem, stream>>>(table, wf, W, S);
   return static_cast<int>(cudaGetLastError());
 }
 

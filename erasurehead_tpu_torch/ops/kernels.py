@@ -23,14 +23,18 @@ launch, each leaf read in place in the step's [W, S, D] slot layout. It is
 the port of erasurehead_tpu/ops/kernels.py::_decode_kernel
 (``fused_block_decode``). The JAX trainer lowers that decode through XLA and
 reaches its Pallas kernel only when asked (``use_pallas=True``); in the port
-the decode on a CUDA tensor is always this kernel.
+the decode on a CUDA tensor is always this kernel. A trajectory cohort
+(train/trainer.train_cohort) decodes every leaf of all its B trajectories
+in the same one launch (:func:`fused_block_decode_cohort`).
 
 Each source file says how its design differs from the TPU kernel.
-:func:`fused_glm_grad`, :func:`fused_block_decode_leaves` and the one-leaf
+:func:`fused_glm_grad`, :func:`fused_block_decode_leaves`,
+:func:`fused_block_decode_cohort` and the one-leaf
 :func:`fused_block_decode` launch their kernels for CUDA tensors and raise
 on anything they do not take; for CPU tensors they compute the same
 function with their plain PyTorch versions (:func:`reference_glm_grad`,
-:func:`reference_block_decode_leaves`, :func:`reference_block_decode`). The
+:func:`reference_block_decode_leaves`, :func:`reference_block_decode_cohort`,
+:func:`reference_block_decode`). The
 kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one ``nvcc``
 per source started together, and linked into one library in ``build/`` at
 the root of the checkout, keyed by a hash of the sources and flags, loaded
@@ -168,8 +172,7 @@ def _library() -> ctypes.CDLL:
     lib.eh_fused_glm_grad_scratch_floats.argtypes = [ctypes.c_int] * 3
     lib.eh_fused_glm_grad_scratch_floats.restype = ctypes.c_longlong
     lib.eh_fused_block_decode_leaves.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.eh_fused_block_decode_leaves.restype = ctypes.c_int
     lib.eh_fused_block_decode_max_leaves.argtypes = []
     lib.eh_fused_block_decode_max_leaves.restype = ctypes.c_int
@@ -306,12 +309,16 @@ def reference_block_decode_leaves(ws: torch.Tensor, leaves) -> list:
     ]
 
 
-def _check_leaves(ws, leaves) -> None:
-    name = "fused_block_decode_leaves"
+def _check_leaves(ws, leaves, name="fused_block_decode_leaves", ws_dims=(1, 2)) -> None:
+    """Refuse what the kernel does not take: ``ws`` float32, contiguous,
+    with ``ws.dim()`` in ``ws_dims``; leaves of one dtype (float32 or
+    bfloat16), contiguous, non-empty, on ws's device, each leading with
+    ``ws.shape``."""
     if ws.dtype != torch.float32:
         raise ValueError(f"{name}: ws must be float32, got {ws.dtype}")
-    if ws.dim() not in (1, 2) or ws.numel() < 1:
-        raise ValueError(f"{name}: need ws [W, S] or [P], got {tuple(ws.shape)}")
+    if ws.dim() not in ws_dims or ws.numel() < 1:
+        want = " or ".join(("[P]", "[W, S]", "[B, W, S]")[d - 1] for d in ws_dims)
+        raise ValueError(f"{name}: need ws {want}, got {tuple(ws.shape)}")
     if not ws.is_contiguous():
         raise ValueError(f"{name}: ws must be contiguous")
     if not leaves:
@@ -336,6 +343,41 @@ def _check_leaves(ws, leaves) -> None:
             raise ValueError(f"{name}: leaf {i} must be contiguous")
 
 
+def _launch_decode(ws, leaves, cohort: bool, name: str) -> list:
+    """Launch the decode kernel on CUDA tensors already checked. ``ws`` is
+    [W, S] or [P] (S = 1), led by the trajectory axis [B] where ``cohort``,
+    as is every leaf. One launch per 32 leaves, each counted; outputs
+    [B, *shape] (a cohort) or [*shape] in the leaf's dtype."""
+    if ws.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {ws.device}")
+    lib = _library()
+    lead = tuple(ws.shape[:1]) if cohort else ()
+    W, S = (tuple(ws.shape[len(lead):]) + (1,))[:2]
+    B = lead[0] if cohort else 1
+    outs = [
+        torch.empty(lead + tuple(leaf.shape[ws.dim():]), dtype=leaf.dtype, device=leaf.device)
+        for leaf in leaves
+    ]
+    dtype = 0 if leaves[0].dtype == torch.float32 else 1
+    stream = torch.cuda.current_stream(ws.device).cuda_stream
+    cap = lib.eh_fused_block_decode_max_leaves()
+    for i in range(0, len(leaves), cap):
+        part = range(i, min(i + cap, len(leaves)))
+        n = len(part)
+        rc = lib.eh_fused_block_decode_leaves(
+            ws.data_ptr(),
+            (ctypes.c_void_p * n)(*(leaves[k].data_ptr() for k in part)),
+            (ctypes.c_void_p * n)(*(outs[k].data_ptr() for k in part)),
+            (ctypes.c_longlong * n)(*(outs[k].numel() // B for k in part)),
+            n, W, S, B, dtype, stream,
+        )
+        if rc != 0:
+            msg = lib.eh_cuda_error_string(rc).decode()
+            raise RuntimeError(f"fused_block_decode launch failed: CUDA error {rc} ({msg})")
+        LAUNCHES["fused_block_decode"] += 1
+    return outs
+
+
 def fused_block_decode_leaves(ws: torch.Tensor, leaves) -> list:
     """Every leaf's decoded gradient in one launch: for each leaf
     [*ws.shape, *shape], the sum over the slots of ``ws * leaf`` in the
@@ -352,29 +394,40 @@ def fused_block_decode_leaves(ws: torch.Tensor, leaves) -> list:
     _check_leaves(ws, leaves)
     if ws.device.type == "cpu":
         return reference_block_decode_leaves(ws, leaves)
-    if ws.device.type != "cuda":
-        raise ValueError(f"fused_block_decode_leaves: unsupported device {ws.device}")
-    lib = _library()
-    W, S = (tuple(ws.shape) + (1,))[:2]
-    outs = [
-        torch.empty(leaf.shape[ws.dim():], dtype=leaf.dtype, device=leaf.device)
-        for leaf in leaves
+    return _launch_decode(ws, leaves, False, "fused_block_decode_leaves")
+
+
+def reference_block_decode_cohort(ws_B: torch.Tensor, leaves_B, contract: str) -> list:
+    """Plain PyTorch version of the cohort decode: for each trajectory b,
+    :func:`reference_block_decode_leaves` of its weights ``ws_B[b]`` and
+    its slots ``leaf[b]``, stacked to [B, *shape] per leaf."""
+    leaves_B = list(leaves_B)
+    per = [
+        reference_block_decode_leaves(ws_B[b], [leaf[b] for leaf in leaves_B])
+        for b in range(ws_B.shape[0])
     ]
-    dtype = 0 if leaves[0].dtype == torch.float32 else 1
-    stream = torch.cuda.current_stream(ws.device).cuda_stream
-    cap = lib.eh_fused_block_decode_max_leaves()
-    for i in range(0, len(leaves), cap):
-        part = range(i, min(i + cap, len(leaves)))
-        n = len(part)
-        rc = lib.eh_fused_block_decode_leaves(
-            ws.data_ptr(),
-            (ctypes.c_void_p * n)(*(leaves[k].data_ptr() for k in part)),
-            (ctypes.c_void_p * n)(*(outs[k].data_ptr() for k in part)),
-            (ctypes.c_longlong * n)(*(outs[k].numel() for k in part)),
-            n, W, S, dtype, stream,
-        )
-        if rc != 0:
-            msg = lib.eh_cuda_error_string(rc).decode()
-            raise RuntimeError(f"fused_block_decode launch failed: CUDA error {rc} ({msg})")
-        LAUNCHES["fused_block_decode"] += 1
-    return outs
+    return [torch.stack([out[i] for out in per]) for i in range(len(leaves_B))]
+
+
+def fused_block_decode_cohort(ws_B: torch.Tensor, leaves_B, contract: str) -> list:
+    """Every leaf of every trajectory of a cohort decoded in one launch (per
+    32 leaves): ``ws_B`` is [B, W, S] (``contract="ws"``, each trajectory
+    reduced s-major as :func:`fused_block_decode_leaves` does) or [B, P]
+    (``contract="p"``), and each leaf [*ws_B.shape, *shape]; returns
+    [B, *shape] per leaf in the leaf's dtype. The contract is explicit: a
+    2-D ``ws`` is [W, S] to the one-trajectory entry and would also be a
+    valid [B, P] here.
+
+    Bitwise equal to B one-trajectory launches and to
+    :func:`reference_block_decode_cohort` (the kernel's trajectory axis
+    repeats the one-trajectory arithmetic). CUDA tensors launch the kernel
+    (or raise); CPU tensors take the plain version."""
+    name = "fused_block_decode_cohort"
+    if contract not in ("ws", "p"):
+        raise ValueError(f"{name}: contract must be 'ws' or 'p', got {contract!r}")
+    leaves_B = list(leaves_B)
+    # one slot dim per letter of the contract, after the trajectory axis
+    _check_leaves(ws_B, leaves_B, name, (len(contract) + 1,))
+    if ws_B.device.type == "cpu":
+        return reference_block_decode_cohort(ws_B, leaves_B, contract)
+    return _launch_decode(ws_B, leaves_B, True, name)

@@ -248,3 +248,107 @@ def expand_slot_weights(
     (src/partial_coded.py:187-190)."""
     a = np.asarray(message_weights)[..., :, None]
     return np.where(slot_is_coded, a * coeffs, coeffs)
+
+
+# ---------------------------------------------------------------------------
+# trajectory cohorts: one data stack serves B trajectories a round
+# (train/trainer.train_cohort). Params and weights lead with the trajectory
+# axis [B]; X and y are shared. Each returned fn maps
+# (params_B, X, y, weights_B) -> the B decoded gradients, leaves [B, ...].
+
+
+def supports_cohort_matmul(model) -> bool:
+    """The dedicated cohort body needs a closed-form GLM
+    (``margin_residual``); the port's stacks are all dense."""
+    return hasattr(model, "margin_residual") and not _grads_via_loss(model)
+
+
+def cohort_matmul_grad_fn(model) -> GradFn:
+    """Dense closed-form GLM cohort body (the JAX package's
+    step._cohort_matmul_local_body): the B trajectories' parameter vectors
+    stack into an [F, B] operand, so the margins of the whole cohort are
+    one [N, F] x [F, B] product and the decoded gradients one
+    -[B, N] x [N, F] product (N = every row of every slot), float32 with
+    TF32 off. X is read twice a round for the whole cohort, where B
+    sequential rounds read it B times; only the reduction order differs
+    from B sequential steps.
+
+    A bfloat16 stack is widened to float32 once a round, for both products
+    (a copy of X at 6 bytes an element moved: the port's GLM products all
+    compute in float32 on bfloat16 data, where the JAX package casts the
+    params down and accumulates in float32)."""
+
+    def grad(params_B, Xs, ys, ws_B):
+        B = ws_B.shape[0]
+        R, F = ys.shape[-1], Xs.shape[-1]
+        M = ys.numel() // R
+        X2 = Xs.reshape(M * R, F)
+        if X2.dtype != torch.float32:
+            X2 = X2.float()
+        margins = X2 @ params_B.t()  # [N, B]
+        r = model.margin_residual(margins, ys.reshape(M * R, 1))  # [N, B]
+        w_rows = ws_B.reshape(B, M, 1).expand(B, M, R).reshape(B, M * R)
+        return -((w_rows * r.t()) @ X2)
+
+    return grad
+
+
+def batched_grad_fn(body: GradFn) -> GradFn:
+    """The per-slot cohort body (the JAX package's step._batched_local_body):
+    ``torch.func.vmap`` of a one-trajectory grad fn over (params, weights),
+    X and y unbatched, so the math is the sequential step's."""
+
+    def grad(params_B, Xs, ys, ws_B):
+        return torch.func.vmap(lambda p, w: body(p, Xs, ys, w))(params_B, ws_B)
+
+    return grad
+
+
+def _cohort_layer_block_body(model, spec, contract: str, fused: bool) -> GradFn:
+    """Blockwise cohort body: every trajectory's per-slot gradient trees
+    (:func:`per_slot_grads` under ``torch.func.vmap`` over the params),
+    then one launch of the decode kernel a round for the whole cohort
+    (ops/kernels.fused_block_decode_cohort): every leaf in place
+    (``fused``) or the packed [B, *lead, L, width] block table (treewise),
+    bitwise equal to each other as in the one-trajectory step. A leaf that
+    the vmap returns non-contiguous is copied here, explicitly: the kernel
+    reads leaves in place and its wrapper refuses any other."""
+
+    def grad(params_B, Xs, ys, ws_B):
+        grads = torch.func.vmap(
+            lambda p: per_slot_grads(model, p, Xs, ys, len(contract))
+        )(params_B)
+        if fused:
+            leaves = [leaf.contiguous() for leaf in blocks_lib.tree_leaves(grads)]
+            out = kernels.fused_block_decode_cohort(ws_B, leaves, contract)
+            return blocks_lib.tree_unflatten(spec.keys, out)
+        table = blocks_lib.tree_to_blocks(grads, spec)  # [B, *lead, L, width]
+        (g,) = kernels.fused_block_decode_cohort(ws_B, [table], contract)
+        return blocks_lib.blocks_to_tree(g, spec)
+
+    return grad
+
+
+def make_cohort_grad_fn(
+    model, params_template, *, faithful: bool, layer_coding: str, block_decode: str
+):
+    """The cohort's gradient fn and the name of its lowering, picked as the
+    JAX trainer picks them (trainer._train_cohort_impl):
+      - "layer_block_vmap": ``layer_coding`` resolves on: per-slot trees
+        under vmap, one decode launch a round for the cohort
+        (``block_decode`` picks the fused or treewise lowering);
+      - "cohort_matmul": a closed-form GLM (:func:`cohort_matmul_grad_fn`);
+      - "per_slot_vmap": otherwise, the compute mode's one-trajectory grad
+        fn under vmap (:func:`batched_grad_fn`).
+    The JAX package's "flat_vmap" lowering needs its flat_grad body, which
+    the port does not have. ``params_template`` is one trajectory's params
+    (the block spec of the layer-coded lowering)."""
+    contract = "ws" if faithful else "p"
+    if resolve_layer_coding(layer_coding, model):
+        spec = blocks_lib.model_block_spec(model, params_template)
+        fused = resolve_block_decode(block_decode)
+        return _cohort_layer_block_body(model, spec, contract, fused), "layer_block_vmap"
+    if supports_cohort_matmul(model):
+        return cohort_matmul_grad_fn(model), "cohort_matmul"
+    body = make_faithful_grad_fn(model) if faithful else make_deduped_grad_fn(model)
+    return batched_grad_fn(body), "per_slot_vmap"

@@ -14,12 +14,12 @@ The port's copy of erasurehead_tpu/schemes/base.py, field for field. A
     fit to the actual arrival pattern; None keeps the scheme's fixed
     weights (partial schemes);
   - **capability flags** and the **config/CLI surface** (``config_fields``,
-    ``validate_config``).
+    ``validate_config``, ``sweep_num_collect``).
 
-The JAX descriptor's on-device rule factory, failure-feasibility core and
-sweep default are left out: their readers (on-device collection, failure
-injection, straggler sweeps) are not ported. The capability flags keep the
-JAX values, so ``capabilities()`` compares equal.
+The JAX descriptor's on-device rule factory and failure-feasibility core
+are left out: their readers (on-device collection, failure injection) are
+not ported. The capability flags keep the JAX values, so
+``capabilities()`` compares equal.
 
 Descriptors are frozen: registration is declaration. Third-party codes ship
 one descriptor and register it, directly through
@@ -81,6 +81,10 @@ class SchemeDescriptor:
     needs_deadline: bool = False
     #: (cfg) -> None, raising ValueError on scheme-specific config violations
     validate_config: Optional[Callable] = None
+    #: (n_workers) -> num_collect for straggler sweeps whose base config
+    #: collects every worker (train/experiments.straggler_sweep: the
+    #: interesting regime of a first-k scheme collects fewer than all)
+    sweep_num_collect: Optional[Callable] = None
 
     # ---- artifact naming -------------------------------------------------
     #: reference artifact filename stem (train/artifacts.run_prefix, e.g.

@@ -139,6 +139,7 @@ APPROX = register(SchemeDescriptor(
     staleness_tolerant=True,  # the decode is already approximate
     config_fields=("num_collect",),
     validate_config=_validate_frc,  # AGC shares FRC's grouped layout
+    sweep_num_collect=lambda n_workers: n_workers // 2,
     builtin=True,
 ))
 
@@ -158,11 +159,13 @@ AVOID_STRAGGLERS = register(SchemeDescriptor(
 ))
 
 
-def _first_k_optimal_family(name, summary, build_layout, *, seed_dependent):
+def _first_k_optimal_family(name, summary, build_layout, *, seed_dependent, sweep=True):
     """The shared descriptor of the sparse-code families (randreg,
     sparsegraph, expander): 0/1-incidence layouts collected by
     first-``num_collect`` arrivals with the lstsq-optimal combination over
-    the received rows of B (arXiv 2006.09638)."""
+    the received rows of B (arXiv 2006.09638). ``sweep``: straggler sweeps
+    collect half the workers where the base config collects all (the JAX
+    package declares that for sparsegraph and expander, not randreg)."""
 
     def _sched(t, layout, *, num_collect=None, deadline=None):
         if num_collect is None:
@@ -179,6 +182,7 @@ def _first_k_optimal_family(name, summary, build_layout, *, seed_dependent):
         staleness_tolerant=True,  # lstsq decode over a partial set: approximate
         config_fields=("num_collect",),
         seed_dependent_layout=seed_dependent,
+        sweep_num_collect=(lambda n_workers: n_workers // 2) if sweep else None,
         builtin=True,
     ))
 
@@ -193,6 +197,7 @@ RANDOM_REGULAR = _first_k_optimal_family(
         cfg.n_workers, cfg.n_stragglers, seed=cfg.seed
     ),
     seed_dependent=True,
+    sweep=False,
 )
 
 SPARSE_GRAPH = _first_k_optimal_family(

@@ -11,7 +11,8 @@ erasurehead_tpu/train/optimizer.py):
 where g is the *sum* gradient over collected samples and n is the total
 sample count. Each update returns a new state; nothing is updated in place.
 A dict of tensors (the deep families) updates leaf by leaf with the same
-arithmetic as a bare tensor.
+arithmetic as a bare tensor. A trajectory cohort updates all its B
+trajectories at once (:func:`make_cohort_update_fn`).
 """
 
 from __future__ import annotations
@@ -93,3 +94,14 @@ def make_update_fn(rule: UpdateRule):
     if rule == UpdateRule.ADAM:
         return adam_update
     return agd_update
+
+
+def make_cohort_update_fn(rule: UpdateRule):
+    """The update of a trajectory cohort: :func:`make_update_fn`'s rule under
+    ``torch.func.vmap`` over (state, grads, eta, alpha), each leading with
+    the trajectory axis [B] (the JAX trainer's ``vmap(update_fn)``); the
+    sample count and round index are shared. eta and alpha are float32
+    tensors, so the scalar coefficients are formed in float32 where the
+    sequential update forms them from Python floats: equal to float
+    tolerance, not bit for bit."""
+    return torch.func.vmap(make_update_fn(rule), in_dims=(0, 0, 0, 0, None, None))

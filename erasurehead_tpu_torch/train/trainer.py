@@ -1,6 +1,8 @@
 """The synchronous trainer: a Python loop over rounds on one device.
 
-The counterpart of erasurehead_tpu/train/trainer.py::train. Control plane
+The counterpart of erasurehead_tpu/train/trainer.py::train, and of its
+trajectory-cohort engine (train_cohort, train_batch; see
+:func:`train_cohort`). Control plane
 (host, float64, precomputed, tiny): straggler arrival schedule, per-round
 collection/decode weights, learning-rate schedule. Data plane (the device):
 per round, the decoded gradient of the stack (parallel/step.py) and the
@@ -35,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,6 +53,7 @@ from erasurehead_tpu_torch.obs import decode as obs_decode
 from erasurehead_tpu_torch.ops import blocks, codes, kernels
 from erasurehead_tpu_torch.parallel import collect, step as step_lib, straggler
 from erasurehead_tpu_torch.train import optimizer
+from erasurehead_tpu_torch.train.cache import layout_stack_signature
 from erasurehead_tpu_torch.utils.config import (
     ComputeMode,
     ModelKind,
@@ -130,6 +133,9 @@ class TrainResult:
     fused: bool = False
     # did it take the blockwise (layer-coded) decode?
     layer_coded: bool = False
+    # a cohort member's dispatch (train_cohort): cohort_size,
+    # cohort_lowering, cohort_dispatches, stack_mode; None for train()
+    cohort: Optional[dict] = None
 
 
 def _data_dtype(cfg: RunConfig) -> torch.dtype:
@@ -140,16 +146,40 @@ def _to_device(a: np.ndarray, device, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
 
-def _apply_layer_coding(cfg: RunConfig, model, grad_fn, params_template, faithful: bool):
-    """Swap in the blockwise decode (step.make_layer_block_grad_fn) per
-    ``cfg.layer_coding``; ``cfg.block_decode`` picks its lowering. Returns
-    (grad_fn, layer_coded)."""
+def _device_stack(cfg: RunConfig, dataset: Dataset, layout, faithful: bool, dev):
+    """The run's data stack, moved to the device once: worker-major
+    [W, S, rows, F] (faithful) or partition-major [P, rows, F], its labels,
+    and the training row count."""
+    Xp_h, yp_h = partition_stack(dataset, layout.n_partitions)
+    Xh, yh = worker_stack(layout, Xp_h, yp_h) if faithful else (Xp_h, yp_h)
+    data_dtype = _data_dtype(cfg)
+    X = _to_device(Xh, dev, data_dtype)
+    # labels ride along the data dtype (as in the JAX package), then stay
+    # float32 for the residual
+    y = _to_device(yh, dev, data_dtype).float()
+    return X, y, yp_h.size
+
+
+def _round_weights(layout, slot_w: np.ndarray, faithful: bool) -> np.ndarray:
+    """A run's [R, W, S] slot weights as its stack takes them: as they are
+    (faithful) or folded per partition, [R, P] (deduped)."""
+    return slot_w if faithful else layout.fold_slot_weights(slot_w)
+
+
+def _check_layer_coding(cfg: RunConfig, model) -> None:
     if cfg.layer_coding == "on" and not step_lib.supports_layer_coding(model):
         raise ValueError(
             "layer_coding='on' needs a model whose per-slot gradients are "
             "exact (no model-internal mesh axes) - got "
             f"model={getattr(model, 'name', type(model).__name__)!r}"
         )
+
+
+def _apply_layer_coding(cfg: RunConfig, model, grad_fn, params_template, faithful: bool):
+    """Swap in the blockwise decode (step.make_layer_block_grad_fn) per
+    ``cfg.layer_coding``; ``cfg.block_decode`` picks its lowering. Returns
+    (grad_fn, layer_coded)."""
+    _check_layer_coding(cfg, model)
     if not step_lib.resolve_layer_coding(cfg.layer_coding, model):
         return grad_fn, False
     spec = blocks.model_block_spec(model, params_template)
@@ -196,20 +226,8 @@ def train(
     alpha = cfg.effective_alpha
 
     # ---- data plane: the stack moves to the device once --------------------
-    Xp_h, yp_h = partition_stack(dataset, layout.n_partitions)
-    n_train = yp_h.size
-    if faithful:
-        Xh, yh = worker_stack(layout, Xp_h, yp_h)
-        weights_h = slot_w
-    else:
-        Xh, yh = Xp_h, yp_h
-        weights_h = layout.fold_slot_weights(slot_w)
-    data_dtype = _data_dtype(cfg)
-    X = _to_device(Xh, dev, data_dtype)
-    # labels ride along the data dtype (as in the JAX package), then stay
-    # float32 for the residual
-    y = _to_device(yh, dev, data_dtype).float()
-    weights = _to_device(weights_h, dev, torch.float32)
+    X, y, n_train = _device_stack(cfg, dataset, layout, faithful, dev)
+    weights = _to_device(_round_weights(layout, slot_w, faithful), dev, torch.float32)
 
     if init_params is None:
         params0 = model.init_params(cfg.seed, dataset.n_features, dev)
@@ -283,3 +301,254 @@ def train(
         fused=use_fused,
         layer_coded=layer_coded,
     )
+
+
+# ---------------------------------------------------------------------------
+# trajectory cohorts: B training trajectories, one shared data stack, one
+# round loop (the JAX package's train_cohort, resident stacks)
+
+
+def cohort_eligible(cfg: RunConfig) -> bool:
+    """Can this config ride a trajectory-cohort dispatch? Not with the
+    forced fused kernel (``use_pallas="on"``: a one-trajectory kernel), and
+    only where the scheme's descriptor allows it (``cohort_batchable``).
+    The JAX package also excludes measured-arrival and pipelined runs and
+    some streamed ones; the port has none of those modes."""
+    return cfg.use_pallas != "on" and schemes.get(cfg.scheme).cohort_batchable
+
+
+def cohort_signature(cfg: RunConfig) -> Optional[tuple]:
+    """Grouping key for cohort dispatch (experiments.plan_cohorts): configs
+    with the same key share a device data stack and a gradient lowering,
+    so they can run as one cohort (:func:`train_cohort`); None = not
+    batchable. Deduped trajectories group by partition count alone (the
+    partition-major stack is scheme-independent, so a whole 7-scheme
+    compare() is one cohort); faithful ones by assignment content (FRC and
+    AGC share one, cyclic MDS has its own)."""
+    if not cohort_eligible(cfg):
+        return None
+    faithful = cfg.compute_mode == ComputeMode.FAITHFUL
+    return (
+        cfg.static_signature(),
+        cfg.rounds,
+        cfg.n_workers,
+        layout_stack_signature(build_layout(cfg), worker_major=faithful),
+    )
+
+
+def _lane(state: optimizer.OptState, b: int) -> optimizer.OptState:
+    """Trajectory b of a cohort's stacked optimizer state."""
+
+    def take(tree):
+        return blocks.tree_map(lambda leaf: leaf[b], tree)
+
+    mom = state.momentum
+    mom = tuple(take(m) for m in mom) if isinstance(mom, tuple) else take(mom)
+    return optimizer.OptState(params=take(state.params), momentum=mom)
+
+
+def train_cohort(
+    cfgs: Sequence[RunConfig] | RunConfig,
+    dataset: Dataset,
+    seeds=None,
+    arrivals=None,
+    *,
+    device=None,
+    init_params=None,
+) -> list:
+    """Run a cohort of training trajectories, (scheme, seed, lr/alpha)
+    variants, as ONE round loop over one shared device data stack.
+
+    Each round computes every trajectory's decoded gradient from one pass
+    of the stack: a dense GLM cohort's margins are one [N, F] x [F, B]
+    product (step.cohort_matmul_grad_fn), a layer-coded cohort decodes in
+    one kernel launch a round for all B trajectories
+    (ops/kernels.fused_block_decode_cohort), other families run the
+    sequential step under ``torch.func.vmap``; then every trajectory's
+    update at once (optimizer.make_cohort_update_fn).
+
+    ``cfgs`` is a sequence of trajectory configs (or one config);
+    ``seeds`` expands each across a seed sweep (``replace(cfg, seed=s)``).
+    ``arrivals`` is None (each trajectory draws its own default schedule,
+    as ``train()`` would), one shared [R, W] matrix (the paired comparison
+    of experiments.compare), or a list with one matrix per trajectory.
+    ``init_params`` is None (each trajectory's own seeded init) or a list
+    with one init per trajectory (as ``train(init_params=...)`` takes it).
+    ``device`` as in :func:`train`: cuda unless ``"cpu"`` is asked for.
+
+    Contract: each trajectory matches its ``train()`` run to float
+    tolerance (the batched products reduce in another order), and its
+    control-plane arrays (timeset, worker_times, collected, decode_error)
+    are identical, built per trajectory on the host as ``train()`` builds
+    them. All trajectories share rounds, workers, the static lowering
+    signature (RunConfig.static_signature) and the data stack (deduped:
+    partition count; faithful: assignment content): group mixed sets with
+    experiments.plan_cohorts. Every result carries the cohort's wall clock
+    and its aggregate steps/s, R * B / wall."""
+    if isinstance(cfgs, RunConfig):
+        cfgs = [cfgs]
+    cfgs = list(cfgs)
+    if seeds is not None:
+        cfgs = [dataclasses.replace(c, seed=int(s)) for c in cfgs for s in seeds]
+    if not cfgs:
+        raise ValueError("train_cohort needs at least one trajectory config")
+    for c in cfgs:
+        if c.use_pallas == "on":
+            raise ValueError(
+                "train_cohort has no batched fused-kernel dispatch; "
+                "use use_pallas='auto' or 'off'"
+            )
+    cfg = cfgs[0]
+    sig = cfg.static_signature()
+    for c in cfgs[1:]:
+        if c.static_signature() != sig or c.rounds != cfg.rounds or c.n_workers != cfg.n_workers:
+            raise ValueError(
+                "cohort trajectories must share rounds, workers, and the "
+                "full static lowering signature (model, compute_mode, "
+                "dtype, update_rule, ...); group mixed config sets with "
+                "experiments.plan_cohorts"
+            )
+    B = len(cfgs)
+    if init_params is not None and len(init_params) != B:
+        raise ValueError(f"got {len(init_params)} initial params for {B} trajectories")
+    dev = resolve_device(device)
+    faithful = cfg.compute_mode == ComputeMode.FAITHFUL
+
+    # one shared device stack: refuse a trajectory whose stack differs
+    # rather than train a different code than its train() run would
+    layouts = [build_layout(c) for c in cfgs]
+    stack0 = layout_stack_signature(layouts[0], worker_major=faithful)
+    for c, lay in zip(cfgs[1:], layouts[1:]):
+        if layout_stack_signature(lay, worker_major=faithful) != stack0:
+            raise ValueError(
+                f"trajectory {c.scheme.value!r} (seed {c.seed}) builds a "
+                "different device data stack than the cohort's first "
+                "trajectory; train_cohort shares one stack — group by "
+                "cohort_signature (experiments.plan_cohorts) or run "
+                "per-trajectory train()"
+            )
+
+    # ---- control plane, per trajectory, exactly as train() builds it ------
+    if arrivals is None:
+        arr_list = [default_arrivals(c) for c in cfgs]
+    elif isinstance(arrivals, (list, tuple)):
+        if len(arrivals) != B:
+            raise ValueError(f"got {len(arrivals)} arrival matrices for {B} trajectories")
+        arr_list = [np.asarray(a) for a in arrivals]
+    else:
+        arr_list = [np.asarray(arrivals)] * B
+    schedules = [build_schedule(c, a, lay) for c, a, lay in zip(cfgs, arr_list, layouts)]
+    weights_h = np.stack([
+        _round_weights(
+            lay,
+            step_lib.expand_slot_weights(
+                s.message_weights, lay.coeffs, np.asarray(lay.slot_is_coded)
+            ),
+            faithful,
+        )
+        for s, lay in zip(schedules, layouts)
+    ], axis=1)  # [R, B, W, S] (faithful) or [R, B, P] (deduped)
+    # lr and alpha are trajectory axes, float32 tensors (as in the JAX
+    # cohort): the update's scalar coefficients are formed in float32, where
+    # train() forms them from Python floats
+    lr_B = _to_device(
+        np.stack([c.resolve_lr_schedule() for c in cfgs], axis=1), dev, torch.float32
+    )  # [R, B]
+    alpha_B = _to_device(np.array([c.effective_alpha for c in cfgs]), dev, torch.float32)
+
+    # ---- data plane: one stack for the cohort ------------------------------
+    X, y, n_train = _device_stack(cfg, dataset, layouts[0], faithful, dev)
+    weights = _to_device(weights_h, dev, torch.float32)
+    model = build_model(cfg)
+    if init_params is None:
+        params = [model.init_params(c.seed, dataset.n_features, dev) for c in cfgs]
+    else:
+        params = [params_from_numpy(p, dev) for p in init_params]
+    params0 = blocks.tree_map(lambda *leaves: torch.stack(leaves), *params)
+
+    _check_layer_coding(cfg, model)
+    grad_fn, lowering = step_lib.make_cohort_grad_fn(
+        model, params[0], faithful=faithful,
+        layer_coding=cfg.layer_coding, block_decode=cfg.block_decode,
+    )
+    # set-up before the clock starts: build the kernels, import torch.func
+    if dev.type == "cuda" and lowering == "layer_block_vmap":
+        kernels.load_library()
+    step_lib.warm_autodiff()
+
+    state = optimizer.init_state(params0, cfg.update_rule)
+    update_fn = optimizer.make_cohort_update_fn(cfg.update_rule)
+    history = blocks.tree_map(
+        lambda p: torch.empty((cfg.rounds,) + tuple(p.shape), dtype=torch.float32, device=dev),
+        params0,
+    )  # leaves [R, B, ...]
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for i in range(cfg.rounds):
+        g = grad_fn(state.params, X, y, weights[i])
+        state = update_fn(state, g, lr_B[i], alpha_B, n_train, float(i))
+        blocks.tree_map(lambda h, p: h[i].copy_(p), history, state.params)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    agg_rate = cfg.rounds * B / wall if wall > 0 else 0.0
+
+    cohort = {
+        "cohort_size": B,
+        "cohort_lowering": lowering,
+        "cohort_dispatches": 1,
+        "stack_mode": "materialized" if faithful else "deduped",
+    }
+    results = []
+    for b, (c, sched, lay) in enumerate(zip(cfgs, schedules, layouts)):
+        final = _lane(state, b)
+        results.append(TrainResult(
+            params_history=blocks.tree_map(lambda h: h[:, b].contiguous(), history),
+            final_params=final.params,
+            timeset=sched.sim_time,
+            worker_times=sched.worker_times,
+            collected=sched.collected,
+            sim_total_time=float(sched.sim_time.sum()),
+            wall_time=wall,
+            steps_per_sec=agg_rate,
+            n_train=n_train,
+            config=c,
+            layout=lay,
+            final_state=final,
+            decode_error=obs_decode.decode_error_series(lay, sched.message_weights),
+            layer_coded=lowering == "layer_block_vmap",
+            cohort=dict(cohort),
+        ))
+    return results
+
+
+def train_batch(cfg: RunConfig, dataset: Dataset, seeds, *, device=None) -> list:
+    """Seed sweep of one config as one cohort: ``[train(replace(cfg,
+    seed=s)) for s in seeds]`` through :func:`train_cohort`. Keeps the JAX
+    package's original contract: a scheme whose layout depends on the seed
+    is refused whenever the seeds give different layouts, even in deduped
+    mode, where train_cohort itself could batch them."""
+    seeds = [int(s) for s in seeds]
+    if not seeds:
+        raise ValueError("train_batch needs at least one seed")
+    if cfg.use_pallas == "on":
+        raise ValueError(
+            "train_batch has no batched fused-kernel dispatch; "
+            "use use_pallas='auto' or 'off'"
+        )
+    cfgs = [dataclasses.replace(cfg, seed=s) for s in seeds]
+    layouts = [build_layout(c) for c in cfgs]
+    a0, c0 = np.asarray(layouts[0].assignment), np.asarray(layouts[0].coeffs)
+    for lay in layouts[1:]:
+        if not (
+            np.array_equal(a0, np.asarray(lay.assignment))
+            and np.array_equal(c0, np.asarray(lay.coeffs))
+        ):
+            raise ValueError(
+                f"scheme {cfg.scheme.value!r} builds a seed-dependent "
+                "layout across these seeds; train_batch shares one data "
+                "stack — run per-seed train() for seed-dependent codes"
+            )
+    return train_cohort(cfgs, dataset, device=device)

@@ -6,13 +6,16 @@ every scheme of the scheme registry (erasurehead_tpu_torch/schemes/) with
 its fixed or least-squares-optimal decode, the two GLM families and the
 unsharded mlp, deepmlp and moe families, GD/AGD/ADAM updates, the faithful
 and deduped compute modes, float32 or bfloat16 data, the fused-kernel
-switch and the per-layer (blockwise) gradient coding knobs.
+switch and the per-layer (blockwise) gradient coding knobs. Also the
+static lowering signature the trajectory-cohort engine groups by, and the
+sweep harness's batching switch (:func:`resolve_batch_trajectories`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -246,6 +249,27 @@ class RunConfig:
         # descriptor
         schemes.get(self.scheme).validate(self)
 
+    def static_signature_fields(self) -> dict:
+        """Field name -> value of every knob that changes a run's gradient
+        lowering or update (not its weights, arrivals or lr values): the
+        JAX package's RunConfig.static_signature_fields, in its order,
+        restricted to the fields this port has. Trajectories whose
+        signatures differ cannot share one cohort round loop
+        (train/trainer.train_cohort)."""
+        return {
+            "model": self.model.value,
+            "compute_mode": self.compute_mode.value,
+            "update_rule": self.update_rule.value,
+            "dtype": self.dtype,
+            "layer_coding": self.layer_coding,
+            "block_decode": self.block_decode,
+            "deep_layers": self.deep_layers,
+        }
+
+    def static_signature(self) -> tuple:
+        """The values of :meth:`static_signature_fields`, as a tuple."""
+        return tuple(self.static_signature_fields().values())
+
     @property
     def effective_alpha(self) -> float:
         return self.alpha if self.alpha is not None else 1.0 / self.n_rows
@@ -270,3 +294,41 @@ class RunConfig:
         if kind == "exp":
             return exponential_decay_schedule(args[0], args[1], self.rounds)
         raise ValueError(f"unknown lr schedule kind {kind!r}")
+
+
+#: env var choosing the sweep harness's trajectory-batched dispatch when no
+#: explicit setting is given (train/experiments.compare)
+BATCH_TRAJECTORIES_ENV = "ERASUREHEAD_BATCH_TRAJECTORIES"
+
+_TRUTHY = ("1", "on", "true", "yes")
+_FALSY = ("0", "off", "false", "no")
+
+
+def resolve_batch_trajectories(
+    flag: Optional[str] = None, env: Optional[str] = None
+) -> str:
+    """The sweep harness's trajectory-batching mode: "on", "off" or "auto".
+
+    "auto" (the default) dispatches every cohort of >= 2 eligible
+    trajectories through :func:`train.trainer.train_cohort` (one round loop
+    per cohort) and runs singletons sequentially; "on" routes singletons
+    through the cohort engine too; "off" runs every trajectory through
+    sequential :func:`train.trainer.train`. Precedence: explicit ``flag`` >
+    :data:`BATCH_TRAJECTORIES_ENV` > "auto". ``env`` stands in for the real
+    environment lookup (tests)."""
+    val = flag
+    if val is None:
+        val = env if env is not None else os.environ.get(BATCH_TRAJECTORIES_ENV)
+    if val is None or val == "":
+        return "auto"
+    val = str(val).strip().lower()
+    if val in _TRUTHY:
+        return "on"
+    if val in _FALSY:
+        return "off"
+    if val in ("on", "off", "auto"):
+        return val
+    raise ValueError(
+        f"batch-trajectories setting must be on/off/auto (or a "
+        f"truthy/falsy {BATCH_TRAJECTORIES_ENV} value), got {val!r}"
+    )
