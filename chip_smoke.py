@@ -103,6 +103,36 @@ Phases, one JSON line each:
                  bound; 28 fused_glm_grad launches at [30, 4400, 128]; device
                  time per round of the 28-trajectory cohort (profiler) against
                  its bound (X read once), its busy share and steps/s.
+  19. sparse   - a covtype-shaped one-hot CSR layout (generate_onehot:
+                 396,120 x 15,509, 12 fields, seed 0) written by
+                 data/io.write_reference_layout and trained through the CLI
+                 (--dataset covtype --input-dir, approx, W=30, s=2, collect
+                 15, --lr 1.0) as --sparse-format padded (per-slot),
+                 padded --flat-grad on, fields (flat), fields with one-hot
+                 scatter and margin, and fields --sparse-lanes 8: each 100
+                 rounds on the card with no kernel launch and its loss
+                 falling; its first 10 rounds (2 for the one-hot lowering)
+                 on the card and on the CPU, replayed losses within relative
+                 1e-4 and simulated clocks byte-equal; two card reruns of
+                 as many rounds with bitwise-equal iterates (the script
+                 fails otherwise); profiles of 20 and 40 rounds (2 and 4), whose
+                 difference gives the loop's device time a round and busy
+                 share, against the bound of reading the stack and labels
+                 once;
+  20. amazon_shaped - the same at 26,190 x 241,915 with 44 fields (every
+                 pair table over the cap: the FieldOnehot plan is all
+                 singles), --lr 0.2727, padded and fields, 10 rounds on the
+                 card (no launch) and on the CPU;
+  21. int8     - the main path with --stack-dtype int8: no kernel launch
+                 under --use-pallas auto, --use-pallas on refused, 100
+                 rounds on the card, 10 card vs CPU, reruns, a profile
+                 against the bound of the int8 payload and scales read once;
+  22. dense_lowerings - the main path with --flat-grad on and with
+                 --margin-flat on: no kernel launch, 10 rounds card vs CPU;
+  23. sparse_cohort - experiments.compare over the seven cohort schemes at
+                 seed 0 on the covtype-shaped FieldOnehot stack, deduped: one
+                 dispatch through the flat_vmap lowering, no launch, each
+                 member within relative 1e-4 of its sequential card run.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -201,6 +231,34 @@ SWEEP_WANT = [("approx_s1", 15), ("approx_s2", 15), ("cyccoded_s1", 30),
               ("cyccoded_s2", 30), ("cyccoded_s3", 30)]
 # the deep cohort: DEEP_ARGS' run at (lr, seed) = (0.5, 0), (0.5, 1), (0.25, 0), (0.25, 1)
 DEEP_COHORT = [(lr, seed) for lr in (0.5, 0.25) for seed in (0, 1)]
+# the sparse phases: one-hot CSR layouts shaped like the reference's covtype
+# (396,112 rows rounded to the multiple of 30 that generate_onehot takes, 12
+# fields, 15,509 columns) and amazon (44 fields of about 5.5k columns), the
+# AGC run of the reference's real-data script at the stand-in lr of the JAX
+# baseline suite (1.0 at nnz 12, 12/44 at nnz 44)
+SPARSE_SHAPES = {"covtype": (396120, 15509, 12, "1.0"), "amazon": (26190, 241915, 44, "0.2727")}
+SPARSE_BASE = [
+    "--scheme", "approx", "--workers", "30", "--stragglers", "2", "--num-collect", "15",
+    "--rounds", "100", "--update-rule", "AGD", "--compute-mode", "faithful", "--add-delay",
+    "--quiet",
+]
+PROFILE_ROUNDS = 20  # the sparse, int8 and dense-lowering profiles
+# the one-hot matmul lowering takes about 0.1 s a round on the card and
+# seconds on the CPU at the covtype size: its card-vs-CPU comparison and
+# reruns run ONEHOT_SHORT_ROUNDS (the others SHORT_ROUNDS), its profiles
+# ONEHOT_PROFILE_ROUNDS
+ONEHOT_SHORT_ROUNDS, ONEHOT_PROFILE_ROUNDS = 2, 2
+SPARSE_RUNS = (  # (name, flags, the trainer's lowering, short rounds, profile rounds)
+    ("padded", ["--sparse-format", "padded"], "per_slot", SHORT_ROUNDS, PROFILE_ROUNDS),
+    ("padded_flat", ["--sparse-format", "padded", "--flat-grad", "on"], "flat",
+     SHORT_ROUNDS, PROFILE_ROUNDS),
+    ("fields", ["--sparse-format", "fields"], "flat", SHORT_ROUNDS, PROFILE_ROUNDS),
+    ("fields_onehot", ["--sparse-format", "fields", "--fields-scatter", "onehot",
+                       "--fields-margin", "onehot"], "flat",
+     ONEHOT_SHORT_ROUNDS, ONEHOT_PROFILE_ROUNDS),
+    ("fields_lanes8", ["--sparse-format", "fields", "--sparse-lanes", "8"], "flat",
+     SHORT_ROUNDS, PROFILE_ROUNDS),
+)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 ARTIFACTS = ("training_loss", "testing_loss", "auc", "timeset", "worker_timeset")
@@ -622,15 +680,21 @@ def decode_ops(kernels, model_name) -> dict:
     calls = 20
     kernels.fused_block_decode_leaves(ws, leaves)
     torch.cuda.synchronize()
-    before = kernels.LAUNCHES["fused_block_decode"]
-    prof, _ = profiled(lambda: [kernels.fused_block_decode_leaves(ws, leaves)
-                                for _ in range(calls)])
-    # the warm-up pass and the recorded pass
-    launches = (kernels.LAUNCHES["fused_block_decode"] - before) // 2
-    # the profile may lose a record; the launch count does not
-    ops = {ev.key: ev.count for ev in device_events(prof)}
+    # the profile may lose a record, or now and then a whole window (see
+    # cohort_vmap_leaves): an empty window is taken again; the launch count
+    # loses nothing
+    for attempt in range(1, 6):
+        before = kernels.LAUNCHES["fused_block_decode"]
+        prof, _ = profiled(lambda: [kernels.fused_block_decode_leaves(ws, leaves)
+                                    for _ in range(calls)])
+        # the warm-up pass and the recorded pass
+        launches = (kernels.LAUNCHES["fused_block_decode"] - before) // 2
+        ops = {ev.key: ev.count for ev in device_events(prof)}
+        if ops:
+            break
     rec = dict(model=model_name, leaf_shapes=[list(leaf.shape) for leaf in leaves],
-               contiguous=contiguous, calls=calls, launches=launches, device_ops=ops)
+               contiguous=contiguous, calls=calls, launches=launches, device_ops=ops,
+               profiles_taken=attempt)
     emit("decode_ops", **rec)
     if launches != calls or len(ops) != 1 or "block_decode" not in next(iter(ops)):
         raise AssertionError(f"{model_name}: {calls} decodes ran {ops} on the device "
@@ -888,15 +952,20 @@ def cohort_vmap_leaves(kernels, model_name, B=4) -> dict:
     calls = 20
     decode()
     torch.cuda.synchronize()
-    prof, _ = profiled(lambda: [decode() for _ in range(calls)])
-    ops = {ev.key: ev.count for ev in device_events(prof)}
-    kernel_calls = sum(n for k, n in ops.items() if "block_decode" in k)
-    copies = sum(n for k, n in ops.items() if "block_decode" not in k)
+    # the profile may lose a record or two of a window, and on the card a
+    # whole window's records now and then (seen: none of 20 calls, after
+    # the warm-up pass): a window that lost any kernel record is taken again
+    for attempt in range(1, 6):
+        prof, _ = profiled(lambda: [decode() for _ in range(calls)])
+        ops = {ev.key: ev.count for ev in device_events(prof)}
+        kernel_calls = sum(n for k, n in ops.items() if "block_decode" in k)
+        copies = sum(n for k, n in ops.items() if "block_decode" not in k)
+        if abs(kernel_calls - calls) <= 2:
+            break
     out = dict(model=model_name, B=B, leaf_shapes=[list(leaf.shape) for leaf in leaves],
-               contiguous=contiguous, calls=calls, device_ops=ops,
+               contiguous=contiguous, calls=calls, device_ops=ops, profiles_taken=attempt,
                copies_per_call=copies / calls, bitwise_vs_plain=rec["bitwise_vs_plain"])
     emit("cohort_decode_ops", **out)
-    # the profile may lose a record or two of a window
     if abs(kernel_calls - calls) > 2 or abs(copies - calls * contiguous.count(False)) > 2:
         raise AssertionError(f"{model_name}: {calls} cohort decodes ran {ops} on the device")
     return out
@@ -1151,6 +1220,220 @@ def time_cohort_glm(kernels, B=28) -> dict:
     return rec
 
 
+def sparse_args(shape_name, root, flags, rounds=ROUNDS) -> list:
+    rows, cols, _, lr = SPARSE_SHAPES[shape_name]
+    return with_rounds(SPARSE_BASE, rounds) + [
+        "--dataset", shape_name, "--input-dir", root, "--rows", str(rows), "--cols", str(cols),
+        "--lr", lr] + flags
+
+
+def write_onehot_layout(root, shape_name) -> float:
+    """generate_onehot at the shape, written as the reference's CSR layout
+    under ``<root>/<shape_name>/30``; returns the seconds it took."""
+    from erasurehead_tpu_torch.data import io, synthetic
+
+    t0 = time.perf_counter()
+    rows, cols, fields, _ = SPARSE_SHAPES[shape_name]
+    ds = synthetic.generate_onehot(rows, cols, 30, n_fields=fields, seed=0)
+    io.write_reference_layout(ds, os.path.join(root, shape_name, "30"), 30)
+    return time.perf_counter() - t0
+
+
+def stack_bytes(cli, args, ds) -> int:
+    """Bytes of the run's device stack (every leaf: indices and values, the
+    local codes, an int8 payload with its scales) plus its labels, built on
+    the host from the run's dataset ``ds``."""
+    from torch.utils import _pytree as pytree
+
+    from erasurehead_tpu_torch.train import trainer
+
+    cfg = parse_config(cli, args)
+    X, y, _ = trainer._device_stack(cfg, ds, trainer.build_layout(cfg),
+                                    cfg.compute_mode.value == "faithful", torch.device("cpu"))
+    return sum(leaf.numel() * leaf.element_size() for leaf in pytree.tree_leaves(X)) + y.numel() * 4
+
+
+def device_profile(run) -> tuple:
+    """``run()`` under ``profiled``: the device time of its recorded pass
+    (ms, every device event but the stack's upload), its loop's wall (ms)
+    and its kernels by time."""
+    prof, res = profiled(run)
+    rows = sorted(((ev.key, device_us(ev), ev.count) for ev in device_events(prof)
+                   if not ev.key.startswith("Memcpy HtoD")), key=lambda r: -r[1])
+    top = [dict(name=k[:100], ms=us / 1e3, count=c) for k, us, c in rows[:6]]
+    return sum(r[1] for r in rows) / 1e3, res.wall_time * 1e3, top
+
+
+def rerun_and_profile(cli, args, ds, lowering, short=SHORT_ROUNDS,
+                      rounds=PROFILE_ROUNDS) -> dict:
+    """The run's first ``short`` rounds twice on the card through
+    trainer.train on its dataset ``ds``, which must give the same bits; then
+    profiles of ``rounds`` and 2 x ``rounds`` rounds: their difference is
+    the device time of ``rounds`` rounds of the loop alone (a profile also
+    holds the set-up: a sparse stack's scatter plans and one untimed
+    gradient), and the busy share that time over the loop's wall."""
+    from erasurehead_tpu_torch.train import trainer
+
+    cfg = parse_config(cli, with_rounds(args, short))
+    a, b = trainer.train(cfg, ds), trainer.train(cfg, ds)
+    if a.lowering != lowering:
+        raise AssertionError(f"{args}: lowering {a.lowering}, want {lowering}")
+    diff = float((a.params_history - b.params_history).abs().max())
+    if not torch.equal(a.params_history, b.params_history):
+        # every sparse scatter here is fixed-order (sorted segment sums)
+        raise AssertionError(f"{args}: two card reruns differ, max abs {diff:.3e}")
+    (dev1, _, _), (dev2, wall2, top) = (
+        device_profile(lambda r=r: trainer.train(dataclasses.replace(cfg, rounds=r), ds))
+        for r in (rounds, 2 * rounds))
+    per_round = (dev2 - dev1) / rounds if dev1 and dev2 else None
+    return dict(lowering=a.lowering, rerun_max_abs_diff=diff, profile_rounds=[rounds, 2 * rounds],
+                device_ms_per_round=per_round,
+                device_busy_share=per_round / (wall2 / (2 * rounds)) if per_round else None,
+                top=top)
+
+
+def card_vs_cpu(cli, tmp, label, args, rounds) -> dict:
+    short = with_rounds(args, rounds)
+    gpu = run_main(cli, os.path.join(tmp, f"{label}_cuda{rounds}"), "cuda", short)
+    cpu = run_main(cli, os.path.join(tmp, f"{label}_cpu{rounds}"), "cpu", short)
+    return dict(short_rounds=rounds, cpu_steps_per_sec=cpu["manifest"]["steps_per_sec"],
+                **compare_runs(gpu, cpu))
+
+
+def sparse_phase(cli, kernels, tmp, both0) -> list:
+    """The covtype-shaped layout through the CLI in every sparse lowering:
+    100 rounds on the card with no kernel launch, the loss falling; the
+    first rounds on the card and on the CPU (replayed losses within
+    relative 1e-4, the same simulated clocks); two card reruns; a profile;
+    the bound of reading the stack once."""
+    out = []
+    ds = cli.load_dataset(parse_config(cli, sparse_args("covtype", tmp, [])))
+    for name, flags, lowering, short, prof_rounds in SPARSE_RUNS:
+        t0 = time.perf_counter()
+        args = sparse_args("covtype", tmp, flags)
+        run = counted_run(cli, kernels, os.path.join(tmp, f"sparse_{name}"), args, both0)
+        nbytes = stack_bytes(cli, args, ds)
+        rec = dict(run=name, args=args, launches=run["launches"],
+                   steps_per_sec=run["manifest"]["steps_per_sec"],
+                   train_loss_first_last=check_falls(run),
+                   final_auc=float(run["arts"]["auc"][-1]),
+                   **card_vs_cpu(cli, tmp, f"sparse_{name}", args, short),
+                   **rerun_and_profile(cli, args, ds, lowering, short, prof_rounds),
+                   stack_bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        rec["phase_seconds"] = time.perf_counter() - t0
+        emit("sparse", **rec)
+        out.append(rec)
+    return out
+
+
+def amazon_phase(cli, kernels, tmp, both0) -> list:
+    """The amazon-shaped layout (44 fields of about 5.5k columns: every pair
+    table is over the cap, so the FieldOnehot plan is all singles), padded
+    and fields: SHORT_ROUNDS on the card (no launch) and on the CPU."""
+    out = []
+    for name, flags in (("padded", ["--sparse-format", "padded"]),
+                        ("fields", ["--sparse-format", "fields"])):
+        t0 = time.perf_counter()
+        args = sparse_args("amazon", tmp, flags, SHORT_ROUNDS)
+        gpu = counted_run(cli, kernels, os.path.join(tmp, f"amazon_{name}"), args, both0)
+        cpu = run_main(cli, os.path.join(tmp, f"amazon_{name}_cpu"), "cpu", args)
+        rec = dict(run=name, args=args, launches=gpu["launches"],
+                   steps_per_sec=gpu["manifest"]["steps_per_sec"],
+                   cpu_steps_per_sec=cpu["manifest"]["steps_per_sec"],
+                   train_loss_first_last=check_falls(gpu), **compare_runs(gpu, cpu),
+                   phase_seconds=time.perf_counter() - t0)
+        emit("amazon_shaped", **rec)
+        out.append(rec)
+    return out
+
+
+def int8_phase(cli, kernels, tmp, both0) -> dict:
+    """MAIN_ARGS on the int8 stack: no kernel under use_pallas auto, the
+    forced kernel refused; 100 rounds on the card, card vs CPU, a profile
+    against the bound of the int8 payload and its scales read once."""
+    t0 = time.perf_counter()
+    args = MAIN_ARGS + ["--stack-dtype", "int8"]
+    run = counted_run(cli, kernels, os.path.join(tmp, "int8"), args, both0)
+    try:
+        cli.main(args + ["--use-pallas", "on", "--device", "cpu"])
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("--stack-dtype int8 --use-pallas on was not refused")
+    ds = cli.load_dataset(parse_config(cli, args))
+    nbytes = stack_bytes(cli, args, ds)
+    rec = dict(args=args, launches=run["launches"], steps_per_sec=run["manifest"]["steps_per_sec"],
+               train_loss_first_last=check_falls(run), use_pallas_on_refused=refusal,
+               **card_vs_cpu(cli, tmp, "int8", args, SHORT_ROUNDS),
+               **rerun_and_profile(cli, args, ds, "per_slot"),
+               stack_bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               phase_seconds=time.perf_counter() - t0)
+    emit("int8", **rec)
+    return rec
+
+
+def dense_lowerings_phase(cli, kernels, tmp, both0) -> list:
+    """MAIN_ARGS with a forced flat or margin-flat lowering: it wins over
+    the kernel under use_pallas auto (no launch); card vs CPU."""
+    out = []
+    ds = cli.load_dataset(parse_config(cli, MAIN_ARGS))
+    for name, flags, lowering in (("flat_grad", ["--flat-grad", "on"], "flat"),
+                                  ("margin_flat", ["--margin-flat", "on"], "margin_flat")):
+        t0 = time.perf_counter()
+        args = with_rounds(MAIN_ARGS, SHORT_ROUNDS) + flags
+        run = counted_run(cli, kernels, os.path.join(tmp, f"dense_{name}"), args, both0)
+        rec = dict(run=name, args=args, launches=run["launches"],
+                   steps_per_sec=run["manifest"]["steps_per_sec"],
+                   **card_vs_cpu(cli, tmp, f"dense_{name}", args, SHORT_ROUNDS),
+                   **rerun_and_profile(cli, args, ds, lowering),
+                   phase_seconds=time.perf_counter() - t0)
+        emit("dense_lowerings", **rec)
+        out.append(rec)
+    return out
+
+
+def sparse_cohort_phase(cli, kernels, experiments, tmp, both0) -> dict:
+    """experiments.compare over the seven cohort schemes at seed 0 on the
+    covtype-shaped FieldOnehot stack, deduped: one dispatch through the
+    flat_vmap lowering, no launch; each member within relative 1e-4 of its
+    sequential card run, its simulated clock the same bytes."""
+    from erasurehead_tpu_torch.utils.config import RunConfig
+
+    t0 = time.perf_counter()
+    rows, cols, _, lr = SPARSE_SHAPES["covtype"]
+    configs = {s: RunConfig(scheme=s, seed=0, compute_mode="deduped", rounds=ROUNDS,
+                            dataset="covtype", input_dir=tmp, is_real_data=True,
+                            lr_schedule=float(lr), sparse_format="fields",
+                            **{**COHORT_BASE, "n_rows": rows, "n_cols": cols}, **extra)
+               for s, extra in COHORT_SCHEMES.items()}
+    ds = cli.load_dataset(next(iter(configs.values())))
+    plan, batched, sequential = planned(experiments, configs)
+    run = counted_compare(kernels, experiments, configs, ds, both0, batch="auto")
+    seq = counted_compare(kernels, experiments, configs, ds, both0, batch="off")
+    by_label = {r.label: r for r in run["rows"]}
+    lowering = {r.label: r.cache and r.cache["cohort_lowering"] for r in run["rows"]}
+    vs_seq = {r.label: max_rel(by_label[r.label].training_loss, r.training_loss)
+              for r in seq["rows"]}
+    same_clock = {r.label: by_label[r.label].timeset.tobytes() == r.timeset.tobytes()
+                  for r in seq["rows"]}
+    rec = dict(plan=[[len(labels), ok] for labels, ok in plan], counters=run["counters"],
+               launches=run["launches"], sequential_launches=seq["launches"], lowering=lowering,
+               cohort_steps_per_sec=run["rows"][0].real_steps_per_sec,
+               sequential_steps_per_sec={r.label: r.real_steps_per_sec for r in seq["rows"]},
+               max_rel_loss_vs_sequential=vs_seq, control_plane_equal_sequential=same_clock,
+               train_loss_first_last=losses_fall(run["rows"]),
+               compare_seconds=run["seconds"], sequential_compare_seconds=seq["seconds"],
+               phase_seconds=time.perf_counter() - t0)
+    emit("sparse_cohort", **rec)
+    if (run["counters"]["cohort.dispatches"] != 1 or len(batched) != 1 or sequential
+            or set(lowering.values()) != {"flat_vmap"}):
+        raise AssertionError(f"sparse_cohort planned {plan}, ran {run['counters']}, {lowering}")
+    if max(vs_seq.values()) > 1e-4 or not all(same_clock.values()):
+        raise AssertionError(
+            f"sparse cohort members differ from their runs: {vs_seq}, {same_clock}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -1306,6 +1589,30 @@ def main() -> int:
     deep_cohort = cohort_deep_phase(cli, kernels, cohort_ds, both0)
     cohort_phases_s = time.perf_counter() - t_cohort
 
+    # the sparse and compressed stacks: no kernel takes them
+    t_sparse = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-sparse-") as tmp:
+        layout_s = {name: write_onehot_layout(tmp, name) for name in SPARSE_SHAPES}
+        emit("sparse_layouts", shapes=SPARSE_SHAPES, write_seconds=layout_s)
+        sparse = sparse_phase(cli, kernels, tmp, both0)
+        amazon = amazon_phase(cli, kernels, tmp, both0)
+        int8 = int8_phase(cli, kernels, tmp, both0)
+        dense_low = dense_lowerings_phase(cli, kernels, tmp, both0)
+        sparse_cohort = sparse_cohort_phase(cli, kernels, experiments, tmp, both0)
+    sparse_phases_s = time.perf_counter() - t_sparse
+    # no kernel launched on any of them: {path: {kernel: launches}}
+    no_kernel_paths = {
+        **{f"sparse_{r['run']}": r["launches"] for r in sparse},
+        **{f"amazon_{r['run']}": r["launches"] for r in amazon},
+        "int8": int8["launches"],
+        **{f"dense_{r['run']}": r["launches"] for r in dense_low},
+        "sparse_cohort": sparse_cohort["launches"],
+        "sparse_cohort_sequential": sparse_cohort["sequential_launches"],
+    }
+    emit("sparse_summary", seconds=sparse_phases_s, launches=no_kernel_paths,
+         rerun_max_abs_diff={r.get("run", "int8"): r["rerun_max_abs_diff"]
+                             for r in sparse + [int8] + dense_low})
+
     # times at the main path's shapes (compare launches do not count)
     b, X, y, w = make_inputs(*MAIN_SHAPE, torch.float32, seed=100)
     Xb = X.to(torch.bfloat16)
@@ -1379,7 +1686,8 @@ def main() -> int:
                                  deduped["sequential_launches"]["fused_glm_grad"],
                              "compare_faithful": faithful["launches"]["fused_glm_grad"],
                              "straggler_sweep": sweep["launches"]["fused_glm_grad"],
-                             "cohort_deep": deep_cohort["launches"]["fused_glm_grad"]},
+                             "cohort_deep": deep_cohort["launches"]["fused_glm_grad"],
+                             **{p: n["fused_glm_grad"] for p, n in no_kernel_paths.items()}},
         "max_abs_err": main_err,
         "ms": kernel_ms_best,
         "plain_ms": min(plain_ms, plain_ms_2),  # the two-pass torch yardstick
@@ -1392,6 +1700,7 @@ def main() -> int:
                           for label, r in stack_times.items()},
         "sparsegraph_zero_slot_time_share": stack_times["sparsegraph"]["zero_slot_time_share"],
         "schemes_legacy_input_dir_phase_s": new_phases_s,
+        "sparse_phases_s": sparse_phases_s,
         # a 28-trajectory deduped cohort round: the cohort matmul the path
         # runs instead, against 28 launches of this kernel
         "cohort_round": {k: cohort_glm_time[k] for k in (
@@ -1409,7 +1718,8 @@ def main() -> int:
         "launches_by_path": {"deep": deep["launches"]["fused_block_decode"],
                              "cohort_deep": deep_cohort["launches"]["fused_block_decode"],
                              "compare_deduped": deduped["launches"]["fused_block_decode"],
-                             "compare_faithful": faithful["launches"]["fused_block_decode"]},
+                             "compare_faithful": faithful["launches"]["fused_block_decode"],
+                             **{p: n["fused_block_decode"] for p, n in no_kernel_paths.items()}},
         "max_abs_err": max(decode_err, max(c["max_abs_err"] for c in cohort_checks)),
         # a deep round's decode: one launch for its six leaves
         "ms": per_round["kernel_ms"],

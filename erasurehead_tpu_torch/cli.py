@@ -44,8 +44,14 @@ there, else generate the synthetic one (a real dataset, any but
 ``artificial``, raises without its layout); train on the device (``cuda``
 unless ``--device cpu``), replay the eval, write the five artifacts and the
 manifest into ``--output-dir`` (default ``<input_dir>/.../results/``, the
-reference's layout). A CSR (``.npz``) layout loads but is refused when the
-trainer stacks it: the port stacks dense features only.
+reference's layout). A CSR (``.npz``) layout trains as a sparse stack
+(``--sparse-format padded|fields|auto``), e.g. a covtype-shaped one-hot
+layout written by ``data/io.write_reference_layout`` from
+``data/synthetic.generate_onehot(396120, 15509, 30, n_fields=12)``::
+
+    python -m erasurehead_tpu_torch.cli --dataset covtype --input-dir DIR \
+        --rows 396120 --cols 15509 --scheme approx --workers 30 \
+        --stragglers 2 --num-collect 15 --lr 1.0 --sparse-format fields
 """
 
 from __future__ import annotations
@@ -196,6 +202,41 @@ def _flags_parser() -> argparse.ArgumentParser:
                         "model default)")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                    help="DATA dtype (params/updates stay float32)")
+    p.add_argument("--stack-dtype", default="auto",
+                   choices=["auto", "float32", "bfloat16", "int8"],
+                   help="feature-stack STORAGE dtype: int8 quantizes the "
+                        "partition-major stack at upload (per-partition "
+                        "scale tables, dequantized at the top of every "
+                        "grad body; lossy); auto follows --dtype")
+    p.add_argument("--sparse-format", default="padded",
+                   choices=["padded", "fields", "auto"],
+                   help="sparse (CSR) stack representation: padded = "
+                        "PaddedRows gather/scatter; fields = FieldOnehot "
+                        "pair tables (one-hot-per-field data only); auto = "
+                        "fields where the data allows")
+    p.add_argument("--fields-scatter", default="pairs", choices=["pairs", "onehot"],
+                   help="FieldOnehot gradient scatter: pairs = sums into "
+                        "the pair tables' cells, then row and column sums; "
+                        "onehot = per-field one-hot matmuls")
+    p.add_argument("--fields-margin", default="tables", choices=["tables", "onehot"],
+                   help="FieldOnehot margin: tables = fused pair-table "
+                        "gathers; onehot = per-field one-hot matmuls")
+    p.add_argument("--sparse-lanes", type=int, default=None,
+                   help="sparse margin lane width (a power of two): on the "
+                        "card it shapes the FieldOnehot pairing plan only; "
+                        "gathers stay scalar")
+    p.add_argument("--dense-margin-cols", type=int, default=None,
+                   help="dense margin lowering width [2, 128]: a TPU layout "
+                        "device, validated, with no effect on the card")
+    p.add_argument("--flat-grad", default="auto", choices=["auto", "on", "off"],
+                   help="flat-stack closed-form GLM gradient "
+                        "(parallel/step.make_flat_grad_fn): slot axes "
+                        "folded into the rows, decode weights into the "
+                        "residual; auto is flat for FieldOnehot stacks only")
+    p.add_argument("--margin-flat", default="auto", choices=["auto", "on", "off"],
+                   help="hybrid dense GLM lowering "
+                        "(parallel/step.make_margin_flat_grad_fn): one flat "
+                        "margin product, per-slot transpose; auto is off")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the run computes; cuda raises when there is no card")
@@ -235,6 +276,14 @@ def _flags_to_config(ns: argparse.Namespace) -> RunConfig:
         block_decode=ns.block_decode,
         deep_layers=ns.deep_layers,
         dtype=ns.dtype,
+        stack_dtype=ns.stack_dtype,
+        sparse_format=ns.sparse_format,
+        fields_scatter=ns.fields_scatter,
+        fields_margin=ns.fields_margin,
+        sparse_lanes=ns.sparse_lanes,
+        dense_margin_cols=ns.dense_margin_cols,
+        flat_grad=ns.flat_grad,
+        margin_flat=ns.margin_flat,
         seed=ns.seed,
     )
 
@@ -274,8 +323,8 @@ def load_dataset(cfg: RunConfig) -> Dataset:
     training on synthetic data under a real dataset's name would be worse
     than failing. (The JAX CLI generates synthetic data when no
     ``--input-dir`` is given; the port refuses.) A CSR (``.npz``) layout
-    loads here and is refused where the trainer stacks it
-    (data/sharding.partition_stack): sparse stacks are not ported."""
+    loads as scipy sparse matrices and stacks per ``cfg.sparse_format``
+    (data/sharding.partition_stack)."""
     P = n_partitions(cfg)
     path = dataset_dir(cfg)
     if data_io.has_reference_layout(path):

@@ -9,8 +9,8 @@ data prepared for the reference (or by the JAX package) loads unchanged,
 and caches a ``.npy`` mirror beside each text file: parsing a large text
 matrix takes minutes, np.load milliseconds.
 
-A CSR layout loads as a scipy sparse matrix; the port stacks dense features
-only, so ``data/sharding.partition_stack`` refuses it.
+A CSR layout loads as a scipy sparse matrix, which
+``data/sharding.partition_stack`` stacks as PaddedRows or FieldOnehot.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Synthetic datasets: the reference's two-component GMM logistic task and its
-least-squares counterpart.
+"""Synthetic datasets: the reference's two-component GMM logistic task, its
+least-squares counterpart, and a covtype-style one-hot task.
 
 Host-side numpy, drawn exactly as erasurehead_tpu/data/synthetic.py draws
 them, so the same seed gives the same bytes:
@@ -28,9 +28,9 @@ import numpy as np
 class Dataset:
     """In-memory dataset, row-major with partition-contiguous training rows."""
 
-    X_train: np.ndarray  # [n, F]
+    X_train: np.ndarray | object  # [n, F] dense ndarray or scipy CSR
     y_train: np.ndarray  # [n] in {-1, +1} (or real-valued for regression)
-    X_test: np.ndarray
+    X_test: np.ndarray | object
     y_test: np.ndarray
     name: str = "artificial"
 
@@ -89,6 +89,56 @@ def generate_gmm(
     y_train = np.concatenate([b[1] for b in blocks])
     X_test, y_test = labeled_block(int(0.2 * n_rows))
     return Dataset(X_train, y_train, X_test, y_test, name="artificial")
+
+
+def generate_onehot(
+    n_rows: int,
+    n_cols: int,
+    n_partitions: int,
+    n_fields: int = 12,
+    seed: int = 0,
+) -> Dataset:
+    """Covtype-style sparse one-hot logistic task (scipy CSR features).
+
+    The reference's real workloads are one-hot sparse CSR matrices
+    (src/arrange_real_data.py:145-205 bins covtype's columns into 15509
+    one-hot categories; amazon hashes to 241915). This task has the same
+    structure: ``n_fields`` categorical fields in contiguous column blocks
+    (the last absorbs the remainder), each row activating exactly one
+    category per field (value 1.0, so nnz a row == n_fields), labels drawn
+    from a true logistic model over the one-hot features. Drawn as the JAX
+    package draws it, so a seed gives the same bytes.
+    """
+    import scipy.sparse as sps
+
+    if n_rows % n_partitions:
+        raise ValueError("n_rows must be a multiple of n_partitions")
+    if n_fields > n_cols:
+        raise ValueError("n_fields cannot exceed n_cols")
+    rng = np.random.default_rng(seed)
+    bounds = np.linspace(0, n_cols, n_fields + 1).astype(np.int64)
+    # unit logit variance: sum of n_fields iid N(0, 1/n_fields) entries
+    beta_true = rng.standard_normal(n_cols) / np.sqrt(n_fields)
+
+    def block(n):
+        cats = rng.random((n, n_fields))
+        lo, hi = bounds[:-1], bounds[1:]
+        idx = (lo + (cats * (hi - lo)).astype(np.int64)).astype(np.int32)
+        logits = beta_true[idx].sum(axis=1)
+        y = (2.0 * rng.binomial(1, 1.0 / (1.0 + np.exp(-logits))) - 1.0)
+        X = sps.csr_matrix(
+            (
+                np.ones(n * n_fields, dtype=np.float32),
+                idx.ravel(),
+                np.arange(n + 1, dtype=np.int64) * n_fields,
+            ),
+            shape=(n, n_cols),
+        )
+        return X, y.astype(np.float32)
+
+    X_train, y_train = block(n_rows)
+    X_test, y_test = block(int(0.2 * n_rows))
+    return Dataset(X_train, y_train, X_test, y_test, name="artificial-onehot")
 
 
 def generate_linear(

@@ -12,7 +12,10 @@ gradients" work. Same closed forms as erasurehead_tpu/models/glm.py:
   - squared loss       sum (y - X beta)^2                  (src/util.py:139-141)
 
 X may carry leading batch dimensions ([..., n, F] with y [..., n]); the
-gradient then comes back per batch entry ([..., F]).
+gradient then comes back per batch entry ([..., F]). X is a dense tensor or
+a sparse stack (ops/features.PaddedRows, FieldOnehot): every product goes
+through ``features.matvec``/``rmatvec``, as does the first layer of the mlp,
+deepmlp and moe families.
 
 :class:`MarginClassifierBase` is the shared loss of the non-GLM classifier
 families (models/mlp.py, deep_mlp.py, moe.py): softplus loss on ``predict``'s

@@ -18,6 +18,12 @@ The forms of that op, each a function ``(params, X, y, weights) -> grads``
     partition weights;
   - :func:`make_fused_grad_fn`: either stack, leading dims flattened into M
     slots, through the one-pass kernel (ops/kernels.fused_glm_grad);
+  - :func:`make_flat_grad_fn`: a closed-form GLM on any stack kind, the
+    slot axes folded into the rows and the decode weights into the
+    residual: one matvec/rmatvec pair (one scatter accumulator for a
+    sparse stack);
+  - :func:`make_margin_flat_grad_fn`: a closed-form GLM on a dense stack,
+    one flat margin product and the per-slot weighted transpose;
   - :func:`make_layer_block_grad_fn`: per-layer (blockwise) gradient coding:
     per-slot gradient trees, every leaf decoded in place through one launch
     of the decode kernel a round (ops/kernels.fused_block_decode_leaves).
@@ -26,19 +32,39 @@ The first two are the monolithic PyTorch form, the counterpart of the JAX
 package's own XLA lowering. For the autodiff families (``grads_via_loss``)
 it is one ``torch.func.grad`` of the weighted summed loss, as in the JAX
 package's ``_weighted_loss_grad`` (without its psum: one device).
+
+Every body but the fused kernel's is wrapped by :func:`_dq`, so an int8
+stack (ops/features.QuantizedStack) dequantizes at the top of the round and
+every lowering below sees a dense stack; X may also be a PaddedRows or
+FieldOnehot stack (ops/features.py).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import numpy as np
 import torch
 
 from erasurehead_tpu_torch.ops import blocks as blocks_lib
+from erasurehead_tpu_torch.ops import features as features_lib
 from erasurehead_tpu_torch.ops import kernels
 
 GradFn = Callable[..., object]  # (params, X, y, weights) -> [F] or dict
+
+
+def _dq(body: GradFn) -> GradFn:
+    """Dequantize a compressed stack (ops/features.QuantizedStack) at the
+    top of a grad body: the int8 payload and its scales are what the stack
+    holds, the float32 reconstruction a temporary of the round, and every
+    lowering below sees the dense stack an uncompressed run would. The
+    identity for every other stack."""
+
+    def grad(params, Xs, ys, ws):
+        return body(params, features_lib.maybe_dequantize(Xs), ys, ws)
+
+    return grad
 
 
 def _grads_via_loss(model) -> bool:
@@ -82,7 +108,7 @@ def make_faithful_grad_fn(model) -> GradFn:
         per_slot = model.grad_sum(params, Xw, yw)  # [W, S, F]
         return _weighted_sum(slot_weights, per_slot, "ws")
 
-    return grad
+    return _dq(grad)
 
 
 def make_deduped_grad_fn(model) -> GradFn:
@@ -102,7 +128,111 @@ def make_deduped_grad_fn(model) -> GradFn:
         per_part = model.grad_sum(params, Xp, yp)  # [P, F]
         return _weighted_sum(part_weights, per_part, "p")
 
+    return _dq(grad)
+
+
+def _closed_form(model) -> bool:
+    return hasattr(model, "margin_residual") and not _grads_via_loss(model)
+
+
+# Whether margin_flat="auto" resolves to the hybrid lowering for dense
+# closed-form stacks: off, as in the JAX package (its MARGIN_FLAT_DEFAULT).
+MARGIN_FLAT_DEFAULT = False
+
+
+def supports_margin_flat(model, X) -> bool:
+    """The hybrid needs a closed-form GLM on a dense stack (an int8
+    QuantizedStack counts: the body dequantizes first)."""
+    return _closed_form(model) and isinstance(X, (torch.Tensor, features_lib.QuantizedStack))
+
+
+def resolve_margin_flat(margin_flat: str, model, X) -> bool:
+    if not supports_margin_flat(model, X):
+        return False
+    if margin_flat == "on":
+        return True
+    if margin_flat == "off":
+        return False
+    return MARGIN_FLAT_DEFAULT
+
+
+def _hybrid_margin_flat_grad(model, params, Xs, ys, ws):
+    """One flat [M*R, F] margin product, then the per-slot weighted
+    transpose, for the worker-major [W, S, R, F] or partition-major
+    [P, R, F] stack: the per-slot step's math in another reduction order."""
+    R, F = ys.shape[-1], Xs.shape[-1]
+    M = ys.numel() // R
+    X3 = features_lib._f32(Xs.reshape(M, R, F))
+    p = features_lib.matvec(X3.reshape(M * R, F), params)
+    r = model.margin_residual(p, ys.reshape(M * R))
+    wr = ws.reshape(M, 1) * r.reshape(M, R)
+    return -torch.einsum("mrf,mr->f", X3, wr)
+
+
+def make_margin_flat_grad_fn(model) -> GradFn:
+    """The hybrid lowering as a drop-in for make_faithful_grad_fn /
+    make_deduped_grad_fn on dense closed-form stacks (the caller gates on
+    :func:`supports_margin_flat`)."""
+    return _dq(functools.partial(_hybrid_margin_flat_grad, model))
+
+
+# Whether flat_grad="auto" resolves to the flat lowering for dense and
+# PaddedRows stacks: off, as in the JAX package (its FLAT_GRAD_DEFAULT);
+# FieldOnehot stacks resolve flat (resolve_flat_grad).
+FLAT_GRAD_DEFAULT = False
+
+
+def supports_flat_grad(model, X) -> bool:
+    """The flat lowering needs a closed-form GLM on any stack kind: dense,
+    PaddedRows, FieldOnehot or a dense QuantizedStack."""
+    return _closed_form(model) and isinstance(
+        X, (torch.Tensor, features_lib.PaddedRows, features_lib.FieldOnehot,
+            features_lib.QuantizedStack)
+    )
+
+
+def resolve_flat_grad(flat_grad: str, model, X) -> bool:
+    """Should this run take the flat lowering? ("on" validity is the
+    caller's concern: this resolves, it does not raise.) Under "auto" a
+    FieldOnehot stack resolves flat, as in the JAX package (its per-slot
+    form builds one scatter accumulator a slot); dense and PaddedRows
+    stacks resolve per-slot (FLAT_GRAD_DEFAULT)."""
+    if not supports_flat_grad(model, X):
+        return False
+    if flat_grad == "on":
+        return True
+    if flat_grad == "off":
+        return False
+    if isinstance(X, features_lib.FieldOnehot):
+        return True
+    return FLAT_GRAD_DEFAULT
+
+
+def _flat_local_body(model) -> GradFn:
+    """The whole stack as one flat operand (features.flatten_rows), the
+    [M] slot weights folded into a per-row scale of the residual before the
+    single transpose product:
+
+        sum_s w_s * (-X_s^T r_s)  ==  -Xf^T (w_row * r)     (exact)
+    """
+
+    def grad(params, Xs, ys, ws):
+        R = ys.shape[-1]
+        M = ys.numel() // R
+        Xf = features_lib.flatten_rows(Xs)
+        wf = ws.reshape(M, 1).expand(M, R).reshape(M * R)
+        r = model.margin_residual(features_lib.matvec(Xf, params), ys.reshape(M * R))
+        return -features_lib.rmatvec(Xf, wf * r)
+
     return grad
+
+
+def make_flat_grad_fn(model) -> GradFn:
+    """The flat lowering as a drop-in for make_faithful_grad_fn (worker-major
+    [W, S, rows, ...]) and make_deduped_grad_fn (partition-major
+    [P, rows, ...]); the caller gates on :func:`supports_flat_grad`. Same
+    math as the per-slot form in another reduction order."""
+    return _dq(_flat_local_body(model))
 
 
 def make_fused_grad_fn(kind: str) -> GradFn:
@@ -187,9 +317,9 @@ def per_slot_grads(model, params, Xs, ys, n_lead: int):
     ``model.grad_sum`` per slot under ``torch.func.vmap`` (params
     unbatched), the ``n_lead`` leading dims of the stack flattened into one
     batch dim for the vmap and restored after."""
-    lead = tuple(Xs.shape[:n_lead])
+    lead = tuple(ys.shape[:n_lead])
     M = int(np.prod(lead))
-    Xf = Xs.reshape((M,) + tuple(Xs.shape[n_lead:]))
+    Xf = features_lib.reshape_lead(Xs, (M,))
     yf = ys.reshape((M,) + tuple(ys.shape[n_lead:]))
     grads = torch.func.vmap(model.grad_sum, in_dims=(None, 0, 0))(params, Xf, yf)
     return blocks_lib.tree_map(lambda l: l.reshape(lead + tuple(l.shape[1:])), grads)
@@ -234,7 +364,7 @@ def make_layer_block_grad_fn(model, spec, *, faithful: bool, fused: bool) -> Gra
     (:func:`resolve_block_decode`); on CUDA both decode through the kernel."""
     contract = "ws" if faithful else "p"
     body = _fused_layer_block_body if fused else _layer_block_body
-    return body(model, spec, contract)
+    return _dq(body(model, spec, contract))
 
 
 def expand_slot_weights(
@@ -257,10 +387,10 @@ def expand_slot_weights(
 # (params_B, X, y, weights_B) -> the B decoded gradients, leaves [B, ...].
 
 
-def supports_cohort_matmul(model) -> bool:
-    """The dedicated cohort body needs a closed-form GLM
-    (``margin_residual``); the port's stacks are all dense."""
-    return hasattr(model, "margin_residual") and not _grads_via_loss(model)
+def supports_cohort_matmul(model, X) -> bool:
+    """The dedicated cohort body needs a closed-form GLM on a dense stack
+    (the support surface of the hybrid margin-flat lowering)."""
+    return supports_margin_flat(model, X)
 
 
 def cohort_matmul_grad_fn(model) -> GradFn:
@@ -330,25 +460,33 @@ def _cohort_layer_block_body(model, spec, contract: str, fused: bool) -> GradFn:
 
 
 def make_cohort_grad_fn(
-    model, params_template, *, faithful: bool, layer_coding: str, block_decode: str
+    model, params_template, X, *, faithful: bool, layer_coding: str,
+    block_decode: str, flat_grad: str,
 ):
     """The cohort's gradient fn and the name of its lowering, picked as the
     JAX trainer picks them (trainer._train_cohort_impl):
       - "layer_block_vmap": ``layer_coding`` resolves on: per-slot trees
         under vmap, one decode launch a round for the cohort
         (``block_decode`` picks the fused or treewise lowering);
-      - "cohort_matmul": a closed-form GLM (:func:`cohort_matmul_grad_fn`);
+      - "cohort_matmul": a closed-form GLM on a dense stack
+        (:func:`cohort_matmul_grad_fn`);
+      - "flat_vmap": ``flat_grad`` resolves on for the stack
+        (:func:`resolve_flat_grad`; a FieldOnehot stack under "auto"): the
+        flat body under vmap;
       - "per_slot_vmap": otherwise, the compute mode's one-trajectory grad
         fn under vmap (:func:`batched_grad_fn`).
-    The JAX package's "flat_vmap" lowering needs its flat_grad body, which
-    the port does not have. ``params_template`` is one trajectory's params
-    (the block spec of the layer-coded lowering)."""
+    ``params_template`` is one trajectory's params (the block spec of the
+    layer-coded lowering); ``X`` the cohort's device stack. Every body
+    dequantizes an int8 stack once a round for the whole cohort."""
     contract = "ws" if faithful else "p"
     if resolve_layer_coding(layer_coding, model):
         spec = blocks_lib.model_block_spec(model, params_template)
         fused = resolve_block_decode(block_decode)
-        return _cohort_layer_block_body(model, spec, contract, fused), "layer_block_vmap"
-    if supports_cohort_matmul(model):
-        return cohort_matmul_grad_fn(model), "cohort_matmul"
+        body = _cohort_layer_block_body(model, spec, contract, fused)
+        return _dq(body), "layer_block_vmap"
+    if supports_cohort_matmul(model, X):
+        return _dq(cohort_matmul_grad_fn(model)), "cohort_matmul"
+    if resolve_flat_grad(flat_grad, model, X):
+        return _dq(batched_grad_fn(_flat_local_body(model))), "flat_vmap"
     body = make_faithful_grad_fn(model) if faithful else make_deduped_grad_fn(model)
     return batched_grad_fn(body), "per_slot_vmap"

@@ -15,10 +15,11 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import scipy.sparse as sps
 import torch
 
 from erasurehead_tpu_torch.models import metrics
-from erasurehead_tpu_torch.ops import blocks
+from erasurehead_tpu_torch.ops import blocks, features
 from erasurehead_tpu_torch.utils.config import ModelKind
 
 
@@ -50,8 +51,16 @@ def _replay(model, is_regression: bool, params_history, data) -> torch.Tensor:
     return out
 
 
-def _put(device, *arrays):
-    return tuple(torch.as_tensor(np.asarray(a, np.float32)).to(device) for a in arrays)
+def _put(device, X_train, y_train, X_test, y_test):
+    """The replay's data on ``device``, float32: a scipy sparse matrix as a
+    PaddedRows stack (as the JAX package's replay converts it)."""
+
+    def put(a):
+        if sps.issparse(a):
+            return features.to_device(features.PaddedRows.from_scipy(a), device, torch.float32)
+        return torch.as_tensor(np.asarray(a, np.float32)).to(device)
+
+    return tuple(put(a) for a in (X_train, y_train, X_test, y_test))
 
 
 def replay(
@@ -66,7 +75,7 @@ def replay(
     """Loss (and AUC for classifiers) of every iterate in the history (an
     [R, F] tensor, or a dict of [R, ...] tensors for the deep families),
     through ``model.loss_mean`` and ``model.predict``, on the history's
-    device. Dense numpy or tensor data."""
+    device. Dense numpy or tensor data, or scipy sparse matrices."""
     dev = blocks.tree_leaves(params_history)[0].device
     data = _put(dev, X_train, y_train, X_test, y_test)
     is_regression = ModelKind(model_kind) == ModelKind.LINEAR

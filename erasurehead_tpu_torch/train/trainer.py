@@ -9,11 +9,21 @@ per round, the decoded gradient of the stack (parallel/step.py) and the
 GD/AGD/Adam update; the iterate history stays on the device.
 
 Which gradient lowering a round takes (the JAX trainer's dispatch,
-erasurehead_tpu/train/trainer.py:941-985, on one device):
-  - a GLM with ``use_pallas`` "auto" (the default) or "on" routes the stack
-    through the fused kernel (ops/kernels.fused_glm_grad, one launch per
-    round on CUDA) and raises where it declines, unless ``layer_coding`` is
-    "on"; ``use_pallas="on"`` on any other model raises;
+erasurehead_tpu/train/trainer.py:934-985, on one device):
+  - ``margin_flat`` and then ``flat_grad`` may swap in their lowering
+    (step.make_margin_flat_grad_fn, step.make_flat_grad_fn): "on" forces
+    it and raises where the model or stack cannot take it, "auto" resolves
+    per stack kind (a FieldOnehot stack takes the flat lowering);
+  - a GLM on a dense stack with ``use_pallas`` "auto" (the default) or "on"
+    routes the stack through the fused kernel (ops/kernels.fused_glm_grad,
+    one launch per round on CUDA) and raises where it declines, unless
+    ``layer_coding`` is "on" or, under "auto", a forced ``flat_grad`` or
+    ``margin_flat`` lowering was asked for (where the JAX package's "auto"
+    declines the kernel off the TPU, so the forced lowering is what it
+    runs); ``use_pallas="on"`` on any other model or stack raises, as does
+    ``use_pallas="on"`` with ``flat_grad="on"``. A sparse (PaddedRows,
+    FieldOnehot) or int8 (QuantizedStack) stack is not a dense tensor:
+    under "auto" it takes its own lowering and no kernel;
   - otherwise ``layer_coding`` "on" takes the blockwise decode
     (step.make_layer_block_grad_fn): per-slot gradient trees decoded in
     place by the decode kernel (ops/kernels.fused_block_decode_leaves), one
@@ -51,6 +61,7 @@ from erasurehead_tpu_torch.models.mlp import MLPModel
 from erasurehead_tpu_torch.models.moe import MoEModel
 from erasurehead_tpu_torch.obs import decode as obs_decode
 from erasurehead_tpu_torch.ops import blocks, codes, kernels
+from erasurehead_tpu_torch.ops import features as features_lib
 from erasurehead_tpu_torch.parallel import collect, step as step_lib, straggler
 from erasurehead_tpu_torch.train import optimizer
 from erasurehead_tpu_torch.train.cache import layout_stack_signature
@@ -129,17 +140,26 @@ class TrainResult:
     final_state: optimizer.OptState = None
     # [rounds] per-round decode-error norm ||pw - 1||/sqrt(P) (obs/decode.py)
     decode_error: Optional[np.ndarray] = None
-    # did the round loop go through the fused GLM kernel's wrapper?
-    fused: bool = False
-    # did it take the blockwise (layer-coded) decode?
-    layer_coded: bool = False
+    # the round's gradient lowering: "fused", "layer_block", "flat",
+    # "margin_flat" or "per_slot" (a cohort member: the cohort's lowering)
+    lowering: str = "per_slot"
     # a cohort member's dispatch (train_cohort): cohort_size,
     # cohort_lowering, cohort_dispatches, stack_mode; None for train()
     cohort: Optional[dict] = None
 
+    @property
+    def fused(self) -> bool:
+        """Did the round loop go through the fused GLM kernel's wrapper?"""
+        return self.lowering == "fused"
 
-def _data_dtype(cfg: RunConfig) -> torch.dtype:
-    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    @property
+    def layer_coded(self) -> bool:
+        """Did it take the blockwise (layer-coded) decode?"""
+        return self.lowering in ("layer_block", "layer_block_vmap")
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
 def _to_device(a: np.ndarray, device, dtype: torch.dtype) -> torch.Tensor:
@@ -149,15 +169,43 @@ def _to_device(a: np.ndarray, device, dtype: torch.dtype) -> torch.Tensor:
 def _device_stack(cfg: RunConfig, dataset: Dataset, layout, faithful: bool, dev):
     """The run's data stack, moved to the device once: worker-major
     [W, S, rows, F] (faithful) or partition-major [P, rows, F], its labels,
-    and the training row count."""
-    Xp_h, yp_h = partition_stack(dataset, layout.n_partitions)
+    and the training row count (the JAX package's shard_run_data on one
+    device). A CSR dataset stacks as PaddedRows or FieldOnehot per
+    ``cfg.sparse_format`` (a FieldOnehot stack carries the run's
+    ``fields_margin``/``fields_scatter``/``sparse_lanes``); under
+    ``stack_dtype="int8"`` the partition-major stack is quantized before
+    the worker-major gather (ops/features.QuantizedStack), so every slot
+    holds its partition's int8 values and scales."""
+    Xp_h, yp_h = partition_stack(dataset, layout.n_partitions, cfg.sparse_format)
+    stack_dtype = cfg.resolve_stack_dtype()
+    if stack_dtype == "int8":
+        if not isinstance(Xp_h, np.ndarray):
+            raise ValueError(
+                "stack_dtype='int8' quantizes dense stacks only; this "
+                f"dataset builds a {type(Xp_h).__name__} sparse stack — "
+                "use stack_dtype float32/bfloat16 (or auto) with sparse "
+                "features"
+            )
+        Xp_h = features_lib.QuantizedStack.quantize(Xp_h)
     Xh, yh = worker_stack(layout, Xp_h, yp_h) if faithful else (Xp_h, yp_h)
-    data_dtype = _data_dtype(cfg)
-    X = _to_device(Xh, dev, data_dtype)
+    # the data dtype: the stored float dtype, or cfg.dtype under int8
+    data_dtype = _torch_dtype(cfg.dtype if stack_dtype == "int8" else stack_dtype)
+    X = features_lib.to_device(Xh, dev, data_dtype)
+    if isinstance(X, features_lib.FieldOnehot):
+        X = X.with_lowering(cfg.fields_margin, cfg.fields_scatter, cfg.sparse_lanes)
     # labels ride along the data dtype (as in the JAX package), then stay
     # float32 for the residual
     y = _to_device(yh, dev, data_dtype).float()
     return X, y, yp_h.size
+
+
+def _prepare_sparse(X, grad_fn, params, y, weights) -> None:
+    """Build a sparse stack's scatter plans and fused codes before the
+    clock starts: one untimed gradient (its result is dropped). They are
+    statics of the stack, built at first use (ops/features._Segments), and
+    the kernels never see a sparse stack, so no launch is counted."""
+    if isinstance(X, (features_lib.PaddedRows, features_lib.FieldOnehot)):
+        grad_fn(params, X, y, weights)
 
 
 def _round_weights(layout, slot_w: np.ndarray, faithful: bool) -> np.ndarray:
@@ -173,6 +221,39 @@ def _check_layer_coding(cfg: RunConfig, model) -> None:
             "exact (no model-internal mesh axes) - got "
             f"model={getattr(model, 'name', type(model).__name__)!r}"
         )
+
+
+def _model_name(model) -> str:
+    return getattr(model, "name", type(model).__name__)
+
+
+def _apply_margin_flat(cfg: RunConfig, model, X, grad_fn):
+    """Swap in the hybrid dense lowering per ``cfg.margin_flat``: "on"
+    forces it (raising off the dense closed-form path), "auto" defers to
+    step.resolve_margin_flat. Returns (grad_fn, swapped)."""
+    if cfg.margin_flat == "on" and not step_lib.supports_margin_flat(model, X):
+        raise ValueError(
+            "margin_flat='on' needs a closed-form GLM on a dense stack; "
+            f"got model={_model_name(model)!r}, X={type(X).__name__}"
+        )
+    if step_lib.resolve_margin_flat(cfg.margin_flat, model, X):
+        return step_lib.make_margin_flat_grad_fn(model), True
+    return grad_fn, False
+
+
+def _apply_flat_grad(cfg: RunConfig, model, X, grad_fn):
+    """Swap in the flat-stack lowering per ``cfg.flat_grad``: "on" forces
+    it (raising off the closed-form path), "auto" defers to
+    step.resolve_flat_grad. Returns (grad_fn, swapped)."""
+    if cfg.flat_grad == "on" and not step_lib.supports_flat_grad(model, X):
+        raise ValueError(
+            "flat_grad='on' needs a closed-form GLM (logistic/linear) on a "
+            "dense, PaddedRows, or FieldOnehot stack; "
+            f"got model={_model_name(model)!r}, X={type(X).__name__}"
+        )
+    if step_lib.resolve_flat_grad(cfg.flat_grad, model, X):
+        return step_lib.make_flat_grad_fn(model), True
+    return grad_fn, False
 
 
 def _apply_layer_coding(cfg: RunConfig, model, grad_fn, params_template, faithful: bool):
@@ -238,10 +319,22 @@ def train(
         grad_fn = step_lib.make_faithful_grad_fn(model)
     else:
         grad_fn = step_lib.make_deduped_grad_fn(model)
-    use_fused = False
+    lowering = "per_slot"
+    grad_fn, swapped = _apply_margin_flat(cfg, model, X, grad_fn)
+    lowering = "margin_flat" if swapped else lowering
+    grad_fn, swapped = _apply_flat_grad(cfg, model, X, grad_fn)
+    lowering = "flat" if swapped else lowering
     if cfg.use_pallas != "off":
-        # a forced blockwise decode wins over the fused GLM kernel
-        if model.name in kernels.GLM_KINDS and cfg.layer_coding != "on":
+        if cfg.use_pallas == "on" and cfg.flat_grad == "on":
+            raise ValueError(
+                "use_pallas='on' and flat_grad='on' are mutually exclusive "
+                "gradient lowerings; force at most one"
+            )
+        dense_glm = model.name in kernels.GLM_KINDS and isinstance(X, torch.Tensor)
+        # under "auto" a forced flat/margin-flat lowering wins over the
+        # kernel, as does a forced blockwise decode
+        forced = cfg.use_pallas == "on" or "on" not in (cfg.flat_grad, cfg.margin_flat)
+        if dense_glm and cfg.layer_coding != "on" and forced:
             reason = kernels.unsupported_reason(X.reshape((-1,) + tuple(X.shape[-2:])))
             if reason is not None:  # no quiet fallback to the two-pass gradient
                 raise ValueError(
@@ -249,20 +342,22 @@ def train(
                     "use_pallas='off' takes the two-pass gradient"
                 )
             grad_fn = step_lib.make_fused_grad_fn(model.name)
-            use_fused = True
+            lowering = "fused"
         elif cfg.use_pallas == "on":
             raise ValueError(
                 "use_pallas='on' needs a dense logistic/linear stack; "
                 f"got model={model.name!r}, X={type(X).__name__}"
             )
-    layer_coded = False
-    if not use_fused:
+    if lowering != "fused":
         grad_fn, layer_coded = _apply_layer_coding(cfg, model, grad_fn, params0, faithful)
-    # set-up before the clock starts: build the kernels, import torch.func
-    if dev.type == "cuda" and (use_fused or layer_coded):
+        lowering = "layer_block" if layer_coded else lowering
+    # set-up before the clock starts: build the kernels, import torch.func,
+    # build a sparse stack's scatter plans
+    if dev.type == "cuda" and lowering in ("fused", "layer_block"):
         kernels.load_library()
-    if layer_coded or getattr(model, "grads_via_loss", False):
+    if lowering == "layer_block" or getattr(model, "grads_via_loss", False):
         step_lib.warm_autodiff()
+    _prepare_sparse(X, grad_fn, params0, y, weights[0])
 
     state = optimizer.init_state(params0, cfg.update_rule)
     update_fn = optimizer.make_update_fn(cfg.update_rule)
@@ -298,8 +393,7 @@ def train(
         layout=layout,
         final_state=state,
         decode_error=decode_err,
-        fused=use_fused,
-        layer_coded=layer_coded,
+        lowering=lowering,
     )
 
 
@@ -327,12 +421,19 @@ def cohort_signature(cfg: RunConfig) -> Optional[tuple]:
     AGC share one, cyclic MDS has its own)."""
     if not cohort_eligible(cfg):
         return None
-    faithful = cfg.compute_mode == ComputeMode.FAITHFUL
     return (
         cfg.static_signature(),
         cfg.rounds,
         cfg.n_workers,
-        layout_stack_signature(build_layout(cfg), worker_major=faithful),
+        _stack_signature(cfg, build_layout(cfg)),
+    )
+
+
+def _stack_signature(cfg: RunConfig, layout) -> tuple:
+    return layout_stack_signature(
+        layout, worker_major=cfg.compute_mode == ComputeMode.FAITHFUL,
+        stack_dtype=cfg.resolve_stack_dtype(), dtype=cfg.dtype,
+        sparse_format=cfg.sparse_format,
     )
 
 
@@ -417,9 +518,9 @@ def train_cohort(
     # one shared device stack: refuse a trajectory whose stack differs
     # rather than train a different code than its train() run would
     layouts = [build_layout(c) for c in cfgs]
-    stack0 = layout_stack_signature(layouts[0], worker_major=faithful)
+    stack0 = _stack_signature(cfg, layouts[0])
     for c, lay in zip(cfgs[1:], layouts[1:]):
-        if layout_stack_signature(lay, worker_major=faithful) != stack0:
+        if _stack_signature(c, lay) != stack0:
             raise ValueError(
                 f"trajectory {c.scheme.value!r} (seed {c.seed}) builds a "
                 "different device data stack than the cohort's first "
@@ -466,15 +567,23 @@ def train_cohort(
         params = [params_from_numpy(p, dev) for p in init_params]
     params0 = blocks.tree_map(lambda *leaves: torch.stack(leaves), *params)
 
+    if cfg.flat_grad == "on" and not step_lib.supports_flat_grad(model, X):
+        raise ValueError(
+            "flat_grad='on' needs a closed-form GLM stack; "
+            f"got model={_model_name(model)!r}, X={type(X).__name__}"
+        )
     _check_layer_coding(cfg, model)
     grad_fn, lowering = step_lib.make_cohort_grad_fn(
-        model, params[0], faithful=faithful,
+        model, params[0], X, faithful=faithful,
         layer_coding=cfg.layer_coding, block_decode=cfg.block_decode,
+        flat_grad=cfg.flat_grad,
     )
-    # set-up before the clock starts: build the kernels, import torch.func
+    # set-up before the clock starts: build the kernels, import torch.func,
+    # build a sparse stack's scatter plans
     if dev.type == "cuda" and lowering == "layer_block_vmap":
         kernels.load_library()
     step_lib.warm_autodiff()
+    _prepare_sparse(X, grad_fn, params0, y, weights[0])
 
     state = optimizer.init_state(params0, cfg.update_rule)
     update_fn = optimizer.make_cohort_update_fn(cfg.update_rule)
@@ -518,7 +627,7 @@ def train_cohort(
             layout=lay,
             final_state=final,
             decode_error=obs_decode.decode_error_series(lay, sched.message_weights),
-            layer_coded=lowering == "layer_block_vmap",
+            lowering=lowering,
             cohort=dict(cohort),
         ))
     return results

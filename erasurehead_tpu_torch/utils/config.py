@@ -5,8 +5,10 @@ erasurehead_tpu/utils/config.py::RunConfig for the fields this port runs:
 every scheme of the scheme registry (erasurehead_tpu_torch/schemes/) with
 its fixed or least-squares-optimal decode, the two GLM families and the
 unsharded mlp, deepmlp and moe families, GD/AGD/ADAM updates, the faithful
-and deduped compute modes, float32 or bfloat16 data, the fused-kernel
-switch and the per-layer (blockwise) gradient coding knobs. Also the
+and deduped compute modes, float32 or bfloat16 data, the int8 stack, the
+sparse stack formats and their lowerings, the flat and margin-flat
+gradient lowerings, the fused-kernel switch and the per-layer (blockwise)
+gradient coding knobs. Also the
 static lowering signature the trajectory-cohort engine groups by, and the
 sweep harness's batching switch (:func:`resolve_batch_trajectories`).
 """
@@ -21,6 +23,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from erasurehead_tpu_torch import schemes
+from erasurehead_tpu_torch.ops.features import validate_lanes, validate_margin_cols
 
 
 class Scheme(str, enum.Enum):
@@ -195,6 +198,42 @@ class RunConfig:
     deep_layers: int = 0
     # per-round collection deadline in simulated seconds (scheme="deadline")
     deadline: Optional[float] = None
+    # feature-stack STORAGE dtype (train/trainer._device_stack): "auto"
+    # follows ``dtype``; "float32"/"bfloat16" force the stored float dtype
+    # (labels ride along); "int8" quantizes the partition-major stack at
+    # upload to an int8 payload + per-partition-per-feature float32 scales
+    # (ops/features.QuantizedStack), dequantized at the top of every grad
+    # body. Dense stacks only
+    stack_dtype: str = "auto"
+    # sparse margin lane width (a power of two in [1, 1024], or None): a TPU
+    # lane-replication device in the JAX package; on the card its only
+    # effect is the FieldOnehot pairing plan (ops/features.fields_margin_plan)
+    sparse_lanes: Optional[int] = None
+    # dense margin lowering width ([2, 128] or None): a TPU layout device,
+    # validated and keyed, with no effect on the card
+    dense_margin_cols: Optional[int] = None
+    # flat-stack closed-form GLM gradient (parallel/step.make_flat_grad_fn):
+    # the slot axes fold into the rows and the decode weights into the
+    # residual: one matvec/rmatvec pair a round. "on" forces it (raising off
+    # the closed-form path), "off" keeps the per-slot form, "auto" resolves
+    # per stack kind (step.resolve_flat_grad: flat for FieldOnehot)
+    flat_grad: str = "auto"
+    # hybrid dense margin lowering (parallel/step._hybrid_margin_flat_grad):
+    # one flat margin product, per-slot weighted transpose. "auto" resolves
+    # to step.MARGIN_FLAT_DEFAULT (off); closed-form GLMs on dense stacks
+    margin_flat: str = "auto"
+    # sparse training-stack representation (ops/features.py): "padded"
+    # (PaddedRows gather/scatter), "fields" (FieldOnehot: needs
+    # exactly-one-hot-per-field data, raises otherwise), "auto" (fields
+    # where the data's structure allows, else padded)
+    sparse_format: str = "padded"
+    # FieldOnehot gradient scatter: "pairs" (sums into the fused pair
+    # tables' cells, then their row and column sums) or "onehot" (per-field
+    # one-hot matmuls)
+    fields_scatter: str = "pairs"
+    # FieldOnehot margin: "tables" (fused pair-table gathers) or "onehot"
+    # (per-field one-hot matmuls; sparse_lanes has no effect there)
+    fields_margin: str = "tables"
     # decode-weight policy (arXiv:2006.09638): "fixed" keeps the scheme's own
     # collection weights; "optimal" refits them per round by least squares
     # to the actual arrival set over the layout's effective coding matrix
@@ -212,15 +251,25 @@ class RunConfig:
             raise ValueError(
                 f"use_pallas must be auto/on/off, got {self.use_pallas!r}"
             )
+        if self.flat_grad not in ("auto", "on", "off"):
+            raise ValueError(
+                f"flat_grad must be auto/on/off, got {self.flat_grad!r}"
+            )
         if self.layer_coding not in ("auto", "on", "off"):
             raise ValueError(
                 f"layer_coding must be auto/on/off, got {self.layer_coding!r}"
             )
-        if self.layer_coding == "on" and self.use_pallas == "on":
-            raise ValueError(
-                "layer_coding='on' and use_pallas='on' both force a "
-                "gradient lowering; force at most one"
-            )
+        if self.layer_coding == "on":
+            for knob, name in (
+                (self.flat_grad, "flat_grad"),
+                (self.margin_flat, "margin_flat"),
+                (self.use_pallas, "use_pallas"),
+            ):
+                if knob == "on":
+                    raise ValueError(
+                        f"layer_coding='on' and {name}='on' both force a "
+                        "gradient lowering; force at most one"
+                    )
         if self.block_decode not in ("auto", "fused", "treewise"):
             raise ValueError(
                 f"block_decode must be auto/fused/treewise, got "
@@ -234,6 +283,62 @@ class RunConfig:
             raise ValueError(
                 f"dtype must be float32/bfloat16, got {self.dtype!r}"
             )
+        if self.stack_dtype not in ("auto", "float32", "bfloat16", "int8"):
+            raise ValueError(
+                f"stack_dtype must be auto/float32/bfloat16/int8, got "
+                f"{self.stack_dtype!r}"
+            )
+        if self.stack_dtype == "int8" and self.use_pallas == "on":
+            raise ValueError(
+                "use_pallas='on' forces the fused kernel, which "
+                "streams a plain dense float stack and has no "
+                "dequantizing body; force at most one of "
+                "stack_dtype='int8' / use_pallas='on'"
+            )
+        self.sparse_lanes = validate_lanes(self.sparse_lanes)
+        self.dense_margin_cols = validate_margin_cols(self.dense_margin_cols)
+        if self.sparse_format not in ("padded", "fields", "auto"):
+            raise ValueError(
+                f"sparse_format must be padded/fields/auto, got "
+                f"{self.sparse_format!r}"
+            )
+        if self.fields_scatter not in ("pairs", "onehot"):
+            raise ValueError(
+                f"fields_scatter must be pairs/onehot, got "
+                f"{self.fields_scatter!r}"
+            )
+        if self.margin_flat not in ("auto", "on", "off"):
+            raise ValueError(
+                f"margin_flat must be auto/on/off, got {self.margin_flat!r}"
+            )
+        if self.margin_flat == "on" and self.flat_grad == "on":
+            raise ValueError(
+                "margin_flat='on' and flat_grad='on' both force a margin "
+                "lowering; force at most one"
+            )
+        if self.margin_flat == "on" and self.use_pallas == "on":
+            raise ValueError(
+                "margin_flat='on' and use_pallas='on' both force a grad "
+                "lowering; force at most one"
+            )
+        if self.fields_margin not in ("tables", "onehot"):
+            raise ValueError(
+                f"fields_margin must be tables/onehot, got "
+                f"{self.fields_margin!r}"
+            )
+        if (
+            self.sparse_format == "fields"
+            and self.fields_margin == "onehot"
+            and self.sparse_lanes is not None
+        ):
+            raise ValueError(
+                "sparse_lanes has no effect under fields_margin='onehot' "
+                "(no gathers to lane-replicate); drop one of the two"
+            )
+        if self.sparse_format == "auto" and self.sparse_lanes is not None:
+            # an explicit lane width pins the PaddedRows stack, as in the
+            # JAX package: the fields x lanes lowering is asked for by name
+            self.sparse_format = "padded"
         if self.decode not in ("fixed", "optimal"):
             raise ValueError(
                 f"decode must be fixed/optimal, got {self.decode!r}"
@@ -259,16 +364,30 @@ class RunConfig:
         return {
             "model": self.model.value,
             "compute_mode": self.compute_mode.value,
+            "stack_dtype": self.stack_dtype,
             "update_rule": self.update_rule.value,
             "dtype": self.dtype,
+            "sparse_lanes": self.sparse_lanes,
+            "dense_margin_cols": self.dense_margin_cols,
             "layer_coding": self.layer_coding,
             "block_decode": self.block_decode,
             "deep_layers": self.deep_layers,
+            "sparse_format": self.sparse_format,
+            "fields_scatter": self.fields_scatter,
+            "fields_margin": self.fields_margin,
         }
 
     def static_signature(self) -> tuple:
         """The values of :meth:`static_signature_fields`, as a tuple."""
         return tuple(self.static_signature_fields().values())
+
+    def resolve_stack_dtype(self) -> str:
+        """The feature stack's resolved storage dtype: "float32",
+        "bfloat16" or "int8". "auto" follows the data dtype; "int8"
+        quantizes the feature stack while labels keep the ``dtype`` cast."""
+        if self.stack_dtype == "auto":
+            return self.dtype
+        return self.stack_dtype
 
     @property
     def effective_alpha(self) -> float:

@@ -163,8 +163,10 @@ def test_cli_writes_the_jax_artifact_names(tmp_path):
 
 
 def test_cli_refuses_an_on_disk_dataset(tmp_path):
-    """A CSR (.npz) reference layout loads, and the trainer refuses it where
-    it stacks the partitions: the port stacks dense features only."""
+    """A CSR (.npz) reference layout of data that is not one-hot per field
+    loads, and the trainer refuses it where it stacks the partitions as
+    FieldOnehot (``--sparse-format fields``), with the JAX package's
+    message; as PaddedRows (the default) it trains."""
     import scipy.sparse as sps
 
     from erasurehead_tpu_torch.data import io as t_io
@@ -176,11 +178,11 @@ def test_cli_refuses_an_on_disk_dataset(tmp_path):
         sps.csr_matrix(dense.X_test), dense.y_test,
     )
     t_io.write_reference_layout(sparse, str(tmp_path / "artificial-data" / "64x8" / "4"), 4)
-    with pytest.raises(ValueError, match="sparse stacks are not ported"):
-        t_cli.main([
-            "--workers", "4", "--rows", "64", "--cols", "8", "--rounds", "1",
-            "--input-dir", str(tmp_path), "--device", "cpu", "--quiet",
-        ])
+    flags = ["--workers", "4", "--rows", "64", "--cols", "8", "--rounds", "1",
+             "--input-dir", str(tmp_path), "--device", "cpu", "--quiet"]
+    with pytest.raises(ValueError, match="requires exactly-one-hot-per-field data"):
+        t_cli.main(flags + ["--sparse-format", "fields"])
+    assert t_cli.main(flags) == 0
 
 
 def test_cpu_run_launches_no_kernel():
