@@ -133,6 +133,38 @@ Phases, one JSON line each:
                  seed 0 on the covtype-shaped FieldOnehot stack, deduped: one
                  dispatch through the flat_vmap lowering, no launch, each
                  member within relative 1e-4 of its sequential card run.
+  24. arrivals - the main path under each arrival model: ERASUREHEAD_REGIME
+                 heavytail:50:1.2, adversary:30:4:5.0 and targeted:30:0:5.0
+                 (on repcoded, whose partition groups are FRC's), then
+                 --compute-time 0.1 --worker-speed-spread 0.3, then
+                 --arrival-trace of a 20-round .npy trace this phase writes
+                 (tiled to 100) with --worker-speed-spread 0.3: each 100
+                 rounds on the card with exactly 100 fused_glm_grad
+                 launches, its simulated clocks byte-equal to its first 10
+                 rounds on the CPU and to the schedule the host builds from
+                 trainer.default_arrivals, the model changing exactly the
+                 rounds it should, replayed losses within relative 1e-4;
+  25. attention - --model attention at the family's defaults (16 tokens of
+                 8 features a row, d_model 16, 2 heads) on the main path's
+                 data and AGD, layer-coded with the fused decode: 100 rounds
+                 on the card with exactly 100 decode launches and no GLM
+                 kernel, its loss falling; 10 rounds card vs CPU within
+                 relative 1e-4; treewise bitwise equal on the card; a
+                 4-trajectory cohort (lr 10 and 5 x seeds 0 and 1) in one
+                 dispatch with 100 decode launches, each member within
+                 relative 1e-6 of its sequential card run;
+  26. checkpoint - the main path saving every 25 rounds (artifacts bitwise
+                 the uninterrupted run's); round_75's commit marker deleted
+                 and round_50's state file cut in half, so --resume falls
+                 back to round_25 with a warning and its artifacts are rows
+                 25-99 bitwise (75 launches); a further resume from the
+                 round_75 it wrote runs 25 rounds, bitwise; the attention run
+                 saving every 50 rounds and resumed once, bitwise; the time
+                 of a save, steps/s with and without checkpointing.
+Later, beside ``time`` and ``profile``: the attention run's per-slot leaves
+through ``decode_ops``, its round's decode (one launch, six leaves of
+[90, 913] floats) against its plain version, six GEMVs and the bound, and
+its profile (device time a round, busy share, decode against the rest).
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -144,7 +176,9 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -259,6 +293,28 @@ SPARSE_RUNS = (  # (name, flags, the trainer's lowering, short rounds, profile r
     ("fields_lanes8", ["--sparse-format", "fields", "--sparse-lanes", "8"], "flat",
      SHORT_ROUNDS, PROFILE_ROUNDS),
 )
+# the arrivals phase: the main path under each arrival model (a regime
+# armed by ERASUREHEAD_REGIME, or the heterogeneity and trace flags; the
+# targeted attack on repcoded, whose partition groups are FRC's); TRACE is
+# replaced by the .npy trace the phase writes (TRACE_ROUNDS rounds, tiled)
+TRACE, TRACE_ROUNDS = "<trace>", 20
+REPCODED_ARGS = ["--scheme", "repcoded"] + SCHEME_BASE
+ARRIVAL_RUNS = (  # (name, ERASUREHEAD_REGIME or None, args, rows the model changes)
+    ("heavytail", "heavytail:50:1.2", MAIN_ARGS, 50),
+    ("adversary", "adversary:30:4:5.0", MAIN_ARGS, 70),
+    ("targeted", "targeted:30:0:5.0", REPCODED_ARGS, 70),
+    ("heterogeneous", None, MAIN_ARGS + ["--compute-time", "0.1", "--worker-speed-spread", "0.3"],
+     100),
+    ("trace", None, MAIN_ARGS + ["--arrival-trace", TRACE, "--worker-speed-spread", "0.3"], 100),
+)
+# the attention family at the repo's defaults (d_in 8: T = 16 tokens a row
+# of the flagship's 128 features, d_model 16, 2 heads), layer-coded, fused
+# decode, on the main path's flags
+ATTN_ARGS = MAIN_ARGS + ["--model", "attention", "--layer-coding", "on", "--block-decode",
+                         "fused"]
+# its cohort: two lrs x two seeds
+ATTN_COHORT = [(lr, seed) for lr in (10.0, 5.0) for seed in (0, 1)]
+CKPT_EVERY, ATTN_CKPT_EVERY = 25, 50
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 ARTIFACTS = ("training_loss", "testing_loss", "auc", "timeset", "worker_timeset")
@@ -363,13 +419,13 @@ def parse_config(cli, args):
     return cli._flags_to_config(cli._flags_parser().parse_args(args))
 
 
-def run_main(cli, out_dir, device, args=MAIN_ARGS, prefix=None, workers=30) -> dict:
+def run_main(cli, out_dir, device, args=MAIN_ARGS, prefix=None, workers=30, start=0) -> dict:
     """One CLI run; its five artifacts must exist, be finite and have the
-    run's shape. ``prefix`` defaults to the named-flag run's artifact
-    prefix."""
+    run's shape (rounds [start, rounds): a resumed run's window).
+    ``prefix`` defaults to the named-flag run's artifact prefix."""
     if cli.main(args + ["--output-dir", out_dir, "--device", device]) != 0:
         raise AssertionError(f"cli.main failed on {device}: {args}")
-    rounds = int(args[args.index("--rounds") + 1])
+    rounds = int(args[args.index("--rounds") + 1]) - start
     if prefix is None:
         from erasurehead_tpu_torch.train.artifacts import run_prefix
 
@@ -677,9 +733,15 @@ def decode_ops(kernels, model_name) -> dict:
     contiguous = [leaf.is_contiguous() for leaf in leaves]
     if not all(contiguous):
         raise AssertionError(f"{model_name}: non-contiguous per-slot leaves {contiguous}")
-    calls = 20
-    kernels.fused_block_decode_leaves(ws, leaves)
+    got = kernels.fused_block_decode_leaves(ws, leaves)
+    want = kernels.reference_block_decode_leaves(ws, leaves)
     torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    if not bitwise:
+        raise AssertionError(f"{model_name}: the decode of its real per-slot leaves is not "
+                             f"bitwise its plain version (max abs err {err})")
+    calls = 20
     # the profile may lose a record, or now and then a whole window (see
     # cohort_vmap_leaves): an empty window is taken again; the launch count
     # loses nothing
@@ -694,7 +756,7 @@ def decode_ops(kernels, model_name) -> dict:
             break
     rec = dict(model=model_name, leaf_shapes=[list(leaf.shape) for leaf in leaves],
                contiguous=contiguous, calls=calls, launches=launches, device_ops=ops,
-               profiles_taken=attempt)
+               profiles_taken=attempt, bitwise_vs_plain=bitwise, max_abs_err=err)
     emit("decode_ops", **rec)
     if launches != calls or len(ops) != 1 or "block_decode" not in next(iter(ops)):
         raise AssertionError(f"{model_name}: {calls} decodes ran {ops} on the device "
@@ -964,7 +1026,8 @@ def cohort_vmap_leaves(kernels, model_name, B=4) -> dict:
             break
     out = dict(model=model_name, B=B, leaf_shapes=[list(leaf.shape) for leaf in leaves],
                contiguous=contiguous, calls=calls, device_ops=ops, profiles_taken=attempt,
-               copies_per_call=copies / calls, bitwise_vs_plain=rec["bitwise_vs_plain"])
+               copies_per_call=copies / calls, bitwise_vs_plain=rec["bitwise_vs_plain"],
+               max_abs_err=rec["max_abs_err"])
     emit("cohort_decode_ops", **out)
     if abs(kernel_calls - calls) > 2 or abs(copies - calls * contiguous.count(False)) > 2:
         raise AssertionError(f"{model_name}: {calls} cohort decodes ran {ops} on the device")
@@ -1434,6 +1497,215 @@ def sparse_cohort_phase(cli, kernels, experiments, tmp, both0) -> dict:
     return rec
 
 
+def arrivals_phase(cli, kernels, tmp, both0) -> list:
+    """The main path under each of ARRIVAL_RUNS: 100 rounds on the card with
+    exactly 100 fused_glm_grad launches; its simulated clocks byte-equal to
+    its first 10 rounds on the CPU and to the schedule the host builds from
+    trainer.default_arrivals; the arrival model changing exactly the rows it
+    should against the stationary draw; replayed losses within relative
+    1e-4 of the CPU run's."""
+    from erasurehead_tpu_torch.train import trainer
+    from erasurehead_tpu_torch.utils import chaos
+
+    trace = os.path.join(tmp, "arrival_trace.npy")
+    np.save(trace, np.random.default_rng(0).exponential(0.5, (TRACE_ROUNDS, 30)))
+    out = []
+    for name, regime, args, changed_want in ARRIVAL_RUNS:
+        args = [trace if a == TRACE else a for a in args]
+        cfg = parse_config(cli, args)
+        base_cfg = dataclasses.replace(cfg, compute_time=0.0, worker_speed_spread=0.0,
+                                       arrival_trace=None)
+        stationary = trainer.default_arrivals(base_cfg)
+        if regime:
+            os.environ[chaos.REGIME_ENV] = regime
+        try:
+            run = counted_run(cli, kernels, os.path.join(tmp, f"arrivals_{name}"), args,
+                              {**both0, "fused_glm_grad": ROUNDS})
+            cpu = run_main(cli, os.path.join(tmp, f"arrivals_{name}_cpu"), "cpu",
+                           with_rounds(args, SHORT_ROUNDS))
+            arrivals = trainer.default_arrivals(cfg)
+        finally:
+            os.environ.pop(chaos.REGIME_ENV, None)
+        sched = trainer.build_schedule(cfg, arrivals, trainer.build_layout(cfg))
+        g, c = run["arts"], cpu["arts"]
+        same_cpu = all(g[a][:SHORT_ROUNDS].tobytes() == c[a].tobytes()
+                       for a in ("timeset", "worker_timeset"))
+        same_host = (g["timeset"].tobytes() == np.asarray(sched.sim_time, np.float64).tobytes()
+                     and g["worker_timeset"].tobytes()
+                     == np.asarray(sched.worker_times, np.float64).tobytes())
+        changed = int((arrivals != stationary).any(axis=1).sum())
+        rel = float(max_rel(g["training_loss"][:SHORT_ROUNDS], c["training_loss"]))
+        rec = dict(run=name, regime=regime, args=args, launches=run["launches"],
+                   steps_per_sec=run["manifest"]["steps_per_sec"],
+                   sim_total_time=run["manifest"]["sim_total_time"],
+                   rounds_changed_by_the_model=changed, clocks_equal_cpu=same_cpu,
+                   clocks_equal_host_schedule=same_host, max_rel_loss_diff_vs_cpu=rel,
+                   train_loss_first_last=check_falls(run))
+        emit("arrivals", **rec)
+        if not (same_cpu and same_host) or changed != changed_want or rel > 1e-4:
+            raise AssertionError(f"arrivals {name}: {rec}")
+        out.append(rec)
+    return out
+
+
+def attention_phase(cli, kernels, tmp, both0) -> dict:
+    """ATTN_ARGS through the CLI: 100 rounds on the card with exactly 100
+    decode launches and none of the GLM kernel, the loss falling; its first
+    10 rounds on the card and on the CPU within relative 1e-4; the same 10
+    rounds with --block-decode treewise bitwise equal on the card; then a
+    4-trajectory cohort (ATTN_COHORT) in one dispatch and 100 decode
+    launches, each member's replayed loss within relative 1e-6 of its
+    sequential card run."""
+    from erasurehead_tpu_torch.train import trainer
+
+    run = counted_run(cli, kernels, os.path.join(tmp, "attention"), ATTN_ARGS,
+                      {**both0, "fused_block_decode": ROUNDS})
+    short = with_rounds(ATTN_ARGS, SHORT_ROUNDS)
+    gpu10 = run_main(cli, os.path.join(tmp, "attention10_cuda"), "cuda", short)
+    cpu10 = run_main(cli, os.path.join(tmp, "attention10_cpu"), "cpu", short)
+    treewise = short[:short.index("fused")] + ["treewise"]
+    tree10 = counted_run(cli, kernels, os.path.join(tmp, "attention10_treewise"), treewise,
+                         {**both0, "fused_block_decode": SHORT_ROUNDS})
+    same = {a: tree10["arts"][a].tobytes() == gpu10["arts"][a].tobytes() for a in ARTIFACTS}
+    if not all(same.values()):
+        raise AssertionError(f"attention treewise vs fused artifacts differ on the card: {same}")
+    rec = dict(args=ATTN_ARGS, launches=run["launches"],
+               steps_per_sec=run["manifest"]["steps_per_sec"],
+               wall_time_s=run["manifest"]["wall_time"],
+               train_loss_first_last=check_falls(run), final_auc=float(run["arts"]["auc"][-1]),
+               short_rounds=SHORT_ROUNDS, cpu_steps_per_sec=cpu10["manifest"]["steps_per_sec"],
+               **compare_runs(gpu10, cpu10), treewise_launches=tree10["launches"],
+               treewise_artifacts_bitwise_equal_fused=same)
+
+    t0 = time.perf_counter()
+    base = parse_config(cli, ATTN_ARGS)
+    ds = cli.load_dataset(base)
+    cfgs = [dataclasses.replace(base, lr_schedule=lr, seed=seed) for lr, seed in ATTN_COHORT]
+    if not all(trainer.cohort_eligible(c) for c in cfgs):
+        raise AssertionError("the attention cohort is not cohort-eligible")
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = trainer.train_cohort(cfgs, ds)
+    cohort_launches = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [replayed_loss(r, ds) for r in res]
+    seq = [trainer.train(c, ds) for c in cfgs]
+    vs_seq = [max_rel(a, replayed_loss(s, ds)) for a, s in zip(losses, seq)]
+    rec["cohort"] = dict(
+        variants=[list(v) for v in ATTN_COHORT], launches=cohort_launches,
+        dispatch=res[0].cohort, cohort_steps_per_sec=res[0].steps_per_sec,
+        peak_allocated_gib=peak_gib,
+        sequential_steps_per_sec=[r.steps_per_sec for r in seq],
+        max_rel_loss_vs_sequential=vs_seq,
+        train_loss_first_last=[[float(l[0]), float(l[-1])] for l in losses],
+        phase_seconds=time.perf_counter() - t0,
+    )
+    emit("attention", **rec)
+    rec["run"] = run
+    if cohort_launches != {**both0, "fused_block_decode": ROUNDS}:
+        raise AssertionError(f"the attention cohort launched {cohort_launches}")
+    if res[0].cohort["cohort_dispatches"] != 1 or res[0].lowering != "layer_block_vmap":
+        raise AssertionError(f"the attention cohort's dispatch: {res[0].cohort}")
+    if max(vs_seq) > 1e-6:
+        raise AssertionError(f"attention cohort members differ from sequential runs: {vs_seq}")
+    return rec
+
+
+def resumed_window(cli, kernels, out_dir, args, want, start, full) -> dict:
+    """A resumed CLI run (``args`` carries --resume) on the card: its launch
+    counts exactly ``want``, its manifest's start round ``start``, its five
+    artifacts bitwise rows [start, 100) of the uninterrupted run ``full``.
+    Returns the run with what it wrote to stderr (the fallback warnings)."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        run = counted_run(cli, kernels, out_dir, args, want, start=start)
+    same = {a: run["arts"][a].tobytes() == full["arts"][a][start:].tobytes() for a in ARTIFACTS}
+    if run["manifest"]["start_round"] != start or not all(same.values()):
+        raise AssertionError(f"resume from round {start}: start_round "
+                             f"{run['manifest']['start_round']}, artifacts equal {same}")
+    run["stderr"] = err.getvalue()
+    return run
+
+
+def checkpoint_phase(cli, kernels, tmp, both0, main_run, attn_run) -> dict:
+    """The main path saving every CKPT_EVERY rounds: artifacts bitwise the
+    uninterrupted card run's (``main_run``) and round_25/50/75 on disk;
+    then round_75's commit marker deleted and round_50's state file cut in
+    half, so a resume (saving again every 25) falls back to round_25 with a
+    warning and runs 75 rounds, rows 25-99 bitwise; one more resume from the
+    round_75 it wrote runs 25 rounds, rows 75-99 bitwise. Then the attention
+    run (``attn_run``) saving every 50 rounds and resumed once, bitwise. The
+    time of one save of the main path's state, and steps/s with and without
+    checkpointing (the clock leaves the saves out)."""
+    from erasurehead_tpu_torch.train import checkpoint, optimizer
+
+    b1 = lambda n: {**both0, "fused_glm_grad": n}  # noqa: E731
+    b2 = lambda n: {**both0, "fused_block_decode": n}  # noqa: E731
+    d = os.path.join(tmp, "ckpt_main")
+    every = ["--checkpoint-dir", d, "--checkpoint-every", str(CKPT_EVERY)]
+    t0 = time.perf_counter()
+    saved = counted_run(cli, kernels, os.path.join(tmp, "ckpt_saved"), MAIN_ARGS + every,
+                        b1(ROUNDS))
+    saved_wall = time.perf_counter() - t0
+    rounds_on_disk = sorted(os.listdir(d))
+    same = {a: saved["arts"][a].tobytes() == main_run["arts"][a].tobytes() for a in ARTIFACTS}
+    if rounds_on_disk != ["round_25", "round_50", "round_75"] or not all(same.values()):
+        raise AssertionError(f"checkpointed run: {rounds_on_disk}, artifacts equal {same}")
+    # the main path's AGD state ([128] params and momentum), restored on the card
+    template = optimizer.init_state(torch.zeros(MAIN_SHAPE[2], device="cuda"), "AGD")
+    state, next_round = checkpoint.restore(os.path.join(d, "round_25"), template)
+    if next_round != 25 or state.params.device.type != "cuda":
+        raise AssertionError(f"round_25 restored as round {next_round} on {state.params.device}")
+    save_s = []
+    for i in range(5):
+        t1 = time.perf_counter()
+        checkpoint.save(os.path.join(tmp, "ckpt_timing", f"round_{i}"), state, 25)
+        save_s.append(time.perf_counter() - t1)
+
+    os.remove(os.path.join(d, "round_75", checkpoint.COMMIT_MARKER))
+    torn = os.path.join(d, "round_50", checkpoint.STATE_NAME)
+    with open(torn, "r+b") as f:
+        f.truncate(os.path.getsize(torn) // 2)
+    fell_back = resumed_window(cli, kernels, os.path.join(tmp, "ckpt_resumed"),
+                               MAIN_ARGS + every + ["--resume"], b1(ROUNDS - 25), 25, main_run)
+    warned = [r for r in ("round_75", "round_50") if r in fell_back["stderr"]]
+    if warned != ["round_75", "round_50"]:
+        raise AssertionError(f"no fallback warning for {warned}: {fell_back['stderr']!r}")
+    again = resumed_window(cli, kernels, os.path.join(tmp, "ckpt_resumed75"),
+                           MAIN_ARGS + ["--checkpoint-dir", d, "--resume"], b1(ROUNDS - 75), 75,
+                           main_run)
+
+    da = os.path.join(tmp, "ckpt_attention")
+    attn_every = ["--checkpoint-dir", da, "--checkpoint-every", str(ATTN_CKPT_EVERY)]
+    attn_saved = counted_run(cli, kernels, os.path.join(tmp, "ckpt_attention_saved"),
+                             ATTN_ARGS + attn_every, b2(ROUNDS))
+    same_attn = {a: attn_saved["arts"][a].tobytes() == attn_run["arts"][a].tobytes()
+                 for a in ARTIFACTS}
+    if not all(same_attn.values()):
+        raise AssertionError(f"checkpointed attention run differs: {same_attn}")
+    attn_resumed = resumed_window(cli, kernels, os.path.join(tmp, "ckpt_attention_resumed"),
+                                  ATTN_ARGS + ["--checkpoint-dir", da, "--resume"],
+                                  b2(ROUNDS - ATTN_CKPT_EVERY), ATTN_CKPT_EVERY, attn_run)
+    rec = dict(
+        every=CKPT_EVERY, rounds_on_disk=rounds_on_disk,
+        launches={"saved": saved["launches"], "fell_back": fell_back["launches"],
+                  "resumed_75": again["launches"], "attention_saved": attn_saved["launches"],
+                  "attention_resumed": attn_resumed["launches"]},
+        fallback_warnings=fell_back["stderr"].strip().splitlines(),
+        save_seconds=save_s, state_file_bytes=os.path.getsize(
+            os.path.join(tmp, "ckpt_timing", "round_0", checkpoint.STATE_NAME)),
+        steps_per_sec={"without": main_run["manifest"]["steps_per_sec"],
+                       "with": saved["manifest"]["steps_per_sec"],
+                       "resumed_from_25": fell_back["manifest"]["steps_per_sec"],
+                       "attention_without": attn_run["manifest"]["steps_per_sec"],
+                       "attention_with": attn_saved["manifest"]["steps_per_sec"]},
+        checkpointed_cli_wall_s=saved_wall,
+        artifacts_bitwise={"saved": same, "attention_saved": same_attn},
+    )
+    emit("checkpoint", **rec)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -1478,10 +1750,16 @@ def main() -> int:
     for i, D in enumerate(DEEP_LEAVES + (COVTYPE_W_IN,)):
         decode_checks.append(check_decode(kernels, 90, D, torch.float32, 220 + i, zero_every=2))
     deep_shapes, moe_shapes = leaf_shapes("deepmlp"), leaf_shapes("moe")
+    # (), (8, 16), (16,), (16, 16) x 3: a 0-d leaf and leaves narrower
+    # than a 64-column slab, at float offsets 0, 1, 129, 145, 401, 657 of
+    # a 913-float slot
+    attn_shapes = leaf_shapes("attention")
     leaf_cases = [
         (deep_shapes, torch.float32, SLOTS),  # the deep path's round
         (deep_shapes, torch.bfloat16, SLOTS),
         (moe_shapes, torch.float32, SLOTS),  # the moe run's round
+        (attn_shapes, torch.float32, SLOTS),  # the attention run's round
+        (attn_shapes, torch.bfloat16, SLOTS),
         (deep_shapes, torch.float32, (200, 3)),  # M = 600: ten stages
         (deep_shapes, torch.bfloat16, (200, 3)),
         ([(7,), (4098,), ()], torch.float32, (43, 3)),  # M = 129: one past a stage
@@ -1492,6 +1770,9 @@ def main() -> int:
     for i, (shapes, dtype, lead) in enumerate(leaf_cases):
         decode_checks.append(check_decode_leaves(kernels, shapes, dtype, 240 + i, lead))
     decode_err = max(c["max_abs_err"] for c in decode_checks)
+    attn_errs = [c["max_abs_err"] for c in decode_checks
+                 if c["kernel"] == "fused_block_decode_leaves"
+                 and c["leaf_shapes"] == [list(s) for s in attn_shapes]]
     # B1 at the new schemes' stacks, with round 0's weights of each
     stack_w = {}
     flags_of = {name: flags for name, flags, _ in SCHEME_RUNS}
@@ -1566,6 +1847,14 @@ def main() -> int:
         on_disk = input_dir_phase(cli, kernels, tmp, both0)
         new_phases_s = time.perf_counter() - t_schemes
 
+        # the arrival models, the attention family, checkpoint/resume
+        t_slice = time.perf_counter()
+        arrivals = arrivals_phase(cli, kernels, tmp, both0)
+        attention = attention_phase(cli, kernels, tmp, both0)
+        ckpt = checkpoint_phase(cli, kernels, tmp, both0, gpu, attention.pop("run"))
+        slice_phases_s = time.perf_counter() - t_slice
+        emit("arrivals_attention_checkpoint", seconds=slice_phases_s)
+
     # trajectory cohorts: the decode's trajectory axis, then the harness
     from erasurehead_tpu_torch.train import experiments
 
@@ -1576,12 +1865,17 @@ def main() -> int:
             for dtype in (torch.float32, torch.bfloat16):
                 ws, leaves = cohort_leaves(shapes, dtype, seed=400 + 40 * i + B, B=B)
                 cohort_checks.append(check_cohort_decode(kernels, ws, leaves, f"{model_name}_B{B}"))
+    for i, dtype in enumerate((torch.float32, torch.bfloat16)):  # the attention cohort's B
+        ws, leaves = cohort_leaves(attn_shapes, dtype, seed=480 + i, B=4)
+        cohort_checks.append(check_cohort_decode(kernels, ws, leaves, "attention_B4"))
+    attn_errs += [c["max_abs_err"] for c in cohort_checks if c["case"] == "attention_B4"]
     ws, leaves = cohort_leaves(deep_shapes, torch.float32, seed=490, B=4, lead=(90,))
     cohort_checks.append(check_cohort_decode(kernels, ws, leaves, "deepmlp_partition_major"))
     ws, leaves = cohort_leaves([(d,) for d in range(1, 41)], torch.float32, seed=491, B=3)
     cohort_checks.append(check_cohort_decode(kernels, ws, leaves, "40_leaves"))
     del ws, leaves
-    vmap_ops = [cohort_vmap_leaves(kernels, m) for m in ("deepmlp", "moe")]
+    vmap_ops = [cohort_vmap_leaves(kernels, m) for m in ("deepmlp", "moe", "attention")]
+    attn_errs += [r["max_abs_err"] for r in vmap_ops if r["model"] == "attention"]
     cohort_ds = cli.load_dataset(parse_config(cli, MAIN_ARGS))
     deduped = compare_deduped_phase(kernels, experiments, cohort_ds, both0)
     faithful = compare_faithful_phase(kernels, experiments, cohort_ds, both0)
@@ -1640,17 +1934,28 @@ def main() -> int:
     stack_times = {label: time_scheme_stack(kernels, shape, stack_w[label], label)
                    for label, shape in (("partial", PARTIAL_SHAPE), ("sparsegraph", SPARSE_SHAPE))}
 
-    ops = [decode_ops(kernels, m) for m in ("deepmlp", "moe")]
+    ops = [decode_ops(kernels, m) for m in ("deepmlp", "moe", "attention")]
+    attn_errs += [r["max_abs_err"] for r in ops if r["model"] == "attention"]
     for D in DEEP_LEAVES:
         emit("time", kernel="fused_block_decode", **time_decode(kernels, 90, D))
     for D, path in ((STAGED_WIDE, "staged"), (COVTYPE_W_IN, "streamed")):
         emit("time_wide", kernel="fused_block_decode", path=path, **time_decode(kernels, 90, D))
     per_round = time_round(kernels, deep_shapes)
     emit("time_round", kernel="fused_block_decode_leaves", **per_round)
+    attn_round = time_round(kernels, leaf_shapes("attention"))
+    emit("time_round", kernel="fused_block_decode_leaves", path="attention", **attn_round)
 
     emit("profile", path="main", **profile_train(cli, MAIN_ARGS))
     deep_profile = profile_train(cli, DEEP_ARGS)
     emit("profile", path="deep", **deep_profile)
+    attn_profile = profile_train(cli, ATTN_ARGS)
+    if attn_profile["device_ms_per_round"]:
+        # the round's split: the decode kernel, and everything else (the
+        # per-slot autodiff, the update, the history copy)
+        decode_ms = attn_profile["kernel_ms"]["fused_block_decode"] / ROUNDS
+        attn_profile["decode_ms_per_round"] = decode_ms
+        attn_profile["rest_ms_per_round"] = attn_profile["device_ms_per_round"] - decode_ms
+    emit("profile", path="attention", **attn_profile)
 
     cohort_decode_times = {B: time_cohort_decode(kernels, deep_shapes, B) for B in (4, 28)}
     cohort_glm_time = time_cohort_glm(kernels)
@@ -1676,7 +1981,9 @@ def main() -> int:
         + sum(r["launches"]["fused_glm_grad"] for r in scheme_rows)
         + on_disk["launches"]["fused_glm_grad"]
         + deduped["sequential_launches"]["fused_glm_grad"]
-        + faithful["launches"]["fused_glm_grad"],
+        + faithful["launches"]["fused_glm_grad"]
+        + sum(r["launches"]["fused_glm_grad"] for r in arrivals)
+        + sum(n["fused_glm_grad"] for n in ckpt["launches"].values()),
         "launches_by_path": {"main": launches["fused_glm_grad"],
                              **{r["run"]: r["launches"]["fused_glm_grad"] for r in scheme_rows},
                              "legacy": [n["fused_glm_grad"] for n in legacy["launches"]],
@@ -1687,7 +1994,13 @@ def main() -> int:
                              "compare_faithful": faithful["launches"]["fused_glm_grad"],
                              "straggler_sweep": sweep["launches"]["fused_glm_grad"],
                              "cohort_deep": deep_cohort["launches"]["fused_glm_grad"],
-                             **{p: n["fused_glm_grad"] for p, n in no_kernel_paths.items()}},
+                             **{p: n["fused_glm_grad"] for p, n in no_kernel_paths.items()},
+                             **{f"arrivals_{r['run']}": r["launches"]["fused_glm_grad"]
+                                for r in arrivals},
+                             "attention": attention["launches"]["fused_glm_grad"],
+                             "attention_cohort": attention["cohort"]["launches"]["fused_glm_grad"],
+                             **{f"checkpoint_{k}": n["fused_glm_grad"]
+                                for k, n in ckpt["launches"].items()}},
         "max_abs_err": main_err,
         "ms": kernel_ms_best,
         "plain_ms": min(plain_ms, plain_ms_2),  # the two-pass torch yardstick
@@ -1714,13 +2027,24 @@ def main() -> int:
         # the deep path's 100 and the deep cohort's 100 (one a round for
         # its four trajectories)
         "launches": deep["launches"]["fused_block_decode"]
-        + deep_cohort["launches"]["fused_block_decode"],
+        + deep_cohort["launches"]["fused_block_decode"]
+        + attention["launches"]["fused_block_decode"]
+        + attention["cohort"]["launches"]["fused_block_decode"]
+        + sum(n["fused_block_decode"] for n in ckpt["launches"].values()),
         "launches_by_path": {"deep": deep["launches"]["fused_block_decode"],
                              "cohort_deep": deep_cohort["launches"]["fused_block_decode"],
                              "compare_deduped": deduped["launches"]["fused_block_decode"],
                              "compare_faithful": faithful["launches"]["fused_block_decode"],
-                             **{p: n["fused_block_decode"] for p, n in no_kernel_paths.items()}},
-        "max_abs_err": max(decode_err, max(c["max_abs_err"] for c in cohort_checks)),
+                             **{p: n["fused_block_decode"] for p, n in no_kernel_paths.items()},
+                             **{f"arrivals_{r['run']}": r["launches"]["fused_block_decode"]
+                                for r in arrivals},
+                             "attention": attention["launches"]["fused_block_decode"],
+                             "attention_cohort":
+                                 attention["cohort"]["launches"]["fused_block_decode"],
+                             **{f"checkpoint_{k}": n["fused_block_decode"]
+                                for k, n in ckpt["launches"].items()}},
+        "max_abs_err": max(decode_err, max(c["max_abs_err"] for c in cohort_checks),
+                           max(r["max_abs_err"] for r in ops + vmap_ops)),
         # a deep round's decode: one launch for its six leaves
         "ms": per_round["kernel_ms"],
         "plain_ms": per_round["plain_ms"],
@@ -1737,6 +2061,15 @@ def main() -> int:
             "kernel_ms", "per_trajectory_launches_ms", "library_ms", "plain_ms", "bound_ms")}
             for B, r in cohort_decode_times.items()},
         "cohort_phases_s": cohort_phases_s,
+        # an attention round's decode: one launch for its six leaves
+        # ([90, 913] floats), its plain version, six cuBLAS GEMVs, the bound
+        # and the largest error of every check at attention's leaves (the
+        # leaf sets f32/bf16, the B=4 cohort, the real per-slot leaves)
+        "attention_round": {**{k: attn_round[k] for k in (
+            "leaves", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "max_abs_err": max(attn_errs), "checks": len(attn_errs)},
+        "attention_steps_per_sec": attention["steps_per_sec"],
+        "arrivals_attention_checkpoint_phases_s": slice_phases_s,
     }]}
     print(json.dumps(line))
     print(card)

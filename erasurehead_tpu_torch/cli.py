@@ -23,7 +23,18 @@ saddle, where the loss stays at log 2)::
    ``--deadline``), partialcyccoded and partialrepcoded (with
    ``--partitions-per-worker``), and any registered extension.
    ``--decode optimal`` refits each round's decode weights by least squares
-   to the actual arrival set.
+   to the actual arrival set. ``--model attention`` trains the attention
+   family (16 tokens of 8 features a row at the flagship's 128 columns),
+   layer-coded with ``--layer-coding on``.
+
+   Arrival models: ``--compute-time`` and ``--worker-speed-spread`` (a
+   heterogeneous cluster), ``--arrival-trace PATH`` (replay a recorded
+   trace; ``ERASUREHEAD_ARRIVAL_TRACE`` when unset), and
+   ``ERASUREHEAD_REGIME=kind:round[:param[:param2]]`` (a mid-run regime
+   shift: heavytail, adversary or targeted). Checkpoints:
+   ``--checkpoint-dir DIR --checkpoint-every N`` saves every N rounds;
+   ``--resume`` restarts from the newest usable one, and the artifacts
+   then cover the resumed rounds.
 
 2. **Legacy positional**: the reference's 13-argument calling convention
    (main.py:20-27)::
@@ -175,6 +186,10 @@ def _flags_parser() -> argparse.ArgumentParser:
     p.add_argument("--alpha", type=float, default=None, help="l2 coefficient")
     p.add_argument("--add-delay", action="store_true")
     p.add_argument("--delay-mean", type=float, default=0.5)
+    p.add_argument("--compute-time", type=float, default=0.0,
+                   help="simulated per-round compute seconds per worker")
+    p.add_argument("--worker-speed-spread", type=float, default=0.0,
+                   help="uniform per-worker speed spread in [1-s,1+s]")
     p.add_argument("--partitions-per-worker", type=int, default=0)
     p.add_argument("--compute-mode", default="faithful", choices=["faithful", "deduped"])
     p.add_argument("--use-pallas", default="auto", choices=["auto", "on", "off"],
@@ -200,6 +215,20 @@ def _flags_parser() -> argparse.ArgumentParser:
     p.add_argument("--deep-layers", type=int, default=0,
                    help="hidden-layer count for --model deepmlp (0 = the "
                         "model default)")
+    p.add_argument("--arrival-trace", default=None, metavar="PATH",
+                   help="replay a recorded [rounds, workers] arrival-time "
+                        "trace (.npy/.npz/.csv/.txt; tiled over rounds) "
+                        "instead of drawing i.i.d. exponential delays; "
+                        "ERASUREHEAD_ARRIVAL_TRACE when unset. "
+                        "--worker-speed-spread composes as a per-worker "
+                        "multiplier on the trace rows")
+    p.add_argument("--seq-shards", type=int, default=1,
+                   help="sequence-parallel shards for the attention model: "
+                        "> 1 spans the token axis over several devices, "
+                        "which the port does not run (it raises)")
+    p.add_argument("--sp-form", default="ring", choices=["ring", "ulysses"],
+                   help="SP form carrying the attention: ppermute ring or "
+                        "all-to-all head sharding (validated and kept)")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                    help="DATA dtype (params/updates stay float32)")
     p.add_argument("--stack-dtype", default="auto",
@@ -238,10 +267,37 @@ def _flags_parser() -> argparse.ArgumentParser:
                         "(parallel/step.make_margin_flat_grad_fn): one flat "
                         "margin product, per-slot transpose; auto is off")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save optimizer state here every --checkpoint-every "
+                        "rounds (train/checkpoint.py)")
+    p.add_argument("--checkpoint-every", type=int, default=None)
+    p.add_argument("--resume", action="store_true",
+                   help="restart from the latest checkpoint in "
+                        "--checkpoint-dir; artifacts cover the resumed "
+                        "window [start_round, rounds)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the run computes; cuda raises when there is no card")
     p.add_argument("--quiet", action="store_true")
     return p
+
+
+def _check_seq_shards(seq_shards: int, model: ModelKind) -> None:
+    """--seq-shards with the JAX package's RunConfig checks and messages.
+    The port runs one device, so only 1 is legal and it is no config
+    field: > 1 would span the token axis over several devices."""
+    if seq_shards < 1:
+        raise ValueError(f"seq_shards must be >= 1, got {seq_shards}")
+    if seq_shards > 1:
+        if model != ModelKind.ATTENTION:
+            raise ValueError(
+                "seq_shards > 1 requires model='attention' (the only "
+                "family with a sequence axis to shard)"
+            )
+        raise ValueError(
+            "seq_shards > 1 spans the token axis over several devices "
+            "(ring or Ulysses sequence parallelism); the multi-GPU "
+            "transports are not ported: use seq_shards=1"
+        )
 
 
 def _flags_to_config(ns: argparse.Namespace) -> RunConfig:
@@ -250,6 +306,7 @@ def _flags_to_config(ns: argparse.Namespace) -> RunConfig:
         model = (
             ModelKind.LINEAR if ns.dataset == "kc_house_data" else ModelKind.LOGISTIC
         )
+    _check_seq_shards(ns.seq_shards, ModelKind(model))
     return RunConfig(
         scheme=ns.scheme,
         model=model,
@@ -261,6 +318,8 @@ def _flags_to_config(ns: argparse.Namespace) -> RunConfig:
         rounds=ns.rounds,
         add_delay=ns.add_delay,
         delay_mean=ns.delay_mean,
+        compute_time=ns.compute_time,
+        worker_speed_spread=ns.worker_speed_spread,
         update_rule=ns.update_rule,
         alpha=ns.alpha,
         lr_schedule=ns.lr,
@@ -275,6 +334,8 @@ def _flags_to_config(ns: argparse.Namespace) -> RunConfig:
         layer_coding=ns.layer_coding,
         block_decode=ns.block_decode,
         deep_layers=ns.deep_layers,
+        arrival_trace=ns.arrival_trace,
+        sp_form=ns.sp_form,
         dtype=ns.dtype,
         stack_dtype=ns.stack_dtype,
         sparse_format=ns.sparse_format,
@@ -340,14 +401,37 @@ def load_dataset(cfg: RunConfig) -> Dataset:
     return generate_gmm(cfg.n_rows, cfg.n_cols, P, cfg.seed)
 
 
+def _validate_checkpoint_flags(parser, ns) -> None:
+    """Interdependent checkpoint flags: fail fast with a proper CLI
+    diagnostic (exit code 2), before the dataset loads. (The JAX CLI also
+    refuses them under its measured-arrival mode, which the port does not
+    have yet.)"""
+    if ns.resume and not ns.checkpoint_dir:
+        parser.error("--resume requires --checkpoint-dir")
+    if ns.checkpoint_every is not None and ns.checkpoint_every < 1:
+        parser.error("--checkpoint-every must be >= 1")
+    if ns.checkpoint_dir and not ns.resume and ns.checkpoint_every is None:
+        parser.error(
+            "--checkpoint-dir without --checkpoint-every never saves; "
+            "pass --checkpoint-every N"
+        )
+    if ns.checkpoint_every is not None and not ns.checkpoint_dir:
+        parser.error("--checkpoint-every requires --checkpoint-dir")
+
+
 def run(cfg: RunConfig, output_dir: str | None = None, quiet: bool = False,
-        device=None):
+        device=None, checkpoint_dir: str | None = None,
+        checkpoint_every: int | None = None, resume: bool = False):
     """Train, replay the eval and write the artifacts. Returns
-    (TrainResult, EvalResult, artifact paths)."""
+    (TrainResult, EvalResult, artifact paths). A resumed run's artifacts
+    cover [start_round, rounds)."""
     if output_dir is None:
         output_dir = os.path.join(dataset_dir(cfg) or ".", "results")
     dataset = load_dataset(cfg)
-    result = trainer.train(cfg, dataset, device=device)
+    result = trainer.train(
+        cfg, dataset, device=device, checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every, resume=resume,
+    )
     n = result.n_train
     ev = evaluate.replay(
         trainer.build_model(cfg),
@@ -374,12 +458,17 @@ def main(argv: list[str] | None = None) -> int:
             cfg = dataclasses.replace(cfg, rounds=opts.rounds)
         run(cfg, output_dir=opts.output_dir, quiet=opts.quiet, device=opts.device)
         return 0
-    ns = _flags_parser().parse_args(argv)
+    parser = _flags_parser()
+    ns = parser.parse_args(argv)
+    _validate_checkpoint_flags(parser, ns)
     run(
         _flags_to_config(ns),
         output_dir=ns.output_dir,
         quiet=ns.quiet,
         device=ns.device,
+        checkpoint_dir=ns.checkpoint_dir,
+        checkpoint_every=ns.checkpoint_every,
+        resume=ns.resume,
     )
     return 0
 

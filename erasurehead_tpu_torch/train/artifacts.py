@@ -69,12 +69,17 @@ def write_run_artifacts(
         saver(data, path)
         paths[name] = path
 
+    # A resumed run's history (and so the eval curves) covers rounds
+    # [start_round, rounds) while the precomputed clocks cover the whole
+    # run; the clocks are sliced to the same window, so row i of every
+    # artifact is round start_round + i (recorded in the manifest)
+    sr = result.start_round
     if ev is not None:
         emit("training_loss", save_vector, ev.training_loss)
         emit("testing_loss", save_vector, ev.testing_loss)
         emit("auc", save_vector, ev.auc)
-    emit("timeset", save_vector, result.timeset)
-    emit("worker_timeset", save_matrix, result.worker_times)
+    emit("timeset", save_vector, result.timeset[sr:])
+    emit("worker_timeset", save_matrix, result.worker_times[sr:])
 
     def jsonable(v):
         if hasattr(v, "value"):  # enums
@@ -87,19 +92,20 @@ def write_run_artifacts(
         "config": {
             k: jsonable(v) for k, v in dataclasses.asdict(cfg).items()
         },
-        # the port always trains from round 0, so the emitted window is the
-        # whole run (the JAX package's resumed runs start later)
+        # sim_total_time covers the whole precomputed schedule; a resumed
+        # run's artifacts cover [start_round, rounds), whose simulated clock
+        # is window_sim_total_time (the sum of the timeset artifact's rows)
         "sim_total_time": result.sim_total_time,
-        "window_sim_total_time": result.sim_total_time,
-        "start_round": 0,
+        "window_sim_total_time": float(np.sum(result.timeset[sr:])),
+        "start_round": sr,
         "wall_time": result.wall_time,
         "steps_per_sec": result.steps_per_sec,
         "n_train": result.n_train,
-        "arrival": arrival_summary(result.worker_times),
+        "arrival": arrival_summary(result.worker_times[sr:]),
         "artifacts": paths,
     }
     if result.decode_error is not None:
-        err = np.asarray(result.decode_error, dtype=np.float64)
+        err = np.asarray(result.decode_error[sr:], dtype=np.float64)
         manifest["decode_error_mean"] = float(err.mean()) if err.size else 0.0
         manifest["decode_error_max"] = float(err.max()) if err.size else 0.0
     mpath = os.path.join(output_dir, f"{prefix}_run_manifest.json")
@@ -110,16 +116,19 @@ def write_run_artifacts(
 
 
 def print_iteration_table(result: TrainResult, ev: EvalResult) -> None:
-    """The reference's per-iteration eval printout (src/naive.py:198)."""
+    """The reference's per-iteration eval printout (src/naive.py:198),
+    rows labeled with true round numbers (a resumed run's curves start at
+    result.start_round)."""
+    sr = result.start_round
     for i in range(len(ev.training_loss)):
         line = (
-            f"Iteration {i}: Train Loss = {ev.training_loss[i]:.5f}, "
+            f"Iteration {sr + i}: Train Loss = {ev.training_loss[i]:.5f}, "
             f"Test Loss = {ev.testing_loss[i]:.5f}"
         )
         if not np.isnan(ev.auc[i]):
             line += f", AUC = {ev.auc[i]:.5f}"
-        line += f", Sim time = {result.timeset[i]:.4f}s"
-        wt = np.asarray(result.worker_times[i], dtype=np.float64)
+        line += f", Sim time = {result.timeset[sr + i]:.4f}s"
+        wt = np.asarray(result.worker_times[sr + i], dtype=np.float64)
         arrived = wt[wt >= 0.0]
         if arrived.size:
             line += (
@@ -130,7 +139,7 @@ def print_iteration_table(result: TrainResult, ev: EvalResult) -> None:
             line += ", no arrivals"
         print(line)
     print(
-        f"Total simulated time: {result.sim_total_time:.3f}s | "
+        f"Total simulated time: {float(np.sum(result.timeset[sr:])):.3f}s | "
         f"real wall {result.wall_time:.3f}s | "
         f"{result.steps_per_sec:.1f} steps/s"
     )

@@ -41,7 +41,11 @@ from erasurehead_tpu_torch.data.synthetic import Dataset
 from erasurehead_tpu_torch.ops import blocks
 from erasurehead_tpu_torch.parallel import straggler
 from erasurehead_tpu_torch.train import evaluate, trainer
-from erasurehead_tpu_torch.utils.config import RunConfig, resolve_batch_trajectories
+from erasurehead_tpu_torch.utils.config import (
+    RunConfig,
+    resolve_arrival_trace,
+    resolve_batch_trajectories,
+)
 
 #: dispatch counters since the last :func:`reset_counters`:
 #:   cohort.dispatches       train_cohort calls (one a cohort, one a half)
@@ -289,6 +293,10 @@ def compare(
     """Train every config on ``dataset`` under one shared arrival schedule
     and summarize, one :class:`RunSummary` per label in ``configs`` order.
 
+    ``arrivals`` None draws that schedule (the reference's exponential
+    stream), or replays the recorded trace the first config names
+    (``arrival_trace``, else ``ERASUREHEAD_ARRIVAL_TRACE``).
+
     ``target_loss`` defaults to 1.05x the 'naive' row's final train loss if
     there is one, else the worst final loss (diverged rows left out).
     ``batch`` is the trajectory-batching mode ("on"/"off"/"auto"; None =
@@ -303,8 +311,13 @@ def compare(
     _validate_shared_shape(configs)
     if arrivals is None:
         any_cfg = next(iter(configs.values()))
+        # a recorded arrival trace (config field or env) replaces the drawn
+        # exponential stream as the sweep's one shared schedule: the
+        # paired-comparison contract holds either way
         arrivals = straggler.arrival_schedule(
-            any_cfg.rounds, any_cfg.n_workers, True, any_cfg.delay_mean
+            any_cfg.rounds, any_cfg.n_workers, add_delay=True,
+            mean=any_cfg.delay_mean,
+            trace=resolve_arrival_trace(any_cfg.arrival_trace),
         )
     summaries: dict = {}
 

@@ -35,6 +35,11 @@ erasurehead_tpu/train/trainer.py:934-985, on one device):
 Params are the GLM's [F] tensor or the deep families' dict of tensors; the
 iterate history is then an [R, F] tensor or a dict of [R, ...] tensors.
 
+Checkpoint/resume (:func:`train`'s ``checkpoint_dir``, ``checkpoint_every``
+and ``resume``; train/checkpoint.py): the round loop runs in chunks of
+``checkpoint_every`` rounds with a save between chunks, and a resumed run
+starts at the restored round; its history covers [start_round, rounds).
+
 Timing artifacts keep two clocks apart, as the JAX package does:
   - ``timeset``/``worker_times``: *simulated* cluster seconds from the
     arrival model;
@@ -46,6 +51,8 @@ Timing artifacts keep two clocks apart, as the JAX package does:
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 import time
 from typing import Optional, Sequence
 
@@ -55,6 +62,7 @@ import torch
 from erasurehead_tpu_torch import schemes
 from erasurehead_tpu_torch.data.sharding import partition_stack, worker_stack
 from erasurehead_tpu_torch.data.synthetic import Dataset
+from erasurehead_tpu_torch.models.attention import AttentionModel
 from erasurehead_tpu_torch.models.deep_mlp import DeepMLPModel
 from erasurehead_tpu_torch.models.glm import LinearModel, LogisticModel, params_from_numpy
 from erasurehead_tpu_torch.models.mlp import MLPModel
@@ -63,12 +71,15 @@ from erasurehead_tpu_torch.obs import decode as obs_decode
 from erasurehead_tpu_torch.ops import blocks, codes, kernels
 from erasurehead_tpu_torch.ops import features as features_lib
 from erasurehead_tpu_torch.parallel import collect, step as step_lib, straggler
+from erasurehead_tpu_torch.train import checkpoint as ckpt_lib
 from erasurehead_tpu_torch.train import optimizer
 from erasurehead_tpu_torch.train.cache import layout_stack_signature
+from erasurehead_tpu_torch.utils import chaos as chaos_lib
 from erasurehead_tpu_torch.utils.config import (
     ComputeMode,
     ModelKind,
     RunConfig,
+    resolve_arrival_trace,
 )
 from erasurehead_tpu_torch.utils.device import resolve_device
 
@@ -103,6 +114,8 @@ def build_model(cfg: RunConfig):
         return LinearModel()
     if cfg.model == ModelKind.MLP:
         return MLPModel()
+    if cfg.model == ModelKind.ATTENTION:
+        return AttentionModel(sp_form=cfg.sp_form)
     if cfg.model == ModelKind.DEEPMLP:
         # cfg.deep_layers sweeps the family's depth (0 = model default)
         if cfg.deep_layers:
@@ -114,10 +127,35 @@ def build_model(cfg: RunConfig):
 
 
 def default_arrivals(cfg: RunConfig) -> np.ndarray:
-    """The run's stationary straggler arrival schedule (the reference's
-    seeded exponential delays)."""
+    """The run's default straggler arrival schedule, the one home that
+    train(), train_cohort() and the harness share.
+
+    ``ERASUREHEAD_REGIME`` (utils/chaos.py) arms a deterministic mid-run
+    straggler-regime shift on top of the drawn delays; unset, the schedule
+    is the stationary reference stream. ``cfg.arrival_trace`` (or
+    ``ERASUREHEAD_ARRIVAL_TRACE``) replays a recorded per-round arrival
+    trace instead of the drawn exponential stream
+    (straggler.replay_arrival_trace); ``cfg.worker_speed_spread`` then
+    composes as the seeded per-worker multiplier ON the trace rows, and
+    ``cfg.compute_time`` with the spread as the arrival model's compute
+    term (straggler.model_from_config)."""
+    trace = resolve_arrival_trace(cfg.arrival_trace)
+    model = straggler.model_from_config(cfg)
+    # the compute-time model's seeded per-worker speeds, applied
+    # multiplicatively to the recorded delays
+    trace_speed = model.worker_speed if trace is not None and model is not None else None
+    regime = chaos_lib.active_regime()
+    regime_workers = None
+    if regime is not None and regime.kind == "targeted":
+        # the attacked set is a property of this config's layout
+        regime_workers = straggler.targeted_workers(build_layout(cfg), regime.group)
     return straggler.arrival_schedule(
-        cfg.rounds, cfg.n_workers, cfg.add_delay, cfg.delay_mean
+        cfg.rounds, cfg.n_workers, cfg.add_delay, cfg.delay_mean,
+        arrival_model=model,
+        regime=regime,
+        trace=trace,
+        trace_speed=trace_speed,
+        regime_workers=regime_workers,
     )
 
 
@@ -135,6 +173,9 @@ class TrainResult:
     wall_time: float  # real seconds of the round loop
     steps_per_sec: float
     n_train: int
+    # the first round the history covers: 0, or a resumed run's restored
+    # round (the control-plane arrays always cover the whole run)
+    start_round: int = 0
     config: RunConfig = None
     layout: codes.CodingLayout = None
     final_state: optimizer.OptState = None
@@ -278,6 +319,9 @@ def train(
     init_params=None,
     arrivals: Optional[np.ndarray] = None,
     schedule: Optional[collect.CollectionSchedule] = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: Optional[int] = None,
+    resume: bool = False,
 ) -> TrainResult:
     """Run one full training run for ``cfg`` on ``dataset``.
 
@@ -288,7 +332,20 @@ def train(
     init, e.g. with a JAX run's draw for parity (models/glm.
     params_from_numpy).
     ``arrivals``/``schedule`` replace the default arrival draw and the
-    scheme's collection rule."""
+    scheme's collection rule.
+
+    With ``checkpoint_dir`` and ``checkpoint_every`` set, the optimizer
+    state and the next round are saved to ``checkpoint_dir/round_<N>``
+    after every ``checkpoint_every`` rounds, never after the last
+    (train/checkpoint.py); ``resume=True`` restarts from the newest usable
+    checkpoint there (or from round 0, saying so on stderr, when there is
+    none). ``params_history`` then covers only rounds [start_round, rounds);
+    the control-plane arrays still cover the whole run, and
+    ``steps_per_sec`` leaves the checkpoint I/O out."""
+    if checkpoint_every is not None and checkpoint_every < 1:
+        raise ValueError(
+            f"checkpoint_every must be >= 1, got {checkpoint_every}"
+        )
     dev = resolve_device(device)
     layout = build_layout(cfg)
     model = build_model(cfg)
@@ -360,24 +417,52 @@ def train(
     _prepare_sparse(X, grad_fn, params0, y, weights[0])
 
     state = optimizer.init_state(params0, cfg.update_rule)
+    start_round = 0
+    if resume and checkpoint_dir:
+        # restore_latest skips partially written or torn round_N
+        # directories with a warning, falling back to the next-older one
+        restored = ckpt_lib.restore_latest(checkpoint_dir, state)
+        if restored is None:
+            # loud, not fatal: a restart loop passes resume=True on its
+            # first attempt, before any checkpoint exists
+            print(
+                f"train: resume requested but no usable checkpoint found "
+                f"under {checkpoint_dir!r}; starting from round 0",
+                file=sys.stderr,
+            )
+        else:
+            state, start_round, _ = restored
     update_fn = optimizer.make_update_fn(cfg.update_rule)
     lr32 = lr.astype(np.float32)
     history = blocks.tree_map(
-        lambda p: torch.empty((cfg.rounds,) + tuple(p.shape), dtype=torch.float32, device=dev),
+        lambda p: torch.empty(
+            (max(cfg.rounds - start_round, 0),) + tuple(p.shape),
+            dtype=torch.float32, device=dev,
+        ),
         params0,
     )
 
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    for i in range(cfg.rounds):
-        g = grad_fn(state.params, X, y, weights[i])
-        state = update_fn(state, g, float(lr32[i]), alpha, n_train, float(i))
-        blocks.tree_map(lambda h, p: h[i].copy_(p), history, state.params)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
-    steps_per_sec = cfg.rounds / wall if wall > 0 else 0.0
+    # chunk boundaries [start, start + every, ..., rounds]: a save between
+    # chunks, none after the last; the clock covers the rounds only
+    step_len = checkpoint_every or max(cfg.rounds - start_round, 1)
+    bounds = list(range(start_round, cfg.rounds, step_len)) + [cfg.rounds]
+    wall = 0.0
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for i in range(lo, hi):
+            # the absolute round index: AGD's theta and Adam's bias
+            # correction read it, so a resumed run continues the count
+            g = grad_fn(state.params, X, y, weights[i])
+            state = update_fn(state, g, float(lr32[i]), alpha, n_train, float(i))
+            blocks.tree_map(lambda h, p: h[i - start_round].copy_(p), history, state.params)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall += time.perf_counter() - t0
+        if checkpoint_dir and checkpoint_every and hi < cfg.rounds:
+            ckpt_lib.save(os.path.join(checkpoint_dir, f"round_{hi}"), state, hi)
+    steps_per_sec = (cfg.rounds - start_round) / wall if wall > 0 else 0.0
 
     return TrainResult(
         params_history=history,
@@ -389,6 +474,7 @@ def train(
         wall_time=wall,
         steps_per_sec=steps_per_sec,
         n_train=n_train,
+        start_round=start_round,
         config=cfg,
         layout=layout,
         final_state=state,

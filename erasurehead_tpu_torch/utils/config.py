@@ -8,7 +8,9 @@ unsharded mlp, deepmlp and moe families, GD/AGD/ADAM updates, the faithful
 and deduped compute modes, float32 or bfloat16 data, the int8 stack, the
 sparse stack formats and their lowerings, the flat and margin-flat
 gradient lowerings, the fused-kernel switch and the per-layer (blockwise)
-gradient coding knobs. Also the
+gradient coding knobs, the heterogeneous-cluster arrival model and the
+recorded arrival trace, and the attention family's sequence-parallel knobs
+(validated; one device runs them unsharded). Also the
 static lowering signature the trajectory-cohort engine groups by, and the
 sweep harness's batching switch (:func:`resolve_batch_trajectories`).
 """
@@ -105,6 +107,7 @@ class ModelKind(str, enum.Enum):
     LOGISTIC = "logistic"
     LINEAR = "linear"
     MLP = "mlp"  # two-layer tanh MLP (models/mlp.py)
+    ATTENTION = "attention"  # single-block attention classifier (models/attention.py)
     DEEPMLP = "deepmlp"  # L stacked tanh layers (models/deep_mlp.py)
     MOE = "moe"  # dense softmax-gated experts (models/moe.py)
 
@@ -162,6 +165,11 @@ class RunConfig:
     num_collect: Optional[int] = None  # AGC stop count; None => n_workers
     add_delay: bool = True  # inject the seeded exponential straggler delays
     delay_mean: float = 0.5  # seconds; src/naive.py:146
+    # heterogeneous-cluster arrival model (straggler.ArrivalModel): a base
+    # per-round compute time and a seeded uniform per-worker speed spread
+    # in [1-s, 1+s] multiplying it. 0/0 = the reference's pure-delay regime.
+    compute_time: float = 0.0
+    worker_speed_spread: float = 0.0
     update_rule: UpdateRule = UpdateRule.AGD
     alpha: Optional[float] = None  # l2 coeff; None => 1/n_samples (main.py:34)
     lr_schedule: Optional[Sequence[float]] = None  # None => dataset preset
@@ -196,6 +204,19 @@ class RunConfig:
     block_decode: str = "auto"
     # hidden-layer count for the deepmlp family; 0 = the model's default (4)
     deep_layers: int = 0
+    # replay a recorded per-round arrival-time trace instead of drawing
+    # i.i.d. exponential delays (parallel/straggler.load_arrival_trace:
+    # .npy/.npz/.csv/.txt, shape [R?, W], tiled over rounds). CLI
+    # --arrival-trace; ERASUREHEAD_ARRIVAL_TRACE when unset.
+    # worker_speed_spread composes as a per-worker multiplier ON the trace
+    # rows (heterogeneous replay). The JAX package refuses it under its
+    # measured-arrival mode, which the port does not have yet
+    arrival_trace: Optional[str] = None
+    # which sequence-parallel form would carry the attention: "ring" or
+    # "ulysses"; validated and kept (models/attention.AttentionModel). The
+    # port runs one device, so it changes no step (the JAX package's
+    # seq_shards > 1 transports are refused by the CLI's --seq-shards)
+    sp_form: str = "ring"
     # per-round collection deadline in simulated seconds (scheme="deadline")
     deadline: Optional[float] = None
     # feature-stack STORAGE dtype (train/trainer._device_stack): "auto"
@@ -339,6 +360,10 @@ class RunConfig:
             # an explicit lane width pins the PaddedRows stack, as in the
             # JAX package: the fields x lanes lowering is asked for by name
             self.sparse_format = "padded"
+        if self.sp_form not in ("ring", "ulysses"):
+            raise ValueError(
+                f"sp_form must be ring/ulysses, got {self.sp_form!r}"
+            )
         if self.decode not in ("fixed", "optimal"):
             raise ValueError(
                 f"decode must be fixed/optimal, got {self.decode!r}"
@@ -358,7 +383,9 @@ class RunConfig:
         """Field name -> value of every knob that changes a run's gradient
         lowering or update (not its weights, arrivals or lr values): the
         JAX package's RunConfig.static_signature_fields, in its order,
-        restricted to the fields this port has. Trajectories whose
+        restricted to the fields this port has and to those that change
+        its step (not ``sp_form``: with no mesh the attention runs the same
+        for both forms; A9's transports will key it). Trajectories whose
         signatures differ cannot share one cohort round loop
         (train/trainer.train_cohort)."""
         return {
@@ -451,3 +478,22 @@ def resolve_batch_trajectories(
         f"batch-trajectories setting must be on/off/auto (or a "
         f"truthy/falsy {BATCH_TRAJECTORIES_ENV} value), got {val!r}"
     )
+
+
+#: env var selecting a recorded arrival-trace file
+#: (parallel/straggler.load_arrival_trace) when the config/CLI flag is
+#: absent: trainer.default_arrivals replays it instead of drawing i.i.d.
+#: exponential delays
+ARRIVAL_TRACE_ENV = "ERASUREHEAD_ARRIVAL_TRACE"
+
+
+def resolve_arrival_trace(
+    flag: Optional[str] = None, env: Optional[str] = None
+) -> Optional[str]:
+    """The arrival-trace path, or None (drawn delays). Precedence:
+    explicit ``--arrival-trace``/cfg value > :data:`ARRIVAL_TRACE_ENV` >
+    off. ``env`` stands in for the real environment lookup (tests)."""
+    val = flag
+    if val is None:
+        val = env if env is not None else os.environ.get(ARRIVAL_TRACE_ENV)
+    return val or None
