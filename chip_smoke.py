@@ -161,6 +161,33 @@ Phases, one JSON line each:
                  round_75 it wrote runs 25 rounds, bitwise; the attention run
                  saving every 50 rounds and resumed once, bitwise; the time
                  of a save, steps/s with and without checkpointing.
+  27. data_cache - (27-29 run after cohort_deep) from an empty device data
+                 cache, the seven schemes of the cohort phases, seed 0,
+                 faithful at the flagship data, through
+                 compare(batch="off"): 700 fused_glm_grad launches
+                 a pass; data hits and misses as the layouts' stacking
+                 signatures predict on the host (four distinct stacks);
+                 again, all hits and rows bitwise the first pass's; again
+                 with the cache off, the same rows; one run's set-up and
+                 round-loop seconds on a miss and on a hit, the bytes reused;
+  28. journal  - ERASUREHEAD_CHAOS=raise:trajectory:2 on the seven-scheme
+                 deduped compare under batch off, auto and on, resumed from
+                 its journal: bitwise under "off" (1,400 launches), the
+                 largest loss difference of the cohorts; a real kill of
+                 ``cli sweep --rounds 30`` in a subprocess
+                 (kill:trajectory:3) exits 43, ``--resume-sweep`` finishes
+                 with an uninterrupted run's science rows, two in-process
+                 suite runs are bitwise equal, and a resume over the whole
+                 journal launches no kernel; every journal validates;
+  29. pipeline - the main path with --pipeline-depth 1 --update-rule GD: 100
+                 fused_glm_grad launches, its schedule byte-equal to the
+                 host's pipelined_schedule and to a 10-round CPU run's,
+                 losses within relative 1e-4 of the CPU's, the loss falling,
+                 the depth-0 run bitwise the synchronous one and parted from
+                 the pipelined one from round 1; deepmlp layer-coded
+                 pipelined, 20 rounds, 20 decode launches, within 1e-4 of
+                 the CPU; the refusals of cyccoded, AGD and
+                 --checkpoint-dir with their reasons.
 Later, beside ``time`` and ``profile``: the attention run's per-slot leaves
 through ``decode_ops``, its round's decode (one launch, six leaves of
 [90, 913] floats) against its plain version, six GEMVs and the bound, and
@@ -315,6 +342,16 @@ ATTN_ARGS = MAIN_ARGS + ["--model", "attention", "--layer-coding", "on", "--bloc
 # its cohort: two lrs x two seeds
 ATTN_COHORT = [(lr, seed) for lr in (10.0, 5.0) for seed in (0, 1)]
 CKPT_EVERY, ATTN_CKPT_EVERY = 25, 50
+# the sweep runner: the suite's rounds in the real-kill drill, and pipelined
+# tau=1 training on the main path (GD: AGD is refused under pipelining) and
+# on the deep path (LAYER_ROUNDS rounds)
+SWEEP_ROUNDS = 30
+PIPE_ARGS = MAIN_ARGS[:MAIN_ARGS.index("--update-rule")] + [
+    "--update-rule", "GD", "--compute-mode", "faithful", "--add-delay", "--quiet",
+    "--pipeline-depth", "1",
+]
+DEEP_PIPE_ARGS = [str(LAYER_ROUNDS) if prev == "--rounds" else a
+                  for prev, a in zip([None] + DEEP_ARGS, DEEP_ARGS)] + ["--pipeline-depth", "1"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 ARTIFACTS = ("training_loss", "testing_loss", "auc", "timeset", "worker_timeset")
@@ -1311,8 +1348,8 @@ def stack_bytes(cli, args, ds) -> int:
     from erasurehead_tpu_torch.train import trainer
 
     cfg = parse_config(cli, args)
-    X, y, _ = trainer._device_stack(cfg, ds, trainer.build_layout(cfg),
-                                    cfg.compute_mode.value == "faithful", torch.device("cpu"))
+    X, y, _ = trainer._build_stack(cfg, ds, trainer.build_layout(cfg),
+                                   cfg.compute_mode.value == "faithful", torch.device("cpu"))
     return sum(leaf.numel() * leaf.element_size() for leaf in pytree.tree_leaves(X)) + y.numel() * 4
 
 
@@ -1706,6 +1743,297 @@ def checkpoint_phase(cli, kernels, tmp, both0, main_run, attn_run) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the sweep runner (the data cache, the journal) and pipelined tau=1 training
+
+
+def rows_bitwise(a, b) -> bool:
+    return all(x.label == y.label and x.training_loss.tobytes() == y.training_loss.tobytes()
+               and x.timeset.tobytes() == y.timeset.tobytes() for x, y in zip(a, b))
+
+
+def data_cache_phase(kernels, experiments, ds, both0) -> dict:
+    """The seven reference schemes faithful at the flagship data through
+    compare(batch="off"): seven sequential B1 runs (700 launches) a pass,
+    from an empty cache. Data hits and misses as the layouts' stacking
+    signatures predict on the host; a second pass all hits, its rows bitwise
+    the first's; a third with the cache off, the same rows. Before that, one
+    run missed and then hit: its set-up and round-loop seconds and the bytes
+    reused."""
+    from erasurehead_tpu_torch.train import cache, trainer
+
+    t_phase = time.perf_counter()
+    configs = cohort_configs("faithful", (0,))
+    sigs = [trainer._stack_signature(c, trainer.build_layout(c)) for c in configs.values()]
+    want_misses = len(set(sigs))
+    cache.clear()
+    kernels.reset_launches()
+    cfg = configs["approx_seed0"]
+    miss, hit = trainer.train(cfg, ds), trainer.train(cfg, ds)
+    one_run_launches = dict(kernels.LAUNCHES)
+    if (miss.cache_info["data_hit"], hit.cache_info["data_hit"]) != (False, True) \
+            or hit.cache_info["bytes_reused"] != miss.cache_info["stack_bytes"] \
+            or one_run_launches != {**both0, "fused_glm_grad": 2 * ROUNDS} \
+            or not torch.equal(miss.params_history, hit.params_history):
+        raise AssertionError(f"a miss then a hit: {miss.cache_info}, {hit.cache_info}, "
+                             f"{one_run_launches}")
+    per_run = {k: dict(setup_s=r.cache_info["setup_seconds"], round_loop_s=r.wall_time,
+                       steps_per_sec=r.steps_per_sec, bytes_reused=r.cache_info["bytes_reused"],
+                       stack_bytes=r.cache_info["stack_bytes"]) for k, r in (("miss", miss),
+                                                                             ("hit", hit))}
+    cache.clear()
+    passes, rows = {}, {}
+    try:
+        for name, on in (("first", True), ("again", True), ("off", False)):
+            cache.set_enabled(on)
+            before = cache.stats().snapshot()
+            run = counted_compare(kernels, experiments, configs, ds,
+                                  {**both0, "fused_glm_grad": ROUNDS * len(configs)}, batch="off")
+            after = cache.stats().snapshot()
+            rows[name] = run["rows"]
+            passes[name] = dict(compare_seconds=run["seconds"], launches=run["launches"],
+                                **{k: after[k] - before[k] for k in after})
+    finally:
+        cache.set_enabled(True)
+    want = {"first": (len(configs) - want_misses, want_misses), "again": (len(configs), 0),
+            "off": (0, 0)}
+    got = {k: (p["data_hits"], p["data_misses"]) for k, p in passes.items()}
+    same = {k: rows_bitwise(rows["first"], rows[k]) for k in ("again", "off")}
+    rec = dict(schemes=list(configs), predicted_hits_misses=want, hits_misses=got,
+               distinct_stacks=want_misses, one_run=per_run, passes=passes,
+               rows_bitwise_first=same, phase_seconds=time.perf_counter() - t_phase)
+    emit("data_cache", **rec)
+    if got != want or not all(same.values()):
+        raise AssertionError(f"data cache: hits/misses {got}, want {want}; rows equal {same}")
+    rec["launches"] = {"one_run": one_run_launches,
+                       **{k: p["launches"] for k, p in passes.items()}}
+    return rec
+
+
+def sweep_cli(args, env=None) -> subprocess.CompletedProcess:
+    """``python -m erasurehead_tpu_torch.cli sweep`` in a subprocess of this
+    checkout, ``env`` over this process's environment."""
+    full = {k: v for k, v in os.environ.items() if k != "ERASUREHEAD_CHAOS"}
+    full.update(env or {})
+    return subprocess.run(
+        [sys.executable, "-m", "erasurehead_tpu_torch.cli", "sweep"] + args, cwd=HERE,
+        env=full, capture_output=True, text=True, timeout=600,
+    )
+
+
+def science(path) -> list:
+    from erasurehead_tpu_torch.train import journal
+
+    with open(path) as f:
+        return [journal.science_row(r) for r in json.load(f)]
+
+
+def journal_phase(kernels, experiments, ds, tmp, both0) -> dict:
+    """Three drills. (1) ERASUREHEAD_CHAOS=raise:trajectory:2 on the
+    seven-scheme deduped compare under batch off, auto and on, resumed from
+    its journal and held to the uninterrupted rows: bitwise under "off" (the
+    script fails otherwise), the largest difference reported for the
+    cohorts. (2) A real kill: ``cli sweep --rounds 30`` under
+    kill:trajectory:3 exits 43; ``--resume-sweep`` finishes the suite with
+    the science rows of an uninterrupted in-process run. (3) A third resume over the complete journal trains
+    nothing: no launch of either kernel. The in-process uninterrupted suite
+    runs twice: the two must be bitwise equal (the MLP on the covtype-shaped
+    PaddedRows stand-in included, whose gather's gradient is a sorted segment
+    sum, not atomics)."""
+    from erasurehead_tpu_torch.obs import events
+    from erasurehead_tpu_torch.obs.metrics import REGISTRY
+    from erasurehead_tpu_torch.train import journal
+    from erasurehead_tpu_torch.utils import chaos
+
+    out, launches = {}, {}
+    configs = cohort_configs("deduped", (0,))
+    for batch in ("off", "auto", "on"):
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        base = experiments.compare(configs, ds, batch=batch)
+        jdir = os.path.join(tmp, f"journal_{batch}")
+        os.environ[chaos.CHAOS_ENV] = "raise:trajectory:2"
+        chaos.reset()
+        j = journal.SweepJournal(jdir)
+        try:
+            experiments.compare(configs, ds, batch=batch, journal=j)
+            raise AssertionError("the chaos spec did not fire")
+        except chaos.ChaosInjection:
+            pass
+        finally:
+            j.close()
+            del os.environ[chaos.CHAOS_ENV]
+            chaos.reset()
+        j2 = journal.SweepJournal(jdir, resume=True)
+        recorded = len(j2)
+        resumed = experiments.compare(configs, ds, batch=batch, journal=j2)
+        j2.close()
+        launches[f"drill1_{batch}"] = dict(kernels.LAUNCHES)
+        diff = max(float(np.max(np.abs(a.training_loss - b.training_loss)))
+                   for a, b in zip(base, resumed))
+        out[batch] = dict(
+            recorded_before_fault=recorded, bitwise=rows_bitwise(base, resumed),
+            science_rows_equal=[journal.science_row(s.row()) for s in base]
+            == [journal.science_row(s.row()) for s in resumed],
+            max_abs_loss_diff=diff, max_rel_loss_diff=max(
+                max_rel(b.training_loss, a.training_loss) for a, b in zip(base, resumed)),
+            journal_errors=events.validate_file(j2.path), launches=launches[f"drill1_{batch}"],
+            wall_s=time.perf_counter() - t0)
+        if recorded != 2 or out[batch]["journal_errors"]:
+            raise AssertionError(f"journal drill ({batch}): {out[batch]}")
+        if batch == "off" and not (out[batch]["bitwise"] and out[batch]["science_rows_equal"]):
+            raise AssertionError(f"the sequential resume is not bitwise: {out[batch]}")
+    # the uninterrupted seven, the two before the fault, the five resumed
+    want_off = {**both0, "fused_glm_grad": ROUNDS * 2 * len(configs)}
+    if launches["drill1_off"] != want_off:
+        raise AssertionError(f"drill 1 off launched {launches['drill1_off']}, want {want_off}")
+
+    # (2) a real kill in a subprocess, then --resume-sweep
+    jdir, killed_out = os.path.join(tmp, "suite_journal"), os.path.join(tmp, "suite_a.json")
+    args = ["--rounds", str(SWEEP_ROUNDS), "--sweep-journal", jdir, "--out", killed_out]
+    t0 = time.perf_counter()
+    killed = sweep_cli(args, {"ERASUREHEAD_CHAOS": "kill:trajectory:3"})
+    kill_s = time.perf_counter() - t0
+    journaled = len(journal.SweepJournal(jdir, resume=True))
+    if killed.returncode != chaos.KILL_EXIT or os.path.exists(killed_out) or journaled != 3:
+        raise AssertionError(f"the killed sweep exited {killed.returncode} with {journaled} "
+                             f"rows journaled: {killed.stderr[-2000:]}")
+    t0 = time.perf_counter()
+    finished = sweep_cli(args + ["--resume-sweep"])
+    resume_s = time.perf_counter() - t0
+    if finished.returncode != 0:
+        raise AssertionError(f"--resume-sweep failed: {finished.stderr[-2000:]}")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    whole = [s for rows in experiments.baseline_suite(rounds=SWEEP_ROUNDS).values() for s in rows]
+    whole_s = time.perf_counter() - t0
+    launches["suite"] = dict(kernels.LAUNCHES)
+    rerun = [s for rows in experiments.baseline_suite(rounds=SWEEP_ROUNDS).values() for s in rows]
+    rerun_bitwise = rows_bitwise(whole, rerun)
+    whole_out = os.path.join(tmp, "suite_u.json")
+    experiments.save_summaries(whole, whole_out)
+    suite_rows = science(whole_out)
+    if science(killed_out) != suite_rows:
+        raise AssertionError("the resumed suite's science rows differ from an uninterrupted run's")
+
+    # (3) a resume over the complete journal trains nothing
+    kernels.reset_launches()
+    resumed_before = REGISTRY.counter("sweep_journal.resumed").value
+    again_out = os.path.join(tmp, "suite_c.json")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        experiments.main(args[:-1] + [again_out, "--resume-sweep"])
+    again_s = time.perf_counter() - t0
+    launches["full_resume"] = dict(kernels.LAUNCHES)
+    rehydrated = REGISTRY.counter("sweep_journal.resumed").value - resumed_before
+    journal_path = os.path.join(jdir, journal.JOURNAL_NAME)
+    rec = dict(
+        drill1=out, kill_exit=killed.returncode, journaled_before_kill=journaled,
+        resumed_science_rows_equal=True, suite_rows=suite_rows,
+        suite_rerun_bitwise=rerun_bitwise, full_resume_launches=launches["full_resume"],
+        full_resume_rehydrated=rehydrated, journal_errors=events.validate_file(journal_path),
+        wall_s={"kill": kill_s, "resume": resume_s, "uninterrupted": whole_s,
+                "full_resume": again_s},
+    )
+    emit("journal", **rec)
+    if launches["full_resume"] != both0 or rehydrated != len(suite_rows) \
+            or science(again_out) != suite_rows or rec["journal_errors"]:
+        raise AssertionError(f"the full resume trained or differs: {launches['full_resume']}, "
+                             f"{rehydrated} rehydrated, {rec['journal_errors']}")
+    if not rerun_bitwise:
+        raise AssertionError("two card runs of the suite differ (a row is not deterministic)")
+    rec["launches"] = launches
+    return rec
+
+
+def pipeline_phase(cli, kernels, tmp, both0) -> dict:
+    """The main path pipelined (``--pipeline-depth 1 --update-rule GD``):
+    100 B1 launches; its schedule byte-equal to pipelined_schedule on the
+    host and, on the shared rounds, to a 10-round CPU run's; losses within
+    relative 1e-4 of the CPU's; the loss falls; the depth-0 run is bitwise
+    the run without the flag and parts from the pipelined one after round
+    0. Then deepmlp layer-coded pipelined: 20 B2 launches, card vs CPU
+    within 1e-4. The refusals of cyccoded, AGD and --checkpoint-dir."""
+    from erasurehead_tpu_torch.parallel import pipeline
+    from erasurehead_tpu_torch.train import trainer
+    from erasurehead_tpu_torch.utils.config import PipelineRefusal
+
+    def run(args, device, name):
+        cfg = parse_config(cli, args)
+        kernels.reset_launches()
+        res, ev, _ = cli.run(cfg, output_dir=os.path.join(tmp, name), quiet=True, device=device)
+        return dict(res=res, loss=np.asarray(ev.training_loss), launches=dict(kernels.LAUNCHES))
+
+    fields = ("dispatch", "done", "dispatch_ahead", "staleness", "sim_time", "message_weights",
+              "worker_times", "collected")
+    gpu = run(PIPE_ARGS, "cuda", "pipe_cuda")
+    cpu = run(with_rounds(PIPE_ARGS, SHORT_ROUNDS), "cpu", "pipe_cpu")
+    cfg = gpu["res"].config
+    host = pipeline.pipelined_schedule(cfg, trainer.default_arrivals(cfg), trainer.build_layout(cfg))
+    sched = gpu["res"].schedule
+    same_host = {f: getattr(sched, f).tobytes() == getattr(host, f).tobytes() for f in fields}
+    same_cpu = {f: getattr(sched, f)[:SHORT_ROUNDS].tobytes()
+                == getattr(cpu["res"].schedule, f).tobytes() for f in fields}
+    rel = max_rel(gpu["loss"][:SHORT_ROUNDS], cpu["loss"])
+    sync_args = PIPE_ARGS[:PIPE_ARGS.index("--pipeline-depth")]
+    sync = run(sync_args, "cuda", "sync_cuda")
+    sync0 = run(sync_args + ["--pipeline-depth", "0"], "cuda", "sync0_cuda")
+    depth0_bitwise = torch.equal(sync["res"].params_history, sync0["res"].params_history)
+    parts = [int(i) for i in np.flatnonzero(np.any(
+        (sync["res"].params_history != gpu["res"].params_history).cpu().numpy(), axis=1))]
+    b1 = {**both0, "fused_glm_grad": ROUNDS}
+    deep = run(DEEP_PIPE_ARGS, "cuda", "pipe_deep_cuda")
+    deep_cpu = run(with_rounds(DEEP_PIPE_ARGS, SHORT_ROUNDS), "cpu", "pipe_deep_cpu")
+    deep_rel = max_rel(deep["loss"][:SHORT_ROUNDS], deep_cpu["loss"])
+    refusals = {}
+    for name, extra in (("cyccoded", ["--scheme", "cyccoded"]),
+                        ("AGD", ["--update-rule", "AGD"]),
+                        ("checkpoint_dir", ["--checkpoint-dir", os.path.join(tmp, "pipe_ck"),
+                                            "--checkpoint-every", "10"])):
+        try:
+            cli.main(with_rounds(PIPE_ARGS, 2) + extra + ["--device", "cuda",
+                                                           "--output-dir", tmp])
+            raise AssertionError(f"--pipeline-depth 1 with {extra} was not refused")
+        except PipelineRefusal as e:
+            refusals[name] = dict(reason=e.reason, message=str(e))
+    rec = dict(
+        args=PIPE_ARGS, launches=gpu["launches"], steps_per_sec=gpu["res"].steps_per_sec,
+        sync_steps_per_sec=sync["res"].steps_per_sec,
+        sim_total_time=gpu["res"].sim_total_time, sync_sim_total_time=sync["res"].sim_total_time,
+        overlap=pipeline.overlap_summary(sched), schedule_equal_host=same_host,
+        schedule_equal_cpu_10_rounds=same_cpu, max_rel_loss_vs_cpu_10_rounds=rel,
+        train_loss_first_last=[float(gpu["loss"][0]), float(gpu["loss"][-1])],
+        sync_train_loss_first_last=[float(sync["loss"][0]), float(sync["loss"][-1])],
+        depth0_bitwise_plain=depth0_bitwise, rounds_differing_from_sync=len(parts),
+        first_round_differing=parts[0] if parts else None,
+        sync_launches=[sync["launches"], sync0["launches"]],
+        deep=dict(args=DEEP_PIPE_ARGS, launches=deep["launches"],
+                  steps_per_sec=deep["res"].steps_per_sec, max_rel_loss_vs_cpu_10_rounds=deep_rel,
+                  train_loss_first_last=[float(deep["loss"][0]), float(deep["loss"][-1])]),
+        refusals=refusals,
+    )
+    emit("pipeline", **rec)
+    if gpu["launches"] != b1 or sync["launches"] != b1 or sync0["launches"] != b1:
+        raise AssertionError(f"pipelined/sync launches {gpu['launches']}, {sync['launches']}")
+    if not (all(same_host.values()) and all(same_cpu.values())):
+        raise AssertionError(f"pipelined schedule differs: host {same_host}, cpu {same_cpu}")
+    if rel > 1e-4 or deep_rel > 1e-4:
+        raise AssertionError(f"card vs CPU: GLM {rel}, deep {deep_rel}")
+    if not depth0_bitwise or not parts or parts[0] != 1:
+        raise AssertionError(f"depth 0 bitwise {depth0_bitwise}; rounds differing {parts[:3]}")
+    if not gpu["loss"][-1] < gpu["loss"][0] or not deep["loss"][-1] < deep["loss"][0]:
+        raise AssertionError("the pipelined loss did not fall")
+    if deep["launches"] != {**both0, "fused_block_decode": LAYER_ROUNDS}:
+        raise AssertionError(f"pipelined deep run launched {deep['launches']}")
+    want_reasons = {"cyccoded": "exact_decode", "AGD": "momentum_unproven",
+                    "checkpoint_dir": "checkpoint_restart"}
+    if {k: v["reason"] for k, v in refusals.items()} != want_reasons:
+        raise AssertionError(f"refusals {refusals}")
+    rec["launches_by_run"] = {"pipelined": gpu["launches"], "sync": sync["launches"],
+                              "sync_depth0": sync0["launches"], "deep": deep["launches"]}
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -1883,6 +2211,20 @@ def main() -> int:
     deep_cohort = cohort_deep_phase(cli, kernels, cohort_ds, both0)
     cohort_phases_s = time.perf_counter() - t_cohort
 
+    # the sweep runner and pipelined training
+    t_sweep = time.perf_counter()
+    data_cache = data_cache_phase(kernels, experiments, cohort_ds, both0)
+    with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-sweep-") as tmp:
+        journal_rec = journal_phase(kernels, experiments, cohort_ds, tmp, both0)
+        pipe = pipeline_phase(cli, kernels, tmp, both0)
+    sweep_phases_s = time.perf_counter() - t_sweep
+    emit("sweep_runner", seconds=sweep_phases_s)
+    sweep_launches = {
+        **{f"data_cache_{k}": n for k, n in data_cache["launches"].items()},
+        **{f"journal_{k}": n for k, n in journal_rec["launches"].items()},
+        **{f"pipeline_{k}": n for k, n in pipe["launches_by_run"].items()},
+    }
+
     # the sparse and compressed stacks: no kernel takes them
     t_sparse = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-sparse-") as tmp:
@@ -1983,7 +2325,8 @@ def main() -> int:
         + deduped["sequential_launches"]["fused_glm_grad"]
         + faithful["launches"]["fused_glm_grad"]
         + sum(r["launches"]["fused_glm_grad"] for r in arrivals)
-        + sum(n["fused_glm_grad"] for n in ckpt["launches"].values()),
+        + sum(n["fused_glm_grad"] for n in ckpt["launches"].values())
+        + sum(n["fused_glm_grad"] for n in sweep_launches.values()),
         "launches_by_path": {"main": launches["fused_glm_grad"],
                              **{r["run"]: r["launches"]["fused_glm_grad"] for r in scheme_rows},
                              "legacy": [n["fused_glm_grad"] for n in legacy["launches"]],
@@ -2000,7 +2343,8 @@ def main() -> int:
                              "attention": attention["launches"]["fused_glm_grad"],
                              "attention_cohort": attention["cohort"]["launches"]["fused_glm_grad"],
                              **{f"checkpoint_{k}": n["fused_glm_grad"]
-                                for k, n in ckpt["launches"].items()}},
+                                for k, n in ckpt["launches"].items()},
+                             **{k: n["fused_glm_grad"] for k, n in sweep_launches.items()}},
         "max_abs_err": main_err,
         "ms": kernel_ms_best,
         "plain_ms": min(plain_ms, plain_ms_2),  # the two-pass torch yardstick
@@ -2013,6 +2357,8 @@ def main() -> int:
                           for label, r in stack_times.items()},
         "sparsegraph_zero_slot_time_share": stack_times["sparsegraph"]["zero_slot_time_share"],
         "schemes_legacy_input_dir_phase_s": new_phases_s,
+        "sweep_runner_phases_s": sweep_phases_s,
+        "pipelined_steps_per_sec": pipe["steps_per_sec"],
         "sparse_phases_s": sparse_phases_s,
         # a 28-trajectory deduped cohort round: the cohort matmul the path
         # runs instead, against 28 launches of this kernel
@@ -2030,7 +2376,8 @@ def main() -> int:
         + deep_cohort["launches"]["fused_block_decode"]
         + attention["launches"]["fused_block_decode"]
         + attention["cohort"]["launches"]["fused_block_decode"]
-        + sum(n["fused_block_decode"] for n in ckpt["launches"].values()),
+        + sum(n["fused_block_decode"] for n in ckpt["launches"].values())
+        + sum(n["fused_block_decode"] for n in sweep_launches.values()),
         "launches_by_path": {"deep": deep["launches"]["fused_block_decode"],
                              "cohort_deep": deep_cohort["launches"]["fused_block_decode"],
                              "compare_deduped": deduped["launches"]["fused_block_decode"],
@@ -2042,7 +2389,8 @@ def main() -> int:
                              "attention_cohort":
                                  attention["cohort"]["launches"]["fused_block_decode"],
                              **{f"checkpoint_{k}": n["fused_block_decode"]
-                                for k, n in ckpt["launches"].items()}},
+                                for k, n in ckpt["launches"].items()},
+                             **{k: n["fused_block_decode"] for k, n in sweep_launches.items()}},
         "max_abs_err": max(decode_err, max(c["max_abs_err"] for c in cohort_checks),
                            max(r["max_abs_err"] for r in ops + vmap_ops)),
         # a deep round's decode: one launch for its six leaves

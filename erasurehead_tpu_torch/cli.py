@@ -1,6 +1,9 @@
 """Command-line entry point of the PyTorch/CUDA port.
 
-Two invocation forms, as the JAX package's CLI takes them.
+Two invocation forms, as the JAX package's CLI takes them, and the ``sweep``
+subcommand: ``python -m erasurehead_tpu_torch.cli sweep [--rounds N]
+[--sweep-journal DIR [--resume-sweep]] [--out rows.json] [--device cpu]``
+runs the BASELINE.json comparison suite (train/experiments.main).
 
 1. **Named flags**::
 
@@ -34,7 +37,9 @@ saddle, where the loss stays at log 2)::
    shift: heavytail, adversary or targeted). Checkpoints:
    ``--checkpoint-dir DIR --checkpoint-every N`` saves every N rounds;
    ``--resume`` restarts from the newest usable one, and the artifacts
-   then cover the resumed rounds.
+   then cover the resumed rounds. ``--pipeline-depth 1`` trains pipelined
+   (tau=1 stale gradients, GD and the approximate schemes only);
+   ``--sweep-cache off`` turns the device data cache off.
 
 2. **Legacy positional**: the reference's 13-argument calling convention
    (main.py:20-27)::
@@ -266,6 +271,20 @@ def _flags_parser() -> argparse.ArgumentParser:
                    help="hybrid dense GLM lowering "
                         "(parallel/step.make_margin_flat_grad_fn): one flat "
                         "margin product, per-slot transpose; auto is off")
+    p.add_argument("--pipeline-depth", type=int, default=0,
+                   choices=[0, 1],
+                   help="pipelined training with bounded staleness tau "
+                        "(parallel/pipeline.py): 1 dispatches round t+1's "
+                        "worker compute against round t-1's params while "
+                        "round t's arrivals drain. Deterministic and "
+                        "journal-replayable; refuses (typed "
+                        "PipelineRefusal) exact-decode schemes and non-GD "
+                        "rules. 0 = synchronous")
+    p.add_argument("--sweep-cache", default="on", choices=["on", "off"],
+                   help="the sweep engine's device data cache "
+                        "(train/cache.py): off rebuilds and re-uploads "
+                        "every run's stack. ERASUREHEAD_SWEEP_CACHE=0 in "
+                        "the env does the same")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--checkpoint-dir", default=None,
                    help="save optimizer state here every --checkpoint-every "
@@ -345,6 +364,7 @@ def _flags_to_config(ns: argparse.Namespace) -> RunConfig:
         dense_margin_cols=ns.dense_margin_cols,
         flat_grad=ns.flat_grad,
         margin_flat=ns.margin_flat,
+        pipeline_depth=ns.pipeline_depth,
         seed=ns.seed,
     )
 
@@ -451,6 +471,12 @@ def run(cfg: RunConfig, output_dir: str | None = None, quiet: bool = False,
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "sweep":
+        # the comparison-suite sweep runner, with --sweep-journal and
+        # --resume-sweep (train/experiments.main)
+        from erasurehead_tpu_torch.train import experiments as experiments_lib
+
+        return experiments_lib.main(argv[1:])
     if _is_legacy(argv):
         cfg = _legacy_to_config(argv[:13])
         opts = _legacy_options_parser().parse_args(argv[13:])
@@ -461,6 +487,10 @@ def main(argv: list[str] | None = None) -> int:
     parser = _flags_parser()
     ns = parser.parse_args(argv)
     _validate_checkpoint_flags(parser, ns)
+    if ns.sweep_cache == "off":
+        from erasurehead_tpu_torch.train import cache as cache_lib
+
+        cache_lib.set_enabled(False)
     run(
         _flags_to_config(ns),
         output_dir=ns.output_dir,

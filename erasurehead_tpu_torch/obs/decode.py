@@ -84,3 +84,59 @@ def block_decode_error(
         "cumulative": cumulative,
         "exact_block_norms": exact_norm,
     }
+
+
+def staleness_error_series(
+    model, params_history, staleness, X, y, initial_params
+) -> np.ndarray:
+    """[R] per-round gradient-space staleness error of a pipelined run:
+
+        s[r] = || g(p_stale[r]) - g(p_fresh[r]) || / max(||g(p_fresh[r])||, eps)
+
+    where ``p_fresh[r]`` is the iterate entering round r (``history[r-1]``,
+    or ``initial_params`` for round 0), ``p_stale[r]`` the iterate the
+    pipelined run differentiated at (the one entering round
+    ``r - staleness[r]``), and g the model's full-batch gradient
+    (``model.grad_sum``). Exactly zero where ``staleness[r] == 0`` (the
+    warm-up rounds and every round of a tau=0 run).
+
+    The half of the pipelined error that the weight-space coding error
+    (:func:`decode_error_series`) cannot see. It replays one full-batch
+    gradient a round, so it runs after the run, never inside the trainer.
+    ``params_history`` and ``initial_params`` are a tensor or a dict of
+    tensors (a TrainResult's ``params_history`` and its initial params);
+    ``X``/``y`` the full dense training arrays (numpy or tensors); the
+    gradients are taken on the history's device in float32, the norms in
+    host float64. ``staleness`` is the [R] tau schedule
+    (parallel/pipeline.staleness_schedule or PipelinedSchedule.staleness)."""
+    import torch
+
+    from erasurehead_tpu_torch.ops import blocks
+
+    tau = np.asarray(staleness, dtype=np.int64)
+    R = int(tau.shape[0])
+    leaves = blocks.tree_leaves(params_history)
+    dev = leaves[0].device
+    def put(a):
+        if torch.is_tensor(a):
+            return a.to(device=dev, dtype=torch.float32)
+        return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+    Xt, yt, p0 = put(X), put(y), blocks.tree_map(put, initial_params)
+    rows = []
+    for r in range(R):
+        # the iterate entering round r: p0, then history[r - 1]
+        p = p0 if r == 0 else blocks.tree_map(lambda h: h[r - 1], params_history)
+        g = model.grad_sum(p, Xt, yt)
+        rows.append(np.concatenate([
+            np.asarray(leaf.detach().cpu(), dtype=np.float64).reshape(-1)
+            for leaf in blocks.tree_leaves(g)
+        ]))
+    g = np.stack(rows)  # [R, n_params]
+    idx = np.arange(R)
+    diff = g[idx - tau] - g[idx]
+    fresh_norm = np.linalg.norm(g, axis=-1)
+    err = np.linalg.norm(diff, axis=-1) / np.maximum(fresh_norm, 1e-30)
+    err[tau == 0] = 0.0
+    err[err < EXACT_TOL] = 0.0
+    return err

@@ -22,7 +22,8 @@ Determinism: every scatter is a sum over entries grouped by target column in
 an order fixed once per stack (:class:`_Segments`: entries sorted by target
 at first use and cached on the container, then ``torch.segment_reduce``),
 so reruns on the card are bitwise equal. PyTorch's ``index_add_`` and
-``scatter_add_`` would accumulate with atomics there.
+``scatter_add_`` would accumulate with atomics there. The same holds for the
+gradient of a PaddedRows gather that autodiff takes (:func:`_gather_rows`).
 
 The JAX package's TPU layout devices have no counterpart on the card and
 are exact there anyway: ``dense_margin_cols`` (validated, no effect) and the
@@ -210,6 +211,84 @@ def _segment_sum_vmap(info, in_dims, contrib, order, counts, targets, size):
 
 
 _segment_sum.register_vmap(_segment_sum_vmap)
+
+
+class _ScatterRows(torch.autograd.Function):
+    """The gradient of :class:`_GatherRows` in its rows: each row's entries
+    of ``grad`` [*idx.shape, *t] summed in index order (entries sorted
+    stably by row, then ``torch.segment_reduce``), [n, *t]."""
+
+    @staticmethod
+    def forward(grad, idx, n):
+        trail = tuple(grad.shape[idx.ndim:])
+        return _Segments.of(idx, n).sum(grad.reshape((-1,) + trail))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return _GatherRows.apply(g, idx), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, grad, idx, n):
+        """A batch of gradients (a cohort's trajectories) sums as trailing
+        columns of one segment sum over the shared indices."""
+        g_dim, i_dim = in_dims[:2]
+        if i_dim is not None:
+            raise NotImplementedError("the gather's indices are flattened before its gradient")
+        if g_dim is None:
+            return _ScatterRows.apply(grad, idx, n), None
+        out = _ScatterRows.apply(grad.movedim(g_dim, -1), idx, n)
+        return out, out.ndim - 1
+
+
+class _GatherRows(torch.autograd.Function):
+    """``v[idx]`` whose gradient in ``v`` is :class:`_ScatterRows`, a
+    deterministic segment sum, where ``index_select``'s backward would add
+    with atomics on the card."""
+
+    @staticmethod
+    def forward(v, idx):
+        return v.index_select(0, idx.reshape(-1)).reshape(tuple(idx.shape) + tuple(v.shape[1:]))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        v, idx = inputs
+        ctx.save_for_backward(idx)
+        ctx.n = v.shape[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        return _ScatterRows.apply(grad, idx, ctx.n), None
+
+    @staticmethod
+    def vmap(info, in_dims, v, idx):
+        """Batched indices (a stack's slots under ``torch.func.vmap``)
+        gather as one flat index; batched rows (a cohort's trajectories)
+        offset each trajectory's indices into the stacked rows."""
+        v_dim, i_dim = in_dims
+        if v_dim is None:
+            return _GatherRows.apply(v, idx), i_dim
+        v = v.movedim(v_dim, 0)
+        B, F = v.shape[0], v.shape[1]
+        if i_dim is None:
+            idx = idx.expand((B,) + tuple(idx.shape))
+        else:
+            idx = idx.movedim(i_dim, 0)
+        offsets = (torch.arange(B, device=idx.device, dtype=idx.dtype) * F).reshape(
+            (B,) + (1,) * (idx.ndim - 1))
+        return _GatherRows.apply(v.reshape((B * F,) + tuple(v.shape[2:])), idx + offsets), 0
+
+
+def _gather_rows(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of ``v`` [F, *t] at every index of ``idx``: [*idx.shape, *t].
+    The autodiff families on a PaddedRows stack (mlp, deepmlp, moe,
+    attention) differentiate it, so their reruns are bitwise on the card."""
+    return _GatherRows.apply(v, idx)
 
 
 def _cached(X, key, build):
@@ -514,9 +593,7 @@ def matvec(X: Features, v: torch.Tensor) -> torch.Tensor:
         return _fields_matvec(X, v)
     if isinstance(X, PaddedRows):
         vals = _f32(X.values)
-        gathered = v.index_select(0, X.indices.reshape(-1)).reshape(
-            tuple(X.indices.shape) + tuple(v.shape[1:])
-        )  # [..., n, nnz] or [..., n, nnz, H]
+        gathered = _gather_rows(v, X.indices)  # [..., n, nnz] or [..., n, nnz, H]
         if v.ndim == 1:
             return (vals * gathered).sum(-1)
         return (vals.unsqueeze(-1) * gathered).sum(-2)

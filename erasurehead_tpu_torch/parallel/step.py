@@ -367,6 +367,14 @@ def make_layer_block_grad_fn(model, spec, *, faithful: bool, fused: bool) -> Gra
     return _dq(body(model, spec, contract))
 
 
+def staleness_slot_params(params, stale_params, pipeline_depth: int):
+    """The params a round's gradient is taken at: the live params of a
+    synchronous run (``pipeline_depth=0``), or, pipelined (tau=1), the
+    second slot of the trainer's carry: the params the round's workers were
+    dispatched with (the iterate that entered the previous round)."""
+    return stale_params if pipeline_depth else params
+
+
 def expand_slot_weights(
     message_weights: np.ndarray, coeffs: np.ndarray, slot_is_coded: np.ndarray
 ) -> np.ndarray:

@@ -126,6 +126,17 @@ class SchemeDescriptor:
     def validate(self, cfg) -> None:
         """Scheme-specific config validation (utils.config delegates here
         from RunConfig.__post_init__)."""
+        if getattr(cfg, "pipeline_depth", 0) and not self.staleness_tolerant:
+            from erasurehead_tpu_torch.utils.config import PipelineRefusal
+
+            kind = "exact-decode" if self.exact else "not staleness-tolerant"
+            raise PipelineRefusal(
+                "exact_decode" if self.exact else "untested_scheme",
+                f"pipeline_depth=1 refuses scheme={self.name!r} ({kind}): "
+                "a tau=1-stale gradient breaks the exactness contract, and "
+                "only schemes whose descriptor declares staleness_tolerant "
+                "(the approximate first-k/deadline families) run pipelined",
+            )
         if self.needs_deadline and (cfg.deadline is None or cfg.deadline <= 0):
             raise ValueError(
                 f"scheme={self.name!r} needs a positive deadline "

@@ -32,6 +32,7 @@ import torch
 
 from erasurehead_tpu_torch.ops.blocks import tree_leaves
 from erasurehead_tpu_torch.train.optimizer import OptState
+from erasurehead_tpu_torch.utils import chaos as chaos_lib
 
 #: the commit marker, written last: a round_N directory without it is a
 #: save that never completed (killed mid-write)
@@ -76,6 +77,10 @@ def _pack(state: OptState, next_round: int) -> dict:
 def save(path: str, state: OptState, next_round: int) -> None:
     """Write checkpoint directory ``path`` (overwrites): the state into a
     temporary sibling, the commit marker last, then a rename to ``path``."""
+    # chaos site "checkpoint" (utils/chaos.py): an injected kill here is a
+    # preemption mid-checkpoint; the save never commits, and a resume falls
+    # back to the previous round_N (restore_latest)
+    chaos_lib.maybe_fire("checkpoint")
     path = os.path.abspath(path)
     parent = os.path.dirname(path)
     os.makedirs(parent, exist_ok=True)

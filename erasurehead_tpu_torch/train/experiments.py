@@ -1,36 +1,44 @@
 """Experiment harness: the AGC vs EGC vs uncoded comparisons.
 
-The port of erasurehead_tpu/train/experiments.py's library entry points.
-The reference's experimental frame: for each scheme and straggler count,
-train under the same seeded delay schedule and compare (a) the effective
-iteration rate and (b) the time to a target loss, both on the simulated
-master clock.
+The port of erasurehead_tpu/train/experiments.py. The reference's
+experimental frame: for each scheme and straggler count, train under the
+same seeded delay schedule and compare (a) the effective iteration rate and
+(b) the time to a target loss, both on the simulated master clock.
 
 :func:`compare` runs a set of configs on one dataset under one shared
 arrival schedule (a paired comparison) and summarizes each run;
 :func:`straggler_sweep` is the reference's headline figure, each scheme
-across straggler counts. Configs that share a device data stack
+across straggler counts; :func:`baseline_suite` the five BASELINE.json
+configs, which :func:`main` (``python -m
+erasurehead_tpu_torch.train.experiments``, or the CLI's ``sweep``
+subcommand) runs and prints. Configs that share a device data stack
 (:func:`plan_cohorts`) run as one trajectory cohort
 (train/trainer.train_cohort): a deduped 7-scheme x 4-seed sweep reads X
 once a round for all 28 trajectories instead of 28 times.
 
+A sweep journal (train/journal.py) makes a sweep preemption-safe: each
+trajectory's row is journaled as it finishes, and a resumed sweep
+rehydrates the journaled rows instead of training them again.
+
 A cohort that runs out of device memory (``torch.cuda.OutOfMemoryError``)
-is bisected into halves, down to sequential ``train()`` on the same device:
-the JAX package's own degradation. Every other exception propagates
+is bisected into halves, down to sequential ``train()`` on the same device,
+after the data cache's pins are dropped: the JAX package's own
+degradation. Every other exception propagates
 untouched, a kernel's launch failure included: nothing is retried.
 
-Not ported: the sweep journal and resume, event emission, the JAX
-``baseline_suite``, ``main`` and its ``sweep`` CLI, streamed cohorts and
-per-label arrival schedules.
+Not ported: event emission (``main --events`` is refused), streamed cohorts
+and per-label arrival schedules.
 
-:data:`COUNTERS` counts the harness's dispatches under the JAX package's
-metric names.
+:data:`COUNTERS` reads the harness's counters from the metrics registry
+(obs/metrics.py) under the JAX package's names.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+from collections.abc import Mapping
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -38,14 +46,40 @@ import torch
 
 from erasurehead_tpu_torch import schemes
 from erasurehead_tpu_torch.data.synthetic import Dataset
+from erasurehead_tpu_torch.obs.metrics import REGISTRY as _METRICS
 from erasurehead_tpu_torch.ops import blocks
 from erasurehead_tpu_torch.parallel import straggler
+from erasurehead_tpu_torch.train import cache as cache_lib
 from erasurehead_tpu_torch.train import evaluate, trainer
+from erasurehead_tpu_torch.train import journal as journal_lib
+from erasurehead_tpu_torch.utils import chaos as chaos_lib
 from erasurehead_tpu_torch.utils.config import (
+    ModelKind,
     RunConfig,
     resolve_arrival_trace,
     resolve_batch_trajectories,
+    resolve_resume_sweep,
+    resolve_sweep_journal,
 )
+
+
+class _CounterView(Mapping):
+    """Read-only view of named registry counters."""
+
+    def __init__(self, names):
+        self._names = tuple(names)
+
+    def __getitem__(self, name):
+        if name not in self._names:
+            raise KeyError(name)
+        return _METRICS.counter(name).value
+
+    def __iter__(self):
+        return iter(self._names)
+
+    def __len__(self):
+        return len(self._names)
+
 
 #: dispatch counters since the last :func:`reset_counters`:
 #:   cohort.dispatches       train_cohort calls (one a cohort, one a half)
@@ -54,18 +88,15 @@ from erasurehead_tpu_torch.utils.config import (
 #:   cohort.split            cohorts bisected after running out of memory
 #:   cohort.sequential_fallback  trajectories sent to train() by that bisection
 #:   sweep.diverged          rows quarantined as diverged
-COUNTERS = {
-    name: 0
-    for name in (
-        "cohort.dispatches", "cohort.trajectories", "cohort.sequential_runs",
-        "cohort.split", "cohort.sequential_fallback", "sweep.diverged",
-    )
-}
+COUNTERS = _CounterView((
+    "cohort.dispatches", "cohort.trajectories", "cohort.sequential_runs",
+    "cohort.split", "cohort.sequential_fallback", "sweep.diverged",
+))
 
 
 def reset_counters() -> None:
     for name in COUNTERS:
-        COUNTERS[name] = 0
+        _METRICS.counter(name).reset()
 
 
 @dataclasses.dataclass
@@ -173,10 +204,11 @@ def _train_one(label, configs, dataset, arrivals, device, init_params):
 
 def _dispatch_cohort(labels, configs, dataset, arrivals, device, init_params) -> dict:
     """One cohort through train_cohort; on ``torch.cuda.OutOfMemoryError``
-    bisect into halves (half the live set per dispatch), bottoming out at
-    sequential train() on the same device. Returns label -> TrainResult."""
-    COUNTERS["cohort.dispatches"] += 1
-    COUNTERS["cohort.trajectories"] += len(labels)
+    drop the data cache's pins, then bisect into halves (half the live set
+    per dispatch), bottoming out at sequential train() on the same device.
+    Returns label -> TrainResult."""
+    _METRICS.counter("cohort.dispatches").inc()
+    _METRICS.counter("cohort.trajectories").inc(len(labels))
     try:
         results = trainer.train_cohort(
             [configs[l] for l in labels], dataset, arrivals=arrivals, device=device,
@@ -184,12 +216,15 @@ def _dispatch_cohort(labels, configs, dataset, arrivals, device, init_params) ->
         )
         return dict(zip(labels, results))
     except torch.cuda.OutOfMemoryError:
+        # the halves re-upload what they need, without contending with
+        # stacks no live run is using
+        cache_lib.drop_data_cache()
         torch.cuda.empty_cache()
     if len(labels) == 1:
-        COUNTERS["cohort.sequential_fallback"] += 1
+        _METRICS.counter("cohort.sequential_fallback").inc()
         return {labels[0]: _train_one(labels[0], configs, dataset, arrivals, device, init_params)}
     mid = len(labels) // 2
-    COUNTERS["cohort.split"] += 1
+    _METRICS.counter("cohort.split").inc()
     out = _dispatch_cohort(labels[:mid], configs, dataset, arrivals, device, init_params)
     out.update(_dispatch_cohort(labels[mid:], configs, dataset, arrivals, device, init_params))
     return out
@@ -231,7 +266,7 @@ def _run_configs(
                 finish(label, results[label])
         else:
             for label in labels:
-                COUNTERS["cohort.sequential_runs"] += 1
+                _METRICS.counter("cohort.sequential_runs").inc()
                 finish(label, _train_one(label, configs, dataset, arrivals, device, init_params))
     return raw
 
@@ -286,6 +321,7 @@ def compare(
     target_loss: Optional[float] = None,
     arrivals: Optional[np.ndarray] = None,
     batch: Optional[str] = None,
+    journal=None,
     *,
     device=None,
     init_params: Optional[dict] = None,
@@ -306,6 +342,15 @@ def compare(
     ``trainer.train`` (cuda unless "cpu" is asked for); ``init_params`` maps
     a label to its initial params (``train(init_params=...)``'s form).
 
+    ``journal`` is a :class:`train.journal.SweepJournal` (None = the ambient
+    ``ERASUREHEAD_SWEEP_JOURNAL`` journal, if any): every finished
+    trajectory's row is journaled as it completes, and in resume mode a
+    trajectory whose (label, config, data, arrivals) key is journaled
+    already is rehydrated instead of trained. ``time_to_target`` is derived
+    from the curves for fresh and rehydrated rows alike, so a resumed
+    sweep's rows equal an uninterrupted one's. After each row the
+    ``"trajectory"`` chaos site fires (utils/chaos.py).
+
     A trajectory whose final params or loss tail went NaN/Inf gets
     ``status="diverged"``, ``time_to_target=None``, and the sweep goes on."""
     _validate_shared_shape(configs)
@@ -319,10 +364,26 @@ def compare(
             mean=any_cfg.delay_mean,
             trace=resolve_arrival_trace(any_cfg.arrival_trace),
         )
+    if journal is None:
+        journal = journal_lib.from_env()
+    keys: dict = {}
     summaries: dict = {}
+    pending: dict = {}
+    for label, cfg in configs.items():
+        if journal is not None:
+            keys[label] = journal_lib.trajectory_key(label, cfg, dataset, arrivals)
+            rec = journal.lookup(keys[label])
+            if rec is not None:
+                summaries[label] = journal_lib.rehydrate_summary(rec["row"], cfg)
+                _METRICS.counter("sweep_journal.resumed").inc()
+                continue
+        pending[label] = cfg
 
     def finish(label, res):
-        cfg = configs[label]
+        """Per-trajectory completion: eval replay, divergence quarantine,
+        journal append, chaos site; an interruption loses at most the
+        in-flight dispatch."""
+        cfg = pending[label]
         n = res.n_train
         ev = evaluate.replay(
             trainer.build_model(cfg), cfg.model, res.params_history,
@@ -330,7 +391,7 @@ def compare(
         )
         diverged = _diverged(res, ev)
         if diverged:
-            COUNTERS["sweep.diverged"] += 1
+            _METRICS.counter("sweep.diverged").inc()
         summaries[label] = RunSummary(
             label=label,
             config=res.config,
@@ -355,11 +416,17 @@ def compare(
             ),
             status="diverged" if diverged else "ok",
         )
+        if journal is not None:
+            journal.record(keys[label], label, summaries[label])
+        chaos_lib.maybe_fire("trajectory")
 
-    _run_configs(
-        configs, dataset, arrivals, resolve_batch_trajectories(batch),
-        device=device, init_params=init_params, on_result=finish,
-    )
+    if pending:
+        _run_configs(
+            pending, dataset, arrivals, resolve_batch_trajectories(batch),
+            device=device, init_params=init_params, on_result=finish,
+        )
+    # one shared target across rehydrated and fresh rows, derived from the
+    # (bit-stable) curves: a resumed sweep and an uninterrupted one agree
     if target_loss is None:
         target_loss = _default_target_loss(summaries)
     for s in summaries.values():
@@ -395,6 +462,204 @@ def straggler_sweep(
                 cfg = dataclasses.replace(cfg, num_collect=collect_override(cfg.n_workers))
             configs[f"{scheme}_s{s}"] = cfg
     return compare(configs, dataset, **compare_kw)
+
+
+#: reference nnz a row of the real one-hot matrices: covtype's binned
+#: one-hot has 12 active categories a row, amazon's hashed-interaction
+#: encoding 44 (the JAX package's tests/test_data.py pins both)
+ONEHOT_NNZ = {"covtype": 12, "amazon": 44}
+
+#: caveat attached to every synthetic stand-in classification row, so a
+#: saved row cannot be misread as divergent or random
+STANDIN_NOTE = (
+    "synthetic stand-in: labels drawn from a unit-logit-variance "
+    "logistic model (data/synthetic.generate_*), whose Bayes-optimal "
+    "classifier has log-loss ~0.60 and AUC ~0.74 (Monte-Carlo) — "
+    "train loss near 0.60 is AT the generator's floor, not underfit"
+)
+
+
+def baseline_suite(
+    scale: float = 1.0,
+    data_dir: Optional[str] = None,
+    rounds: int = 100,
+    batch: Optional[str] = None,
+    journal=None,
+    *,
+    device=None,
+    init_params: Optional[dict] = None,
+) -> dict:
+    """Reproduce the five BASELINE.json comparison configs.
+
+    Real datasets (covtype / amazon / kc_house) are used when prepared under
+    ``data_dir`` in the reference layout; otherwise each config falls back to
+    a synthetic stand-in of the same structure (one-hot CSR with the real
+    set's nnz a row for covtype and amazon, linear-model data for
+    least-squares, GMM otherwise) at ``scale`` x a canonical size, and the
+    suite labels record the substitution. Returns {config_name: summaries}.
+    ``batch`` and ``journal`` thread into every :func:`compare` (a journal
+    makes the whole suite preemption-safe); ``device`` as in
+    ``trainer.train``. ``init_params`` maps a row label ("naive",
+    "cyccoded_s2", "agc_collect_N-3", "avoidstragg_s1", ...,
+    "partialrepcoded_s3", "mlp_agc") to its initial params, e.g. a JAX
+    run's draw for parity."""
+    from erasurehead_tpu_torch.data import io as data_io
+    from erasurehead_tpu_torch.data.synthetic import (
+        generate_gmm,
+        generate_linear,
+        generate_onehot,
+    )
+
+    def _rows(rows, parts):
+        n = max(parts * 8, int(rows * scale))
+        return parts * max(1, round(n / parts))  # a multiple of n_partitions
+
+    _cache: dict = {}
+
+    def get_data(name, parts, fallback):
+        """Prepared real dataset if present under data_dir, else a synthetic
+        stand-in of the same structure. Memoized per (name, parts)."""
+        key = (name, parts)
+        if key in _cache:
+            return _cache[key]
+        if data_dir is not None:
+            path = os.path.join(data_dir, name, str(parts))
+            if data_io.has_reference_layout(path):
+                _cache[key] = (data_io.read_reference_layout(path, parts), name)
+                return _cache[key]
+        rows, cols = fallback
+        if name in ONEHOT_NNZ:
+            # one-hot CSR with the real dataset's nnz a row, so the suite
+            # takes the sparse path the actual workload would take
+            nnz = min(ONEHOT_NNZ[name], cols)
+            ds = generate_onehot(_rows(rows, parts), cols, parts, n_fields=nnz, seed=0)
+        else:
+            maker = (
+                generate_linear
+                if name in ("kc_house_data", "synthetic-linear")
+                else generate_gmm
+            )
+            ds = maker(_rows(rows, parts), cols, parts, seed=0)
+        _cache[key] = (ds, f"synthetic({name}-shaped)")
+        return _cache[key]
+
+    def preset_cfg(dataset_name, ds, src=None, **kw):
+        """Config carrying the dataset's reference lr preset (main.py:37-46)
+        and alpha = 1/n_train for the data in use. A synthetic stand-in of
+        a real classification set runs at a stand-in-convergent constant lr
+        (the real set's preset does not transfer): the stable constant lr
+        scales as 1/nnz a row (1.0 at nnz 12); ``artificial`` keeps its
+        preset, and the linear preset transfers as is."""
+        n_train = ds.X_train.shape[0]
+        cfg = RunConfig.for_dataset(
+            dataset_name, rounds=rounds, add_delay=True,
+            **{"n_rows": n_train, "n_cols": ds.X_train.shape[1], **kw},
+        )
+        is_standin = src is not None and src != dataset_name
+        if (is_standin and dataset_name != "artificial"
+                and cfg.model is not ModelKind.LINEAR
+                and "lr_schedule" not in kw):
+            nnz = ONEHOT_NNZ.get(dataset_name)
+            cfg = dataclasses.replace(
+                cfg, lr_schedule=1.0 if nnz is None else min(1.0, 12.0 / nnz)
+            )
+        return cfg
+
+    def tag(summaries, name, src=None, dataset_name=None):
+        """Record the suite config name on each row, and annotate stand-in
+        classification rows with the generator's ceiling."""
+        for s in summaries:
+            s.suite = name
+            if (src is not None and src != dataset_name
+                    and s.config.model is not ModelKind.LINEAR):
+                s.note = STANDIN_NOTE
+        return summaries
+
+    def run(configs, ds, **kw):
+        inits = None
+        if init_params is not None:
+            inits = {label: init_params[label] for label in configs if label in init_params}
+        return compare(configs, ds, batch=batch, journal=journal, device=device,
+                       init_params=inits or None, **kw)
+
+    out: dict = {}
+
+    # 1. Logistic on covtype, uncoded, 8 workers (BASELINE.json configs[0])
+    W = 8
+    ds, src = get_data("covtype", W, (2048, 64))
+    cfg = preset_cfg(
+        "covtype", ds, src, scheme="naive", n_workers=W, n_stragglers=0,
+        update_rule="GD",
+    )
+    name = f"1_naive_covtype[{src}]"
+    out[name] = tag(run({"naive": cfg}, ds), name, src, "covtype")
+
+    # 2. Logistic on amazon, exact cyclic-MDS coding, s=2 (configs[1])
+    ds, src = get_data("amazon", W, (2048, 64))
+    cfg = preset_cfg(
+        "amazon", ds, src, scheme="cyccoded", n_workers=W, n_stragglers=2,
+        update_rule="AGD",
+    )
+    name = f"2_egc_amazon[{src}]"
+    out[name] = tag(run({"cyccoded_s2": cfg}, ds), name, src, "amazon")
+
+    # 3. Least-squares on kc_house, AGC with num_collect=N-3 (configs[2])
+    W3 = 9  # AGC needs (s+1) | W
+    ds, src = get_data("kc_house_data", W3, (2048, 64))
+    cfg = preset_cfg(
+        "kc_house_data", ds, src, scheme="approx", model=ModelKind.LINEAR,
+        n_workers=W3, n_stragglers=2, num_collect=W3 - 3, update_rule="AGD",
+    )
+    name = f"3_agc_kc_house[{src}]"
+    out[name] = tag(run({"agc_collect_N-3": cfg}, ds), name, src, "kc_house_data")
+
+    # 4. Synthetic: partial_replication vs avoidstragg over n_stragglers
+    #    (configs[3]): partial and plain schemes need different partition
+    #    counts, so per-config compares share one arrival schedule, then
+    #    time_to_target is re-anchored on one shared loss target
+    W4 = 12
+    arr = straggler.arrival_schedule(rounds, W4, add_delay=True, mean=0.5)
+    sweep: list = []
+    for s in (1, 2, 3):
+        for scheme, ppw in (
+            ("avoidstragg", 0),
+            # ppw = n_separate (2 unique) + (s+1) replicated slots
+            ("partialrepcoded", s + 3),
+        ):
+            parts = (ppw - s) * W4 if ppw else W4
+            d, _ = get_data("artificial", parts, (2048, 64))
+            c = preset_cfg(
+                "artificial", d, scheme=scheme, n_workers=W4, n_stragglers=s,
+                update_rule="AGD", partitions_per_worker=ppw,
+            )
+            sweep.extend(run({f"{scheme}_s{s}": c}, d, arrivals=arr))
+    # diverged rows stay out of the anchor: a NaN min() would void every
+    # row's time_to_target
+    anchors = [
+        s.final_train_loss
+        for s in sweep
+        if s.status == "ok" and np.isfinite(s.final_train_loss)
+    ]
+    shared_target = 1.05 * min(anchors) if anchors else None
+    for s in sweep:
+        s.time_to_target = (
+            time_to_target_loss(s.training_loss, s.timeset, shared_target)
+            if shared_target is not None and s.status == "ok"
+            else None
+        )
+    out["4_partialrep_vs_avoidstragg_sweep"] = tag(
+        sweep, "4_partialrep_vs_avoidstragg_sweep"
+    )
+
+    # 5. 2-layer MLP on covtype-shaped data, AGC (configs[4])
+    ds, src = get_data("covtype", W, (2048, 64))
+    cfg = preset_cfg(
+        "covtype", ds, src, scheme="approx", model=ModelKind.MLP, n_workers=W,
+        n_stragglers=1, num_collect=W - 2, update_rule="GD",
+    )
+    name = f"5_mlp_agc[{src}]"
+    out[name] = tag(run({"mlp_agc": cfg}, ds), name, src, "covtype")
+    return out
 
 
 def save_summaries(summaries: Sequence[RunSummary], path: str) -> None:
@@ -434,3 +699,91 @@ def format_table(summaries: Sequence[RunSummary]) -> str:
             f"{auc} {ttt} {derr}"
         )
     return "\n".join(lines)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """``python -m erasurehead_tpu_torch.train.experiments`` (and the CLI's
+    ``sweep`` subcommand): run the BASELINE.json suite (scaled down by
+    default) and print its tables."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="erasurehead-tpu-torch-experiments")
+    p.add_argument("--scale", type=float, default=1.0)
+    p.add_argument("--rounds", type=int, default=30)
+    p.add_argument("--data-dir", default=None, help="prepared real data root")
+    p.add_argument("--out", default=None, help="write summaries JSON here")
+    p.add_argument("--figures", default=None,
+                   help="render comparison PNGs into this directory "
+                        "(needs matplotlib)")
+    p.add_argument("--events", default=None,
+                   help="a run-telemetry events.jsonl: not ported (the "
+                        "event plane, ROADMAP A13); refused")
+    p.add_argument("--batch-trajectories", default=None,
+                   choices=["on", "off", "auto"],
+                   help="trajectory-batched sweep dispatch "
+                        "(trainer.train_cohort): configs sharing a device "
+                        "data stack run as ONE cohort round loop. Default: "
+                        "ERASUREHEAD_BATCH_TRAJECTORIES env, else auto "
+                        "(batch cohorts of >= 2)")
+    p.add_argument("--sweep-journal", default=None, metavar="DIR",
+                   help="journal each trajectory's summary row into "
+                        "DIR/sweep_journal.jsonl as it finishes "
+                        "(train/journal.py): the suite becomes "
+                        "preemption-safe. Default: "
+                        "ERASUREHEAD_SWEEP_JOURNAL env, else off")
+    p.add_argument("--resume-sweep", action="store_true",
+                   help="skip trajectories the sweep journal already "
+                        "completed (matching config + data + arrival "
+                        "digests), rehydrating their rows: a resumed "
+                        "suite's output is row-for-row identical to an "
+                        "uninterrupted one. Requires --sweep-journal (or "
+                        "the env var); ERASUREHEAD_RESUME_SWEEP=1 does "
+                        "the same")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the suite computes; cuda raises when there is no card")
+    ns = p.parse_args(argv)
+
+    if ns.events:
+        p.error("--events is not ported yet: the port has no event "
+                "emission (ROADMAP queue A, A13, the obs plane)")
+    journal_dir = resolve_sweep_journal(ns.sweep_journal)
+    resume = resolve_resume_sweep(True if ns.resume_sweep else None)
+    if resume and journal_dir is None:
+        p.error("--resume-sweep requires --sweep-journal DIR (or "
+                "ERASUREHEAD_SWEEP_JOURNAL)")
+    journal = (
+        journal_lib.SweepJournal(journal_dir, resume=resume) if journal_dir else None
+    )
+    try:
+        suite = baseline_suite(
+            scale=ns.scale, data_dir=ns.data_dir, rounds=ns.rounds,
+            batch=ns.batch_trajectories, journal=journal, device=ns.device,
+        )
+    finally:
+        if journal is not None:
+            journal.close()
+    if journal is not None:
+        print(f"sweep journal -> {journal.path}")
+    all_rows: list = []
+    for name, summaries in suite.items():
+        print(f"\n== {name} ==")
+        print(format_table(summaries))
+        all_rows.extend(summaries)
+        if ns.figures:
+            from erasurehead_tpu_torch.train import plots
+
+            fig = plots.save_comparison_figure(
+                summaries, os.path.join(ns.figures, f"{name}.png"), title=name
+            )
+            if fig:
+                print(f"figure -> {fig}")
+    if ns.out:
+        save_summaries(all_rows, ns.out)
+        print(f"\nsummaries -> {ns.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

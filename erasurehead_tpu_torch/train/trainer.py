@@ -40,6 +40,16 @@ and ``resume``; train/checkpoint.py): the round loop runs in chunks of
 ``checkpoint_every`` rounds with a save between chunks, and a resumed run
 starts at the restored round; its history covers [start_round, rounds).
 
+The device data stack comes through the sweep engine's data cache
+(train/cache.get_or_build_data), keyed like the JAX package's upload plus
+the device: repeated runs over one dataset object reuse the stack.
+
+Pipelined training (``cfg.pipeline_depth=1``, parallel/pipeline.py): the
+schedule is the pipelined recurrence over the same arrivals, and the loop
+carries a second params slot, so round r's gradient is taken at the params
+that entered round r-1 (rounds 0 and 1 both at p0) while the update applies
+to the live state.
+
 Timing artifacts keep two clocks apart, as the JAX package does:
   - ``timeset``/``worker_times``: *simulated* cluster seconds from the
     arrival model;
@@ -70,14 +80,16 @@ from erasurehead_tpu_torch.models.moe import MoEModel
 from erasurehead_tpu_torch.obs import decode as obs_decode
 from erasurehead_tpu_torch.ops import blocks, codes, kernels
 from erasurehead_tpu_torch.ops import features as features_lib
-from erasurehead_tpu_torch.parallel import collect, step as step_lib, straggler
+from erasurehead_tpu_torch.parallel import collect, pipeline as pipeline_lib
+from erasurehead_tpu_torch.parallel import step as step_lib, straggler
+from erasurehead_tpu_torch.train import cache as cache_lib
 from erasurehead_tpu_torch.train import checkpoint as ckpt_lib
 from erasurehead_tpu_torch.train import optimizer
-from erasurehead_tpu_torch.train.cache import layout_stack_signature
 from erasurehead_tpu_torch.utils import chaos as chaos_lib
 from erasurehead_tpu_torch.utils.config import (
     ComputeMode,
     ModelKind,
+    PipelineRefusal,
     RunConfig,
     resolve_arrival_trace,
 )
@@ -187,6 +199,16 @@ class TrainResult:
     # a cohort member's dispatch (train_cohort): cohort_size,
     # cohort_lowering, cohort_dispatches, stack_mode; None for train()
     cohort: Optional[dict] = None
+    # the data cache's telemetry for this run (train/cache.py): enabled,
+    # data_hit, bytes_reused, stack_bytes, setup_seconds (host seconds from
+    # the call to the round loop's clock), stack_mode, pipeline_depth and
+    # pipeline_params_slot_bytes; a cohort member's also holds the cohort
+    # fields
+    cache_info: Optional[dict] = None
+    # the collection schedule the run decoded with: a parallel/pipeline.
+    # PipelinedSchedule (dispatch, done, dispatch_ahead, staleness) when
+    # pipelined
+    schedule: object = None
 
     @property
     def fused(self) -> bool:
@@ -207,16 +229,15 @@ def _to_device(a: np.ndarray, device, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
 
-def _device_stack(cfg: RunConfig, dataset: Dataset, layout, faithful: bool, dev):
-    """The run's data stack, moved to the device once: worker-major
+def _build_stack(cfg: RunConfig, dataset: Dataset, layout, faithful: bool, dev):
+    """The run's data stack, moved to the device: worker-major
     [W, S, rows, F] (faithful) or partition-major [P, rows, F], its labels,
     and the training row count (the JAX package's shard_run_data on one
     device). A CSR dataset stacks as PaddedRows or FieldOnehot per
-    ``cfg.sparse_format`` (a FieldOnehot stack carries the run's
-    ``fields_margin``/``fields_scatter``/``sparse_lanes``); under
-    ``stack_dtype="int8"`` the partition-major stack is quantized before
-    the worker-major gather (ops/features.QuantizedStack), so every slot
-    holds its partition's int8 values and scales."""
+    ``cfg.sparse_format``; under ``stack_dtype="int8"`` the partition-major
+    stack is quantized before the worker-major gather
+    (ops/features.QuantizedStack), so every slot holds its partition's int8
+    values and scales."""
     Xp_h, yp_h = partition_stack(dataset, layout.n_partitions, cfg.sparse_format)
     stack_dtype = cfg.resolve_stack_dtype()
     if stack_dtype == "int8":
@@ -232,12 +253,51 @@ def _device_stack(cfg: RunConfig, dataset: Dataset, layout, faithful: bool, dev)
     # the data dtype: the stored float dtype, or cfg.dtype under int8
     data_dtype = _torch_dtype(cfg.dtype if stack_dtype == "int8" else stack_dtype)
     X = features_lib.to_device(Xh, dev, data_dtype)
-    if isinstance(X, features_lib.FieldOnehot):
-        X = X.with_lowering(cfg.fields_margin, cfg.fields_scatter, cfg.sparse_lanes)
     # labels ride along the data dtype (as in the JAX package), then stay
     # float32 for the residual
     y = _to_device(yh, dev, data_dtype).float()
     return X, y, yp_h.size
+
+
+def _device_stack(cfg: RunConfig, dataset: Dataset, layout, faithful: bool, dev):
+    """:func:`_build_stack` through the data cache: ``(X, y, n_train,
+    hit)``. The key is the JAX package's upload key (dataset identity, the
+    layout's stacking signature with the storage, the partition count) plus
+    the device, so a CPU run never receives a card stack. A FieldOnehot
+    stack takes the run's ``fields_margin``/``fields_scatter``/
+    ``sparse_lanes`` after the lookup: the lowering is not part of the
+    cached stack."""
+    key = (
+        "stacks",
+        cache_lib.dataset_token(dataset),
+        _stack_signature(cfg, layout),
+        layout.n_partitions,
+        str(dev),
+    )
+    (X, y, n_train), hit = cache_lib.get_or_build_data(
+        key, lambda: _build_stack(cfg, dataset, layout, faithful, dev)
+    )
+    if isinstance(X, features_lib.FieldOnehot):
+        X = X.with_lowering(cfg.fields_margin, cfg.fields_scatter, cfg.sparse_lanes)
+    return X, y, n_train, hit
+
+
+def _cache_info(cfg: RunConfig, hit: bool, stats_before: dict, X, y, faithful: bool,
+                setup_seconds: float, final_params) -> dict:
+    """A run's ``TrainResult.cache_info`` (the JAX trainer's, without the
+    executable cache's fields)."""
+    return {
+        "enabled": cache_lib.enabled(),
+        "data_hit": hit,
+        "bytes_reused": cache_lib.stats().bytes_reused - stats_before["bytes_reused"],
+        "stack_bytes": cache_lib.device_nbytes((X, y)),
+        "setup_seconds": setup_seconds,
+        "stack_mode": "materialized" if faithful else "deduped",
+        "pipeline_depth": cfg.pipeline_depth,
+        "pipeline_params_slot_bytes": (
+            cache_lib.device_nbytes(final_params) if cfg.pipeline_depth else 0
+        ),
+    }
 
 
 def _prepare_sparse(X, grad_fn, params, y, weights) -> None:
@@ -341,11 +401,37 @@ def train(
     checkpoint there (or from round 0, saying so on stderr, when there is
     none). ``params_history`` then covers only rounds [start_round, rounds);
     the control-plane arrays still cover the whole run, and
-    ``steps_per_sec`` leaves the checkpoint I/O out."""
+    ``steps_per_sec`` leaves the checkpoint I/O out.
+
+    ``cfg.pipeline_depth=1`` refuses ``checkpoint_dir``/``resume`` and a
+    caller-provided ``schedule`` (:class:`PipelineRefusal`): the stale
+    params slot is not in the checkpoint, and the pipelined schedule is
+    derived here from the arrivals."""
+    t_call = time.perf_counter()
     if checkpoint_every is not None and checkpoint_every < 1:
         raise ValueError(
             f"checkpoint_every must be >= 1, got {checkpoint_every}"
         )
+    if cfg.pipeline_depth:
+        # a mid-run restore would re-enter the loop with a fabricated stale
+        # slot and silently fork the trajectory; journaled sweeps
+        # (train/journal.py) are the kill -> resume path of pipelined runs
+        if checkpoint_dir is not None or resume:
+            raise PipelineRefusal(
+                "checkpoint_restart",
+                "pipeline_depth=1 refuses checkpoint_dir/resume: the "
+                "stale params slot is not in the checkpoint contract, so "
+                "a mid-run restore cannot reproduce the pipelined "
+                "trajectory (use journaled sweep resume instead)",
+            )
+        if schedule is not None:
+            raise PipelineRefusal(
+                "custom_schedule",
+                "pipeline_depth=1 refuses a caller-provided schedule: the "
+                "pipelined timing recurrence and the stale-gradient carry "
+                "must agree, so the schedule is derived from the arrivals "
+                "here (parallel/pipeline.pipelined_schedule), not passed in",
+            )
     dev = resolve_device(device)
     layout = build_layout(cfg)
     model = build_model(cfg)
@@ -355,7 +441,12 @@ def train(
     if arrivals is None:
         arrivals = default_arrivals(cfg)
     if schedule is None:
-        schedule = build_schedule(cfg, arrivals, layout)
+        if cfg.pipeline_depth:
+            # the same drawn arrivals, the bounded-staleness dispatch
+            # recurrence on top; it duck-types CollectionSchedule
+            schedule = pipeline_lib.pipelined_schedule(cfg, arrivals, layout)
+        else:
+            schedule = build_schedule(cfg, arrivals, layout)
     decode_err = obs_decode.decode_error_series(layout, schedule.message_weights)
     slot_w = step_lib.expand_slot_weights(
         schedule.message_weights, layout.coeffs, np.asarray(layout.slot_is_coded)
@@ -364,7 +455,8 @@ def train(
     alpha = cfg.effective_alpha
 
     # ---- data plane: the stack moves to the device once --------------------
-    X, y, n_train = _device_stack(cfg, dataset, layout, faithful, dev)
+    stats_before = cache_lib.stats().snapshot()
+    X, y, n_train, data_hit = _device_stack(cfg, dataset, layout, faithful, dev)
     weights = _to_device(_round_weights(layout, slot_w, faithful), dev, torch.float32)
 
     if init_params is None:
@@ -442,19 +534,31 @@ def train(
         params0,
     )
 
+    # the pipelined carry's second slot: the params the next round's
+    # gradient is taken at, a copy so that nothing written to the live
+    # params can reach it (rounds 0 and 1 both read p0)
+    depth = cfg.pipeline_depth
+    stale = blocks.tree_map(torch.clone, state.params) if depth else None
+
     # chunk boundaries [start, start + every, ..., rounds]: a save between
     # chunks, none after the last; the clock covers the rounds only
     step_len = checkpoint_every or max(cfg.rounds - start_round, 1)
     bounds = list(range(start_round, cfg.rounds, step_len)) + [cfg.rounds]
     wall = 0.0
+    setup_seconds = None
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
+        if setup_seconds is None:
+            setup_seconds = t0 - t_call
         for i in range(lo, hi):
             # the absolute round index: AGD's theta and Adam's bias
             # correction read it, so a resumed run continues the count
-            g = grad_fn(state.params, X, y, weights[i])
+            p_grad = step_lib.staleness_slot_params(state.params, stale, depth)
+            g = grad_fn(p_grad, X, y, weights[i])
+            if depth:
+                stale = state.params  # the params that entered this round
             state = update_fn(state, g, float(lr32[i]), alpha, n_train, float(i))
             blocks.tree_map(lambda h, p: h[i - start_round].copy_(p), history, state.params)
         if dev.type == "cuda":
@@ -480,6 +584,9 @@ def train(
         final_state=state,
         decode_error=decode_err,
         lowering=lowering,
+        cache_info=_cache_info(cfg, data_hit, stats_before, X, y, faithful,
+                               setup_seconds or 0.0, state.params),
+        schedule=schedule,
     )
 
 
@@ -490,11 +597,16 @@ def train(
 
 def cohort_eligible(cfg: RunConfig) -> bool:
     """Can this config ride a trajectory-cohort dispatch? Not with the
-    forced fused kernel (``use_pallas="on"``: a one-trajectory kernel), and
-    only where the scheme's descriptor allows it (``cohort_batchable``).
-    The JAX package also excludes measured-arrival and pipelined runs and
-    some streamed ones; the port has none of those modes."""
-    return cfg.use_pallas != "on" and schemes.get(cfg.scheme).cohort_batchable
+    forced fused kernel (``use_pallas="on"``: a one-trajectory kernel), not
+    pipelined (the cohort loop has no batched stale-params slot, so those
+    run as per-run train()), and only where the scheme's descriptor allows
+    it (``cohort_batchable``). The JAX package also excludes measured-arrival
+    and some streamed runs; the port has neither mode yet."""
+    return (
+        cfg.use_pallas != "on"
+        and cfg.pipeline_depth == 0
+        and schemes.get(cfg.scheme).cohort_batchable
+    )
 
 
 def cohort_signature(cfg: RunConfig) -> Optional[tuple]:
@@ -516,7 +628,7 @@ def cohort_signature(cfg: RunConfig) -> Optional[tuple]:
 
 
 def _stack_signature(cfg: RunConfig, layout) -> tuple:
-    return layout_stack_signature(
+    return cache_lib.layout_stack_signature(
         layout, worker_major=cfg.compute_mode == ComputeMode.FAITHFUL,
         stack_dtype=cfg.resolve_stack_dtype(), dtype=cfg.dtype,
         sparse_format=cfg.sparse_format,
@@ -585,6 +697,14 @@ def train_cohort(
                 "train_cohort has no batched fused-kernel dispatch; "
                 "use use_pallas='auto' or 'off'"
             )
+        if c.pipeline_depth:
+            raise PipelineRefusal(
+                "cohort_batch",
+                "train_cohort has no batched stale-carry scan; pipelined "
+                "trajectories dispatch sequentially as per-run train() "
+                "(experiments.plan_cohorts already routes them so)",
+            )
+    t_call = time.perf_counter()
     cfg = cfgs[0]
     sig = cfg.static_signature()
     for c in cfgs[1:]:
@@ -644,7 +764,8 @@ def train_cohort(
     alpha_B = _to_device(np.array([c.effective_alpha for c in cfgs]), dev, torch.float32)
 
     # ---- data plane: one stack for the cohort ------------------------------
-    X, y, n_train = _device_stack(cfg, dataset, layouts[0], faithful, dev)
+    stats_before = cache_lib.stats().snapshot()
+    X, y, n_train, data_hit = _device_stack(cfg, dataset, layouts[0], faithful, dev)
     weights = _to_device(weights_h, dev, torch.float32)
     model = build_model(cfg)
     if init_params is None:
@@ -681,6 +802,7 @@ def train_cohort(
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
+    cache_info = _cache_info(cfg, data_hit, stats_before, X, y, faithful, t0 - t_call, None)
     for i in range(cfg.rounds):
         g = grad_fn(state.params, X, y, weights[i])
         state = update_fn(state, g, lr_B[i], alpha_B, n_train, float(i))
@@ -715,6 +837,8 @@ def train_cohort(
             decode_error=obs_decode.decode_error_series(lay, sched.message_weights),
             lowering=lowering,
             cohort=dict(cohort),
+            cache_info={**cache_info, **cohort},
+            schedule=sched,
         ))
     return results
 

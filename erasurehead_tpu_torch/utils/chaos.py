@@ -1,15 +1,185 @@
-"""Straggler-regime injection armed by an environment variable.
+"""Chaos injection: deterministic faults and straggler regimes armed by env vars.
 
-The regime part of erasurehead_tpu/utils/chaos.py: a deterministic mid-run
-straggler-regime change (parallel/straggler.RegimeShift), read by
+The port of erasurehead_tpu/utils/chaos.py.
+
+Faults (``ERASUREHEAD_CHAOS=spec[,spec...]``, each spec
+``mode:site:count[:message]``): the resilience machinery (the sweep journal
+and its resume, the checkpoint fallback) exists to survive failures that are
+awkward to produce on demand; a spec makes one reproducible. ``mode`` is
+``kill`` (the process dies through ``os._exit`` with :data:`KILL_EXIT`: no
+cleanup, nothing flushed beyond what already reached disk), ``raise`` (a
+:class:`ChaosInjection` whose message carries ``message``, default
+``RESOURCE_EXHAUSTED``) or ``stall`` (the invocation sleeps ``message``
+seconds, default 30). ``count`` fires on the Nth invocation of the site
+(``2``) or on the Nth and every later one (``2+``). The wired sites
+(:data:`WIRED_SITES`) are ``trajectory`` (after a sweep trajectory's row is
+finished and journaled, experiments.compare) and ``checkpoint`` (at the
+head of checkpoint.save, so the save never commits). The JAX package's other
+sites are refused at parse time, naming the ROADMAP step that brings them:
+a spec that parses is never silently ignored.
+
+Straggler regimes (``ERASUREHEAD_REGIME``, below): a deterministic mid-run
+regime change (parallel/straggler.RegimeShift), read by
 train/trainer.default_arrivals. Not a fault (nothing crashes), but it makes
-non-stationary straggling reproducible for tests and runs. The fault sites
-of the JAX module (kills and raises at named sites) are not ported yet.
+non-stationary straggling reproducible.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import time
+from typing import Optional
+
+#: env var arming the fault
+CHAOS_ENV = "ERASUREHEAD_CHAOS"
+
+#: exit code of a chaos kill: distinctive, so a harness can tell an injected
+#: preemption from a genuine crash
+KILL_EXIT = 43
+
+#: every instrumented site of the JAX package
+SITES = (
+    "trajectory", "cohort", "checkpoint", "adapt", "elastic",
+    "worker_death", "worker_revive",
+    "serve_intake", "serve_dispatch", "serve_reply",
+    "fleet_replica",
+    "prefetch",
+    "tune_race",
+)
+
+#: the sites the port instruments
+WIRED_SITES = ("trajectory", "checkpoint")
+
+#: an unwired site -> the ROADMAP queue A step whose module brings it
+UNWIRED_SITES = {
+    "cohort": "A12 step 6 (failures: the cohort degradation drills)",
+    "adapt": "A12 step 7 (adapt/)",
+    "elastic": "A12 step 6 (failures and elastic/)",
+    "worker_death": "A12 step 6 (elastic membership)",
+    "worker_revive": "A12 step 6 (elastic membership)",
+    "serve_intake": "A13 (serve/)",
+    "serve_dispatch": "A13 (serve/)",
+    "serve_reply": "A13 (serve/)",
+    "fleet_replica": "A13 (serve/ fleet)",
+    "prefetch": "A12 step 4 (out-of-core streaming)",
+    "tune_race": "A12 step 8 (tune/)",
+}
+
+
+class ChaosInjection(RuntimeError):
+    """An injected fault (mode ``raise``); the message carries the
+    configured status marker."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ChaosSpec:
+    mode: str  # "kill" | "raise" | "stall"
+    site: str
+    count: int  # 1-based invocation number that fires
+    sticky: bool  # True = fire on count and every later invocation
+    message: str
+
+
+def parse_spec(spec: str) -> ChaosSpec:
+    """Parse one ``mode:site:count[:message]`` spec; loud on malformed
+    specs and on sites the port does not instrument (a chaos run silently
+    doing nothing would invalidate the drill)."""
+    parts = spec.split(":", 3)
+    if len(parts) < 3:
+        raise ValueError(f"{CHAOS_ENV}={spec!r}: want mode:site:count[:message]")
+    mode, site, count = parts[0], parts[1], parts[2]
+    message = parts[3] if len(parts) > 3 else "RESOURCE_EXHAUSTED"
+    if site not in SITES:
+        raise ValueError(f"{CHAOS_ENV}={spec!r}: site must be one of {SITES}")
+    if site in UNWIRED_SITES:
+        raise ValueError(
+            f"{CHAOS_ENV}={spec!r}: site {site!r} is not instrumented in "
+            f"erasurehead_tpu_torch yet (ROADMAP queue A, "
+            f"{UNWIRED_SITES[site]}); wired sites: {WIRED_SITES}"
+        )
+    if mode not in ("kill", "raise", "stall"):
+        raise ValueError(f"{CHAOS_ENV}={spec!r}: mode must be kill|raise|stall")
+    if mode == "stall":
+        # the message field carries the stall duration in seconds
+        if len(parts) <= 3:
+            message = "30"
+        try:
+            if float(message) < 0:
+                raise ValueError
+        except ValueError:
+            raise ValueError(
+                f"{CHAOS_ENV}={spec!r}: stall takes a non-negative "
+                f"seconds value in the message field, got {message!r}"
+            ) from None
+    sticky = count.endswith("+")
+    try:
+        n = int(count[:-1] if sticky else count)
+    except ValueError:
+        raise ValueError(f"{CHAOS_ENV}={spec!r}: count must be an int or 'N+'") from None
+    if n < 1:
+        raise ValueError(f"{CHAOS_ENV}={spec!r}: count must be >= 1")
+    return ChaosSpec(mode=mode, site=site, count=n, sticky=sticky, message=message)
+
+
+def parse_specs(value: str) -> list:
+    """Parse the full env value: a comma-separated spec list."""
+    return [parse_spec(part) for part in value.split(",") if part]
+
+
+_counts: dict = {}
+
+
+def reset() -> None:
+    """Zero the per-site invocation counters (tests)."""
+    _counts.clear()
+
+
+def active() -> Optional[ChaosSpec]:
+    """The first armed spec, or None when chaos is off."""
+    specs = active_specs()
+    return specs[0] if specs else None
+
+
+def active_specs() -> list:
+    """All armed specs ([] when chaos is off)."""
+    value = os.environ.get(CHAOS_ENV)
+    return parse_specs(value) if value else []
+
+
+def _fires(spec: ChaosSpec, n: int) -> bool:
+    return n == spec.count or (spec.sticky and n > spec.count)
+
+
+def maybe_fire(site: str) -> None:
+    """Count one invocation of ``site``; fire the armed fault if its
+    trigger condition is met. No-op (beyond one env lookup) when unarmed."""
+    if CHAOS_ENV not in os.environ:
+        return
+    specs = [s for s in active_specs() if s.site == site]
+    if not specs:
+        return
+    _counts[site] = _counts.get(site, 0) + 1
+    n = _counts[site]
+    for spec in specs:
+        if not _fires(spec, n):
+            continue
+        if spec.mode == "kill":
+            # preemption: no cleanup, no atexit; only what already reached
+            # disk (the journal writes a whole line at a time) survives
+            os._exit(KILL_EXIT)
+        if spec.mode == "stall":
+            time.sleep(float(spec.message))
+            continue
+        raise ChaosInjection(
+            f"{spec.message}: chaos injection at site {site!r} "
+            f"(invocation {n}, spec {spec.mode}:{spec.site}:"
+            f"{spec.count}{'+' if spec.sticky else ''})"
+        )
+
+
+# ---------------------------------------------------------------------------
+# straggler-regime injection
 
 #: env var arming a straggler-regime shift
 #: (``kind:round[:param[:param2]]``): ``heavytail:50[:alpha]`` switches

@@ -9,10 +9,13 @@ and deduped compute modes, float32 or bfloat16 data, the int8 stack, the
 sparse stack formats and their lowerings, the flat and margin-flat
 gradient lowerings, the fused-kernel switch and the per-layer (blockwise)
 gradient coding knobs, the heterogeneous-cluster arrival model and the
-recorded arrival trace, and the attention family's sequence-parallel knobs
-(validated; one device runs them unsharded). Also the
-static lowering signature the trajectory-cohort engine groups by, and the
-sweep harness's batching switch (:func:`resolve_batch_trajectories`).
+recorded arrival trace, the attention family's sequence-parallel knobs
+(validated; one device runs them unsharded), and bounded-staleness
+pipelining (``pipeline_depth``, refused with :class:`PipelineRefusal` where
+it is unsound). Also the static lowering signature the trajectory-cohort
+engine groups by, and the sweep harness's switches: batching
+(:func:`resolve_batch_trajectories`) and the sweep journal
+(:func:`resolve_sweep_journal`, :func:`resolve_resume_sweep`).
 """
 
 from __future__ import annotations
@@ -95,6 +98,19 @@ def as_scheme(name) -> "Scheme | ExtensionScheme":
     raise ValueError(
         f"unknown scheme {name!r}; registered schemes: {schemes.names()}"
     )
+
+
+class PipelineRefusal(ValueError):
+    """Typed refusal for combinations where bounded-staleness pipelining
+    (``pipeline_depth=1``) is unsound or unproven. A ``ValueError``, so every
+    caller classifies it like any other config refusal, while callers that
+    care why read ``reason``."""
+
+    def __init__(self, reason: str, message: str):
+        #: machine-readable refusal tag ("exact_decode", "momentum_unproven",
+        #: "checkpoint_restart", ...), stable across message rewording
+        self.reason = reason
+        super().__init__(message)
 
 
 class UpdateRule(str, enum.Enum):
@@ -262,6 +278,27 @@ class RunConfig:
     # optimal_decode hook (the partial two-part layouts) keep their fixed
     # weights
     decode: str = "fixed"
+    # bounded-staleness pipelined training (parallel/pipeline.py): 0 keeps
+    # the synchronous round barrier; 1 dispatches round t+1's worker compute
+    # against the params of round t-1 while round t's arrivals drain
+    # (staleness tau=1): the trainer carries a second params slot, and the
+    # collection schedule becomes the deterministic pipelined recurrence
+    # over the same drawn arrival matrix. Refused (PipelineRefusal) on
+    # exact-decode schemes and on AGD/ADAM
+    pipeline_depth: int = 0
+
+    @classmethod
+    def for_dataset(cls, dataset: str, **overrides) -> "RunConfig":
+        """Build a config with the dataset preset's shape and model applied."""
+        preset = DATASET_PRESETS[dataset]
+        base = dict(
+            dataset=dataset,
+            n_rows=preset["n_rows"],
+            n_cols=preset["n_cols"],
+            model=preset["model"],
+        )
+        base.update(overrides)
+        return cls(**base)
 
     def __post_init__(self):
         self.scheme = as_scheme(self.scheme)
@@ -368,6 +405,21 @@ class RunConfig:
             raise ValueError(
                 f"decode must be fixed/optimal, got {self.decode!r}"
             )
+        if self.pipeline_depth not in (0, 1):
+            raise ValueError(
+                f"pipeline_depth must be 0 (synchronous) or 1 (bounded "
+                f"staleness tau=1), got {self.pipeline_depth}"
+            )
+        if self.pipeline_depth and self.update_rule != UpdateRule.GD:
+            raise PipelineRefusal(
+                "momentum_unproven",
+                f"pipeline_depth=1 refuses update_rule="
+                f"{self.update_rule.value!r}: the momentum/adaptive "
+                "update's stability under a tau=1 stale gradient is "
+                "unproven here — use update_rule='GD' with pipelining",
+            )
+        # the JAX package also refuses arrival_mode='measured' here; the
+        # port has no measured mode yet (ROADMAP A12 step 5 brings both)
         if self.num_collect is None:
             self.num_collect = self.n_workers
         if self.dataset not in DATASET_PRESETS:
@@ -394,6 +446,9 @@ class RunConfig:
             "stack_dtype": self.stack_dtype,
             "update_rule": self.update_rule.value,
             "dtype": self.dtype,
+            # the staleness slot restructures the round's carry, so tau=0
+            # and tau=1 trajectories never share a cohort
+            "pipeline_depth": self.pipeline_depth,
             "sparse_lanes": self.sparse_lanes,
             "dense_margin_cols": self.dense_margin_cols,
             "layer_coding": self.layer_coding,
@@ -497,3 +552,44 @@ def resolve_arrival_trace(
     if val is None:
         val = env if env is not None else os.environ.get(ARRIVAL_TRACE_ENV)
     return val or None
+
+
+#: env var enabling the sweep journal (train/journal.py) when no journal is
+#: passed explicitly: its value is the journal DIRECTORY
+SWEEP_JOURNAL_ENV = "ERASUREHEAD_SWEEP_JOURNAL"
+
+#: env var enabling resume-from-journal (skip already-completed
+#: trajectories) when the CLI flag is absent
+RESUME_SWEEP_ENV = "ERASUREHEAD_RESUME_SWEEP"
+
+
+def resolve_sweep_journal(
+    flag: Optional[str] = None, env: Optional[str] = None
+) -> Optional[str]:
+    """The sweep-journal directory, or None (journaling off). Precedence:
+    explicit ``--sweep-journal DIR`` > :data:`SWEEP_JOURNAL_ENV` > off.
+    ``env`` stands in for the real environment lookup (tests)."""
+    val = flag
+    if val is None:
+        val = env if env is not None else os.environ.get(SWEEP_JOURNAL_ENV)
+    return val or None
+
+
+def resolve_resume_sweep(
+    flag: Optional[bool] = None, env: Optional[str] = None
+) -> bool:
+    """Should a journaled sweep skip trajectories its journal already
+    completed? Explicit flag > :data:`RESUME_SWEEP_ENV` truthy/falsy value >
+    False (record only). ``env`` stands in for the real environment lookup
+    (tests)."""
+    if flag is not None:
+        return bool(flag)
+    val = env if env is not None else os.environ.get(RESUME_SWEEP_ENV)
+    if val is None or val == "":
+        return False
+    val = str(val).strip().lower()
+    if val in _TRUTHY:
+        return True
+    if val in _FALSY:
+        return False
+    raise ValueError(f"{RESUME_SWEEP_ENV} must be truthy/falsy, got {val!r}")
