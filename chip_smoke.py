@@ -188,6 +188,31 @@ Phases, one JSON line each:
                  pipelined, 20 rounds, 20 decode launches, within 1e-4 of
                  the CPU; the refusals of cyccoded, AGD and
                  --checkpoint-dir with their reasons.
+  30. streamed - (after pipeline) the main path out of a shard store
+                 (--stack-residency streamed): with no window (every
+                 partition, the store spilled to a temporary directory) 100
+                 fused_glm_grad launches and five artifacts bitwise the
+                 resident main run's; --stream-window 6 (approx's groups
+                 of s+1 workers make 3, 6 and 15 the window-uniform
+                 windows: 5 slot-groups of 6 workers, B1 at
+                 [18, 4400, 128]): 100 launches, two card reruns bitwise,
+                 the loss falling, clocks byte-equal to and the first 10
+                 rounds' replayed loss within relative 1e-4 of the CPU run,
+                 the loop's peak device bytes at most depth + 2 windows;
+                 the same for cyccoded --stream-window 10 (halo 2, the last
+                 span wraps, B1 at [30, 4400, 128]); an
+                 int8 store written by ``data.prepare --store
+                 --store-dtype int8`` (13,200 x 128) trained windowed with
+                 no launch; a 16x store (2,112,000 x 128 float32, about
+                 1.09 GB, in a temporary directory) under an
+                 ERASUREHEAD_STREAM_WINDOW budget of two 3-partition
+                 windows, deduped: 100 launches at [3, 70400, 128], reruns
+                 bitwise, steps/s, the prefetcher's staging and stall
+                 seconds and overlap, peak windows, and a profile (busy
+                 share); the seven cohort schemes deduped and streamed
+                 (window 6) through compare in one dispatch, no launch.
+                 B1 is also checked (``check``) and timed (``time_stream``)
+                 at the three window shapes.
 Later, beside ``time`` and ``profile``: the attention run's per-slot leaves
 through ``decode_ops``, its round's decode (one launch, six leaves of
 [90, 913] floats) against its plain version, six GEMVs and the bound, and
@@ -2034,6 +2059,204 @@ def pipeline_phase(cli, kernels, tmp, both0) -> dict:
     return rec
 
 
+# the streamed phase: the main path out of a shard store
+STREAM_ARGS = MAIN_ARGS + ["--stack-residency", "streamed"]
+# approx's layout puts each partition on one group of s+1 = 3 workers, so a
+# window is window-uniform only in multiples of 3 dividing 30: 6 gives 5
+# slot-groups of 6 workers, halo 0, B1 at [18, 4400, 128]
+STREAM_WINDOW = 6
+STREAM_SHAPE = (18, 4400, 128)
+# cyccoded's cyclic supports {w..w+2}: window 10 gives 3 slot-groups of 10
+# workers with a halo of 2 (the last span wraps), B1 at [30, 4400, 128]
+HALO_ARGS = STREAM_ARGS[:1] + ["cyccoded"] + STREAM_ARGS[2:STREAM_ARGS.index("--num-collect")] \
+    + STREAM_ARGS[STREAM_ARGS.index("--num-collect") + 2:] + ["--stream-window", "10"]
+HALO_SHAPE = (30, 4400, 128)
+BIG_ROWS = 16 * 132000  # the 16x store: 2,112,000 x 128 float32, about 1.08 GB
+BIG_SHAPE = (3, BIG_ROWS // 30, 128)  # a 3-partition deduped window
+INT8_STORE_ROWS = 13200  # the prepare --store int8 run (W = 30, 440 rows a partition)
+
+
+def stream_bound(res) -> dict:
+    """A streamed run's peak device bytes over its loop, in windows, against
+    the prefetcher's bound (depth + 2 windows)."""
+    from erasurehead_tpu_torch.data.prefetch import DEFAULT_DEPTH
+
+    ci = res.cache_info
+    peak_windows = ci["device_peak_bytes"] / ci["stack_bytes"]
+    bound = DEFAULT_DEPTH + 2
+    if peak_windows > bound:
+        raise AssertionError(f"streamed loop peaked at {peak_windows} windows > {bound}")
+    return dict(peak_bytes=ci["device_peak_bytes"], window_bytes=ci["stack_bytes"],
+                peak_windows=peak_windows, bound_windows=bound)
+
+
+def windowed_runs(cli, kernels, tmp, args, shape, halo, want) -> tuple:
+    """A windowed streamed CLI run twice on the card and once on the CPU:
+    ``want`` launches each on the card, windows of ``shape`` with ``halo``,
+    reruns bitwise, the loss falling, clocks byte-equal to the CPU run's and
+    the first 10 rounds' replayed loss within relative 1e-4 of it, the
+    loop's peak device bytes within the prefetcher's bound."""
+    runs = []
+    for device in ("cuda", "cuda", "cpu"):
+        kernels.reset_launches()
+        res, ev, _ = cli.run(parse_config(cli, args), quiet=True, device=device,
+                             output_dir=os.path.join(tmp, "win_" + device))
+        runs.append(dict(res=res, loss=np.asarray(ev.training_loss),
+                         launches=dict(kernels.LAUNCHES)))
+    a, b, cpu = runs
+    ci = a["res"].cache_info
+    if a["launches"] != want or b["launches"] != want:
+        raise AssertionError(f"windowed runs launched {a['launches']}, {b['launches']}")
+    if ci["stack_bytes"] != shape[0] * shape[1] * (shape[2] + 1) * 4 or ci["stream_halo"] != halo:
+        raise AssertionError(f"window of {ci['stack_bytes']} bytes, halo {ci['stream_halo']}: "
+                             f"not {shape} with halo {halo}")
+    bitwise = torch.equal(a["res"].params_history, b["res"].params_history)
+    clocks = (a["res"].timeset.tobytes() == cpu["res"].timeset.tobytes()
+              and a["res"].worker_times.tobytes() == cpu["res"].worker_times.tobytes())
+    rel10 = max_rel(a["loss"][:SHORT_ROUNDS], cpu["loss"][:SHORT_ROUNDS])
+    if not bitwise or not clocks or rel10 > 1e-4 or not a["loss"][-1] < a["loss"][0]:
+        raise AssertionError(f"windowed {args}: bitwise {bitwise}, clocks {clocks}, "
+                             f"rel {rel10}, loss {a['loss'][0]} -> {a['loss'][-1]}")
+    rec = dict(
+        args=args, launches=a["launches"], rerun_launches=b["launches"],
+        window_shape=list(shape), lowering=a["res"].lowering, reruns_bitwise=bitwise,
+        clocks_equal_cpu=clocks, max_rel_loss_vs_cpu_10_rounds=rel10,
+        max_rel_loss_vs_cpu_100_rounds=max_rel(a["loss"], cpu["loss"]),
+        train_loss_first_last=[float(a["loss"][0]), float(a["loss"][-1])],
+        steps_per_sec=[r["res"].steps_per_sec for r in runs[:2]],
+        cpu_steps_per_sec=cpu["res"].steps_per_sec,
+        **{k: ci[k] for k in ("stream_window", "n_windows", "stream_halo",
+                              "stream_group_workers", "setup_seconds")},
+        prefetch=[r["res"].cache_info["prefetch"] for r in runs[:2]],
+        **stream_bound(a["res"]),
+    )
+    return rec, a, b
+
+
+def streamed_phase(cli, kernels, experiments, both0, main_gpu) -> dict:
+    """The main path out of a shard store (``--stack-residency streamed``):
+    with no window, artifacts bitwise the resident main run's and 100 B1;
+    ``--stream-window 6``: 100 B1 on [18, 4400, 128] slot-group windows,
+    two card reruns bitwise, the loss falling, clocks byte-equal to and the
+    first 10 rounds' replayed loss within relative 1e-4 of the CPU run, the
+    peak device bytes within the prefetcher's bound; the same for cyccoded
+    at ``--stream-window 10`` (halo 2, a wrapping span, B1 on
+    [30, 4400, 128]); an int8 store written by ``prepare --store`` trains
+    with no launch; a 16x store (about 1 GB)
+    under an ERASUREHEAD_STREAM_WINDOW budget of a 3-partition window:
+    steps/s, staging and stall seconds, overlap, peak windows, a profile;
+    the seven cohort schemes deduped and streamed in one dispatch."""
+    from erasurehead_tpu_torch.data import prepare, store as store_lib
+    from erasurehead_tpu_torch.data.synthetic import generate_gmm
+    from erasurehead_tpu_torch.train import trainer
+    from erasurehead_tpu_torch.utils.config import STREAM_WINDOW_ENV
+
+    t_phase = time.perf_counter()
+    rec = {}
+    b1 = {**both0, "fused_glm_grad": ROUNDS}
+    with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-stream-") as tmp:
+        old_tempdir = tempfile.tempdir
+        tempfile.tempdir = tmp  # the trainer's spilled stores land here
+        try:
+            full = counted_run(cli, kernels, os.path.join(tmp, "full"), STREAM_ARGS, b1)
+            same = {a: full["arts"][a].tobytes() == main_gpu["arts"][a].tobytes()
+                    for a in ARTIFACTS}
+            if not all(same.values()):
+                raise AssertionError(f"full-cover streamed artifacts differ: {same}")
+            rec["full_cover"] = dict(launches=full["launches"], artifacts_bitwise_resident=same,
+                                     steps_per_sec=full["manifest"]["steps_per_sec"])
+
+            win_args = STREAM_ARGS + ["--stream-window", str(STREAM_WINDOW)]
+            rec["window"], a, b = windowed_runs(cli, kernels, tmp, win_args, STREAM_SHAPE, 0, b1)
+            rec["halo_window"], halo, halo_b = windowed_runs(cli, kernels, tmp, HALO_ARGS, HALO_SHAPE,
+                                                        2, b1)
+
+            # an int8 store written by the prepare CLI
+            sdir = os.path.join(tmp, "int8_store")
+            t0 = time.perf_counter()
+            prepare.main(["synthetic", "--rows", str(INT8_STORE_ROWS), "--cols", "128",
+                          "--workers", "30", "--out", os.path.join(tmp, "prep"),
+                          "--store", sdir, "--store-dtype", "int8"])
+            prep_s = time.perf_counter() - t0
+            int8_args = with_rounds(win_args, ROUNDS) + ["--stack-dtype", "int8", "--rows",
+                                                         str(INT8_STORE_ROWS)]
+            cfg8 = parse_config(cli, int8_args)
+            kernels.reset_launches()
+            res8 = trainer.train(cfg8, store_lib.open_store(sdir).dataset())
+            launches8 = dict(kernels.LAUNCHES)
+            if launches8 != both0 or not bool(torch.isfinite(res8.params_history).all()):
+                raise AssertionError(f"int8 store run launched {launches8}")
+            rec["int8_store"] = dict(launches=launches8, lowering=res8.lowering,
+                                     prepare_seconds=prep_s, steps_per_sec=res8.steps_per_sec,
+                                     prefetch=res8.cache_info["prefetch"])
+
+            # the 16x store under a byte budget of two 3-partition windows
+            t0 = time.perf_counter()
+            big = generate_gmm(BIG_ROWS, 128, 30, seed=0)
+            gen_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            store = store_lib.write_store(big, os.path.join(tmp, "big"), 30)
+            write_s = time.perf_counter() - t0
+            del big
+            big_ds = store.dataset()
+            budget = 2 * 3 * store.partition_bytes()
+            os.environ[STREAM_WINDOW_ENV] = str(budget)
+            try:
+                cfg = dataclasses.replace(
+                    parse_config(cli, MAIN_ARGS + ["--stack-residency", "auto",
+                                                   "--compute-mode", "deduped"]),
+                    n_rows=BIG_ROWS)
+                kernels.reset_launches()
+                res = trainer.train(cfg, big_ds)
+                launches = dict(kernels.LAUNCHES)
+                again = trainer.train(cfg, big_ds)
+                prof = profile_run(lambda: trainer.train(cfg, big_ds))
+            finally:
+                del os.environ[STREAM_WINDOW_ENV]
+            ci = res.cache_info
+            if launches != b1 or ci["stream_window"] != 3 or ci["stack_mode"] != "deduped":
+                raise AssertionError(f"16x store: {launches}, window {ci['stream_window']}")
+            if not torch.equal(res.params_history, again.params_history):
+                raise AssertionError("16x store reruns differ")
+            rec["big_store"] = dict(
+                rows=BIG_ROWS, store_bytes=store.partition_bytes() * 30, budget_bytes=budget,
+                generate_seconds=gen_s, write_seconds=write_s, launches=launches,
+                window_shape=list(BIG_SHAPE), steps_per_sec=[res.steps_per_sec,
+                                                             again.steps_per_sec],
+                wall_time_s=[res.wall_time, again.wall_time],
+                prefetch=[res.cache_info["prefetch"], again.cache_info["prefetch"]],
+                **stream_bound(res),
+                profile={k: prof[k] for k in ("warm_steps_per_sec", "profiled_loop_wall_ms",
+                                              "device_ms_in_loop", "device_ms_per_round",
+                                              "device_busy_share", "kernel_ms", "top")},
+            )
+            del big_ds, store
+
+            # the seven cohort schemes, deduped and streamed, one dispatch
+            ds = cli.load_dataset(parse_config(cli, MAIN_ARGS))
+            configs = {k: dataclasses.replace(c, stack_residency="streamed",
+                                              stream_window=STREAM_WINDOW)
+                       for k, c in cohort_configs("deduped", (0,)).items()}
+            plan, batched, sequential = planned(experiments, configs)
+            run = counted_compare(kernels, experiments, configs, ds, both0, batch="auto")
+            if run["counters"]["cohort.dispatches"] != 1 or len(batched) != 1 or sequential:
+                raise AssertionError(f"streamed compare: {run['counters']}, plan {plan}")
+            rec["compare"] = dict(launches=run["launches"], counters=run["counters"],
+                                  seconds=run["seconds"],
+                                  lowering=run["rows"][0].cache["cohort_lowering"],
+                                  losses=losses_fall(run["rows"]))
+        finally:
+            tempfile.tempdir = old_tempdir
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit("streamed", **rec)
+    rec["launches_by_run"] = {"full_cover": full["launches"], "window": a["launches"],
+                              "window_rerun": b["launches"], "halo_window": halo["launches"],
+                              "halo_window_rerun": halo_b["launches"],
+                              "int8_store": launches8,
+                              "big_store": launches, "compare": run["launches"]}
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -2111,8 +2334,14 @@ def main() -> int:
             for kind in kernels.GLM_KINDS:
                 checks.append(check_glm(kernels, shape, dtype, kind, 0, 30 + i,
                                         weights=stack_w[label]))
+    # B1 at the streamed phase's window stacks
+    for i, shape in enumerate((STREAM_SHAPE, HALO_SHAPE, BIG_SHAPE)):
+        for kind in kernels.GLM_KINDS:
+            checks.append(check_glm(kernels, shape, torch.float32, kind, 2, seed=50 + i))
     main_err = max(main_err, max(c["max_abs_err"] for c in checks
-                                 if c["shape"] in (list(PARTIAL_SHAPE), list(SPARSE_SHAPE))
+                                 if c["shape"] in (list(PARTIAL_SHAPE), list(SPARSE_SHAPE),
+                                                   list(STREAM_SHAPE), list(HALO_SHAPE),
+                                                   list(BIG_SHAPE))
                                  and c["dtype"] == "float32" and c["kind"] == "logistic"))
 
     both0 = {name: 0 for name in kernels.LAUNCHES}
@@ -2224,6 +2453,9 @@ def main() -> int:
         **{f"journal_{k}": n for k, n in journal_rec["launches"].items()},
         **{f"pipeline_{k}": n for k, n in pipe["launches_by_run"].items()},
     }
+    # out-of-core streaming: the main path out of a shard store
+    streamed = streamed_phase(cli, kernels, experiments, both0, gpu)
+    sweep_launches.update({f"streamed_{k}": n for k, n in streamed["launches_by_run"].items()})
 
     # the sparse and compressed stacks: no kernel takes them
     t_sparse = time.perf_counter()
@@ -2264,6 +2496,18 @@ def main() -> int:
          kernel_bf16_ms=kernel_bf16_ms, bound_ms=bound_ms, bound_bf16_ms=bound_bf16_ms,
          achieved_tb_per_s=(bound_ms / min(kernel_ms, kernel_ms_2)) * HBM_BYTES_PER_S / 1e12)
     del b, X, y, w, Xb
+    stream_times = {}
+    for label, shape in (("approx_window_6", STREAM_SHAPE), ("cyccoded_window_10", HALO_SHAPE),
+                         ("window_3_of_16x", BIG_SHAPE)):
+        b, X, y, w = make_inputs(*shape, torch.float32, seed=102)
+        k1 = time_ms(lambda: kernels.fused_glm_grad(b, X, y, w, "logistic"))
+        p1 = time_ms(lambda: kernels.reference_glm_grad(b, X, y, w, "logistic"))
+        k2 = time_ms(lambda: kernels.fused_glm_grad(b, X, y, w, "logistic"))
+        bound, by = glm_bound_ms(*shape, 4)
+        stream_times[label] = dict(shape=list(shape), ms=min(k1, k2), kernel_ms=[k1, k2],
+                                   plain_ms=p1, bound_ms=bound, bound_by=by)
+        emit("time_stream", kernel="fused_glm_grad", **stream_times[label])
+        del b, X, y, w
     for shape in WIDE_SHAPES:  # off the main path: the wide kernel's cost
         b, X, y, w = make_inputs(*shape, torch.float32, seed=101)
         k_ms = time_ms(lambda: kernels.fused_glm_grad(b, X, y, w, "logistic"), n=20)
@@ -2359,6 +2603,15 @@ def main() -> int:
         "schemes_legacy_input_dir_phase_s": new_phases_s,
         "sweep_runner_phases_s": sweep_phases_s,
         "pipelined_steps_per_sec": pipe["steps_per_sec"],
+        # the streamed phase's windows: B1 at each, its launches,
+        # steps/s, staging overlap and peak device windows
+        "stream_windows": stream_times,
+        "streamed": {"window_steps_per_sec": streamed["window"]["steps_per_sec"],
+                     "window_peak_windows": streamed["window"]["peak_windows"],
+                     "big_store_steps_per_sec": streamed["big_store"]["steps_per_sec"],
+                     "big_store_prefetch": streamed["big_store"]["prefetch"],
+                     "big_store_peak_windows": streamed["big_store"]["peak_windows"],
+                     "phase_s": streamed["seconds"]},
         "sparse_phases_s": sparse_phases_s,
         # a 28-trajectory deduped cohort round: the cohort matmul the path
         # runs instead, against 28 launches of this kernel

@@ -40,6 +40,10 @@ saddle, where the loss stays at log 2)::
    then cover the resumed rounds. ``--pipeline-depth 1`` trains pipelined
    (tau=1 stale gradients, GD and the approximate schemes only);
    ``--sweep-cache off`` turns the device data cache off.
+   ``--stack-residency streamed`` trains out of a shard store (the
+   dataset spilled to a temporary one), ``--stream-window N`` partitions
+   on the device at a time (train/trainer._train_streamed); ``auto``
+   streams under an ``ERASUREHEAD_STREAM_WINDOW`` byte budget.
 
 2. **Legacy positional**: the reference's 13-argument calling convention
    (main.py:20-27)::
@@ -242,6 +246,22 @@ def _flags_parser() -> argparse.ArgumentParser:
                         "partition-major stack at upload (per-partition "
                         "scale tables, dequantized at the top of every "
                         "grad body; lossy); auto follows --dtype")
+    p.add_argument("--stack-residency", default="resident",
+                   choices=["resident", "streamed", "auto"],
+                   help="where the partition stack LIVES: 'streamed' "
+                        "keeps it in an on-disk shard store (data/"
+                        "store.py) and materializes only a window of "
+                        "partitions per chunk of rounds, double-buffered by a "
+                        "host prefetcher — data larger than device memory trains "
+                        "on a fixed byte budget (ERASUREHEAD_STREAM_"
+                        "WINDOW); a window covering the whole stack is "
+                        "bitwise-identical to resident. 'auto' streams "
+                        "exactly when the budget env is set")
+    p.add_argument("--stream-window", type=int, default=None,
+                   help="streamed residency: partitions per window "
+                        "(default: sized so TWO windows fit the "
+                        "ERASUREHEAD_STREAM_WINDOW byte budget; rounded "
+                        "down to a divisor of the partition count)")
     p.add_argument("--sparse-format", default="padded",
                    choices=["padded", "fields", "auto"],
                    help="sparse (CSR) stack representation: padded = "
@@ -357,6 +377,8 @@ def _flags_to_config(ns: argparse.Namespace) -> RunConfig:
         sp_form=ns.sp_form,
         dtype=ns.dtype,
         stack_dtype=ns.stack_dtype,
+        stack_residency=ns.stack_residency,
+        stream_window=ns.stream_window,
         sparse_format=ns.sparse_format,
         fields_scatter=ns.fields_scatter,
         fields_margin=ns.fields_margin,

@@ -15,9 +15,16 @@ take per leaf.
 
 Row-count convention (the reference's src/coded.py:23): rows_per_partition =
 n_samples // P, trailing remainder rows dropped from training.
+
+A streamed run (``stack_residency="streamed"``) stages windows of the stack
+from a shard store (data/store.py) instead: :func:`plan_stream_windows` says
+which partitions each window stages and how its slot-groups gather them.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import numpy as np
 import scipy.sparse as sps
@@ -90,3 +97,124 @@ def worker_stack(layout: CodingLayout, Xp, yp):
     gathered through the assignment (leaf by leaf for a container: a
     QuantizedStack's scale table rides the same gather as its payload)."""
     return take_lead(Xp, layout.assignment), yp[layout.assignment]
+
+
+# ---------------------------------------------------------------------------
+# stream windows (stack_residency="streamed"; train/trainer._train_streamed)
+
+#: the ROADMAP step that brings the ring transport of faithful windows
+RING_STEP = "ROADMAP queue A, A9 (the multi-device ring transport)"
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamWindowPlan:
+    """The windows a streamed run stages, the JAX package's plan.
+
+    Deduped plans are windows of the partition axis: window k stages
+    partitions ``[k*window, (k+1)*window)``. Faithful (``"materialized"``)
+    plans are windows of the coded assignment: contiguous slot-groups of
+    ``group_workers`` workers whose assigned partitions all fall inside the
+    staged span ``[k*window, k*window + window + halo) mod P``. The
+    ``halo`` is the assignment's forward reach past the window edge (``s``
+    for the cyclic ``{w..w+s} mod P`` supports).
+
+    ``ranges[k]`` is the tuple of contiguous partition ranges staged for
+    window k (two when the halo wraps the partition axis), ordered so that
+    staged position ``i`` holds partition ``(k*window + i) mod P``.
+    ``local_assignment[wl, s]`` maps slot-group worker ``wl``'s slot ``s``
+    to its staged position; it is the same for every window (the planner
+    refuses assignments that are not window-uniform), so one worker-major
+    gather serves every window."""
+
+    mode: str  # "deduped" | "materialized"
+    n_partitions: int
+    window: int  # partition-window size (divides P)
+    n_windows: int
+    halo: int  # staged partitions past the window edge (0 for deduped)
+    group_workers: int  # workers per slot-group (0 for deduped)
+    ranges: tuple  # per window k: ((lo, hi), ...) contiguous staged ranges
+    local_assignment: Optional[np.ndarray]  # [gw, S] staged positions
+
+    @property
+    def staged_partitions(self) -> int:
+        """Partitions staged per window (window + halo)."""
+        return self.window + self.halo
+
+    def sub_layout(self):
+        """The one-window layout a ring plan is built over: the ring
+        transport is not ported, so this raises."""
+        raise NotImplementedError(
+            "sub_layout() plans the ring transport of a stream window, "
+            f"which waits for {RING_STEP}"
+        )
+
+
+def plan_stream_windows(layout: CodingLayout, window: int, *, mode: str = "deduped") -> StreamWindowPlan:
+    """The staged windows a streamed run of ``layout`` consumes.
+
+    ``window`` is the partition-window size (a divisor of P, from
+    trainer._resolve_stream_window). Deduped plans are plain partition
+    windows. Faithful plans split the worker axis into ``P // window``
+    contiguous slot-groups and stage each group's whole assigned span,
+    window plus halo, refusing when the worker axis does not split evenly
+    or the assignment is not window-uniform. ``mode="ring"`` raises: its
+    transport waits for A9."""
+    P = int(layout.n_partitions)
+    window = int(window)
+    if window < 1 or P % window:
+        raise ValueError(
+            f"stream window must be a divisor of n_partitions={P}, got {window}"
+        )
+    n_windows = P // window
+    if mode == "deduped":
+        return StreamWindowPlan(
+            mode=mode, n_partitions=P, window=window, n_windows=n_windows,
+            halo=0, group_workers=0,
+            ranges=tuple(((k * window, (k + 1) * window),) for k in range(n_windows)),
+            local_assignment=None,
+        )
+    if mode == "ring":
+        raise NotImplementedError(
+            f"stream window mode 'ring' needs the ring transport, which "
+            f"waits for {RING_STEP}; use mode 'materialized'"
+        )
+    if mode != "materialized":
+        raise ValueError(
+            f"stream window mode must be 'deduped', 'materialized' or "
+            f"'ring', got {mode!r}"
+        )
+    W = int(layout.n_workers)
+    if W % n_windows:
+        raise ValueError(
+            f"{W} workers cannot split into {n_windows} equal slot-groups "
+            f"(window {window} of {P} partitions); pick a stream window "
+            f"whose count divides the worker axis"
+        )
+    gw = W // n_windows
+    assignment = np.asarray(layout.assignment)
+    local = None
+    halo = 0
+    for k in range(n_windows):
+        loc = (assignment[k * gw : (k + 1) * gw] - k * window) % P
+        halo = max(halo, int(loc.max()) + 1 - window)
+        if local is None:
+            local = loc.astype(np.int64)
+        elif not np.array_equal(local, loc):
+            raise ValueError(
+                f"assignment is not window-uniform: slot-group {k} "
+                f"touches a different local partition pattern than group "
+                "0, so no single chunk executable (or ring hop table) can "
+                "serve every window — run this scheme resident, or with "
+                "a stream window covering every partition"
+            )
+    halo = max(0, min(halo, P - window))
+    staged = window + halo
+    ranges = []
+    for k in range(n_windows):
+        lo = k * window
+        hi = lo + staged
+        ranges.append(((lo, hi),) if hi <= P else ((lo, P), (0, hi - P)))
+    return StreamWindowPlan(
+        mode=mode, n_partitions=P, window=window, n_windows=n_windows,
+        halo=halo, group_workers=gw, ranges=tuple(ranges), local_assignment=local,
+    )

@@ -3,12 +3,14 @@
 One registry any module writes to under a dotted name
 ("sweep_cache.data_hits", "sweep_journal.records", "cohort.split", ...).
 Everything is plain host-side Python: recording a metric never touches the
-device. Gauges, histograms, the snapshot export and the one-time warnings of
-the JAX module are not ported (they wait for the obs plane).
+device. Also the JAX module's one-time stderr warnings (:func:`warn_once`).
+Gauges, histograms and the snapshot export are not ported (they wait for
+the obs plane).
 """
 
 from __future__ import annotations
 
+import sys
 import threading
 
 
@@ -59,3 +61,22 @@ class MetricsRegistry:
 
 #: process-default registry (the caches, the journal and the harness count here)
 REGISTRY = MetricsRegistry()
+
+
+_warned: set = set()
+
+
+def warn_once(key: str, message: str) -> bool:
+    """Print ``message`` to stderr the first time ``key`` is seen in this
+    process; later calls are no-ops. Returns whether it printed. Callers
+    pair it with a counter, so the repeats stay countable."""
+    if key in _warned:
+        return False
+    _warned.add(key)
+    print(message, file=sys.stderr)
+    return True
+
+
+def reset_warnings() -> None:
+    """Forget which one-time warnings fired (tests)."""
+    _warned.clear()

@@ -44,6 +44,14 @@ The device data stack comes through the sweep engine's data cache
 (train/cache.get_or_build_data), keyed like the JAX package's upload plus
 the device: repeated runs over one dataset object reuse the stack.
 
+Out-of-core streaming (``cfg.stack_residency``, data/store.py,
+data/prefetch.py): the stack lives in an on-disk shard store. A window
+covering every partition trains the resident loop on the store's rows
+(bitwise the resident run); a smaller one trains block by block
+(:func:`_train_streamed`, :func:`_train_cohort_streamed`), a window of
+partitions staged per chunk of rounds behind the previous chunk's compute,
+the round's gradient taking the same lowering ladder over the window.
+
 Pipelined training (``cfg.pipeline_depth=1``, parallel/pipeline.py): the
 schedule is the pipelined recurrence over the same arrivals, and the loop
 carries a second params slot, so round r's gradient is taken at the params
@@ -63,6 +71,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
+import tempfile
 import time
 from typing import Optional, Sequence
 
@@ -70,7 +79,13 @@ import numpy as np
 import torch
 
 from erasurehead_tpu_torch import schemes
-from erasurehead_tpu_torch.data.sharding import partition_stack, worker_stack
+from erasurehead_tpu_torch.data import store as store_lib
+from erasurehead_tpu_torch.data.prefetch import Prefetcher
+from erasurehead_tpu_torch.data.sharding import (
+    partition_stack,
+    plan_stream_windows,
+    worker_stack,
+)
 from erasurehead_tpu_torch.data.synthetic import Dataset
 from erasurehead_tpu_torch.models.attention import AttentionModel
 from erasurehead_tpu_torch.models.deep_mlp import DeepMLPModel
@@ -87,11 +102,13 @@ from erasurehead_tpu_torch.train import checkpoint as ckpt_lib
 from erasurehead_tpu_torch.train import optimizer
 from erasurehead_tpu_torch.utils import chaos as chaos_lib
 from erasurehead_tpu_torch.utils.config import (
+    STREAM_WINDOW_ENV,
     ComputeMode,
     ModelKind,
     PipelineRefusal,
     RunConfig,
     resolve_arrival_trace,
+    resolve_stream_budget,
 )
 from erasurehead_tpu_torch.utils.device import resolve_device
 
@@ -237,7 +254,8 @@ def _build_stack(cfg: RunConfig, dataset: Dataset, layout, faithful: bool, dev):
     ``cfg.sparse_format``; under ``stack_dtype="int8"`` the partition-major
     stack is quantized before the worker-major gather
     (ops/features.QuantizedStack), so every slot holds its partition's int8
-    values and scales."""
+    values and scales; an int8 shard store's dataset brings its write-time
+    tables (``_store_prequantized``), which are taken as they are."""
     Xp_h, yp_h = partition_stack(dataset, layout.n_partitions, cfg.sparse_format)
     stack_dtype = cfg.resolve_stack_dtype()
     if stack_dtype == "int8":
@@ -248,7 +266,20 @@ def _build_stack(cfg: RunConfig, dataset: Dataset, layout, faithful: bool, dev):
                 "use stack_dtype float32/bfloat16 (or auto) with sparse "
                 "features"
             )
-        Xp_h = features_lib.QuantizedStack.quantize(Xp_h)
+        # an int8 shard store (data/store.py) quantized at write time: its
+        # (q, scale) tables are reused as they are (quantizing the
+        # dequantized rows again would not be bitwise stable)
+        pre = getattr(dataset, "_store_prequantized", None)
+        if pre is not None:
+            if pre.q.shape[:1] != (layout.n_partitions,):
+                raise ValueError(
+                    f"shard store holds {pre.q.shape[0]} partitions; this "
+                    f"layout needs {layout.n_partitions} — rewrite the "
+                    f"store with the run's partition count"
+                )
+            Xp_h = features_lib.QuantizedStack(np.asarray(pre.q), np.asarray(pre.scale))
+        else:
+            Xp_h = features_lib.QuantizedStack.quantize(Xp_h)
     Xh, yh = worker_stack(layout, Xp_h, yp_h) if faithful else (Xp_h, yp_h)
     # the data dtype: the stored float dtype, or cfg.dtype under int8
     data_dtype = _torch_dtype(cfg.dtype if stack_dtype == "int8" else stack_dtype)
@@ -283,10 +314,11 @@ def _device_stack(cfg: RunConfig, dataset: Dataset, layout, faithful: bool, dev)
 
 
 def _cache_info(cfg: RunConfig, hit: bool, stats_before: dict, X, y, faithful: bool,
-                setup_seconds: float, final_params) -> dict:
+                setup_seconds: float, final_params, residency: str) -> dict:
     """A run's ``TrainResult.cache_info`` (the JAX trainer's, without the
     executable cache's fields)."""
     return {
+        "residency": residency,
         "enabled": cache_lib.enabled(),
         "data_hit": hit,
         "bytes_reused": cache_lib.stats().bytes_reused - stats_before["bytes_reused"],
@@ -371,99 +403,12 @@ def _apply_layer_coding(cfg: RunConfig, model, grad_fn, params_template, faithfu
     ), True
 
 
-def train(
-    cfg: RunConfig,
-    dataset: Dataset,
-    *,
-    device=None,
-    init_params=None,
-    arrivals: Optional[np.ndarray] = None,
-    schedule: Optional[collect.CollectionSchedule] = None,
-    checkpoint_dir: Optional[str] = None,
-    checkpoint_every: Optional[int] = None,
-    resume: bool = False,
-) -> TrainResult:
-    """Run one full training run for ``cfg`` on ``dataset``.
-
-    ``device`` defaults to ``cuda`` and raises when there is no card;
-    ``device="cpu"`` runs the same loop on the CPU, where the kernels take
-    their plain PyTorch versions. ``init_params`` (an [F] array, or a dict
-    of numpy arrays for the deep families) replaces the port's own seeded
-    init, e.g. with a JAX run's draw for parity (models/glm.
-    params_from_numpy).
-    ``arrivals``/``schedule`` replace the default arrival draw and the
-    scheme's collection rule.
-
-    With ``checkpoint_dir`` and ``checkpoint_every`` set, the optimizer
-    state and the next round are saved to ``checkpoint_dir/round_<N>``
-    after every ``checkpoint_every`` rounds, never after the last
-    (train/checkpoint.py); ``resume=True`` restarts from the newest usable
-    checkpoint there (or from round 0, saying so on stderr, when there is
-    none). ``params_history`` then covers only rounds [start_round, rounds);
-    the control-plane arrays still cover the whole run, and
-    ``steps_per_sec`` leaves the checkpoint I/O out.
-
-    ``cfg.pipeline_depth=1`` refuses ``checkpoint_dir``/``resume`` and a
-    caller-provided ``schedule`` (:class:`PipelineRefusal`): the stale
-    params slot is not in the checkpoint, and the pipelined schedule is
-    derived here from the arrivals."""
-    t_call = time.perf_counter()
-    if checkpoint_every is not None and checkpoint_every < 1:
-        raise ValueError(
-            f"checkpoint_every must be >= 1, got {checkpoint_every}"
-        )
-    if cfg.pipeline_depth:
-        # a mid-run restore would re-enter the loop with a fabricated stale
-        # slot and silently fork the trajectory; journaled sweeps
-        # (train/journal.py) are the kill -> resume path of pipelined runs
-        if checkpoint_dir is not None or resume:
-            raise PipelineRefusal(
-                "checkpoint_restart",
-                "pipeline_depth=1 refuses checkpoint_dir/resume: the "
-                "stale params slot is not in the checkpoint contract, so "
-                "a mid-run restore cannot reproduce the pipelined "
-                "trajectory (use journaled sweep resume instead)",
-            )
-        if schedule is not None:
-            raise PipelineRefusal(
-                "custom_schedule",
-                "pipeline_depth=1 refuses a caller-provided schedule: the "
-                "pipelined timing recurrence and the stale-gradient carry "
-                "must agree, so the schedule is derived from the arrivals "
-                "here (parallel/pipeline.pipelined_schedule), not passed in",
-            )
-    dev = resolve_device(device)
-    layout = build_layout(cfg)
-    model = build_model(cfg)
-    faithful = cfg.compute_mode == ComputeMode.FAITHFUL
-
-    # ---- control plane (host, float64) ------------------------------------
-    if arrivals is None:
-        arrivals = default_arrivals(cfg)
-    if schedule is None:
-        if cfg.pipeline_depth:
-            # the same drawn arrivals, the bounded-staleness dispatch
-            # recurrence on top; it duck-types CollectionSchedule
-            schedule = pipeline_lib.pipelined_schedule(cfg, arrivals, layout)
-        else:
-            schedule = build_schedule(cfg, arrivals, layout)
-    decode_err = obs_decode.decode_error_series(layout, schedule.message_weights)
-    slot_w = step_lib.expand_slot_weights(
-        schedule.message_weights, layout.coeffs, np.asarray(layout.slot_is_coded)
-    )  # [R, W, S]
-    lr = cfg.resolve_lr_schedule()
-    alpha = cfg.effective_alpha
-
-    # ---- data plane: the stack moves to the device once --------------------
-    stats_before = cache_lib.stats().snapshot()
-    X, y, n_train, data_hit = _device_stack(cfg, dataset, layout, faithful, dev)
-    weights = _to_device(_round_weights(layout, slot_w, faithful), dev, torch.float32)
-
-    if init_params is None:
-        params0 = model.init_params(cfg.seed, dataset.n_features, dev)
-    else:
-        params0 = params_from_numpy(init_params, dev)
-
+def _grad_lowering(cfg: RunConfig, model, X, faithful: bool, params0):
+    """The round's gradient fn over the stack ``X`` and the name of its
+    lowering, by the ladder of the module docstring: margin-flat, then
+    flat, then the fused kernel, then the blockwise decode, else the
+    per-slot form. A streamed window takes the same ladder over its own
+    stack."""
     if faithful:
         grad_fn = step_lib.make_faithful_grad_fn(model)
     else:
@@ -500,13 +445,149 @@ def train(
     if lowering != "fused":
         grad_fn, layer_coded = _apply_layer_coding(cfg, model, grad_fn, params0, faithful)
         lowering = "layer_block" if layer_coded else lowering
-    # set-up before the clock starts: build the kernels, import torch.func,
-    # build a sparse stack's scatter plans
+    return grad_fn, lowering
+
+
+def _prepare_lowering(dev, model, lowering: str, grad_fn, X, y, params0, w0) -> None:
+    """Set-up before the clock starts: build the kernels, import
+    torch.func, build a sparse stack's scatter plans."""
     if dev.type == "cuda" and lowering in ("fused", "layer_block"):
         kernels.load_library()
     if lowering == "layer_block" or getattr(model, "grads_via_loss", False):
         step_lib.warm_autodiff()
-    _prepare_sparse(X, grad_fn, params0, y, weights[0])
+    _prepare_sparse(X, grad_fn, params0, y, w0)
+
+
+def train(
+    cfg: RunConfig,
+    dataset: Dataset,
+    *,
+    device=None,
+    init_params=None,
+    arrivals: Optional[np.ndarray] = None,
+    schedule: Optional[collect.CollectionSchedule] = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: Optional[int] = None,
+    resume: bool = False,
+) -> TrainResult:
+    """Run one full training run for ``cfg`` on ``dataset``.
+
+    ``device`` defaults to ``cuda`` and raises when there is no card;
+    ``device="cpu"`` runs the same loop on the CPU, where the kernels take
+    their plain PyTorch versions. ``init_params`` (an [F] array, or a dict
+    of numpy arrays for the deep families) replaces the port's own seeded
+    init, e.g. with a JAX run's draw for parity (models/glm.
+    params_from_numpy).
+    ``arrivals``/``schedule`` replace the default arrival draw and the
+    scheme's collection rule.
+
+    With ``checkpoint_dir`` and ``checkpoint_every`` set, the optimizer
+    state and the next round are saved to ``checkpoint_dir/round_<N>``
+    after every ``checkpoint_every`` rounds, never after the last
+    (train/checkpoint.py); ``resume=True`` restarts from the newest usable
+    checkpoint there (or from round 0, saying so on stderr, when there is
+    none). ``params_history`` then covers only rounds [start_round, rounds);
+    the control-plane arrays still cover the whole run, and
+    ``steps_per_sec`` leaves the checkpoint I/O out.
+
+    ``cfg.pipeline_depth=1`` refuses ``checkpoint_dir``/``resume`` and a
+    caller-provided ``schedule`` (:class:`PipelineRefusal`): the stale
+    params slot is not in the checkpoint, and the pipelined schedule is
+    derived here from the arrivals.
+
+    ``cfg.stack_residency`` "streamed" (or "auto" under a
+    ``ERASUREHEAD_STREAM_WINDOW`` budget) keeps the stack in a shard store
+    (the dataset's own, from data/store.ShardStore.dataset, or one written
+    to a temporary directory): a window covering every partition trains
+    through this resident loop over the store's rows, bitwise the resident
+    run; a smaller window trains block by block (:func:`_train_streamed`),
+    which refuses ``pipeline_depth=1``."""
+    t_call = time.perf_counter()
+    if checkpoint_every is not None and checkpoint_every < 1:
+        raise ValueError(
+            f"checkpoint_every must be >= 1, got {checkpoint_every}"
+        )
+    if cfg.pipeline_depth:
+        # a mid-run restore would re-enter the loop with a fabricated stale
+        # slot and silently fork the trajectory; journaled sweeps
+        # (train/journal.py) are the kill -> resume path of pipelined runs
+        if checkpoint_dir is not None or resume:
+            raise PipelineRefusal(
+                "checkpoint_restart",
+                "pipeline_depth=1 refuses checkpoint_dir/resume: the "
+                "stale params slot is not in the checkpoint contract, so "
+                "a mid-run restore cannot reproduce the pipelined "
+                "trajectory (use journaled sweep resume instead)",
+            )
+        if schedule is not None:
+            raise PipelineRefusal(
+                "custom_schedule",
+                "pipeline_depth=1 refuses a caller-provided schedule: the "
+                "pipelined timing recurrence and the stale-gradient carry "
+                "must agree, so the schedule is derived from the arrivals "
+                "here (parallel/pipeline.pipelined_schedule), not passed in",
+            )
+    dev = resolve_device(device)
+    # ---- stack residency (out-of-core streaming, data/store.py) -----------
+    # a streamed run lives in a shard store; a window covering every
+    # partition trains on the store's rows through the resident path below
+    # (bitwise the resident run), a smaller one block by block
+    # (_train_streamed)
+    residency = _resolve_residency(cfg)
+    if residency == "streamed":
+        store = _ensure_store(cfg, dataset)
+        window = _resolve_stream_window(cfg, store.n_partitions, store.partition_bytes())
+        if window < store.n_partitions:
+            if cfg.pipeline_depth:
+                raise PipelineRefusal(
+                    "streamed_window",
+                    "pipeline_depth=1 refuses windowed streamed residency: "
+                    "the block trainer re-enters the scan per window, and "
+                    "threading the stale params slot across windows is "
+                    "untested (a single-window streamed run — window "
+                    "covering every partition — rides the resident "
+                    "pipeline and composes)",
+                )
+            return _train_streamed(
+                cfg, dataset, store, window, device=dev, init_params=init_params,
+                arrivals=arrivals, schedule=schedule, checkpoint_dir=checkpoint_dir,
+                resume=resume,
+            )
+        if getattr(dataset, "_sweep_cache_token", None) != store.cache_token:
+            dataset = store.dataset()
+    layout = build_layout(cfg)
+    model = build_model(cfg)
+    faithful = cfg.compute_mode == ComputeMode.FAITHFUL
+
+    # ---- control plane (host, float64) ------------------------------------
+    if arrivals is None:
+        arrivals = default_arrivals(cfg)
+    if schedule is None:
+        if cfg.pipeline_depth:
+            # the same drawn arrivals, the bounded-staleness dispatch
+            # recurrence on top; it duck-types CollectionSchedule
+            schedule = pipeline_lib.pipelined_schedule(cfg, arrivals, layout)
+        else:
+            schedule = build_schedule(cfg, arrivals, layout)
+    decode_err = obs_decode.decode_error_series(layout, schedule.message_weights)
+    slot_w = step_lib.expand_slot_weights(
+        schedule.message_weights, layout.coeffs, np.asarray(layout.slot_is_coded)
+    )  # [R, W, S]
+    lr = cfg.resolve_lr_schedule()
+    alpha = cfg.effective_alpha
+
+    # ---- data plane: the stack moves to the device once --------------------
+    stats_before = cache_lib.stats().snapshot()
+    X, y, n_train, data_hit = _device_stack(cfg, dataset, layout, faithful, dev)
+    weights = _to_device(_round_weights(layout, slot_w, faithful), dev, torch.float32)
+
+    if init_params is None:
+        params0 = model.init_params(cfg.seed, dataset.n_features, dev)
+    else:
+        params0 = params_from_numpy(init_params, dev)
+
+    grad_fn, lowering = _grad_lowering(cfg, model, X, faithful, params0)
+    _prepare_lowering(dev, model, lowering, grad_fn, X, y, params0, weights[0])
 
     state = optimizer.init_state(params0, cfg.update_rule)
     start_round = 0
@@ -585,7 +666,466 @@ def train(
         decode_error=decode_err,
         lowering=lowering,
         cache_info=_cache_info(cfg, data_hit, stats_before, X, y, faithful,
-                               setup_seconds or 0.0, state.params),
+                               setup_seconds or 0.0, state.params, residency),
+        schedule=schedule,
+    )
+
+
+# ---------------------------------------------------------------------------
+# out-of-core streaming: the stack in a shard store, a window of partitions
+# on the device at a time (the JAX trainer's residency front and
+# _train_streamed, one device)
+
+
+def _resolve_residency(cfg: RunConfig) -> str:
+    """The resolved stack residency: ``cfg.stack_residency``, where "auto"
+    streams exactly when the host sets a device byte budget
+    (:data:`STREAM_WINDOW_ENV`; without one streaming only adds staging)."""
+    if cfg.stack_residency != "auto":
+        return cfg.stack_residency
+    return "streamed" if resolve_stream_budget() is not None else "resident"
+
+
+def _ensure_store(cfg: RunConfig, dataset: Dataset):
+    """The shard store behind a streamed run: the store the dataset was
+    rebuilt from (ShardStore.dataset brands ``_shard_store``), else the
+    in-memory dataset written once to a temporary store and branded, so
+    every later run over the dataset shares it. A store must hold the run's
+    partition count (partitions are grouped into shard files at write
+    time) and, if quantized, serve an int8 run."""
+    layout = build_layout(cfg)
+    store = getattr(dataset, "_shard_store", None)
+    if store is not None:
+        if store.n_partitions != layout.n_partitions:
+            raise ValueError(
+                f"shard store at {store.directory!r} holds "
+                f"{store.n_partitions} partitions; this run's layout needs "
+                f"{layout.n_partitions} — rewrite the store "
+                f"(data/prepare.py --store) with the run's partition count"
+            )
+        if store.quantized and cfg.resolve_stack_dtype() != "int8":
+            raise ValueError(
+                f"shard store at {store.directory!r} is quantized (int8); "
+                f"this run resolves stack_dtype="
+                f"{cfg.resolve_stack_dtype()!r} — training on the "
+                "dequantized reconstruction would silently lose precision; "
+                "use stack_dtype='int8' or rewrite the store as float32"
+            )
+        return store
+    store = store_lib.write_store(
+        dataset,
+        tempfile.mkdtemp(prefix="eh-shard-store-"),
+        layout.n_partitions,
+        stack_dtype="int8" if cfg.resolve_stack_dtype() == "int8" else "float32",
+    )
+    dataset._shard_store = store
+    return store
+
+
+def _resolve_stream_window(cfg: RunConfig, n_partitions: int, partition_bytes: int) -> int:
+    """Partitions per streamed window: ``cfg.stream_window``, else the
+    :data:`STREAM_WINDOW_ENV` budget over two windows' bytes (the one
+    computing and the one in flight), else every partition. A window below
+    P is rounded down to a divisor of P, so every window has one shape."""
+    P = int(n_partitions)
+    if cfg.stream_window is not None:
+        w = int(cfg.stream_window)
+    else:
+        budget = resolve_stream_budget()
+        if budget is None:
+            return P
+        w = int(budget // max(1, 2 * int(partition_bytes)))
+    if w >= P:
+        return P
+    w = max(1, w)
+    while P % w:
+        w -= 1
+    return w
+
+
+def _stream_remedy(cfg: RunConfig) -> str:
+    """The remedy clause of a windowed-streaming refusal, naming the knob
+    that put the run on the streamed path."""
+    if cfg.stream_window is not None:
+        return (
+            "raise stream_window (--stream-window) to cover every "
+            "partition, or run resident (stack_residency='resident')"
+        )
+    if resolve_stream_budget() is not None:
+        return (
+            f"raise the {STREAM_WINDOW_ENV} byte budget to cover every "
+            "partition, or unset it to run resident"
+        )
+    return (
+        "run this config resident (stack_residency='resident' or "
+        "'auto' without a stream budget)"
+    )
+
+
+def _check_streamed_compat(cfg: RunConfig) -> None:
+    """Refuse the knobs with no windowed body: the forced whole-stack
+    kernel (``use_pallas="on"``) and the forced blockwise decode
+    (``layer_coding="on"``), naming the knob that led to the streamed path.
+    (The JAX package also refuses model-parallel meshes here; the port has
+    no model axes.)"""
+    if cfg.use_pallas == "on":
+        raise ValueError(
+            "use_pallas='on' forces the fused whole-stack kernel, which "
+            "has no windowed streamed body; use use_pallas='auto'/'off', "
+            f"or {_stream_remedy(cfg)}"
+        )
+    if cfg.layer_coding == "on":
+        raise ValueError(
+            "layer_coding='on' forces the blockwise decode, which has no "
+            "windowed streamed body; use layer_coding='auto'/'off', "
+            f"or {_stream_remedy(cfg)}"
+        )
+
+
+def _make_stream_put(plan, dev, quantize: bool, data_dtype: torch.dtype):
+    """The host-to-device transfer of one staged window (it runs on the
+    prefetch staging thread; the per-run and cohort streamed trainers share
+    it). The staged partition-major span (window and halo, as
+    ``read_ranges`` returns it) is copied as it is; a materialized faithful
+    window then gathers the slot-group's worker-major ``[gw, S, rows, F]``
+    view on the device through the plan's local assignment. (The JAX
+    package gathers on the host and sends (s+1)x the bytes; a gather is
+    exact, so the bits are the same.) An int8 store's window brings its
+    ``(q, scale)``; a float32 window of an int8 run is quantized per
+    partition on the host before the gather, as the resident path does.
+    Labels take the data dtype and then float32, as in the resident stack.
+    Every tensor is a fresh copy: the host buffers are refilled."""
+    local = (
+        torch.from_numpy(np.asarray(plan.local_assignment))
+        if plan.mode == "materialized" else None
+    )
+
+    def upload(t, dtype=None):
+        return t.to(device=dev, dtype=dtype, non_blocking=True, copy=True)
+
+    def put(Xh, yh):
+        idx = None if local is None else local.to(dev)
+        if quantize:
+            if not isinstance(Xh, features_lib.QuantizedStack):
+                qs = features_lib.QuantizedStack.quantize(Xh.numpy())
+                Xh = features_lib.QuantizedStack(torch.from_numpy(qs.q), torch.from_numpy(qs.scale))
+            q, scale = upload(Xh.q), upload(Xh.scale, torch.float32)
+            if idx is not None:
+                q, scale = q[idx], scale[idx]
+            Xd = features_lib.QuantizedStack(q, scale)
+        else:
+            Xd = upload(Xh, data_dtype)
+            if idx is not None:
+                Xd = Xd[idx]
+        yd = upload(yh, data_dtype).float()
+        return Xd, (yd if idx is None else yd[idx])
+
+    return put
+
+
+def _stream_group_slot_weights(layout, plan, schedule) -> np.ndarray:
+    """Per-slot-group decode weights for sub-full faithful windows (host
+    float64, byte-equal to the JAX package's).
+
+    The resident [R, W] message weights cancel across workers (cyccoded's
+    telescoping sums, the MDS solves), so one slot-group's rows of them
+    reconstruct nothing. Each window instead gets its own decode: for
+    slot-group k, the min-norm least squares ``u @ E_k = 1_window`` over the
+    group's collected workers, ``E_k`` the group's effective coding matrix
+    on the staged span and the target the window's partition indicator
+    (halo partitions decode toward 0: they belong to the next window). This
+    is the least-squares optimal decode (arXiv:2006.09638) localized to one
+    slot-group, so a sub-full faithful window trains its block as
+    approximate gradient coding even for an exact scheme.
+
+    Returns ``[R, n_windows, gw, S]`` per-slot weights; separate (uncoded)
+    slots keep their always-on coeffs, their fixed contribution folded out
+    of the target (expand_slot_weights' rule)."""
+    R = schedule.collected.shape[0]
+    K, gw = plan.n_windows, plan.group_workers
+    S = int(plan.local_assignment.shape[1])
+    coeffs = np.asarray(layout.coeffs, dtype=np.float64)
+    coded = np.broadcast_to(
+        np.asarray(layout.slot_is_coded, dtype=bool), (int(layout.n_workers), S)
+    )
+    la = np.asarray(plan.local_assignment)  # [gw, S] staged positions
+    staged = plan.staged_partitions
+    target0 = (np.arange(staged) < plan.window).astype(np.float64)
+    out = np.zeros((R, K, gw, S))
+    for k in range(K):
+        rows = slice(k * gw, (k + 1) * gw)
+        ck = coeffs[rows]
+        ik = coded[rows]
+        E = np.zeros((gw, staged))
+        np.add.at(E, (np.arange(gw)[:, None], la), np.where(ik, ck, 0.0))
+        fixed = np.zeros(staged)
+        np.add.at(fixed, la[~ik], ck[~ik])
+        target = target0 - fixed
+        masks = schedule.collected[:, rows]
+        uniq, inverse = np.unique(masks, axis=0, return_inverse=True)
+        u = np.zeros((uniq.shape[0], gw))
+        for j in range(uniq.shape[0]):
+            live = np.flatnonzero(uniq[j])
+            if live.size:
+                u[j, live] = np.linalg.lstsq(E[live].T, target, rcond=None)[0]
+        mw = u[inverse.reshape(-1)]  # [R, gw]
+        out[:, k] = np.where(ik, mw[:, :, None] * ck, ck)
+    return out
+
+
+@dataclasses.dataclass
+class _StreamPlan:
+    """What the per-run and cohort streamed trainers share: the window plan,
+    the chunks of rounds and the window each consumes, the storage."""
+
+    plan: object  # data/sharding.StreamWindowPlan
+    chunks: list  # [(lo, hi)] round ranges
+    win_of: list  # the window each chunk consumes
+    round_win: np.ndarray  # [R] the window each round reads
+    stack_dtype: str
+    data_dtype: torch.dtype
+
+    @property
+    def mode(self) -> str:
+        return self.plan.mode
+
+    @property
+    def windows(self) -> list:
+        """The prefetcher's consume-order window list."""
+        return [self.plan.ranges[k] for k in self.win_of]
+
+
+def _plan_stream(cfg: RunConfig, layout, store, window: int) -> _StreamPlan:
+    """The window plan of a streamed run and its chunks of rounds: each
+    chunk of ``L = max(1, rounds // n_windows)`` rounds consumes one window,
+    chunk i window ``i mod n_windows`` (fewer rounds visit a prefix of the
+    windows), as in the JAX package."""
+    _check_streamed_compat(cfg)
+    faithful = cfg.compute_mode == ComputeMode.FAITHFUL
+    try:
+        plan = plan_stream_windows(layout, window, mode="materialized" if faithful else "deduped")
+    except ValueError as e:
+        raise ValueError(f"{e} — or {_stream_remedy(cfg)}") from None
+    stack_dtype = cfg.resolve_stack_dtype()
+    if store.quantized and stack_dtype != "int8":
+        raise ValueError(
+            f"int8 shard store requires stack_dtype='int8' (resolved "
+            f"{stack_dtype!r}): re-uploading a dequantized window would "
+            "silently train on reconstructed values"
+        )
+    L = max(1, cfg.rounds // plan.n_windows)
+    bounds = list(range(0, cfg.rounds, L)) + [cfg.rounds]
+    chunks = [(lo, hi) for lo, hi in zip(bounds[:-1], bounds[1:]) if hi > lo]
+    win_of = [i % plan.n_windows for i in range(len(chunks))]
+    round_win = np.zeros(cfg.rounds, dtype=np.int64)
+    for (lo, hi), k in zip(chunks, win_of):
+        round_win[lo:hi] = k
+    return _StreamPlan(
+        plan=plan, chunks=chunks, win_of=win_of, round_win=round_win,
+        stack_dtype=stack_dtype,
+        data_dtype=_torch_dtype(cfg.dtype if stack_dtype == "int8" else stack_dtype),
+    )
+
+
+def _stream_round_weights(sp: _StreamPlan, layout, schedule) -> np.ndarray:
+    """A streamed run's per-round weights as its window takes them (host
+    float64): deduped, round r's window's columns of the folded [R, P]
+    weights; a sub-full faithful window, its slot-group's decode
+    (:func:`_stream_group_slot_weights`); a full-cover faithful window the
+    resident slot weights."""
+    plan = sp.plan
+    slot_w = step_lib.expand_slot_weights(
+        schedule.message_weights, layout.coeffs, np.asarray(layout.slot_is_coded)
+    )  # [R, W, S]
+    if plan.mode == "deduped":
+        cols = sp.round_win[:, None] * plan.window + np.arange(plan.window)
+        return np.take_along_axis(layout.fold_slot_weights(slot_w), cols, axis=1)
+    if plan.n_windows > 1:
+        gsw = _stream_group_slot_weights(layout, plan, schedule)  # [R, K, gw, S]
+        return gsw[np.arange(len(sp.round_win)), sp.round_win]
+    return slot_w
+
+
+def _stream_cache_info(sp: _StreamPlan, window_nbytes: int, setup_seconds: float,
+                       pf_stats: dict, peak: Optional[int]) -> dict:
+    """A streamed run's ``cache_info``: the JAX trainer's keys (without the
+    executable cache's), and the device's peak bytes over the round loop
+    above its start (cuda; None on the CPU)."""
+    plan = sp.plan
+    return {
+        "enabled": cache_lib.enabled(),
+        # windows are transient by design: caching them would defeat the
+        # residency bound
+        "data_hit": False,
+        "bytes_reused": 0,
+        # device bytes of one staged window (for a faithful plan the
+        # slot-group's worker-major gather)
+        "stack_bytes": window_nbytes,
+        "setup_seconds": setup_seconds,
+        "stack_mode": plan.mode,
+        "stack_dtype": sp.stack_dtype,
+        "pipeline_depth": 0,
+        "pipeline_params_slot_bytes": 0,
+        "residency": "streamed",
+        "stream_window": plan.window,
+        "n_windows": plan.n_windows,
+        "stream_halo": plan.halo,
+        "stream_group_workers": plan.group_workers,
+        "prefetch": pf_stats,
+        "device_peak_bytes": peak,
+    }
+
+
+def _stream_loop(dev, store, sp: _StreamPlan, put, setup, round_fn, t_call: float):
+    """The streamed round loop shared by the per-run and cohort trainers.
+
+    Stages the plan's windows through a Prefetcher; ``setup(X0, y0)`` runs
+    on the first window before the clock starts (it picks the lowering);
+    then per chunk, timed from before its window's ``get`` (the wait is
+    streaming overhead) to a synchronize after its last round,
+    ``round_fn(r, X, y)`` for each of its rounds. Each window's tensors are
+    dropped before the next is fetched, so at most the prefetcher's ring and
+    the window in use occupy the device. On the card the peak device bytes
+    over the loop are read above the level before the first stage (this
+    resets the device's peak-memory statistic).
+
+    Returns ``(wall, setup_seconds, window_nbytes, prefetch stats, peak)``."""
+    cuda = dev.type == "cuda"
+    base = None
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    pf = Prefetcher(store, sp.windows, put, device=dev)
+    wall = 0.0
+    try:
+        X, y = pf.get(0)
+        window_nbytes = cache_lib.device_nbytes((X, y))
+        setup(X, y)
+        setup_seconds = None
+        for i, (lo, hi) in enumerate(sp.chunks):
+            if cuda:
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            if setup_seconds is None:
+                setup_seconds = t0 - t_call
+            if i:
+                X = y = None
+                X, y = pf.get(i)
+            for r in range(lo, hi):
+                round_fn(r, X, y)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            wall += time.perf_counter() - t0
+        X = y = None
+    finally:
+        pf.close()
+    peak = torch.cuda.max_memory_allocated(dev) - base if cuda else None
+    return wall, setup_seconds, window_nbytes, pf.stats(), peak
+
+
+def _train_streamed(
+    cfg: RunConfig,
+    dataset: Dataset,
+    store,
+    window: int,
+    *,
+    device=None,
+    init_params=None,
+    arrivals: Optional[np.ndarray] = None,
+    schedule: Optional[collect.CollectionSchedule] = None,
+    checkpoint_dir: Optional[str] = None,
+    resume: bool = False,
+) -> TrainResult:
+    """Windowed streamed training: the stack never resides on the device
+    whole. ``window`` partitions (a divisor of P, from
+    _resolve_stream_window) are staged per chunk of rounds while the
+    prefetcher (data/prefetch.py) stages the next window behind the
+    chunk's compute.
+
+    Block training, as in the JAX package, not a replay of the resident
+    run: each round's gradient reads one window (``n_train`` is the
+    window's rows), and chunks cycle through the windows in a fixed order;
+    deterministic run to run for a (config, store). Deduped windows are
+    partition windows with the folded weights' columns; faithful windows
+    are the plan's slot-groups, gathered worker-major on the device, each
+    decoded by its own least-squares weights
+    (:func:`_stream_group_slot_weights`). The round's gradient takes the
+    resident ladder over the window's stack (:func:`_grad_lowering`): a
+    dense float GLM under ``use_pallas="auto"`` goes through the fused
+    kernel, one launch a round (where the JAX package's auto declines its
+    kernel here), an int8 window its dequantizing lowering. Refused, with
+    JAX's messages: the forced kernel and the forced blockwise decode
+    (:func:`_check_streamed_compat`), assignments that are not
+    window-uniform (the planner), ``checkpoint_dir`` and ``resume``."""
+    t_call = time.perf_counter()
+    if checkpoint_dir or resume:
+        raise ValueError(
+            "checkpoint/resume/mid-schedule restart are not supported on "
+            "the windowed streamed path (kill→resume recovery is the "
+            "sweep journal's trajectory rehydration; see "
+            "tools/outofcore_smoke.py)"
+        )
+    dev = resolve_device(device)
+    layout = build_layout(cfg)
+    model = build_model(cfg)
+    sp = _plan_stream(cfg, layout, store, window)
+    faithful = sp.mode == "materialized"
+
+    # ---- control plane: the resident trainer's, then the window's slices
+    if arrivals is None:
+        arrivals = default_arrivals(cfg)
+    if schedule is None:
+        schedule = build_schedule(cfg, arrivals, layout)
+    decode_err = obs_decode.decode_error_series(layout, schedule.message_weights)
+    lr32 = cfg.resolve_lr_schedule().astype(np.float32)
+    alpha = cfg.effective_alpha
+    n_train = window * store.rows_per_partition  # the block a round averages
+    weights = _to_device(_stream_round_weights(sp, layout, schedule), dev, torch.float32)
+
+    if init_params is None:
+        params0 = model.init_params(cfg.seed, store.n_features, dev)
+    else:
+        params0 = params_from_numpy(init_params, dev)
+    state = optimizer.init_state(params0, cfg.update_rule)
+    update_fn = optimizer.make_update_fn(cfg.update_rule)
+    history = blocks.tree_map(
+        lambda p: torch.empty((cfg.rounds,) + tuple(p.shape), dtype=torch.float32, device=dev),
+        params0,
+    )
+    run = {}
+
+    def setup(X0, y0):
+        run["grad_fn"], run["lowering"] = _grad_lowering(cfg, model, X0, faithful, params0)
+        _prepare_lowering(dev, model, run["lowering"], run["grad_fn"], X0, y0, params0,
+                          weights[0])
+
+    def round_fn(r, X, y):
+        nonlocal state
+        g = run["grad_fn"](state.params, X, y, weights[r])
+        state = update_fn(state, g, float(lr32[r]), alpha, n_train, float(r))
+        blocks.tree_map(lambda h, p: h[r].copy_(p), history, state.params)
+
+    put = _make_stream_put(sp.plan, dev, sp.stack_dtype == "int8", sp.data_dtype)
+    wall, setup_seconds, window_nbytes, pf_stats, peak = _stream_loop(
+        dev, store, sp, put, setup, round_fn, t_call
+    )
+    return TrainResult(
+        params_history=history,
+        final_params=state.params,
+        timeset=schedule.sim_time,
+        worker_times=schedule.worker_times,
+        collected=schedule.collected,
+        sim_total_time=float(schedule.sim_time.sum()),
+        wall_time=wall,
+        steps_per_sec=cfg.rounds / wall if wall > 0 else 0.0,
+        n_train=n_train,
+        config=cfg,
+        layout=layout,
+        final_state=state,
+        decode_error=decode_err,
+        lowering=run["lowering"],
+        cache_info=_stream_cache_info(sp, window_nbytes, setup_seconds, pf_stats, peak),
         schedule=schedule,
     )
 
@@ -599,9 +1139,16 @@ def cohort_eligible(cfg: RunConfig) -> bool:
     """Can this config ride a trajectory-cohort dispatch? Not with the
     forced fused kernel (``use_pallas="on"``: a one-trajectory kernel), not
     pipelined (the cohort loop has no batched stale-params slot, so those
-    run as per-run train()), and only where the scheme's descriptor allows
-    it (``cohort_batchable``). The JAX package also excludes measured-arrival
-    and some streamed runs; the port has neither mode yet."""
+    run as per-run train()), not a streamed run with the forced blockwise
+    decode (no windowed body), and only where the scheme's descriptor
+    allows it (``cohort_batchable``). Streamed runs batch: trajectories of
+    one store and window plan ride one windowed cohort loop
+    (:func:`_train_cohort_streamed`), and ``static_signature`` carries the
+    residency knobs, so they never group with resident ones. The JAX
+    package also excludes measured-arrival runs; the port has no such
+    mode yet."""
+    if _resolve_residency(cfg) == "streamed" and cfg.layer_coding == "on":
+        return False
     return (
         cfg.use_pallas != "on"
         and cfg.pipeline_depth == 0
@@ -646,6 +1193,182 @@ def _lane(state: optimizer.OptState, b: int) -> optimizer.OptState:
     return optimizer.OptState(params=take(state.params), momentum=mom)
 
 
+def _cohort_schedules(cfgs, layouts, arrivals) -> list:
+    """Each trajectory's collection schedule, built as train() builds it.
+    ``arrivals``: None (each draws its own), one shared [R, W] matrix, or
+    one per trajectory."""
+    B = len(cfgs)
+    if arrivals is None:
+        arr_list = [default_arrivals(c) for c in cfgs]
+    elif isinstance(arrivals, (list, tuple)):
+        if len(arrivals) != B:
+            raise ValueError(f"got {len(arrivals)} arrival matrices for {B} trajectories")
+        arr_list = [np.asarray(a) for a in arrivals]
+    else:
+        arr_list = [np.asarray(arrivals)] * B
+    return [build_schedule(c, a, lay) for c, a, lay in zip(cfgs, arr_list, layouts)]
+
+
+def _cohort_lr_alpha(cfgs, dev):
+    """The cohort's [R, B] learning rates and [B] l2 coefficients. They are
+    trajectory axes, float32 tensors (as in the JAX cohort): the update's
+    scalar coefficients are formed in float32, where train() forms them
+    from Python floats."""
+    lr_B = _to_device(
+        np.stack([c.resolve_lr_schedule() for c in cfgs], axis=1), dev, torch.float32
+    )
+    alpha_B = _to_device(np.array([c.effective_alpha for c in cfgs]), dev, torch.float32)
+    return lr_B, alpha_B
+
+
+def _cohort_fields(B: int, lowering: str, faithful: bool) -> dict:
+    return {
+        "cohort_size": B,
+        "cohort_lowering": lowering,
+        "cohort_dispatches": 1,
+        "stack_mode": "materialized" if faithful else "deduped",
+    }
+
+
+def _cohort_results(cfgs, schedules, layouts, state, history, wall: float, n_train: int,
+                    lowering: str, cohort: dict, cache_info: dict) -> list:
+    """One TrainResult per trajectory of a cohort's round loop: its lane of
+    the stacked state and history, its own control plane, the cohort's wall
+    clock and aggregate steps/s (R * B / wall)."""
+    rounds = cfgs[0].rounds
+    agg_rate = rounds * len(cfgs) / wall if wall > 0 else 0.0
+    results = []
+    for b, (c, sched, lay) in enumerate(zip(cfgs, schedules, layouts)):
+        final = _lane(state, b)
+        results.append(TrainResult(
+            params_history=blocks.tree_map(lambda h: h[:, b].contiguous(), history),
+            final_params=final.params,
+            timeset=sched.sim_time,
+            worker_times=sched.worker_times,
+            collected=sched.collected,
+            sim_total_time=float(sched.sim_time.sum()),
+            wall_time=wall,
+            steps_per_sec=agg_rate,
+            n_train=n_train,
+            config=c,
+            layout=lay,
+            final_state=final,
+            decode_error=obs_decode.decode_error_series(lay, sched.message_weights),
+            lowering=lowering,
+            cohort=dict(cohort),
+            cache_info=dict(cache_info),
+            schedule=sched,
+        ))
+    return results
+
+
+def _cohort_layouts(cfgs) -> list:
+    """Each trajectory's layout; one shared device stack, so a trajectory
+    whose stack differs from the first's is refused rather than trained on
+    another code than its train() run would use."""
+    layouts = [build_layout(c) for c in cfgs]
+    stack0 = _stack_signature(cfgs[0], layouts[0])
+    for c, lay in zip(cfgs[1:], layouts[1:]):
+        if _stack_signature(c, lay) != stack0:
+            raise ValueError(
+                f"trajectory {c.scheme.value!r} (seed {c.seed}) builds a "
+                "different device data stack than the cohort's first "
+                "trajectory; train_cohort shares one stack — group by "
+                "cohort_signature (experiments.plan_cohorts) or run "
+                "per-trajectory train()"
+            )
+    return layouts
+
+
+def _cohort_params(model, cfgs, init_params, n_features: int, dev):
+    """The cohort's initial params, stacked on a leading [B] axis: each
+    trajectory's seeded init, or ``init_params``' entries."""
+    if init_params is None:
+        params = [model.init_params(c.seed, n_features, dev) for c in cfgs]
+    else:
+        params = [params_from_numpy(p, dev) for p in init_params]
+    return blocks.tree_map(lambda *leaves: torch.stack(leaves), *params)
+
+
+def _cohort_lowering(cfg: RunConfig, model, X, y, faithful: bool, params0, w0, dev):
+    """The cohort's gradient fn over the stack ``X`` and its lowering
+    (step.make_cohort_grad_fn), with the set-up before the clock starts:
+    build the kernels, import torch.func, build a sparse stack's scatter
+    plans."""
+    if cfg.flat_grad == "on" and not step_lib.supports_flat_grad(model, X):
+        raise ValueError(
+            "flat_grad='on' needs a closed-form GLM stack; "
+            f"got model={_model_name(model)!r}, X={type(X).__name__}"
+        )
+    _check_layer_coding(cfg, model)
+    grad_fn, lowering = step_lib.make_cohort_grad_fn(
+        model, blocks.tree_map(lambda p: p[0], params0), X, faithful=faithful,
+        layer_coding=cfg.layer_coding, block_decode=cfg.block_decode,
+        flat_grad=cfg.flat_grad,
+    )
+    if dev.type == "cuda" and lowering == "layer_block_vmap":
+        kernels.load_library()
+    step_lib.warm_autodiff()
+    _prepare_sparse(X, grad_fn, params0, y, w0)
+    return grad_fn, lowering
+
+
+def _train_cohort_streamed(cfgs, store, window: int, *, arrivals, device, init_params,
+                           t_call: float) -> list:
+    """A cohort over a shard store's windows: the streamed counterpart of
+    the resident cohort loop. One prefetch stream and one staging a chunk
+    serve all B trajectories; each trajectory's rounds are
+    :func:`_train_streamed`'s block training exactly (the same window plan,
+    chunks, window cycle and per-window weights: deduped the window's
+    columns of ``[R, B, P]``, faithful each trajectory's slot-group
+    decode), its gradient one cohort body over the window's stack (the
+    cohort matmul for a dense GLM; no blockwise form), its update the
+    vmapped one. Members match their sequential streamed runs to float
+    tolerance."""
+    cfg = cfgs[0]
+    dev = device
+    layouts = _cohort_layouts(cfgs)
+    sp = _plan_stream(cfg, layouts[0], store, window)
+    faithful = sp.mode == "materialized"
+    schedules = _cohort_schedules(cfgs, layouts, arrivals)
+    weights = _to_device(
+        np.stack([_stream_round_weights(sp, lay, sched)
+                  for lay, sched in zip(layouts, schedules)], axis=1),
+        dev, torch.float32,
+    )  # [R, B, window] (deduped) or [R, B, gw, S] (faithful)
+    lr_B, alpha_B = _cohort_lr_alpha(cfgs, dev)
+    n_train = window * store.rows_per_partition
+    model = build_model(cfg)
+    params0 = _cohort_params(model, cfgs, init_params, store.n_features, dev)
+    state = optimizer.init_state(params0, cfg.update_rule)
+    update_fn = optimizer.make_cohort_update_fn(cfg.update_rule)
+    history = blocks.tree_map(
+        lambda p: torch.empty((cfg.rounds,) + tuple(p.shape), dtype=torch.float32, device=dev),
+        params0,
+    )  # leaves [R, B, ...]
+    run = {}
+
+    def setup(X0, y0):
+        run["grad_fn"], run["lowering"] = _cohort_lowering(
+            cfg, model, X0, y0, faithful, params0, weights[0], dev
+        )
+
+    def round_fn(r, X, y):
+        nonlocal state
+        g = run["grad_fn"](state.params, X, y, weights[r])
+        state = update_fn(state, g, lr_B[r], alpha_B, n_train, float(r))
+        blocks.tree_map(lambda h, p: h[r].copy_(p), history, state.params)
+
+    put = _make_stream_put(sp.plan, dev, sp.stack_dtype == "int8", sp.data_dtype)
+    wall, setup_seconds, window_nbytes, pf_stats, peak = _stream_loop(
+        dev, store, sp, put, setup, round_fn, t_call
+    )
+    cohort = _cohort_fields(len(cfgs), run["lowering"], faithful)
+    cache_info = _stream_cache_info(sp, window_nbytes, setup_seconds, pf_stats, peak)
+    return _cohort_results(cfgs, schedules, layouts, state, history, wall, n_train,
+                           run["lowering"], cohort, {**cache_info, **cohort})
+
+
 def train_cohort(
     cfgs: Sequence[RunConfig] | RunConfig,
     dataset: Dataset,
@@ -683,7 +1406,11 @@ def train_cohort(
     signature (RunConfig.static_signature) and the data stack (deduped:
     partition count; faithful: assignment content): group mixed sets with
     experiments.plan_cohorts. Every result carries the cohort's wall clock
-    and its aggregate steps/s, R * B / wall."""
+    and its aggregate steps/s, R * B / wall.
+
+    A streamed cohort (``stack_residency``) shares the store: a window
+    covering every partition runs this loop on the store's rows, a smaller
+    one the windowed cohort loop (:func:`_train_cohort_streamed`)."""
     if isinstance(cfgs, RunConfig):
         cfgs = [cfgs]
     cfgs = list(cfgs)
@@ -719,32 +1446,26 @@ def train_cohort(
     if init_params is not None and len(init_params) != B:
         raise ValueError(f"got {len(init_params)} initial params for {B} trajectories")
     dev = resolve_device(device)
-    faithful = cfg.compute_mode == ComputeMode.FAITHFUL
-
-    # one shared device stack: refuse a trajectory whose stack differs
-    # rather than train a different code than its train() run would
-    layouts = [build_layout(c) for c in cfgs]
-    stack0 = _stack_signature(cfg, layouts[0])
-    for c, lay in zip(cfgs[1:], layouts[1:]):
-        if _stack_signature(c, lay) != stack0:
-            raise ValueError(
-                f"trajectory {c.scheme.value!r} (seed {c.seed}) builds a "
-                "different device data stack than the cohort's first "
-                "trajectory; train_cohort shares one stack — group by "
-                "cohort_signature (experiments.plan_cohorts) or run "
-                "per-trajectory train()"
+    # streamed cohorts: static_signature carries the residency knobs, so
+    # the whole cohort resolves its residency and window alike; a window
+    # covering every partition trains the resident cohort on the store's
+    # rows (bitwise), a smaller one the windowed cohort loop
+    residency = _resolve_residency(cfg)
+    if residency == "streamed":
+        store = _ensure_store(cfg, dataset)
+        window = _resolve_stream_window(cfg, store.n_partitions, store.partition_bytes())
+        if window < store.n_partitions:
+            return _train_cohort_streamed(
+                cfgs, store, window, arrivals=arrivals, device=dev,
+                init_params=init_params, t_call=t_call,
             )
+        if getattr(dataset, "_sweep_cache_token", None) != store.cache_token:
+            dataset = store.dataset()
+    faithful = cfg.compute_mode == ComputeMode.FAITHFUL
+    layouts = _cohort_layouts(cfgs)
 
     # ---- control plane, per trajectory, exactly as train() builds it ------
-    if arrivals is None:
-        arr_list = [default_arrivals(c) for c in cfgs]
-    elif isinstance(arrivals, (list, tuple)):
-        if len(arrivals) != B:
-            raise ValueError(f"got {len(arrivals)} arrival matrices for {B} trajectories")
-        arr_list = [np.asarray(a) for a in arrivals]
-    else:
-        arr_list = [np.asarray(arrivals)] * B
-    schedules = [build_schedule(c, a, lay) for c, a, lay in zip(cfgs, arr_list, layouts)]
+    schedules = _cohort_schedules(cfgs, layouts, arrivals)
     weights_h = np.stack([
         _round_weights(
             lay,
@@ -755,42 +1476,15 @@ def train_cohort(
         )
         for s, lay in zip(schedules, layouts)
     ], axis=1)  # [R, B, W, S] (faithful) or [R, B, P] (deduped)
-    # lr and alpha are trajectory axes, float32 tensors (as in the JAX
-    # cohort): the update's scalar coefficients are formed in float32, where
-    # train() forms them from Python floats
-    lr_B = _to_device(
-        np.stack([c.resolve_lr_schedule() for c in cfgs], axis=1), dev, torch.float32
-    )  # [R, B]
-    alpha_B = _to_device(np.array([c.effective_alpha for c in cfgs]), dev, torch.float32)
+    lr_B, alpha_B = _cohort_lr_alpha(cfgs, dev)
 
     # ---- data plane: one stack for the cohort ------------------------------
     stats_before = cache_lib.stats().snapshot()
     X, y, n_train, data_hit = _device_stack(cfg, dataset, layouts[0], faithful, dev)
     weights = _to_device(weights_h, dev, torch.float32)
     model = build_model(cfg)
-    if init_params is None:
-        params = [model.init_params(c.seed, dataset.n_features, dev) for c in cfgs]
-    else:
-        params = [params_from_numpy(p, dev) for p in init_params]
-    params0 = blocks.tree_map(lambda *leaves: torch.stack(leaves), *params)
-
-    if cfg.flat_grad == "on" and not step_lib.supports_flat_grad(model, X):
-        raise ValueError(
-            "flat_grad='on' needs a closed-form GLM stack; "
-            f"got model={_model_name(model)!r}, X={type(X).__name__}"
-        )
-    _check_layer_coding(cfg, model)
-    grad_fn, lowering = step_lib.make_cohort_grad_fn(
-        model, params[0], X, faithful=faithful,
-        layer_coding=cfg.layer_coding, block_decode=cfg.block_decode,
-        flat_grad=cfg.flat_grad,
-    )
-    # set-up before the clock starts: build the kernels, import torch.func,
-    # build a sparse stack's scatter plans
-    if dev.type == "cuda" and lowering == "layer_block_vmap":
-        kernels.load_library()
-    step_lib.warm_autodiff()
-    _prepare_sparse(X, grad_fn, params0, y, weights[0])
+    params0 = _cohort_params(model, cfgs, init_params, dataset.n_features, dev)
+    grad_fn, lowering = _cohort_lowering(cfg, model, X, y, faithful, params0, weights[0], dev)
 
     state = optimizer.init_state(params0, cfg.update_rule)
     update_fn = optimizer.make_cohort_update_fn(cfg.update_rule)
@@ -802,7 +1496,8 @@ def train_cohort(
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    cache_info = _cache_info(cfg, data_hit, stats_before, X, y, faithful, t0 - t_call, None)
+    cache_info = _cache_info(cfg, data_hit, stats_before, X, y, faithful, t0 - t_call, None,
+                             residency)
     for i in range(cfg.rounds):
         g = grad_fn(state.params, X, y, weights[i])
         state = update_fn(state, g, lr_B[i], alpha_B, n_train, float(i))
@@ -810,37 +1505,10 @@ def train_cohort(
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    agg_rate = cfg.rounds * B / wall if wall > 0 else 0.0
 
-    cohort = {
-        "cohort_size": B,
-        "cohort_lowering": lowering,
-        "cohort_dispatches": 1,
-        "stack_mode": "materialized" if faithful else "deduped",
-    }
-    results = []
-    for b, (c, sched, lay) in enumerate(zip(cfgs, schedules, layouts)):
-        final = _lane(state, b)
-        results.append(TrainResult(
-            params_history=blocks.tree_map(lambda h: h[:, b].contiguous(), history),
-            final_params=final.params,
-            timeset=sched.sim_time,
-            worker_times=sched.worker_times,
-            collected=sched.collected,
-            sim_total_time=float(sched.sim_time.sum()),
-            wall_time=wall,
-            steps_per_sec=agg_rate,
-            n_train=n_train,
-            config=c,
-            layout=lay,
-            final_state=final,
-            decode_error=obs_decode.decode_error_series(lay, sched.message_weights),
-            lowering=lowering,
-            cohort=dict(cohort),
-            cache_info={**cache_info, **cohort},
-            schedule=sched,
-        ))
-    return results
+    cohort = _cohort_fields(B, lowering, faithful)
+    return _cohort_results(cfgs, schedules, layouts, state, history, wall, n_train,
+                           lowering, cohort, {**cache_info, **cohort})
 
 
 def train_batch(cfg: RunConfig, dataset: Dataset, seeds, *, device=None) -> list:

@@ -13,8 +13,10 @@ cleanup, nothing flushed beyond what already reached disk), ``raise`` (a
 seconds, default 30). ``count`` fires on the Nth invocation of the site
 (``2``) or on the Nth and every later one (``2+``). The wired sites
 (:data:`WIRED_SITES`) are ``trajectory`` (after a sweep trajectory's row is
-finished and journaled, experiments.compare) and ``checkpoint`` (at the
-head of checkpoint.save, so the save never commits). The JAX package's other
+finished and journaled, experiments.compare), ``checkpoint`` (at the
+head of checkpoint.save, so the save never commits) and ``prefetch`` (on
+the staging thread of data/prefetch.Prefetcher, before each window is
+read: a raise surfaces at the trainer's next ``get``). The JAX package's other
 sites are refused at parse time, naming the ROADMAP step that brings them:
 a spec that parses is never silently ignored.
 
@@ -49,7 +51,7 @@ SITES = (
 )
 
 #: the sites the port instruments
-WIRED_SITES = ("trajectory", "checkpoint")
+WIRED_SITES = ("trajectory", "checkpoint", "prefetch")
 
 #: an unwired site -> the ROADMAP queue A step whose module brings it
 UNWIRED_SITES = {
@@ -62,7 +64,6 @@ UNWIRED_SITES = {
     "serve_dispatch": "A13 (serve/)",
     "serve_reply": "A13 (serve/)",
     "fleet_replica": "A13 (serve/ fleet)",
-    "prefetch": "A12 step 4 (out-of-core streaming)",
     "tune_race": "A12 step 8 (tune/)",
 }
 

@@ -12,10 +12,12 @@ gradient coding knobs, the heterogeneous-cluster arrival model and the
 recorded arrival trace, the attention family's sequence-parallel knobs
 (validated; one device runs them unsharded), and bounded-staleness
 pipelining (``pipeline_depth``, refused with :class:`PipelineRefusal` where
-it is unsound). Also the static lowering signature the trajectory-cohort
-engine groups by, and the sweep harness's switches: batching
-(:func:`resolve_batch_trajectories`) and the sweep journal
-(:func:`resolve_sweep_journal`, :func:`resolve_resume_sweep`).
+it is unsound), and out-of-core streaming (``stack_residency``,
+``stream_window``, the :data:`STREAM_WINDOW_ENV` byte budget). Also the
+static lowering signature the trajectory-cohort engine groups by, and the
+sweep harness's switches: batching (:func:`resolve_batch_trajectories`) and
+the sweep journal (:func:`resolve_sweep_journal`,
+:func:`resolve_resume_sweep`).
 """
 
 from __future__ import annotations
@@ -242,6 +244,20 @@ class RunConfig:
     # (ops/features.QuantizedStack), dequantized at the top of every grad
     # body. Dense stacks only
     stack_dtype: str = "auto"
+    # where the partition stack lives (train/trainer.train, data/store.py):
+    # "resident" copies the whole stack to the device before round 0;
+    # "streamed" keeps it in an on-disk shard store (data/store.ShardStore;
+    # an in-memory dataset is written to a temporary one) and stages a
+    # window of partitions per chunk of rounds, double-buffered by
+    # data/prefetch.Prefetcher. A window covering every partition takes the
+    # resident path over the store's rows (bitwise the resident run); a
+    # smaller one trains block by block (trainer._train_streamed). "auto"
+    # streams exactly when a STREAM_WINDOW_ENV byte budget is set
+    stack_residency: str = "resident"
+    # partitions per streamed window: None resolves from the
+    # STREAM_WINDOW_ENV budget (two windows in flight), else to every
+    # partition
+    stream_window: Optional[int] = None
     # sparse margin lane width (a power of two in [1, 1024], or None): a TPU
     # lane-replication device in the JAX package; on the card its only
     # effect is the FieldOnehot pairing plan (ops/features.fields_margin_plan)
@@ -353,6 +369,25 @@ class RunConfig:
                 "dequantizing body; force at most one of "
                 "stack_dtype='int8' / use_pallas='on'"
             )
+        if self.stack_residency not in ("resident", "streamed", "auto"):
+            raise ValueError(
+                f"stack_residency must be resident/streamed/auto, got "
+                f"{self.stack_residency!r}"
+            )
+        # the JAX package also refuses stack_residency='streamed' under
+        # arrival_mode='measured'; the port has no measured mode yet
+        # (ROADMAP A12 step 5 brings both)
+        if self.stream_window is not None:
+            if self.stack_residency == "resident":
+                raise ValueError(
+                    "stream_window sizes the streamed partition window; "
+                    "it has no effect under stack_residency='resident' — "
+                    "drop it or set stack_residency='streamed'/'auto'"
+                )
+            if self.stream_window < 1:
+                raise ValueError(
+                    f"stream_window must be >= 1, got {self.stream_window}"
+                )
         self.sparse_lanes = validate_lanes(self.sparse_lanes)
         self.dense_margin_cols = validate_margin_cols(self.dense_margin_cols)
         if self.sparse_format not in ("padded", "fields", "auto"):
@@ -444,6 +479,10 @@ class RunConfig:
             "model": self.model.value,
             "compute_mode": self.compute_mode.value,
             "stack_dtype": self.stack_dtype,
+            # the raw residency knobs keep streamed and resident
+            # trajectories (and two stream windows) in separate cohorts
+            "stack_residency": self.stack_residency,
+            "stream_window": self.stream_window,
             "update_rule": self.update_rule.value,
             "dtype": self.dtype,
             # the staleness slot restructures the round's carry, so tau=0
@@ -552,6 +591,50 @@ def resolve_arrival_trace(
     if val is None:
         val = env if env is not None else os.environ.get(ARRIVAL_TRACE_ENV)
     return val or None
+
+
+_BYTE_SUFFIXES = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40}
+
+
+def parse_bytes(val) -> int:
+    """"2g" / "512m" / "1048576" -> bytes (suffixes are binary powers)."""
+    s = str(val).strip().lower()
+    mult = 1
+    if s and s[-1] in _BYTE_SUFFIXES:
+        mult = _BYTE_SUFFIXES[s[-1]]
+        s = s[:-1]
+    try:
+        n = int(float(s) * mult)
+    except ValueError:
+        raise ValueError(
+            f"byte size must be an integer with an optional k/m/g/t "
+            f"suffix, got {val!r}"
+        ) from None
+    if n <= 0:
+        raise ValueError(f"byte size must be positive, got {val!r}")
+    return n
+
+
+#: env var arming an out-of-core host-to-device stream budget in bytes
+#: (k/m/g/t suffixes): the ceiling on device bytes the streamed partition
+#: windows may occupy. stack_residency="auto" resolves to streamed exactly
+#: when it is set; the trainer sizes the window so that two of them (the one
+#: computing and the one in flight, data/prefetch's double buffer) fit it
+STREAM_WINDOW_ENV = "ERASUREHEAD_STREAM_WINDOW"
+
+
+def resolve_stream_budget(
+    flag: Optional[str] = None, env: Optional[str] = None
+) -> Optional[int]:
+    """The streamed-window byte budget, or None (unarmed). Precedence:
+    explicit ``flag`` > :data:`STREAM_WINDOW_ENV` > off. ``env`` stands in
+    for the real environment lookup (tests)."""
+    val = flag
+    if val is None:
+        val = env if env is not None else os.environ.get(STREAM_WINDOW_ENV)
+    if val is None or val == "":
+        return None
+    return parse_bytes(val)
 
 
 #: env var enabling the sweep journal (train/journal.py) when no journal is

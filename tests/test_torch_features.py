@@ -288,8 +288,23 @@ def test_prepare_cli_writes_the_jax_layout_and_refuses_store(tmp_path):
     assert sorted(p.name for p in tdir.iterdir()) == sorted(p.name for p in jdir.iterdir())
     for p in jdir.iterdir():
         assert (tdir / p.name).read_bytes() == p.read_bytes(), p.name
-    with pytest.raises(NotImplementedError, match="--store"):
-        t_prepare.main(args + ["--out", str(tmp_path / "s"), "--store", str(tmp_path / "st")])
+    # --store, once refused, now writes the shard store: a CSR dataset is
+    # refused with JAX's message, a dense one written byte-equal to JAX's
+    msgs = []
+    for pkg, name in ((t_prepare, "t"), (j_prepare, "j")):
+        with pytest.raises(ValueError) as ei:
+            pkg.main(args + ["--out", str(tmp_path / f"s{name}"),
+                             "--store", str(tmp_path / f"sparse{name}")])
+        msgs.append(str(ei.value))
+    assert msgs[0] == msgs[1] and "dense stacks only" in msgs[0]
+    dense = ["synthetic", "--rows", "256", "--cols", "8", "--workers", "4"]
+    for pkg, name in ((t_prepare, "t"), (j_prepare, "j")):
+        assert pkg.main(dense + ["--out", str(tmp_path / f"d{name}"),
+                                 "--store", str(tmp_path / f"st{name}")]) == 0
+    jst = sorted((tmp_path / "stj").iterdir())
+    assert [p.name for p in jst] == sorted(p.name for p in (tmp_path / "stt").iterdir())
+    for p in jst:
+        assert (tmp_path / "stt" / p.name).read_bytes() == p.read_bytes(), p.name
 
 
 # ---------------------------------------------------------------------------
