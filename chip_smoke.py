@@ -213,6 +213,42 @@ Phases, one JSON line each:
                  (window 6) through compare in one dispatch, no launch.
                  B1 is also checked (``check``) and timed (``time_stream``)
                  at the three window shapes.
+  31. dynamic  - (after streamed) trainer.train_dynamic at the main path's
+                 config: arrivals drawn with JAX's threefry on the card,
+                 the rule, the slot weights and the decode inside the round;
+                 exactly 100 fused_glm_grad launches and none of the decode
+                 kernel, the round loop under
+                 torch.cuda.set_sync_debug_mode("error"), the replayed loss
+                 falling; steps/s and device busy share beside train()'s on
+                 the same config; 10 rounds on the card and the CPU (masks
+                 equal or the differing rounds printed with both arrival
+                 times, clocks within relative 1e-6, losses within 1e-4);
+                 cyccoded through its float64 decode table (100 launches,
+                 sync-free); deepmlp layer-coded, 20 rounds (20 decode
+                 launches, sync-free); a 4 + 6 round split restart bitwise
+                 the unsplit run; randreg collecting 15 of 30 (no table, the
+                 float32 solve) under the "warn" mode, its synchronisations
+                 counted;
+  32. measured - the CLI with --arrival-mode measured at the main path, 20
+                 rounds: exactly 20 decode launches (the per-worker messages'
+                 decode) and no fused_glm_grad, the five artifacts,
+                 worker_timeset real seconds (delay plus a positive measured
+                 compute) or -1, the measured compute's median and p90 in
+                 microseconds; avoidstragg without delays, workers 0 and 1
+                 doing 400x the work: excluded in more than half of 10
+                 rounds;
+  33. failures - workers 3, 7 and 11 killed at round 40 through the CLI:
+                 --on-death failover --death-timeout 2.0 (100 launches at
+                 [90, 4400, 128], rewritten rounds' clocks 2.0; naive too,
+                 whose rounds from 40 on are all rewritten), --on-death
+                 elastic (40 launches at [90, 4400, 128], 60 at the 27
+                 survivors' [81, 4888, 128], dead columns -1 from round 40,
+                 the loss step at the restart within twice the uninterrupted
+                 run's), and failures.train_elastic(dynamic=True) (100
+                 launches, the same shapes). B1 is checked at the
+                 survivors' stack and B2 at the measured round's
+                 [30, 3, 128] leaf (``check``), and that decode timed
+                 (``time_round``, path measured).
 Later, beside ``time`` and ``profile``: the attention run's per-slot leaves
 through ``decode_ops``, its round's decode (one launch, six leaves of
 [90, 913] floats) against its plain version, six GEMVs and the bound, and
@@ -2257,6 +2293,298 @@ def streamed_phase(cli, kernels, experiments, both0, main_gpu) -> dict:
     return rec
 
 
+# the on-device, measured and failure phases: the main path's config
+DYN_SHORT = 10  # card vs CPU rounds of train_dynamic
+DYN_SPLIT = 4  # the split restart: 4 + 6 rounds against the unsplit 10
+CYC_ARGS = ["--scheme", "cyccoded"] + SCHEME_BASE  # W = 30, s = 2: C(30, 2) table rows
+PINV_ARGS = ["--scheme", "randreg", "--num-collect", "15"] + SCHEME_BASE  # C(30, 15): no table
+MEASURED_ROUNDS, SLOW_ROUNDS, SLOW_MULT = 20, 10, 400
+MEASURED_ARGS = with_rounds(MAIN_ARGS, MEASURED_ROUNDS) + ["--arrival-mode", "measured"]
+KILLS = {3: 40, 7: 40, 11: 40}
+KILL_ARGS = ["--kill-workers", ",".join(f"{w}:{r}" for w, r in KILLS.items())]
+DEATH_ROUND = 40
+SURVIVOR_SHAPE = (81, 4888, 128)  # 27 survivors x 3 slots; 132000 // 27 rows a partition
+
+
+def record_glm_shapes(kernels):
+    """Wrap the fused GLM kernel's wrapper so each call's stack shape is
+    recorded (the launch count stays the wrapper's own); returns the list
+    and a function restoring the wrapper."""
+    shapes, orig = [], kernels.fused_glm_grad
+
+    def wrapped(beta, X, y, w, kind="logistic"):
+        shapes.append(tuple(X.shape))
+        return orig(beta, X, y, w, kind)
+
+    kernels.fused_glm_grad = wrapped
+
+    def restore():
+        kernels.fused_glm_grad = orig
+
+    return shapes, restore
+
+
+def dynamic_phase(cli, kernels, both0) -> dict:
+    """trainer.train_dynamic at MAIN_ARGS' config: exactly 100 B1 launches and
+    no B2, its round loop under torch.cuda.set_sync_debug_mode("error"), the
+    replayed loss falling; its steps/s and busy share beside train()'s on the
+    same config (profile_run); its first 10 rounds on the card and the CPU
+    (collected masks equal, or the differing rounds printed with their two
+    arrival times; clocks within relative 1e-6, replayed loss within 1e-4);
+    cyccoded through its decode table (100 B1, sync-free); deepmlp
+    layer-coded, 20 rounds (20 B2, sync-free); a split restart (4 + 6
+    rounds) bitwise the unsplit run; randreg collecting 15 of 30 (no table:
+    the float32 solve) under the "warn" mode, its synchronisations counted."""
+    import warnings
+
+    from erasurehead_tpu_torch.parallel import straggler
+    from erasurehead_tpu_torch.train import trainer
+    from erasurehead_tpu_torch.utils import threefry
+
+    t_phase = time.perf_counter()
+    cfg = parse_config(cli, MAIN_ARGS)
+    ds = cli.load_dataset(cfg)
+    b1 = {**both0, "fused_glm_grad": ROUNDS}
+
+    def counted(c, want, mode="error"):
+        kernels.reset_launches()
+        res = trainer.train_dynamic(c, ds, _sync_debug_mode=mode)
+        launches = dict(kernels.LAUNCHES)
+        if launches != want:
+            raise AssertionError(f"train_dynamic {c.scheme.value} launched {launches}, want {want}")
+        return res, launches
+
+    main, main_launches = counted(cfg, b1)
+    loss = replayed_loss(main, ds)
+    if not loss[-1] < loss[0]:
+        raise AssertionError(f"train_dynamic loss did not fall: {loss[0]} -> {loss[-1]}")
+    prof_dyn = profile_run(lambda: trainer.train_dynamic(cfg, ds))
+    prof_train = profile_run(lambda: trainer.train(cfg, ds))
+
+    short = dataclasses.replace(cfg, rounds=DYN_SHORT)
+    gpu10 = trainer.train_dynamic(short, ds)
+    cpu10 = trainer.train_dynamic(short, ds, device="cpu")
+    t_draw = straggler.threefry_delay_schedule(threefry.key(cfg.seed + 1), DYN_SHORT,
+                                               cfg.n_workers, cfg.delay_mean, device="cuda")
+    c_draw = straggler.threefry_delay_schedule(threefry.key(cfg.seed + 1), DYN_SHORT,
+                                               cfg.n_workers, cfg.delay_mean)
+    mask_diff = []
+    for r in np.flatnonzero((gpu10.collected != cpu10.collected).any(axis=1)):
+        w = np.flatnonzero(gpu10.collected[r] != cpu10.collected[r])
+        mask_diff.append(dict(round=int(r), workers=w.tolist(),
+                              cuda_arrivals=t_draw[r].cpu().numpy()[w].tolist(),
+                              cpu_arrivals=c_draw[r].numpy()[w].tolist()))
+    clock_rel = max_rel(gpu10.timeset, cpu10.timeset)
+    loss_rel = max_rel(replayed_loss(gpu10, ds), replayed_loss(cpu10, ds))
+    draw_rel = float(((t_draw.cpu() - c_draw).abs() / c_draw).max())
+
+    cyc_cfg = parse_config(cli, CYC_ARGS)
+    cyc, cyc_launches = counted(cyc_cfg, b1)
+    cyc_loss = replayed_loss(cyc, ds)
+    deep_cfg = parse_config(cli, with_rounds(DEEP_ARGS, LAYER_ROUNDS))
+    deep, deep_launches = counted(deep_cfg, {**both0, "fused_block_decode": LAYER_ROUNDS})
+
+    lr = short.resolve_lr_schedule()
+    p1 = trainer.train_dynamic(dataclasses.replace(short, rounds=DYN_SPLIT,
+                                                   lr_schedule=lr[:DYN_SPLIT]), ds)
+    p2 = trainer.train_dynamic(dataclasses.replace(short, lr_schedule=lr), ds,
+                               initial_state=p1.final_state, initial_round=DYN_SPLIT)
+    split_bitwise = (torch.equal(p1.params_history, gpu10.params_history[:DYN_SPLIT])
+                     and torch.equal(p2.params_history, gpu10.params_history[DYN_SPLIT:])
+                     and p2.timeset[DYN_SPLIT:].tobytes() == gpu10.timeset[DYN_SPLIT:].tobytes())
+
+    pinv_cfg = dataclasses.replace(parse_config(cli, PINV_ARGS), rounds=DYN_SHORT)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pinv, pinv_launches = counted(pinv_cfg, {**both0, "fused_glm_grad": DYN_SHORT}, "warn")
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    table_warned = any("too large for a decode table" in str(w.message) for w in caught)
+
+    rec = dict(
+        args=MAIN_ARGS, launches=main_launches, sync_debug_mode="error",
+        steps_per_sec=main.steps_per_sec, train_loss_first_last=[float(loss[0]), float(loss[-1])],
+        profile=dict(train_dynamic={k: prof_dyn[k] for k in (
+            "warm_steps_per_sec", "device_ms_per_round", "device_busy_share", "kernel_ms")},
+            train={k: prof_train[k] for k in (
+                "warm_steps_per_sec", "device_ms_per_round", "device_busy_share", "kernel_ms")},
+            train_dynamic_top=prof_dyn["top"][:8]),
+        card_vs_cpu=dict(rounds=DYN_SHORT, masks_equal=not mask_diff, differing_rounds=mask_diff,
+                         max_rel_timeset=clock_rel, max_rel_loss=loss_rel,
+                         max_rel_draw=draw_rel),
+        cyccoded=dict(launches=cyc_launches, steps_per_sec=cyc.steps_per_sec,
+                      train_loss_first_last=[float(cyc_loss[0]), float(cyc_loss[-1])]),
+        deep=dict(launches=deep_launches, steps_per_sec=deep.steps_per_sec),
+        split_restart=dict(rounds=[DYN_SPLIT, DYN_SHORT - DYN_SPLIT], bitwise=split_bitwise),
+        randreg_float32_solve=dict(rounds=DYN_SHORT, launches=pinv_launches,
+                                   table_fallback_warned=table_warned,
+                                   synchronisations=len(syncs),
+                                   per_round=len(syncs) / DYN_SHORT,
+                                   first=syncs[0][:200] if syncs else None),
+        seconds=time.perf_counter() - t_phase,
+    )
+    emit("dynamic", **rec)
+    if clock_rel > 1e-6 or loss_rel > 1e-4:
+        raise AssertionError(f"train_dynamic card vs CPU: clocks {clock_rel}, loss {loss_rel}")
+    if not split_bitwise:
+        raise AssertionError("the split train_dynamic run is not bitwise the unsplit one")
+    if not cyc_loss[-1] < cyc_loss[0]:
+        raise AssertionError("cyccoded train_dynamic loss did not fall")
+    rec["launches_by_run"] = {"dynamic_main": main_launches, "dynamic_cyccoded": cyc_launches,
+                              "dynamic_deep": deep_launches, "dynamic_randreg": pinv_launches}
+    return rec
+
+
+def measured_phase(cli, kernels, tmp, both0) -> dict:
+    """The CLI with --arrival-mode measured at MAIN_ARGS, 20 rounds: exactly 20
+    B2 launches and no B1, the five artifacts written, worker_timeset real
+    seconds (the injected delay plus a positive measured compute) where a
+    worker was collected and -1 where not; a worker's measured compute
+    (median, p90 in microseconds). Then avoidstragg without delays, workers
+    0 and 1 doing 400x the work: excluded in more than half the rounds."""
+    from erasurehead_tpu_torch.parallel import straggler
+    from erasurehead_tpu_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    out = os.path.join(tmp, "measured")
+    kernels.reset_launches()
+    run = run_main(cli, out, "cuda", MEASURED_ARGS)
+    launches = dict(kernels.LAUNCHES)
+    if launches != {**both0, "fused_block_decode": MEASURED_ROUNDS}:
+        raise AssertionError(f"measured run launched {launches}")
+    wt = run["arts"]["worker_timeset"]
+    cfg = parse_config(cli, MEASURED_ARGS)
+    delays = straggler.arrival_schedule(MEASURED_ROUNDS, cfg.n_workers, True, cfg.delay_mean)
+    collected = wt != -1.0
+    compute_us = (wt - delays)[collected] * 1e6
+    if not ((wt[collected] > 0).all() and (compute_us > 0).all()):
+        raise AssertionError("measured worker_timeset is not delay plus a positive compute")
+    loss = run["arts"]["training_loss"]
+
+    slow_cfg = dataclasses.replace(
+        parse_config(cli, ["--scheme", "avoidstragg"] + with_rounds(SCHEME_BASE, SLOW_ROUNDS)),
+        add_delay=False, arrival_mode="measured")
+    ds = cli.load_dataset(slow_cfg)
+    mult = np.ones(slow_cfg.n_workers, dtype=np.int64)
+    mult[:2] = SLOW_MULT
+    kernels.reset_launches()
+    slow = trainer.train_measured(slow_cfg, ds, work_multiplier=mult)
+    slow_launches = dict(kernels.LAUNCHES)
+    excluded = (slow.worker_times[:, :2] == -1.0).all(axis=1)
+    rec = dict(
+        args=MEASURED_ARGS, launches=launches, steps_per_sec=run["manifest"]["steps_per_sec"],
+        artifacts=sorted(run["arts"]), train_loss_first_last=[float(loss[0]), float(loss[-1])],
+        collected_per_round=collected.sum(axis=1).tolist(),
+        compute_us=dict(median=float(np.median(compute_us)),
+                        p90=float(np.percentile(compute_us, 90)),
+                        min=float(compute_us.min()), max=float(compute_us.max()),
+                        samples=int(compute_us.size)),
+        slow_workers=dict(mult=SLOW_MULT, rounds=SLOW_ROUNDS, launches=slow_launches,
+                          excluded_rounds=int(excluded.sum()),
+                          fast_collected_when_excluded=bool(slow.collected[excluded][:, 2:].all()),
+                          timeset_ms=(slow.timeset * 1e3).tolist(),
+                          steps_per_sec=slow.steps_per_sec),
+        seconds=time.perf_counter() - t_phase,
+    )
+    emit("measured", **rec)
+    if slow_launches != {**both0, "fused_block_decode": SLOW_ROUNDS}:
+        raise AssertionError(f"the slow-worker run launched {slow_launches}")
+    if not excluded.sum() > SLOW_ROUNDS // 2:
+        raise AssertionError(f"slow workers excluded in {int(excluded.sum())} of {SLOW_ROUNDS}")
+    rec["launches_by_run"] = {"measured_main": launches, "measured_slow": slow_launches}
+    return rec
+
+
+def failures_phase(cli, kernels, tmp, both0, main_gpu) -> dict:
+    """The CLI at MAIN_ARGS with workers 3, 7 and 11 killed at round 40:
+    ``--on-death failover --death-timeout 2.0`` (100 B1 at [90, 4400, 128];
+    every rewritten round's clock 2.0), the same deaths on naive (whose
+    rounds from 40 on are all rewritten); ``--on-death elastic`` (40 B1 at
+    [90, 4400, 128], 60 at the 27 survivors' [81, 4888, 128]; the dead
+    columns -1 from round 40; the loss step at the restart within twice the
+    uninterrupted run's step from round 39 to 40); then
+    failures.train_elastic(dynamic=True) on the same deaths (100 B1)."""
+    from erasurehead_tpu_torch.parallel import failures
+    from erasurehead_tpu_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    b1 = {**both0, "fused_glm_grad": ROUNDS}
+    cfg = parse_config(cli, MAIN_ARGS)
+    arrivals = failures.inject_worker_death(trainer.default_arrivals(cfg), KILLS)
+    report = failures.analyze(cfg.scheme, trainer.build_layout(cfg), arrivals,
+                              num_collect=cfg.num_collect, timeout=2.0)
+    fail_args = MAIN_ARGS + KILL_ARGS + ["--on-death", "failover", "--death-timeout", "2.0"]
+    shapes, restore = record_glm_shapes(kernels)
+    try:
+        failover = counted_run(cli, kernels, os.path.join(tmp, "failover"), fail_args, b1)
+        rewritten = np.flatnonzero(~report.feasible)
+        ts = failover["arts"]["timeset"]
+        naive_args = ["--scheme", "naive"] + SCHEME_BASE + KILL_ARGS + [
+            "--on-death", "failover", "--death-timeout", "2.0"]
+        naive = counted_run(cli, kernels, os.path.join(tmp, "failover_naive"), naive_args, b1)
+        nts = naive["arts"]["timeset"]
+        fail_shapes = sorted(set(shapes))
+        shapes.clear()
+        elastic = counted_run(cli, kernels, os.path.join(tmp, "elastic"),
+                              MAIN_ARGS + KILL_ARGS + ["--on-death", "elastic"], b1)
+        elastic_shapes = list(shapes)
+        shapes.clear()
+        ds = cli.load_dataset(cfg)
+        kernels.reset_launches()
+        dyn, dyn_report = failures.train_elastic(cfg, ds, KILLS, dynamic=True)
+        dyn_launches = dict(kernels.LAUNCHES)
+        dyn_shapes = list(shapes)
+    finally:
+        restore()
+    want_shapes = [MAIN_SHAPE] * DEATH_ROUND + [SURVIVOR_SHAPE] * (ROUNDS - DEATH_ROUND)
+    ewt = elastic["arts"]["worker_timeset"]
+    dead = sorted(KILLS)
+    eloss, mloss = elastic["arts"]["training_loss"], main_gpu["arts"]["training_loss"]
+    jump = abs(float(eloss[DEATH_ROUND] - eloss[DEATH_ROUND - 1]))
+    main_jump = abs(float(mloss[DEATH_ROUND] - mloss[DEATH_ROUND - 1]))
+    rec = dict(
+        kills=KILLS,
+        failover=dict(args=fail_args, launches=failover["launches"], shapes=fail_shapes,
+                      rewritten_rounds=len(rewritten), reason=report.reason,
+                      rewritten_timeset_2s=bool((ts[rewritten] == 2.0).all()),
+                      train_loss_first_last=check_falls(failover)),
+        failover_naive=dict(launches=naive["launches"],
+                            rewritten_timeset_2s=bool((nts[DEATH_ROUND:] == 2.0).all()),
+                            dead_columns_minus1=bool(
+                                (naive["arts"]["worker_timeset"][DEATH_ROUND:, dead] == -1).all()),
+                            train_loss_first_last=check_falls(naive)),
+        elastic=dict(launches=elastic["launches"],
+                     shapes={str(s): elastic_shapes.count(s) for s in set(elastic_shapes)},
+                     dead_columns_minus1=bool((ewt[DEATH_ROUND:, dead] == -1.0).all()),
+                     # rounds 0-39 train as the main run did; the replay
+                     # reads the common prefix of both phases' rows
+                     phase1_max_rel_loss_vs_main=max_rel(eloss[:DEATH_ROUND],
+                                                         mloss[:DEATH_ROUND]),
+                     loss_step_at_restart=jump, main_loss_step_39_40=main_jump,
+                     train_loss_first_last=check_falls(elastic)),
+        elastic_dynamic=dict(launches=dyn_launches, report=dataclasses.asdict(dyn_report),
+                             shapes={str(s): dyn_shapes.count(s) for s in set(dyn_shapes)},
+                             dead_columns_minus1=bool(
+                                 (dyn.worker_times[DEATH_ROUND:, dead] == -1.0).all())),
+        seconds=time.perf_counter() - t_phase,
+    )
+    emit("failures", **rec)
+    if not (rec["failover"]["rewritten_timeset_2s"] and rec["failover_naive"]["rewritten_timeset_2s"]
+            and rec["failover_naive"]["dead_columns_minus1"]):
+        raise AssertionError("failover rounds' clocks or stamps are wrong")
+    if elastic_shapes != want_shapes or dyn_shapes != want_shapes:
+        raise AssertionError(f"elastic B1 shapes {rec['elastic']['shapes']}, "
+                             f"dynamic {rec['elastic_dynamic']['shapes']}")
+    if not (rec["elastic"]["dead_columns_minus1"] and rec["elastic_dynamic"]["dead_columns_minus1"]):
+        raise AssertionError("elastic dead columns are not -1 after the restart")
+    if dyn_launches != b1:
+        raise AssertionError(f"train_elastic(dynamic=True) launched {dyn_launches}")
+    if jump > 2 * main_jump:
+        raise AssertionError(f"elastic loss step at the restart {jump} vs {main_jump} uninterrupted")
+    rec["launches_by_run"] = {"failover": failover["launches"], "failover_naive": naive["launches"],
+                              "elastic": elastic["launches"], "elastic_dynamic": dyn_launches}
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -2317,6 +2645,7 @@ def main() -> int:
         ([(COVTYPE_W_IN,)], torch.float32, SLOTS),
         (deep_shapes, torch.float32, (90,)),  # partition-major
         ([(d,) for d in range(1, 41)], torch.float32, SLOTS),  # two launches
+        ([(128,)], torch.float32, SLOTS),  # the measured GLM round's decode
     ]
     for i, (shapes, dtype, lead) in enumerate(leaf_cases):
         decode_checks.append(check_decode_leaves(kernels, shapes, dtype, 240 + i, lead))
@@ -2334,14 +2663,14 @@ def main() -> int:
             for kind in kernels.GLM_KINDS:
                 checks.append(check_glm(kernels, shape, dtype, kind, 0, 30 + i,
                                         weights=stack_w[label]))
-    # B1 at the streamed phase's window stacks
-    for i, shape in enumerate((STREAM_SHAPE, HALO_SHAPE, BIG_SHAPE)):
+    # B1 at the streamed phase's window stacks and the elastic survivors'
+    for i, shape in enumerate((STREAM_SHAPE, HALO_SHAPE, BIG_SHAPE, SURVIVOR_SHAPE)):
         for kind in kernels.GLM_KINDS:
             checks.append(check_glm(kernels, shape, torch.float32, kind, 2, seed=50 + i))
     main_err = max(main_err, max(c["max_abs_err"] for c in checks
                                  if c["shape"] in (list(PARTIAL_SHAPE), list(SPARSE_SHAPE),
                                                    list(STREAM_SHAPE), list(HALO_SHAPE),
-                                                   list(BIG_SHAPE))
+                                                   list(BIG_SHAPE), list(SURVIVOR_SHAPE))
                                  and c["dtype"] == "float32" and c["kind"] == "logistic"))
 
     both0 = {name: 0 for name in kernels.LAUNCHES}
@@ -2457,6 +2786,17 @@ def main() -> int:
     streamed = streamed_phase(cli, kernels, experiments, both0, gpu)
     sweep_launches.update({f"streamed_{k}": n for k, n in streamed["launches_by_run"].items()})
 
+    # the on-device control plane, measured arrivals, worker failures
+    t_dyn = time.perf_counter()
+    dynamic = dynamic_phase(cli, kernels, both0)
+    with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-failures-") as tmp:
+        measured = measured_phase(cli, kernels, tmp, both0)
+        failed = failures_phase(cli, kernels, tmp, both0, gpu)
+    dyn_phases_s = time.perf_counter() - t_dyn
+    emit("dynamic_measured_failures", seconds=dyn_phases_s)
+    for rec in (dynamic, measured, failed):
+        sweep_launches.update(rec["launches_by_run"])
+
     # the sparse and compressed stacks: no kernel takes them
     t_sparse = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-sparse-") as tmp:
@@ -2530,6 +2870,8 @@ def main() -> int:
     emit("time_round", kernel="fused_block_decode_leaves", **per_round)
     attn_round = time_round(kernels, leaf_shapes("attention"))
     emit("time_round", kernel="fused_block_decode_leaves", path="attention", **attn_round)
+    measured_round = time_round(kernels, [(MAIN_SHAPE[2],)])
+    emit("time_round", kernel="fused_block_decode_leaves", path="measured", **measured_round)
 
     emit("profile", path="main", **profile_train(cli, MAIN_ARGS))
     deep_profile = profile_train(cli, DEEP_ARGS)
@@ -2603,6 +2945,10 @@ def main() -> int:
         "schemes_legacy_input_dir_phase_s": new_phases_s,
         "sweep_runner_phases_s": sweep_phases_s,
         "pipelined_steps_per_sec": pipe["steps_per_sec"],
+        # train_dynamic (arrivals, masks and weights on the card) against
+        # train() on the main path's config, same process
+        "dynamic_steps_per_sec": dynamic["profile"]["train_dynamic"]["warm_steps_per_sec"],
+        "dynamic_vs_train_steps_per_sec": dynamic["profile"]["train"]["warm_steps_per_sec"],
         # the streamed phase's windows: B1 at each, its launches,
         # steps/s, staging overlap and peak device windows
         "stream_windows": stream_times,
@@ -2671,6 +3017,13 @@ def main() -> int:
             "max_abs_err": max(attn_errs), "checks": len(attn_errs)},
         "attention_steps_per_sec": attention["steps_per_sec"],
         "arrivals_attention_checkpoint_phases_s": slice_phases_s,
+        # the measured GLM round's decode: one launch for the [30, 3, 128]
+        # per-worker messages
+        "measured_round": {k: measured_round[k] for k in (
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "measured_steps_per_sec": measured["steps_per_sec"],
+        "measured_compute_us": measured["compute_us"],
+        "dynamic_measured_failures_phases_s": dyn_phases_s,
     }]}
     print(json.dumps(line))
     print(card)

@@ -44,6 +44,14 @@ saddle, where the loss stays at log 2)::
    dataset spilled to a temporary one), ``--stream-window N`` partitions
    on the device at a time (train/trainer._train_streamed); ``auto``
    streams under an ``ERASUREHEAD_STREAM_WINDOW`` byte budget.
+   ``--arrival-mode measured`` times each worker's real gradient compute
+   every round and collects on those arrivals (trainer.train_measured).
+   ``--kill-workers W:R[,W:R...]`` kills worker W at round R: with
+   ``--on-death error`` (the default) a run the reference's master would
+   hang in raises, ``failover`` (with ``--death-timeout SECONDS``) rewrites
+   the unreachable rounds' decode over the survivors, and ``elastic``
+   re-shards onto the survivors at the first death and trains on
+   (parallel/failures.py).
 
 2. **Legacy positional**: the reference's 13-argument calling convention
    (main.py:20-27)::
@@ -81,9 +89,12 @@ import dataclasses
 import os
 import sys
 
+import numpy as np
+
 from erasurehead_tpu_torch import schemes as schemes_lib
 from erasurehead_tpu_torch.data import io as data_io
 from erasurehead_tpu_torch.data.synthetic import Dataset, generate_gmm, generate_linear
+from erasurehead_tpu_torch.parallel import failures
 from erasurehead_tpu_torch.train import artifacts, evaluate, trainer
 from erasurehead_tpu_torch.utils.config import ModelKind, RunConfig
 
@@ -240,6 +251,11 @@ def _flags_parser() -> argparse.ArgumentParser:
                         "all-to-all head sharding (validated and kept)")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                    help="DATA dtype (params/updates stay float32)")
+    p.add_argument("--arrival-mode", default="simulated",
+                   choices=["simulated", "measured"],
+                   help="measured: time each worker's real per-round "
+                        "gradient compute and collect on those arrivals "
+                        "(trainer.train_measured)")
     p.add_argument("--stack-dtype", default="auto",
                    choices=["auto", "float32", "bfloat16", "int8"],
                    help="feature-stack STORAGE dtype: int8 quantizes the "
@@ -314,6 +330,18 @@ def _flags_parser() -> argparse.ArgumentParser:
                    help="restart from the latest checkpoint in "
                         "--checkpoint-dir; artifacts cover the resumed "
                         "window [start_round, rounds)")
+    p.add_argument("--kill-workers", default=None, metavar="W:R[,W:R...]",
+                   help="fault injection: kill worker W permanently at "
+                        "round R (e.g. 6:10,7:12)")
+    p.add_argument("--on-death", default="error",
+                   choices=["error", "failover", "elastic"],
+                   help="error: raise where the reference would hang; "
+                        "failover: degrade infeasible rounds' decode "
+                        "(needs --death-timeout); elastic: re-shard onto "
+                        "the survivors and continue (failures.train_elastic)")
+    p.add_argument("--death-timeout", type=float, default=None,
+                   help="simulated seconds before the master presumes a "
+                        "worker dead (failover mode)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the run computes; cuda raises when there is no card")
     p.add_argument("--quiet", action="store_true")
@@ -370,6 +398,7 @@ def _flags_to_config(ns: argparse.Namespace) -> RunConfig:
         partitions_per_worker=ns.partitions_per_worker,
         compute_mode=ns.compute_mode,
         use_pallas=ns.use_pallas,
+        arrival_mode=ns.arrival_mode,
         layer_coding=ns.layer_coding,
         block_decode=ns.block_decode,
         deep_layers=ns.deep_layers,
@@ -444,10 +473,9 @@ def load_dataset(cfg: RunConfig) -> Dataset:
 
 
 def _validate_checkpoint_flags(parser, ns) -> None:
-    """Interdependent checkpoint flags: fail fast with a proper CLI
-    diagnostic (exit code 2), before the dataset loads. (The JAX CLI also
-    refuses them under its measured-arrival mode, which the port does not
-    have yet.)"""
+    """Interdependent checkpoint, arrival-mode and fault-injection flags:
+    fail fast with a proper CLI diagnostic (exit code 2), before the
+    dataset loads."""
     if ns.resume and not ns.checkpoint_dir:
         parser.error("--resume requires --checkpoint-dir")
     if ns.checkpoint_every is not None and ns.checkpoint_every < 1:
@@ -459,21 +487,114 @@ def _validate_checkpoint_flags(parser, ns) -> None:
         )
     if ns.checkpoint_every is not None and not ns.checkpoint_dir:
         parser.error("--checkpoint-every requires --checkpoint-dir")
+    if (ns.checkpoint_dir or ns.resume) and ns.arrival_mode == "measured":
+        parser.error(
+            "checkpoint/resume is implemented for the scan trainer only; "
+            "unset --arrival-mode measured"
+        )
+    # --on-death/--death-timeout only mean anything with --kill-workers;
+    # silently ignoring them would let a typo'd run masquerade as a
+    # recovery experiment
+    if ns.on_death != "error" and not ns.kill_workers:
+        parser.error("--on-death requires --kill-workers")
+    if ns.death_timeout is not None and ns.on_death != "failover":
+        parser.error("--death-timeout only applies to --on-death failover")
+    if ns.kill_workers and ns.on_death == "failover" and ns.death_timeout is None:
+        parser.error("--on-death failover requires --death-timeout")
+    if ns.kill_workers and (ns.checkpoint_dir or ns.resume):
+        parser.error("--kill-workers does not compose with checkpointing")
+    if ns.kill_workers and ns.arrival_mode == "measured":
+        parser.error("--kill-workers needs the simulated-arrival trainer")
+
+
+def _parse_deaths(spec: str) -> dict[int, int]:
+    """'6:10,7:12' -> {6: 10, 7: 12} (worker: death round)."""
+    out: dict[int, int] = {}
+    for part in spec.split(","):
+        w, _, r = part.partition(":")
+        try:
+            wi, ri = int(w), int(r)
+        except ValueError:
+            raise ValueError(
+                f"bad --kill-workers entry {part!r}; want worker:round"
+            ) from None
+        if wi in out:
+            raise ValueError(
+                f"--kill-workers lists worker {wi} twice "
+                f"({out[wi]} and {ri}) — likely a typo"
+            )
+        out[wi] = ri
+    return out
 
 
 def run(cfg: RunConfig, output_dir: str | None = None, quiet: bool = False,
         device=None, checkpoint_dir: str | None = None,
-        checkpoint_every: int | None = None, resume: bool = False):
+        checkpoint_every: int | None = None, resume: bool = False,
+        kill_workers: str | None = None, on_death: str = "error",
+        death_timeout: float | None = None):
     """Train, replay the eval and write the artifacts. Returns
     (TrainResult, EvalResult, artifact paths). A resumed run's artifacts
-    cover [start_round, rounds)."""
+    cover [start_round, rounds).
+
+    ``cfg.arrival_mode == "measured"`` trains through
+    trainer.train_measured. ``kill_workers`` ("W:R[,W:R...]") injects
+    permanent deaths: ``on_death="elastic"`` trains through
+    failures.train_elastic; otherwise the deaths enter the arrival
+    schedule and failures.plan_run builds the collection ("error" raises
+    where the reference's master would hang, "failover" degrades those
+    rounds, their clock ``death_timeout``)."""
+    # argument-only checks: fail before the dataset loads
+    if (checkpoint_dir or resume) and cfg.arrival_mode == "measured":
+        raise ValueError(
+            "checkpoint/resume is implemented for the scan trainer only; "
+            "unset --arrival-mode measured"
+        )
+    deaths = _parse_deaths(kill_workers) if kill_workers else None
+    if on_death != "error" and not deaths:
+        raise ValueError("on_death requires kill_workers")
+    if death_timeout is not None and on_death != "failover":
+        raise ValueError("death_timeout only applies to on_death='failover'")
+    if deaths and cfg.arrival_mode == "measured":
+        raise ValueError("--kill-workers needs the simulated-arrival trainer")
+    if deaths and (checkpoint_dir or resume):
+        raise ValueError("--kill-workers does not compose with checkpointing")
+    if deaths and on_death == "failover" and death_timeout is None:
+        raise ValueError("--on-death failover requires --death-timeout")
+    if deaths and not all(0 <= w < cfg.n_workers for w in deaths):
+        raise ValueError(
+            f"--kill-workers ids {sorted(deaths)} outside "
+            f"[0, {cfg.n_workers})"
+        )
     if output_dir is None:
         output_dir = os.path.join(dataset_dir(cfg) or ".", "results")
     dataset = load_dataset(cfg)
-    result = trainer.train(
-        cfg, dataset, device=device, checkpoint_dir=checkpoint_dir,
-        checkpoint_every=checkpoint_every, resume=resume,
-    )
+    if cfg.arrival_mode == "measured":
+        result = trainer.train_measured(cfg, dataset, device=device)
+    elif deaths and on_death == "elastic":
+        result, report = failures.train_elastic(cfg, dataset, deaths, device=device)
+        if not quiet:
+            print(
+                f"elastic restart at round {report.death_round}: "
+                f"{report.n_workers_before} -> {report.n_workers_after} "
+                f"workers (dead: {list(report.dead_workers)})"
+            )
+    elif deaths:
+        # error|failover: the deaths enter the arrival schedule, and the
+        # run is planned; "error" raises where the reference's master would
+        # block in Waitany forever
+        arrivals = failures.inject_worker_death(trainer.default_arrivals(cfg), deaths)
+        sched, _ = failures.plan_run(
+            cfg.scheme, trainer.build_layout(cfg), arrivals,
+            num_collect=cfg.num_collect, deadline=cfg.deadline,
+            timeout=death_timeout if death_timeout is not None else np.inf,
+            on_infeasible=on_death,
+        )
+        result = trainer.train(cfg, dataset, device=device, arrivals=arrivals, schedule=sched)
+    else:
+        result = trainer.train(
+            cfg, dataset, device=device, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, resume=resume,
+        )
     n = result.n_train
     ev = evaluate.replay(
         trainer.build_model(cfg),
@@ -521,6 +642,9 @@ def main(argv: list[str] | None = None) -> int:
         checkpoint_dir=ns.checkpoint_dir,
         checkpoint_every=ns.checkpoint_every,
         resume=ns.resume,
+        kill_workers=ns.kill_workers,
+        on_death=ns.on_death,
+        death_timeout=ns.death_timeout,
     )
     return 0
 

@@ -17,14 +17,24 @@ code):
   - partial two-slice layouts (unique uncoded partitions + a coded band):
     src/partial_coded.py:20-43,125-126 and src/partial_replication.py:24-50
   - lstsq decode over the completed subset: src/coded.py:147-149
+  - the decode table over every straggler pattern: src/util.py:85-134
+
+The on-device decode of the dynamic trainer (parallel/dynamic.py) lives
+here too: :func:`mds_decode_weights` (a float32 solve on the run's device)
+and :class:`MdsDecodeTable` (every pattern solved once on the host in
+float64, looked up on the device by the pattern's combinatorial rank,
+:func:`straggler_pattern_index_t`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -425,3 +435,157 @@ def mds_decode_weights_host(B: np.ndarray, masks: np.ndarray) -> np.ndarray:
         live = np.flatnonzero(uniq[k])
         out[k, live] = np.linalg.lstsq(B[live, :].T, ones, rcond=None)[0]
     return out[inverse.reshape(-1)]
+
+
+def mds_decode_weights(B: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Decode weights ``a`` supported on ``mask`` with ``a @ B ~= 1``, on the
+    tensors' device (the JAX package's fixed-shape on-device solve): the
+    minimum-norm least-squares solution of ``(mask * B)^T a = 1`` in
+    float32 through ``torch.linalg.pinv``, two steps of iterative
+    refinement, and a hard zero off the mask. Reliable at small W only: at
+    the reference's W = 30 some patterns of the random cyclic code are too
+    ill-conditioned for float32 (:class:`MdsDecodeTable` is the remedy). On
+    the card the SVD inside ``pinv`` synchronises with the host."""
+    Bm = torch.where(mask[:, None], B, torch.zeros_like(B))
+    ones = torch.ones(B.shape[0], dtype=B.dtype, device=B.device)
+    pinv = torch.linalg.pinv(Bm.T)
+    a = pinv @ ones
+    for _ in range(2):
+        a = a + pinv @ (ones - Bm.T @ a)
+    return torch.where(mask, a, torch.zeros_like(a))
+
+
+def enumerate_decode_table(B: np.ndarray, n_stragglers: int) -> np.ndarray:
+    """Float64 decode weights for every C(W, s) straggler pattern, row k for
+    the k-th s-subset in ``itertools.combinations`` order (the reference's
+    runtime-unused ``getA``, src/util.py:85-103)."""
+    W = B.shape[0]
+    patterns = list(itertools.combinations(range(W), n_stragglers))
+    A = np.zeros((len(patterns), W))
+    ones = np.ones(W)
+    for k, stragglers in enumerate(patterns):
+        live = np.setdiff1d(np.arange(W), stragglers)
+        A[k, live] = np.linalg.lstsq(B[live, :].T, ones, rcond=None)[0]
+    return A
+
+
+@dataclasses.dataclass(frozen=True)
+class MdsDecodeTable:
+    """Float64 decode weights of every straggler pattern of size 0..s,
+    solved once on the host, looked up on the device by the completion
+    mask: the exact decode at the reference's W = 30, where the float32
+    solve fails (:func:`mds_decode_weights`). Patterns of fewer than s
+    stragglers are covered for the partial schemes, whose completed set
+    can exceed W - s.
+
+    The host arrays are byte-equal to the JAX package's table;
+    :meth:`on` moves them to a device once (the table as float32), and
+    :meth:`lookup` is a gather there with no host step."""
+
+    table: np.ndarray  # [sum_{r<=s} C(W, r), W] float64 decode weights
+    offsets: np.ndarray  # [s+1] int32; the r-straggler block starts at offsets[r]
+    comb: np.ndarray  # [W+1, s+1] int32 binomial table for the ranking
+    max_stragglers: int
+    _device: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def on(self, device) -> tuple:
+        """The (table float32, offsets, comb) tensors on ``device``, moved
+        there at the first call and kept."""
+        # the canonical device ("cuda" -> "cuda:0"), as tensors report it
+        device = torch.empty(0, device=device).device
+        key = str(device)
+        if key not in self._device:
+            self._device[key] = (
+                torch.from_numpy(self.table.astype(np.float32)).to(device),
+                torch.from_numpy(self.offsets.astype(np.int64)).to(device),
+                torch.from_numpy(self.comb.astype(np.int64)).to(device),
+            )
+        return self._device[key]
+
+    def lookup(self, mask: torch.Tensor) -> torch.Tensor:
+        """[W] float32 decode weights for a completion mask (True =
+        collected), on the mask's device."""
+        table, offsets, comb = self.on(mask.device)
+        stragglers = ~mask
+        rank = straggler_pattern_index_t(stragglers, self.max_stragglers, comb)
+        row = offsets.gather(0, stragglers.sum().view(1)) + rank
+        return table.index_select(0, row)[0]
+
+
+def build_decode_table(
+    B: np.ndarray,
+    max_stragglers: int,
+    cap_rows: int = 20_000,
+    exact_only: bool = False,
+) -> Optional[MdsDecodeTable]:
+    """An :class:`MdsDecodeTable`, or None when it would exceed
+    ``cap_rows`` rows (randreg at W = 30 collecting 15 needs C(30, 15)).
+    ``exact_only`` builds only the exactly-``max_stragglers`` block: the
+    first-k rules always complete exactly W - k workers, so the smaller
+    blocks would be dead rows counted against the cap."""
+    W = B.shape[0]
+    counts = [
+        0 if (exact_only and r < max_stragglers) else math.comb(W, r)
+        for r in range(max_stragglers + 1)
+    ]
+    if sum(counts) > cap_rows:
+        return None
+    tables = [
+        np.zeros((0, W)) if n == 0 else enumerate_decode_table(B, r)
+        for r, n in enumerate(counts)
+    ]
+    offsets = np.cumsum([0] + [t.shape[0] for t in tables])[:-1]
+    comb = np.array(
+        [[math.comb(n, r) for r in range(max_stragglers + 1)] for n in range(W + 1)],
+        dtype=np.int32,
+    )
+    return MdsDecodeTable(
+        table=np.concatenate(tables, axis=0),
+        offsets=offsets.astype(np.int32),
+        comb=comb,
+        max_stragglers=max_stragglers,
+    )
+
+
+def straggler_pattern_index_t(
+    straggler_mask: torch.Tensor, max_stragglers: int, comb_table: torch.Tensor
+) -> torch.Tensor:
+    """Combinatorial rank of a straggler set among the subsets of its size,
+    as a 0-d tensor on the mask's device (the JAX package's
+    straggler_pattern_index_jnp): the per-position sum of
+    :func:`straggler_pattern_index` telescopes (hockey stick) to
+    ``C(W - prev_j - 1, r_j) - C(W - p_j, r_j)`` with ``r_j = count - j``,
+    a fixed-shape gather and sum. ``comb_table`` is the [W+1, s+1] int64
+    binomial table on that device."""
+    W = straggler_mask.shape[0]
+    dev = straggler_mask.device
+    if max_stragglers == 0:
+        return torch.zeros((), dtype=torch.int64, device=dev)
+    idx = torch.arange(W, device=dev)
+    # ascending straggler positions, padded with the sentinel W (sorts last)
+    pos = torch.sort(torch.where(straggler_mask, idx, W)).values[:max_stragglers]
+    s_cnt = straggler_mask.sum()
+    prev = torch.cat([torch.full((1,), -1, dtype=pos.dtype, device=dev), pos[:-1]])
+    j = torch.arange(max_stragglers, device=dev)
+    r = torch.clamp(s_cnt - j, 0, max_stragglers)
+    hi = comb_table[W - prev - 1, r]
+    lo = comb_table[torch.clamp(W - pos, 0, W), r]
+    return torch.where(j < s_cnt, hi - lo, torch.zeros_like(hi)).sum()
+
+
+def straggler_pattern_index(straggler_mask: np.ndarray) -> int:
+    """Row of a straggler set in :func:`enumerate_decode_table`: the
+    combinatorial rank of its sorted positions in
+    ``itertools.combinations(range(W), s)`` order (the reference's lookup
+    helpers, src/util.py:105-134)."""
+    W = len(straggler_mask)
+    positions = np.flatnonzero(straggler_mask)
+    index = 0
+    prev = -1
+    remaining = len(positions)
+    for pos in positions:
+        for skipped in range(prev + 1, pos):
+            index += math.comb(W - skipped - 1, remaining - 1)
+        prev = pos
+        remaining -= 1
+    return index

@@ -26,7 +26,7 @@ and the beyond-reference rules of the JAX package: first-k with the
 least-squares-optimal decode (randreg, sparsegraph, expander), deadline
 collection, and the ``decode="optimal"`` refit of any scheme's weights
 (arXiv:2006.09638). Which rule a scheme takes is its registry descriptor's
-(erasurehead_tpu_torch/schemes/); train/trainer.build_schedule applies it.
+(erasurehead_tpu_torch/schemes/); :func:`build_schedule` applies it.
 
 Tie-breaking: arrivals are processed in ascending (t, worker index) order.
 """
@@ -301,3 +301,26 @@ def optimal_decode_schedule(
     )
     return dataclasses.replace(schedule, message_weights=weights)
 
+
+def build_schedule(
+    scheme,
+    t: np.ndarray,
+    layout: CodingLayout,
+    num_collect: int | None = None,
+    deadline: float | None = None,
+    decode: str = "fixed",
+) -> CollectionSchedule:
+    """The scheme's collection schedule through its registry descriptor
+    (the reference's dispatch was main.py:62-92). ``decode="optimal"``
+    refits the decode weights per round to the actual arrival set on
+    schemes with an ``optimal_decode`` hook; the partial two-part layouts
+    keep their fixed weights."""
+    from erasurehead_tpu_torch import schemes
+
+    desc = schemes.get(scheme)
+    sched = desc.build_schedule(t, layout, num_collect=num_collect, deadline=deadline)
+    if decode == "optimal" and desc.optimal_decode is not None:
+        sched = desc.optimal_decode(sched, layout)
+    elif decode not in ("fixed", "optimal"):
+        raise ValueError(f"decode must be fixed/optimal, got {decode!r}")
+    return sched

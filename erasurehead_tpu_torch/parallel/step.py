@@ -375,15 +375,18 @@ def staleness_slot_params(params, stale_params, pipeline_depth: int):
     return stale_params if pipeline_depth else params
 
 
-def expand_slot_weights(
-    message_weights: np.ndarray, coeffs: np.ndarray, slot_is_coded: np.ndarray
-) -> np.ndarray:
+def expand_slot_weights(message_weights, coeffs, slot_is_coded):
     """[R?, W] per-message decode weights -> [R?, W, S] per-slot weights
-    (host float64, the single home of this rule).
+    (the single home of this rule).
 
     Coded slots are scaled by the message's decode weight; separate slots
     (partial schemes' uncoded first parts) always contribute with weight 1
-    (src/partial_coded.py:187-190)."""
+    (src/partial_coded.py:187-190). Numpy in, numpy out (the host float64
+    control plane); a tensor in, a tensor out on its device, with
+    ``coeffs`` and ``slot_is_coded`` tensors there (the on-device round of
+    trainer.train_dynamic), as the JAX package's takes numpy or jnp."""
+    if isinstance(message_weights, torch.Tensor):
+        return torch.where(slot_is_coded, message_weights[..., :, None] * coeffs, coeffs)
     a = np.asarray(message_weights)[..., :, None]
     return np.where(slot_is_coded, a * coeffs, coeffs)
 

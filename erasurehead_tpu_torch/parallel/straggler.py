@@ -297,3 +297,21 @@ def arrival_schedule(
         delays = apply_regime_shift(delays, regime, mean, regime_workers)
     model = arrival_model or ArrivalModel()
     return model.arrivals(delays)
+
+
+def threefry_delay_schedule(key, rounds: int, n_workers: int, mean: float = 0.5,
+                            device=None):
+    """[rounds, n_workers] float32 tensor of ``mean * exponential`` draws,
+    round r drawn under ``fold_in(key, r)``: the counterpart of
+    erasurehead_tpu/parallel/straggler.jax_delay_schedule, whose numbers it
+    reproduces (utils/threefry.py; not bit-matched to the reference's numpy
+    stream). ``key`` is a utils/threefry key, e.g. ``threefry.key(seed)``."""
+    import torch
+
+    from erasurehead_tpu_torch.utils import threefry
+
+    rows = [mean * threefry.exponential(threefry.fold_in(key, r), n_workers, device)
+            for r in range(rounds)]
+    if not rows:
+        return torch.zeros((0, n_workers), device=device)
+    return torch.stack(rows)

@@ -9,6 +9,12 @@ The port's copy of erasurehead_tpu/schemes/base.py, field for field. A
   - **host collection rule** (``build_schedule``): the stop condition and
     decode weights as a pure function of the arrival matrix
     (parallel/collect.py's rule functions);
+  - **dynamic rule factory** (``dynamic_rule``): the same rule as a
+    fixed-shape tensor computation on the run's device
+    (parallel/dynamic.py, trainer.train_dynamic), or None where the scheme
+    has none;
+  - **failure feasibility** (``feasibility``): would the master's wait
+    loop ever exit under these deaths (parallel/failures.analyze)?
   - **optimal-decode hook** (``optimal_decode``): the ``decode="optimal"``
     option (arXiv:2006.09638), per-round least-squares collection weights
     fit to the actual arrival pattern; None keeps the scheme's fixed
@@ -16,10 +22,11 @@ The port's copy of erasurehead_tpu/schemes/base.py, field for field. A
   - **capability flags** and the **config/CLI surface** (``config_fields``,
     ``validate_config``, ``sweep_num_collect``).
 
-The JAX descriptor's on-device rule factory and failure-feasibility core
-are left out: their readers (on-device collection, failure injection) are
-not ported. The capability flags keep the JAX values, so
-``capabilities()`` compares equal.
+The capability flags keep the JAX values, so ``capabilities()`` compares
+equal; on every built-in ``supports_dynamic`` holds exactly where
+``dynamic_rule`` is set, as in the JAX package. The one difference of
+signature: ``dynamic_rule`` also takes the ``device`` its constants are
+placed on.
 
 Descriptors are frozen: registration is declaration. Third-party codes ship
 one descriptor and register it, directly through
@@ -49,6 +56,13 @@ class SchemeDescriptor:
     #: (t [R, W], layout, *, num_collect, deadline) ->
     #: parallel.collect.CollectionSchedule, the host (float64) rule
     build_schedule: Optional[Callable] = None
+    #: (layout, *, num_collect, deadline, device) -> (t [W] tensor ->
+    #: parallel.dynamic.RoundSchedule), the on-device rule factory; None =
+    #: no dynamic implementation
+    dynamic_rule: Optional[Callable] = None
+    #: (layout, dead [R, W] bool, *, num_collect) -> (feasible [R] bool,
+    #: reason str), parallel.failures.analyze's per-scheme core
+    feasibility: Optional[Callable] = None
     #: (schedule, layout) -> schedule with decode="optimal" weights; None =
     #: the fixed weights are the scheme's only decode (partial schemes)
     optimal_decode: Optional[Callable] = None
@@ -63,7 +77,7 @@ class SchemeDescriptor:
     seed_dependent_layout: bool = False
     #: has a per-worker-timed measured-arrival implementation
     supports_measured: bool = True
-    #: has a traced on-device rule in the JAX package
+    #: has an on-device rule (trainer.train_dynamic)
     supports_dynamic: bool = True
     #: may ride a trajectory-batched cohort dispatch
     cohort_batchable: bool = True

@@ -6,6 +6,13 @@ the scheme's layout factory (ops/codes.py) and host collection rule
 (parallel/collect.py) together, with the same capability flags, config
 fields, validation hooks and artifact stems as the JAX package declares.
 
+The ``dynamic_rule`` factories close over the layout's tables on the run's
+device (parallel/dynamic.py); the MDS family's also over the float64
+decode table (ops/codes.build_decode_table), with the JAX package's warning
+where C(W, s) exceeds the table's cap and the float32 solve takes over. The
+``feasibility`` cores are parallel/failures.analyze's per-scheme table,
+with the JAX package's reasons word for word.
+
 The ``optimal_decode`` hook is the ``decode="optimal"`` option
 (arXiv:2006.09638): least-squares collection weights fit to the actual
 per-round arrival set over the layout's effective coding matrix. Partial
@@ -16,10 +23,154 @@ defined.
 
 from __future__ import annotations
 
+import warnings
+
+import numpy as np
+import torch
+
 from erasurehead_tpu_torch.ops import codes
-from erasurehead_tpu_torch.parallel import collect
+from erasurehead_tpu_torch.parallel import collect, dynamic
 from erasurehead_tpu_torch.schemes.base import SchemeDescriptor
 from erasurehead_tpu_torch.schemes.registry import register
+
+# ---------------------------------------------------------------------------
+# shared feasibility helpers (parallel/failures.analyze's precomputations)
+# ---------------------------------------------------------------------------
+
+
+def _alive_cnt(dead: np.ndarray) -> np.ndarray:
+    return (~dead).sum(axis=1)
+
+
+def _all_groups_alive(layout, dead: np.ndarray) -> np.ndarray:
+    groups = np.asarray(layout.groups)
+    return np.stack(
+        [(~dead[:, groups == g]).any(axis=1) for g in range(layout.n_groups)],
+        axis=1,
+    ).all(axis=1)
+
+
+def _feas_agc(layout, dead, num_collect):
+    if num_collect is None:
+        raise ValueError("AGC needs num_collect")
+    return (_alive_cnt(dead) >= num_collect) | _all_groups_alive(layout, dead)
+
+
+def _feas_randreg(dead, num_collect):
+    if num_collect is None:
+        raise ValueError("randreg needs num_collect")
+    return _alive_cnt(dead) >= num_collect
+
+
+def _feas_all(reason):
+    return lambda layout, dead, *, num_collect=None: (
+        _alive_cnt(dead) == dead.shape[1], reason
+    )
+
+
+def _feas_first_w_minus_s(layout, dead, *, num_collect=None):
+    return (
+        _alive_cnt(dead) >= dead.shape[1] - layout.n_stragglers,
+        f"needs first {layout.n_workers - layout.n_stragglers} arrivals",
+    )
+
+
+def _feas_first_k(layout, dead, *, num_collect=None):
+    return _feas_randreg(dead, num_collect), f"needs first {num_collect} arrivals"
+
+
+# ---------------------------------------------------------------------------
+# dynamic-rule factories (parallel/dynamic.py's rules over each layout's
+# tables, placed on the run's device once)
+# ---------------------------------------------------------------------------
+
+
+def _mds_table_or_warn(scheme_name, layout, max_stragglers, exact_only):
+    """The float64 decode table of an MDS-family dynamic rule, or None with
+    the JAX package's warning when C(W, s) exceeds the table's cap and the
+    rule falls back to the float32 on-device solve."""
+    table = codes.build_decode_table(
+        np.asarray(layout.B), max_stragglers, exact_only=exact_only
+    )
+    if table is None and layout.n_workers > 16:
+        warnings.warn(
+            f"{scheme_name}: C(W, s) too large for a decode table at "
+            f"W={layout.n_workers}; falling back to the on-device fp32 "
+            "solve, which is UNRELIABLE for ill-conditioned straggler "
+            "patterns at this scale (see ops/codes.mds_decode_weights_host)."
+            " Prefer trainer.train() (host f64 control plane) for science"
+            " runs.",
+            stacklevel=3,
+        )
+    return table
+
+
+def _on(a, device, dtype=torch.float32) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
+
+
+def _table_on(table, device):
+    if table is not None:
+        table.on(device)  # the gather's tensors, moved before the loop
+    return table
+
+
+def _dyn_naive(layout, *, num_collect=None, deadline=None, device=None):
+    return dynamic.collect_all
+
+
+def _dyn_cyclic_mds(layout, *, num_collect=None, deadline=None, device=None):
+    B = _on(layout.B, device)
+    table = _table_on(_mds_table_or_warn(
+        "cyccoded", layout, layout.n_stragglers, exact_only=True), device)
+    return lambda t: dynamic.collect_first_k_mds(t, B, layout.n_stragglers, decode_table=table)
+
+
+def _onehot(layout, device):
+    return _on(dynamic._group_onehot(np.asarray(layout.groups)), device)
+
+
+def _dyn_frc(layout, *, num_collect=None, deadline=None, device=None):
+    onehot = _onehot(layout, device)
+    return lambda t: dynamic.collect_frc(t, onehot)
+
+
+def _dyn_agc(layout, *, num_collect=None, deadline=None, device=None):
+    if num_collect is None:
+        raise ValueError("AGC needs num_collect")
+    onehot = _onehot(layout, device)
+    return lambda t: dynamic.collect_agc(t, onehot, num_collect)
+
+
+def _dyn_avoidstragg(layout, *, num_collect=None, deadline=None, device=None):
+    return lambda t: dynamic.collect_avoidstragg(t, layout.n_stragglers)
+
+
+def _dyn_deadline(layout, *, num_collect=None, deadline=None, device=None):
+    if deadline is None:
+        raise ValueError("deadline scheme needs a deadline")
+    return lambda t: dynamic.collect_deadline(t, deadline)
+
+
+def _dyn_partial_cyclic(layout, *, num_collect=None, deadline=None, device=None):
+    B = _on(layout.B, device)
+    # completed sets can exceed W - s here: the full 0..s pattern range
+    table = _table_on(_mds_table_or_warn(
+        "partialcyccoded", layout, layout.n_stragglers, exact_only=False), device)
+    frac = layout.uncoded_frac
+    return lambda t: dynamic.collect_partial(
+        t, variant="mds", frac=frac, n_stragglers=layout.n_stragglers,
+        B=B, decode_table=table,
+    )
+
+
+def _dyn_partial_frc(layout, *, num_collect=None, deadline=None, device=None):
+    onehot = _onehot(layout, device)
+    gids = _on(layout.groups, device, torch.int64)
+    frac = layout.uncoded_frac
+    return lambda t: dynamic.collect_partial(
+        t, variant="frc", frac=frac, onehot=onehot, group_ids=gids,
+    )
 
 # ---------------------------------------------------------------------------
 # config validation hooks
@@ -94,6 +245,8 @@ NAIVE = register(SchemeDescriptor(
     summary="uncoded synchronous GD: wait for all W workers (src/naive.py)",
     build_layout=lambda cfg: codes.uncoded_layout(cfg.n_workers),
     build_schedule=_sched_all,
+    dynamic_rule=_dyn_naive,
+    feasibility=_feas_all("needs all W workers"),
     optimal_decode=collect.optimal_decode_schedule,
     exact=True,
     artifact_straggler_suffix=False,  # "naive_acc", no _<s> (src/naive.py:203)
@@ -107,6 +260,8 @@ CYCLIC_MDS = register(SchemeDescriptor(
         cfg.n_workers, cfg.n_stragglers, seed=cfg.seed
     ),
     build_schedule=_sched_first_k_mds,
+    dynamic_rule=_dyn_cyclic_mds,
+    feasibility=_feas_first_w_minus_s,
     optimal_decode=collect.optimal_decode_schedule,
     exact=True,
     seed_dependent_layout=True,
@@ -119,6 +274,10 @@ FRC = register(SchemeDescriptor(
     summary="exact coding, fractional repetition groups (src/replication.py)",
     build_layout=lambda cfg: codes.frc_layout(cfg.n_workers, cfg.n_stragglers),
     build_schedule=_sched_frc,
+    dynamic_rule=_dyn_frc,
+    feasibility=lambda layout, dead, *, num_collect=None: (
+        _all_groups_alive(layout, dead), "needs one arrival per group"
+    ),
     optimal_decode=collect.optimal_decode_schedule,
     exact=True,
     validate_config=_validate_frc,
@@ -134,6 +293,11 @@ APPROX = register(SchemeDescriptor(
     ),
     build_layout=lambda cfg: codes.frc_layout(cfg.n_workers, cfg.n_stragglers),
     build_schedule=_sched_agc,
+    dynamic_rule=_dyn_agc,
+    feasibility=lambda layout, dead, *, num_collect=None: (
+        _feas_agc(layout, dead, num_collect),
+        f"needs {num_collect} arrivals or full group coverage",
+    ),
     optimal_decode=collect.optimal_decode_schedule,
     needs_num_collect=True,
     staleness_tolerant=True,  # the decode is already approximate
@@ -153,6 +317,8 @@ AVOID_STRAGGLERS = register(SchemeDescriptor(
         cfg.n_workers, n_stragglers=cfg.n_stragglers
     ),
     build_schedule=_sched_avoidstragg,
+    dynamic_rule=_dyn_avoidstragg,
+    feasibility=_feas_first_w_minus_s,
     optimal_decode=collect.optimal_decode_schedule,
     staleness_tolerant=True,  # rescaled-subset gradient: already approximate
     builtin=True,
@@ -172,11 +338,21 @@ def _first_k_optimal_family(name, summary, build_layout, *, seed_dependent, swee
             raise ValueError(f"{name} needs num_collect")
         return collect.collect_first_k_optimal(t, layout.B, num_collect)
 
+    def _dyn(layout, *, num_collect=None, deadline=None, device=None):
+        if num_collect is None:
+            raise ValueError(f"{name} needs num_collect")
+        B = _on(layout.B, device)
+        table = _table_on(_mds_table_or_warn(
+            name, layout, layout.n_workers - num_collect, exact_only=True), device)
+        return lambda t: dynamic._first_k_lstsq(t, B, num_collect, decode_table=table)
+
     return register(SchemeDescriptor(
         name=name,
         summary=summary,
         build_layout=build_layout,
         build_schedule=_sched,
+        dynamic_rule=_dyn,
+        feasibility=_feas_first_k,
         optimal_decode=collect.optimal_decode_schedule,
         needs_num_collect=True,
         staleness_tolerant=True,  # lstsq decode over a partial set: approximate
@@ -232,6 +408,11 @@ DEADLINE = register(SchemeDescriptor(
     ),
     build_layout=lambda cfg: codes.uncoded_layout(cfg.n_workers),
     build_schedule=_sched_deadline,
+    dynamic_rule=_dyn_deadline,
+    feasibility=lambda layout, dead, *, num_collect=None: (
+        np.ones(dead.shape[0], dtype=bool),
+        "deadline collection always completes",
+    ),
     optimal_decode=collect.optimal_decode_schedule,
     needs_deadline=True,
     staleness_tolerant=True,  # deadline-subset rescale: already approximate
@@ -250,6 +431,8 @@ PARTIAL_CYCLIC = register(SchemeDescriptor(
         seed=cfg.seed,
     ),
     build_schedule=_sched_partial("mds"),
+    dynamic_rule=_dyn_partial_cyclic,
+    feasibility=_feas_all("needs every worker's uncoded first-part"),
     optimal_decode=None,  # separate slots sit outside the message weights
     exact=True,
     partial=True,
@@ -271,6 +454,8 @@ PARTIAL_FRC = register(SchemeDescriptor(
         cfg.n_workers, cfg.partitions_per_worker, cfg.n_stragglers
     ),
     build_schedule=_sched_partial("frc"),
+    dynamic_rule=_dyn_partial_frc,
+    feasibility=_feas_all("needs every worker's uncoded first-part"),
     optimal_decode=None,
     exact=True,
     partial=True,

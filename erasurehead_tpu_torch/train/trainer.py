@@ -1,8 +1,12 @@
 """The synchronous trainer: a Python loop over rounds on one device.
 
-The counterpart of erasurehead_tpu/train/trainer.py::train, and of its
+The counterpart of erasurehead_tpu/train/trainer.py::train, of its
 trajectory-cohort engine (train_cohort, train_batch; see
-:func:`train_cohort`). Control plane
+:func:`train_cohort`), of its on-device-control-plane trainer
+(:func:`train_dynamic`: arrivals, masks and decode weights computed on the
+device inside the round) and of its measured-arrival trainer
+(:func:`train_measured`: each worker's message timed, the collection rule
+fed online). Control plane
 (host, float64, precomputed, tiny): straggler arrival schedule, per-round
 collection/decode weights, learning-rate schedule. Data plane (the device):
 per round, the decoded gradient of the stack (parallel/step.py) and the
@@ -127,13 +131,10 @@ def build_schedule(
     decode weights per round to the actual arrival set on schemes with an
     ``optimal_decode`` hook; the partial two-part layouts keep their fixed
     weights."""
-    desc = schemes.get(cfg.scheme)
-    sched = desc.build_schedule(
-        t, layout, num_collect=cfg.num_collect, deadline=cfg.deadline
+    return collect.build_schedule(
+        cfg.scheme, t, layout, num_collect=cfg.num_collect,
+        deadline=cfg.deadline, decode=cfg.decode,
     )
-    if cfg.decode == "optimal" and desc.optimal_decode is not None:
-        sched = desc.optimal_decode(sched, layout)
-    return sched
 
 
 def build_model(cfg: RunConfig):
@@ -211,7 +212,8 @@ class TrainResult:
     # [rounds] per-round decode-error norm ||pw - 1||/sqrt(P) (obs/decode.py)
     decode_error: Optional[np.ndarray] = None
     # the round's gradient lowering: "fused", "layer_block", "flat",
-    # "margin_flat" or "per_slot" (a cohort member: the cohort's lowering)
+    # "margin_flat" or "per_slot" (a cohort member: the cohort's lowering;
+    # train_measured: "measured", per-worker messages and the decode kernel)
     lowering: str = "per_slot"
     # a cohort member's dispatch (train_cohort): cohort_size,
     # cohort_lowering, cohort_dispatches, stack_mode; None for train()
@@ -458,6 +460,18 @@ def _prepare_lowering(dev, model, lowering: str, grad_fn, X, y, params0, w0) -> 
     _prepare_sparse(X, grad_fn, params0, y, w0)
 
 
+def _state_on(state: optimizer.OptState, dev) -> optimizer.OptState:
+    """A donor run's optimizer state on this run's device: a mid-schedule
+    restart may carry it from another device (or from the host)."""
+
+    def move(tree):
+        return blocks.tree_map(lambda leaf: torch.as_tensor(leaf).to(dev), tree)
+
+    mom = state.momentum
+    mom = tuple(move(m) for m in mom) if isinstance(mom, tuple) else move(mom)
+    return optimizer.OptState(params=move(state.params), momentum=mom)
+
+
 def train(
     cfg: RunConfig,
     dataset: Dataset,
@@ -469,6 +483,8 @@ def train(
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: Optional[int] = None,
     resume: bool = False,
+    initial_state: Optional[optimizer.OptState] = None,
+    initial_round: int = 0,
 ) -> TrainResult:
     """Run one full training run for ``cfg`` on ``dataset``.
 
@@ -490,10 +506,18 @@ def train(
     the control-plane arrays still cover the whole run, and
     ``steps_per_sec`` leaves the checkpoint I/O out.
 
-    ``cfg.pipeline_depth=1`` refuses ``checkpoint_dir``/``resume`` and a
-    caller-provided ``schedule`` (:class:`PipelineRefusal`): the stale
-    params slot is not in the checkpoint, and the pipelined schedule is
-    derived here from the arrivals.
+    ``initial_state``/``initial_round`` start the run mid-schedule from an
+    in-memory optimizer state instead of a checkpoint: the elastic restart
+    hook (parallel/failures.train_elastic). Rounds ``initial_round``
+    onward run with this config's layout while the state carries over (its
+    leaves do not depend on the worker count); the history then covers
+    [initial_round, rounds). Neither composes with ``resume``.
+
+    ``cfg.pipeline_depth=1`` refuses ``checkpoint_dir``/``resume``,
+    ``initial_state`` and a caller-provided ``schedule``
+    (:class:`PipelineRefusal`): the stale params slot is in neither the
+    checkpoint nor the donor state, and the pipelined schedule is derived
+    here from the arrivals.
 
     ``cfg.stack_residency`` "streamed" (or "auto" under a
     ``ERASUREHEAD_STREAM_WINDOW`` budget) keeps the stack in a shard store
@@ -501,8 +525,16 @@ def train(
     to a temporary directory): a window covering every partition trains
     through this resident loop over the store's rows, bitwise the resident
     run; a smaller window trains block by block (:func:`_train_streamed`),
-    which refuses ``pipeline_depth=1``."""
+    which refuses ``pipeline_depth=1`` and a mid-schedule restart."""
     t_call = time.perf_counter()
+    # a bare initial_round would otherwise silently run the whole horizon
+    # from round 0; resume takes its start round from the checkpoint
+    if initial_round != 0 and initial_state is None:
+        raise ValueError(
+            f"initial_round={initial_round} requires initial_state: a "
+            "mid-schedule restart resumes from donor state (resume=True "
+            "takes its start round from the checkpoint instead)"
+        )
     if checkpoint_every is not None and checkpoint_every < 1:
         raise ValueError(
             f"checkpoint_every must be >= 1, got {checkpoint_every}"
@@ -518,6 +550,13 @@ def train(
                 "stale params slot is not in the checkpoint contract, so "
                 "a mid-run restore cannot reproduce the pipelined "
                 "trajectory (use journaled sweep resume instead)",
+            )
+        if initial_state is not None:
+            raise PipelineRefusal(
+                "elastic_restart",
+                "pipeline_depth=1 refuses initial_state/initial_round: an "
+                "elastic mid-schedule restart carries no stale params "
+                "slot, so the resumed pipelined trajectory would fork",
             )
         if schedule is not None:
             raise PipelineRefusal(
@@ -551,7 +590,7 @@ def train(
             return _train_streamed(
                 cfg, dataset, store, window, device=dev, init_params=init_params,
                 arrivals=arrivals, schedule=schedule, checkpoint_dir=checkpoint_dir,
-                resume=resume,
+                resume=resume, initial_state=initial_state, initial_round=initial_round,
             )
         if getattr(dataset, "_sweep_cache_token", None) != store.cache_token:
             dataset = store.dataset()
@@ -591,6 +630,15 @@ def train(
 
     state = optimizer.init_state(params0, cfg.update_rule)
     start_round = 0
+    if initial_state is not None:
+        if resume:
+            raise ValueError("pass either initial_state or resume, not both")
+        if not 0 <= initial_round < cfg.rounds:
+            raise ValueError(
+                f"initial_round={initial_round} outside [0, {cfg.rounds})"
+            )
+        state = _state_on(initial_state, dev)
+        start_round = initial_round
     if resume and checkpoint_dir:
         # restore_latest skips partially written or torn round_N
         # directories with a warning, falling back to the next-older one
@@ -668,6 +716,384 @@ def train(
         cache_info=_cache_info(cfg, data_hit, stats_before, X, y, faithful,
                                setup_seconds or 0.0, state.params, residency),
         schedule=schedule,
+    )
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def train_dynamic(
+    cfg: RunConfig,
+    dataset: Dataset,
+    *,
+    device=None,
+    init_params=None,
+    initial_state: Optional[optimizer.OptState] = None,
+    initial_round: int = 0,
+    _sync_debug_mode: Optional[str] = None,
+) -> TrainResult:
+    """A run whose control plane lives on the device: each round's arrival
+    times, collection mask and decode weights are tensors computed inside
+    the round (parallel/dynamic.py), and nothing is read back to the host
+    until the loop ends (the JAX package's train_dynamic, whose round is a
+    step of one jitted scan).
+
+    :func:`train` is the reference-parity path (the reference's MT19937
+    delays, the float64 decode); this one draws JAX's threefry exponentials
+    (utils/threefry.py), so its arrivals and collected sets are the JAX
+    package's own ``train_dynamic``'s, and decodes with the scheme's
+    dynamic rule: an MDS family through its float64-solved decode table
+    (float32 on the device), or the float32 solve where the table would be
+    too large (randreg, sparsegraph and expander collecting half of W = 30).
+    Faithful compute mode only, as in the JAX package.
+
+    Per round: the threefry draw (its key folded in from the seed and the
+    round index on the host, as integers), the rule, the [W, S] slot
+    weights (step.expand_slot_weights on the device), the gradient through
+    :func:`_grad_lowering`'s ladder (a dense float GLM under
+    ``use_pallas="auto"`` launches the fused kernel once a round, where
+    the JAX package's has no kernel path; ``layer_coding="on"`` decodes
+    with the decode kernel once a round), then the update. The round's
+    clock, worker stamps and mask go into [R, W] device tensors copied to
+    the host once, after the loop. ``lr`` and the round index stay host
+    floats, as in :func:`train`.
+
+    ``initial_state``/``initial_round`` are :func:`train`'s mid-schedule
+    restart: the loop covers [initial_round, rounds); the telemetry rows
+    before it carry zero time, -1 stamps and nothing collected, and the
+    history has ``rounds - initial_round`` entries. ``init_params`` as in
+    :func:`train`. No decode-error series: the weights never reach the
+    host. ``_sync_debug_mode`` ("warn" or "error"), on the card, runs the
+    round loop under ``torch.cuda.set_sync_debug_mode``: "error" raises at
+    any operation that waits for the device (the check that the loop is
+    free of host synchronisation)."""
+    from erasurehead_tpu_torch.parallel import dynamic as dynamic_lib
+    from erasurehead_tpu_torch.utils import threefry
+
+    t_call = time.perf_counter()
+    if initial_round != 0 and initial_state is None:
+        raise ValueError(
+            f"initial_round={initial_round} requires initial_state: a "
+            "mid-schedule restart resumes from donor state"
+        )
+    if cfg.decode == "optimal":
+        raise ValueError(
+            "decode='optimal' refits collection weights on the host "
+            "control plane (a per-round float64 lstsq); train_dynamic's "
+            "weights are traced values inside the scan — use "
+            "trainer.train() for optimal decoding"
+        )
+    if cfg.pipeline_depth:
+        raise PipelineRefusal(
+            "dynamic_rule",
+            "pipeline_depth=1 has no on-device dynamic implementation: "
+            "the pipelined dispatch recurrence lives on the host control "
+            "plane (parallel/pipeline.py) — use trainer.train()",
+        )
+    dev = resolve_device(device)
+    layout = build_layout(cfg)
+    model = build_model(cfg)
+    sched_fn = dynamic_lib.make_round_schedule_fn(
+        cfg.scheme, layout, cfg.num_collect, cfg.delay_mean, cfg.add_delay,
+        deadline=cfg.deadline, device=dev,
+    )
+    stats_before = cache_lib.stats().snapshot()
+    X, y, n_train, data_hit = _device_stack(cfg, dataset, layout, True, dev)
+    if init_params is None:
+        params0 = model.init_params(cfg.seed, dataset.n_features, dev)
+    else:
+        params0 = params_from_numpy(init_params, dev)
+    coeffs = _to_device(layout.coeffs, dev, torch.float32)
+    slot_coded = torch.from_numpy(np.asarray(layout.slot_is_coded, dtype=bool)).to(dev)
+    grad_fn, lowering = _grad_lowering(cfg, model, X, True, params0)
+    _prepare_lowering(dev, model, lowering, grad_fn, X, y, params0, torch.zeros_like(coeffs))
+
+    state = optimizer.init_state(params0, cfg.update_rule)
+    start = 0
+    if initial_state is not None:
+        if not 0 <= initial_round < cfg.rounds:
+            raise ValueError(
+                f"initial_round={initial_round} outside [0, {cfg.rounds})"
+            )
+        state = _state_on(initial_state, dev)
+        start = initial_round
+    R, W = cfg.rounds, layout.n_workers
+    n = R - start
+    update_fn = optimizer.make_update_fn(cfg.update_rule)
+    lr32 = cfg.resolve_lr_schedule().astype(np.float32)
+    alpha = cfg.effective_alpha
+    key = threefry.key(cfg.seed + 1)
+    history = blocks.tree_map(
+        lambda p: torch.empty((n,) + tuple(p.shape), dtype=torch.float32, device=dev), params0
+    )
+    sim = torch.empty(n, device=dev)
+    wtimes = torch.empty((n, W), device=dev)
+    collected = torch.empty((n, W), dtype=torch.bool, device=dev)
+
+    guard = _sync_debug_mode is not None and dev.type == "cuda"
+    _sync(dev)
+    t0 = time.perf_counter()
+    if guard:
+        torch.cuda.set_sync_debug_mode(_sync_debug_mode)
+    try:
+        for j, i in enumerate(range(start, R)):
+            rs = sched_fn(threefry.fold_in(key, i))
+            slot_w = step_lib.expand_slot_weights(rs.message_weights.float(), coeffs, slot_coded)
+            g = grad_fn(state.params, X, y, slot_w)
+            state = update_fn(state, g, float(lr32[i]), alpha, n_train, float(i))
+            blocks.tree_map(lambda h, p: h[j].copy_(p), history, state.params)
+            sim[j] = rs.sim_time
+            wtimes[j] = rs.worker_times
+            collected[j] = rs.collected
+    finally:
+        if guard:
+            torch.cuda.set_sync_debug_mode("default")
+    _sync(dev)
+    wall = time.perf_counter() - t0
+
+    # telemetry padded to the whole horizon (train()'s restart contract):
+    # rows before ``start`` belong to the donor phase
+    timeset = np.zeros(R)
+    timeset[start:] = sim.cpu().numpy()
+    wt = -np.ones((R, W))
+    wt[start:] = wtimes.cpu().numpy()
+    col = np.zeros((R, W), dtype=bool)
+    col[start:] = collected.cpu().numpy()
+    return TrainResult(
+        params_history=history,
+        final_params=state.params,
+        timeset=timeset,
+        worker_times=wt,
+        collected=col,
+        sim_total_time=float(timeset.sum()),
+        wall_time=wall,
+        steps_per_sec=n / wall if wall > 0 else 0.0,
+        n_train=n_train,
+        start_round=start,
+        config=cfg,
+        layout=layout,
+        final_state=state,
+        lowering=lowering,
+        cache_info=_cache_info(cfg, data_hit, stats_before, X, y, True, t0 - t_call,
+                               state.params, "resident"),
+    )
+
+
+def _make_worker_msg(model):
+    """One worker's transmitted message: its per-slot gradient stack over
+    its [S, rows, ...] slots (a GLM's closed-form ``grad_sum`` takes the
+    slot axis as it is, on every stack kind; the autodiff families go
+    through step.per_slot_grads).
+
+    ``n`` (the work multiplier) repeats the computation inside one chain:
+    each repetition takes the previous message through a factor that is
+    always exactly 1.0 but not provably so (the JAX package's dependence,
+    trainer._make_worker_msg), so n-fold work is n-fold device time and
+    the message is bitwise the one-fold message."""
+
+    def one(params, Xs, ys):
+        if getattr(model, "grads_via_loss", False):
+            return step_lib.per_slot_grads(model, params, Xs, ys, 1)
+        return model.grad_sum(params, Xs, ys)
+
+    def worker_msg(params, Xs, ys, n=1):
+        msg = one(params, Xs, ys)
+        for _ in range(n - 1):
+            s = blocks.tree_leaves(msg)[0].sum()
+            dep = torch.where(torch.isnan(s), 1.0, torch.sign(torch.abs(s) + 1.0))
+            msg = one(blocks.tree_map(lambda p: p * dep, params), Xs, ys)
+        return msg
+
+    return worker_msg
+
+
+def train_measured(
+    cfg: RunConfig,
+    dataset: Dataset,
+    *,
+    device=None,
+    init_params=None,
+    work_multiplier=None,
+    _clock=time.perf_counter,
+) -> TrainResult:
+    """Measured-arrival mode: every round, each logical worker's message is
+    computed on its own and timed, and those times (plus the injected
+    exponential delays when ``add_delay`` is on, as the reference's worker
+    latency is compute plus sleep) feed the scheme's collection rule
+    online, round by round (the JAX package's train_measured, single
+    process). ``worker_times`` is then a measurement again, like the
+    reference's Waitany stamps (src/naive.py:106).
+
+    Workers are timed one after another on the run's device (pure compute
+    heterogeneity): worker w's message is its per-slot gradient stack
+    (:func:`_make_worker_msg`), timed on the host clock between two
+    ``torch.cuda.synchronize`` calls, after every worker's computation was
+    warmed up once before the clock. The collection is the host float64
+    rule (parallel/collect.py via :func:`build_schedule`), and the decode
+    of the W stacked messages with the [W, S] slot weights is one launch
+    of the decode kernel (ops/kernels.fused_block_decode_leaves, the
+    ``"ws"`` contraction the JAX package runs as an einsum); the CPU takes
+    its plain version.
+
+    ``work_multiplier``: optional [W] ints; worker w computes its message
+    that many times in one chain, inducing real compute imbalance.
+    ``_clock``: the per-worker clock (tests pass a deterministic one); the
+    round loop's wall time always reads ``time.perf_counter``.
+
+    Refused as in the JAX package: pipelining, the simulated heterogeneity
+    knobs, deduped compute, the forced fused kernel and the forced flat
+    lowerings, and schemes whose descriptor lacks ``supports_measured``
+    (the partial two-part schemes). The JAX package's multi-device and
+    multi-process measured paths have no counterpart on one card."""
+    if cfg.pipeline_depth:
+        raise PipelineRefusal(
+            "measured_arrivals",
+            "pipeline_depth=1 has no measured-arrival implementation: "
+            "online per-round collection cannot overlap rounds whose "
+            "arrivals it has not measured yet",
+        )
+    if cfg.compute_time or cfg.worker_speed_spread:
+        raise ValueError(
+            "arrival_mode='measured' measures real per-worker compute; "
+            "simulated heterogeneity (compute_time/worker_speed_spread) "
+            "does not apply — unset it or use the simulated trainer"
+        )
+    if cfg.compute_mode != ComputeMode.FAITHFUL:
+        raise ValueError(
+            "arrival_mode='measured' times each worker's own (redundant) "
+            "slot compute; only compute_mode='faithful' is meaningful"
+        )
+    if cfg.use_pallas == "on":
+        raise ValueError(
+            "arrival_mode='measured' has no fused-kernel path; "
+            "use use_pallas='auto' or 'off'"
+        )
+    if cfg.flat_grad == "on":
+        raise ValueError(
+            "arrival_mode='measured' times each worker's own message "
+            "separately; the flat-stack lowering fuses all slots into one "
+            "matmul and cannot be timed per worker — use flat_grad='auto' "
+            "or 'off'"
+        )
+    if cfg.margin_flat == "on":
+        raise ValueError(
+            "arrival_mode='measured' times each worker's own message "
+            "separately; the flat-margin lowering fuses all slots' margins "
+            "into one matmul and cannot be timed per worker — use "
+            "margin_flat='auto' or 'off'"
+        )
+    if not schemes.get(cfg.scheme).supports_measured:
+        raise ValueError(
+            "arrival_mode='measured' has no two-part message timing: the "
+            "partial schemes send their uncoded part before the coded part "
+            "is computed, and timing one combined dispatch would "
+            "misattribute the arrival the mode exists to measure — use the "
+            "simulated trainer for partial schemes"
+        )
+    if isinstance(device, (list, tuple)) or (
+        torch.distributed.is_available() and torch.distributed.is_initialized()
+        and torch.distributed.get_world_size() > 1
+    ):
+        raise ValueError(
+            "arrival_mode='measured' runs one process on one device here; "
+            "the multi-device queue replay and the multi-process cluster "
+            "path are not ported (ROADMAP A9)"
+        )
+    dev = resolve_device(device)
+    layout = build_layout(cfg)
+    model = build_model(cfg)
+    W = layout.n_workers
+    mult = (
+        np.ones(W, dtype=np.int64)
+        if work_multiplier is None
+        else np.asarray(work_multiplier, dtype=np.int64)
+    )
+    if mult.shape != (W,) or (mult < 1).any():
+        raise ValueError(f"work_multiplier must be [W] ints >= 1, got {mult}")
+
+    X, y, n_train, _ = _device_stack(cfg, dataset, layout, True, dev)
+    if init_params is None:
+        params0 = model.init_params(cfg.seed, dataset.n_features, dev)
+    else:
+        params0 = params_from_numpy(init_params, dev)
+    state = optimizer.init_state(params0, cfg.update_rule)
+    update_fn = optimizer.make_update_fn(cfg.update_rule)
+    lr32 = cfg.resolve_lr_schedule().astype(np.float32)
+    alpha = cfg.effective_alpha
+    coeffs = np.asarray(layout.coeffs)
+    slot_coded = np.asarray(layout.slot_is_coded)
+    keys = tuple(sorted(params0)) if isinstance(params0, dict) else None  # decode order
+    worker_msg = _make_worker_msg(model)
+    slices = [(features_lib.take_lead(X, w), y[w]) for w in range(W)]
+
+    # warm every worker's computation before the clock (autodiff imports,
+    # a sparse stack's scatter plans, the library's load): measured times
+    # are then steady-state compute
+    if dev.type == "cuda":
+        kernels.load_library()
+    step_lib.warm_autodiff()
+    for w, (Xs, ys) in enumerate(slices):
+        worker_msg(state.params, Xs, ys, n=int(mult[w]))
+        _sync(dev)
+
+    # the injected delay on top of the real compute, like the reference's
+    # post-compute sleep (src/naive.py:140-149)
+    delays = straggler.arrival_schedule(cfg.rounds, W, cfg.add_delay, cfg.delay_mean)
+    timeset = np.zeros(cfg.rounds)
+    worker_times = np.zeros((cfg.rounds, W))
+    collected = np.zeros((cfg.rounds, W), dtype=bool)
+    mw_rows = []
+    history = blocks.tree_map(
+        lambda p: torch.empty((cfg.rounds,) + tuple(p.shape), dtype=torch.float32, device=dev),
+        params0,
+    )
+    _sync(dev)
+    wall0 = time.perf_counter()
+    for r in range(cfg.rounds):
+        # the previous round's update off the device before worker 0's
+        # clock opens, or its cost would be charged to worker 0
+        _sync(dev)
+        t_row = np.zeros(W)
+        msgs = []
+        for w, (Xs, ys) in enumerate(slices):
+            t0 = _clock()
+            m = worker_msg(state.params, Xs, ys, n=int(mult[w]))
+            _sync(dev)
+            t_row[w] = _clock() - t0
+            msgs.append(m)
+        sched = build_schedule(cfg, (t_row + delays[r])[None, :], layout)
+        slot_w = step_lib.expand_slot_weights(sched.message_weights, coeffs, slot_coded)[0]
+        leaves = [torch.stack(ls) for ls in zip(*(blocks.tree_leaves(m) for m in msgs))]
+        g = blocks.tree_unflatten(
+            keys, kernels.fused_block_decode_leaves(_to_device(slot_w, dev, torch.float32), leaves)
+        )
+        state = update_fn(state, g, float(lr32[r]), alpha, n_train, float(r))
+        blocks.tree_map(lambda h, p: h[r].copy_(p), history, state.params)
+        timeset[r] = sched.sim_time[0]
+        worker_times[r] = sched.worker_times[0]
+        collected[r] = sched.collected[0]
+        mw_rows.append(sched.message_weights[0])
+    _sync(dev)
+    wall = time.perf_counter() - wall0
+    return TrainResult(
+        params_history=history,
+        final_params=state.params,
+        timeset=timeset,
+        worker_times=worker_times,
+        collected=collected,
+        sim_total_time=float(timeset.sum()),
+        wall_time=wall,
+        steps_per_sec=cfg.rounds / wall if wall > 0 else 0.0,
+        n_train=n_train,
+        config=cfg,
+        layout=layout,
+        final_state=state,
+        decode_error=obs_decode.decode_error_series(
+            layout, np.stack(mw_rows) if mw_rows else np.zeros((0, W))
+        ),
+        lowering="measured",
     )
 
 
@@ -1036,6 +1462,8 @@ def _train_streamed(
     schedule: Optional[collect.CollectionSchedule] = None,
     checkpoint_dir: Optional[str] = None,
     resume: bool = False,
+    initial_state: Optional[optimizer.OptState] = None,
+    initial_round: int = 0,
 ) -> TrainResult:
     """Windowed streamed training: the stack never resides on the device
     whole. ``window`` partitions (a divisor of P, from
@@ -1057,9 +1485,10 @@ def _train_streamed(
     kernel here), an int8 window its dequantizing lowering. Refused, with
     JAX's messages: the forced kernel and the forced blockwise decode
     (:func:`_check_streamed_compat`), assignments that are not
-    window-uniform (the planner), ``checkpoint_dir`` and ``resume``."""
+    window-uniform (the planner), ``checkpoint_dir``, ``resume`` and a
+    mid-schedule restart (``initial_state``/``initial_round``)."""
     t_call = time.perf_counter()
-    if checkpoint_dir or resume:
+    if checkpoint_dir or resume or initial_state is not None or initial_round:
         raise ValueError(
             "checkpoint/resume/mid-schedule restart are not supported on "
             "the windowed streamed path (kill→resume recovery is the "
@@ -1144,13 +1573,13 @@ def cohort_eligible(cfg: RunConfig) -> bool:
     allows it (``cohort_batchable``). Streamed runs batch: trajectories of
     one store and window plan ride one windowed cohort loop
     (:func:`_train_cohort_streamed`), and ``static_signature`` carries the
-    residency knobs, so they never group with resident ones. The JAX
-    package also excludes measured-arrival runs; the port has no such
-    mode yet."""
+    residency knobs, so they never group with resident ones. Measured-
+    arrival runs time each worker on its own and never batch."""
     if _resolve_residency(cfg) == "streamed" and cfg.layer_coding == "on":
         return False
     return (
-        cfg.use_pallas != "on"
+        cfg.arrival_mode == "simulated"
+        and cfg.use_pallas != "on"
         and cfg.pipeline_depth == 0
         and schemes.get(cfg.scheme).cohort_batchable
     )
@@ -1419,6 +1848,11 @@ def train_cohort(
     if not cfgs:
         raise ValueError("train_cohort needs at least one trajectory config")
     for c in cfgs:
+        if c.arrival_mode != "simulated":
+            raise ValueError(
+                "train_cohort batches the scan trainer; "
+                "arrival_mode='measured' has no batched implementation"
+            )
         if c.use_pallas == "on":
             raise ValueError(
                 "train_cohort has no batched fused-kernel dispatch; "
@@ -1520,6 +1954,11 @@ def train_batch(cfg: RunConfig, dataset: Dataset, seeds, *, device=None) -> list
     seeds = [int(s) for s in seeds]
     if not seeds:
         raise ValueError("train_batch needs at least one seed")
+    if cfg.arrival_mode != "simulated":
+        raise ValueError(
+            "train_batch batches the scan trainer; arrival_mode='measured' "
+            "has no batched implementation"
+        )
     if cfg.use_pallas == "on":
         raise ValueError(
             "train_batch has no batched fused-kernel dispatch; "

@@ -8,9 +8,10 @@ unsharded mlp, deepmlp and moe families, GD/AGD/ADAM updates, the faithful
 and deduped compute modes, float32 or bfloat16 data, the int8 stack, the
 sparse stack formats and their lowerings, the flat and margin-flat
 gradient lowerings, the fused-kernel switch and the per-layer (blockwise)
-gradient coding knobs, the heterogeneous-cluster arrival model and the
-recorded arrival trace, the attention family's sequence-parallel knobs
-(validated; one device runs them unsharded), and bounded-staleness
+gradient coding knobs, the arrival mode (simulated or measured), the
+heterogeneous-cluster arrival model and the recorded arrival trace, the
+attention family's sequence-parallel knobs (validated; one device runs
+them unsharded), and bounded-staleness
 pipelining (``pipeline_depth``, refused with :class:`PipelineRefusal` where
 it is unsound), and out-of-core streaming (``stack_residency``,
 ``stream_window``, the :data:`STREAM_WINDOW_ENV` byte budget). Also the
@@ -207,6 +208,11 @@ class RunConfig:
     # through it unless layer_coding is "on"; "on" needs a GLM; "off" takes
     # the two-pass PyTorch gradient
     use_pallas: str = "auto"
+    # "simulated": the precomputed-schedule trainer (train.trainer.train).
+    # "measured": time each worker's real gradient compute per round and
+    # feed those arrivals to the collection rule (trainer.train_measured:
+    # worker_timeset becomes a measurement, like src/naive.py:106)
+    arrival_mode: str = "simulated"
     # per-layer (blockwise) gradient coding (parallel/step.
     # make_layer_block_grad_fn): each slot's gradient decodes per leaf
     # (DeepMLP layers and MoE expert shards are individual coded blocks,
@@ -227,8 +233,7 @@ class RunConfig:
     # .npy/.npz/.csv/.txt, shape [R?, W], tiled over rounds). CLI
     # --arrival-trace; ERASUREHEAD_ARRIVAL_TRACE when unset.
     # worker_speed_spread composes as a per-worker multiplier ON the trace
-    # rows (heterogeneous replay). The JAX package refuses it under its
-    # measured-arrival mode, which the port does not have yet
+    # rows (heterogeneous replay); refused under arrival_mode="measured"
     arrival_trace: Optional[str] = None
     # which sequence-parallel form would carry the attention: "ring" or
     # "ulysses"; validated and kept (models/attention.AttentionModel). The
@@ -344,6 +349,14 @@ class RunConfig:
                         f"layer_coding='on' and {name}='on' both force a "
                         "gradient lowering; force at most one"
                     )
+            if self.arrival_mode == "measured":
+                raise ValueError(
+                    "arrival_mode='measured' decodes each worker's own "
+                    "timed message through the per-slot tree contraction; "
+                    "the blockwise decode only exists inside the SPMD "
+                    "step — use layer_coding='auto' or 'off' with "
+                    "measured mode"
+                )
         if self.block_decode not in ("auto", "fused", "treewise"):
             raise ValueError(
                 f"block_decode must be auto/fused/treewise, got "
@@ -353,6 +366,17 @@ class RunConfig:
             raise ValueError(
                 f"deep_layers must be >= 0, got {self.deep_layers}"
             )
+        if self.arrival_trace is not None and self.arrival_mode != "simulated":
+            raise ValueError(
+                "arrival_trace replays a recorded schedule through the "
+                "simulated-arrival trainer; arrival_mode='measured' times "
+                "real arrivals — drop one of the two"
+            )
+        if self.arrival_mode not in ("simulated", "measured"):
+            raise ValueError(
+                f"arrival_mode must be simulated/measured, got "
+                f"{self.arrival_mode!r}"
+            )
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"dtype must be float32/bfloat16, got {self.dtype!r}"
@@ -361,6 +385,14 @@ class RunConfig:
             raise ValueError(
                 f"stack_dtype must be auto/float32/bfloat16/int8, got "
                 f"{self.stack_dtype!r}"
+            )
+        if self.stack_dtype == "int8" and self.arrival_mode == "measured":
+            raise ValueError(
+                "arrival_mode='measured' dispatches each worker's own "
+                "grad_sum on its resident slot stack; the int8 "
+                "compressed stack only dequantizes inside the SPMD "
+                "step body — use stack_dtype float32/bfloat16 (or "
+                "auto) with measured mode"
             )
         if self.stack_dtype == "int8" and self.use_pallas == "on":
             raise ValueError(
@@ -374,9 +406,14 @@ class RunConfig:
                 f"stack_residency must be resident/streamed/auto, got "
                 f"{self.stack_residency!r}"
             )
-        # the JAX package also refuses stack_residency='streamed' under
-        # arrival_mode='measured'; the port has no measured mode yet
-        # (ROADMAP A12 step 5 brings both)
+        if self.stack_residency == "streamed" and self.arrival_mode == "measured":
+            raise ValueError(
+                "arrival_mode='measured' dispatches per-worker on "
+                "resident slot stacks; the streamed window only "
+                "exists in the simulated-arrival scan trainer — use "
+                "stack_residency='resident' (or 'auto') with "
+                "measured mode"
+            )
         if self.stream_window is not None:
             if self.stack_residency == "resident":
                 raise ValueError(
@@ -453,8 +490,15 @@ class RunConfig:
                 "update's stability under a tau=1 stale gradient is "
                 "unproven here — use update_rule='GD' with pipelining",
             )
-        # the JAX package also refuses arrival_mode='measured' here; the
-        # port has no measured mode yet (ROADMAP A12 step 5 brings both)
+        if self.pipeline_depth and self.arrival_mode == "measured":
+            raise PipelineRefusal(
+                "measured_arrivals",
+                "pipeline_depth=1 refuses arrival_mode='measured': the "
+                "measured trainer times real per-worker dispatches "
+                "round by round, and overlapping rounds would make the "
+                "measurement racy instead of stale — use the simulated-"
+                "arrival trainer with pipelining",
+            )
         if self.num_collect is None:
             self.num_collect = self.n_workers
         if self.dataset not in DATASET_PRESETS:
