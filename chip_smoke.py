@@ -249,6 +249,27 @@ Phases, one JSON line each:
                  survivors' stack and B2 at the measured round's
                  [30, 3, 128] leaf (``check``), and that decode timed
                  (``time_round``, path measured).
+  34. adapt    - (after failures) adaptive collection (adapt/) at the flagship
+                 data, deduped, ERASUREHEAD_REGIME=adversary:50:0:8: the CLI
+                 with --adapt on --adapt-chunk 10 (100 B1 at [30, 4400, 128],
+                 no B2, at most one data-cache miss in ten chunks, the loss
+                 falling), then the API under the progress reward (steps/s,
+                 decision and driver overheads, total wall seconds, beside
+                 plain train()'s steps/s) and under time_error with
+                 shift_factor 1.4 (100 B1; its decisions bitwise those of the
+                 CPU run over the first 60 rounds, a regime_shift among them);
+  35. elastic  - online elastic membership (elastic/): the CLI with workers 3,
+                 7 and 11 dead from round 40, --elastic on --death-timeout
+                 2.0: 100 B1, at [90, 4400, 128] until the re-layout and at
+                 [81, 4888, 128] after it, the re-layout round and dead
+                 columns the CPU run's, the loss falling; the API run on the
+                 card with the CPU's decisions and epochs; a chaos drill
+                 (worker_death at boundary 2, a raise at the elastic site's
+                 3rd boundary, 40 rounds, checkpoint and journal) resumed
+                 bitwise; deepmlp layer-coded, 20 rounds, one death: 20 B2,
+                 checked at the survivors' [29, 1, ...] slots. B1 is timed at
+                 the survivors' [81, 4888, 128] beside its bound
+                 (``time_survivors``).
 Later, beside ``time`` and ``profile``: the attention run's per-slot leaves
 through ``decode_ops``, its round's decode (one launch, six leaves of
 [90, 913] floats) against its plain version, six GEMVs and the bound, and
@@ -2585,6 +2606,240 @@ def failures_phase(cli, kernels, tmp, both0, main_gpu) -> dict:
     return rec
 
 
+ADAPT_REGIME = "adversary:50:0:8"  # worker 0 eight seconds slower from round 50
+ADAPT_CHUNK = 10
+ADAPT_ARGS = MAIN_ARGS[:MAIN_ARGS.index("--compute-mode")] + [
+    "--compute-mode", "deduped", "--add-delay", "--quiet", "--adapt", "on",
+    "--adapt-chunk", str(ADAPT_CHUNK)]
+ADAPT_CPU_ROUNDS = 60  # the CPU run covers the shift at round 50
+# one 8 s straggler among 30 workers lifts a chunk's mean arrival about 1.6x
+# (0.46 s to 0.73 s), under the controller's default jump factor of 2.5; the
+# time_error run asks for 1.4, which no chunk before the shift reaches (at
+# most 1.22x)
+ADAPT_SHIFT_FACTOR = 1.4
+ELASTIC_ARGS = MAIN_ARGS + KILL_ARGS + ["--elastic", "on", "--death-timeout", "2.0"]
+ELASTIC_CHUNK = 10
+RESUME_ROUNDS = 40  # the kill -> resume drill: chunks 0-1, a raise, then 2-3
+RESUME_CHAOS = "5:worker_death:2"  # worker 5 dies at boundary 2 (round 10)
+
+
+def cache_delta(cache_lib, before) -> dict:
+    after = cache_lib.stats().snapshot()
+    return {k: after[k] - before[k] for k in ("data_hits", "data_misses")}
+
+
+def adapt_phase(cli, kernels, tmp, both0) -> dict:
+    """Adaptive collection at the flagship data, deduped, under an adversary
+    from round 50 (ERASUREHEAD_REGIME=adversary:50:0:8). Through the CLI
+    (--adapt on --adapt-chunk 10: approx c15, naive, avoidstragg under the
+    progress reward): exactly 100 B1 launches, every one at [30, 4400, 128],
+    no B2, one data-cache miss (or none) and hits for the other chunks, the
+    loss falling. Through the API the same config under the progress reward
+    (steps/s, decision and driver overheads, total wall seconds, beside plain
+    train()'s steps/s in this process) and under time_error with
+    shift_factor 1.4 (100 B1 again): its decisions bitwise those of the CPU
+    run of the same config over the first 60 rounds, a regime_shift among
+    them, the loss falling."""
+    from erasurehead_tpu_torch import adapt
+    from erasurehead_tpu_torch.train import cache as cache_lib
+    from erasurehead_tpu_torch.train import trainer
+    from erasurehead_tpu_torch.utils import chaos as chaos_lib
+
+    t_phase = time.perf_counter()
+    b1 = {**both0, "fused_glm_grad": ROUNDS}
+    want_shapes = [DEDUPED_SHAPE] * ROUNDS
+    chunks = ROUNDS // ADAPT_CHUNK
+    os.environ[chaos_lib.REGIME_ENV] = ADAPT_REGIME
+    shapes, restore = record_glm_shapes(kernels)
+    try:
+        before = cache_lib.stats().snapshot()
+        cli_run = counted_run(cli, kernels, os.path.join(tmp, "adapt"), ADAPT_ARGS, b1)
+        runs = {"cli": dict(launches=cli_run["launches"], cache=cache_delta(cache_lib, before),
+                            shapes=list(shapes))}
+        cfg = parse_config(cli, ADAPT_ARGS)
+        ds = cli.load_dataset(cfg)
+        arrivals = trainer.default_arrivals(cfg)
+        ctl = {"progress": adapt.ControllerConfig(chunk_rounds=ADAPT_CHUNK, seed=cfg.seed),
+               "time_error": adapt.ControllerConfig(
+                   chunk_rounds=ADAPT_CHUNK, seed=cfg.seed, reward_mode="time_error",
+                   shift_factor=ADAPT_SHIFT_FACTOR)}
+        res = {}
+        for mode, c in ctl.items():
+            shapes.clear()
+            before = cache_lib.stats().snapshot()
+            kernels.reset_launches()
+            res[mode] = adapt.train_adaptive(cfg, ds, controller=c, arrivals=arrivals)
+            runs[mode] = dict(launches=dict(kernels.LAUNCHES),
+                              cache=cache_delta(cache_lib, before), shapes=list(shapes))
+    finally:
+        restore()
+        os.environ.pop(chaos_lib.REGIME_ENV, None)
+    plain = trainer.train(cfg, ds, arrivals=arrivals)
+    cpu_cfg = dataclasses.replace(cfg, rounds=ADAPT_CPU_ROUNDS,
+                                  lr_schedule=cfg.resolve_lr_schedule()[:ADAPT_CPU_ROUNDS])
+    cpu = adapt.train_adaptive(cpu_cfg, ds, controller=ctl["time_error"],
+                               arrivals=arrivals[:ADAPT_CPU_ROUNDS], device="cpu")
+    te = res["time_error"]
+    prefix_equal = te.decisions[:len(cpu.decisions)] == cpu.decisions
+    losses = {mode: replayed_loss(r.result, ds) for mode, r in res.items()}
+    rec = dict(
+        regime=ADAPT_REGIME, args=ADAPT_ARGS,
+        runs={k: dict(launches=v["launches"], cache=v["cache"],
+                      shapes_all_deduped=v["shapes"] == want_shapes) for k, v in runs.items()},
+        cli_steps_per_sec=cli_run["manifest"]["steps_per_sec"],
+        cli_train_loss_first_last=check_falls(cli_run),
+        **{mode: dict(
+            steps_per_sec=r.result.steps_per_sec, train_wall_s=r.train_wall_s,
+            decision_overhead_s=r.decision_overhead_s, driver_overhead_s=r.driver_overhead_s,
+            total_wall_s=r.total_wall_s,
+            driver_overhead_per_chunk_s=r.driver_overhead_s / chunks,
+            decision_overhead_per_chunk_s=r.decision_overhead_s / chunks,
+            arms=[d["arm"] for d in r.decisions], reasons=[d["reason"] for d in r.decisions],
+            train_loss_first_last=[float(losses[mode][0]), float(losses[mode][-1])])
+           for mode, r in res.items()},
+        plain_train_steps_per_sec=plain.steps_per_sec,
+        plain_train_setup_s=plain.cache_info["setup_seconds"],
+        cpu_rounds=ADAPT_CPU_ROUNDS, cpu_decisions=len(cpu.decisions),
+        decisions_equal_cpu=prefix_equal,
+        seconds=time.perf_counter() - t_phase,
+    )
+    emit("adapt", **rec)
+    for name, r in runs.items():
+        if r["launches"] != b1 or r["shapes"] != want_shapes:
+            raise AssertionError(f"adapt {name}: launches {r['launches']}, shapes "
+                                 f"{sorted(set(r['shapes']))}")
+        c = r["cache"]
+        if c["data_misses"] > 1 or c["data_misses"] + c["data_hits"] != chunks:
+            raise AssertionError(f"adapt {name}: data cache {c}, want <= 1 miss of {chunks}")
+    if not prefix_equal:
+        raise AssertionError("adapt time_error decisions differ from the CPU run's")
+    if "regime_shift" not in rec["time_error"]["reasons"]:
+        raise AssertionError(f"no regime_shift decision: {rec['time_error']['reasons']}")
+    for mode in res:
+        if not losses[mode][-1] < losses[mode][0]:
+            raise AssertionError(f"adapt {mode}: loss did not fall")
+    rec["launches_by_run"] = {f"adapt_{k}": v["launches"] for k, v in runs.items()}
+    return rec
+
+
+def elastic_phase(cli, kernels, tmp, both0) -> dict:
+    """Online elastic membership: the CLI at MAIN_ARGS with workers 3, 7 and
+    11 dead from round 40 and --elastic on --death-timeout 2.0: B1 at
+    [90, 4400, 128] until the re-layout and at the 27 survivors'
+    [81, 4888, 128] after it, a launch a round, the re-layout round and the
+    dead columns (-1 from it on) those of the CPU run of the same config,
+    the loss falling; the same config through the API on the card, its
+    decisions and epochs the CPU's. Then a chaos drill through the API (a
+    worker_death spec plus a raise at the elastic site, 40 rounds, with a
+    checkpoint and a journal) resumed: rows and final params bitwise the
+    uninterrupted run's. Then deepmlp layer-coded, 20 rounds, one death
+    (re-laid at round 10): B2 once a round, B1 never, B2 checked at the
+    survivors' [29, 1, ...] slots."""
+    from erasurehead_tpu_torch import elastic
+    from erasurehead_tpu_torch.utils import chaos as chaos_lib
+
+    t_phase = time.perf_counter()
+    b1 = {**both0, "fused_glm_grad": ROUNDS}
+    cfg = parse_config(cli, ELASTIC_ARGS)
+    ecfg = elastic.ElasticConfig(chunk_rounds=ELASTIC_CHUNK, death_rounds=3, timeout=2.0,
+                                 seed=cfg.seed)
+    shapes, restore = record_glm_shapes(kernels)
+    try:
+        run = counted_run(cli, kernels, os.path.join(tmp, "elastic_online"), ELASTIC_ARGS, b1)
+        cli_shapes = list(shapes)
+        shapes.clear()
+        ds = cli.load_dataset(cfg)
+        kernels.reset_launches()
+        gpu = elastic.train_elastic_online(cfg, ds, elastic=ecfg, deaths=KILLS)
+        api_launches = dict(kernels.LAUNCHES)
+        api_shapes = list(shapes)
+    finally:
+        restore()
+    cpu = elastic.train_elastic_online(cfg, ds, elastic=ecfg, deaths=KILLS, device="cpu")
+    relayout = cpu.epochs[1]["start_round"] if len(cpu.epochs) > 1 else None
+    want_shapes = [MAIN_SHAPE] * relayout + [SURVIVOR_SHAPE] * (ROUNDS - relayout)
+    wt = run["arts"]["worker_timeset"]
+    dead_cols = np.flatnonzero((wt[relayout:] == -1.0).all(axis=0)).tolist()
+    survivors = [w for w in range(cfg.n_workers) if w not in dead_cols]
+
+    # kill -> resume through the API: the world changes by chaos at
+    # boundary 2, a raise stops the run at boundary 3
+    lr = cfg.resolve_lr_schedule()
+    short = dataclasses.replace(cfg, rounds=RESUME_ROUNDS, lr_schedule=lr[:RESUME_ROUNDS])
+    drill = os.path.join(tmp, "elastic_drill")
+    kw = dict(elastic=ecfg, journal_dir=drill, checkpoint_dir=os.path.join(drill, "ck"))
+    try:
+        os.environ[chaos_lib.CHAOS_ENV] = RESUME_CHAOS
+        chaos_lib.reset()
+        base = elastic.train_elastic_online(short, ds, elastic=ecfg)
+        os.environ[chaos_lib.CHAOS_ENV] = RESUME_CHAOS + ",raise:elastic:3:PREEMPTED"
+        chaos_lib.reset()
+        try:
+            elastic.train_elastic_online(short, ds, **kw)
+            raise AssertionError("the chaos raise at the elastic site never fired")
+        except chaos_lib.ChaosInjection:
+            pass
+        os.environ[chaos_lib.CHAOS_ENV] = RESUME_CHAOS
+        chaos_lib.reset()
+        resumed = elastic.train_elastic_online(short, ds, resume=True, **kw)
+    finally:
+        os.environ.pop(chaos_lib.CHAOS_ENV, None)
+        chaos_lib.reset()
+    rows_equal = ([elastic.science_fields(r) for r in resumed.rows]
+                  == [elastic.science_fields(r) for r in base.rows])
+    params_equal = torch.equal(resumed.result.final_params, base.result.final_params)
+
+    deep_cfg = parse_config(cli, with_rounds(DEEP_ARGS, LAYER_ROUNDS))
+    deep_ecfg = elastic.ElasticConfig(chunk_rounds=ELASTIC_CHUNK, death_rounds=2, timeout=2.0)
+    kernels.reset_launches()
+    deep = elastic.train_elastic_online(deep_cfg, ds, elastic=deep_ecfg, deaths={5: 0})
+    deep_launches = dict(kernels.LAUNCHES)
+    deep_lead = (deep.epochs[-1]["n_workers"], deep.epochs[-1]["n_stragglers"] + 1)
+    deep_check = check_decode_leaves(kernels, leaf_shapes("deepmlp"), torch.float32, 260,
+                                     lead=deep_lead)
+    deep_loss = replayed_loss(deep.result, ds)
+
+    rec = dict(
+        args=ELASTIC_ARGS, launches=run["launches"],
+        shapes={str(s): cli_shapes.count(s) for s in set(cli_shapes)},
+        relayout_round=relayout, cpu_epochs=[(e["start_round"], e["n_workers"])
+                                             for e in cpu.epochs],
+        cpu_deaths=[(d["worker"], d["round"], d["rule"]) for d in cpu.decisions
+                    if d["action"] == "death"],
+        dead_columns=dead_cols, steps_per_sec=run["manifest"]["steps_per_sec"],
+        train_loss_first_last=check_falls(run),
+        api=dict(launches=api_launches, decisions_equal_cpu=gpu.decisions == cpu.decisions,
+                 epochs_equal_cpu=gpu.epochs == cpu.epochs, steps_per_sec=gpu.result.steps_per_sec,
+                 shapes_as_cli=api_shapes == cli_shapes),
+        drill=dict(rounds=RESUME_ROUNDS, chaos=RESUME_CHAOS, resumed_from=resumed.resumed_from,
+                   epochs=[(e["start_round"], e["n_workers"]) for e in base.epochs],
+                   rows=len(resumed.rows), rows_bitwise=rows_equal,
+                   final_params_bitwise=params_equal),
+        deep=dict(launches=deep_launches, epochs=[(e["start_round"], e["n_workers"])
+                                                  for e in deep.epochs],
+                  survivor_slots=list(deep_lead),
+                  train_loss_first_last=[float(deep_loss[0]), float(deep_loss[-1])]),
+        seconds=time.perf_counter() - t_phase,
+    )
+    emit("elastic", **rec)
+    if relayout is None or cli_shapes != want_shapes or api_shapes != want_shapes:
+        raise AssertionError(f"elastic B1 shapes {rec['shapes']}, re-layout {relayout}")
+    if not (rec["api"]["decisions_equal_cpu"] and rec["api"]["epochs_equal_cpu"]):
+        raise AssertionError("elastic decisions or epochs on the card differ from the CPU's")
+    if list(cpu.epochs[1]["workers"]) != survivors or dead_cols != sorted(KILLS):
+        raise AssertionError(f"dead columns {dead_cols} vs the CPU's survivors")
+    if api_launches != b1:
+        raise AssertionError(f"elastic API run launched {api_launches}")
+    if not (rows_equal and params_equal and resumed.resumed_from == 2 * ELASTIC_CHUNK):
+        raise AssertionError(f"elastic kill -> resume not bitwise: {rec['drill']}")
+    if deep_launches != {**both0, "fused_block_decode": LAYER_ROUNDS} or len(deep.epochs) != 2:
+        raise AssertionError(f"deep elastic: launches {deep_launches}, epochs {rec['deep']}")
+    rec["launches_by_run"] = {"elastic_online": run["launches"], "elastic_online_api":
+                              api_launches, "elastic_deep": deep_launches}
+    rec["check"] = deep_check
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -2797,6 +3052,16 @@ def main() -> int:
     for rec in (dynamic, measured, failed):
         sweep_launches.update(rec["launches_by_run"])
 
+    # adaptive collection and online elastic membership
+    t_online = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-online-") as tmp:
+        adapted = adapt_phase(cli, kernels, tmp, both0)
+        online = elastic_phase(cli, kernels, tmp, both0)
+    online_phases_s = time.perf_counter() - t_online
+    emit("adapt_elastic", seconds=online_phases_s)
+    for rec in (adapted, online):
+        sweep_launches.update(rec["launches_by_run"])
+
     # the sparse and compressed stacks: no kernel takes them
     t_sparse = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-sparse-") as tmp:
@@ -2848,6 +3113,18 @@ def main() -> int:
                                    plain_ms=p1, bound_ms=bound, bound_by=by)
         emit("time_stream", kernel="fused_glm_grad", **stream_times[label])
         del b, X, y, w
+    # the 27 elastic survivors' stack, [81, 4888, 128]: 202.7 MB read once
+    b, X, y, w = make_inputs(*SURVIVOR_SHAPE, torch.float32, seed=103)
+    k1 = time_ms(lambda: kernels.fused_glm_grad(b, X, y, w, "logistic"))
+    p1 = time_ms(lambda: kernels.reference_glm_grad(b, X, y, w, "logistic"))
+    k2 = time_ms(lambda: kernels.fused_glm_grad(b, X, y, w, "logistic"))
+    bound, by = glm_bound_ms(*SURVIVOR_SHAPE, 4)
+    survivor_time = dict(shape=list(SURVIVOR_SHAPE), ms=min(k1, k2), kernel_ms=[k1, k2],
+                         plain_ms=p1, bound_ms=bound, bound_by=by,
+                         stack_mb=X.numel() * X.element_size() / 1e6,
+                         bound_share=bound / min(k1, k2))
+    emit("time_survivors", kernel="fused_glm_grad", **survivor_time)
+    del b, X, y, w
     for shape in WIDE_SHAPES:  # off the main path: the wide kernel's cost
         b, X, y, w = make_inputs(*shape, torch.float32, seed=101)
         k_ms = time_ms(lambda: kernels.fused_glm_grad(b, X, y, w, "logistic"), n=20)
@@ -2959,6 +3236,18 @@ def main() -> int:
                      "big_store_peak_windows": streamed["big_store"]["peak_windows"],
                      "phase_s": streamed["seconds"]},
         "sparse_phases_s": sparse_phases_s,
+        # the elastic survivors' stack after the re-layout
+        "elastic_survivors": survivor_time,
+        # adaptive collection: the chunk loop's steps/s and overheads (the
+        # progress reward's boundary probes are in the decision overhead)
+        # beside plain train()'s steps/s in this process
+        "adapt": {**{mode: {k: adapted[mode][k] for k in (
+            "steps_per_sec", "decision_overhead_s", "driver_overhead_s", "total_wall_s")}
+            for mode in ("progress", "time_error")},
+            "plain_train_steps_per_sec": adapted["plain_train_steps_per_sec"]},
+        "elastic": {"relayout_round": online["relayout_round"],
+                    "steps_per_sec": online["steps_per_sec"]},
+        "adapt_elastic_phases_s": online_phases_s,
         # a 28-trajectory deduped cohort round: the cohort matmul the path
         # runs instead, against 28 launches of this kernel
         "cohort_round": {k: cohort_glm_time[k] for k in (
@@ -2991,7 +3280,8 @@ def main() -> int:
                                 for k, n in ckpt["launches"].items()},
                              **{k: n["fused_block_decode"] for k, n in sweep_launches.items()}},
         "max_abs_err": max(decode_err, max(c["max_abs_err"] for c in cohort_checks),
-                           max(r["max_abs_err"] for r in ops + vmap_ops)),
+                           max(r["max_abs_err"] for r in ops + vmap_ops),
+                           online["check"]["max_abs_err"]),
         # a deep round's decode: one launch for its six leaves
         "ms": per_round["kernel_ms"],
         "plain_ms": per_round["plain_ms"],

@@ -53,6 +53,14 @@ saddle, where the loss stays at log 2)::
    re-shards onto the survivors at the first death and trains on
    (parallel/failures.py).
 
+   Online drivers: ``--adapt on [--adapt-chunk N] [--adapt-arms SPEC]
+   [--adapt-priors DIR]`` re-chooses the collection policy every N rounds
+   with a seeded bandit (adapt/; arms ``scheme[:cN][:dSECS]``, priors from a
+   saved what-if surface), and ``--elastic on [--elastic-chunk N]
+   [--death-rounds K] [--death-timeout S]`` detects dead workers from the
+   run's own telemetry and re-lays the code onto the survivors between
+   chunks (elastic/); ``--kill-workers`` then scripts the world it sees.
+
 2. **Legacy positional**: the reference's 13-argument calling convention
    (main.py:20-27)::
 
@@ -195,6 +203,43 @@ def _flags_parser() -> argparse.ArgumentParser:
                         "arrival set (least squares over the layout's "
                         "effective coding matrix, arXiv:2006.09638); "
                         "'fixed' keeps the scheme's own weights")
+    p.add_argument("--adapt", default="off", choices=["off", "on"],
+                   help="online straggler-adaptive collection (adapt/): "
+                        "a seeded bandit re-chooses the (scheme, collect, "
+                        "deadline) policy at every --adapt-chunk boundary "
+                        "from the run's own decode-error and arrival "
+                        "telemetry, switching when the straggler regime "
+                        "shifts")
+    p.add_argument("--adapt-chunk", type=int, default=10,
+                   help="rounds per adaptive decision window")
+    p.add_argument("--elastic", default="off", choices=["off", "on"],
+                   help="online elastic membership (elastic/): train in "
+                        "chunks and, between chunks, detect dead workers "
+                        "from the run's own telemetry (the -1 never-"
+                        "arrived sentinel persisting --death-rounds "
+                        "rounds, or a --death-timeout trip), re-lay the "
+                        "code onto the survivors with params and momentum "
+                        "carried over, and scale back up when a worker "
+                        "rejoins (chaos worker_revive). --kill-workers "
+                        "scripts the ground-truth world; the controller "
+                        "only ever sees telemetry")
+    p.add_argument("--elastic-chunk", type=int, default=10,
+                   help="rounds per elastic membership chunk (the "
+                        "re-layout granularity)")
+    p.add_argument("--death-rounds", type=int, default=3,
+                   help="consecutive never-arrived rounds that declare a "
+                        "worker dead (elastic mode)")
+    p.add_argument("--adapt-arms", default=None, metavar="SPEC",
+                   help="comma-separated arms 'scheme[:cN][:dSECS]', e.g. "
+                        "'naive,approx:c4,deadline:d1.5'; default: the "
+                        "run's own policy plus the uncoded-layout "
+                        "alternatives (adapt.default_arms)")
+    p.add_argument("--adapt-priors", default=None, metavar="DIR",
+                   help="seed the adapt bandit's cold start from a saved "
+                        "what-if surface (whatif/surface.py): arm values "
+                        "start at the surface's simulated expected reward "
+                        "instead of zero, so warm-up only explores arms "
+                        "the surface could not rank")
     p.add_argument("--rounds", type=int, default=100)
     p.add_argument("--dataset", default="artificial")
     p.add_argument("--rows", type=int, default=4096)
@@ -341,7 +386,7 @@ def _flags_parser() -> argparse.ArgumentParser:
                         "the survivors and continue (failures.train_elastic)")
     p.add_argument("--death-timeout", type=float, default=None,
                    help="simulated seconds before the master presumes a "
-                        "worker dead (failover mode)")
+                        "worker dead (failover and elastic modes)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the run computes; cuda raises when there is no card")
     p.add_argument("--quiet", action="store_true")
@@ -497,14 +542,57 @@ def _validate_checkpoint_flags(parser, ns) -> None:
     # recovery experiment
     if ns.on_death != "error" and not ns.kill_workers:
         parser.error("--on-death requires --kill-workers")
-    if ns.death_timeout is not None and ns.on_death != "failover":
-        parser.error("--death-timeout only applies to --on-death failover")
+    if ns.death_timeout is not None and ns.on_death != "failover" \
+            and ns.elastic != "on":
+        parser.error(
+            "--death-timeout only applies to --on-death failover or "
+            "--elastic on"
+        )
     if ns.kill_workers and ns.on_death == "failover" and ns.death_timeout is None:
         parser.error("--on-death failover requires --death-timeout")
     if ns.kill_workers and (ns.checkpoint_dir or ns.resume):
         parser.error("--kill-workers does not compose with checkpointing")
     if ns.kill_workers and ns.arrival_mode == "measured":
         parser.error("--kill-workers needs the simulated-arrival trainer")
+    # elastic membership: the driver owns the chunking and the failure
+    # handling, so the static death paths don't compose with it
+    if ns.elastic == "on":
+        if ns.arrival_mode == "measured":
+            parser.error("--elastic needs the simulated-arrival trainer")
+        if ns.checkpoint_dir or ns.resume:
+            parser.error(
+                "--elastic manages its own chunk-boundary checkpoints; "
+                "drop --checkpoint-dir/--resume (elastic resume is the "
+                "driver API's checkpoint_dir/resume)"
+            )
+        if ns.adapt == "on":
+            parser.error(
+                "--elastic composes the adapt bandit internally (per-"
+                "epoch re-seeded arms); drop --adapt"
+            )
+        if ns.on_death != "error":
+            parser.error(
+                "--elastic IS the death handling; drop --on-death"
+            )
+    if ns.elastic_chunk < 1:
+        parser.error("--elastic-chunk must be >= 1")
+    if ns.death_rounds < 1:
+        parser.error("--death-rounds must be >= 1")
+    # adaptive collection: the driver owns the chunking, so the static
+    # checkpoint/fault paths don't compose with it
+    if ns.adapt == "on":
+        if ns.arrival_mode == "measured":
+            parser.error("--adapt needs the simulated-arrival trainer")
+        if ns.checkpoint_dir or ns.resume:
+            parser.error("--adapt does not compose with checkpointing")
+        if ns.kill_workers:
+            parser.error("--adapt does not compose with --kill-workers")
+    if ns.adapt_chunk < 1:
+        parser.error("--adapt-chunk must be >= 1")
+    if ns.adapt_arms is not None and ns.adapt != "on":
+        parser.error("--adapt-arms requires --adapt on")
+    if ns.adapt_priors is not None and ns.adapt != "on":
+        parser.error("--adapt-priors requires --adapt on")
 
 
 def _parse_deaths(spec: str) -> dict[int, int]:
@@ -527,14 +615,121 @@ def _parse_deaths(spec: str) -> dict[int, int]:
     return out
 
 
+def _parse_arms(spec: str):
+    """'naive,approx:c4,deadline:d1.5' -> [Arm, ...] (cN = num_collect,
+    dSECS = deadline; order-free within one arm)."""
+    from erasurehead_tpu_torch.adapt import Arm
+
+    arms = []
+    for part in spec.split(","):
+        fields = part.strip().split(":")
+        if not fields or not fields[0]:
+            raise ValueError(f"bad --adapt-arms entry {part!r}")
+        scheme, num_collect, deadline = fields[0], None, None
+        for f in fields[1:]:
+            try:
+                if f.startswith("c"):
+                    num_collect = int(f[1:])
+                elif f.startswith("d"):
+                    deadline = float(f[1:])
+                else:
+                    raise ValueError
+            except ValueError:
+                raise ValueError(
+                    f"bad --adapt-arms field {f!r} in {part!r}; want cN "
+                    "(collect count) or dSECS (deadline)"
+                ) from None
+        arms.append(Arm(scheme, num_collect=num_collect, deadline=deadline))
+    return arms
+
+
+def _run_elastic(cfg: RunConfig, dataset, deaths, device, quiet: bool,
+                 elastic_chunk: int, death_rounds: int, death_timeout):
+    """The ``--elastic on`` branch: train_elastic_online with no journal
+    (the JAX CLI journals only with its telemetry on, which the port does
+    not have yet), and its decisions printed."""
+    from erasurehead_tpu_torch import elastic as elastic_lib
+
+    ecfg_kw = dict(chunk_rounds=elastic_chunk, death_rounds=death_rounds, seed=cfg.seed)
+    if death_timeout is not None:
+        ecfg_kw["timeout"] = death_timeout
+    eres = elastic_lib.train_elastic_online(
+        cfg, dataset, elastic=elastic_lib.ElasticConfig(**ecfg_kw),
+        deaths=deaths, journal_dir=None, device=device,
+    )
+    if not quiet:
+        relayouts = [d for d in eres.decisions if d["action"] == "relayout"]
+        print(
+            f"elastic membership: {len(eres.rows)} chunk(s), "
+            f"{len(relayouts)} re-layout(s) across "
+            f"{len(eres.epochs)} epoch(s)"
+        )
+        for d in eres.decisions:
+            print(
+                f"  round {d['round']:>4} {d['action']:10s} "
+                + str({k: v for k, v in d.items() if k not in ("round", "action")})
+            )
+    return eres.result
+
+
+def _run_adapt(cfg: RunConfig, dataset, device, quiet: bool, adapt_chunk: int,
+               adapt_arms, adapt_priors):
+    """The ``--adapt on`` branch: train_adaptive, the what-if priors loaded
+    when asked for, and its decisions printed."""
+    from erasurehead_tpu_torch import adapt as adapt_lib
+
+    arms = _parse_arms(adapt_arms) if adapt_arms else None
+    priors = None
+    if adapt_priors:
+        from erasurehead_tpu_torch.whatif import Surface
+
+        surface = Surface.load(adapt_priors)
+        priors = surface.adapt_priors(
+            arms if arms is not None else adapt_lib.default_arms(cfg),
+            n_workers=cfg.n_workers,
+            n_stragglers=cfg.n_stragglers,
+        )
+        if not quiet:
+            print(
+                f"adapt priors <- {adapt_priors} "
+                f"(spec {surface.spec_hash}): "
+                f"{len(priors)} arm(s) primed"
+            )
+    ares = adapt_lib.train_adaptive(
+        cfg, dataset, arms=arms,
+        controller=adapt_lib.ControllerConfig(chunk_rounds=adapt_chunk, seed=cfg.seed),
+        priors=priors, device=device,
+    )
+    if not quiet:
+        switches = sum(
+            1 for a, b in zip(ares.decisions, ares.decisions[1:]) if a["arm"] != b["arm"]
+        )
+        print(
+            f"adaptive collection: {len(ares.decisions)} "
+            f"decision(s), {switches} arm switch(es), "
+            f"{1000 * ares.decision_overhead_s:.2f} ms controller "
+            "overhead"
+        )
+        for d in ares.decisions:
+            print(f"  chunk {d['chunk']:>3} -> {d['arm']:24s} [{d['reason']}]")
+    return ares.result
+
+
 def run(cfg: RunConfig, output_dir: str | None = None, quiet: bool = False,
         device=None, checkpoint_dir: str | None = None,
         checkpoint_every: int | None = None, resume: bool = False,
         kill_workers: str | None = None, on_death: str = "error",
-        death_timeout: float | None = None):
+        death_timeout: float | None = None, adapt: str = "off",
+        adapt_chunk: int = 10, adapt_arms: str | None = None,
+        adapt_priors: str | None = None, elastic: str = "off",
+        elastic_chunk: int = 10, death_rounds: int = 3):
     """Train, replay the eval and write the artifacts. Returns
     (TrainResult, EvalResult, artifact paths). A resumed run's artifacts
     cover [start_round, rounds).
+
+    ``elastic="on"`` trains through elastic.train_elastic_online (the
+    deaths, if any, are the world its controller observes);
+    ``adapt="on"`` through adapt.train_adaptive.
 
     ``cfg.arrival_mode == "measured"`` trains through
     trainer.train_measured. ``kill_workers`` ("W:R[,W:R...]") injects
@@ -552,8 +747,14 @@ def run(cfg: RunConfig, output_dir: str | None = None, quiet: bool = False,
     deaths = _parse_deaths(kill_workers) if kill_workers else None
     if on_death != "error" and not deaths:
         raise ValueError("on_death requires kill_workers")
-    if death_timeout is not None and on_death != "failover":
-        raise ValueError("death_timeout only applies to on_death='failover'")
+    if death_timeout is not None and on_death != "failover" \
+            and elastic != "on":
+        raise ValueError(
+            "death_timeout only applies to on_death='failover' or "
+            "elastic='on'"
+        )
+    if elastic == "on" and cfg.arrival_mode == "measured":
+        raise ValueError("elastic needs the simulated-arrival trainer")
     if deaths and cfg.arrival_mode == "measured":
         raise ValueError("--kill-workers needs the simulated-arrival trainer")
     if deaths and (checkpoint_dir or resume):
@@ -568,7 +769,12 @@ def run(cfg: RunConfig, output_dir: str | None = None, quiet: bool = False,
     if output_dir is None:
         output_dir = os.path.join(dataset_dir(cfg) or ".", "results")
     dataset = load_dataset(cfg)
-    if cfg.arrival_mode == "measured":
+    if elastic == "on":
+        result = _run_elastic(cfg, dataset, deaths, device, quiet, elastic_chunk,
+                              death_rounds, death_timeout)
+    elif adapt == "on":
+        result = _run_adapt(cfg, dataset, device, quiet, adapt_chunk, adapt_arms, adapt_priors)
+    elif cfg.arrival_mode == "measured":
         result = trainer.train_measured(cfg, dataset, device=device)
     elif deaths and on_death == "elastic":
         result, report = failures.train_elastic(cfg, dataset, deaths, device=device)
@@ -645,6 +851,13 @@ def main(argv: list[str] | None = None) -> int:
         kill_workers=ns.kill_workers,
         on_death=ns.on_death,
         death_timeout=ns.death_timeout,
+        adapt=ns.adapt,
+        adapt_chunk=ns.adapt_chunk,
+        adapt_arms=ns.adapt_arms,
+        adapt_priors=ns.adapt_priors,
+        elastic=ns.elastic,
+        elastic_chunk=ns.elastic_chunk,
+        death_rounds=ns.death_rounds,
     )
     return 0
 

@@ -51,16 +51,20 @@ def _replay(model, is_regression: bool, params_history, data) -> torch.Tensor:
     return out
 
 
+def to_device(a, device):
+    """One array of the replay's data on ``device``, float32: a scipy sparse
+    matrix as a PaddedRows stack (as the JAX package's replay converts it),
+    a tensor already there as it is (a caller that evaluates many times,
+    like the adaptive driver's loss probe, puts its data once)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.float32)
+    if sps.issparse(a):
+        return features.to_device(features.PaddedRows.from_scipy(a), device, torch.float32)
+    return torch.as_tensor(np.asarray(a, np.float32)).to(device)
+
+
 def _put(device, X_train, y_train, X_test, y_test):
-    """The replay's data on ``device``, float32: a scipy sparse matrix as a
-    PaddedRows stack (as the JAX package's replay converts it)."""
-
-    def put(a):
-        if sps.issparse(a):
-            return features.to_device(features.PaddedRows.from_scipy(a), device, torch.float32)
-        return torch.as_tensor(np.asarray(a, np.float32)).to(device)
-
-    return tuple(put(a) for a in (X_train, y_train, X_test, y_test))
+    return tuple(to_device(a, device) for a in (X_train, y_train, X_test, y_test))
 
 
 def replay(

@@ -20,11 +20,13 @@ A sweep journal (train/journal.py) makes a sweep preemption-safe: each
 trajectory's row is journaled as it finishes, and a resumed sweep
 rehydrates the journaled rows instead of training them again.
 
-A cohort that runs out of device memory (``torch.cuda.OutOfMemoryError``)
-is bisected into halves, down to sequential ``train()`` on the same device,
-after the data cache's pins are dropped: the JAX package's own
-degradation. Every other exception propagates
-untouched, a kernel's launch failure included: nothing is retried.
+A cohort that runs out of device memory (``torch.cuda.OutOfMemoryError``,
+or a chaos ``raise`` at site ``cohort`` whose message carries an
+out-of-memory marker, utils/chaos.py) is bisected into halves, down to
+sequential ``train()`` on the same device, after the data cache's pins are
+dropped: the JAX package's own degradation. Every other exception
+propagates untouched, a kernel's launch failure included: nothing is
+retried.
 
 Not ported: event emission (``main --events`` is refused), streamed cohorts
 and per-label arrival schedules.
@@ -202,11 +204,18 @@ def _train_one(label, configs, dataset, arrivals, device, init_params):
     )
 
 
+#: substrings that make an injected cohort fault (utils/chaos.py, site
+#: "cohort") an out-of-memory failure: the JAX package's markers
+_OOM_MARKERS = ("RESOURCE_EXHAUSTED", "Out of memory", "out of memory")
+
+
 def _dispatch_cohort(labels, configs, dataset, arrivals, device, init_params) -> dict:
     """One cohort through train_cohort; on ``torch.cuda.OutOfMemoryError``
-    drop the data cache's pins, then bisect into halves (half the live set
-    per dispatch), bottoming out at sequential train() on the same device.
-    Returns label -> TrainResult."""
+    (or an injected chaos fault whose message carries an out-of-memory
+    marker) drop the data cache's pins, then bisect into halves (half the
+    live set per dispatch), bottoming out at sequential train() on the same
+    device. Any other injected fault propagates. Returns label ->
+    TrainResult."""
     _METRICS.counter("cohort.dispatches").inc()
     _METRICS.counter("cohort.trajectories").inc(len(labels))
     try:
@@ -215,7 +224,11 @@ def _dispatch_cohort(labels, configs, dataset, arrivals, device, init_params) ->
             init_params=None if init_params is None else [init_params[l] for l in labels],
         )
         return dict(zip(labels, results))
-    except torch.cuda.OutOfMemoryError:
+    except (torch.cuda.OutOfMemoryError, chaos_lib.ChaosInjection) as e:
+        if isinstance(e, chaos_lib.ChaosInjection) and not any(
+            m in str(e) for m in _OOM_MARKERS
+        ):
+            raise
         # the halves re-upload what they need, without contending with
         # stacks no live run is using
         cache_lib.drop_data_cache()

@@ -1754,6 +1754,9 @@ def _train_cohort_streamed(cfgs, store, window: int, *, arrivals, device, init_p
     cohort matmul for a dense GLM; no blockwise form), its update the
     vmapped one. Members match their sequential streamed runs to float
     tolerance."""
+    # the same chaos site as the resident cohort dispatch: a raise exercises
+    # compare()'s bisection (experiments._dispatch_cohort)
+    chaos_lib.maybe_fire("cohort")
     cfg = cfgs[0]
     dev = device
     layouts = _cohort_layouts(cfgs)
@@ -1895,6 +1898,10 @@ def train_cohort(
             )
         if getattr(dataset, "_sweep_cache_token", None) != store.cache_token:
             dataset = store.dataset()
+    # chaos site "cohort": a kill here is a preemption mid-cohort (nothing of
+    # the cohort persisted); a raise whose message names an out-of-memory
+    # marker exercises compare()'s bisection (experiments._dispatch_cohort)
+    chaos_lib.maybe_fire("cohort")
     faithful = cfg.compute_mode == ComputeMode.FAITHFUL
     layouts = _cohort_layouts(cfgs)
 

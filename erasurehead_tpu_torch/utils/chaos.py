@@ -13,12 +13,27 @@ cleanup, nothing flushed beyond what already reached disk), ``raise`` (a
 seconds, default 30). ``count`` fires on the Nth invocation of the site
 (``2``) or on the Nth and every later one (``2+``). The wired sites
 (:data:`WIRED_SITES`) are ``trajectory`` (after a sweep trajectory's row is
-finished and journaled, experiments.compare), ``checkpoint`` (at the
-head of checkpoint.save, so the save never commits) and ``prefetch`` (on
-the staging thread of data/prefetch.Prefetcher, before each window is
-read: a raise surfaces at the trainer's next ``get``). The JAX package's other
-sites are refused at parse time, naming the ROADMAP step that brings them:
+finished and journaled, experiments.compare), ``cohort`` (at the head of a
+trajectory-batched cohort dispatch, trainer.train_cohort: a ``raise`` whose
+message names an out-of-memory marker makes compare() bisect the cohort),
+``checkpoint`` (at the head of checkpoint.save, so the save never commits),
+``adapt`` / ``elastic`` (the chunk boundaries of the adaptive and elastic
+drivers, adapt/driver.py and elastic/driver.py) and ``prefetch`` (on the
+staging thread of data/prefetch.Prefetcher, before each window is read: a
+raise surfaces at the trainer's next ``get``). The JAX package's other sites
+are refused at parse time, naming the ROADMAP queue A item that brings them:
 a spec that parses is never silently ignored.
+
+Membership sites (:data:`MEMBERSHIP_SITES`, read by the elastic membership
+driver, elastic/driver.py) take a worker id in the mode field,
+``worker:site:count``: ``3:worker_death:2`` kills live worker 3 at the
+driver's 2nd chunk boundary and ``3:worker_revive:5`` offers it back at the
+5th, so one env var drives a die-then-rejoin cycle::
+
+    ERASUREHEAD_CHAOS=3:worker_death:2,3:worker_revive:5
+
+They never fire through :func:`maybe_fire`: the driver asks
+:func:`membership_fires` by its absolute chunk-boundary number.
 
 Straggler regimes (``ERASUREHEAD_REGIME``, below): a deterministic mid-run
 regime change (parallel/straggler.RegimeShift), read by
@@ -51,20 +66,24 @@ SITES = (
 )
 
 #: the sites the port instruments
-WIRED_SITES = ("trajectory", "checkpoint", "prefetch")
+WIRED_SITES = (
+    "trajectory", "cohort", "checkpoint", "adapt", "elastic",
+    "worker_death", "worker_revive", "prefetch",
+)
 
-#: an unwired site -> the ROADMAP queue A step whose module brings it
+#: sites whose fault is a MEMBERSHIP change (a worker dying or offering to
+#: join) rather than a process fault; their specs carry a worker id in the
+#: mode field and fire through :func:`membership_fires`, never
+#: :func:`maybe_fire`
+MEMBERSHIP_SITES = ("worker_death", "worker_revive")
+
+#: an unwired site -> the ROADMAP queue A item whose module brings it
 UNWIRED_SITES = {
-    "cohort": "A12 step 6 (failures: the cohort degradation drills)",
-    "adapt": "A12 step 7 (adapt/)",
-    "elastic": "A12 step 6 (failures and elastic/)",
-    "worker_death": "A12 step 6 (elastic membership)",
-    "worker_revive": "A12 step 6 (elastic membership)",
-    "serve_intake": "A13 (serve/)",
-    "serve_dispatch": "A13 (serve/)",
-    "serve_reply": "A13 (serve/)",
-    "fleet_replica": "A13 (serve/ fleet)",
-    "tune_race": "A12 step 8 (tune/)",
+    "serve_intake": "the serve/ daemon",
+    "serve_dispatch": "the serve/ daemon",
+    "serve_reply": "the serve/ daemon",
+    "fleet_replica": "the serve/ fleet",
+    "tune_race": "tune/",
 }
 
 
@@ -75,17 +94,19 @@ class ChaosInjection(RuntimeError):
 
 @dataclasses.dataclass(frozen=True)
 class ChaosSpec:
-    mode: str  # "kill" | "raise" | "stall"
+    mode: str  # "kill" | "raise" | "stall" | "member" (membership sites)
     site: str
     count: int  # 1-based invocation number that fires
     sticky: bool  # True = fire on count and every later invocation
     message: str
+    worker: Optional[int] = None  # membership sites: which worker
 
 
 def parse_spec(spec: str) -> ChaosSpec:
-    """Parse one ``mode:site:count[:message]`` spec; loud on malformed
-    specs and on sites the port does not instrument (a chaos run silently
-    doing nothing would invalidate the drill)."""
+    """Parse one ``mode:site:count[:message]`` spec (worker-id mode for
+    membership sites); loud on malformed specs and on sites the port does
+    not instrument (a chaos run silently doing nothing would invalidate
+    the drill)."""
     parts = spec.split(":", 3)
     if len(parts) < 3:
         raise ValueError(f"{CHAOS_ENV}={spec!r}: want mode:site:count[:message]")
@@ -99,7 +120,21 @@ def parse_spec(spec: str) -> ChaosSpec:
             f"erasurehead_tpu_torch yet (ROADMAP queue A, "
             f"{UNWIRED_SITES[site]}); wired sites: {WIRED_SITES}"
         )
-    if mode not in ("kill", "raise", "stall"):
+    worker = None
+    if site in MEMBERSHIP_SITES:
+        # membership grammar: the first field is the worker id the event
+        # concerns (3:worker_death:2 = worker 3 dies at invocation 2)
+        try:
+            worker = int(mode)
+        except ValueError:
+            raise ValueError(
+                f"{CHAOS_ENV}={spec!r}: membership sites take a worker id "
+                f"first (e.g. 3:{site}:2), got {mode!r}"
+            ) from None
+        if worker < 0:
+            raise ValueError(f"{CHAOS_ENV}={spec!r}: worker id must be >= 0")
+        mode = "member"
+    elif mode not in ("kill", "raise", "stall"):
         raise ValueError(f"{CHAOS_ENV}={spec!r}: mode must be kill|raise|stall")
     if mode == "stall":
         # the message field carries the stall duration in seconds
@@ -120,7 +155,8 @@ def parse_spec(spec: str) -> ChaosSpec:
         raise ValueError(f"{CHAOS_ENV}={spec!r}: count must be an int or 'N+'") from None
     if n < 1:
         raise ValueError(f"{CHAOS_ENV}={spec!r}: count must be >= 1")
-    return ChaosSpec(mode=mode, site=site, count=n, sticky=sticky, message=message)
+    return ChaosSpec(mode=mode, site=site, count=n, sticky=sticky, message=message,
+                     worker=worker)
 
 
 def parse_specs(value: str) -> list:
@@ -154,11 +190,12 @@ def _fires(spec: ChaosSpec, n: int) -> bool:
 
 def maybe_fire(site: str) -> None:
     """Count one invocation of ``site``; fire the armed fault if its
-    trigger condition is met. No-op (beyond one env lookup) when unarmed."""
+    trigger condition is met. No-op (beyond one env lookup) when unarmed.
+    Membership sites never fire here (:func:`membership_fires`)."""
     if CHAOS_ENV not in os.environ:
         return
     specs = [s for s in active_specs() if s.site == site]
-    if not specs:
+    if not specs or site in MEMBERSHIP_SITES:
         return
     _counts[site] = _counts.get(site, 0) + 1
     n = _counts[site]
@@ -177,6 +214,42 @@ def maybe_fire(site: str) -> None:
             f"(invocation {n}, spec {spec.mode}:{spec.site}:"
             f"{spec.count}{'+' if spec.sticky else ''})"
         )
+
+
+def membership_fires(site: str, invocation: int) -> tuple:
+    """PURE query: the worker ids of armed MEMBERSHIP specs firing at the
+    1-based ``invocation`` of ``site``. No counter is touched: the elastic
+    driver indexes invocations by its own absolute chunk-boundary number,
+    so a killed-and-resumed run replays the same membership chaos without
+    firing already-applied events again (a process-global counter would
+    restart at zero and shift every firing)."""
+    if site not in MEMBERSHIP_SITES:
+        raise ValueError(
+            f"membership_fires: {site!r} is not one of {MEMBERSHIP_SITES}"
+        )
+    if invocation < 1:
+        raise ValueError(f"invocation must be >= 1, got {invocation}")
+    if CHAOS_ENV not in os.environ:
+        return ()
+    return tuple(
+        s.worker for s in active_specs() if s.site == site and _fires(s, invocation)
+    )
+
+
+def fire_membership(site: str) -> tuple:
+    """Counter-based form of :func:`membership_fires`: count one invocation
+    of ``site`` and return the worker ids firing at it. Never kills or
+    raises; returns () when unarmed."""
+    if site not in MEMBERSHIP_SITES:
+        raise ValueError(
+            f"fire_membership: {site!r} is not one of {MEMBERSHIP_SITES}"
+        )
+    if CHAOS_ENV not in os.environ:
+        return ()
+    if not any(s.site == site for s in active_specs()):
+        return ()
+    _counts[site] = _counts.get(site, 0) + 1
+    return membership_fires(site, _counts[site])
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ from erasurehead_tpu_torch.data.synthetic import generate_gmm
 from erasurehead_tpu_torch.ops import kernels as t_kernels
 from erasurehead_tpu_torch.train import experiments as t_exp
 from erasurehead_tpu_torch.train import trainer as t_trainer
+from erasurehead_tpu_torch.utils import chaos as t_chaos
 from erasurehead_tpu_torch.utils.config import RunConfig
 
 W, ROUNDS = 8, 6
@@ -400,6 +401,42 @@ def test_oom_bisection_matches_the_jax_guard(above, data, jdata, monkeypatch):
     for g, c in zip(got, clean):
         np.testing.assert_allclose(g.training_loss, c.training_loss, rtol=2e-5, atol=1e-6)
         assert g.decode_error_mean == c.decode_error_mean
+
+
+@pytest.mark.parametrize("spec", ["raise:cohort:1:CUDA out of memory",
+                                  "raise:cohort:1+:out of memory", "raise:cohort:1"])
+def test_injected_cohort_oom_bisects_as_jax(spec, data, jdata, monkeypatch):
+    """ERASUREHEAD_CHAOS at site ``cohort`` with an out-of-memory message
+    (the default message is RESOURCE_EXHAUSTED): the port's compare()
+    bisects as the JAX guard does, with its split and fallback counts, and
+    finishes with the rows of an undisturbed compare()."""
+    labels = ("approx", "repcoded", "naive", "avoidstragg")
+    t, j = _pair({k: v for k, v in _labelled(compute_mode="deduped").items() if k in labels})
+    init = {label: _jax_init(c) for label, c in j.items()}
+    clean = t_exp.compare(dict(t), data, batch="on", device="cpu", init_params=init)
+    t_exp.reset_counters()
+    monkeypatch.setenv(t_chaos.CHAOS_ENV, spec)
+    for mod in (t_chaos, j_chaos):
+        mod.reset()
+    want = j_exp.compare(j, jdata, batch="on")
+    got = t_exp.compare(dict(t), data, batch="on", device="cpu", init_params=init)
+    for name in ("cohort.split", "cohort.sequential_fallback"):
+        assert t_exp.COUNTERS[name] == REGISTRY.counter(name).value, name
+    assert t_exp.COUNTERS["cohort.split"] >= 1
+    _rows_match(got, want)
+    for g, c in zip(got, clean):
+        np.testing.assert_allclose(g.training_loss, c.training_loss, rtol=2e-5, atol=1e-6)
+        assert g.decode_error_mean == c.decode_error_mean
+
+
+def test_other_injected_cohort_faults_propagate(data, monkeypatch):
+    monkeypatch.setenv(t_chaos.CHAOS_ENV, "raise:cohort:1:BOOM")
+    t_chaos.reset()
+    t, _ = _pair({k: v for k, v in _labelled(compute_mode="deduped").items()
+                  if k in ("approx", "repcoded")})
+    with pytest.raises(t_chaos.ChaosInjection, match="BOOM"):
+        t_exp.compare(t, data, batch="on", device="cpu")
+    assert t_exp.COUNTERS["cohort.split"] == 0
 
 
 def test_other_failures_propagate_untouched(data, monkeypatch):

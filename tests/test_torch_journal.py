@@ -376,18 +376,20 @@ def test_config_hash_is_stable():
 GOOD_SPECS = [
     "kill:trajectory:2", "raise:trajectory:1+:UNAVAILABLE", "stall:checkpoint:3:0.5",
     "stall:trajectory:1", "raise:checkpoint:2", "kill:trajectory:1,raise:checkpoint:2+",
+    "raise:cohort:1:out of memory", "raise:adapt:3:PREEMPTED",
+    "3:worker_death:2,3:worker_revive:5,kill:elastic:4", "0:worker_death:2+",
 ]
 BAD_SPECS = [
     "boom", "kill:nowhere:1", "raise:trajectory:x", "raise:trajectory:0",
     "explode:trajectory:1", "stall:trajectory:1:abc", "stall:trajectory:1:-1",
+    "kill:worker_death:2", "-1:worker_revive:1",
 ]
 
 
 @pytest.mark.parametrize("spec", GOOD_SPECS)
 def test_chaos_specs_parse_as_jax(spec):
     got, want = t_chaos.parse_specs(spec), j_chaos.parse_specs(spec)
-    assert [dataclasses.asdict(s) for s in got] == [
-        {k: v for k, v in dataclasses.asdict(s).items() if k != "worker"} for s in want]
+    assert [dataclasses.asdict(s) for s in got] == [dataclasses.asdict(s) for s in want]
 
 
 @pytest.mark.parametrize("spec", BAD_SPECS)

@@ -168,9 +168,11 @@ def test_prefetcher_close_bounds_wedged_stage(capsys):
     stage no longer holds close() forever; the leak is counted and warned
     about once."""
     release = threading.Event()
+    entered = threading.Event()
 
     class WedgedStore:
         def read_ranges(self, ranges, out=None):
+            entered.set()
             release.wait()  # a hung shard read
             return np.zeros((1, 2, 2), np.float32), np.zeros((1, 2), np.float32)
 
@@ -179,7 +181,11 @@ def test_prefetcher_close_bounds_wedged_stage(capsys):
     before = counter.value
     try:
         for _ in range(2):
+            entered.clear()
             pf = t_prefetch.Prefetcher(WedgedStore(), [(0, 1)], _copy)
+            # close only once the stage is wedged: a staging thread that a
+            # loaded host starts late would see the stop flag and exit in time
+            assert entered.wait(5.0)
             t0 = time.monotonic()
             pf.close(join_timeout_s=0.3)
             assert time.monotonic() - t0 < 5.0  # bounded, not forever
