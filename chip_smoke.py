@@ -270,6 +270,35 @@ Phases, one JSON line each:
                  checked at the survivors' [29, 1, ...] slots. B1 is timed at
                  the survivors' [81, 4888, 128] beside its bound
                  (``time_survivors``).
+  36. tune     - (after elastic; every phase before it reads an empty
+                 tune cache file, so its auto knobs resolve as they did
+                 before the tune plane) on its own cache: the glm_fused race
+                 (B1 against the two-pass gradient) at the main stack
+                 [30, 3, 4400, 128] and at cyccoded W = 3, s = 1, 6,600 x
+                 15,509 ([3, 2, 2200, 15509], B1's re-read path), each
+                 verdict in the cache and its 100-round auto run launching
+                 100 B1 if it is "pallas" and none if "xla", with a tune
+                 record of source "cache"; the deep path's block_decode and
+                 layer_coding races at 8 rounds, then its 100-round run with
+                 both knobs auto: 100 B2 if layer_coding resolved blockwise,
+                 none if treewise, bitwise the forced run of the resolved
+                 pair; ``cli tune --race all`` (ring_pipeline and stack_mode
+                 SKIPPED, nothing recorded); ERASUREHEAD_CHAOS=kill:tune_race:1
+                 on a ``cli tune`` subprocess exits 43 with the cache's bytes
+                 unchanged, and the rerun records the race's key; the warm
+                 lookup's microseconds; every tune record validates;
+  37. whatif   - approx c15, cyccoded and naive x exp:0.5 and adversary:8:0 at
+                 the flagship data, W = 30, s = 2, 8 seeds x 30 rounds,
+                 deduped (6 points, 48 trajectories): under batch auto one
+                 cohort (the cohort matmul), no B1; under off 1,440 B1 at
+                 [30, 4400, 128]; the surfaces agree (categorical fields
+                 equal, numeric within relative 1e-4) and each run's runs/s;
+                 a 2-seed, 10-round grid on the card and the CPU agrees the
+                 same way, the sampler's blocks within 2 ulps; the sampler's
+                 draw launches as many kernels for 1 seed as for 8 (the
+                 profiler's count); ``cli whatif`` on the same --out
+                 rehydrates bitwise with no launch; every whatif record
+                 validates.
 Later, beside ``time`` and ``profile``: the attention run's per-slot leaves
 through ``decode_ops``, its round's decode (one launch, six leaves of
 [90, 913] floats) against its plain version, six GEMVs and the bound, and
@@ -2840,11 +2869,368 @@ def elastic_phase(cli, kernels, tmp, both0) -> dict:
     return rec
 
 
+# the tune phase: glm_fused races at the main stack and at the wide
+# cyccoded stack (W = 3, s = 1, 6,600 x 15,509: B1's re-read path at
+# [6, 2200, 15509], where the two-pass path beat it in PR 1's timing), the
+# deep path's block_decode and layer_coding races at 8 rounds, then the
+# auto runs each verdict resolves
+WIDE_ARGS = ["--scheme", "cyccoded", "--workers", "3", "--stragglers", "1", "--rounds", "100",
+             "--rows", "6600", "--cols", "15509", "--update-rule", "AGD", "--compute-mode",
+             "faithful", "--add-delay", "--quiet"]
+WIDE_STACK = (3, 2, 2200, 15509)
+RACE_ROUNDS = 8
+DEEP_AUTO_ARGS = [a for a in DEEP_ARGS if a not in ("--layer-coding", "--block-decode", "on",
+                                                    "fused")]
+# `tune --race all` at a small GLM shape, and the kill drill at the main
+# path's (the CLI's flags)
+TUNE_SMALL = ["--model", "logistic", "--workers", "8", "--stragglers", "1", "--num-collect",
+              "6", "--rows", "2048", "--cols", "64", "--rounds", "4", "--reps", "1"]
+TUNE_MAIN = ["--race", "glm_fused", "--model", "logistic", "--scheme", "approx", "--workers",
+             "30", "--stragglers", "2", "--num-collect", "15", "--rows", "132000", "--cols",
+             "128", "--rounds", "8"]
+# the whatif phase: three policies x two regimes at the flagship data,
+# deduped (B1 at [30, 4400, 128] in a sequential run), 8 seeds x 30 rounds
+WHATIF_FLAGS = ["--policies", "approx:c15,cyccoded,naive", "--workers", "30", "--stragglers",
+                "2", "--regimes", "exp:0.5,adversary:8:0", "--seeds", "8", "--rounds", "30",
+                "--rows", "132000", "--cols", "128", "--model", "logistic"]
+WHATIF_POINTS, WHATIF_SEEDS, WHATIF_ROUNDS = 6, 8, 30
+WHATIF_CPU_SEEDS, WHATIF_CPU_ROUNDS = 2, 10  # the card-vs-CPU grid
+
+
+def tune_events(path) -> list:
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r["type"] == "tune"]
+
+
+def tuned_glm_run(cli, kernels, tune_lib, races, events_lib, tmp, label, args, stack):
+    """A glm_fused race at the stack of ``args``' config, its verdict in the
+    cache, then ``args``' 100-round auto run under that cache (counts set to
+    0 just before it): 100 B1 at the stack if the verdict is "pallas", none
+    if it is "xla", and a ``tune`` record with source "cache" saying so."""
+    cfg = parse_config(cli, args)
+    ds = cli.load_dataset(cfg)
+    t0 = time.perf_counter()
+    res = races.race_glm_fused(cfg, ds)
+    race_s = time.perf_counter() - t0
+    if res.shape != tune_lib.glm_fused_signature(stack, "float32", "logistic"):
+        raise AssertionError(f"{label}: raced at {res.shape}, want the stack {stack}")
+    if tune_lib.get_cache().lookup(res.device_kind, "glm_fused", res.shape) != res.choice:
+        raise AssertionError(f"{label}: the cache does not hold the verdict {res.choice}")
+    m = math.prod(stack[:-2])
+    want = {name: 0 for name in kernels.LAUNCHES}
+    if res.choice == "pallas":
+        want["fused_glm_grad"] = ROUNDS
+    path = os.path.join(tmp, f"{label}_events.jsonl")
+    shapes, restore = record_glm_shapes(kernels)
+    tune_lib.reset_emitted()  # records are deduplicated per process
+    try:
+        with events_lib.capture(path):
+            run = counted_run(cli, kernels, os.path.join(tmp, label), args, want,
+                              workers=cfg.n_workers)
+    finally:
+        restore()
+    cached = [(r["choice"], r["shape"]) for r in tune_events(path)
+              if r["race"] == "glm_fused" and r["source"] == "cache"]
+    if cached != [(res.choice, res.shape)]:
+        raise AssertionError(f"{label}: the auto run's glm_fused records {cached}")
+    if set(shapes) - {(m,) + stack[-2:]}:
+        raise AssertionError(f"{label}: B1 at {sorted(set(shapes))}")
+    return dict(stack=list(stack), choice=res.choice, decisive=res.decisive,
+                timings_ms={k: v * 1e3 for k, v in res.timings.items()}, race_wall_s=race_s,
+                launches=run["launches"], steps_per_sec=run["manifest"]["steps_per_sec"],
+                lowering_records=cached, events=path)
+
+
+def tune_phase(cli, kernels, tmp, both0) -> dict:
+    """The tune plane on its own cache file (the script's other phases keep
+    their empty one). glm_fused at the main stack [30, 3, 4400, 128] and at
+    the wide cyccoded stack [3, 2, 2200, 15509]: each race's candidates'
+    times and verdict, the verdict in the cache, and the 100-round auto run
+    under it launching B1 exactly as the verdict says (``tuned_glm_run``).
+    The deep path's block_decode and layer_coding races at 8 rounds, then
+    its 100-round run with both knobs "auto": B2 once a round if
+    layer_coding resolved blockwise (either decode lowering launches it),
+    none if treewise, bitwise the forced run of the resolved pair.
+    ``cli tune --race all``: ring_pipeline and stack_mode print SKIPPED and
+    record nothing. A chaos kill at tune_race (a subprocess of ``cli
+    tune``) exits 43 with the cache's bytes unchanged; the rerun records
+    the key the race keys. The warm lookup's cost in microseconds. Every
+    tune record validates."""
+    from erasurehead_tpu_torch import tune as tune_lib
+    from erasurehead_tpu_torch.obs import events as events_lib
+    from erasurehead_tpu_torch.tune import races
+    from erasurehead_tpu_torch.utils import chaos as chaos_lib
+
+    t_phase = time.perf_counter()
+    prev = os.environ[tune_lib.ENV_PATH]
+    cache_path = os.path.join(tmp, "tune.json")
+    os.environ[tune_lib.ENV_PATH] = cache_path
+    tune_lib.reset()
+    tune_lib.reset_emitted()
+    try:
+        glm = {label: tuned_glm_run(cli, kernels, tune_lib, races, events_lib, tmp, label,
+                                    args, stack)
+               for label, args, stack in (("main", MAIN_ARGS, (30, 3, 4400, 128)),
+                                          ("wide", WIDE_ARGS, WIDE_STACK))}
+
+        deep_cfg = parse_config(cli, with_rounds(DEEP_AUTO_ARGS, RACE_ROUNDS))
+        ds = cli.load_dataset(deep_cfg)
+        deep_races = {}
+        for name in ("block_decode", "layer_coding"):
+            t0 = time.perf_counter()
+            res = races.RACE_FNS[name](deep_cfg, ds)
+            deep_races[name] = dict(choice=res.choice, decisive=res.decisive,
+                                    timings_ms={k: v * 1e3 for k, v in res.timings.items()},
+                                    race_wall_s=time.perf_counter() - t0, shape=res.shape)
+        blockwise = deep_races["layer_coding"]["choice"] == "blockwise"
+        want = {**both0, "fused_block_decode": ROUNDS if blockwise else 0}
+        deep_path = os.path.join(tmp, "deep_auto_events.jsonl")
+        # the layer_coding race's blockwise runs resolved block_decode
+        # already; records are deduplicated per process
+        tune_lib.reset_emitted()
+        with events_lib.capture(deep_path):
+            auto = counted_run(cli, kernels, os.path.join(tmp, "deep_auto"), DEEP_AUTO_ARGS,
+                               want)
+        forced_args = DEEP_AUTO_ARGS + [
+            "--layer-coding", "on" if blockwise else "off",
+            "--block-decode", deep_races["block_decode"]["choice"]]
+        forced = counted_run(cli, kernels, os.path.join(tmp, "deep_forced"), forced_args, want)
+        same = {a: auto["arts"][a].tobytes() == forced["arts"][a].tobytes() for a in ARTIFACTS}
+        deep_cached = sorted((r["race"], r["choice"]) for r in tune_events(deep_path)
+                             if r["source"] == "cache")
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(["tune", "--race", "all"] + TUNE_SMALL)
+        race_all = out.getvalue()
+        raced_kinds = {k.split("|")[1] for k in tune_lib.get_cache().decisions()}
+
+        # the kill drill, in subprocesses of `cli tune` on this cache file
+        before = open(cache_path, "rb").read()
+        killed = tune_cli(TUNE_MAIN, cache_path, chaos="kill:tune_race:1")
+        after_kill = open(cache_path, "rb").read()
+        rerun = tune_cli(TUNE_MAIN + ["--json"], cache_path)
+        rerun_out = json.loads(rerun.stdout.strip().splitlines()[-1]) if rerun.stdout else {}
+        rerun_key = tune_lib.decision_key(rerun_out.get("device_kind", "?"), "glm_fused",
+                                          (rerun_out.get("races", {}).get("glm_fused") or {})
+                                          .get("shape", "?"))
+
+        sig = glm["main"]["lowering_records"][0][1]
+        dk = tune_lib.default_device_kind()
+        n = 10000
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tune_lib.lookup("glm_fused", sig, device_kind=dk, fallback="pallas")
+        lookup_us = (time.perf_counter() - t0) / n * 1e6
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tune_lib.lookup("glm_fused", sig, device_kind=tune_lib.default_device_kind("cuda"),
+                            fallback="pallas")
+        resolve_us = (time.perf_counter() - t0) / n * 1e6
+
+        paths = [g["events"] for g in glm.values()] + [deep_path]
+        errors = [e for p in paths for e in events_lib.validate_file(p)]
+        n_records = sum(len(tune_events(p)) for p in paths)
+    finally:
+        os.environ[tune_lib.ENV_PATH] = prev
+        tune_lib.reset()
+        tune_lib.reset_emitted()
+    rec = dict(
+        glm_fused={k: {f: v for f, v in g.items() if f != "events"} for k, g in glm.items()},
+        deep=dict(races=deep_races, rounds=RACE_ROUNDS, auto_launches=auto["launches"],
+                  forced_args=forced_args[len(DEEP_AUTO_ARGS):],
+                  auto_bitwise_forced=same, cached_records=deep_cached,
+                  auto_steps_per_sec=auto["manifest"]["steps_per_sec"]),
+        race_all_skipped=[ln for ln in race_all.splitlines() if "SKIPPED" in ln],
+        race_all_recorded=sorted(raced_kinds),
+        kill=dict(exit_code=killed.returncode, cache_bytes_unchanged=after_kill == before,
+                  rerun_exit_code=rerun.returncode, rerun_key=rerun_key,
+                  rerun_recorded=rerun_key in json.loads(open(cache_path).read())["decisions"]),
+        warm_lookup_us=lookup_us, warm_resolve_us=resolve_us,
+        tune_records=n_records, validation_errors=errors,
+        seconds=time.perf_counter() - t_phase,
+    )
+    emit("tune", **rec)
+    if not all(same.values()):
+        raise AssertionError(f"deep auto run vs forced {forced_args}: {same}")
+    if deep_cached != sorted((n, r["choice"]) for n, r in deep_races.items()
+                             if n == "layer_coding" or blockwise):
+        raise AssertionError(f"deep auto run resolved {deep_cached}, raced {deep_races}")
+    if not all(s in race_all for s in ("ring_pipeline: SKIPPED", "stack_mode: SKIPPED")) \
+            or raced_kinds & {"ring_pipeline", "stack_mode"}:
+        raise AssertionError(f"race all: {race_all!r}, recorded {raced_kinds}")
+    if killed.returncode != chaos_lib.KILL_EXIT or after_kill != before:
+        raise AssertionError(f"kill drill: exit {killed.returncode}, cache changed "
+                             f"{after_kill != before}: {killed.stderr[-2000:]}")
+    if rerun.returncode != 0 or not rec["kill"]["rerun_recorded"] \
+            or rerun_key.split("|", 2)[2] != sig:
+        raise AssertionError(f"kill drill rerun: {rec['kill']}: {rerun.stderr[-2000:]}")
+    if lookup_us >= 1000 or errors or not n_records:
+        raise AssertionError(f"warm lookup {lookup_us} us, {n_records} records, {errors}")
+    rec["launches_by_run"] = {**{f"tune_{k}_auto": g["launches"] for k, g in glm.items()},
+                              "tune_deep_auto": auto["launches"],
+                              "tune_deep_forced": forced["launches"]}
+    return rec
+
+
+def tune_cli(args, cache_path, chaos=None) -> subprocess.CompletedProcess:
+    """``python -m erasurehead_tpu_torch.cli tune`` in a subprocess of this
+    checkout, on ``cache_path``, with ERASUREHEAD_CHAOS=``chaos``."""
+    env = {k: v for k, v in os.environ.items() if k != "ERASUREHEAD_CHAOS"}
+    env["ERASUREHEAD_TUNE_CACHE"] = cache_path
+    if chaos:
+        env["ERASUREHEAD_CHAOS"] = chaos
+    return subprocess.run([sys.executable, "-m", "erasurehead_tpu_torch.cli", "tune"] + args,
+                          cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+
+
+def draw_kernels(sampler, regime, seeds) -> int:
+    """Device kernels of one sampler draw ([len(seeds), 30, 30]), counted by
+    the profiler after a warm-up draw."""
+    def draw():
+        sampler.sample_arrivals(regime, WHATIF_ROUNDS, 30, seeds)
+        torch.cuda.synchronize()
+
+    prof, _ = profiled(draw)
+    return sum(ev.count for ev in device_events(prof))
+
+
+def surfaces_agree(a, b) -> float:
+    """Categorical row fields equal, numeric ones within relative 1e-4;
+    returns the largest relative difference."""
+    worst = 0.0
+    for ra, rb in zip(a.rows, b.rows, strict=True):
+        for k, v in rb.items():
+            if isinstance(v, float) and isinstance(ra[k], float):
+                rel = abs(ra[k] - v) / max(abs(v), 1e-12)
+                if rel > 1e-4:
+                    raise AssertionError(f"{rb['label']} {k}: {ra[k]} vs {v}")
+                worst = max(worst, rel)
+            elif ra[k] != v:
+                raise AssertionError(f"{rb['label']} {k}: {ra[k]!r} vs {v!r}")
+    return worst
+
+
+def whatif_phase(cli, kernels, tmp, both0) -> dict:
+    """The what-if engine at the flagship data: approx c15, cyccoded and
+    naive x exp:0.5 and adversary:8:0 at W = 30, s = 2, 8 seeds x 30 rounds
+    (6 points, 48 trajectories, deduped). Under batch "auto" (saved to an
+    --out directory) the 48 ride one cohort through the cohort matmul: no
+    B1. Under "off" (the loss target pinned to the auto run's) each is a
+    sequential train(): 1,440 B1 at [30, 4400, 128]. The two surfaces
+    agree (categorical fields equal, numeric within relative 1e-4); runs/s
+    of each. A 2-seed, 10-round grid on the card and on the CPU agrees the
+    same way, and the sampler's blocks there within 2 ulps; the sampler's
+    draw launches as many kernels for 1 seed as for 8 (the profiler's
+    count). ``cli whatif`` with the same --out rehydrates bitwise and
+    launches nothing. Every whatif record validates."""
+    import dataclasses as dc
+
+    from erasurehead_tpu_torch.obs import events as events_lib
+    from erasurehead_tpu_torch.whatif import Surface, run_whatif, sampler
+    from erasurehead_tpu_torch.whatif import spec as spec_lib
+
+    t_phase = time.perf_counter()
+    ns = dict(zip(WHATIF_FLAGS[::2], WHATIF_FLAGS[1::2]))
+    grid = spec_lib.GridSpec(
+        policies=spec_lib.parse_policies(ns["--policies"]),
+        n_workers=spec_lib.parse_ints(ns["--workers"]),
+        n_stragglers=spec_lib.parse_ints(ns["--stragglers"]),
+        regimes=spec_lib.parse_regimes(ns["--regimes"]),
+        n_seeds=WHATIF_SEEDS, rounds=WHATIF_ROUNDS, n_rows=132000, n_cols=128,
+        model="logistic")
+    out = os.path.join(tmp, "surface")
+    path = os.path.join(tmp, "whatif_events.jsonl")
+    shapes, restore = record_glm_shapes(kernels)
+    try:
+        with events_lib.capture(path):
+            kernels.reset_launches()
+            auto = run_whatif(grid, out_dir=out, batch="auto")
+            auto_launches = dict(kernels.LAUNCHES)
+            kernels.reset_launches()
+            off = run_whatif(dc.replace(grid, target_loss=auto.target_loss), batch="off")
+            off_launches = dict(kernels.LAUNCHES)
+            files = {n: open(os.path.join(out, n), "rb").read()
+                     for n in ("surface_rows.jsonl", "surface.npz")}
+            kernels.reset_launches()
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                rc = cli.main(["whatif"] + WHATIF_FLAGS + ["--out", out])
+            rerun_launches = dict(kernels.LAUNCHES)
+    finally:
+        restore()
+    rehydrated = Surface.load(out)
+    same_files = all(open(os.path.join(out, n), "rb").read() == b for n, b in files.items())
+    max_rel_auto_off = surfaces_agree(off, auto)
+
+    small = dc.replace(grid, n_seeds=WHATIF_CPU_SEEDS, rounds=WHATIF_CPU_ROUNDS)
+    card = run_whatif(small)
+    cpu = run_whatif(dc.replace(small, target_loss=card.target_loss), device="cpu")
+    max_rel_cpu = surfaces_agree(card, cpu)
+    ulps = {}
+    for reg in grid.regimes:
+        a = sampler.sample_arrivals(reg, WHATIF_ROUNDS, 30, range(WHATIF_SEEDS))
+        b = sampler.sample_arrivals(reg, WHATIF_ROUNDS, 30, range(WHATIF_SEEDS), device="cpu")
+        ia = a.astype(np.float32).view(np.int32).astype(np.int64)
+        ib = b.astype(np.float32).view(np.int32).astype(np.int64)
+        ulps[reg.tag] = int(np.abs(ia - ib).max())
+    draws = {s: draw_kernels(sampler, grid.regimes[1], list(range(s))) for s in (1, WHATIF_SEEDS)}
+    # the CLI's rerun logs into its --out directory
+    kinds = []
+    errors = []
+    for p in (path, os.path.join(out, "events.jsonl")):
+        errors += events_lib.validate_file(p)
+        with open(p) as f:
+            kinds += [r["kind"] for r in map(json.loads, f) if r["type"] == "whatif"]
+
+    want_off = {**both0, "fused_glm_grad": WHATIF_POINTS * WHATIF_SEEDS * WHATIF_ROUNDS}
+    rec = dict(
+        flags=WHATIF_FLAGS, spec_hash=auto.spec_hash, target_loss=auto.target_loss,
+        n_trajectories=auto.stats["n_trajectories"],
+        auto=dict(launches=auto_launches, runs_per_sec=auto.stats["runs_per_sec"],
+                  wall_s=auto.stats["wall_s"]),
+        off=dict(launches=off_launches, runs_per_sec=off.stats["runs_per_sec"],
+                 wall_s=off.stats["wall_s"],
+                 b1_shapes={str(s): shapes.count(s) for s in set(shapes)}),
+        max_rel_off_vs_auto=max_rel_auto_off,
+        card_vs_cpu=dict(seeds=WHATIF_CPU_SEEDS, rounds=WHATIF_CPU_ROUNDS,
+                         max_rel=max_rel_cpu, card_runs_per_sec=card.stats["runs_per_sec"],
+                         cpu_runs_per_sec=cpu.stats["runs_per_sec"]),
+        sampler_max_ulps_vs_cpu=ulps, draw_kernels_by_seeds=draws,
+        rerun=dict(exit_code=rc, launches=rerun_launches, rehydrated="(rehydrated)" in
+                   printed.getvalue(), files_bitwise=same_files,
+                   rows_equal=rehydrated.rows == auto.rows),
+        record_kinds={k: kinds.count(k) for k in sorted(set(kinds))},
+        validation_errors=errors, seconds=time.perf_counter() - t_phase,
+        rows=[{k: r[k] for k in ("label", "expected_time_to_target", "reach_fraction",
+                                  "sim_time_per_round", "final_loss_mean")} for r in auto.rows],
+    )
+    emit("whatif", **rec)
+    if auto_launches != both0 or off_launches != want_off:
+        raise AssertionError(f"whatif launches: auto {auto_launches}, off {off_launches}")
+    if set(shapes) != {DEDUPED_SHAPE} or auto.stats["n_trajectories"] != 48:
+        raise AssertionError(f"whatif B1 shapes {rec['off']['b1_shapes']}")
+    if max(ulps.values()) > 2 or draws[1] != draws[WHATIF_SEEDS] or not draws[1]:
+        raise AssertionError(f"sampler: ulps {ulps}, draw kernels {draws}")
+    if rc != 0 or rerun_launches != both0 or not all(
+            (rec["rerun"]["rehydrated"], same_files, rec["rerun"]["rows_equal"])):
+        raise AssertionError(f"whatif rerun: {rec['rerun']}")
+    if errors or kinds.count("point") != 2 * WHATIF_POINTS or "rehydrate" not in kinds:
+        raise AssertionError(f"whatif records {rec['record_kinds']}: {errors}")
+    rec["launches_by_run"] = {"whatif_auto": auto_launches, "whatif_off": off_launches}
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    # every phase before ``tune`` resolves its auto knobs with no measured
+    # verdict, whatever cache this host holds: an empty cache file
+    cache_dir = tempfile.TemporaryDirectory(prefix="eh-chip-smoke-tune-")
+    open(os.path.join(cache_dir.name, "tune.json"), "w").close()
+    os.environ["ERASUREHEAD_TUNE_CACHE"] = os.path.join(cache_dir.name, "tune.json")
     cli, kernels = import_port()
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -3062,6 +3448,16 @@ def main() -> int:
     for rec in (adapted, online):
         sweep_launches.update(rec["launches_by_run"])
 
+    # the measured autotuning plane and the what-if engine
+    t_planes = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-planes-") as tmp:
+        tuned = tune_phase(cli, kernels, tmp, both0)
+        whatif = whatif_phase(cli, kernels, tmp, both0)
+    planes_phases_s = time.perf_counter() - t_planes
+    emit("tune_whatif", seconds=planes_phases_s)
+    for rec in (tuned, whatif):
+        sweep_launches.update(rec["launches_by_run"])
+
     # the sparse and compressed stacks: no kernel takes them
     t_sparse = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-sparse-") as tmp:
@@ -3248,6 +3644,17 @@ def main() -> int:
         "elastic": {"relayout_round": online["relayout_round"],
                     "steps_per_sec": online["steps_per_sec"]},
         "adapt_elastic_phases_s": online_phases_s,
+        # the glm_fused races (B1 against the two-pass path) at the main
+        # and wide stacks, the warm lookup, and the what-if grid's runs/s
+        # with cohorts (no launch) and sequential (1,440 launches)
+        "tune": {**{k: {f: g[f] for f in ("stack", "choice", "decisive", "timings_ms",
+                                          "race_wall_s", "launches")}
+                    for k, g in tuned["glm_fused"].items()},
+                 "warm_lookup_us": tuned["warm_lookup_us"]},
+        "whatif": {"auto_runs_per_sec": whatif["auto"]["runs_per_sec"],
+                   "off_runs_per_sec": whatif["off"]["runs_per_sec"],
+                   "draw_kernels_by_seeds": whatif["draw_kernels_by_seeds"]},
+        "tune_whatif_phases_s": planes_phases_s,
         # a 28-trajectory deduped cohort round: the cohort matmul the path
         # runs instead, against 28 launches of this kernel
         "cohort_round": {k: cohort_glm_time[k] for k in (
@@ -3314,6 +3721,8 @@ def main() -> int:
         "measured_steps_per_sec": measured["steps_per_sec"],
         "measured_compute_us": measured["compute_us"],
         "dynamic_measured_failures_phases_s": dyn_phases_s,
+        # the deep path's block_decode and layer_coding races
+        "tune": tuned["deep"]["races"],
     }]}
     print(json.dumps(line))
     print(card)

@@ -1,9 +1,14 @@
 """Command-line entry point of the PyTorch/CUDA port.
 
-Two invocation forms, as the JAX package's CLI takes them, and the ``sweep``
-subcommand: ``python -m erasurehead_tpu_torch.cli sweep [--rounds N]
+Two invocation forms, as the JAX package's CLI takes them, and three
+subcommands: ``python -m erasurehead_tpu_torch.cli sweep [--rounds N]
 [--sweep-journal DIR [--resume-sweep]] [--out rows.json] [--device cpu]``
-runs the BASELINE.json comparison suite (train/experiments.main).
+runs the BASELINE.json comparison suite (train/experiments.main);
+``... cli tune --race NAME [shape flags] [--json] [--device cpu]`` races an
+auto knob at a run shape into the tune decision cache
+(``ERASUREHEAD_TUNE_CACHE``; tune/races.main); ``... cli whatif --policies
+... --regimes ... [--out DIR] [--device cpu]`` simulates a policy grid into
+an expected-time-to-target surface (whatif/engine.main).
 
 1. **Named flags**::
 
@@ -826,6 +831,14 @@ def main(argv: list[str] | None = None) -> int:
         from erasurehead_tpu_torch.train import experiments as experiments_lib
 
         return experiments_lib.main(argv[1:])
+    if argv and argv[0] == "tune":
+        from erasurehead_tpu_torch.tune import races
+
+        return races.main(argv[1:])
+    if argv and argv[0] == "whatif":
+        from erasurehead_tpu_torch.whatif import engine
+
+        return engine.main(argv[1:])
     if _is_legacy(argv):
         cfg = _legacy_to_config(argv[:13])
         opts = _legacy_options_parser().parse_args(argv[13:])

@@ -1,8 +1,9 @@
 """Structured JSONL records: the writer, the process-current sink and the validator.
 
 The parts of erasurehead_tpu/obs/events.py the sweep journal
-(train/journal.py) and the adaptive and elastic drivers (adapt/, elastic/,
-obs/regime.py) need. One line per record, every line a JSON object with
+(train/journal.py), the adaptive and elastic drivers (adapt/, elastic/,
+obs/regime.py), the tune plane (tune/) and the what-if engine (whatif/)
+need. One line per record, every line a JSON object with
 three envelope fields, ``type`` (one of :data:`SCHEMA`), ``seq`` (monotonic
 per logger) and ``t`` (unix seconds), plus the type's payload.
 
@@ -11,10 +12,11 @@ the emission core (:func:`capture` installs a logger as the process-current
 sink, :func:`emit` writes into it and is a no-op without one,
 :func:`current`, :func:`new_run_id`), :func:`config_hash`,
 :func:`validate_lines` / :func:`validate_file` for the envelope and the
-``sweep_trajectory``, ``adapt``, ``membership`` and ``regime`` records, and
-:func:`arrival_summary`. Not ported: the other record types, in-process
-observers, the closing ``metrics`` record of a capture and the trainers'
-own event emission (they wait for the obs plane).
+``sweep_trajectory``, ``adapt``, ``membership``, ``regime``, ``whatif``
+and ``tune`` records, and :func:`arrival_summary`. Not ported: the other
+record types, in-process observers, the closing ``metrics`` record of a
+capture and the trainers' own event emission (they wait for the obs
+plane).
 """
 
 from __future__ import annotations
@@ -51,6 +53,20 @@ SCHEMA: dict = {
     # tail classification of the masked arrival stream at "round", and
     # whether a change-point fired there
     "regime": ("round", "kind", "rate", "n", "shifted"),
+    # one per what-if engine phase (whatif/engine.py): "kind" says which:
+    # "grid" after feasibility enumeration (point counts ride along),
+    # "point" per reduced surface row (label + feasibility + expected
+    # time-to-target), "surface" when the artifact saves, "rehydrate" when
+    # an identical spec loads the saved surface instead of re-simulating;
+    # every record carries the grid's spec_hash
+    "whatif": ("spec_hash", "kind"),
+    # one per autotune-decision resolution (tune/): which race's verdict
+    # resolved an auto knob, at which shape signature on which device
+    # kind, and where the choice came from ("race" = a racer run just
+    # measured it, "cache" = the persisted decision cache, "default" = no
+    # cached decision, the hardcoded fallback stood). Observation only and
+    # deduplicated per process
+    "tune": ("race", "device_kind", "shape", "choice", "source"),
 }
 
 #: sweep_trajectory completion statuses; "diverged" rows are quarantined,
@@ -64,6 +80,22 @@ ADAPT_REASONS = ("warmup", "exploit", "explore", "regime_shift")
 #: "exp" = light (exponential-like) tail, "heavytail" = Pareto-like tail by
 #: the rolling Hill index, "unknown" = not enough masked arrivals yet
 REGIME_KINDS = ("exp", "heavytail", "unknown")
+
+#: what-if engine phases (whatif/engine.py): "grid" = enumeration +
+#: feasibility filter, "point" = one reduced surface row, "surface" =
+#: artifact saved, "rehydrate" = identical spec served from its artifact
+WHATIF_KINDS = ("grid", "point", "surface", "rehydrate")
+
+#: autotune races (tune.TUNE_CHOICES keys): every "tune" record's ``race``
+#: field must name one of these knob pairs
+TUNE_RACES = (
+    "block_decode", "glm_fused", "layer_coding", "ring_pipeline",
+    "stack_mode",
+)
+
+#: where a tune decision came from: a just-run race, the persisted
+#: decision cache, or the hardcoded fallback (no cached verdict)
+TUNE_SOURCES = ("race", "cache", "default")
 
 #: membership actions (elastic/controller.py): deaths and joins are detector
 #: decisions, "relayout" commits them into a fresh W'-worker layout,
@@ -232,7 +264,10 @@ def validate_lines(lines: Iterable[str]) -> list:
     non-negative round, a known action, a positive worker count and, when
     present, a list of non-negative worker ids; a ``regime`` record a known
     kind, a non-negative rate, round and sample count, and a bool
-    ``shifted``."""
+    ``shifted``; a ``whatif`` record a non-empty spec hash and a known kind
+    (a point record a non-empty label and a bool feasible, a grid record
+    non-negative point counts); a ``tune`` record a known race and source
+    and non-empty device kind, shape and choice."""
     errors: list = []
     # "next expected seq" -> number of streams expecting it
     seq_streams: dict = {}
@@ -299,6 +334,10 @@ def validate_lines(lines: Iterable[str]) -> list:
             errors += _membership_errors(i, rec)
         if rtype == "regime":
             errors += _regime_errors(i, rec)
+        if rtype == "whatif":
+            errors += _whatif_errors(i, rec)
+        if rtype == "tune":
+            errors += _tune_errors(i, rec)
     return errors
 
 
@@ -360,6 +399,50 @@ def _regime_errors(i: int, rec: dict) -> list:
         errors.append(f"line {i}: regime n must be a non-negative int, got {n!r}")
     if not isinstance(rec.get("shifted"), bool):
         errors.append(f"line {i}: regime shifted must be a bool, got {rec.get('shifted')!r}")
+    return errors
+
+
+def _whatif_errors(i: int, rec: dict) -> list:
+    errors = []
+    kind = rec.get("kind")
+    if kind not in WHATIF_KINDS:
+        errors.append(f"line {i}: whatif kind must be one of {WHATIF_KINDS}, got {kind!r}")
+    sh = rec.get("spec_hash")
+    if not isinstance(sh, str) or not sh:
+        errors.append(f"line {i}: whatif spec_hash must be a non-empty string, got {sh!r}")
+    if kind == "point":
+        label = rec.get("label")
+        if not isinstance(label, str) or not label:
+            errors.append(
+                f"line {i}: whatif point record must carry a non-empty label, got {label!r}"
+            )
+        if not isinstance(rec.get("feasible"), bool):
+            errors.append(
+                f"line {i}: whatif point record must carry a bool feasible, "
+                f"got {rec.get('feasible')!r}"
+            )
+    if kind == "grid":
+        for field in ("n_points", "n_feasible", "n_infeasible"):
+            v = rec.get(field)
+            if v is not None and (not isinstance(v, int) or v < 0):
+                errors.append(
+                    f"line {i}: whatif grid {field} must be a non-negative int, got {v!r}"
+                )
+    return errors
+
+
+def _tune_errors(i: int, rec: dict) -> list:
+    errors = []
+    race = rec.get("race")
+    if race not in TUNE_RACES:
+        errors.append(f"line {i}: tune race must be one of {TUNE_RACES}, got {race!r}")
+    source = rec.get("source")
+    if source not in TUNE_SOURCES:
+        errors.append(f"line {i}: tune source must be one of {TUNE_SOURCES}, got {source!r}")
+    for field in ("device_kind", "shape", "choice"):
+        v = rec.get(field)
+        if not isinstance(v, str) or not v:
+            errors.append(f"line {i}: tune {field} must be a non-empty string, got {v!r}")
     return errors
 
 

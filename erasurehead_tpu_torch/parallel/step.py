@@ -42,6 +42,7 @@ FieldOnehot stack (ops/features.py).
 from __future__ import annotations
 
 import functools
+import os
 from typing import Callable
 
 import numpy as np
@@ -254,15 +255,21 @@ def make_fused_grad_fn(kind: str) -> GradFn:
     return grad
 
 
-# Whether layer_coding="auto" resolves to the blockwise decode: off, as in
-# the JAX package (its step.LAYER_CODING_DEFAULT); "on" forces it.
+# Whether layer_coding="auto" resolves to the blockwise decode absent a
+# cached tune verdict: off, as in the JAX package (its
+# step.LAYER_CODING_DEFAULT); "on" forces it.
 LAYER_CODING_DEFAULT = False
 
-# Whether block_decode="auto" takes the fused per-leaf lowering. The JAX
-# package resolves "auto" through its tune plane and falls back to treewise;
-# the tune plane is not ported, and the fused form is the one whose decode
-# reads the leaves in place with no packed table, so "auto" is fused here.
+# Whether block_decode="auto" takes the fused per-leaf lowering absent an
+# env override and a cached tune verdict. The JAX package's constant is
+# treewise; here it is fused, the form whose decode reads the leaves in
+# place with no packed table (both launch B2 once a round and are bitwise
+# equal, so this is a pure lowering choice that the block_decode race
+# re-decides per shape).
 BLOCK_DECODE_FUSED_DEFAULT = True
+
+#: operator override of block_decode="auto" ("fused" / "treewise")
+BLOCK_DECODE_ENV = "ERASUREHEAD_BLOCK_DECODE"
 
 _MODEL_AXES = ("seq_axis", "tp_axis", "pp_axis", "ep_axis")
 
@@ -281,26 +288,65 @@ def supports_layer_coding(model) -> bool:
     return all(getattr(model, ax, None) is None for ax in _MODEL_AXES)
 
 
-def resolve_layer_coding(layer_coding: str, model) -> bool:
+def _tuned(race: str, model, X, fallback: str):
+    """A cached verdict of ``race`` at the run's stack, on its device."""
+    from erasurehead_tpu_torch import tune as tune_lib
+
+    return tune_lib.lookup(
+        race, tune_lib.run_shape_signature(model, X),
+        device_kind=tune_lib.default_device_kind(tune_lib.stack_device(X)),
+        fallback=fallback,
+    )
+
+
+def resolve_layer_coding(layer_coding: str, model, X=None) -> bool:
     """Should this run decode per layer block? ("on" validity is the
-    caller's concern: this resolves the choice, it does not raise.)"""
+    caller's concern: this resolves the choice, it does not raise.)
+    "auto" resolves cached tune decision -> hardcoded fallback: a
+    ``layer_coding`` race verdict at this run's shape (tune/) wins over
+    :data:`LAYER_CODING_DEFAULT`; the stack ``X`` gives the consult its
+    shape signature and device."""
     if not supports_layer_coding(model):
         return False
     if layer_coding == "on":
         return True
     if layer_coding == "off":
         return False
+    if X is not None:
+        choice = _tuned(
+            "layer_coding", model, X,
+            "blockwise" if LAYER_CODING_DEFAULT else "treewise",
+        )
+        if choice is not None:
+            return choice == "blockwise"
     return LAYER_CODING_DEFAULT
 
 
-def resolve_block_decode(block_decode: str) -> bool:
+def resolve_block_decode(block_decode: str, model=None, X=None) -> bool:
     """Fused per-leaf decode (True) or the packed treewise table (False)?
+
+    Resolution order (explicit > env > measured > hardcoded):
+      1. ``block_decode`` = "fused"/"treewise" forces;
+      2. the :data:`BLOCK_DECODE_ENV` env var forces (operator escape
+         hatch);
+      3. a cached ``block_decode`` tune verdict at this run's shape;
+      4. :data:`BLOCK_DECODE_FUSED_DEFAULT`.
     Both reduce through the same kernel in the same order, so they are
     bitwise equal: a pure lowering choice."""
     if block_decode == "fused":
         return True
     if block_decode == "treewise":
         return False
+    env = os.environ.get(BLOCK_DECODE_ENV, "")
+    if env in ("fused", "treewise"):
+        return env == "fused"
+    if model is not None and X is not None:
+        choice = _tuned(
+            "block_decode", model, X,
+            "fused" if BLOCK_DECODE_FUSED_DEFAULT else "treewise",
+        )
+        if choice is not None:
+            return choice == "fused"
     return BLOCK_DECODE_FUSED_DEFAULT
 
 
@@ -490,9 +536,9 @@ def make_cohort_grad_fn(
     layer-coded lowering); ``X`` the cohort's device stack. Every body
     dequantizes an int8 stack once a round for the whole cohort."""
     contract = "ws" if faithful else "p"
-    if resolve_layer_coding(layer_coding, model):
+    if resolve_layer_coding(layer_coding, model, X):
         spec = blocks_lib.model_block_spec(model, params_template)
-        fused = resolve_block_decode(block_decode)
+        fused = resolve_block_decode(block_decode, model, X)
         body = _cohort_layer_block_body(model, spec, contract, fused)
         return _dq(body), "layer_block_vmap"
     if supports_cohort_matmul(model, X):

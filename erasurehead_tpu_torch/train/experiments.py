@@ -197,9 +197,27 @@ def plan_cohorts(configs: dict) -> list:
     return [(groups[k], k[0] != "__sequential__") for k in order]
 
 
+def _arrivals_for(arrivals, label):
+    """One trajectory's arrival matrix when ``arrivals`` may be a per-label
+    dict (the what-if engine gives every (point, seed) trajectory its own
+    draw); a shared matrix / None passes through untouched."""
+    if isinstance(arrivals, dict):
+        return arrivals[label]
+    return arrivals
+
+
+def _arrivals_arg(arrivals, labels):
+    """The ``arrivals`` argument for a ``train_cohort`` dispatch of
+    ``labels``: a per-label dict becomes the per-trajectory list
+    train_cohort expects (in label order); anything else passes through."""
+    if isinstance(arrivals, dict):
+        return [arrivals[l] for l in labels]
+    return arrivals
+
+
 def _train_one(label, configs, dataset, arrivals, device, init_params):
     return trainer.train(
-        configs[label], dataset, device=device, arrivals=arrivals,
+        configs[label], dataset, device=device, arrivals=_arrivals_for(arrivals, label),
         init_params=None if init_params is None else init_params.get(label),
     )
 
@@ -214,13 +232,15 @@ def _dispatch_cohort(labels, configs, dataset, arrivals, device, init_params) ->
     (or an injected chaos fault whose message carries an out-of-memory
     marker) drop the data cache's pins, then bisect into halves (half the
     live set per dispatch), bottoming out at sequential train() on the same
-    device. Any other injected fault propagates. Returns label ->
-    TrainResult."""
+    device. Any other injected fault propagates. ``arrivals`` is a shared
+    matrix, None, or a per-label dict, which threads through the halves and
+    the sequential fallback. Returns label -> TrainResult."""
     _METRICS.counter("cohort.dispatches").inc()
     _METRICS.counter("cohort.trajectories").inc(len(labels))
     try:
         results = trainer.train_cohort(
-            [configs[l] for l in labels], dataset, arrivals=arrivals, device=device,
+            [configs[l] for l in labels], dataset, arrivals=_arrivals_arg(arrivals, labels),
+            device=device,
             init_params=None if init_params is None else [init_params[l] for l in labels],
         )
         return dict(zip(labels, results))

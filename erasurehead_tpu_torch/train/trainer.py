@@ -25,14 +25,18 @@ erasurehead_tpu/train/trainer.py:934-985, on one device):
     ``margin_flat`` lowering was asked for (where the JAX package's "auto"
     declines the kernel off the TPU, so the forced lowering is what it
     runs); ``use_pallas="on"`` on any other model or stack raises, as does
-    ``use_pallas="on"`` with ``flat_grad="on"``. A sparse (PaddedRows,
+    ``use_pallas="on"`` with ``flat_grad="on"``. Under "auto" a cached
+    ``glm_fused`` verdict of "xla" at the stack's shape on this device
+    (tune/) keeps the two-pass gradient instead. A sparse (PaddedRows,
     FieldOnehot) or int8 (QuantizedStack) stack is not a dense tensor:
     under "auto" it takes its own lowering and no kernel;
-  - otherwise ``layer_coding`` "on" takes the blockwise decode
+  - otherwise ``layer_coding`` "on" (or "auto" under a cached
+    ``layer_coding`` verdict of "blockwise") takes the blockwise decode
     (step.make_layer_block_grad_fn): per-slot gradient trees decoded in
     place by the decode kernel (ops/kernels.fused_block_decode_leaves), one
     launch per round for all leaves ("fused") or for the packed block table
-    ("treewise");
+    ("treewise"; ``block_decode`` "auto" walks step.resolve_block_decode's
+    ladder);
   - otherwise the monolithic PyTorch gradient (step.make_faithful_grad_fn /
     make_deduped_grad_fn).
 
@@ -82,7 +86,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from erasurehead_tpu_torch import schemes
+from erasurehead_tpu_torch import schemes, tune
 from erasurehead_tpu_torch.data import store as store_lib
 from erasurehead_tpu_torch.data.prefetch import Prefetcher
 from erasurehead_tpu_torch.data.sharding import (
@@ -315,6 +319,19 @@ def _device_stack(cfg: RunConfig, dataset: Dataset, layout, faithful: bool, dev)
     return X, y, n_train, hit
 
 
+def resolved_stack(cfg: RunConfig, dataset: Dataset, device=None):
+    """``(model, X)`` exactly as :func:`train` resolves them on ``device``:
+    the worker-major stack for faithful runs, the partition-major stack for
+    deduped runs, through the data cache (so a race's thunks then hit it).
+    The shape the tune plane races and resolves under (tune/races.py): the
+    decision cache keys on ``tune.run_shape_signature(model, X)`` of THIS
+    pair, so races and warm-run resolutions can never key apart."""
+    dev = resolve_device(device)
+    faithful = cfg.compute_mode == ComputeMode.FAITHFUL
+    X, _, _, _ = _device_stack(cfg, dataset, build_layout(cfg), faithful, dev)
+    return build_model(cfg), X
+
+
 def _cache_info(cfg: RunConfig, hit: bool, stats_before: dict, X, y, faithful: bool,
                 setup_seconds: float, final_params, residency: str) -> dict:
     """A run's ``TrainResult.cache_info`` (the JAX trainer's, without the
@@ -391,18 +408,34 @@ def _apply_flat_grad(cfg: RunConfig, model, X, grad_fn):
     return grad_fn, False
 
 
-def _apply_layer_coding(cfg: RunConfig, model, grad_fn, params_template, faithful: bool):
+def _apply_layer_coding(cfg: RunConfig, model, X, grad_fn, params_template, faithful: bool):
     """Swap in the blockwise decode (step.make_layer_block_grad_fn) per
-    ``cfg.layer_coding``; ``cfg.block_decode`` picks its lowering. Returns
-    (grad_fn, layer_coded)."""
+    ``cfg.layer_coding``; ``cfg.block_decode`` picks its lowering. Both
+    resolve "auto" through the tune cache at the stack ``X``'s signature.
+    Returns (grad_fn, layer_coded)."""
     _check_layer_coding(cfg, model)
-    if not step_lib.resolve_layer_coding(cfg.layer_coding, model):
+    if not step_lib.resolve_layer_coding(cfg.layer_coding, model, X):
         return grad_fn, False
     spec = blocks.model_block_spec(model, params_template)
-    fused = step_lib.resolve_block_decode(cfg.block_decode)
+    fused = step_lib.resolve_block_decode(cfg.block_decode, model, X)
     return step_lib.make_layer_block_grad_fn(
         model, spec, faithful=faithful, fused=fused
     ), True
+
+
+def _fused_wins(cfg: RunConfig, model, X) -> bool:
+    """Does a dense GLM stack take B1? Always under ``use_pallas="on"``;
+    under "auto", unless a cached ``glm_fused`` verdict at this stack's
+    shape on this device says the two-pass gradient ("xla") won. The
+    fallback is B1 ("pallas"), the port's measured default at the main
+    shape."""
+    if cfg.use_pallas == "on":
+        return True
+    choice = tune.lookup(
+        "glm_fused", tune.glm_fused_signature(X.shape, X.dtype, model.name),
+        device_kind=tune.default_device_kind(X.device), fallback="pallas",
+    )
+    return choice != "xla"
 
 
 def _grad_lowering(cfg: RunConfig, model, X, faithful: bool, params0):
@@ -430,7 +463,7 @@ def _grad_lowering(cfg: RunConfig, model, X, faithful: bool, params0):
         # under "auto" a forced flat/margin-flat lowering wins over the
         # kernel, as does a forced blockwise decode
         forced = cfg.use_pallas == "on" or "on" not in (cfg.flat_grad, cfg.margin_flat)
-        if dense_glm and cfg.layer_coding != "on" and forced:
+        if dense_glm and cfg.layer_coding != "on" and forced and _fused_wins(cfg, model, X):
             reason = kernels.unsupported_reason(X.reshape((-1,) + tuple(X.shape[-2:])))
             if reason is not None:  # no quiet fallback to the two-pass gradient
                 raise ValueError(
@@ -445,7 +478,7 @@ def _grad_lowering(cfg: RunConfig, model, X, faithful: bool, params0):
                 f"got model={model.name!r}, X={type(X).__name__}"
             )
     if lowering != "fused":
-        grad_fn, layer_coded = _apply_layer_coding(cfg, model, grad_fn, params0, faithful)
+        grad_fn, layer_coded = _apply_layer_coding(cfg, model, X, grad_fn, params0, faithful)
         lowering = "layer_block" if layer_coded else lowering
     return grad_fn, lowering
 

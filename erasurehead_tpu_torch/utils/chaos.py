@@ -20,7 +20,9 @@ message names an out-of-memory marker makes compare() bisect the cohort),
 ``adapt`` / ``elastic`` (the chunk boundaries of the adaptive and elastic
 drivers, adapt/driver.py and elastic/driver.py) and ``prefetch`` (on the
 staging thread of data/prefetch.Prefetcher, before each window is read: a
-raise surfaces at the trainer's next ``get``). The JAX package's other sites
+raise surfaces at the trainer's next ``get``) and ``tune_race`` (at the head
+of a tune race, tune/racer.race, before any timing: a kill leaves the
+decision cache as it was). The JAX package's other sites
 are refused at parse time, naming the ROADMAP queue A item that brings them:
 a spec that parses is never silently ignored.
 
@@ -68,7 +70,7 @@ SITES = (
 #: the sites the port instruments
 WIRED_SITES = (
     "trajectory", "cohort", "checkpoint", "adapt", "elastic",
-    "worker_death", "worker_revive", "prefetch",
+    "worker_death", "worker_revive", "prefetch", "tune_race",
 )
 
 #: sites whose fault is a MEMBERSHIP change (a worker dying or offering to
@@ -83,7 +85,6 @@ UNWIRED_SITES = {
     "serve_dispatch": "the serve/ daemon",
     "serve_reply": "the serve/ daemon",
     "fleet_replica": "the serve/ fleet",
-    "tune_race": "tune/",
 }
 
 

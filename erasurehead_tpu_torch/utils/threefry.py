@@ -25,6 +25,13 @@ The bits are equal to JAX's bit for bit; the exponentials differ by the
 last-ulp rounding of ``log1p`` (about 1e-7 relative). Every tensor op takes
 the key words as Python scalars, so a draw on the card makes no host copy
 and no synchronisation.
+
+Batched draws: :func:`random_bits`, :func:`uniform` and :func:`exponential`
+also take a ``[K, 2]`` int64 tensor of keys (:func:`key_tensor`) and return
+``[K, n]``, row k equal to the draw under key k. The key words then ride
+the cipher as ``[K, 1]`` columns, so the whole block is one pass of the
+same elementwise ops: the launch count does not grow with K (the what-if
+sampler draws every (seed, round) of a Monte-Carlo block at once).
 """
 
 from __future__ import annotations
@@ -36,17 +43,21 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
 
+def _word(k):
+    return k & _MASK if isinstance(k, torch.Tensor) else int(k) & _MASK
+
+
 def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32 of the counter words ``(x0, x1)`` (int64 tensors, or
     Python ints, with values in [0, 2^32)) under the key ``(k0, k1)``
-    (Python ints); returns the two enciphered words in [0, 2^32), of the
-    counters' kind.
+    (Python ints, or int64 tensors broadcasting against the counters);
+    returns the two enciphered words in [0, 2^32), of the counters' kind.
 
     Word arithmetic is mod 2^32 in int64: ``x0`` carries its bits above 32
     unmasked until the end (they never reach the low word through adds,
     and ``x1`` is masked after each xor with it), which saves a launch a
     round on the card."""
-    k0, k1 = int(k0) & _MASK, int(k1) & _MASK
+    k0, k1 = _word(k0), _word(k1)
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = x0 + ks[0]
     x1 = (x1 + ks[1]) & _MASK
@@ -70,21 +81,33 @@ def fold_in(k: tuple[int, int], data: int) -> tuple[int, int]:
     return threefry2x32(k[0], k[1], 0, int(data) & _MASK)
 
 
-def random_bits(k: tuple[int, int], n: int, device=None) -> torch.Tensor:
+def key_tensor(keys, device=None) -> torch.Tensor:
+    """``[K, 2]`` int64 key words of a list of keys (host ints), for the
+    batched draws."""
+    return torch.tensor([[int(k0), int(k1)] for k0, k1 in keys], dtype=torch.int64,
+                        device=device).reshape(-1, 2)
+
+
+def random_bits(k, n: int, device=None) -> torch.Tensor:
     """``jax.random.bits(k, (n,), uint32)`` under the partitionable
-    threefry (JAX's default): [n] int64 words in [0, 2^32)."""
+    threefry (JAX's default): [n] int64 words in [0, 2^32). ``k`` a
+    ``[K, 2]`` key tensor: [K, n], row k under key k (``device`` is then
+    the keys' own)."""
+    if isinstance(k, torch.Tensor):
+        k0, k1, device = k[:, 0:1], k[:, 1:2], k.device
+    else:
+        k0, k1 = k
     i = torch.arange(n, dtype=torch.int64, device=device)
-    x0, x1 = threefry2x32(k[0], k[1], i >> 32, i & _MASK)
+    x0, x1 = threefry2x32(k0, k1, i >> 32, i & _MASK)
     return x0 ^ x1
 
 
-def uniform(k: tuple[int, int], n: int, device=None) -> torch.Tensor:
-    """``jax.random.uniform(k, (n,))``: [n] float32 in [0, 1)."""
+def uniform(k, n: int, device=None) -> torch.Tensor:
+    """``jax.random.uniform(k, (n,))``: [n] (or [K, n]) float32 in [0, 1)."""
     bits = ((random_bits(k, n, device) >> 9) | 0x3F800000).to(torch.int32)
     return bits.view(torch.float32) - 1.0
 
 
-def exponential(k: tuple[int, int], n: int, device=None) -> torch.Tensor:
-    """``jax.random.exponential(k, (n,))``: [n] float32, mean 1."""
+def exponential(k, n: int, device=None) -> torch.Tensor:
+    """``jax.random.exponential(k, (n,))``: [n] (or [K, n]) float32, mean 1."""
     return -torch.log1p(-uniform(k, n, device))
-

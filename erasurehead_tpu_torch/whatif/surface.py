@@ -1,9 +1,8 @@
 """Expected-time-to-target surfaces: the what-if engine's artifact.
 
 The port's copy of erasurehead_tpu/whatif/surface.py: a surface saved by
-either package loads in the other, byte for byte. The engine that builds
-surfaces (spec, sampler, engine) is not ported yet; the port reads saved
-surfaces, e.g. for ``--adapt-priors``.
+either package loads in the other, byte for byte. The port's engine
+(whatif/engine.py) builds surfaces; ``--adapt-priors`` reads them.
 
 A :class:`Surface` is the reduced form of a Monte-Carlo grid run — one
 row per grid point carrying the point's coordinates, its feasibility
