@@ -299,10 +299,35 @@ Phases, one JSON line each:
                  profiler's count); ``cli whatif`` on the same --out
                  rehydrates bitwise with no launch; every whatif record
                  validates.
+  38. telemetry - (after whatif) the run-telemetry plane: the main path
+                 through the CLI with telemetry and tracing off, with
+                 --telemetry on, and with --telemetry on --trace-dir: 100 B1
+                 each, five artifacts bitwise the off run's, the event log
+                 valid with one each of run_start, data_upload, compile,
+                 rounds, decode, run_end, critical_path, eval and metrics,
+                 run_end's steps/s the run's own; the torch.profiler trace
+                 with 100 eh_scan/coded_step and 100 eh_scan/update host
+                 spans and glm_grad_partials/glm_grad_reduce device events
+                 (between 1 and 100: a fresh window may drop its first
+                 device records); ``cli report`` (and --validate) and ``cli
+                 top`` on the log; the deep path traced, 20 rounds (20 B2,
+                 block_decode_leaves events, eh_step/decode spans); a
+                 four-scheme deduped cohort captured as ``sweep --events``
+                 does (one cohort record, four trajectory streams, no B1);
+                 the determinism audit at the main path, 30 rounds (60 B1,
+                 bitwise); a windowed streamed run (one prefetch record per
+                 staged window, the critical path's stall the prefetcher's);
+                 the pipelined, cohort and streamed runs plain and under a
+                 capture and a trace (bitwise, equal launches); the
+                 registry's Prometheus text; the steps/s of the main runs,
+                 of 120 off/on pairs of train() and 30 traced runs, and the
+                 records' host cost after the loop.
 Later, beside ``time`` and ``profile``: the attention run's per-slot leaves
 through ``decode_ops``, its round's decode (one launch, six leaves of
 [90, 913] floats) against its plain version, six GEMVs and the bound, and
 its profile (device time a round, busy share, decode against the rest).
+A ``profiler`` line lists every timing window that lost device records and
+was taken again.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -627,19 +652,36 @@ def check_falls(run) -> list:
     return [float(loss[0]), float(loss[-1])]
 
 
-def profiled(body):
+# idle seconds on each side of a profiled pass, inside its window
+PROFILE_GUARD_S = 0.02
+# device_ms's windows that lost records and were taken again (shown at the end)
+LOST_WINDOWS: list = []
+
+
+def profiled(body, guard_s=PROFILE_GUARD_S):
     """torch.profiler over ``body()`` run twice: a warm-up pass whose records
     are dropped, then the recorded pass. On the card a fresh profiler window
     loses its first device records (seen: 4 of 200 calls, and every record
-    of a 20-call window); the warm-up pass takes that loss. Returns the
+    of a 20-call window); the warm-up pass takes that loss. The profiler
+    keeps a device record only if its device timestamp falls inside the
+    window's host-clock bounds, so an offset between the two clocks drops
+    the records at the window's edges (seen late in a long run: 33 of 200
+    calls in each of five windows). The recorded pass therefore starts
+    ``guard_s`` after the window opens and the window closes ``guard_s``
+    after the pass has synchronised; no caller's figure counts that idle
+    time (they read device records and the run's own wall). Returns the
     profiler and the recorded pass's result."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
+        for recorded in (False, True):
+            if recorded:
+                time.sleep(guard_s)
             out = body()
             torch.cuda.synchronize()
+            if recorded:
+                time.sleep(guard_s)
             prof.step()
     return prof, out
 
@@ -750,17 +792,20 @@ def device_ms(fn, n) -> float:
     the next call, which is most of a small call's time. The profiler may
     lose a few records of a window (seen on the card: 199 and 196 of 200),
     which the mean does not feel; a profile that lost more than 2% is taken
-    again."""
+    again, with a guard (``profiled``) twice as long as the last."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(5):
-        prof, _ = profiled(lambda: [fn() for _ in range(n)])
+    attempts = []
+    for i in range(5):
+        prof, _ = profiled(lambda: [fn() for _ in range(n)], PROFILE_GUARD_S * 2 ** i)
         evs = device_events(prof)
         per_call = [round(ev.count / n) for ev in evs]
         if evs and all(k >= 1 and abs(ev.count - k * n) <= max(2, k * n // 50)
                        for ev, k in zip(evs, per_call)):
             return sum(device_us(ev) / ev.count * k for ev, k in zip(evs, per_call)) / 1e3
-    raise AssertionError(f"the profiler lost device events: {[(ev.key, ev.count) for ev in evs]}")
+        attempts.append([(ev.key[:60], ev.count) for ev in evs])
+        LOST_WINDOWS.append(dict(calls=n, guard_s=PROFILE_GUARD_S * 2 ** i, counts=attempts[-1]))
+    raise AssertionError(f"the profiler lost device events of {n} calls: {attempts}")
 
 
 def time_turns(fns) -> tuple[dict, dict]:
@@ -3220,6 +3265,292 @@ def whatif_phase(cli, kernels, tmp, both0) -> dict:
     rec["launches_by_run"] = {"whatif_auto": auto_launches, "whatif_off": off_launches}
     return rec
 
+# the telemetry phase: the run-telemetry plane on the paths above
+TELEMETRY_COHORT = ("approx", "naive", "cyccoded", "avoidstragg")  # deduped: one stack
+TELEMETRY_SHORT = 30  # the cohort's and the audit's rounds
+TELEMETRY_STREAM_ROUNDS = 20  # the windowed run: 5 windows of 4 rounds
+# steps/s of train() at the main path, telemetry off against on in
+# alternating pairs (the order flips each pair), then traced runs
+TELEMETRY_PAIRS, TELEMETRY_TRACED = 120, 30
+ONE_EACH = ("run_start", "data_upload", "compile", "rounds", "decode", "run_end",
+            "critical_path", "eval", "metrics")
+
+
+def read_records(path) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def read_trace(trace_dir) -> list:
+    """The one Chrome trace a --trace-dir run wrote (it must parse)."""
+    names = [n for n in os.listdir(trace_dir) if n.endswith(".pt.trace.json")]
+    if len(names) != 1:
+        raise AssertionError(f"{trace_dir}: want one trace, found {names}")
+    with open(os.path.join(trace_dir, names[0])) as f:
+        return json.load(f)["traceEvents"]
+
+
+def trace_counts(events, spans, kernels_by_tag) -> dict:
+    """Host spans (record_function regions) by name and device kernel
+    events by substring of their symbol."""
+    host = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    dev = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return dict(host_spans={n: host.count(n) for n in spans},
+                device_events={t: sum(t in n for n in dev) for t in kernels_by_tag},
+                device_kernel_events=len(dev))
+
+
+def launches_of(kernels, run) -> tuple:
+    """``run()``'s result and the launches it made (counts set to 0 just
+    before and read just after)."""
+    kernels.reset_launches()
+    out = run()
+    return out, dict(kernels.LAUNCHES)
+
+
+def post_loop_ms(trainer, cfg, ds) -> float:
+    """A train() call's host seconds after its round loop (result assembly,
+    and under a capture the records), in ms."""
+    t0 = time.perf_counter()
+    res = trainer.train(cfg, ds)
+    total = time.perf_counter() - t0
+    return (total - res.cache_info["setup_seconds"] - res.wall_time) * 1e3
+
+
+def telemetry_phase(cli, kernels, experiments, tmp, both0) -> dict:
+    """The run-telemetry plane (obs/, utils/tracing.py, utils/audit.py) on
+    the card. The main path through the CLI three times: telemetry and
+    tracing off, ``--telemetry on``, and ``--telemetry on --trace-dir``:
+    100 B1 each, five artifacts bitwise the off run's, the log valid with
+    one each of its run's records and ``run_end.steps_per_sec`` the run's
+    own, the trace holding 100 ``eh_scan/coded_step`` and 100
+    ``eh_scan/update`` host spans and B1 by its device symbols (at least
+    one event and at most 100: a fresh profiler window may drop its first
+    device records; the launch count is ``LAUNCHES``'). ``cli report``
+    (and ``--validate``) and ``cli top`` read the log. The deep path, 20
+    rounds, traced: 20 B2, ``block_decode_leaves`` device events and
+    ``eh_step/decode`` spans. A four-trajectory deduped cohort at the
+    flagship data, 30 rounds, captured as ``sweep --events`` captures its
+    suite: one ``cohort`` record per planned cohort, four trajectory-tagged
+    streams, no B1. The determinism audit at the main path, 30 rounds: the
+    schedule and training replays bitwise (60 B1). A windowed streamed run
+    (window 6, 20 rounds) under a capture: one ``prefetch`` record per
+    staged window, the critical path's stall the prefetcher's. The
+    pipelined main path, the cohort and the streamed run, each plain and
+    under a capture and a trace: bitwise, the same launches. The registry's
+    Prometheus text parses and holds the data-cache counters. Steps/s of
+    the main runs, of train() at the main path with telemetry off and on in
+    120 alternating pairs and of 30 traced runs, and the records' cost after
+    the loop, with nothing asserted about speed."""
+    import re
+
+    from erasurehead_tpu_torch.obs import events as events_lib
+    from erasurehead_tpu_torch.obs.exporter import render_prometheus
+    from erasurehead_tpu_torch.obs.metrics import REGISTRY
+    from erasurehead_tpu_torch.train import trainer
+    from erasurehead_tpu_torch.utils import audit, tracing
+
+    t_phase = time.perf_counter()
+    b1 = {**both0, "fused_glm_grad": ROUNDS}
+    runs = {}
+    for label, extra in (("off", ["--telemetry", "off"]), ("telemetry", ["--telemetry", "on"]),
+                         ("traced", ["--telemetry", "on", "--trace-dir",
+                                     os.path.join(tmp, "trace_main")]),
+                         ("off_again", ["--telemetry", "off"])):
+        runs[label] = counted_run(cli, kernels, os.path.join(tmp, label), MAIN_ARGS + extra, b1)
+    same = {a: all(r["arts"][a].tobytes() == runs["off"]["arts"][a].tobytes()
+                   for r in runs.values()) for a in ARTIFACTS}
+    if not all(same.values()):
+        raise AssertionError(f"telemetry changed the main run's artifacts: {same}")
+    if any(os.path.exists(os.path.join(tmp, k, "events.jsonl")) for k in ("off", "off_again")):
+        raise AssertionError("--telemetry off wrote an event log")
+    log = os.path.join(tmp, "traced", "events.jsonl")
+    recs = read_records(log)
+    errors = events_lib.validate_file(log)
+    counts = {t: sum(r["type"] == t for r in recs) for t in ONE_EACH}
+    end = next(r for r in recs if r["type"] == "run_end")
+    sps = runs["traced"]["manifest"]["steps_per_sec"]
+    if errors or any(n != 1 for n in counts.values()) or end["steps_per_sec"] != round(sps, 4):
+        raise AssertionError(f"main log: {errors} {counts} {end['steps_per_sec']} vs {sps}")
+    compile_rec = next(r for r in recs if r["type"] == "compile")
+    main_trace = trace_counts(read_trace(os.path.join(tmp, "trace_main")),
+                              ("eh_scan/coded_step", "eh_scan/update", "eh_step/partial_grads"),
+                              ("glm_grad_partials", "glm_grad_reduce"))
+    spans = main_trace["host_spans"]
+    dev = main_trace["device_events"]
+    if spans["eh_scan/coded_step"] != ROUNDS or spans["eh_scan/update"] != ROUNDS \
+            or not all(1 <= n <= ROUNDS for n in dev.values()):
+        raise AssertionError(f"main trace: {main_trace}")
+
+    # the log, read back: report, report --validate, top
+    printed = {}
+    for key, argv in (("report", ["report", log]), ("validate", ["report", "--validate", log]),
+                      ("top", ["top", log])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        if rc != 0:
+            raise AssertionError(f"cli {argv[0]} exited {rc}: {buf.getvalue()[-2000:]}")
+        printed[key] = buf.getvalue()
+    if "approx" not in printed["report"] or "critical path" not in printed["report"] \
+            or not printed["top"].startswith("erasurehead-tpu top"):
+        raise AssertionError(f"report/top output: {printed['report'][-1500:]}")
+
+    # the deep path, traced
+    deep_args = with_rounds(DEEP_ARGS, LAYER_ROUNDS) + [
+        "--telemetry", "on", "--trace-dir", os.path.join(tmp, "trace_deep")]
+    b2 = {**both0, "fused_block_decode": LAYER_ROUNDS}
+    deep = counted_run(cli, kernels, os.path.join(tmp, "deep"), deep_args, b2)
+    deep_off = counted_run(cli, kernels, os.path.join(tmp, "deep_off"),
+                           with_rounds(DEEP_ARGS, LAYER_ROUNDS), b2)
+    if not all(deep["arts"][a].tobytes() == deep_off["arts"][a].tobytes() for a in ARTIFACTS):
+        raise AssertionError("telemetry and tracing changed the deep run's artifacts")
+    deep_errors = events_lib.validate_file(os.path.join(tmp, "deep", "events.jsonl"))
+    deep_trace = trace_counts(read_trace(os.path.join(tmp, "trace_deep")),
+                              ("eh_step/decode", "eh_scan/coded_step"),
+                              ("block_decode_leaves",))
+    if deep_errors or deep_trace["host_spans"]["eh_step/decode"] != LAYER_ROUNDS \
+            or not 1 <= deep_trace["device_events"]["block_decode_leaves"] <= LAYER_ROUNDS:
+        raise AssertionError(f"deep log/trace: {deep_errors} {deep_trace}")
+
+    # a cohort captured as sweep --events captures its suite
+    ds = cli.load_dataset(parse_config(cli, MAIN_ARGS))
+    configs = {k: c for k, c in cohort_configs("deduped", (0,), TELEMETRY_SHORT).items()
+               if k.split("_seed")[0] in TELEMETRY_COHORT}
+    _, batched, sequential = planned(experiments, configs)
+    cohort_log = os.path.join(tmp, "cohort_events.jsonl")
+    with events_lib.capture(cohort_log):
+        cohort = counted_compare(kernels, experiments, configs, ds, both0, batch="auto")
+    crecs = read_records(cohort_log)
+    cohort_recs = [r for r in crecs if r["type"] == "cohort"]
+    streams = {r.get("trajectory") for r in crecs if r["type"] == "rounds"}
+    cohort_errors = events_lib.validate_file(cohort_log)
+    if cohort_errors or sequential or len(batched) != 1 or len(cohort_recs) != len(batched) \
+            or sum(r["dispatches"] for r in cohort_recs) != len(batched) \
+            or len(streams) != len(TELEMETRY_COHORT) or None in streams:
+        raise AssertionError(f"cohort log: {cohort_errors} {cohort_recs} {streams}")
+
+    # the determinism audit on the card
+    audit_cfg = parse_config(cli, with_rounds(MAIN_ARGS, TELEMETRY_SHORT))
+    kernels.reset_launches()
+    audited = audit.audit(audit_cfg, ds, device="cuda")
+    audit_launches = dict(kernels.LAUNCHES)
+    if not all(audited.values()) or audit_launches != {**both0,
+                                                       "fused_glm_grad": 2 * TELEMETRY_SHORT}:
+        raise AssertionError(f"audit: {audited} {audit_launches}")
+
+    # a windowed streamed run under a capture
+    s_cfg = parse_config(cli, with_rounds(STREAM_ARGS, TELEMETRY_STREAM_ROUNDS)
+                         + ["--stream-window", str(STREAM_WINDOW)])
+
+    def stream_run():
+        old_tempdir = tempfile.tempdir
+        tempfile.tempdir = tmp  # a spilled store lands here
+        try:
+            return trainer.train(s_cfg, ds)
+        finally:
+            tempfile.tempdir = old_tempdir
+
+    s_log = os.path.join(tmp, "stream_events.jsonl")
+    with events_lib.capture(s_log):
+        s_res, s_launches = launches_of(kernels, stream_run)
+    srecs = read_records(s_log)
+    pf = s_res.cache_info["prefetch"]
+    cp = next(r for r in srecs if r["type"] == "critical_path")
+    n_prefetch = sum(r["type"] == "prefetch" for r in srecs)
+    stall_want = round(min(pf["blocked_s"], s_res.wall_time), 6)
+    s_errors = events_lib.validate_file(s_log)
+    if s_errors or n_prefetch != pf["windows"] or n_prefetch != s_res.cache_info["n_windows"] \
+            or cp["components"]["prefetch_stall_s"] != stall_want \
+            or s_launches != {**both0, "fused_glm_grad": TELEMETRY_STREAM_ROUNDS}:
+        raise AssertionError(f"streamed log: {s_errors} {n_prefetch} {pf} {cp} {s_launches}")
+
+    # observation only, on the card: the pipelined main path, the cohort and
+    # the windowed streamed run, each plain and under a capture and a trace
+    pipe_cfg = parse_config(cli, PIPE_ARGS)
+    cohort_cfgs = list(configs.values())
+    observed = {}
+    for label, run in (("pipelined", lambda: [trainer.train(pipe_cfg, ds)]),
+                       ("cohort", lambda: trainer.train_cohort(cohort_cfgs, ds)),
+                       ("streamed", lambda: [stream_run()])):
+        plain, plain_launches = launches_of(kernels, run)
+        with events_lib.capture(os.path.join(tmp, f"{label}_observed.jsonl")), \
+                tracing.device_trace(os.path.join(tmp, f"trace_{label}"), device="cuda"):
+            seen, seen_launches = launches_of(kernels, run)
+        bitwise = all(torch.equal(a.params_history, b.params_history)
+                      and a.timeset.tobytes() == b.timeset.tobytes()
+                      and a.worker_times.tobytes() == b.worker_times.tobytes()
+                      and a.collected.tobytes() == b.collected.tobytes()
+                      for a, b in zip(plain, seen))
+        observed[label] = dict(launches=plain_launches, observed_launches=seen_launches,
+                               bitwise=bitwise, run_ids=sorted({r.run_id for r in seen}))
+        if not bitwise or plain_launches != seen_launches or None in observed[label]["run_ids"]:
+            raise AssertionError(f"{label} under telemetry and a trace: {observed[label]}")
+
+    # the records' cost after the loop: train() with and without a capture
+    main_cfg = parse_config(cli, MAIN_ARGS)
+    post_off = [post_loop_ms(trainer, main_cfg, ds) for _ in range(3)]
+    with events_lib.capture(os.path.join(tmp, "post_events.jsonl")):
+        post_on = [post_loop_ms(trainer, main_cfg, ds) for _ in range(3)]
+
+    # steps/s, off against on in alternating pairs, then traced
+    pairs = {"off": [], "on": [], "traced": []}
+    pair_log = os.path.join(tmp, "pair_events.jsonl")
+    for i in range(TELEMETRY_PAIRS):
+        for side in (("off", "on") if i % 2 == 0 else ("on", "off")):
+            sink = events_lib.capture(pair_log, mode="a") if side == "on" \
+                else contextlib.nullcontext()
+            with sink:
+                pairs[side].append(trainer.train(main_cfg, ds).steps_per_sec)
+    for i in range(TELEMETRY_TRACED):
+        with tracing.device_trace(os.path.join(tmp, f"trace_pair_{i}"), device="cuda"):
+            pairs["traced"].append(trainer.train(main_cfg, ds).steps_per_sec)
+    pair_stats = {k: dict(median=float(np.median(v)), q1=float(np.percentile(v, 25)),
+                          q3=float(np.percentile(v, 75)), runs=v) for k, v in pairs.items()}
+    pair_stats["on_wins"] = sum(b > a for a, b in zip(pairs["off"], pairs["on"]))
+
+    prom = render_prometheus(REGISTRY)
+    bad = [ln for ln in prom.splitlines() if ln and not ln.startswith("# TYPE ")
+           and not re.fullmatch(r"[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? \S+", ln)]
+    if bad or "erasurehead_sweep_cache_data_hits" not in prom:
+        raise AssertionError(f"prometheus text: {bad[:5]}")
+
+    rec = dict(
+        steps_per_sec={k: r["manifest"]["steps_per_sec"] for k, r in runs.items()},
+        artifacts_bitwise_off=same, record_counts=counts,
+        compile=dict(seconds=compile_rec["seconds"], cache_hit=compile_rec["cache_hit"]),
+        main_trace=main_trace, report_lines=len(printed["report"].splitlines()),
+        deep_trace=deep_trace, deep_launches=deep["launches"],
+        deep_steps_per_sec={"traced": deep["manifest"]["steps_per_sec"],
+                            "off": deep_off["manifest"]["steps_per_sec"]},
+        observed=observed,
+        cohort=dict(records=[{k: r[k] for k in ("n_trajectories", "schemes", "dispatches",
+                                                 "lowering")} for r in cohort_recs],
+                    planned_cohorts=len(batched), streams=sorted(streams),
+                    launches=cohort["launches"]),
+        audit={k: dict(bitwise_equal=v.bitwise_equal, max_abs_diff=v.max_abs_diff)
+               for k, v in audited.items()},
+        audit_launches=audit_launches,
+        streamed=dict(prefetch_records=n_prefetch, windows=pf["windows"],
+                      blocked_s=pf["blocked_s"], prefetch_stall_s=stall_want,
+                      launches=s_launches),
+        post_loop_ms=dict(off=post_off, on=post_on,
+                          records_ms=min(post_on) - min(post_off)),
+        paired_steps_per_sec=pair_stats,
+        prometheus_lines=len(prom.splitlines()),
+        seconds=time.perf_counter() - t_phase,
+    )
+    emit("telemetry", **rec)
+    rec["launches_by_run"] = {f"telemetry_{k}": r["launches"] for k, r in runs.items()}
+    rec["launches_by_run"].update(
+        telemetry_deep=deep["launches"], telemetry_deep_off=deep_off["launches"],
+        **{f"telemetry_{k}_{side}": o[key] for k, o in observed.items()
+           for side, key in (("plain", "launches"), ("observed", "observed_launches"))},
+                                  telemetry_cohort=cohort["launches"],
+                                  telemetry_audit=audit_launches,
+                                  telemetry_streamed=s_launches)
+    return rec
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3458,6 +3789,11 @@ def main() -> int:
     for rec in (tuned, whatif):
         sweep_launches.update(rec["launches_by_run"])
 
+    # the run-telemetry plane: logs, traces, the audit
+    with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-telemetry-") as tmp:
+        telemetry = telemetry_phase(cli, kernels, experiments, tmp, both0)
+    sweep_launches.update(telemetry["launches_by_run"])
+
     # the sparse and compressed stacks: no kernel takes them
     t_sparse = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-sparse-") as tmp:
@@ -3567,6 +3903,7 @@ def main() -> int:
     cohort_profile["bound_ms_per_round"] = cohort_glm_time["bound_ms"]
     cohort_profile["aggregate_steps_per_sec"] = cohort_profile["warm_steps_per_sec"]
     emit("profile", path="compare_deduped_cohort", **cohort_profile)
+    emit("profiler", lost_windows=LOST_WINDOWS)
 
     kernel_ms_best = min(kernel_ms, kernel_ms_2)
     line = {"kernels": [{
@@ -3655,6 +3992,16 @@ def main() -> int:
                    "off_runs_per_sec": whatif["off"]["runs_per_sec"],
                    "draw_kernels_by_seeds": whatif["draw_kernels_by_seeds"]},
         "tune_whatif_phases_s": planes_phases_s,
+        # the main path with telemetry and tracing off, on, and traced; the
+        # trace's B1 device events (at most the launches: a fresh profiler
+        # window may drop some) and the records' host ms after the loop
+        "telemetry": {"steps_per_sec": telemetry["steps_per_sec"],
+                      "paired_median_steps_per_sec": {
+                          k: telemetry["paired_steps_per_sec"][k]["median"]
+                          for k in ("off", "on", "traced")},
+                      "trace_device_events": telemetry["main_trace"]["device_events"],
+                      "records_ms": telemetry["post_loop_ms"]["records_ms"],
+                      "phase_s": telemetry["seconds"]},
         # a 28-trajectory deduped cohort round: the cohort matmul the path
         # runs instead, against 28 launches of this kernel
         "cohort_round": {k: cohort_glm_time[k] for k in (
@@ -3723,6 +4070,8 @@ def main() -> int:
         "dynamic_measured_failures_phases_s": dyn_phases_s,
         # the deep path's block_decode and layer_coding races
         "tune": tuned["deep"]["races"],
+        # the traced deep run's B2 device events
+        "telemetry_trace_device_events": telemetry["deep_trace"]["device_events"],
     }]}
     print(json.dumps(line))
     print(card)

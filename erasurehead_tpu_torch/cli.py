@@ -1,9 +1,14 @@
 """Command-line entry point of the PyTorch/CUDA port.
 
-Two invocation forms, as the JAX package's CLI takes them, and three
+Two invocation forms, as the JAX package's CLI takes them, and five
 subcommands: ``python -m erasurehead_tpu_torch.cli sweep [--rounds N]
-[--sweep-journal DIR [--resume-sweep]] [--out rows.json] [--device cpu]``
-runs the BASELINE.json comparison suite (train/experiments.main);
+[--sweep-journal DIR [--resume-sweep]] [--out rows.json] [--events PATH]
+[--device cpu]`` runs the BASELINE.json comparison suite
+(train/experiments.main); ``... cli report EVENTS.jsonl [...]
+[--validate]`` renders event logs into the run summary table
+(obs/report.main) and ``... cli top EVENTS.jsonl|http://host:port
+[--follow]`` draws the live telemetry frame (obs/exporter.top_main), both
+reading files only;
 ``... cli tune --race NAME [shape flags] [--json] [--device cpu]`` races an
 auto knob at a run shape into the tune decision cache
 (``ERASUREHEAD_TUNE_CACHE``; tune/races.main); ``... cli whatif --policies
@@ -66,6 +71,15 @@ saddle, where the loss stays at log 2)::
    run's own telemetry and re-lays the code onto the survivors between
    chunks (elastic/); ``--kill-workers`` then scripts the world it sees.
 
+   Telemetry: ``--telemetry on`` writes the run's typed records to
+   ``<output-dir>/events.jsonl`` (obs/events.py; ``auto`` = on exactly when
+   ``--output-dir`` is given, else ``ERASUREHEAD_TELEMETRY``, else off),
+   with the eval's ``eval`` record after the replay; ``--elastic on`` then
+   journals its decisions beside it. ``--trace-dir DIR`` captures a
+   ``torch.profiler`` trace of the run into ``DIR/*.pt.trace.json``
+   (utils/tracing.device_trace; open it in ui.perfetto.dev). Both observe
+   only: the run's artifacts are bitwise those of a run without them.
+
 2. **Legacy positional**: the reference's 13-argument calling convention
    (main.py:20-27)::
 
@@ -98,6 +112,7 @@ layout written by ``data/io.write_reference_layout`` from
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import sys
@@ -107,9 +122,11 @@ import numpy as np
 from erasurehead_tpu_torch import schemes as schemes_lib
 from erasurehead_tpu_torch.data import io as data_io
 from erasurehead_tpu_torch.data.synthetic import Dataset, generate_gmm, generate_linear
+from erasurehead_tpu_torch.obs import events as events_lib
 from erasurehead_tpu_torch.parallel import failures
 from erasurehead_tpu_torch.train import artifacts, evaluate, trainer
-from erasurehead_tpu_torch.utils.config import ModelKind, RunConfig
+from erasurehead_tpu_torch.utils.config import ModelKind, RunConfig, resolve_telemetry
+from erasurehead_tpu_torch.utils.tracing import device_trace
 
 #: legacy (is_coded=1) dispatch: coded_ver -> scheme, without and with
 #: partitions (main.py:62-92)
@@ -371,6 +388,18 @@ def _flags_parser() -> argparse.ArgumentParser:
                         "(train/cache.py): off rebuilds and re-uploads "
                         "every run's stack. ERASUREHEAD_SWEEP_CACHE=0 in "
                         "the env does the same")
+    p.add_argument("--telemetry", default=None, choices=["on", "off", "auto"],
+                   help="run-telemetry event log (obs/): writes "
+                        "events.jsonl beside the artifacts, typed "
+                        "run_start/compile/data_upload/rounds/decode/"
+                        "run_end/critical_path records, rendered by the "
+                        "report subcommand. Default: ERASUREHEAD_TELEMETRY "
+                        "env, else off; auto = on when --output-dir is "
+                        "given. Observation only: the run is bitwise the "
+                        "same either way")
+    p.add_argument("--trace-dir", default=None,
+                   help="capture a torch.profiler trace of the run here "
+                        "(a Chrome trace, *.pt.trace.json; ui.perfetto.dev)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--checkpoint-dir", default=None,
                    help="save optimizer state here every --checkpoint-every "
@@ -649,10 +678,10 @@ def _parse_arms(spec: str):
 
 
 def _run_elastic(cfg: RunConfig, dataset, deaths, device, quiet: bool,
-                 elastic_chunk: int, death_rounds: int, death_timeout):
-    """The ``--elastic on`` branch: train_elastic_online with no journal
-    (the JAX CLI journals only with its telemetry on, which the port does
-    not have yet), and its decisions printed."""
+                 elastic_chunk: int, death_rounds: int, death_timeout, journal_dir):
+    """The ``--elastic on`` branch: train_elastic_online, journaling into
+    ``journal_dir`` (the output directory when telemetry is on, else None),
+    and its decisions printed."""
     from erasurehead_tpu_torch import elastic as elastic_lib
 
     ecfg_kw = dict(chunk_rounds=elastic_chunk, death_rounds=death_rounds, seed=cfg.seed)
@@ -660,7 +689,7 @@ def _run_elastic(cfg: RunConfig, dataset, deaths, device, quiet: bool,
         ecfg_kw["timeout"] = death_timeout
     eres = elastic_lib.train_elastic_online(
         cfg, dataset, elastic=elastic_lib.ElasticConfig(**ecfg_kw),
-        deaths=deaths, journal_dir=None, device=device,
+        deaths=deaths, journal_dir=journal_dir, device=device,
     )
     if not quiet:
         relayouts = [d for d in eres.decisions if d["action"] == "relayout"]
@@ -727,10 +756,17 @@ def run(cfg: RunConfig, output_dir: str | None = None, quiet: bool = False,
         death_timeout: float | None = None, adapt: str = "off",
         adapt_chunk: int = 10, adapt_arms: str | None = None,
         adapt_priors: str | None = None, elastic: str = "off",
-        elastic_chunk: int = 10, death_rounds: int = 3):
+        elastic_chunk: int = 10, death_rounds: int = 3,
+        telemetry: str | None = None, trace_dir: str | None = None):
     """Train, replay the eval and write the artifacts. Returns
     (TrainResult, EvalResult, artifact paths). A resumed run's artifacts
     cover [start_round, rounds).
+
+    ``telemetry`` ("on"/"off"/"auto", None = ``ERASUREHEAD_TELEMETRY``,
+    else off; utils/config.resolve_telemetry) captures the run's records
+    into ``<output_dir>/events.jsonl`` (then ``paths["events"]``), the
+    ``eval`` record after the replay; ``trace_dir`` wraps training and the
+    replay in a ``torch.profiler`` trace (utils/tracing.device_trace).
 
     ``elastic="on"`` trains through elastic.train_elastic_online (the
     deaths, if any, are the world its controller observes);
@@ -771,55 +807,75 @@ def run(cfg: RunConfig, output_dir: str | None = None, quiet: bool = False,
             f"--kill-workers ids {sorted(deaths)} outside "
             f"[0, {cfg.n_workers})"
         )
+    # resolved before the default output dir is filled in, so "auto" keys
+    # off the caller's request
+    telemetry_on = resolve_telemetry(telemetry, output_dir is not None)
     if output_dir is None:
         output_dir = os.path.join(dataset_dir(cfg) or ".", "results")
     dataset = load_dataset(cfg)
-    if elastic == "on":
-        result = _run_elastic(cfg, dataset, deaths, device, quiet, elastic_chunk,
-                              death_rounds, death_timeout)
-    elif adapt == "on":
-        result = _run_adapt(cfg, dataset, device, quiet, adapt_chunk, adapt_arms, adapt_priors)
-    elif cfg.arrival_mode == "measured":
-        result = trainer.train_measured(cfg, dataset, device=device)
-    elif deaths and on_death == "elastic":
-        result, report = failures.train_elastic(cfg, dataset, deaths, device=device)
-        if not quiet:
-            print(
-                f"elastic restart at round {report.death_round}: "
-                f"{report.n_workers_before} -> {report.n_workers_after} "
-                f"workers (dead: {list(report.dead_workers)})"
+    events_path = os.path.join(output_dir, "events.jsonl")
+    capture = events_lib.capture(events_path) if telemetry_on else contextlib.nullcontext()
+    with capture, device_trace(trace_dir, device=device):
+        if elastic == "on":
+            result = _run_elastic(cfg, dataset, deaths, device, quiet, elastic_chunk,
+                                  death_rounds, death_timeout,
+                                  output_dir if telemetry_on else None)
+        elif adapt == "on":
+            result = _run_adapt(cfg, dataset, device, quiet, adapt_chunk, adapt_arms, adapt_priors)
+        elif cfg.arrival_mode == "measured":
+            result = trainer.train_measured(cfg, dataset, device=device)
+        elif deaths and on_death == "elastic":
+            result, report = failures.train_elastic(cfg, dataset, deaths, device=device)
+            if not quiet:
+                print(
+                    f"elastic restart at round {report.death_round}: "
+                    f"{report.n_workers_before} -> {report.n_workers_after} "
+                    f"workers (dead: {list(report.dead_workers)})"
+                )
+        elif deaths:
+            # error|failover: the deaths enter the arrival schedule, and the
+            # run is planned; "error" raises where the reference's master would
+            # block in Waitany forever
+            arrivals = failures.inject_worker_death(trainer.default_arrivals(cfg), deaths)
+            sched, _ = failures.plan_run(
+                cfg.scheme, trainer.build_layout(cfg), arrivals,
+                num_collect=cfg.num_collect, deadline=cfg.deadline,
+                timeout=death_timeout if death_timeout is not None else np.inf,
+                on_infeasible=on_death,
             )
-    elif deaths:
-        # error|failover: the deaths enter the arrival schedule, and the
-        # run is planned; "error" raises where the reference's master would
-        # block in Waitany forever
-        arrivals = failures.inject_worker_death(trainer.default_arrivals(cfg), deaths)
-        sched, _ = failures.plan_run(
-            cfg.scheme, trainer.build_layout(cfg), arrivals,
-            num_collect=cfg.num_collect, deadline=cfg.deadline,
-            timeout=death_timeout if death_timeout is not None else np.inf,
-            on_infeasible=on_death,
+            result = trainer.train(cfg, dataset, device=device, arrivals=arrivals, schedule=sched)
+        else:
+            result = trainer.train(
+                cfg, dataset, device=device, checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every, resume=resume,
+            )
+        n = result.n_train
+        ev = evaluate.replay(
+            trainer.build_model(cfg),
+            cfg.model,
+            result.params_history,
+            dataset.X_train[:n],
+            dataset.y_train[:n],
+            dataset.X_test,
+            dataset.y_test,
         )
-        result = trainer.train(cfg, dataset, device=device, arrivals=arrivals, schedule=sched)
-    else:
-        result = trainer.train(
-            cfg, dataset, device=device, checkpoint_dir=checkpoint_dir,
-            checkpoint_every=checkpoint_every, resume=resume,
-        )
-    n = result.n_train
-    ev = evaluate.replay(
-        trainer.build_model(cfg),
-        cfg.model,
-        result.params_history,
-        dataset.X_train[:n],
-        dataset.y_train[:n],
-        dataset.X_test,
-        dataset.y_test,
-    )
+        if result.run_id is not None:
+            auc = float(ev.auc[-1])
+            events_lib.emit(
+                "eval",
+                run_id=result.run_id,
+                final_train_loss=float(ev.training_loss[-1]),
+                final_test_loss=float(ev.testing_loss[-1]),
+                final_auc=auc if np.isfinite(auc) else None,
+            )
     paths = artifacts.write_run_artifacts(result, ev, output_dir)
+    if telemetry_on:
+        paths["events"] = events_path
     if not quiet:
         artifacts.print_iteration_table(result, ev)
         print(f"artifacts -> {output_dir}")
+        if telemetry_on:
+            print(f"events -> {events_path}")
     return result, ev, paths
 
 
@@ -831,6 +887,17 @@ def main(argv: list[str] | None = None) -> int:
         from erasurehead_tpu_torch.train import experiments as experiments_lib
 
         return experiments_lib.main(argv[1:])
+    if argv and argv[0] == "report":
+        # render event logs into the run summary table (obs/report.py)
+        from erasurehead_tpu_torch.obs import report as report_lib
+
+        return report_lib.main(argv[1:])
+    if argv and argv[0] == "top":
+        # the live telemetry frame over an event log or a /metrics URL
+        # (obs/exporter.top_main)
+        from erasurehead_tpu_torch.obs import exporter as exporter_lib
+
+        return exporter_lib.top_main(argv[1:])
     if argv and argv[0] == "tune":
         from erasurehead_tpu_torch.tune import races
 
@@ -871,6 +938,8 @@ def main(argv: list[str] | None = None) -> int:
         elastic=ns.elastic,
         elastic_chunk=ns.elastic_chunk,
         death_rounds=ns.death_rounds,
+        telemetry=ns.telemetry,
+        trace_dir=ns.trace_dir,
     )
     return 0
 

@@ -34,6 +34,12 @@ double buffering) are staged and not yet consumed, whatever the dataset's
 size. With the window being consumed that is ``depth + 1`` windows of device
 memory at most, plus one staging temporary.
 
+Each staged window leaves its records in :attr:`Prefetcher.records`, in
+window order: the records its read emitted (the store's ``io``), held on the
+staging thread (obs/events.deferred), and its ``prefetch`` payload (window
+index, bytes, ranges, fetch seconds, the plan's fields). The staging thread
+writes no record itself; the trainer emits them after its round loop.
+
 Every staged window fires the ``prefetch`` chaos site (utils/chaos.
 maybe_fire): ``ERASUREHEAD_CHAOS=raise:prefetch:N`` fails the Nth window's
 stage and the trainer's next ``get``; ``kill:prefetch:N`` is a preemption
@@ -45,12 +51,13 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from erasurehead_tpu_torch.obs import events as events_lib
 from erasurehead_tpu_torch.obs.metrics import REGISTRY, warn_once
 from erasurehead_tpu_torch.ops.features import QuantizedStack
 from erasurehead_tpu_torch.utils import chaos as chaos_lib
@@ -85,7 +92,8 @@ class Prefetcher:
     thread, which is the overlap. ``get(i)`` must be called for
     ``i = 0, 1, ...`` in order. ``device`` is where ``put`` puts the
     window: a cuda device pins the host buffers and stages on a copy
-    stream (module docstring).
+    stream (module docstring). ``plan_fields`` (a dict, e.g.
+    ``StreamWindowPlan.event_fields()``) rides every ``prefetch`` record.
 
     An error on the staging thread (a torn store, a chaos ``raise``)
     surfaces at the next ``get``, never silently and never deadlocked."""
@@ -98,6 +106,7 @@ class Prefetcher:
         *,
         depth: int = DEFAULT_DEPTH,
         device="cpu",
+        plan_fields: Optional[dict] = None,
     ):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
@@ -122,6 +131,10 @@ class Prefetcher:
         self._fetch_after_first_s = 0.0
         self._bytes = 0
         self._staged = 0
+        self._plan_fields = dict(plan_fields or {})
+        #: per staged window, in order: (the records its stage emitted, as
+        #: (type, fields) pairs; its prefetch payload without run_id)
+        self.records: list = []
         self._thread = threading.Thread(target=self._run, name="eh-prefetch", daemon=True)
         self._thread.start()
 
@@ -182,7 +195,8 @@ class Prefetcher:
             try:
                 chaos_lib.maybe_fire("prefetch")
                 t0 = time.perf_counter()
-                dev, event, n_bytes = self._stage(i, ranges)
+                with events_lib.deferred() as held:
+                    dev, event, n_bytes = self._stage(i, ranges)
                 dt = time.perf_counter() - t0
             except BaseException as e:  # noqa: BLE001 — raised at get()
                 self._ready.put((i, None, None, e))
@@ -192,6 +206,14 @@ class Prefetcher:
                 self._fetch_after_first_s += dt
             self._bytes += n_bytes
             self._staged += 1
+            self.records.append((held, dict(
+                window=i,
+                bytes=n_bytes,
+                partitions=[ranges[0][0], ranges[0][1]],
+                ranges=[[lo, hi] for lo, hi in ranges],
+                fetch_s=round(dt, 6),
+                **self._plan_fields,
+            )))
             self._ready.put((i, dev, event, None))
 
     # -- consumer side ------------------------------------------------------
@@ -266,13 +288,14 @@ class Prefetcher:
         t.join(timeout=max(0.0, deadline - time.monotonic()))
         if t.is_alive():
             REGISTRY.counter("prefetch.join_timeout").inc()
-            warn_once(
-                "prefetch-join-timeout",
+            msg = (
                 f"prefetch staging thread {t.name!r} did not exit within "
                 f"{float(join_timeout_s):g}s of close(); a stage is "
                 "wedged (hung shard read or device transfer) and the "
-                "daemon thread leaks until process exit",
+                "daemon thread leaks until process exit"
             )
+            warn_once("prefetch-join-timeout", msg)
+            events_lib.emit("warning", kind="prefetch_join_timeout", message=msg)
 
     def __enter__(self):
         return self

@@ -140,6 +140,15 @@ class StreamWindowPlan:
         """Partitions staged per window (window + halo)."""
         return self.window + self.halo
 
+    def event_fields(self) -> dict:
+        """The window-plan fields every staged ``prefetch`` record carries
+        (obs/events.SCHEMA)."""
+        return {
+            "plan_mode": self.mode,
+            "halo": int(self.halo),
+            "group_workers": int(self.group_workers),
+        }
+
     def sub_layout(self):
         """The one-window layout a ring plan is built over: the ring
         transport is not ported, so this raises."""

@@ -32,9 +32,13 @@ Identity: the store carries the source dataset's sweep-journal digest
 (train/journal.dataset_digest), and :meth:`ShardStore.dataset` brands the
 datasets it rebuilds with it and with a content-addressed cache token, so
 the device data cache and the sweep journal key streamed runs as they key
-runs over the source dataset. The JAX module's ``io`` events wait for the
-port's event plane; the byte counts the prefetcher reports are the sizes of
-the arrays a read returns.
+runs over the source dataset.
+
+Every transaction is an ``io`` record (obs/events.py): a store write
+(kind ``store_write``, the bytes written) and every window read (kind
+``shard_read``, the bytes of the arrays it returns). A read on the
+prefetcher's staging thread is held there (obs/events.deferred) and emitted
+by the trainer after its round loop.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from typing import Optional
 import numpy as np
 
 from erasurehead_tpu_torch.data.synthetic import Dataset
+from erasurehead_tpu_torch.obs import events as events_lib
 from erasurehead_tpu_torch.ops.features import QuantizedStack
 
 #: store layout version (a directory of another version is refused)
@@ -62,6 +67,10 @@ SHARD_TARGET_BYTES = 64 << 20
 #: representation: a float32 store feeds any of them, an int8 store needs
 #: ``stack_dtype="int8"``)
 STORE_DTYPES = ("float32", "int8")
+
+
+def _emit_io(kind: str, n_bytes: int, **extra) -> None:
+    events_lib.emit("io", kind=kind, bytes=int(n_bytes), **extra)
 
 
 def partitions_per_shard(rows: int, n_features: int, itemsize: int, n_partitions: int) -> int:
@@ -117,6 +126,7 @@ def write_store(
         raise ValueError(f"shard group must be >= 1, got {G}")
     os.makedirs(directory, exist_ok=True)
     shard_parts = []
+    total = 0
     for i, lo in enumerate(range(0, n_partitions, G)):
         hi = min(lo + G, n_partitions)
         block = Xp[lo:hi]
@@ -124,9 +134,12 @@ def write_store(
             qs = QuantizedStack.quantize(block)
             np.save(os.path.join(directory, f"shard_{i:05d}.npy"), qs.q)
             np.save(os.path.join(directory, f"scale_{i:05d}.npy"), qs.scale)
+            total += qs.q.nbytes + qs.scale.nbytes
         else:
             np.save(os.path.join(directory, f"shard_{i:05d}.npy"), block)
+            total += block.nbytes
         np.save(os.path.join(directory, f"labels_{i:05d}.npy"), yp[lo:hi])
+        total += yp[lo:hi].nbytes
         shard_parts.append(hi - lo)
     np.save(os.path.join(directory, "X_test.npy"), np.asarray(dataset.X_test))
     np.save(os.path.join(directory, "y_test.npy"), np.asarray(dataset.y_test))
@@ -144,6 +157,7 @@ def write_store(
     }
     with open(os.path.join(directory, META_NAME), "w") as f:
         json.dump(meta, f, indent=1, sort_keys=True)
+    _emit_io("store_write", total, path=directory, shards=len(shard_parts))
     return ShardStore(directory)
 
 
@@ -238,7 +252,8 @@ class ShardStore:
         """A sequence of contiguous partition ranges as one stacked host
         window, concatenated in order (a slot-group's span that wraps the
         partition axis is two ranges: data/sharding.plan_stream_windows).
-        Same buffer contract as :meth:`read_window`."""
+        Same buffer contract as :meth:`read_window`. Emits the read's
+        ``io`` record."""
         ranges = [(int(lo), int(hi)) for lo, hi in ranges]
         if not ranges:
             raise ValueError("read_ranges needs at least one range")
@@ -269,6 +284,12 @@ class ShardStore:
                     scale[dst] = self._mmap("scale", s)[a:b]
                 p += b - a
             off += hi - lo
+        _emit_io(
+            "shard_read",
+            X.nbytes + y.nbytes + (scale.nbytes if scale is not None else 0),
+            partitions=[ranges[0][0], ranges[0][1]],
+            ranges=[[lo, hi] for lo, hi in ranges],
+        )
         if self.quantized:
             return QuantizedStack(X, scale), y
         return X, y

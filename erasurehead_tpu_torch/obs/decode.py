@@ -11,6 +11,13 @@ computed in host float64 exactly as erasurehead_tpu/obs/decode.py computes
 it. Residuals below :data:`EXACT_TOL` (lstsq float noise) snap to 0.0.
 :func:`block_decode_error` measures the same error per coded block of a
 model's gradient (the decode-error-vs-depth series).
+
+A pipelined run (``cfg.pipeline_depth``) has a second error source the
+weight-space norm cannot see: the gradient was taken at a stale iterate.
+:func:`staleness_error_series` measures that half in gradient space by a
+replay after the run, and :func:`emit_staleness_split` packages both halves
+as the ``stale_decode`` record. The replay is a tool's call, never
+``train()``'s: telemetry adds no device work to a run.
 """
 
 from __future__ import annotations
@@ -140,3 +147,63 @@ def staleness_error_series(
     err[tau == 0] = 0.0
     err[err < EXACT_TOL] = 0.0
     return err
+
+
+def emit_staleness_split(run_id, result, dataset, initial_params=None) -> dict:
+    """A finished pipelined run's staleness-vs-coding error decomposition,
+    emitted as ONE ``stale_decode`` record (when a capture is installed):
+    the mean gradient-space staleness error, the mean coding error (the
+    run's weight-space decode-error series) and staleness's share of their
+    sum. Returns the payload either way.
+
+    It replays one gradient a round (:func:`staleness_error_series`), on the
+    device of the run's history. ``initial_params`` (the run's
+    ``init_params`` form) defaults to the config's seeded init."""
+    from erasurehead_tpu_torch.models.glm import params_from_numpy
+    from erasurehead_tpu_torch.obs import events as events_lib
+    from erasurehead_tpu_torch.ops import blocks
+    from erasurehead_tpu_torch.parallel.pipeline import staleness_schedule
+    from erasurehead_tpu_torch.train import trainer as trainer_lib
+
+    cfg = result.config
+    model = trainer_lib.build_model(cfg)
+    dev = blocks.tree_leaves(result.params_history)[0].device
+    if initial_params is None:
+        p0 = model.init_params(cfg.seed, dataset.n_features, dev)
+    else:
+        p0 = params_from_numpy(initial_params, dev)
+    n = result.n_train
+    tau = staleness_schedule(cfg.rounds, cfg.pipeline_depth)[result.start_round:]
+    s_err = staleness_error_series(
+        model, result.params_history, tau, dataset.X_train[:n], dataset.y_train[:n], p0,
+    )
+    c_err = np.asarray(result.decode_error, dtype=np.float64)[result.start_round:]
+    s_mean = float(s_err.mean()) if s_err.size else 0.0
+    c_mean = float(c_err.mean()) if c_err.size else 0.0
+    total = s_mean + c_mean
+    payload = {
+        "run_id": run_id,
+        "first_round": int(result.start_round),
+        "n_rounds": int(s_err.shape[0]),
+        "staleness_error_mean": round(s_mean, 10),
+        "coding_error_mean": round(c_mean, 10),
+        # which noise source dominates: 0 = pure coding error (tau=0 runs
+        # land here exactly), 1 = pure staleness
+        "staleness_share": round(s_mean / total, 10) if total > 0 else 0.0,
+    }
+    if events_lib.current():
+        events_lib.emit("stale_decode", **payload)
+    return payload
+
+
+def summarize(decode_error) -> dict:
+    """Mean/max summary of a [R] error series (the ``run_end`` fields)."""
+    if decode_error is None:
+        return {"decode_error_mean": None, "decode_error_max": None}
+    err = np.asarray(decode_error, dtype=np.float64)
+    if err.size == 0:
+        return {"decode_error_mean": 0.0, "decode_error_max": 0.0}
+    return {
+        "decode_error_mean": round(float(err.mean()), 10),
+        "decode_error_max": round(float(err.max()), 10),
+    }

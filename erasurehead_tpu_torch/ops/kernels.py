@@ -187,6 +187,11 @@ def load_library() -> None:
     _library()
 
 
+def library_loaded() -> bool:
+    """Has this process loaded the kernel library already?"""
+    return _library.cache_info().currsize > 0
+
+
 def unsupported_reason(X: torch.Tensor) -> str | None:
     """Why the kernel cannot take this [M, R, F] stack, or None if it can."""
     if X.dtype not in (torch.float32, torch.bfloat16):

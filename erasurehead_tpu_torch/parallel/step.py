@@ -33,6 +33,10 @@ package's own XLA lowering. For the autodiff families (``grads_via_loss``)
 it is one ``torch.func.grad`` of the weighted summed loss, as in the JAX
 package's ``_weighted_loss_grad`` (without its psum: one device).
 
+The bodies name their phases as the JAX package's do (utils/tracing.annotate,
+host spans of a ``--trace-dir`` trace): ``eh_step/partial_grads`` around the
+slot gradients, ``eh_step/decode`` around their weighted contraction.
+
 Every body but the fused kernel's is wrapped by :func:`_dq`, so an int8
 stack (ops/features.QuantizedStack) dequantizes at the top of the round and
 every lowering below sees a dense stack; X may also be a PaddedRows or
@@ -51,6 +55,7 @@ import torch
 from erasurehead_tpu_torch.ops import blocks as blocks_lib
 from erasurehead_tpu_torch.ops import features as features_lib
 from erasurehead_tpu_torch.ops import kernels
+from erasurehead_tpu_torch.utils.tracing import annotate
 
 GradFn = Callable[..., object]  # (params, X, y, weights) -> [F] or dict
 
@@ -105,9 +110,12 @@ def make_faithful_grad_fn(model) -> GradFn:
 
     def grad(params, Xw, yw, slot_weights):
         if _grads_via_loss(model):
-            return _weighted_loss_grad(model, params, Xw, yw, slot_weights, "ws")
-        per_slot = model.grad_sum(params, Xw, yw)  # [W, S, F]
-        return _weighted_sum(slot_weights, per_slot, "ws")
+            with annotate("eh_step/partial_grads"):
+                return _weighted_loss_grad(model, params, Xw, yw, slot_weights, "ws")
+        with annotate("eh_step/partial_grads"):
+            per_slot = model.grad_sum(params, Xw, yw)  # [W, S, F]
+        with annotate("eh_step/decode"):
+            return _weighted_sum(slot_weights, per_slot, "ws")
 
     return _dq(grad)
 
@@ -125,9 +133,12 @@ def make_deduped_grad_fn(model) -> GradFn:
 
     def grad(params, Xp, yp, part_weights):
         if _grads_via_loss(model):
-            return _weighted_loss_grad(model, params, Xp, yp, part_weights, "p")
-        per_part = model.grad_sum(params, Xp, yp)  # [P, F]
-        return _weighted_sum(part_weights, per_part, "p")
+            with annotate("eh_step/partial_grads"):
+                return _weighted_loss_grad(model, params, Xp, yp, part_weights, "p")
+        with annotate("eh_step/partial_grads"):
+            per_part = model.grad_sum(params, Xp, yp)  # [P, F]
+        with annotate("eh_step/decode"):
+            return _weighted_sum(part_weights, per_part, "p")
 
     return _dq(grad)
 
@@ -163,11 +174,12 @@ def _hybrid_margin_flat_grad(model, params, Xs, ys, ws):
     [P, R, F] stack: the per-slot step's math in another reduction order."""
     R, F = ys.shape[-1], Xs.shape[-1]
     M = ys.numel() // R
-    X3 = features_lib._f32(Xs.reshape(M, R, F))
-    p = features_lib.matvec(X3.reshape(M * R, F), params)
-    r = model.margin_residual(p, ys.reshape(M * R))
-    wr = ws.reshape(M, 1) * r.reshape(M, R)
-    return -torch.einsum("mrf,mr->f", X3, wr)
+    with annotate("eh_step/partial_grads"):
+        X3 = features_lib._f32(Xs.reshape(M, R, F))
+        p = features_lib.matvec(X3.reshape(M * R, F), params)
+        r = model.margin_residual(p, ys.reshape(M * R))
+        wr = ws.reshape(M, 1) * r.reshape(M, R)
+        return -torch.einsum("mrf,mr->f", X3, wr)
 
 
 def make_margin_flat_grad_fn(model) -> GradFn:
@@ -220,10 +232,11 @@ def _flat_local_body(model) -> GradFn:
     def grad(params, Xs, ys, ws):
         R = ys.shape[-1]
         M = ys.numel() // R
-        Xf = features_lib.flatten_rows(Xs)
-        wf = ws.reshape(M, 1).expand(M, R).reshape(M * R)
-        r = model.margin_residual(features_lib.matvec(Xf, params), ys.reshape(M * R))
-        return -features_lib.rmatvec(Xf, wf * r)
+        with annotate("eh_step/partial_grads"):
+            Xf = features_lib.flatten_rows(Xs)
+            wf = ws.reshape(M, 1).expand(M, R).reshape(M * R)
+            r = model.margin_residual(features_lib.matvec(Xf, params), ys.reshape(M * R))
+            return -features_lib.rmatvec(Xf, wf * r)
 
     return grad
 
@@ -240,17 +253,19 @@ def make_fused_grad_fn(kind: str) -> GradFn:
     """The one-pass kernel (ops/kernels.py) as a drop-in for either grad fn
     above on dense GLM stacks: the worker-major [W, S, rows, F] or the
     partition-major [P, rows, F] stack, leading dims flattened into kernel
-    slots (views, no copy)."""
+    slots (views, no copy). The decode is folded into the kernel's one
+    pass, so its one region is ``eh_step/partial_grads``."""
 
     def grad(params, Xs, ys, ws):
         M = int(np.prod(Xs.shape[:-2]))
-        return kernels.fused_glm_grad(
-            params,
-            Xs.reshape((M,) + tuple(Xs.shape[-2:])),
-            ys.reshape(M, -1),
-            ws.reshape(M),
-            kind,
-        )
+        with annotate("eh_step/partial_grads"):
+            return kernels.fused_glm_grad(
+                params,
+                Xs.reshape((M,) + tuple(Xs.shape[-2:])),
+                ys.reshape(M, -1),
+                ws.reshape(M),
+                kind,
+            )
 
     return grad
 
@@ -378,9 +393,11 @@ def _layer_block_body(model, spec, contract: str) -> GradFn:
     as a one-leaf table: one launch of the decode kernel a round."""
 
     def grad(params, Xs, ys, ws):
-        grads = per_slot_grads(model, params, Xs, ys, len(contract))
-        table = blocks_lib.tree_to_blocks(grads, spec)  # [*lead, L, width]
-        (g,) = kernels.fused_block_decode_leaves(ws, [table])
+        with annotate("eh_step/partial_grads"):
+            grads = per_slot_grads(model, params, Xs, ys, len(contract))
+            table = blocks_lib.tree_to_blocks(grads, spec)  # [*lead, L, width]
+        with annotate("eh_step/decode"):
+            (g,) = kernels.fused_block_decode_leaves(ws, [table])
         return blocks_lib.blocks_to_tree(g, spec)
 
     return grad
@@ -395,8 +412,10 @@ def _fused_layer_block_body(model, spec, contract: str) -> GradFn:
     lowering, so the two are bitwise equal."""
 
     def grad(params, Xs, ys, ws):
-        grads = per_slot_grads(model, params, Xs, ys, len(contract))
-        out = kernels.fused_block_decode_leaves(ws, blocks_lib.tree_leaves(grads))
+        with annotate("eh_step/partial_grads"):
+            grads = per_slot_grads(model, params, Xs, ys, len(contract))
+        with annotate("eh_step/decode"):
+            out = kernels.fused_block_decode_leaves(ws, blocks_lib.tree_leaves(grads))
         return blocks_lib.tree_unflatten(spec.keys, out)
 
     return grad
@@ -469,13 +488,14 @@ def cohort_matmul_grad_fn(model) -> GradFn:
         B = ws_B.shape[0]
         R, F = ys.shape[-1], Xs.shape[-1]
         M = ys.numel() // R
-        X2 = Xs.reshape(M * R, F)
-        if X2.dtype != torch.float32:
-            X2 = X2.float()
-        margins = X2 @ params_B.t()  # [N, B]
-        r = model.margin_residual(margins, ys.reshape(M * R, 1))  # [N, B]
-        w_rows = ws_B.reshape(B, M, 1).expand(B, M, R).reshape(B, M * R)
-        return -((w_rows * r.t()) @ X2)
+        with annotate("eh_step/partial_grads"):
+            X2 = Xs.reshape(M * R, F)
+            if X2.dtype != torch.float32:
+                X2 = X2.float()
+            margins = X2 @ params_B.t()  # [N, B]
+            r = model.margin_residual(margins, ys.reshape(M * R, 1))  # [N, B]
+            w_rows = ws_B.reshape(B, M, 1).expand(B, M, R).reshape(B, M * R)
+            return -((w_rows * r.t()) @ X2)
 
     return grad
 
@@ -502,15 +522,18 @@ def _cohort_layer_block_body(model, spec, contract: str, fused: bool) -> GradFn:
     reads leaves in place and its wrapper refuses any other."""
 
     def grad(params_B, Xs, ys, ws_B):
-        grads = torch.func.vmap(
-            lambda p: per_slot_grads(model, p, Xs, ys, len(contract))
-        )(params_B)
+        with annotate("eh_step/partial_grads"):
+            grads = torch.func.vmap(
+                lambda p: per_slot_grads(model, p, Xs, ys, len(contract))
+            )(params_B)
         if fused:
             leaves = [leaf.contiguous() for leaf in blocks_lib.tree_leaves(grads)]
-            out = kernels.fused_block_decode_cohort(ws_B, leaves, contract)
+            with annotate("eh_step/decode"):
+                out = kernels.fused_block_decode_cohort(ws_B, leaves, contract)
             return blocks_lib.tree_unflatten(spec.keys, out)
         table = blocks_lib.tree_to_blocks(grads, spec)  # [B, *lead, L, width]
-        (g,) = kernels.fused_block_decode_cohort(ws_B, [table], contract)
+        with annotate("eh_step/decode"):
+            (g,) = kernels.fused_block_decode_cohort(ws_B, [table], contract)
         return blocks_lib.blocks_to_tree(g, spec)
 
     return grad

@@ -11,8 +11,10 @@ Preemptions also strike mid-save, so a save never shows a half-written
 ``os.replace`` renames the directory to ``round_N``. :func:`latest` skips
 a candidate without its marker, and :func:`restore_latest` goes further:
 it attempts the restore newest-first and falls back to the next-older
-checkpoint, with a warning on stderr, when the data itself is torn (a
-truncated state file passes the marker check).
+checkpoint when the data itself is torn (a truncated state file passes the
+marker check). Every skipped checkpoint is counted (``checkpoint.invalid``),
+recorded as a ``checkpoint_invalid`` warning (obs/events.py) and reported
+once on stderr.
 
 ``momentum`` round-trips whatever it is: None, a tensor or a dict of them
 (GD, AGD), or a pair of those (ADAM); dtypes are kept, and a restore puts
@@ -24,7 +26,6 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import sys
 import tempfile
 from typing import Optional, Tuple
 
@@ -145,11 +146,18 @@ def _candidates(checkpoint_dir: str) -> list:
 
 
 def _warn_invalid(path: str, why: str) -> None:
-    print(
+    """A skipped checkpoint: counted, a ``checkpoint_invalid`` warning
+    record, and one stderr line per path."""
+    from erasurehead_tpu_torch.obs import events as obs_events
+    from erasurehead_tpu_torch.obs.metrics import REGISTRY, warn_once
+
+    REGISTRY.counter("checkpoint.invalid").inc()
+    msg = (
         f"checkpoint: skipping {path!r} ({why}); falling back to the "
-        f"next-older checkpoint",
-        file=sys.stderr,
+        f"next-older checkpoint"
     )
+    obs_events.emit("warning", kind="checkpoint_invalid", message=msg)
+    warn_once(f"checkpoint_invalid:{path}", msg)
 
 
 def latest(checkpoint_dir: str) -> Optional[str]:

@@ -28,8 +28,12 @@ dropped: the JAX package's own degradation. Every other exception
 propagates untouched, a kernel's launch failure included: nothing is
 retried.
 
-Not ported: event emission (``main --events`` is refused), streamed cohorts
-and per-label arrival schedules.
+Run telemetry: ``main --events PATH`` captures the whole suite into one
+events.jsonl (obs/events.capture; render it with the CLI's ``report``). The
+harness's own degradations are ``warning`` records, as in the JAX package:
+``cohort_dispatch`` (a cohort failed), ``cohort_split`` (it was bisected),
+``cohort_fallback`` (a singleton went to sequential ``train()``) and
+``divergence`` (a quarantined row).
 
 :data:`COUNTERS` reads the harness's counters from the metrics registry
 (obs/metrics.py) under the JAX package's names.
@@ -37,6 +41,7 @@ and per-label arrival schedules.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -48,7 +53,9 @@ import torch
 
 from erasurehead_tpu_torch import schemes
 from erasurehead_tpu_torch.data.synthetic import Dataset
+from erasurehead_tpu_torch.obs import events as obs_events
 from erasurehead_tpu_torch.obs.metrics import REGISTRY as _METRICS
+from erasurehead_tpu_torch.obs.metrics import warn_once
 from erasurehead_tpu_torch.ops import blocks
 from erasurehead_tpu_torch.parallel import straggler
 from erasurehead_tpu_torch.train import cache as cache_lib
@@ -249,15 +256,45 @@ def _dispatch_cohort(labels, configs, dataset, arrivals, device, init_params) ->
             m in str(e) for m in _OOM_MARKERS
         ):
             raise
+        head = (str(e).splitlines() or [type(e).__name__])[0][:160]
+        obs_events.emit(
+            "warning",
+            kind="cohort_dispatch",
+            message=(
+                f"cohort dispatch failed (oom) for {len(labels)} "
+                f"trajectories {list(labels)}: {head}"
+            ),
+        )
+        warn_once(
+            "cohort_dispatch",
+            f"sweep: cohort dispatch failed (oom); degrading via bisection "
+            f"— first failure: {list(labels)}: {head}",
+        )
         # the halves re-upload what they need, without contending with
         # stacks no live run is using
         cache_lib.drop_data_cache()
         torch.cuda.empty_cache()
     if len(labels) == 1:
         _METRICS.counter("cohort.sequential_fallback").inc()
+        obs_events.emit(
+            "warning",
+            kind="cohort_fallback",
+            message=(
+                f"trajectory {labels[0]!r} falls back to sequential "
+                f"train() after cohort dispatch failure"
+            ),
+        )
         return {labels[0]: _train_one(labels[0], configs, dataset, arrivals, device, init_params)}
     mid = len(labels) // 2
     _METRICS.counter("cohort.split").inc()
+    obs_events.emit(
+        "warning",
+        kind="cohort_split",
+        message=(
+            f"bisecting failed cohort {list(labels)} -> {list(labels[:mid])} + "
+            f"{list(labels[mid:])}"
+        ),
+    )
     out = _dispatch_cohort(labels[:mid], configs, dataset, arrivals, device, init_params)
     out.update(_dispatch_cohort(labels[mid:], configs, dataset, arrivals, device, init_params))
     return out
@@ -425,6 +462,16 @@ def compare(
         diverged = _diverged(res, ev)
         if diverged:
             _METRICS.counter("sweep.diverged").inc()
+            obs_events.emit(
+                "warning",
+                kind="divergence",
+                message=(
+                    f"trajectory {label!r} (scheme "
+                    f"{res.config.scheme.value}, seed {res.config.seed}) "
+                    "diverged (NaN/Inf final params or loss tail); row "
+                    "quarantined as status=diverged, sweep continues"
+                ),
+            )
         summaries[label] = RunSummary(
             label=label,
             config=res.config,
@@ -749,8 +796,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    help="render comparison PNGs into this directory "
                         "(needs matplotlib)")
     p.add_argument("--events", default=None,
-                   help="a run-telemetry events.jsonl: not ported (the "
-                        "event plane, ROADMAP A13); refused")
+                   help="write a run-telemetry events.jsonl for the whole "
+                        "suite here (obs/; render with the CLI's report)")
     p.add_argument("--batch-trajectories", default=None,
                    choices=["on", "off", "auto"],
                    help="trajectory-batched sweep dispatch "
@@ -776,9 +823,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    help="where the suite computes; cuda raises when there is no card")
     ns = p.parse_args(argv)
 
-    if ns.events:
-        p.error("--events is not ported yet: the port has no event "
-                "emission (ROADMAP queue A, A13, the obs plane)")
     journal_dir = resolve_sweep_journal(ns.sweep_journal)
     resume = resolve_resume_sweep(True if ns.resume_sweep else None)
     if resume and journal_dir is None:
@@ -787,11 +831,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     journal = (
         journal_lib.SweepJournal(journal_dir, resume=resume) if journal_dir else None
     )
+    sink = obs_events.capture(ns.events) if ns.events else contextlib.nullcontext()
     try:
-        suite = baseline_suite(
-            scale=ns.scale, data_dir=ns.data_dir, rounds=ns.rounds,
-            batch=ns.batch_trajectories, journal=journal, device=ns.device,
-        )
+        with sink:
+            suite = baseline_suite(
+                scale=ns.scale, data_dir=ns.data_dir, rounds=ns.rounds,
+                batch=ns.batch_trajectories, journal=journal, device=ns.device,
+            )
     finally:
         if journal is not None:
             journal.close()
@@ -813,6 +859,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if ns.out:
         save_summaries(all_rows, ns.out)
         print(f"\nsummaries -> {ns.out}")
+    if ns.events:
+        print(f"events -> {ns.events} (render: python -m erasurehead_tpu_torch.cli report)")
     return 0
 
 

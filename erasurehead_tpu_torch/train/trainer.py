@@ -66,6 +66,20 @@ carries a second params slot, so round r's gradient is taken at the params
 that entered round r-1 (rounds 0 and 1 both at p0) while the update applies
 to the live state.
 
+Run telemetry (obs/): with a capture (obs/events.capture) or an observer
+installed, each trainer emits its typed records as the JAX package's do
+(run_start, data_upload, compile, the chunked rounds/decode, run_end,
+dispatch_ahead for a pipelined run, critical_path; a cohort's one cohort
+record and its trajectory-tagged streams; a streamed run's prefetch and io
+records), all after the timed round loop, from host arrays the run already
+holds: telemetry adds no launch, no host read and no synchronise to a round,
+and a run with it on is bitwise the run with it off. The round loop names
+its phases (``eh_scan/coded_step``, ``eh_scan/update``; utils/tracing.annotate)
+for a ``--trace-dir`` trace. The port's ``compile`` record is its one compile
+step: the kernel library's build and load (kernels.load_library), its
+seconds in this call and whether it was loaded already. ``train_dynamic``
+emits nothing, as in the JAX package.
+
 Timing artifacts keep two clocks apart, as the JAX package does:
   - ``timeset``/``worker_times``: *simulated* cluster seconds from the
     arrival model;
@@ -100,7 +114,9 @@ from erasurehead_tpu_torch.models.deep_mlp import DeepMLPModel
 from erasurehead_tpu_torch.models.glm import LinearModel, LogisticModel, params_from_numpy
 from erasurehead_tpu_torch.models.mlp import MLPModel
 from erasurehead_tpu_torch.models.moe import MoEModel
+from erasurehead_tpu_torch.obs import critical_path as obs_cpath
 from erasurehead_tpu_torch.obs import decode as obs_decode
+from erasurehead_tpu_torch.obs import events as obs_events
 from erasurehead_tpu_torch.ops import blocks, codes, kernels
 from erasurehead_tpu_torch.ops import features as features_lib
 from erasurehead_tpu_torch.parallel import collect, pipeline as pipeline_lib
@@ -119,6 +135,7 @@ from erasurehead_tpu_torch.utils.config import (
     resolve_stream_budget,
 )
 from erasurehead_tpu_torch.utils.device import resolve_device
+from erasurehead_tpu_torch.utils.tracing import annotate
 
 
 def build_layout(cfg: RunConfig) -> codes.CodingLayout:
@@ -232,6 +249,9 @@ class TrainResult:
     # PipelinedSchedule (dispatch, done, dispatch_ahead, staleness) when
     # pipelined
     schedule: object = None
+    # the event-log run id (obs/events.py) when a capture or an observer was
+    # installed, else None
+    run_id: Optional[str] = None
 
     @property
     def fused(self) -> bool:
@@ -431,11 +451,27 @@ def _fused_wins(cfg: RunConfig, model, X) -> bool:
     shape."""
     if cfg.use_pallas == "on":
         return True
-    choice = tune.lookup(
-        "glm_fused", tune.glm_fused_signature(X.shape, X.dtype, model.name),
-        device_kind=tune.default_device_kind(X.device), fallback="pallas",
-    )
+    sig = tune.glm_fused_signature(X.shape, X.dtype, model.name)
+    kind = tune.default_device_kind(X.device)
+    choice = tune.lookup("glm_fused", sig, device_kind=kind, fallback="pallas")
+    if choice == "xla":
+        _warn_pallas_declined(
+            f"use_pallas='auto' declines the fused kernel: the cached glm_fused "
+            f"verdict at {sig} on {kind} is 'xla' (the two-pass gradient)"
+        )
     return choice != "xla"
+
+
+#: reasons already recorded as use_pallas_declined warnings (one record per
+#: distinct reason per process: the auto gate runs on every train() call)
+_pallas_declined_seen: set = set()
+
+
+def _warn_pallas_declined(reason: str) -> None:
+    if reason in _pallas_declined_seen:
+        return
+    _pallas_declined_seen.add(reason)
+    obs_events.emit("warning", kind="use_pallas_declined", message=reason)
 
 
 def _grad_lowering(cfg: RunConfig, model, X, faithful: bool, params0):
@@ -483,14 +519,111 @@ def _grad_lowering(cfg: RunConfig, model, X, faithful: bool, params0):
     return grad_fn, lowering
 
 
-def _prepare_lowering(dev, model, lowering: str, grad_fn, X, y, params0, w0) -> None:
+def _load_kernels(dev, needed: bool) -> tuple:
+    """The port's one compile step: build and load the kernel library
+    (kernels.load_library) when a run on the card launches a kernel.
+    Returns ``(seconds spent here, hit)``, ``hit`` True when nothing was
+    built or loaded in this call (the library was loaded already, or the
+    run needs none): the ``compile`` record's fields."""
+    if dev.type != "cuda" or not needed or kernels.library_loaded():
+        return 0.0, True
+    t0 = time.perf_counter()
+    kernels.load_library()
+    return time.perf_counter() - t0, False
+
+
+def _prepare_lowering(dev, model, lowering: str, grad_fn, X, y, params0, w0) -> tuple:
     """Set-up before the clock starts: build the kernels, import
-    torch.func, build a sparse stack's scatter plans."""
-    if dev.type == "cuda" and lowering in ("fused", "layer_block"):
-        kernels.load_library()
+    torch.func, build a sparse stack's scatter plans. Returns the compile
+    step's ``(seconds, hit)`` (:func:`_load_kernels`)."""
+    compiled = _load_kernels(dev, lowering in ("fused", "layer_block"))
     if lowering == "layer_block" or getattr(model, "grads_via_loss", False):
         step_lib.warm_autodiff()
     _prepare_sparse(X, grad_fn, params0, y, w0)
+    return compiled
+
+
+# ---------------------------------------------------------------------------
+# run telemetry: the records every trainer emits after its timed loop
+
+
+def _history_update_norms(history) -> np.ndarray:
+    """[R-1] L2 norms of successive iterate differences, host float64: the
+    gradient-magnitude proxy the ``rounds`` chunks carry. Read from the
+    history the run already holds, after the loop; entry j is the step into
+    round j+1 of the covered window."""
+    leaves = blocks.tree_leaves(history)
+    if not leaves or int(leaves[0].shape[0]) < 2:
+        return np.zeros(0)
+    total = None
+    for leaf in leaves:
+        a = np.asarray(leaf.detach().cpu(), dtype=np.float64)
+        d = a[1:] - a[:-1]
+        sq = (d.reshape(d.shape[0], -1) ** 2).sum(axis=1)
+        total = sq if total is None else total + sq
+    return np.sqrt(total)
+
+
+def _mesh_signature(dev) -> tuple:
+    """The one-device mesh in the shape of the JAX package's
+    cache.mesh_signature at world size 1: axes, sizes, device ids."""
+    return (("workers",), (1,), (dev.index or 0,))
+
+
+def _emit_run_start(run_id, cfg: RunConfig, dev, lowering: str, stack_mode: str,
+                    data_bytes: int, data_hit: bool, compiled: tuple, chunk_rounds: int,
+                    cohort: Optional[dict] = None) -> None:
+    """A run's opening records, as the JAX trainer emits them: run_start,
+    data_upload, the cohort record of a cohort, then the compile record of
+    the port's one compile step."""
+    obs_events.emit(
+        "run_start",
+        run_id=run_id,
+        scheme=cfg.scheme.value,
+        model=cfg.model.value,
+        platform=dev.type,
+        config_hash=obs_events.config_hash(cfg),
+        mesh=_mesh_signature(dev),
+        lowering=lowering,
+        static_signature=cfg.static_signature_fields(),
+        n_workers=cfg.n_workers,
+        n_stragglers=cfg.n_stragglers,
+        rounds=cfg.rounds,
+        compute_mode=cfg.compute_mode.value,
+        stack_mode=stack_mode,
+        dtype=cfg.dtype,
+        stack_dtype=cfg.resolve_stack_dtype(),
+    )
+    obs_events.emit(
+        "data_upload", run_id=run_id, bytes=int(data_bytes),
+        cache_hit=data_hit, ring=False,
+    )
+    if cohort is not None:
+        obs_events.emit("cohort", run_id=run_id, **cohort)
+    if compiled is not None:
+        seconds, hit = compiled
+        obs_events.emit(
+            "compile", run_id=run_id, seconds=round(seconds, 4), cache_hit=hit,
+            chunk_rounds=chunk_rounds, memory_analysis=None,
+        )
+
+
+def _exec_fields(compiled: tuple) -> dict:
+    """run_end's cache fields: the compile step as one hit or one miss."""
+    seconds, hit = compiled
+    return {
+        "exec_hits": int(hit), "exec_misses": int(not hit),
+        "compile_seconds": round(seconds, 4),
+    }
+
+
+def _emit_stream_records(run_id, records: list) -> None:
+    """A streamed run's staging records (data/prefetch.Prefetcher.records):
+    per staged window in window order, what its read emitted (an ``io``)
+    and its ``prefetch`` record."""
+    for held, staged in records:
+        obs_events.replay(held)
+        obs_events.emit("prefetch", run_id=run_id, **staged)
 
 
 def _state_on(state: optimizer.OptState, dev) -> optimizer.OptState:
@@ -659,7 +792,8 @@ def train(
         params0 = params_from_numpy(init_params, dev)
 
     grad_fn, lowering = _grad_lowering(cfg, model, X, faithful, params0)
-    _prepare_lowering(dev, model, lowering, grad_fn, X, y, params0, weights[0])
+    compiled = _prepare_lowering(dev, model, lowering, grad_fn, X, y, params0, weights[0])
+    run_id = obs_events.new_run_id() if obs_events.active() else None
 
     state = optimizer.init_state(params0, cfg.update_rule)
     start_round = 0
@@ -718,17 +852,58 @@ def train(
             # the absolute round index: AGD's theta and Adam's bias
             # correction read it, so a resumed run continues the count
             p_grad = step_lib.staleness_slot_params(state.params, stale, depth)
-            g = grad_fn(p_grad, X, y, weights[i])
+            with annotate("eh_scan/coded_step"):
+                g = grad_fn(p_grad, X, y, weights[i])
             if depth:
                 stale = state.params  # the params that entered this round
-            state = update_fn(state, g, float(lr32[i]), alpha, n_train, float(i))
-            blocks.tree_map(lambda h, p: h[i - start_round].copy_(p), history, state.params)
+            with annotate("eh_scan/update"):
+                state = update_fn(state, g, float(lr32[i]), alpha, n_train, float(i))
+                blocks.tree_map(lambda h, p: h[i - start_round].copy_(p), history, state.params)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         wall += time.perf_counter() - t0
         if checkpoint_dir and checkpoint_every and hi < cfg.rounds:
             ckpt_lib.save(os.path.join(checkpoint_dir, f"round_{hi}"), state, hi)
     steps_per_sec = (cfg.rounds - start_round) / wall if wall > 0 else 0.0
+    if run_id is not None:
+        # after the timed loop, from host arrays and the history the run
+        # already holds: the records never touch the loop
+        _emit_run_start(run_id, cfg, dev, lowering,
+                        "materialized" if faithful else "deduped",
+                        cache_lib.device_nbytes((X, y)), data_hit, compiled,
+                        cfg.rounds - start_round)
+        obs_events.emit_round_chunks(
+            run_id, start_round=start_round, timeset=schedule.sim_time,
+            worker_times=schedule.worker_times, decode_error=decode_err,
+            update_norm=_history_update_norms(history),
+        )
+        obs_events.emit(
+            "run_end",
+            run_id=run_id,
+            wall_time_s=round(wall, 6),
+            steps_per_sec=round(steps_per_sec, 4),
+            sim_total_time_s=float(schedule.sim_time.sum()),
+            data_cache_hit=data_hit,
+            stack_bytes=cache_lib.device_nbytes((X, y)),
+            arrival=obs_events.arrival_summary(schedule.worker_times[start_round:]),
+            **_exec_fields(compiled),
+            **obs_decode.summarize(decode_err),
+        )
+        if depth:
+            # the overlap the pipeline bought, off the precomputed schedule
+            obs_events.emit(
+                "dispatch_ahead", run_id=run_id, first_round=start_round,
+                n_rounds=int(cfg.rounds - start_round), pipeline_depth=int(depth),
+                **pipeline_lib.overlap_summary(schedule),
+            )
+        obs_cpath.emit_event(run_id, obs_cpath.attribute(
+            schedule.sim_time[start_round:], schedule.worker_times[start_round:],
+            schedule.collected[start_round:], wall_s=wall,
+            # a pipelined run never resumes, so its absolute clocks start
+            # at round 0
+            dispatch=getattr(schedule, "dispatch", None),
+            done=getattr(schedule, "done", None),
+        ))
 
     return TrainResult(
         params_history=history,
@@ -749,6 +924,7 @@ def train(
         cache_info=_cache_info(cfg, data_hit, stats_before, X, y, faithful,
                                setup_seconds or 0.0, state.params, residency),
         schedule=schedule,
+        run_id=run_id,
     )
 
 
@@ -1046,11 +1222,12 @@ def train_measured(
     if mult.shape != (W,) or (mult < 1).any():
         raise ValueError(f"work_multiplier must be [W] ints >= 1, got {mult}")
 
-    X, y, n_train, _ = _device_stack(cfg, dataset, layout, True, dev)
+    X, y, n_train, data_hit = _device_stack(cfg, dataset, layout, True, dev)
     if init_params is None:
         params0 = model.init_params(cfg.seed, dataset.n_features, dev)
     else:
         params0 = params_from_numpy(init_params, dev)
+    run_id = obs_events.new_run_id() if obs_events.active() else None
     state = optimizer.init_state(params0, cfg.update_rule)
     update_fn = optimizer.make_update_fn(cfg.update_rule)
     lr32 = cfg.resolve_lr_schedule().astype(np.float32)
@@ -1110,6 +1287,28 @@ def train_measured(
         mw_rows.append(sched.message_weights[0])
     _sync(dev)
     wall = time.perf_counter() - wall0
+    decode_err = obs_decode.decode_error_series(
+        layout, np.stack(mw_rows) if mw_rows else np.zeros((0, W))
+    )
+    steps_per_sec = cfg.rounds / wall if wall > 0 else 0.0
+    if run_id is not None:
+        # as the JAX package's measured trainer: no compile record
+        _emit_run_start(run_id, cfg, dev, "measured", "materialized",
+                        cache_lib.device_nbytes((X, y)), data_hit,
+                        None, cfg.rounds)
+        obs_events.emit_round_chunks(
+            run_id, start_round=0, timeset=timeset, worker_times=worker_times,
+            decode_error=decode_err,
+        )
+        obs_events.emit(
+            "run_end",
+            run_id=run_id,
+            wall_time_s=round(wall, 6),
+            steps_per_sec=round(steps_per_sec, 4),
+            sim_total_time_s=float(timeset.sum()),
+            arrival=obs_events.arrival_summary(worker_times),
+            **obs_decode.summarize(decode_err),
+        )
     return TrainResult(
         params_history=history,
         final_params=state.params,
@@ -1118,15 +1317,14 @@ def train_measured(
         collected=collected,
         sim_total_time=float(timeset.sum()),
         wall_time=wall,
-        steps_per_sec=cfg.rounds / wall if wall > 0 else 0.0,
+        steps_per_sec=steps_per_sec,
         n_train=n_train,
         config=cfg,
         layout=layout,
         final_state=state,
-        decode_error=obs_decode.decode_error_series(
-            layout, np.stack(mw_rows) if mw_rows else np.zeros((0, W))
-        ),
+        decode_error=decode_err,
         lowering="measured",
+        run_id=run_id,
     )
 
 
@@ -1435,27 +1633,31 @@ def _stream_cache_info(sp: _StreamPlan, window_nbytes: int, setup_seconds: float
     }
 
 
-def _stream_loop(dev, store, sp: _StreamPlan, put, setup, round_fn, t_call: float):
+def _stream_loop(dev, store, sp: _StreamPlan, put, setup, grad_fn, update_fn,
+                 t_call: float):
     """The streamed round loop shared by the per-run and cohort trainers.
 
     Stages the plan's windows through a Prefetcher; ``setup(X0, y0)`` runs
     on the first window before the clock starts (it picks the lowering);
     then per chunk, timed from before its window's ``get`` (the wait is
-    streaming overhead) to a synchronize after its last round,
-    ``round_fn(r, X, y)`` for each of its rounds. Each window's tensors are
-    dropped before the next is fetched, so at most the prefetcher's ring and
-    the window in use occupy the device. On the card the peak device bytes
+    streaming overhead) to a synchronize after its last round, for each of
+    its rounds ``g = grad_fn(r, X, y)`` and ``update_fn(r, g)``. Each
+    window's tensors are dropped before the next is fetched, so at most the
+    prefetcher's ring and the window in use occupy the device. On the card the peak device bytes
     over the loop are read above the level before the first stage (this
     resets the device's peak-memory statistic).
 
-    Returns ``(wall, setup_seconds, window_nbytes, prefetch stats, peak)``."""
+    Returns ``(wall, setup_seconds, window_nbytes, prefetch stats, peak,
+    staging records)``, the last data/prefetch.Prefetcher.records (each
+    window's held ``io`` record and its ``prefetch`` payload), which the
+    caller emits after the loop."""
     cuda = dev.type == "cuda"
     base = None
     if cuda:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-    pf = Prefetcher(store, sp.windows, put, device=dev)
+    pf = Prefetcher(store, sp.windows, put, device=dev, plan_fields=sp.plan.event_fields())
     wall = 0.0
     try:
         X, y = pf.get(0)
@@ -1472,7 +1674,10 @@ def _stream_loop(dev, store, sp: _StreamPlan, put, setup, round_fn, t_call: floa
                 X = y = None
                 X, y = pf.get(i)
             for r in range(lo, hi):
-                round_fn(r, X, y)
+                with annotate("eh_scan/coded_step"):
+                    g = grad_fn(r, X, y)
+                with annotate("eh_scan/update"):
+                    update_fn(r, g)
             if cuda:
                 torch.cuda.synchronize(dev)
             wall += time.perf_counter() - t0
@@ -1480,7 +1685,7 @@ def _stream_loop(dev, store, sp: _StreamPlan, put, setup, round_fn, t_call: floa
     finally:
         pf.close()
     peak = torch.cuda.max_memory_allocated(dev) - base if cuda else None
-    return wall, setup_seconds, window_nbytes, pf.stats(), peak
+    return wall, setup_seconds, window_nbytes, pf.stats(), peak, pf.records
 
 
 def _train_streamed(
@@ -1559,19 +1764,50 @@ def _train_streamed(
 
     def setup(X0, y0):
         run["grad_fn"], run["lowering"] = _grad_lowering(cfg, model, X0, faithful, params0)
-        _prepare_lowering(dev, model, run["lowering"], run["grad_fn"], X0, y0, params0,
-                          weights[0])
+        run["compiled"] = _prepare_lowering(dev, model, run["lowering"], run["grad_fn"],
+                                            X0, y0, params0, weights[0])
 
-    def round_fn(r, X, y):
+    def grad_r(r, X, y):
+        return run["grad_fn"](state.params, X, y, weights[r])
+
+    def update_r(r, g):
         nonlocal state
-        g = run["grad_fn"](state.params, X, y, weights[r])
         state = update_fn(state, g, float(lr32[r]), alpha, n_train, float(r))
         blocks.tree_map(lambda h, p: h[r].copy_(p), history, state.params)
 
+    run_id = obs_events.new_run_id() if obs_events.active() else None
     put = _make_stream_put(sp.plan, dev, sp.stack_dtype == "int8", sp.data_dtype)
-    wall, setup_seconds, window_nbytes, pf_stats, peak = _stream_loop(
-        dev, store, sp, put, setup, round_fn, t_call
+    wall, setup_seconds, window_nbytes, pf_stats, peak, staged = _stream_loop(
+        dev, store, sp, put, setup, grad_r, update_r, t_call
     )
+    steps_per_sec = cfg.rounds / wall if wall > 0 else 0.0
+    if run_id is not None:
+        _emit_run_start(run_id, cfg, dev, run["lowering"], sp.mode, window_nbytes, False,
+                        run["compiled"], cfg.rounds)
+        _emit_stream_records(run_id, staged)
+        obs_events.emit_round_chunks(
+            run_id, start_round=0, timeset=schedule.sim_time,
+            worker_times=schedule.worker_times, decode_error=decode_err,
+            update_norm=_history_update_norms(history),
+        )
+        obs_events.emit(
+            "run_end",
+            run_id=run_id,
+            wall_time_s=round(wall, 6),
+            steps_per_sec=round(steps_per_sec, 4),
+            sim_total_time_s=float(schedule.sim_time.sum()),
+            data_cache_hit=False,
+            stack_bytes=window_nbytes,
+            arrival=obs_events.arrival_summary(schedule.worker_times),
+            **_exec_fields(run["compiled"]),
+            **obs_decode.summarize(decode_err),
+        )
+        # the timed loop includes the staging waits; the prefetcher's
+        # blocked_s is exactly the part the double buffer failed to hide
+        obs_cpath.emit_event(run_id, obs_cpath.attribute(
+            schedule.sim_time, schedule.worker_times, schedule.collected, wall_s=wall,
+            prefetch_stall_s=float(pf_stats.get("blocked_s", 0.0)),
+        ))
     return TrainResult(
         params_history=history,
         final_params=state.params,
@@ -1580,7 +1816,7 @@ def _train_streamed(
         collected=schedule.collected,
         sim_total_time=float(schedule.sim_time.sum()),
         wall_time=wall,
-        steps_per_sec=cfg.rounds / wall if wall > 0 else 0.0,
+        steps_per_sec=steps_per_sec,
         n_train=n_train,
         config=cfg,
         layout=layout,
@@ -1589,6 +1825,7 @@ def _train_streamed(
         lowering=run["lowering"],
         cache_info=_stream_cache_info(sp, window_nbytes, setup_seconds, pf_stats, peak),
         schedule=schedule,
+        run_id=run_id,
     )
 
 
@@ -1693,7 +1930,7 @@ def _cohort_fields(B: int, lowering: str, faithful: bool) -> dict:
 
 
 def _cohort_results(cfgs, schedules, layouts, state, history, wall: float, n_train: int,
-                    lowering: str, cohort: dict, cache_info: dict) -> list:
+                    lowering: str, cohort: dict, cache_info: dict, run_id=None) -> list:
     """One TrainResult per trajectory of a cohort's round loop: its lane of
     the stacked state and history, its own control plane, the cohort's wall
     clock and aggregate steps/s (R * B / wall)."""
@@ -1720,8 +1957,55 @@ def _cohort_results(cfgs, schedules, layouts, state, history, wall: float, n_tra
             cohort=dict(cohort),
             cache_info=dict(cache_info),
             schedule=sched,
+            run_id=run_id,
         ))
     return results
+
+
+def _emit_cohort(run_id, cfgs, results, dev, stack_mode: str, data_hit: bool,
+                 compiled: tuple, stack_bytes: int, prefetch_stall_s: float = 0.0,
+                 staged=()) -> None:
+    """A cohort's records, as the JAX cohort emits them, after its loop: the
+    opening records with one ``cohort`` record (its one round loop is its
+    one dispatch), each trajectory's chunk stream tagged
+    ``<b>:<scheme>:s<seed>`` under the cohort's run_id, one run_end, and one
+    critical path over the B schedules concatenated along the round axis
+    (the sim ledger decomposes the summed simulated clock, wall_s stays the
+    cohort's wall)."""
+    cfg = cfgs[0]
+    lowering = results[0].lowering
+    cohort = dict(
+        n_trajectories=len(cfgs), schemes=sorted({c.scheme.value for c in cfgs}),
+        seeds=[c.seed for c in cfgs], dispatches=1, lowering=lowering,
+    )
+    _emit_run_start(run_id, cfg, dev, lowering, stack_mode, stack_bytes, data_hit, compiled,
+                    cfg.rounds, cohort=cohort)
+    _emit_stream_records(run_id, staged)
+    for b, (c, res) in enumerate(zip(cfgs, results)):
+        obs_events.emit_round_chunks(
+            run_id, start_round=0, timeset=res.timeset, worker_times=res.worker_times,
+            decode_error=res.decode_error, trajectory=f"{b}:{c.scheme.value}:s{c.seed}",
+        )
+    wall = results[0].wall_time
+    obs_events.emit(
+        "run_end",
+        run_id=run_id,
+        wall_time_s=round(wall, 6),
+        steps_per_sec=round(results[0].steps_per_sec, 4),
+        batch_size=len(cfgs),
+        cohort_size=len(cfgs),
+        data_cache_hit=data_hit,
+        stack_bytes=stack_bytes,
+        arrival=obs_events.arrival_summary(np.stack([r.worker_times for r in results])),
+        **_exec_fields(compiled),
+        **obs_decode.summarize(np.concatenate([r.decode_error for r in results])),
+    )
+    obs_cpath.emit_event(run_id, obs_cpath.attribute(
+        np.concatenate([r.timeset for r in results]),
+        np.concatenate([r.worker_times for r in results]),
+        np.concatenate([r.collected for r in results]),
+        wall_s=wall, prefetch_stall_s=prefetch_stall_s,
+    ))
 
 
 def _cohort_layouts(cfgs) -> list:
@@ -1753,10 +2037,10 @@ def _cohort_params(model, cfgs, init_params, n_features: int, dev):
 
 
 def _cohort_lowering(cfg: RunConfig, model, X, y, faithful: bool, params0, w0, dev):
-    """The cohort's gradient fn over the stack ``X`` and its lowering
-    (step.make_cohort_grad_fn), with the set-up before the clock starts:
-    build the kernels, import torch.func, build a sparse stack's scatter
-    plans."""
+    """The cohort's gradient fn over the stack ``X``, its lowering
+    (step.make_cohort_grad_fn) and its compile step (:func:`_load_kernels`),
+    with the set-up before the clock starts: build the kernels, import
+    torch.func, build a sparse stack's scatter plans."""
     if cfg.flat_grad == "on" and not step_lib.supports_flat_grad(model, X):
         raise ValueError(
             "flat_grad='on' needs a closed-form GLM stack; "
@@ -1768,11 +2052,10 @@ def _cohort_lowering(cfg: RunConfig, model, X, y, faithful: bool, params0, w0, d
         layer_coding=cfg.layer_coding, block_decode=cfg.block_decode,
         flat_grad=cfg.flat_grad,
     )
-    if dev.type == "cuda" and lowering == "layer_block_vmap":
-        kernels.load_library()
+    compiled = _load_kernels(dev, lowering == "layer_block_vmap")
     step_lib.warm_autodiff()
     _prepare_sparse(X, grad_fn, params0, y, w0)
-    return grad_fn, lowering
+    return grad_fn, lowering, compiled
 
 
 def _train_cohort_streamed(cfgs, store, window: int, *, arrivals, device, init_params,
@@ -1814,24 +2097,32 @@ def _train_cohort_streamed(cfgs, store, window: int, *, arrivals, device, init_p
     run = {}
 
     def setup(X0, y0):
-        run["grad_fn"], run["lowering"] = _cohort_lowering(
+        run["grad_fn"], run["lowering"], run["compiled"] = _cohort_lowering(
             cfg, model, X0, y0, faithful, params0, weights[0], dev
         )
 
-    def round_fn(r, X, y):
+    def grad_r(r, X, y):
+        return run["grad_fn"](state.params, X, y, weights[r])
+
+    def update_r(r, g):
         nonlocal state
-        g = run["grad_fn"](state.params, X, y, weights[r])
         state = update_fn(state, g, lr_B[r], alpha_B, n_train, float(r))
         blocks.tree_map(lambda h, p: h[r].copy_(p), history, state.params)
 
+    run_id = obs_events.new_run_id() if obs_events.active() else None
     put = _make_stream_put(sp.plan, dev, sp.stack_dtype == "int8", sp.data_dtype)
-    wall, setup_seconds, window_nbytes, pf_stats, peak = _stream_loop(
-        dev, store, sp, put, setup, round_fn, t_call
+    wall, setup_seconds, window_nbytes, pf_stats, peak, staged = _stream_loop(
+        dev, store, sp, put, setup, grad_r, update_r, t_call
     )
     cohort = _cohort_fields(len(cfgs), run["lowering"], faithful)
     cache_info = _stream_cache_info(sp, window_nbytes, setup_seconds, pf_stats, peak)
-    return _cohort_results(cfgs, schedules, layouts, state, history, wall, n_train,
-                           run["lowering"], cohort, {**cache_info, **cohort})
+    results = _cohort_results(cfgs, schedules, layouts, state, history, wall, n_train,
+                              run["lowering"], cohort, {**cache_info, **cohort}, run_id)
+    if run_id is not None:
+        _emit_cohort(run_id, cfgs, results, dev, sp.mode, False,
+                     run["compiled"], window_nbytes,
+                     prefetch_stall_s=float(pf_stats.get("blocked_s", 0.0)), staged=staged)
+    return results
 
 
 def train_cohort(
@@ -1958,7 +2249,9 @@ def train_cohort(
     weights = _to_device(weights_h, dev, torch.float32)
     model = build_model(cfg)
     params0 = _cohort_params(model, cfgs, init_params, dataset.n_features, dev)
-    grad_fn, lowering = _cohort_lowering(cfg, model, X, y, faithful, params0, weights[0], dev)
+    grad_fn, lowering, compiled = _cohort_lowering(cfg, model, X, y, faithful, params0,
+                                                   weights[0], dev)
+    run_id = obs_events.new_run_id() if obs_events.active() else None
 
     state = optimizer.init_state(params0, cfg.update_rule)
     update_fn = optimizer.make_cohort_update_fn(cfg.update_rule)
@@ -1973,16 +2266,22 @@ def train_cohort(
     cache_info = _cache_info(cfg, data_hit, stats_before, X, y, faithful, t0 - t_call, None,
                              residency)
     for i in range(cfg.rounds):
-        g = grad_fn(state.params, X, y, weights[i])
-        state = update_fn(state, g, lr_B[i], alpha_B, n_train, float(i))
-        blocks.tree_map(lambda h, p: h[i].copy_(p), history, state.params)
+        with annotate("eh_scan/coded_step"):
+            g = grad_fn(state.params, X, y, weights[i])
+        with annotate("eh_scan/update"):
+            state = update_fn(state, g, lr_B[i], alpha_B, n_train, float(i))
+            blocks.tree_map(lambda h, p: h[i].copy_(p), history, state.params)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
 
     cohort = _cohort_fields(B, lowering, faithful)
-    return _cohort_results(cfgs, schedules, layouts, state, history, wall, n_train,
-                           lowering, cohort, {**cache_info, **cohort})
+    results = _cohort_results(cfgs, schedules, layouts, state, history, wall, n_train,
+                              lowering, cohort, {**cache_info, **cohort}, run_id)
+    if run_id is not None:
+        _emit_cohort(run_id, cfgs, results, dev, cache_info["stack_mode"], data_hit,
+                     compiled, cache_info["stack_bytes"])
+    return results
 
 
 def train_batch(cfg: RunConfig, dataset: Dataset, seeds, *, device=None) -> list:

@@ -720,3 +720,42 @@ def resolve_resume_sweep(
     if val in _FALSY:
         return False
     raise ValueError(f"{RESUME_SWEEP_ENV} must be truthy/falsy, got {val!r}")
+
+
+#: env var controlling run telemetry when the CLI flag is absent (the same
+#: flag > env > default precedence as the sweep cache's)
+TELEMETRY_ENV = "ERASUREHEAD_TELEMETRY"
+
+_TELEMETRY_ON = ("1", "on", "true", "yes")
+_TELEMETRY_OFF = ("0", "off", "false", "no")
+
+
+def resolve_telemetry(
+    flag: Optional[str] = None,
+    out_dir_set: bool = False,
+    env: Optional[str] = None,
+) -> bool:
+    """Should this invocation write a run-telemetry event log (obs/)?
+
+    The explicit CLI ``--telemetry {on,off,auto}`` flag wins, else the
+    :data:`TELEMETRY_ENV` env var, else off. ``auto`` resolves to on exactly
+    when the caller passed an explicit output directory (``out_dir_set``,
+    the CLI's ``--output-dir``): a run that asked for a place to keep its
+    artifacts wants the event log beside them. ``env`` overrides the real
+    environment lookup (tests)."""
+    val = flag
+    if val is None:
+        val = env if env is not None else os.environ.get(TELEMETRY_ENV)
+    if val is None or val == "":
+        val = "off"
+    val = str(val).strip().lower()
+    if val in _TELEMETRY_ON:
+        return True
+    if val in _TELEMETRY_OFF:
+        return False
+    if val == "auto":
+        return bool(out_dir_set)
+    raise ValueError(
+        f"telemetry setting must be on/off/auto (or a truthy/falsy "
+        f"{TELEMETRY_ENV} value), got {val!r}"
+    )

@@ -356,7 +356,7 @@ def test_validator_verdicts_are_jax(tmp_path):
 def test_logger_refuses_unknown_records(tmp_path):
     log = t_events.EventLogger(str(tmp_path / "e.jsonl"))
     with pytest.raises(ValueError, match="unknown event type"):
-        log.emit("run_start", run_id="x")
+        log.emit("not_a_record", run_id="x")
     with pytest.raises(ValueError, match="missing required"):
         log.emit("sweep_trajectory", key="k")
     log.close()

@@ -8,8 +8,9 @@ clocks and decode errors must be equal; losses within the port's GLM
 trainer tolerance (rtol 2e-4, atol 1e-5; tests/test_torch_train.py), and
 config 4's shared target within the same tolerance, its time_to_target
 values equal. main and ``cli sweep`` parse JAX's flags, refuse as JAX
-refuses (its ``p.error`` messages) and ``--events`` (no event emission
-yet), write the summaries, and resume from their journal.
+refuses (its ``p.error`` messages), capture the whole suite with
+``--events`` into a log that validates, write the summaries, and resume
+from their journal.
 """
 
 import json
@@ -19,6 +20,7 @@ import jax
 import numpy as np
 import pytest
 
+from erasurehead_tpu.obs import events as j_events
 from erasurehead_tpu.train import experiments as j_exp
 from erasurehead_tpu.train import trainer as j_trainer
 from erasurehead_tpu_torch import cli as t_cli
@@ -151,11 +153,19 @@ def test_main_refuses_as_jax(argv, capsys):
     assert got_msg == _error_tail(capsys)
 
 
-def test_main_refuses_events(tmp_path, capsys):
-    with pytest.raises(SystemExit) as ei:
-        t_cli.main(["sweep", "--events", str(tmp_path / "e.jsonl"), "--device", "cpu"])
-    assert ei.value.code == 2
-    assert "A13" in _error_tail(capsys)
+def test_main_events_captures_the_suite(tmp_path, capsys):
+    """``sweep --events PATH`` writes one log of the whole suite: every run's
+    records and the closing metrics record, valid under both validators."""
+    path = str(tmp_path / "e.jsonl")
+    assert t_cli.main(["sweep", "--events", path, "--device", "cpu", "--scale", str(SCALE),
+                       "--rounds", str(ROUNDS), "--batch-trajectories", "off"]) == 0
+    assert f"events -> {path}" in capsys.readouterr().out
+    recs = [json.loads(line) for line in open(path)]
+    assert t_events.validate_file(path) == [] == j_events.validate_file(path)
+    starts = [r for r in recs if r["type"] == "run_start"]
+    assert len(starts) == len({r["run_id"] for r in starts}) >= 5
+    assert sum(r["type"] == "run_end" for r in recs) == len(starts)
+    assert recs[-1]["type"] == "metrics"
 
 
 def test_main_flags_are_jax(monkeypatch):
