@@ -322,6 +322,20 @@ Phases, one JSON line each:
                  registry's Prometheus text; the steps/s of the main runs,
                  of 120 off/on pairs of train() and 30 traced runs, and the
                  records' host cost after the loop.
+  39. serve    - (after telemetry) the serve daemon (serve/) at the flagship
+                 data on two dispatch threads: four tenants' eight GLM
+                 requests packed (fewer dispatches, no B1, rows bitwise the
+                 rows dispatched alone, losses within relative 1e-4 of
+                 sequential train()); a use_pallas="on" request beside a
+                 packed cohort (100 B1 at [90, 4400, 128], bitwise a direct
+                 train()); four deepmlp layer-coded requests in one dispatch
+                 (20 B2, bitwise alone); admission under 1.5 cohorts of
+                 budget (defer, evict, admit; estimate against measured
+                 peak); the HTTP front under three closed-loop tenants (429s,
+                 no loss, /metrics, ``cli top``); the kill drill (``cli
+                 serve`` exits 43 under kill:serve_dispatch:1, its restart
+                 replays the WAL bitwise with no new kernel build); every
+                 log valid, ``cli report``'s serve section.
 Later, beside ``time`` and ``profile``: the attention run's per-slot leaves
 through ``decode_ops``, its round's decode (one launch, six leaves of
 [90, 913] floats) against its plain version, six GEMVs and the bound, and
@@ -3552,6 +3566,490 @@ def telemetry_phase(cli, kernels, experiments, tmp, both0) -> dict:
     return rec
 
 
+# the serve phase: the daemon at the flagship data on the card
+SERVE_SCHEMES = (("approx", 15), ("repcoded", None))  # one faithful stack: FRC's assignment
+SERVE_TENANTS = 4
+ADMIT_ROUNDS, LOAD_ROUNDS, DRILL_ROUNDS = 30, 30, 20
+LOAD_TENANTS, LOAD_JOBS, LOAD_DEPTH, LOAD_MAX_PENDING = ("la", "lb", "lc"), 12, 4, 8
+
+
+def serve_science(summary) -> str:
+    """A row's science columns (the journal row without the run-local
+    ``real_steps_per_sec`` and ``cache``), canonical JSON."""
+    from erasurehead_tpu_torch.train import journal as journal_lib
+
+    return json.dumps(journal_lib.science_row(journal_lib.summary_payload(summary)),
+                      sort_keys=True)
+
+
+def wire_science(row) -> str:
+    from erasurehead_tpu_torch.train import journal as journal_lib
+
+    return json.dumps(journal_lib.science_row(row), sort_keys=True)
+
+
+def served(srv, specs, ds, timeout=900) -> dict:
+    """Submit ``(tenant, label, cfg)`` specs from one thread per tenant at
+    once; every row must come back ``ok``. Returns label -> ServeResult."""
+    import threading
+
+    handles, lock = [], threading.Lock()
+
+    def client(tenant):
+        for tn, label, cfg in specs:
+            if tn == tenant:
+                h = srv.submit(tenant=tn, label=label, config=cfg, dataset=ds)
+                with lock:
+                    handles.append(h)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in sorted({s[0] for s in specs})]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    rows = {h.result(timeout=timeout).label: h.result() for h in handles}
+    bad = {label: (r.status, r.error) for label, r in rows.items() if r.status != "ok"}
+    if bad or len(rows) != len(specs):
+        raise AssertionError(f"serve rows not ok: {bad} ({len(rows)} of {len(specs)})")
+    return rows
+
+
+def alone_rows(server, specs, ds, max_cohort) -> dict:
+    """Each spec dispatched alone (column 0 of its own padded dispatch)."""
+    with server.serving(device="cuda", max_cohort=max_cohort, window_s=0.001) as srv:
+        rows = {label: srv.submit(tenant=tn, label=label, config=cfg, dataset=ds).result(
+            timeout=900) for tn, label, cfg in specs}
+    bad = {label: r.status for label, r in rows.items() if r.status != "ok"}
+    if bad:
+        raise AssertionError(f"rows dispatched alone not ok: {bad}")
+    return rows
+
+
+def pack_columns(path) -> dict:
+    """label -> (dispatch id, column) from a log's pack records."""
+    return {label: (r["dispatch_id"], i)
+            for r in (json.loads(line) for line in open(path))
+            if r["type"] == "pack" for i, label in enumerate(r["labels"])}
+
+
+def spawn_daemon(args, env, log_lines):
+    """``cli serve --device cuda`` in a subprocess, its output drained into
+    ``log_lines`` by a thread; returns the process and a function that waits
+    until it listens (or fails if it exits first)."""
+    import threading
+
+    proc = subprocess.Popen([sys.executable, "-m", "erasurehead_tpu_torch.cli", "serve",
+                             "--device", "cuda", *args],
+                            cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    listening, t_spawn, boot = threading.Event(), time.perf_counter(), []
+
+    def drain():
+        for line in proc.stdout:
+            log_lines.append(line.rstrip())
+            if line.startswith("serve: listening on"):
+                boot.append(time.perf_counter() - t_spawn)
+                listening.set()
+
+    threading.Thread(target=drain, daemon=True).start()
+
+    def wait(timeout=600):
+        """Block until the daemon listens; returns its boot seconds (spawn
+        to the listening line: interpreter, card, kernel library)."""
+        deadline = time.monotonic() + timeout
+        while not listening.wait(0.1):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"cli serve exited {proc.poll()} before listening: "
+                                     f"{log_lines[-20:]}")
+        return boot[0]
+
+    return proc, wait
+
+
+def serve_phase(cli, kernels, tmp, both0, ds) -> dict:
+    """The serve daemon (serve/) on the card, at the flagship data (132,000
+    x 128 GMM, W = 30, s = 2, approx collect 15, AGD, faithful), one
+    resolved dataset object for the in-process daemons:
+
+      1. packing: four tenants on four threads submit two GLM requests each
+         (approx c15 and repcoded, whose faithful stacks are one, seeds
+         varying, 100 rounds) to ``serving(device="cuda", max_cohort=8,
+         dispatch_workers=2)``, twice (the second set, other seeds, timed
+         warm): fewer dispatches than requests, no B1 (the cohort matmul),
+         every first-set row ok and bitwise the row of the same request
+         dispatched alone through a second daemon (column 0 there, other
+         columns here), and each row's training loss within relative 1e-4
+         of the same config's sequential train() on the card (100 B1 each);
+         the packed and sequential aggregate steps/s;
+      2. B1 through the daemon: a ``use_pallas="on"`` request at the main
+         config beside a packed cohort: exactly 100 B1, all at
+         [90, 4400, 128], its loss curve and clock bitwise a direct
+         train()'s on the same dataset object, replayed as the daemon does;
+      3. B2 through the daemon: four deepmlp layer-coded requests (DEEP_ARGS,
+         20 rounds) from two tenants, max_cohort 4: one dispatch, 20 B2, rows
+         ok and bitwise each one dispatched alone (20 B2 each);
+      4. admission: a budget of 1.5 x one GLM cohort's estimate, two cohorts
+         of different stacks (approx and cyccoded, 30 rounds): the second is
+         deferred while the first runs and admitted after it released, by an
+         eviction of the data cache's pins; each signature's estimate, its
+         measured peak and their ratio;
+      5. the fronts under load: an HttpFront and loadgen.run_fleet (three
+         closed-loop tenants, 12 requests each, 4 in flight, 30 rounds,
+         ``max_pending`` 8 so some submissions get 429): no loss, no
+         duplicate, every row ok; ``GET /metrics`` parses and holds the
+         ``serve.*`` counters; ``cli top http://...`` renders a frame;
+         time-to-first-row p50/p99, goodput, 429s;
+      6. the kill drill: ``cli serve --device cuda --cache-dir C`` in a
+         subprocess (started after the timed steps 1-2 and waited for
+         before the timed step 5: its boot and its nvcc build into C
+         overlap only the untimed steps 3-4) under
+         ERASUREHEAD_CHAOS=kill:serve_dispatch:1 takes
+         3 requests and exits 43; restarted on the same journal and C it
+         replays its WAL (the restart record splits it), the resubmissions'
+         rows are bitwise an uninterrupted daemon's, and C's files are
+         unchanged (no build);
+      7. every log of the phase validates; ``cli report`` renders the serve
+         section.
+    """
+    import contextlib
+    import dataclasses
+    import io
+    import signal
+
+    from erasurehead_tpu_torch.obs import events as events_lib
+    from erasurehead_tpu_torch.obs.metrics import REGISTRY
+    from erasurehead_tpu_torch.serve import loadgen, packer, server
+    from erasurehead_tpu_torch.serve import queue as serve_queue
+    from erasurehead_tpu_torch.serve.client import ServeClient
+    from erasurehead_tpu_torch.serve.http_front import HttpFront
+    from erasurehead_tpu_torch.train import cache as cache_lib
+    from erasurehead_tpu_torch.train import trainer
+    from erasurehead_tpu_torch.utils import chaos
+
+    t_phase = time.perf_counter()
+    base = parse_config(cli, MAIN_ARGS)
+
+    def dispatches():
+        return REGISTRY.counter("serve.dispatches").value
+
+    # 1. packing
+    specs = [(f"t{k}", f"{scheme}_{k}", dataclasses.replace(
+        base, scheme=scheme, num_collect=nc, seed=k + 10 * i))
+        for k in range(SERVE_TENANTS) for i, (scheme, nc) in enumerate(SERVE_SCHEMES)]
+    keys = {packer.pack_key(serve_queue.RunRequest(tenant="x", label="x", config=c, dataset=ds))
+            for _, _, c in specs}
+    pack_log = os.path.join(tmp, "serve_pack.jsonl")
+    kernels.reset_launches()
+    d0 = dispatches()
+    # the same eight again with other seeds, timed warm (the first pass pays
+    # the daemon's first dispatch: new threads, the stack upload)
+    warm_specs = [(tn, f"warm_{label}", dataclasses.replace(cfg, seed=cfg.seed + 100))
+                  for tn, label, cfg in specs]
+    with events_lib.capture(pack_log):
+        with server.serving(device="cuda", max_cohort=8, dispatch_workers=2,
+                            window_s=0.5) as srv:
+            t0 = time.perf_counter()
+            packed = served(srv, specs, ds)
+            cold_wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            warm_rows = served(srv, warm_specs, ds)
+            packed_wall = time.perf_counter() - t0
+    packed_launches, packed_dispatches = dict(kernels.LAUNCHES), dispatches() - d0
+    if packed_launches != both0 or not packed_dispatches < 2 * len(specs):
+        raise AssertionError(f"packing: {packed_dispatches} dispatches for {len(specs)} "
+                             f"requests, launches {packed_launches}")
+    columns = pack_columns(pack_log)
+    if not any(col for _, col in columns.values()):
+        raise AssertionError(f"no request packed beyond column 0: {columns}")
+    kernels.reset_launches()
+    alone = alone_rows(server, specs, ds, 8)
+    alone_launches = dict(kernels.LAUNCHES)
+    differ = [label for label in packed
+              if serve_science(alone[label].summary) != serve_science(packed[label].summary)]
+    if differ or alone_launches != both0:
+        raise AssertionError(f"packed rows differ from alone: {differ} ({alone_launches})")
+    kernels.reset_launches()
+    seq_rel, seq_wall, seq_loop = {}, 0.0, 0.0
+    for _, label, cfg in specs:
+        # timed with its replay, as the daemon's row is (its eval replay)
+        t0 = time.perf_counter()
+        res = trainer.train(cfg, ds)
+        loss = replayed_loss(res, ds)
+        seq_wall += time.perf_counter() - t0
+        seq_loop += res.wall_time
+        seq_rel[label] = max_rel(packed[label].summary.training_loss, loss)
+    seq_launches = dict(kernels.LAUNCHES)
+    if max(seq_rel.values()) > 1e-4 or seq_launches != {
+            **both0, "fused_glm_grad": ROUNDS * len(specs)}:
+        raise AssertionError(f"packed vs sequential train(): {seq_rel}, {seq_launches}")
+    warm_cache = next(iter(warm_rows.values())).summary.cache
+    emit("serve_pack", requests=2 * len(specs), pack_keys=len(keys),
+         dispatches=packed_dispatches,
+         columns=columns, launches=packed_launches, alone_launches=alone_launches,
+         sequential_launches=seq_launches, rows_bitwise_alone=True,
+         max_rel_loss_vs_sequential=max(seq_rel.values()),
+         cold_wall_s=cold_wall, packed_wall_s=packed_wall, sequential_wall_s=seq_wall,
+         warm_setup_s=warm_cache["setup_seconds"],
+         # the first set pays the daemon's first dispatch (new threads, the
+         # stack upload): end to end and its round loop
+         cold_aggregate_steps_per_sec=ROUNDS * len(specs) / cold_wall,
+         cold_loop_steps_per_sec=sorted({r.summary.real_steps_per_sec
+                                         for r in packed.values()}),
+         packed_aggregate_steps_per_sec=ROUNDS * len(specs) / packed_wall,
+         sequential_aggregate_steps_per_sec=ROUNDS * len(specs) / seq_wall,
+         # the round loops alone: the cohort's R * B / wall (B = 8, no pad)
+         # against R * 8 over the eight train() loops' seconds
+         cohort_loop_steps_per_sec=sorted({r.summary.real_steps_per_sec
+                                           for r in warm_rows.values()}),
+         sequential_loop_steps_per_sec=ROUNDS * len(specs) / seq_loop)
+
+    # 2. B1 through the daemon, beside a packed cohort
+    fused_cfg = dataclasses.replace(base, use_pallas="on")
+    beside = [("p", f"beside_{k}", dataclasses.replace(base, seed=20 + k)) for k in range(4)]
+    b1_log = os.path.join(tmp, "serve_b1.jsonl")
+    shapes, restore = record_glm_shapes(kernels)
+    kernels.reset_launches()
+    try:
+        with events_lib.capture(b1_log):
+            with server.serving(device="cuda", max_cohort=8, dispatch_workers=2,
+                                window_s=0.5) as srv:
+                b1_rows = served(srv, beside + [("b1", "fused", fused_cfg)], ds)
+    finally:
+        restore()
+    b1_launches = dict(kernels.LAUNCHES)
+    packs = [json.loads(line) for line in open(b1_log)]
+    packs = [r for r in packs if r["type"] == "pack"]
+    if (b1_launches != {**both0, "fused_glm_grad": ROUNDS} or set(shapes) != {MAIN_SHAPE}
+            or sorted(p["batchable"] for p in packs) != [False, True]):
+        raise AssertionError(f"B1 through the daemon: {b1_launches}, {set(shapes)}, {packs}")
+    kernels.reset_launches()
+    direct = trainer.train(fused_cfg, ds)
+    direct_launches = dict(kernels.LAUNCHES)
+    got = b1_rows["fused"].summary
+    same = (got.training_loss.tobytes() == replayed_loss(direct, ds).tobytes()
+            and got.timeset.tobytes() == direct.timeset.tobytes())
+    if not same or direct.lowering != "fused":
+        raise AssertionError("the daemon's forced-kernel row is not a direct train()'s bitwise")
+    emit("serve_b1", launches=b1_launches, shapes=[list(s) for s in sorted(set(shapes))],
+         dispatch_ids=[p["dispatch_id"] for p in packs], direct_launches=direct_launches,
+         bitwise_direct_train=same, steps_per_sec=got.real_steps_per_sec)
+
+    # 6, started here: the daemon's boot and its nvcc build into its own
+    # directory (CPU-heavy) overlap the untimed steps 3-4, never a timing
+    drill_dir = os.path.join(tmp, "drill")
+    jdir, cdir = os.path.join(drill_dir, "journal"), os.path.join(drill_dir, "build")
+    sock, drill_log = os.path.join(drill_dir, "s.sock"), os.path.join(drill_dir, "events.jsonl")
+    os.makedirs(drill_dir)
+    daemon_args = ["--socket", sock, "--journal-dir", jdir, "--cache-dir", cdir,
+                   "--events", drill_log, "--window-ms", "200"]
+    env = {k: v for k, v in os.environ.items() if k != chaos.CHAOS_ENV}
+    drill_out: list = []
+    killed, killed_listening = spawn_daemon(
+        daemon_args, {**env, chaos.CHAOS_ENV: "kill:serve_dispatch:1"}, drill_out)
+
+    # 3. B2 through the daemon: a packed deep cohort
+    deep_base = parse_config(cli, with_rounds(DEEP_ARGS, LAYER_ROUNDS))
+    deep_specs = [(f"d{k % 2}", f"deep{k}", dataclasses.replace(deep_base, seed=k))
+                  for k in range(4)]
+    kernels.reset_launches()
+    d0 = dispatches()
+    with server.serving(device="cuda", max_cohort=4, window_s=0.5) as srv:
+        deep_rows = served(srv, deep_specs, ds)
+    deep_launches, deep_dispatches = dict(kernels.LAUNCHES), dispatches() - d0
+    kernels.reset_launches()
+    deep_alone = alone_rows(server, deep_specs, ds, 4)
+    deep_alone_launches = dict(kernels.LAUNCHES)
+    differ = [label for label in deep_rows if serve_science(deep_alone[label].summary)
+              != serve_science(deep_rows[label].summary)]
+    want_alone = {**both0, "fused_block_decode": LAYER_ROUNDS * len(deep_specs)}
+    if (deep_launches != {**both0, "fused_block_decode": LAYER_ROUNDS} or deep_dispatches != 1
+            or differ or deep_alone_launches != want_alone):
+        raise AssertionError(f"deep cohort: {deep_launches}, {deep_dispatches} dispatches, "
+                             f"differ {differ}, alone {deep_alone_launches}")
+    emit("serve_deep", launches=deep_launches, dispatches=deep_dispatches,
+         alone_launches=deep_alone_launches, rows_bitwise_alone=True)
+
+    # 4. admission under a budget of 1.5 cohorts
+    from erasurehead_tpu_torch.serve import admission
+
+    a_specs = [("a", f"adm_approx{k}", dataclasses.replace(base, rounds=ADMIT_ROUNDS, seed=k))
+               for k in range(4)]
+    b_specs = [("b", f"adm_cyc{k}", dataclasses.replace(base, rounds=ADMIT_ROUNDS, seed=k,
+                                                         scheme="cyccoded", num_collect=None))
+               for k in range(4)]
+    cohorts = {name: packer.plan_packs([serve_queue.RunRequest(tenant=t, label=label, config=c,
+                                                               dataset=ds)
+                                        for t, label, c in sp])[0]
+               for name, sp in (("approx", a_specs), ("cyccoded", b_specs))}
+    est = {name: admission.estimate_cohort_bytes(c, width=4) for name, c in cohorts.items()}
+    budget = int(1.5 * est["approx"])
+    adm_log = os.path.join(tmp, "serve_admission.jsonl")
+    cache_lib.drop_data_cache()  # the first cohort uploads its stack (a measured miss)
+    kernels.reset_launches()
+    with events_lib.capture(adm_log):
+        with server.serving(device="cuda", budget_bytes=budget, max_cohort=4,
+                            window_s=0.5) as srv:
+            served(srv, a_specs + b_specs, ds)
+            measured = {name: srv.admission.measured_bytes(c.key_digest)
+                        for name, c in cohorts.items()}
+    adm_launches = dict(kernels.LAUNCHES)
+    recs = [json.loads(line) for line in open(adm_log)]
+    # the verdicts in order: T admitted, F deferred, e an eviction. The
+    # first cohort admits; the second defers while it runs, then admits
+    # once it released, after an eviction of the data cache's pins
+    trail = "".join("e" if r["type"] == "evict" else "TF"[not r["admitted"]]
+                    for r in recs if r["type"] in ("admit", "evict"))
+    if (not trail.startswith("T") or "F" not in trail or not trail.endswith("eT")
+            or any(m is None for m in measured.values()) or adm_launches != both0):
+        raise AssertionError(f"admission trail {trail}, measured {measured}, "
+                             f"launches {adm_launches}")
+    emit("serve_admission", budget_bytes=budget, trail=trail,
+         footprint={name: dict(est_bytes=est[name], measured_peak_bytes=measured[name],
+                               est_over_peak=est[name] / measured[name])
+                    for name in est},
+         launches=adm_launches)
+
+    # the drill daemon listens before the timed step 5 starts
+    t0 = time.perf_counter()
+    cold_boot_s = killed_listening()
+    drill_wait_s = time.perf_counter() - t0
+
+    # 5. the HTTP front under closed-loop load
+    payload = serve_queue.config_payload(dataclasses.replace(base, rounds=LOAD_ROUNDS))
+    if payload is None:
+        raise AssertionError("the main config has no wire payload")
+    jobs = {t: [(f"{t}{k}", {**payload, "seed": k}) for k in range(LOAD_JOBS)]
+            for t in LOAD_TENANTS}
+    load_log = os.path.join(tmp, "serve_load.jsonl")
+    kernels.reset_launches()
+    with events_lib.capture(load_log):
+        with server.serving(device="cuda", max_cohort=8, max_pending=LOAD_MAX_PENDING,
+                            window_s=0.05) as srv:
+            front = HttpFront(srv)
+            try:
+                t0 = time.perf_counter()
+                load = loadgen.run_fleet(front.host, front.port, jobs,
+                                         concurrency=LOAD_DEPTH, timeout=600)
+                load_wall = time.perf_counter() - t0
+                import urllib.request
+
+                with urllib.request.urlopen(f"http://{front.host}:{front.port}/metrics",
+                                            timeout=30) as resp:
+                    prom = resp.read().decode()
+                top_out = io.StringIO()
+                with contextlib.redirect_stdout(top_out):
+                    top_rc = cli.main(["top", f"http://{front.host}:{front.port}"])
+            finally:
+                front.close()
+    load_launches = dict(kernels.LAUNCHES)
+    ledgers = load["tenants"].values()
+    statuses = {r["status"] for led in ledgers for r in led["rows_by_label"].values()}
+    prom_names = {line.split("{")[0].split(" ")[0] for line in prom.splitlines()
+                  if line and not line.startswith("#")}
+    bad_lines = []
+    for line in prom.splitlines():
+        if line and not line.startswith("#"):
+            try:
+                float(line.rsplit(" ", 1)[1])
+            except (IndexError, ValueError):
+                bad_lines.append(line)
+    want_names = {"erasurehead_serve_requests", "erasurehead_serve_dispatches",
+                  "erasurehead_serve_rejected", "erasurehead_serve_results"}
+    if (load["lost"] or load["duplicates"] or statuses != {"ok"}
+            or any(led["rejected_final"] or led["rows"] != LOAD_JOBS for led in ledgers)
+            or not load["rejected_429s"] or bad_lines or not want_names <= prom_names
+            or top_rc != 0 or "erasurehead_serve_requests" not in top_out.getvalue()
+            or load_launches != both0):
+        raise AssertionError(f"load: lost {load['lost']}, dups {load['duplicates']}, "
+                             f"statuses {statuses}, 429s {load['rejected_429s']}, "
+                             f"prom missing {want_names - prom_names}, top {top_rc}, "
+                             f"launches {load_launches}")
+    rows_total = sum(led["rows"] for led in ledgers)
+    emit("serve_load", tenants=len(jobs), requests=rows_total,
+         ttfr_p50_s=load["latency_p50_s"], ttfr_p99_s=load["latency_p99_s"],
+         ttlr_p99_s=load["ttlr_p99_s"], goodput_rows_per_s=rows_total / load_wall,
+         rejected_429s=load["rejected_429s"], retries=load["retries"], wall_s=load_wall,
+         prometheus_lines=len(prom.splitlines()), launches=load_launches)
+
+    # 6. the kill drill: accepted requests survive the daemon's death
+    drill_cfgs = {f"k{k}": dataclasses.replace(base, rounds=DRILL_ROUNDS, seed=k)
+                  for k in range(3)}
+    wire = {label: serve_queue.config_payload(c) for label, c in drill_cfgs.items()}
+    client = ServeClient(sock)
+    for label, p in wire.items():
+        client.submit("drill", label, p)
+    killed_rc = killed.wait(timeout=600)
+    client.close()
+    files_cold = sorted(os.listdir(cdir))
+    if killed_rc != chaos.KILL_EXIT or not any(f.endswith(".so") for f in files_cold):
+        raise AssertionError(f"kill drill: exit {killed_rc}, build dir {files_cold}, "
+                             f"{drill_out[-20:]}")
+    drill_out.append("-- restart --")
+    warm, warm_listening = spawn_daemon(daemon_args, env, drill_out)
+    warm_boot_s = warm_listening()
+    try:
+        client = ServeClient(sock)
+        rids = {client.submit("drill", label, p): label for label, p in wire.items()}
+        wire_rows = {}
+        for _ in rids:
+            res = client.result(timeout=600)
+            wire_rows[rids[res["request_id"]]] = res
+        client.close()
+        warm.send_signal(signal.SIGINT)
+        warm_rc = warm.wait(timeout=120)
+    finally:
+        if warm.poll() is None:
+            warm.kill()
+            warm.wait()
+    with server.serving(device="cuda", window_s=0.2) as srv:
+        clean = {label: srv.submit(tenant="drill", label=label, config=c, dataset=ds).result(
+            timeout=900) for label, c in drill_cfgs.items()}
+    restart = [json.loads(line) for line in open(drill_log)]
+    restart = [r for r in restart if r["type"] == "restart"]
+    differ = [label for label in wire if wire_rows[label]["status"] != "ok"
+              or wire_science(wire_rows[label]["row"]) != serve_science(clean[label].summary)]
+    files_warm = sorted(os.listdir(cdir))
+    if (warm_rc != 0 or differ or files_warm != files_cold or len(restart) != 1
+            or restart[0]["wal_records"] != len(wire)
+            or restart[0]["rehydrated"] + restart[0]["resubmitted"] != len(wire)):
+        raise AssertionError(f"restart: exit {warm_rc}, rows differ {differ}, build dir "
+                             f"{files_cold} -> {files_warm}, restart {restart}, "
+                             f"{drill_out[-20:]}")
+    emit("serve_drill", killed_exit=killed_rc, restart_exit=warm_rc,
+         restart={k: restart[0][k] for k in ("wal_records", "rehydrated", "resubmitted")},
+         build_files=files_cold, build_files_unchanged=True, rows_bitwise_uninterrupted=True,
+         cold_boot_s=cold_boot_s, drill_wait_s=drill_wait_s, warm_boot_s=warm_boot_s)
+
+    # 7. every log validates; the report's serve section
+    journals = [os.path.join(jdir, t, "sweep_journal.jsonl") for t in os.listdir(jdir)
+                if os.path.isdir(os.path.join(jdir, t))]
+    logs = [pack_log, b1_log, adm_log, load_log, drill_log,
+            os.path.join(jdir, "intake_wal.jsonl")] + journals
+    invalid = {p: events_lib.validate_file(p)[:3] for p in logs if events_lib.validate_file(p)}
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        report_rc = cli.main(["report", load_log, "--validate"])
+    if invalid or report_rc != 0 or "serve (multi-tenant cohort packing)" not in report.getvalue():
+        raise AssertionError(f"serve logs: invalid {invalid}, report rc {report_rc}")
+    seconds = time.perf_counter() - t_phase
+    emit("serve", seconds=seconds, logs_valid=len(logs))
+    return dict(
+        seconds=seconds,
+        packed_aggregate_steps_per_sec=ROUNDS * len(specs) / packed_wall,
+        sequential_aggregate_steps_per_sec=ROUNDS * len(specs) / seq_wall,
+        cohort_loop_steps_per_sec=max(r.summary.real_steps_per_sec
+                                      for r in warm_rows.values()),
+        sequential_loop_steps_per_sec=ROUNDS * len(specs) / seq_loop,
+        est_over_peak={name: est[name] / measured[name] for name in est},
+        ttfr_p50_s=load["latency_p50_s"], ttfr_p99_s=load["latency_p99_s"],
+        launches_by_run={"serve_packed": packed_launches, "serve_alone": alone_launches,
+                         "serve_sequential": seq_launches, "serve_b1": b1_launches,
+                         "serve_b1_direct": direct_launches, "serve_deep": deep_launches,
+                         "serve_deep_alone": deep_alone_launches,
+                         "serve_admission": adm_launches, "serve_load": load_launches},
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -3794,6 +4292,12 @@ def main() -> int:
         telemetry = telemetry_phase(cli, kernels, experiments, tmp, both0)
     sweep_launches.update(telemetry["launches_by_run"])
 
+    # the serve daemon: packing, both kernels from dispatch threads, admission,
+    # the fronts under load, the kill drill
+    with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-serve-") as tmp:
+        served_rec = serve_phase(cli, kernels, tmp, both0, cohort_ds)
+    sweep_launches.update(served_rec["launches_by_run"])
+
     # the sparse and compressed stacks: no kernel takes them
     t_sparse = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-sparse-") as tmp:
@@ -4006,6 +4510,14 @@ def main() -> int:
         # runs instead, against 28 launches of this kernel
         "cohort_round": {k: cohort_glm_time[k] for k in (
             "B", "shape", "cohort_matmul_ms", "b1_x_B_ms", "bound_ms")},
+        # the serve daemon: eight packed requests' aggregate steps/s against
+        # the same eight sequential train() runs (B1), each admitted
+        # signature's estimate over its measured peak, the fronts'
+        # time-to-first-row under load, the phase's seconds
+        "serve": {k: served_rec[k] for k in (
+            "packed_aggregate_steps_per_sec", "sequential_aggregate_steps_per_sec",
+            "cohort_loop_steps_per_sec", "sequential_loop_steps_per_sec",
+            "est_over_peak", "ttfr_p50_s", "ttfr_p99_s", "seconds")},
     }, {
         "name": "fused_block_decode",
         "route": "cuda",

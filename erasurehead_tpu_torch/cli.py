@@ -1,6 +1,6 @@
 """Command-line entry point of the PyTorch/CUDA port.
 
-Two invocation forms, as the JAX package's CLI takes them, and five
+Two invocation forms, as the JAX package's CLI takes them, and six
 subcommands: ``python -m erasurehead_tpu_torch.cli sweep [--rounds N]
 [--sweep-journal DIR [--resume-sweep]] [--out rows.json] [--events PATH]
 [--device cpu]`` runs the BASELINE.json comparison suite
@@ -13,7 +13,12 @@ reading files only;
 auto knob at a run shape into the tune decision cache
 (``ERASUREHEAD_TUNE_CACHE``; tune/races.main); ``... cli whatif --policies
 ... --regimes ... [--out DIR] [--device cpu]`` simulates a policy grid into
-an expected-time-to-target surface (whatif/engine.main).
+an expected-time-to-target surface (whatif/engine.main); ``... cli serve
+[--socket PATH] [--http HOST:PORT] [--journal-dir DIR] [--cache-dir DIR]
+[--device cpu] ...`` runs the multi-tenant serve daemon until SIGINT
+(serve/server.main): clients submit over the unix socket
+(serve/client.ServeClient) or HTTP (HttpServeClient), and ``--cache-dir``
+names the directory the CUDA kernel library is built into and loaded from.
 
 1. **Named flags**::
 
@@ -906,6 +911,11 @@ def main(argv: list[str] | None = None) -> int:
         from erasurehead_tpu_torch.whatif import engine
 
         return engine.main(argv[1:])
+    if argv and argv[0] == "serve":
+        # the multi-tenant serve daemon (serve/server.main)
+        from erasurehead_tpu_torch.serve import server as serve_server
+
+        return serve_server.main(argv[1:])
     if _is_legacy(argv):
         cfg = _legacy_to_config(argv[:13])
         opts = _legacy_options_parser().parse_args(argv[13:])

@@ -99,6 +99,36 @@ def worker_stack(layout: CodingLayout, Xp, yp):
     return take_lead(Xp, layout.assignment), yp[layout.assignment]
 
 
+#: bytes an element of each stack dtype takes on the device (numpy has no
+#: bfloat16, so the stack dtypes are named)
+STACK_ITEMSIZE = {"float32": 4, "bfloat16": 2, "int8": 1}
+
+
+def estimate_worker_stack_bytes(dataset: Dataset, layout: CodingLayout, dtype) -> int:
+    """Host-side estimate of the MATERIALIZED faithful stack's device bytes
+    (the JAX package's footprint estimate; the serve daemon's admission
+    charge builds on it). ``dtype`` names the stack dtype ("float32",
+    "bfloat16", "int8"; a numpy dtype is taken too). Dense:
+    W * S * rows * F * itemsize; sparse stacks are scaled from the CSR
+    payload (indices + values per stored entry); an int8 stack adds one
+    float32 scale row per slot block. An estimate, not an accounting."""
+    X = dataset.X_train
+    rows = dataset.n_samples // layout.n_partitions
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    itemsize = STACK_ITEMSIZE[name]
+    if sps.issparse(X):
+        nnz_per_row = X.nnz / max(1, X.shape[0])
+        per_row = nnz_per_row * (np.dtype(np.int32).itemsize + itemsize)
+    else:
+        per_row = X.shape[1] * itemsize
+    est = int(layout.n_workers * layout.n_slots * rows * per_row)
+    if name == "int8":
+        # a quantized stack is payload PLUS one float32 scale row per slot
+        # block ([W, S, F] after the worker gather)
+        est += layout.n_workers * layout.n_slots * X.shape[1] * 4
+    return est
+
+
 # ---------------------------------------------------------------------------
 # stream windows (stack_residency="streamed"; train/trainer._train_streamed)
 

@@ -37,18 +37,20 @@ function with their plain PyTorch versions (:func:`reference_glm_grad`,
 :func:`reference_block_decode`). The
 kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one ``nvcc``
 per source started together, and linked into one library in ``build/`` at
-the root of the checkout, keyed by a hash of the sources and flags, loaded
-with ctypes. A build failure raises; there is no fallback.
+the root of the checkout (or the directory :func:`set_build_dir` names: the
+serve daemon's ``cache_dir``), keyed by a hash of the sources and flags,
+loaded with ctypes, once per process however many threads make their first
+call together. A build failure raises; there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -56,8 +58,15 @@ import torch
 GLM_KINDS = ("logistic", "linear")
 
 #: launches of each kernel since the last :func:`reset_launches` (incremented
-#: only where a kernel is really launched, never on the CPU path)
+#: only where a kernel is really launched, never on the CPU path, and only
+#: through :func:`_count_launch`, under :data:`_LAUNCH_LOCK`: the serve
+#: daemon launches from several dispatch threads at once)
 LAUNCHES = {"fused_glm_grad": 0, "fused_block_decode": 0}
+_LAUNCH_LOCK = threading.Lock()
+
+#: kernel-library builds (nvcc runs) in this process; a warm start from an
+#: existing build, or a second caller, adds none
+BUILDS = 0
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _SOURCES = (
@@ -65,6 +74,9 @@ _SOURCES = (
     _PKG_DIR / "csrc" / "fused_block_decode.cu",
 )
 _BUILD_DIR = _PKG_DIR.parent / "build" / "erasurehead_tpu_torch"
+#: the loaded library; built and loaded once, under :data:`_LIB_LOCK`
+_LIB: "ctypes.CDLL | None" = None
+_LIB_LOCK = threading.Lock()
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -72,8 +84,32 @@ _NVCC_FLAGS = (
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count_launch(name: str) -> None:
+    """Count one launch of ``name``: a read-modify-write of a dict shared by
+    every thread, so it is taken under a lock."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+
+
+def set_build_dir(path) -> None:
+    """Build into and load from ``path`` instead of ``build/`` in the
+    checkout (the serve daemon's ``cache_dir``: a restarted daemon pointed
+    at the same directory builds nothing). Only before the library is
+    loaded: a loaded library stays where it was built from."""
+    global _BUILD_DIR
+    with _LIB_LOCK:
+        new = Path(path).resolve()
+        if _LIB is not None and new != _BUILD_DIR:
+            raise RuntimeError(
+                f"the kernel library is loaded from {_BUILD_DIR} already; "
+                f"set the build directory before the first kernel call"
+            )
+        _BUILD_DIR = new
 
 
 def _residual(kind: str, p: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -126,7 +162,9 @@ def _build() -> Path:
 
     One ``nvcc -c`` per source, all started together, then one link. Writes
     ``<name>.so`` and the compilers' reports (``-Xptxas -v``: registers,
-    shared memory, spills) as ``<name>.log`` beside it. Raises on failure."""
+    shared memory, spills) as ``<name>.log`` beside it. Raises on failure.
+    Counts a build in :data:`BUILDS` (callers hold :data:`_LIB_LOCK`)."""
+    global BUILDS
     so = library_path()
     if so.exists():
         return so
@@ -159,12 +197,26 @@ def _build() -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed: {' '.join(failed[0])}\n{log[-4000:]}")
     os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
+    BUILDS += 1
     return so
 
 
-@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(_build()))
+    """The kernel library, built (if needed) and loaded by the first caller;
+    concurrent first callers wait for it under :data:`_LIB_LOCK` (two
+    threads building at once would write and unlink the same objects)."""
+    global _LIB
+    lib = _LIB
+    if lib is not None:
+        return lib
+    with _LIB_LOCK:
+        if _LIB is None:
+            _LIB = _load(_build())
+        return _LIB
+
+
+def _load(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
     lib.eh_fused_glm_grad.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p
     ]
@@ -189,7 +241,7 @@ def load_library() -> None:
 
 def library_loaded() -> bool:
     """Has this process loaded the kernel library already?"""
-    return _library.cache_info().currsize > 0
+    return _LIB is not None
 
 
 def unsupported_reason(X: torch.Tensor) -> str | None:
@@ -260,7 +312,7 @@ def fused_glm_grad(
     if rc != 0:
         msg = lib.eh_cuda_error_string(rc).decode()
         raise RuntimeError(f"fused_glm_grad launch failed: CUDA error {rc} ({msg})")
-    LAUNCHES["fused_glm_grad"] += 1
+    _count_launch("fused_glm_grad")
     return out
 
 
@@ -379,7 +431,7 @@ def _launch_decode(ws, leaves, cohort: bool, name: str) -> list:
         if rc != 0:
             msg = lib.eh_cuda_error_string(rc).decode()
             raise RuntimeError(f"fused_block_decode launch failed: CUDA error {rc} ({msg})")
-        LAUNCHES["fused_block_decode"] += 1
+        _count_launch("fused_block_decode")
     return outs
 
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import os
+import threading
 from collections import OrderedDict
 from typing import Any, Callable
 
@@ -71,6 +72,10 @@ class CacheStats:
 _stats = CacheStats()
 #: key -> (stack, device_bytes)
 _data_cache: "OrderedDict[Any, tuple[Any, int]]" = OrderedDict()
+#: guards :data:`_data_cache`: the serve daemon's dispatch threads look up,
+#: insert and drop entries concurrently. A build runs outside it (two
+#: threads missing one key both build; the second insert wins)
+_lock = threading.RLock()
 
 _enabled = os.environ.get("ERASUREHEAD_SWEEP_CACHE", "1").lower() not in (
     "0", "off", "false",
@@ -90,7 +95,8 @@ def set_enabled(on: bool) -> None:
 
 def clear() -> None:
     """Drop the cache and reset the counters (tests; memory pressure)."""
-    _data_cache.clear()
+    with _lock:
+        _data_cache.clear()
     _stats.reset()
 
 
@@ -101,7 +107,8 @@ def stats() -> CacheStats:
 def data_cache_bytes() -> int:
     """Device bytes the cache's entries pin: what :func:`drop_data_cache`
     would release."""
-    return sum(nbytes for _, nbytes in _data_cache.values())
+    with _lock:
+        return sum(nbytes for _, nbytes in _data_cache.values())
 
 
 def drop_data_cache() -> int:
@@ -110,8 +117,9 @@ def drop_data_cache() -> int:
     The memory-pressure response: the harness's out-of-memory guard
     (experiments._dispatch_cohort) calls it before it bisects a cohort.
     Stacks a live run still holds stay alive; only the cache's pins go."""
-    released = data_cache_bytes()
-    _data_cache.clear()
+    with _lock:
+        released = data_cache_bytes()
+        _data_cache.clear()
     _METRICS.counter("sweep_cache.data_dropped_bytes").inc(released)
     return released
 
@@ -188,15 +196,19 @@ def get_or_build_data(key, build: Callable[[], Any]):
     builds without counting."""
     if not _enabled or key is None:
         return build(), False
-    if key in _data_cache:
-        data, nbytes = _data_cache[key]
-        _data_cache.move_to_end(key)
+    with _lock:
+        entry = _data_cache.get(key)
+        if entry is not None:
+            _data_cache.move_to_end(key)
+    if entry is not None:
+        data, nbytes = entry
         CacheStats.counter("data_hits").inc()
         CacheStats.counter("bytes_reused").inc(nbytes)
         return data, True
     data = build()
     CacheStats.counter("data_misses").inc()
-    _data_cache[key] = (data, device_nbytes(data))
-    while len(_data_cache) > DATA_CACHE_MAX:
-        _data_cache.popitem(last=False)
+    with _lock:
+        _data_cache[key] = (data, device_nbytes(data))
+        while len(_data_cache) > DATA_CACHE_MAX:
+            _data_cache.popitem(last=False)
     return data, False

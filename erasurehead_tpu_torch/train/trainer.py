@@ -101,6 +101,7 @@ import numpy as np
 import torch
 
 from erasurehead_tpu_torch import schemes, tune
+from erasurehead_tpu_torch.data import sharding as sharding_lib
 from erasurehead_tpu_torch.data import store as store_lib
 from erasurehead_tpu_torch.data.prefetch import Prefetcher
 from erasurehead_tpu_torch.data.sharding import (
@@ -1832,6 +1833,58 @@ def _train_streamed(
 # ---------------------------------------------------------------------------
 # trajectory cohorts: B training trajectories, one shared data stack, one
 # round loop (the JAX package's train_cohort, resident stacks)
+
+
+def estimate_stack_bytes(cfg: RunConfig, dataset: Dataset) -> int:
+    """Host-side estimate of the device data-stack footprint a dispatch of
+    ``cfg`` pins while in flight: the serve admission controller's charge
+    unit (serve/admission.py), the JAX package's estimate on the port's
+    stacks.
+
+    Deduped runs keep the partition-major stack; faithful runs pay the
+    (s+1)x worker-major stack (the port has no ring transport, so every
+    faithful stack is materialized: the JAX package's ``stack_mode``
+    "materialized" case). bfloat16 counts 2 bytes an element, int8 1 plus
+    its float32 scale rows (data/sharding.estimate_worker_stack_bytes).
+    Streamed-residency runs are charged their resident WINDOWS, at most two
+    (the one computing and the one in flight), never the whole stack; a
+    faithful window is its slot-group's worker gather, ``2/n_windows`` of
+    the worker stack. A pipelined run adds its stale params slot. An
+    estimate, not an accounting: the daemon refines it per signature with
+    the measured peak of a dispatch on the card."""
+    layout = build_layout(cfg)
+    dtype_name = cfg.resolve_stack_dtype()
+    worker_stack_est = sharding_lib.estimate_worker_stack_bytes(dataset, layout, dtype_name)
+    per_block = worker_stack_est / max(1, layout.n_workers * layout.n_slots)
+    partition_major = cfg.compute_mode != ComputeMode.FAITHFUL
+    streamed = _resolve_residency(cfg) == "streamed"
+    w = None
+    if streamed:
+        # the window without a store: ShardStore.partition_bytes() from the
+        # dataset's own shapes (payload + labels + an int8 scale row)
+        P = layout.n_partitions
+        F = int(dataset.X_train.shape[1])
+        rows = dataset.n_samples // max(1, P)
+        part_bytes = rows * F * sharding_lib.STACK_ITEMSIZE[dtype_name]
+        part_bytes += rows * np.asarray(dataset.y_train).dtype.itemsize
+        if dtype_name == "int8":
+            part_bytes += F * 4
+        w = _resolve_stream_window(cfg, P, part_bytes)
+    if partition_major:
+        blocks_n = layout.n_partitions
+        if streamed and w < blocks_n:
+            blocks_n = min(blocks_n, 2 * w)  # deduped windows have no halo
+        est = per_block * blocks_n
+    else:
+        est = worker_stack_est
+        if streamed and w < layout.n_partitions:
+            n_windows = layout.n_partitions // w
+            est = worker_stack_est * min(1.0, 2.0 / n_windows)
+    if cfg.pipeline_depth:
+        # the pipelined loop's stale params slot, at the dense GLM's size
+        F = int(dataset.X_train.shape[1])
+        est += cfg.pipeline_depth * (F + 1) * 4
+    return int(est)
 
 
 def cohort_eligible(cfg: RunConfig) -> bool:

@@ -22,9 +22,13 @@ drivers, adapt/driver.py and elastic/driver.py) and ``prefetch`` (on the
 staging thread of data/prefetch.Prefetcher, before each window is read: a
 raise surfaces at the trainer's next ``get``) and ``tune_race`` (at the head
 of a tune race, tune/racer.race, before any timing: a kill leaves the
-decision cache as it was). The JAX package's other sites
-are refused at parse time, naming the ROADMAP queue A item that brings them:
-a spec that parses is never silently ignored.
+decision cache as it was), and the serve daemon's ``serve_intake`` (in
+SweepServer.submit, after the acceptance is in the intake WAL and before
+it is queued), ``serve_dispatch`` (at the head of a cohort dispatch, on a
+dispatch thread) and ``serve_reply`` (after a row is journaled, before its
+reply is delivered). ``fleet_replica``, the fleet's site, is refused at
+parse time, naming the ROADMAP queue A item that brings it: a spec that
+parses is never silently ignored.
 
 Membership sites (:data:`MEMBERSHIP_SITES`, read by the elastic membership
 driver, elastic/driver.py) take a worker id in the mode field,
@@ -47,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 import time
 from typing import Optional
 
@@ -70,7 +75,9 @@ SITES = (
 #: the sites the port instruments
 WIRED_SITES = (
     "trajectory", "cohort", "checkpoint", "adapt", "elastic",
-    "worker_death", "worker_revive", "prefetch", "tune_race",
+    "worker_death", "worker_revive",
+    "serve_intake", "serve_dispatch", "serve_reply",
+    "prefetch", "tune_race",
 )
 
 #: sites whose fault is a MEMBERSHIP change (a worker dying or offering to
@@ -81,10 +88,7 @@ MEMBERSHIP_SITES = ("worker_death", "worker_revive")
 
 #: an unwired site -> the ROADMAP queue A item whose module brings it
 UNWIRED_SITES = {
-    "serve_intake": "the serve/ daemon",
-    "serve_dispatch": "the serve/ daemon",
-    "serve_reply": "the serve/ daemon",
-    "fleet_replica": "the serve/ fleet",
+    "fleet_replica": "A13, the serve/ fleet",
 }
 
 
@@ -166,11 +170,21 @@ def parse_specs(value: str) -> list:
 
 
 _counts: dict = {}
+#: the serve daemon's dispatch threads count the same site concurrently
+_counts_lock = threading.Lock()
+
+
+def _count(site: str) -> int:
+    """Count one invocation of ``site``; returns its 1-based number."""
+    with _counts_lock:
+        _counts[site] = _counts.get(site, 0) + 1
+        return _counts[site]
 
 
 def reset() -> None:
     """Zero the per-site invocation counters (tests)."""
-    _counts.clear()
+    with _counts_lock:
+        _counts.clear()
 
 
 def active() -> Optional[ChaosSpec]:
@@ -198,8 +212,7 @@ def maybe_fire(site: str) -> None:
     specs = [s for s in active_specs() if s.site == site]
     if not specs or site in MEMBERSHIP_SITES:
         return
-    _counts[site] = _counts.get(site, 0) + 1
-    n = _counts[site]
+    n = _count(site)
     for spec in specs:
         if not _fires(spec, n):
             continue
@@ -249,8 +262,7 @@ def fire_membership(site: str) -> tuple:
         return ()
     if not any(s.site == site for s in active_specs()):
         return ()
-    _counts[site] = _counts.get(site, 0) + 1
-    return membership_fires(site, _counts[site])
+    return membership_fires(site, _count(site))
 
 
 # ---------------------------------------------------------------------------

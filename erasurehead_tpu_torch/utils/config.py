@@ -637,6 +637,15 @@ def resolve_arrival_trace(
     return val or None
 
 
+#: env var setting the serve daemon's in-flight device-memory budget when
+#: the CLI flag is absent (serve/admission.py); value is bytes with an
+#: optional k/m/g/t suffix, e.g. "2g". Unset = unbounded admission.
+SERVE_BUDGET_ENV = "ERASUREHEAD_SERVE_BUDGET"
+
+#: env var capping how many trajectories one packed serve dispatch may
+#: carry when the CLI flag is absent (serve/packer.py)
+SERVE_MAX_COHORT_ENV = "ERASUREHEAD_SERVE_MAX_COHORT"
+
 _BYTE_SUFFIXES = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40}
 
 
@@ -657,6 +666,43 @@ def parse_bytes(val) -> int:
     if n <= 0:
         raise ValueError(f"byte size must be positive, got {val!r}")
     return n
+
+
+def resolve_serve_budget(
+    flag: Optional[str] = None, env: Optional[str] = None
+) -> Optional[int]:
+    """The serve admission budget in bytes, or None (unbounded).
+    Precedence: explicit CLI ``--budget`` flag > :data:`SERVE_BUDGET_ENV`
+    > unbounded. ``env`` stands in for the real environment lookup
+    (tests)."""
+    val = flag
+    if val is None:
+        val = env if env is not None else os.environ.get(SERVE_BUDGET_ENV)
+    if val is None or val == "":
+        return None
+    return parse_bytes(val)
+
+
+def resolve_serve_max_cohort(
+    flag: Optional[int] = None, env: Optional[str] = None, default: int = 64
+) -> int:
+    """Max trajectories per packed serve dispatch. Explicit flag >
+    :data:`SERVE_MAX_COHORT_ENV` > ``default``. ``env`` stands in for the
+    real environment lookup (tests)."""
+    val = flag
+    if val is None:
+        raw = env if env is not None else os.environ.get(SERVE_MAX_COHORT_ENV)
+        if raw is None or raw == "":
+            return default
+        try:
+            val = int(raw)
+        except ValueError:
+            raise ValueError(
+                f"{SERVE_MAX_COHORT_ENV} must be an integer, got {raw!r}"
+            ) from None
+    if val < 1:
+        raise ValueError(f"serve max-cohort must be >= 1, got {val}")
+    return int(val)
 
 
 #: env var arming an out-of-core host-to-device stream budget in bytes
