@@ -336,6 +336,21 @@ Phases, one JSON line each:
                  serve`` exits 43 under kill:serve_dispatch:1, its restart
                  replays the WAL bitwise with no new kernel build); every
                  log valid, ``cli report``'s serve section.
+  40. fleet    - (after serve) the serve fleet (serve/router.py,
+                 serve/fleet.py): ``cli serve --device cuda`` replicas behind
+                 the router sharing this process's kernel build directory
+                 (its files unchanged: no replica builds); one replica's
+                 rows bitwise an in-process daemon's (30 B1 at
+                 [90, 4400, 128], 20 B2 there); three replicas and
+                 kill:fleet_replica:2 on the one the ring routes a tenant
+                 to (declared dead at a streak >= 3, its WAL adopted by its
+                 ring peer, every row once and bitwise); a rolling deploy
+                 of the survivors under closed-loop load (0 lost, 0
+                 duplicates); one request set's goodput through one and
+                 two replicas, boot seconds; every fleet record valid.
+  41. native   - the native text parser on a 13,500 x 100 text matrix:
+                 bitwise np.loadtxt, both timed, a cold load_dense_text on
+                 the native path.
 Later, beside ``time`` and ``profile``: the attention run's per-slot leaves
 through ``decode_ops``, its round's decode (one launch, six leaves of
 [90, 913] floats) against its plain version, six GEMVs and the bound, and
@@ -4050,6 +4065,480 @@ def serve_phase(cli, kernels, tmp, both0, ds) -> dict:
     )
 
 
+# the fleet phase: serve replicas on the card behind the router
+FLEET_ROUNDS, FLEET_K, FLEET_MAX_COHORT = 30, 3, 8
+FLEET_GLM = (("fa", (0, 1, 2)), ("fb", (3, 4)))  # tenant -> seeds of the packed GLM set
+# the deploy's load: closed-loop batches of the same 4 tenants x
+# FLEET_LOAD_JOBS, until it holds twice the rows the survivors finished in
+# the deploy's window
+FLEET_LOAD_TENANTS, FLEET_LOAD_JOBS, FLEET_LOAD_DEPTH = ("la", "lb", "lc", "ld"), 4, 2
+FLEET_LOAD_MAX_BATCHES = 200
+# the goodput window: this many fleet_specs sets back to back (seeds moved
+# by 100 + 10 k, below the survivors' warm-up set's 300: no row is served
+# from a journal), several seconds at either fleet size
+FLEET_GOODPUT_SETS = 12
+# the deep path as the wire carries it: ``block_decode`` is not a wire field
+# (the JAX protocol's), so the request leaves it at auto; on the card the
+# decode is B2 either way (``deep``'s treewise run launches it too)
+_BD = DEEP_ARGS.index("--block-decode")
+FLEET_DEEP_ARGS = DEEP_ARGS[:_BD] + DEEP_ARGS[_BD + 2:]
+
+
+def fleet_specs(cli, shift=0) -> list:
+    """The fleet's request set, ``(tenant, label, RunConfig)``: a packed GLM
+    set (approx c15, FLEET_ROUNDS rounds, two tenants), one
+    ``use_pallas="on"`` request at the main config (B1 at [90, 4400, 128]
+    once a round) and one deep request (FLEET_DEEP_ARGS, LAYER_ROUNDS
+    rounds: B2 once a round). ``shift`` moves every seed (a new digest each
+    set, so no row rehydrates from a journal)."""
+    base = parse_config(cli, with_rounds(MAIN_ARGS, FLEET_ROUNDS))
+    deep = parse_config(cli, with_rounds(FLEET_DEEP_ARGS, LAYER_ROUNDS))
+    specs = [(t, f"glm_s{s + shift}", dataclasses.replace(base, seed=s + shift))
+             for t, seeds in FLEET_GLM for s in seeds]
+    specs.append(("fb1", f"fused_{shift}", dataclasses.replace(base, use_pallas="on",
+                                                                seed=shift)))
+    specs.append(("fdeep", f"deep_{shift}", dataclasses.replace(deep, seed=shift)))
+    return specs
+
+
+def fleet_clients(host, port, tenants) -> tuple:
+    """One HttpServeClient a tenant on the router, and the count of raw
+    result lines their streams carried by request_id (before the clients'
+    dedup)."""
+    from erasurehead_tpu_torch.serve.client import HttpServeClient
+
+    raw: dict = {}
+
+    def on_line(msg):
+        if msg.get("type") == "result":
+            raw[msg["request_id"]] = raw.get(msg["request_id"], 0) + 1
+
+    return {t: HttpServeClient(host, port, t, on_line=on_line) for t in tenants}, raw
+
+
+def fleet_serve(host, port, specs, grace_s=1.0, timeout=600, clients=None) -> dict:
+    """Submit ``specs`` through the router, one HttpServeClient a tenant
+    (``clients``, a fleet_clients pair, to reuse; else new ones, closed at
+    the end), and wait for every row; then ``grace_s`` more for any
+    duplicate. Rows must be ok. Returns rows by label, the deliveries the
+    clients made (deduplicated by request_id, as a caller sees them), the
+    raw result lines the streams carried, and the wall from the first
+    submit to the last row."""
+    from erasurehead_tpu_torch.serve import queue as serve_queue
+
+    own = clients is None
+    if own:
+        clients = fleet_clients(host, port, sorted({t for t, _, _ in specs}))
+    clients, raw = clients
+    raw_before = sum(raw.values())
+    try:
+        payloads = {label: serve_queue.config_payload(cfg) for _, label, cfg in specs}
+        if any(p is None for p in payloads.values()):
+            raise AssertionError(f"configs with no wire payload: {payloads}")
+        t0 = time.perf_counter()
+        for t, label, _ in specs:
+            clients[t].submit(label, payloads[label], max_retries=16)
+        rows, delivered = {}, 0
+        deadline = time.monotonic() + timeout
+        for t, c in clients.items():
+            want = {label for tn, label, _ in specs if tn == t}
+            while want - set(rows):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"fleet rows missing: {sorted(want - set(rows))}")
+                try:
+                    res = c.result(timeout=5)
+                except Exception:  # noqa: BLE001 — queue.Empty while a peer adopts
+                    continue
+                rows[res["label"]] = res
+                delivered += 1
+        wall = time.perf_counter() - t0
+        end = time.monotonic() + grace_s
+        for c in clients.values():
+            while time.monotonic() < end:
+                try:
+                    c.result(timeout=max(0.05, end - time.monotonic()))
+                    delivered += 1
+                except Exception:  # noqa: BLE001 — nothing more is the success case
+                    break
+    finally:
+        if own:
+            for c in clients.values():
+                c.close()
+    bad = {label: r.get("status") for label, r in rows.items() if r.get("status") != "ok"}
+    if bad or len(rows) != len(specs):
+        raise AssertionError(f"fleet rows not ok: {bad} ({len(rows)} of {len(specs)})")
+    return dict(rows=rows, delivered=delivered, raw_lines=sum(raw.values()) - raw_before,
+                wall_s=wall)
+
+
+def fleet_goodput(cli, host, port) -> dict:
+    """FLEET_GOODPUT_SETS fleet_specs sets back to back through the router
+    (one client a tenant for the whole window; each set submitted once
+    the last one's rows are in): aggregate steps/s and rows/s over the
+    window, from the first submit to the last row, and each set's wall."""
+    sets = [fleet_specs(cli, shift=100 + 10 * k) for k in range(FLEET_GOODPUT_SETS)]
+    clients = fleet_clients(host, port, sorted({t for t, _, _ in sets[0]}))
+    try:
+        t0 = time.perf_counter()
+        served_sets = [fleet_serve(host, port, specs, grace_s=0, clients=clients)
+                       for specs in sets]
+        wall = time.perf_counter() - t0
+    finally:
+        for c in clients[0].values():
+            c.close()
+    walls = [x["wall_s"] for x in served_sets]
+    resumed = [label for x in served_sets for label, r in x["rows"].items() if r.get("resumed")]
+    if resumed:
+        raise AssertionError(f"goodput rows served from a journal: {resumed}")
+    steps = sum(cfg.rounds for specs in sets for _, _, cfg in specs)
+    rows = sum(len(specs) for specs in sets)
+    return dict(wall_s=wall, sets=len(sets), requests=rows, steps=steps,
+                aggregate_steps_per_sec=steps / wall, rows_per_sec=rows / wall,
+                set_wall_s_min=min(walls), set_wall_s_max=max(walls))
+
+
+def slowest_served(events_paths, labels) -> dict | None:
+    """Of ``labels``, the request with the longest span from its first
+    intake record to its ``done`` record across the replicas' event logs
+    (wall clock, ms): which replica accepted it, when, when a cohort took
+    it (its ``pack`` record), which replica finished it, and what the
+    accepting replica packed and finished meanwhile."""
+    seen: dict = {}
+    recs = {name: [json.loads(line) for line in open(path)]
+            for name, path in events_paths.items()}
+    for name, rs in recs.items():
+        for r in rs:
+            if r["type"] == "pack":
+                for label in set(r["labels"]) & labels:
+                    got = seen.setdefault(label, {})
+                    got["pack"] = min(got.get("pack", (r["t"], name)), (r["t"], name))
+            if r["type"] != "request" or r.get("label") not in labels:
+                continue
+            got = seen.setdefault(r["label"], {})
+            key = "done" if r.get("phase") == "done" else "intake"
+            got[key] = min(got.get(key, (r["t"], name)), (r["t"], name))
+    spans = {label: g["done"][0] - g["intake"][0] for label, g in seen.items()
+             if "done" in g and "intake" in g}
+    if not spans:
+        return None
+    label = max(spans, key=spans.get)
+    g = seen[label]
+    (t_in, by), t_done = g["intake"], g["done"][0]
+    between = [r for r in recs[by] if t_in < r["t"] < t_done]
+    return dict(label=label, span_s=spans[label], accepted_by=by, accepted_t=t_in,
+                packed_t=g.get("pack", (None,))[0], finished_by=g["done"][1],
+                finished_t=t_done,
+                packs_meanwhile=sum(r["type"] == "pack" for r in between),
+                done_meanwhile=sum(r["type"] == "request" and r.get("phase") == "done"
+                                   for r in between),
+                other_records_meanwhile=sorted({r["type"] for r in between} - {"pack", "request"}))
+
+
+def fleet_phase(cli, kernels, tmp, both0, ds) -> dict:
+    """The serve fleet (serve/router.py, serve/fleet.py) on the card, at the
+    flagship data (132,000 x 128 GMM, W = 30, s = 2, f32): every replica a
+    ``cli serve --device cuda`` process with ``--max-cohort 8``, its
+    ``--cache-dir`` the build directory this process loaded the kernel
+    library from (no replica runs nvcc: the directory's files are the same
+    after the phase), each replica's data generated in its own process.
+
+      1. one replica (the baseline): the fleet_specs set through the router
+         (five packed GLM requests from two tenants, a use_pallas="on"
+         request, a deep request); every row ok and bitwise the same
+         request's row from an in-process daemon on the card (max_cohort 8:
+         the same dispatch; the forced-kernel request is
+         experiments._train_one there), whose launches are exactly 30 B1
+         at [90, 4400, 128] and 20 B2; the replica's compile records say
+         the library was loaded already (cache_hit); then the same set
+         FLEET_GOODPUT_SETS times back to back with other seeds, timed
+         (the one-replica goodput);
+      2. three replicas and a kill: ``kill:fleet_replica:2`` armed on the
+         replica the ring routes tenant fa to; fa's first request is
+         served, the next two are accepted and the replica dies in its
+         second dispatch (exit 43); the supervisor declares it dead at a
+         streak >= K = 3, the next replica in its ring order adopts its
+         WAL, and every row reaches fa exactly once through the router,
+         bitwise step 1's; death-to-adoption seconds;
+      3. rolling deploy under load on the two survivors: batches of the
+         same four closed-loop tenants (4 requests each, 2 in flight,
+         FLEET_ROUNDS rounds) through the router while rolling_deploy()
+         bounces both, until the load holds twice the rows finished by the
+         end of the deploy: no loss, no duplicate, every row ok; the
+         slowest request's accepting replica and times beside the deploy's
+         phases;
+      4. goodput: step 1's timed sets through the two survivors (after a
+         warm-up set); every replica's boot seconds. Recorded, not
+         gated.
+
+    Every replica's and the supervisor's records pass the validator, which
+    refuses an early death.
+    """
+    import threading
+
+    from erasurehead_tpu_torch.obs import events as events_lib
+    from erasurehead_tpu_torch.serve import loadgen, server
+    from erasurehead_tpu_torch.serve import queue as serve_queue
+    from erasurehead_tpu_torch.serve.fleet import FleetSupervisor
+    from erasurehead_tpu_torch.serve.router import HashRing, affinity_key
+    from erasurehead_tpu_torch.utils import chaos
+
+    t_phase = time.perf_counter()
+    build_dir = str(kernels.library_path().parent)
+    files_before = sorted(os.listdir(build_dir))
+    extra = ("--max-cohort", str(FLEET_MAX_COHORT), "--dispatch-workers", "1")
+    env_chaos = os.environ.pop(chaos.CHAOS_ENV, None)
+    if env_chaos is not None:
+        raise AssertionError(f"{chaos.CHAOS_ENV} is set in the smoke's environment")
+    specs = fleet_specs(cli)
+
+    # 1. one replica: the baseline rows and the one-replica goodput
+    one = FleetSupervisor(n=1, base_dir=os.path.join(tmp, "one"), k=FLEET_K,
+                          probe_interval_s=0.3, cache_dir=build_dir, device="cuda",
+                          extra_args=extra)
+    one.start()
+    try:
+        baseline = fleet_serve(one.router.host, one.router.port, specs)
+        goodput_one = fleet_goodput(cli, one.router.host, one.router.port)
+    finally:
+        one.stop()
+    boot_one = one.replicas["r0"].boot_s
+    compiles = [json.loads(line) for line in open(one.replicas["r0"].events_path)]
+    compiles = [r for r in compiles if r["type"] == "compile"]
+    shapes, restore = record_glm_shapes(kernels)
+    kernels.reset_launches()
+    try:
+        with server.serving(device="cuda", max_cohort=FLEET_MAX_COHORT, dispatch_workers=1,
+                            window_s=0.05) as srv:
+            ref = served(srv, specs, ds)
+    finally:
+        restore()
+    ref_launches = dict(kernels.LAUNCHES)
+    want_launches = {**both0, "fused_glm_grad": FLEET_ROUNDS, "fused_block_decode": LAYER_ROUNDS}
+    differ = [label for label, r in baseline["rows"].items()
+              if wire_science(r["row"]) != serve_science(ref[label].summary)]
+    if (differ or baseline["delivered"] != len(specs) or ref_launches != want_launches
+            or set(shapes) != {MAIN_SHAPE} or not compiles
+            or not all(r["cache_hit"] for r in compiles)):
+        raise AssertionError(f"one-replica fleet: rows differ {differ}, delivered "
+                             f"{baseline['delivered']}, in-process {ref_launches} at "
+                             f"{set(shapes)}, compile records {compiles[:3]}")
+    emit("fleet_one", replicas=1, requests=len(specs), rows_bitwise_in_process=True,
+         in_process_launches=ref_launches, b1_shapes=[list(s) for s in sorted(set(shapes))],
+         compile_cache_hits=len(compiles), boot_s=boot_one, goodput=goodput_one)
+
+    # 2. three replicas; the one fa routes to dies in its second dispatch
+    fa = [(t, label, cfg) for t, label, cfg in specs if t == "fa"]
+    victim = HashRing(["r0", "r1", "r2"]).lookup(
+        affinity_key("fa", serve_queue.config_payload(fa[0][2])))
+    sup_log = os.path.join(tmp, "supervisor.jsonl")
+    with events_lib.capture(sup_log):
+        sup = FleetSupervisor(n=3, base_dir=os.path.join(tmp, "three"), k=FLEET_K,
+                              probe_interval_s=0.3, cache_dir=build_dir, device="cuda",
+                              chaos={victim: "kill:fleet_replica:2"}, extra_args=extra)
+        sup.start()
+        try:
+            boots = {name: rep.boot_s for name, rep in sup.replicas.items()}
+            survivors = sorted(set(sup.replicas) - {victim})
+            adopter = HashRing(survivors).lookup(victim)
+            vrep = sup.replicas[victim]
+            marks = {}
+
+            def watch():
+                while "adopted" not in marks and time.monotonic() < deadline:
+                    if "death" not in marks and vrep.proc.poll() is not None:
+                        marks["death"] = time.monotonic()
+                    if os.path.exists(vrep.wal_path + ".adopted"):
+                        marks["adopted"] = time.monotonic()
+                    time.sleep(0.005)
+
+            deadline = time.monotonic() + 600
+            watcher = threading.Thread(target=watch, daemon=True)
+            watcher.start()
+            # one client for fa throughout: the adopter replays the dead
+            # WAL's first (finished) acceptance too, under its request_id,
+            # which the client has delivered already
+            fa_clients = fleet_clients(sup.router.host, sup.router.port, ["fa"])
+            try:
+                first = fleet_serve(sup.router.host, sup.router.port, fa[:1], grace_s=0,
+                                    clients=fa_clients)
+                rest = fleet_serve(sup.router.host, sup.router.port, fa[1:], grace_s=3.0,
+                                   clients=fa_clients)
+            finally:
+                fa_clients[0]["fa"].close()
+            watcher.join(timeout=60)
+            rows = {**first["rows"], **rest["rows"]}
+            if "adopted" not in marks:
+                raise AssertionError(f"no adoption of {victim}'s WAL: {marks}")
+            differ = [label for label, r in rows.items()
+                      if wire_science(r["row"]) != wire_science(baseline["rows"][label]["row"])]
+            victim_rc = vrep.proc.poll()
+            if (differ or victim_rc != chaos.KILL_EXIT or victim not in sup._dead_handled
+                    or first["delivered"] + rest["delivered"] != len(fa)
+                    or "adopted" not in marks):
+                raise AssertionError(f"kill: victim {victim} exit {victim_rc}, rows differ "
+                                     f"{differ}, delivered {first['delivered']} + "
+                                     f"{rest['delivered']}, marks {marks}")
+
+            # 3. rolling deploy under closed-loop load through the router:
+            # batches of closed-loop requests until the deploy is done, then
+            # until the load holds twice the rows finished in its window
+            payload = serve_queue.config_payload(fa[0][2])
+            deploy: dict = {}
+            deployed = threading.Event()
+
+            def do_deploy():
+                time.sleep(1.0)  # the load is going first
+                try:
+                    deploy.update(sup.rolling_deploy())
+                finally:
+                    deployed.set()
+
+            batches, window_rows = [], None
+            t0 = time.perf_counter()
+            deployer = threading.Thread(target=do_deploy)
+            deployer.start()
+            while window_rows is None or sum(
+                    led["rows"] for o in batches for led in o["tenants"].values()) < 2 * window_rows:
+                b = len(batches)
+                if b >= FLEET_LOAD_MAX_BATCHES:
+                    raise AssertionError(f"deploy load: {b} batches, window rows {window_rows}")
+                # the same tenants in every batch: a restarted replica's WAL
+                # replay republishes earlier batches' rows to their streams,
+                # which a batch's ledger skips (not its request ids)
+                jobs = {t: [(f"{t}{b}_{k}", {**payload, "seed": 1000 + 4096 * b + 64 * i + k})
+                            for k in range(FLEET_LOAD_JOBS)]
+                        for i, t in enumerate(FLEET_LOAD_TENANTS)}
+                batches.append(loadgen.run_fleet(
+                    sup.router.host, sup.router.port, jobs, concurrency=FLEET_LOAD_DEPTH,
+                    max_retries=16, timeout=120))
+                if window_rows is None and deployed.is_set():
+                    window_rows = sum(led["rows"] for o in batches
+                                      for led in o["tenants"].values())
+            load_wall = time.perf_counter() - t0
+            deployer.join(timeout=600)
+            ledgers = [led for o in batches for led in o["tenants"].values()]
+            statuses = {r["status"] for led in ledgers for r in led["rows_by_label"].values()}
+            load = {k: sum(o[k] for o in batches) for k in ("lost", "duplicates")}
+            load["rejected_429s"] = sum(led["rejected_429s"] for led in ledgers)
+            lat = [x for led in ledgers for x in led["latencies_s"]]
+            load["latency_p50_s"] = loadgen.percentile(lat, 50)
+            load["latency_p99_s"] = loadgen.percentile(lat, 99)
+            short = [{k: led.get(k) for k in ("tenant", "accepted", "rows", "lost",
+                                              "rejected_final", "client_error")}
+                     for led in ledgers if led["rows"] != FLEET_LOAD_JOBS]
+            if (deployer.is_alive() or load["lost"] or load["duplicates"] or statuses != {"ok"}
+                    or sorted(deploy) != survivors or short
+                    or len(ledgers) != len(batches) * len(FLEET_LOAD_TENANTS)):
+                raise AssertionError(f"rolling deploy: {deploy}, lost {load['lost']}, dups "
+                                     f"{load['duplicates']}, statuses {statuses}, short {short}")
+            rebooted = {name: sup.replicas[name].boot_s for name in survivors}
+
+            # 4. the same sets through the two survivors, after a warm-up set
+            fleet_serve(sup.router.host, sup.router.port, fleet_specs(cli, shift=300),
+                        grace_s=0)
+            goodput_two = fleet_goodput(cli, sup.router.host, sup.router.port)
+        finally:
+            sup.stop()
+    recs = [json.loads(line) for line in open(sup_log)]
+    deaths = [r for r in recs if r["type"] == "fleet" and r["action"] == "declare_dead"]
+    phases = {(r["replica"], r.get("phase")) for r in recs
+              if r["type"] == "fleet" and r["action"] == "deploy_phase"}
+    adopts = {name: [r for r in map(json.loads, open(sup.replicas[name].events_path))
+                     if r["type"] == "fleet" and r["action"] == "adopt"]
+              for name in survivors}
+    logs = [sup_log] + [rep.events_path for rep in sup.replicas.values()] + [
+        one.replicas["r0"].events_path]
+    invalid = {p: events_lib.validate_file(p)[:3] for p in logs if events_lib.validate_file(p)}
+    files_after = sorted(os.listdir(build_dir))
+    if (invalid or [r["replica"] for r in deaths] != [victim]
+            or deaths[0]["streak"] < FLEET_K or [len(adopts[n]) for n in survivors]
+            != [int(n == adopter) for n in survivors]
+            or adopts[adopter][0]["records"] < 1
+            or any((n, p) not in phases for n in survivors for p in ("drain", "stop", "ready"))
+            or files_after != files_before):
+        raise AssertionError(f"fleet records: invalid {invalid}, deaths {deaths}, adopter "
+                             f"{adopter} adopts {adopts}, deploy phases {sorted(phases)}, "
+                             f"build dir {files_before} -> {files_after}")
+    emit("fleet_kill", replicas=3, victim=victim, victim_exit=victim_rc, adopter=adopter,
+         declare_dead_streak=deaths[0]["streak"], k=FLEET_K,
+         adopted_records=adopts[adopter][0]["records"], rows_bitwise_one_replica=True,
+         delivered=first["delivered"] + rest["delivered"],
+         raw_result_lines=first["raw_lines"] + rest["raw_lines"],
+         death_to_adoption_s=marks["adopted"] - marks["death"], boot_s=boots)
+    load_labels = {label for led in ledgers for label in led["rows_by_label"]}
+    slowest = slowest_served({n: sup.replicas[n].events_path for n in survivors}, load_labels)
+    deploy_t = {f"{r['replica']}_{r['phase']}": r["t"] for r in recs
+                if r["type"] == "fleet" and r["action"] == "deploy_phase"}
+    emit("fleet_deploy", survivors=survivors, deploy=deploy, load_wall_s=load_wall,
+         requests=sum(led["rows"] for led in ledgers), window_rows=window_rows,
+         batches=len(batches), lost=load["lost"],
+         duplicates=load["duplicates"], rejected_429s=load["rejected_429s"],
+         ttfr_p50_s=load["latency_p50_s"], ttfr_p99_s=load["latency_p99_s"],
+         boot_s_after_bounce=rebooted, slowest=slowest, deploy_phase_t=deploy_t)
+    goodput = {"one_replica": goodput_one, "two_survivors": goodput_two}
+    seconds = time.perf_counter() - t_phase
+    emit("fleet", seconds=seconds, goodput=goodput, build_files=files_after,
+         build_files_unchanged=True, logs_valid=len(logs), card=card_line(),
+         # the rows' real_steps_per_sec are shared-device figures: every
+         # replica's loop runs on the one card, time-sliced with its peers
+         note="row real_steps_per_sec is per replica on a shared card")
+    return dict(seconds=seconds, goodput=goodput, boot_s={"one": boot_one, **boots},
+                death_to_adoption_s=marks["adopted"] - marks["death"],
+                deploy_load_wall_s=load_wall, launches_by_run={"fleet_in_process": ref_launches})
+
+
+# the native phase: the text loader's cold parse at a reference shape
+NATIVE_ROWS, NATIVE_COLS = 13500, 100
+
+
+def native_phase(tmp) -> dict:
+    """The native text parser (data/native) on the card's host: a 13,500 x
+    100 dense text matrix written with np.savetxt (``%.18g``) parsed
+    natively and with np.loadtxt, bitwise equal, both timed; then a cold
+    ``data/io.load_dense_text`` of it takes the native path (its counter
+    rises, the fallback's does not)."""
+    from erasurehead_tpu_torch.data import io as data_io
+    from erasurehead_tpu_torch.data import native
+
+    t_phase = time.perf_counter()
+    m = np.random.default_rng(0).standard_normal((NATIVE_ROWS, NATIVE_COLS))
+    path = os.path.join(tmp, "native.dat")
+    t0 = time.perf_counter()
+    data_io.save_dense_text(path, m)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    build_s = time.perf_counter() - t0
+    if lib is None:
+        raise AssertionError("the native parser did not build (g++)")
+    native.reset_counts()
+    t0 = time.perf_counter()
+    got = native.load_dense_text_native(path)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = np.loadtxt(path, dtype=np.float64)
+    loadtxt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got2 = native.load_dense_text_native(path)
+    native_s2 = time.perf_counter() - t0
+    before = dict(native.COUNTS)
+    cold = data_io.load_dense_text(path)
+    after = dict(native.COUNTS)
+    bitwise = (got is not None and got.shape == want.shape == m.shape
+               and got.tobytes() == want.tobytes() == got2.tobytes() == m.tobytes()
+               and np.asarray(cold).tobytes() == want.tobytes())
+    if (not bitwise or after["native"] != before["native"] + 1
+            or after["fallback"] != before["fallback"]):
+        raise AssertionError(f"native parse: bitwise {bitwise}, counts {before} -> {after}")
+    seconds = time.perf_counter() - t_phase
+    rec = dict(shape=[NATIVE_ROWS, NATIVE_COLS], bytes=os.path.getsize(path),
+               native_s=[native_s, native_s2], loadtxt_s=loadtxt_s,
+               loadtxt_over_native=loadtxt_s / min(native_s, native_s2), build_s=build_s,
+               write_s=write_s, bitwise_loadtxt=True, counts=after, seconds=seconds)
+    emit("native", **rec)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -4298,6 +4787,14 @@ def main() -> int:
         served_rec = serve_phase(cli, kernels, tmp, both0, cohort_ds)
     sweep_launches.update(served_rec["launches_by_run"])
 
+    # the serve fleet: replica processes on the card behind the router
+    # (baseline, kill and adoption, rolling deploy under load, goodput);
+    # then the native text parser's cold load
+    with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-fleet-") as tmp:
+        fleet_rec = fleet_phase(cli, kernels, tmp, both0, cohort_ds)
+        native_rec = native_phase(tmp)
+    sweep_launches.update(fleet_rec["launches_by_run"])
+
     # the sparse and compressed stacks: no kernel takes them
     t_sparse = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-sparse-") as tmp:
@@ -4518,6 +5015,13 @@ def main() -> int:
             "packed_aggregate_steps_per_sec", "sequential_aggregate_steps_per_sec",
             "cohort_loop_steps_per_sec", "sequential_loop_steps_per_sec",
             "est_over_peak", "ttfr_p50_s", "ttfr_p99_s", "seconds")},
+        # the serve fleet: the same request set's aggregate steps/s and
+        # rows/s through one replica and through the two survivors (shared
+        # card), boot seconds, death to adoption; the native parser's
+        # cold parse against np.loadtxt's
+        "fleet": {k: fleet_rec[k] for k in (
+            "goodput", "boot_s", "death_to_adoption_s", "deploy_load_wall_s", "seconds")},
+        "native": {k: native_rec[k] for k in ("native_s", "loadtxt_s", "loadtxt_over_native")},
     }, {
         "name": "fused_block_decode",
         "route": "cuda",

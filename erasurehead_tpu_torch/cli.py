@@ -916,6 +916,19 @@ def main(argv: list[str] | None = None) -> int:
         from erasurehead_tpu_torch.serve import server as serve_server
 
         return serve_server.main(argv[1:])
+    if argv and argv[0] == "fleet":
+        # N serve replicas behind the consistent-hash router
+        # (serve/fleet.main): evidential membership over /healthz, WAL
+        # adoption on a declared death, rolling deploys
+        from erasurehead_tpu_torch.serve import fleet as fleet_lib
+
+        return fleet_lib.main(argv[1:])
+    if argv and argv[0] == "lint":
+        # the AST lint of the port's contracts (analysis/runner.main);
+        # exit 0 = no unsuppressed findings
+        from erasurehead_tpu_torch.analysis import runner as lint_lib
+
+        return lint_lib.main(argv[1:])
     if _is_legacy(argv):
         cfg = _legacy_to_config(argv[:13])
         opts = _legacy_options_parser().parse_args(argv[13:])

@@ -33,13 +33,19 @@ def save_dense_text(path: str, m: np.ndarray, fmt: str = "%.18g") -> None:
 def load_dense_text(path: str) -> np.ndarray:
     """Dense text matrix with a .npy cache sidecar.
 
-    A cold load parses the text with np.loadtxt (float64) and writes
-    ``<path>.npy``; a warm load (the cache is not older than the text)
-    memory-maps the cache read-only."""
+    A cold load parses the text with the native from_chars parser
+    (data/native) where g++ is available, np.loadtxt (float64) otherwise or
+    where the native parse fails (both give bitwise the same array), and
+    writes ``<path>.npy``; a warm load (the cache is not older than the
+    text) memory-maps the cache read-only."""
     cache = path + ".npy"
     if os.path.exists(cache) and os.path.getmtime(cache) >= os.path.getmtime(path):
         return np.load(cache, mmap_mode="r")
-    m = np.loadtxt(path, dtype=np.float64)
+    from erasurehead_tpu_torch.data import native
+
+    m = native.load_dense_text_native(path)
+    if m is None:
+        m = np.loadtxt(path, dtype=np.float64)
     try:
         np.save(cache, m)
     except OSError:

@@ -46,6 +46,7 @@ call together. A build failure raises; there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -162,13 +163,29 @@ def _build() -> Path:
 
     One ``nvcc -c`` per source, all started together, then one link. Writes
     ``<name>.so`` and the compilers' reports (``-Xptxas -v``: registers,
-    shared memory, spills) as ``<name>.log`` beside it. Raises on failure.
-    Counts a build in :data:`BUILDS` (callers hold :data:`_LIB_LOCK`)."""
-    global BUILDS
+    shared memory, spills) as ``<name>.log`` beside it, each by a temporary
+    name and ``os.replace``. Raises on failure. Counts a build in
+    :data:`BUILDS` (callers hold :data:`_LIB_LOCK`). Processes that share a
+    build directory (a serve fleet's replicas) take an exclusive ``flock``
+    on the directory itself around the check and the build, so one of them
+    builds, the others find its library, and no lock file is left behind."""
     so = library_path()
     if so.exists():
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd = os.open(_BUILD_DIR, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        if so.exists():
+            return so
+        return _compile(so)
+    finally:
+        os.close(fd)  # closing the descriptor releases the lock
+
+
+def _compile(so: Path) -> Path:
+    """The build itself, under the lock :func:`_build` holds."""
+    global BUILDS
     tag = f"{so.stem}.{os.getpid()}"
     nvcc = _nvcc()
     objs = [_BUILD_DIR / f"{tag}.{src.stem}.o" for src in _SOURCES]
@@ -192,7 +209,9 @@ def _build() -> Path:
             failed = [link]
     for o in objs:
         o.unlink(missing_ok=True)
-    so.with_suffix(".log").write_text(log)
+    log_tmp = _BUILD_DIR / f"{tag}.tmp.log"
+    log_tmp.write_text(log)
+    os.replace(log_tmp, so.with_suffix(".log"))
     if failed:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed: {' '.join(failed[0])}\n{log[-4000:]}")

@@ -1,7 +1,6 @@
 """Sweep-as-a-service: multi-tenant cohort packing with admission control.
 
-The port of erasurehead_tpu/serve/ (the single daemon; the fleet's router
-and supervisor come with ROADMAP queue A, A13). The serve daemon generalizes
+The port of erasurehead_tpu/serve/. The serve daemon generalizes
 the cohort engine's batch dimension from "one user's sweep"
 (train/trainer.train_cohort) to "many concurrent clients": compatible
 requests from different tenants bin-pack into shared dispatches on the
@@ -21,6 +20,8 @@ rehydrated bitwise.
     serve/http_front.py  HTTP/1.1 JSONL front: auth, streaming, 429s
     serve/client.py      socket + HTTP clients for ``cli serve``
     serve/loadgen.py     closed-loop load generator
+    serve/router.py      the fleet's consistent-hash router
+    serve/fleet.py       the fleet supervisor: N replicas, adoption, deploys
 """
 
 from erasurehead_tpu_torch.serve.client import (  # noqa: F401

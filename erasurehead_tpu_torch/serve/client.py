@@ -425,6 +425,11 @@ class HttpServeClient:
         self._live_readers = len(self.endpoints)
         self._reader_lock = threading.Lock()
         self._stream_resps: list = [None] * len(self.endpoints)
+        #: set once an endpoint's stream has answered (or failed): the
+        #: constructor waits for them, so no row of a request submitted
+        #: after it returns can be published before its stream listens
+        #: (the JAX client returns at once)
+        self._answered = [threading.Event() for _ in self.endpoints]
         self._readers = []
         for i, (h, p) in enumerate(self.endpoints):
             t = threading.Thread(
@@ -433,6 +438,9 @@ class HttpServeClient:
             )
             t.start()
             self._readers.append(t)
+        deadline = time.monotonic() + min(self.timeout, 10.0)
+        for ev in self._answered:
+            ev.wait(max(0.0, deadline - time.monotonic()))
 
     @property
     def endpoint(self) -> str:
@@ -606,6 +614,7 @@ class HttpServeClient:
             conn.request("GET", path, headers=self._headers())
             resp = conn.getresponse()
             self._stream_resps[idx] = conn
+            self._answered[idx].set()
             if resp.status != 200:
                 return
             while not self._stop:
@@ -628,6 +637,7 @@ class HttpServeClient:
         except Exception:  # noqa: BLE001 — reader thread must not crash
             return
         finally:
+            self._answered[idx].set()
             with self._reader_lock:
                 self._live_readers -= 1
                 if self._live_readers <= 0:

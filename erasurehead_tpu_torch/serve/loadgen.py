@@ -110,13 +110,17 @@ def run_tenant(
             continue
         now = time.monotonic()
         rid = res["request_id"]
+        if rid not in submit_t:
+            # not this run's: a restarted replica's WAL replay republishes
+            # the tenant's earlier rows to its stream (the JAX ledger
+            # counts them as its own and closes early)
+            continue
         if rid in results:
             duplicates += 1
             continue
         results[rid] = res
         outstanding -= 1
-        if rid in submit_t:
-            latencies.append(now - submit_t[rid])
+        latencies.append(now - submit_t[rid])
         if first_row_t is None:
             first_row_t = now
         last_row_t = now

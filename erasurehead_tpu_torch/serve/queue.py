@@ -27,6 +27,7 @@ import hashlib
 import itertools
 import json
 import queue as queue_lib
+import secrets
 import threading
 from typing import Any, Optional
 
@@ -37,13 +38,19 @@ from erasurehead_tpu_torch.utils.config import RunConfig
 
 _request_ids = itertools.count(1)
 _id_lock = threading.Lock()
+#: this process's share of every request id it makes: a fleet's replicas
+#: (and a replica restarted by a deploy) each count from 1, and a client
+#: holding streams from several of them dedups rows by request id
+_PROCESS_TOKEN = secrets.token_hex(4)
 
 
 def new_request_id(tenant: str) -> str:
-    """Process-unique request id, tenant-prefixed for readable logs."""
+    """Request id unique across processes, tenant-prefixed for readable
+    logs (the JAX package's is unique within one process only, so two
+    replicas of a fleet can hand one tenant the same id)."""
     with _id_lock:
         n = next(_request_ids)
-    return f"{tenant}-req-{n:04d}"
+    return f"{tenant}-req-{_PROCESS_TOKEN}-{n:04d}"
 
 
 @dataclasses.dataclass

@@ -1033,9 +1033,8 @@ class SweepServer:
         t_start = time.monotonic()
         try:
             # crash site: one FLEET REPLICA dies mid-dispatch — a peer
-            # must adopt its WAL and replay the accepted working set (the
-            # fleet's site: refused at parse time until the fleet is
-            # ported, so it never fires here yet)
+            # must adopt its WAL and replay the accepted working set
+            # (serve/fleet.py arms it on one replica's process)
             chaos.maybe_fire("fleet_replica")
             # crash site: accepted + WAL'd, rows not yet journaled — the
             # warm-restart working set a kill here leaves behind

@@ -26,9 +26,11 @@ decision cache as it was), and the serve daemon's ``serve_intake`` (in
 SweepServer.submit, after the acceptance is in the intake WAL and before
 it is queued), ``serve_dispatch`` (at the head of a cohort dispatch, on a
 dispatch thread) and ``serve_reply`` (after a row is journaled, before its
-reply is delivered). ``fleet_replica``, the fleet's site, is refused at
-parse time, naming the ROADMAP queue A item that brings it: a spec that
-parses is never silently ignored.
+reply is delivered) and ``fleet_replica`` (the fleet's site, at the head
+of a replica's cohort dispatch, before ``serve_dispatch``: serve/fleet.py
+arms it on one replica, whose WAL a peer then adopts). Every site of the
+JAX package is wired (:data:`UNWIRED_SITES` is empty): a spec that parses
+is never silently ignored.
 
 Membership sites (:data:`MEMBERSHIP_SITES`, read by the elastic membership
 driver, elastic/driver.py) take a worker id in the mode field,
@@ -77,6 +79,7 @@ WIRED_SITES = (
     "trajectory", "cohort", "checkpoint", "adapt", "elastic",
     "worker_death", "worker_revive",
     "serve_intake", "serve_dispatch", "serve_reply",
+    "fleet_replica",
     "prefetch", "tune_race",
 )
 
@@ -87,9 +90,8 @@ WIRED_SITES = (
 MEMBERSHIP_SITES = ("worker_death", "worker_revive")
 
 #: an unwired site -> the ROADMAP queue A item whose module brings it
-UNWIRED_SITES = {
-    "fleet_replica": "A13, the serve/ fleet",
-}
+#: (empty: every site is wired)
+UNWIRED_SITES: dict = {}
 
 
 class ChaosInjection(RuntimeError):

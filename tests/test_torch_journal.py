@@ -401,17 +401,22 @@ def test_bad_chaos_specs_refused_as_jax(spec):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("site", sorted(t_chaos.UNWIRED_SITES))
-def test_unwired_sites_refused(site):
-    """A spec JAX accepts at a site the port does not instrument is refused,
-    naming the ROADMAP step that brings it: never silently ignored."""
+@pytest.mark.parametrize("site", ["fleet_replica"])
+def test_unwired_sites_refused(monkeypatch, site):
+    """Every site JAX accepts is wired now: the last one the port lacked
+    (the fleet's) parses as JAX parses it and ``UNWIRED_SITES`` is empty.
+    The refusal itself still holds for a site listed there: a spec JAX
+    accepts at a site the port does not instrument is refused, naming the
+    ROADMAP step that brings it, never silently ignored."""
     spec = f"3:{site}:2" if site in j_chaos.MEMBERSHIP_SITES else f"raise:{site}:2"
-    j_chaos.parse_spec(spec)
+    want = j_chaos.parse_spec(spec)
+    assert t_chaos.UNWIRED_SITES == {}
+    assert dataclasses.asdict(t_chaos.parse_spec(spec)) == dataclasses.asdict(want)
+    assert set(t_chaos.SITES) == set(j_chaos.SITES) == set(t_chaos.WIRED_SITES)
+    monkeypatch.setitem(t_chaos.UNWIRED_SITES, site, "A13, the serve/ fleet")
     with pytest.raises(ValueError, match="ROADMAP") as ei:
         t_chaos.parse_spec(spec)
     assert site in str(ei.value) and t_chaos.UNWIRED_SITES[site] in str(ei.value)
-    assert set(t_chaos.SITES) == set(j_chaos.SITES)
-    assert set(t_chaos.WIRED_SITES) | set(t_chaos.UNWIRED_SITES) == set(t_chaos.SITES)
 
 
 @pytest.mark.parametrize("spec", ["raise:trajectory:2:BOOM", "raise:checkpoint:2+"])

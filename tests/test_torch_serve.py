@@ -1146,7 +1146,7 @@ def test_serve_chaos_sites_are_wired(gmm, monkeypatch, site):
     raise at intake fails the submit, at dispatch and reply the cohort's
     requests."""
     assert site in chaos.WIRED_SITES and site not in chaos.UNWIRED_SITES
-    assert "fleet_replica" in chaos.UNWIRED_SITES
+    assert not chaos.UNWIRED_SITES and "fleet_replica" in chaos.WIRED_SITES
     _arm(monkeypatch, f"raise:{site}:1:BOOM")
     with _serving(window_s=0.01) as srv:
         if site == "serve_intake":

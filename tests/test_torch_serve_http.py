@@ -472,6 +472,52 @@ def test_run_fleet_ledger_no_loss_no_duplicates():
     assert out["rejected_429s"] > 0 and out["latency_p50_s"] is not None
 
 
+class _ReplayingClient:
+    """A stand-in HttpServeClient whose tenant stream first carries a row
+    of an earlier run (what a restarted replica's WAL replay republishes),
+    then each submitted request's row."""
+
+    def __init__(self, host, port, tenant, token=None):
+        import queue as queue_lib
+
+        self.tenant, self.n = tenant, 0
+        self.rejected_total = self.retried_total = self.overflow_dropped = 0
+        self.lines = queue_lib.Queue()
+        self.lines.put({"request_id": "earlier-run-0", "label": "old0", "status": "ok",
+                        "row": {}})
+
+    def submit(self, label, cfg, max_retries=8, priority=0):
+        rid = f"{self.tenant}-{self.n}"
+        self.n += 1
+        self.lines.put({"request_id": rid, "label": label, "status": "ok", "row": {}})
+        return rid
+
+    def result(self, timeout=None):
+        return self.lines.get(timeout=timeout)
+
+    def close(self):
+        pass
+
+
+def test_run_tenant_skips_rows_it_did_not_submit(monkeypatch):
+    """A row of a request id the run never submitted is not the run's: it
+    neither counts as a row nor closes the closed loop early, so every
+    accepted request still lands (the JAX ledger counts it as one of its
+    rows and closes before the last request's row)."""
+    import erasurehead_tpu.serve.loadgen as j_loadgen
+
+    jobs = _jobs("a", 3)
+    monkeypatch.setattr(loadgen, "HttpServeClient", _ReplayingClient)
+    led = loadgen.run_tenant("127.0.0.1", 0, "a", jobs, concurrency=1, timeout=5)
+    assert (led["accepted"], led["rows"], led["lost"], led["duplicates"]) == (3, 3, 0, 0)
+    assert sorted(led["rows_by_label"]) == [label for label, _ in jobs]
+    assert len(led["latencies_s"]) == 3
+    monkeypatch.setattr(j_loadgen, "HttpServeClient", _ReplayingClient)
+    j_led = j_loadgen.run_tenant("127.0.0.1", 0, "a", jobs, concurrency=1, timeout=5)
+    assert (j_led["accepted"], j_led["rows"]) == (3, 3)
+    assert sorted(j_led["rows_by_label"]) == ["a0", "a1", "old0"]
+
+
 def test_restart_run_rehydrates_bitwise_with_no_new_build(tmp_path):
     jdir, cdir = str(tmp_path / "j"), str(tmp_path / "build")
 
