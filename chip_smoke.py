@@ -282,8 +282,8 @@ Phases, one JSON line each:
                  layer_coding races at 8 rounds, then its 100-round run with
                  both knobs auto: 100 B2 if layer_coding resolved blockwise,
                  none if treewise, bitwise the forced run of the resolved
-                 pair; ``cli tune --race all`` (ring_pipeline and stack_mode
-                 SKIPPED, nothing recorded); ERASUREHEAD_CHAOS=kill:tune_race:1
+                 pair; ``cli tune --race all`` (all five races recorded, the
+                 ring races at one process's one-hop ring); ERASUREHEAD_CHAOS=kill:tune_race:1
                  on a ``cli tune`` subprocess exits 43 with the cache's bytes
                  unchanged, and the rerun records the race's key; the warm
                  lookup's microseconds; every tune record validates;
@@ -320,7 +320,7 @@ Phases, one JSON line each:
                  the pipelined, cohort and streamed runs plain and under a
                  capture and a trace (bitwise, equal launches); the
                  registry's Prometheus text; the steps/s of the main runs,
-                 of 120 off/on pairs of train() and 30 traced runs, and the
+                 of 60 off/on pairs of train() and 15 traced runs, and the
                  records' host cost after the loop.
   39. serve    - (after telemetry) the serve daemon (serve/) at the flagship
                  data on two dispatch threads: four tenants' eight GLM
@@ -351,6 +351,21 @@ Phases, one JSON line each:
   41. native   - the native text parser on a 13,500 x 100 text matrix:
                  bitwise np.loadtxt, both timed, a cold load_dense_text on
                  the native path.
+  42. mesh     - (after native) the worker axis across processes
+                 (parallel/mesh.py, parallel/backend.py): a world-1 NCCL
+                 group in this process from a FileStore runs the main path
+                 materialized, ring with --ring-pipeline off and on, and the
+                 deep path, each bitwise the same run with no group (100 B1,
+                 or 100 B2), with peak device bytes and steps/s; then two
+                 processes of this script (``--mesh-child``) on the one card
+                 under gloo (NCCL refuses two ranks on one GPU): B1 at a
+                 rank's [45, 4400, 128] against its plain version, the main
+                 path materialized and ring off/on (100 B1 a rank, bitwise
+                 each other and across the ranks, the replayed loss within
+                 relative 1e-4 of world 1's), train_dynamic and the measured
+                 cluster over 20 rounds. World 2's steps/s are two processes
+                 time-slicing one card, not a multi-GPU speed. B1 is timed at
+                 [45, 4400, 128] beside its bound (``time_mesh``).
 Later, beside ``time`` and ``profile``: the attention run's per-slot leaves
 through ``decode_ops``, its round's decode (one launch, six leaves of
 [90, 913] floats) against its plain version, six GEMVs and the bound, and
@@ -3025,8 +3040,9 @@ def tune_phase(cli, kernels, tmp, both0) -> dict:
     its 100-round run with both knobs "auto": B2 once a round if
     layer_coding resolved blockwise (either decode lowering launches it),
     none if treewise, bitwise the forced run of the resolved pair.
-    ``cli tune --race all``: ring_pipeline and stack_mode print SKIPPED and
-    record nothing. A chaos kill at tune_race (a subprocess of ``cli
+    ``cli tune --race all``: all five races run and record a verdict (the
+    ring races race the one-hop ring, a local gather, in one process). A
+    chaos kill at tune_race (a subprocess of ``cli
     tune``) exits 43 with the cache's bytes unchanged; the rerun records
     the key the race keys. The warm lookup's cost in microseconds. Every
     tune record validates."""
@@ -3115,7 +3131,7 @@ def tune_phase(cli, kernels, tmp, both0) -> dict:
                   forced_args=forced_args[len(DEEP_AUTO_ARGS):],
                   auto_bitwise_forced=same, cached_records=deep_cached,
                   auto_steps_per_sec=auto["manifest"]["steps_per_sec"]),
-        race_all_skipped=[ln for ln in race_all.splitlines() if "SKIPPED" in ln],
+        race_all_lines=[ln for ln in race_all.splitlines() if "choice=" in ln],
         race_all_recorded=sorted(raced_kinds),
         kill=dict(exit_code=killed.returncode, cache_bytes_unchanged=after_kill == before,
                   rerun_exit_code=rerun.returncode, rerun_key=rerun_key,
@@ -3130,8 +3146,7 @@ def tune_phase(cli, kernels, tmp, both0) -> dict:
     if deep_cached != sorted((n, r["choice"]) for n, r in deep_races.items()
                              if n == "layer_coding" or blockwise):
         raise AssertionError(f"deep auto run resolved {deep_cached}, raced {deep_races}")
-    if not all(s in race_all for s in ("ring_pipeline: SKIPPED", "stack_mode: SKIPPED")) \
-            or raced_kinds & {"ring_pipeline", "stack_mode"}:
+    if "SKIPPED" in race_all or not {"ring_pipeline", "stack_mode"} <= raced_kinds:
         raise AssertionError(f"race all: {race_all!r}, recorded {raced_kinds}")
     if killed.returncode != chaos_lib.KILL_EXIT or after_kill != before:
         raise AssertionError(f"kill drill: exit {killed.returncode}, cache changed "
@@ -3300,7 +3315,7 @@ TELEMETRY_SHORT = 30  # the cohort's and the audit's rounds
 TELEMETRY_STREAM_ROUNDS = 20  # the windowed run: 5 windows of 4 rounds
 # steps/s of train() at the main path, telemetry off against on in
 # alternating pairs (the order flips each pair), then traced runs
-TELEMETRY_PAIRS, TELEMETRY_TRACED = 120, 30
+TELEMETRY_PAIRS, TELEMETRY_TRACED = 60, 15
 ONE_EACH = ("run_start", "data_upload", "compile", "rounds", "decode", "run_end",
             "critical_path", "eval", "metrics")
 
@@ -3369,7 +3384,7 @@ def telemetry_phase(cli, kernels, experiments, tmp, both0) -> dict:
     under a capture and a trace: bitwise, the same launches. The registry's
     Prometheus text parses and holds the data-cache counters. Steps/s of
     the main runs, of train() at the main path with telemetry off and on in
-    120 alternating pairs and of 30 traced runs, and the records' cost after
+    60 alternating pairs and of 15 traced runs, and the records' cost after
     the loop, with nothing asserted about speed."""
     import re
 
@@ -4076,7 +4091,7 @@ FLEET_LOAD_MAX_BATCHES = 200
 # the goodput window: this many fleet_specs sets back to back (seeds moved
 # by 100 + 10 k, below the survivors' warm-up set's 300: no row is served
 # from a journal), several seconds at either fleet size
-FLEET_GOODPUT_SETS = 12
+FLEET_GOODPUT_SETS = 8
 # the deep path as the wire carries it: ``block_decode`` is not a wire field
 # (the JAX protocol's), so the request leaves it at auto; on the card the
 # decode is B2 either way (``deep``'s treewise run launches it too)
@@ -4539,6 +4554,265 @@ def native_phase(tmp) -> dict:
     return rec
 
 
+# the mesh phase: the worker axis across processes (parallel/mesh.py,
+# parallel/backend.py). (a) a world of one process on the card under NCCL;
+# (b) two processes on the one card under gloo (NCCL refuses two ranks on
+# one GPU), each holding 15 of the 30 workers: B1 at [45, 4400, 128]
+MESH_SHAPE = (45, 4400, 128)
+MESH_VARIANTS = (  # (name, RunConfig fields): the transports of the main path
+    ("materialized", {}),
+    ("ring_off", {"stack_mode": "ring", "ring_pipeline": "off"}),
+    ("ring_on", {"stack_mode": "ring", "ring_pipeline": "on"}),
+)
+MESH_SHORT = 20  # rounds of the world-2 train_dynamic and measured-cluster runs
+DEEP_DECODE_FLOATS = sum(DEEP_LEAVES)  # a deep round's decoded gradient, 8,385 floats
+MESH_CHILD_TIMEOUT_S = 600
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def counted_library_run(kernels, fn) -> tuple:
+    """``fn()``'s result and the launches it made (counts set to 0 just
+    before, read just after a synchronise)."""
+    kernels.reset_launches()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, dict(kernels.LAUNCHES)
+
+
+def all_reduce_us(mesh, sizes=(MAIN_SHAPE[2], DEEP_DECODE_FLOATS), reps=200) -> dict:
+    """Microseconds of one ``mesh.all_reduce`` of a float32 vector on the
+    card, synchronised around ``reps`` calls after a warm-up: the GLM
+    round's [128] gradient and the deep round's 8,385 decoded floats."""
+    out = {}
+    for n in sizes:
+        t = torch.zeros(n, device="cuda")
+        for _ in range(10):
+            mesh.all_reduce(t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            mesh.all_reduce(t)
+        torch.cuda.synchronize()
+        out[str(n)] = (time.perf_counter() - t0) / reps * 1e6
+    return out
+
+
+def _history_leaves(res) -> list:
+    h = res.params_history
+    return [h[k] for k in sorted(h)] if isinstance(h, dict) else [h]
+
+
+def _bitwise_runs(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(_history_leaves(a), _history_leaves(b)))
+
+
+def mesh_child(out_dir: str) -> int:
+    """One rank of the world-2 group (``python3 chip_smoke.py --mesh-child
+    DIR``, torchrun's environment from the parent): gloo on the card, B1 at
+    the rank's [45, 4400, 128] against its plain version, the main path
+    materialized and ring-transported (off and on), then train_dynamic and
+    the measured cluster at MESH_SHORT rounds; histories and counts into
+    ``DIR/rank<r>.npz`` and ``.json``."""
+    import torch.distributed as dist
+
+    cli, kernels = import_port()
+    from erasurehead_tpu_torch.parallel import backend, mesh as mesh_lib
+    from erasurehead_tpu_torch.train import trainer
+
+    backend.initialize_distributed(device="cuda", backend="gloo")
+    rank = dist.get_rank()
+    mesh = mesh_lib.worker_mesh()
+    kernels.load_library()  # built by the parent in this checkout: no nvcc here
+    rec = {"rank": rank, "world": mesh.world, "backend": mesh.backend,
+           "device": str(mesh.device), "kind": torch.cuda.get_device_name(0)}
+    rec["check"] = check_glm(kernels, MESH_SHAPE, torch.float32, "logistic", 2, seed=60 + rank)
+    cfg = parse_config(cli, MAIN_ARGS)
+    ds = cli.load_dataset(cfg)
+    hist = {}
+    for name, kw in MESH_VARIANTS:
+        res, launches = counted_library_run(
+            kernels, lambda kw=kw: trainer.train(dataclasses.replace(cfg, **kw), ds))
+        hist[name] = res.params_history.cpu().numpy()
+        rec[name] = dict(launches=launches, steps_per_sec=res.steps_per_sec,
+                         stack_mode=res.cache_info["stack_mode"],
+                         ring_pipeline=res.cache_info["ring_pipeline"],
+                         stack_bytes=res.cache_info["stack_bytes"], lowering=res.lowering)
+    short = dataclasses.replace(cfg, rounds=MESH_SHORT)
+    res, launches = counted_library_run(kernels, lambda: trainer.train_dynamic(short, ds))
+    hist["dynamic"] = res.params_history.cpu().numpy()
+    rec["dynamic"] = dict(launches=launches, steps_per_sec=res.steps_per_sec)
+    mcfg = parse_config(cli, with_rounds(MEASURED_ARGS, MESH_SHORT))
+    res, launches = counted_library_run(kernels, lambda: trainer.train_measured(mcfg, ds))
+    hist["measured"] = res.params_history.cpu().numpy()
+    hist["measured_worker_times"] = res.worker_times
+    rec["measured"] = dict(launches=launches, steps_per_sec=res.steps_per_sec)
+    rec["all_reduce_us"] = all_reduce_us(mesh)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **hist)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    backend.shutdown()
+    return 0
+
+
+def _spawn_mesh_children(out_dir: str, n: int = 2) -> list:
+    """The world-2 group as two processes of this script (torchrun's
+    environment, both on the one card); every child is killed if one fails
+    or the time limit passes. Returns ``[(exit code, output tail)]``."""
+    env = {**os.environ, "WORLD_SIZE": str(n), "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port()), "LOCAL_RANK": "0"}
+    procs = []
+    try:
+        for r in range(n):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-child", out_dir],
+                env={**env, "RANK": str(r)}, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, cwd=HERE,
+            ))
+        deadline = time.monotonic() + MESH_CHILD_TIMEOUT_S
+        logs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0].decode()
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, log[-4000:]) for p, log in zip(procs, logs)]
+
+
+def mesh_phase(cli, kernels, ds, both0) -> dict:
+    """The worker mesh on the card.
+
+    (a) World size 1, in this process, under NCCL from a FileStore: the
+    main path at full width (materialized, ring with ring_pipeline off and
+    on) and the deep path, each bitwise the same run with no group, with
+    exact launch counts; the peak device memory (the data cache dropped
+    first, so each run builds its own stack) and steps/s of materialized
+    against ring.
+
+    (b) World size 2: two processes of this script on the one card under
+    gloo. Each rank runs B1 at its [45, 4400, 128] against the plain
+    version, and the main path materialized and ring off/on (100 B1 each a
+    rank, bitwise each other); the two ranks' params are bitwise equal and
+    their replayed loss within relative 1e-4 of (a)'s in every round; one
+    train_dynamic and one measured-cluster run. Its steps/s are two
+    processes time-slicing one card over gloo, not a multi-GPU speed."""
+    import torch.distributed as dist
+
+    from erasurehead_tpu_torch.parallel import backend, mesh as mesh_lib
+    from erasurehead_tpu_torch.train import cache as cache_lib, trainer
+
+    t_phase = time.perf_counter()
+    cfg, deep_cfg = parse_config(cli, MAIN_ARGS), parse_config(cli, DEEP_ARGS)
+    want_b1, want_b2 = {**both0, "fused_glm_grad": ROUNDS}, {**both0, "fused_block_decode": ROUNDS}
+    ref, ref_launches = counted_library_run(kernels, lambda: trainer.train(cfg, ds))
+    ref_deep, deep_launches = counted_library_run(kernels, lambda: trainer.train(deep_cfg, ds))
+    if ref_launches != want_b1 or deep_launches != want_b2:
+        raise AssertionError(f"mesh references: {ref_launches}, {deep_launches}")
+
+    with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-mesh-") as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        backend.initialize_distributed(world_size=1, rank=0, store=store, device="cuda")
+        try:
+            mesh = mesh_lib.worker_mesh()
+            if not (mesh.distributed and mesh.backend == "nccl" and mesh.world == 1):
+                raise AssertionError(f"world-1 group: {mesh}")
+            one = {}
+            for name, kw in MESH_VARIANTS:
+                cache_lib.clear()
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                res, launches = counted_library_run(
+                    kernels, lambda kw=kw: trainer.train(dataclasses.replace(cfg, **kw), ds))
+                one[name] = dict(
+                    launches=launches, bitwise_no_group=_bitwise_runs(res, ref),
+                    steps_per_sec=res.steps_per_sec, stack_mode=res.cache_info["stack_mode"],
+                    ring_pipeline=res.cache_info["ring_pipeline"],
+                    stack_bytes=res.cache_info["stack_bytes"],
+                    peak_bytes=torch.cuda.max_memory_allocated() - base,
+                    lowering=res.lowering)
+                if name == "materialized":
+                    world1 = res
+            res, launches = counted_library_run(kernels, lambda: trainer.train(deep_cfg, ds))
+            one["deep"] = dict(launches=launches, bitwise_no_group=_bitwise_runs(res, ref_deep),
+                               steps_per_sec=res.steps_per_sec)
+            nccl_us = all_reduce_us(mesh)
+        finally:
+            backend.shutdown()
+            cache_lib.clear()
+    # the no-group runs again, after the group's: steps/s in turns
+    again, again_launches = counted_library_run(kernels, lambda: trainer.train(cfg, ds))
+    again_deep, again_deep_launches = counted_library_run(
+        kernels, lambda: trainer.train(deep_cfg, ds))
+    if again_launches != want_b1 or again_deep_launches != want_b2 \
+            or not _bitwise_runs(again, ref) or not _bitwise_runs(again_deep, ref_deep):
+        raise AssertionError(f"no-group reruns: {again_launches}, {again_deep_launches}")
+    emit("mesh_world1", backend="nccl", world=1, runs=one, all_reduce_us=nccl_us,
+         no_group_steps_per_sec=[ref.steps_per_sec, again.steps_per_sec],
+         no_group_deep_steps_per_sec=[ref_deep.steps_per_sec, again_deep.steps_per_sec])
+    bad = {k: r for k, r in one.items()
+           if not r["bitwise_no_group"] or r["launches"] != (want_b2 if k == "deep" else want_b1)}
+    if bad:
+        raise AssertionError(f"world-1 group runs: {bad}")
+
+    with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-mesh2-") as out_dir:
+        t0 = time.perf_counter()
+        children = _spawn_mesh_children(out_dir)
+        children_s = time.perf_counter() - t0
+        failed = [(r, rc, log) for r, (rc, log) in enumerate(children) if rc != 0]
+        if failed:
+            raise AssertionError(f"world-2 children failed: {failed}")
+        ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in (0, 1)]
+        hists = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in (0, 1)]
+    ranks_bitwise = {k: bool(np.array_equal(hists[0][k], hists[1][k])) for k in hists[0]}
+    ring_bitwise = {name: bool(np.array_equal(h[name], h["materialized"]))
+                    for h in hists for name, _ in MESH_VARIANTS[1:]}
+    two = dataclasses.replace(world1, params_history=torch.from_numpy(
+        hists[0]["materialized"]).to(world1.params_history.device))
+    loss1, loss2 = replayed_loss(world1, ds), replayed_loss(two, ds)
+    loss_rel = float(np.max(np.abs(loss2 - loss1) / np.abs(loss1)))
+    want_ranks = {name: want_b1 for name, _ in MESH_VARIANTS}
+    want_ranks.update(dynamic={**both0, "fused_glm_grad": MESH_SHORT},
+                      measured={**both0, "fused_block_decode": MESH_SHORT})
+    launches = {f"rank{r['rank']}": {k: r[k]["launches"] for k in want_ranks} for r in ranks}
+    rec = dict(
+        backend=ranks[0]["backend"], world=ranks[0]["world"], device=ranks[0]["device"],
+        note="two processes time-slicing one card over gloo; not a multi-GPU speed",
+        check=[r["check"] for r in ranks], launches=launches,
+        ranks_bitwise=ranks_bitwise, ring_bitwise_materialized=ring_bitwise,
+        loss_max_rel_vs_world1=loss_rel,
+        steps_per_sec={f"rank{r['rank']}": {k: r[k]["steps_per_sec"] for k in want_ranks}
+                       for r in ranks},
+        world1_steps_per_sec=one["materialized"]["steps_per_sec"],
+        gloo_all_reduce_us={f"rank{r['rank']}": r["all_reduce_us"] for r in ranks},
+        stack_bytes={r_name: ranks[0][r_name]["stack_bytes"] for r_name, _ in MESH_VARIANTS},
+        children_s=children_s, seconds=time.perf_counter() - t_phase,
+    )
+    emit("mesh_world2", **rec)
+    if not all(ranks_bitwise.values()) or not all(ring_bitwise.values()) or loss_rel > 1e-4:
+        raise AssertionError(f"world-2 runs: {rec}")
+    if any(v != want_ranks for v in ({k: r[k]["launches"] for k in want_ranks}
+                                     for r in ranks)):
+        raise AssertionError(f"world-2 launches: {launches}")
+    return dict(world1=one, world2=rec, nccl_all_reduce_us=nccl_us,
+                no_group_steps_per_sec=[ref.steps_per_sec, again.steps_per_sec],
+                seconds=time.perf_counter() - t_phase,
+                launches_by_run={
+                    **{f"mesh_world1_{k}": r["launches"] for k, r in one.items()},
+                    "mesh_reference_main": ref_launches, "mesh_reference_deep": deep_launches,
+                    "mesh_rerun_main": again_launches, "mesh_rerun_deep": again_deep_launches,
+                    **{f"mesh_world2_{rk}_{k}": n for rk, by in launches.items()
+                       for k, n in by.items()}})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -4795,6 +5069,11 @@ def main() -> int:
         native_rec = native_phase(tmp)
     sweep_launches.update(fleet_rec["launches_by_run"])
 
+    # the worker mesh: a world-1 NCCL group in this process, then two
+    # processes on the one card under gloo
+    mesh_rec = mesh_phase(cli, kernels, cohort_ds, both0)
+    sweep_launches.update(mesh_rec["launches_by_run"])
+
     # the sparse and compressed stacks: no kernel takes them
     t_sparse = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-sparse-") as tmp:
@@ -4857,6 +5136,16 @@ def main() -> int:
                          stack_mb=X.numel() * X.element_size() / 1e6,
                          bound_share=bound / min(k1, k2))
     emit("time_survivors", kernel="fused_glm_grad", **survivor_time)
+    del b, X, y, w
+    # a rank's stack at world size 2, [45, 4400, 128]: half the main stack
+    b, X, y, w = make_inputs(*MESH_SHAPE, torch.float32, seed=104)
+    k1 = time_ms(lambda: kernels.fused_glm_grad(b, X, y, w, "logistic"))
+    p1 = time_ms(lambda: kernels.reference_glm_grad(b, X, y, w, "logistic"))
+    k2 = time_ms(lambda: kernels.fused_glm_grad(b, X, y, w, "logistic"))
+    bound, by = glm_bound_ms(*MESH_SHAPE, 4)
+    mesh_time = dict(shape=list(MESH_SHAPE), ms=min(k1, k2), kernel_ms=[k1, k2], plain_ms=p1,
+                     bound_ms=bound, bound_by=by, bound_share=bound / min(k1, k2))
+    emit("time_mesh", kernel="fused_glm_grad", **mesh_time)
     del b, X, y, w
     for shape in WIDE_SHAPES:  # off the main path: the wide kernel's cost
         b, X, y, w = make_inputs(*shape, torch.float32, seed=101)
@@ -4942,7 +5231,7 @@ def main() -> int:
                              **{f"checkpoint_{k}": n["fused_glm_grad"]
                                 for k, n in ckpt["launches"].items()},
                              **{k: n["fused_glm_grad"] for k, n in sweep_launches.items()}},
-        "max_abs_err": main_err,
+        "max_abs_err": max(main_err, max(c["max_abs_err"] for c in mesh_rec["world2"]["check"])),
         "ms": kernel_ms_best,
         "plain_ms": min(plain_ms, plain_ms_2),  # the two-pass torch yardstick
         "bound_ms": bound_ms,
@@ -5022,6 +5311,19 @@ def main() -> int:
         "fleet": {k: fleet_rec[k] for k in (
             "goodput", "boot_s", "death_to_adoption_s", "deploy_load_wall_s", "seconds")},
         "native": {k: native_rec[k] for k in ("native_s", "loadtxt_s", "loadtxt_over_native")},
+        # the worker mesh: a rank's stack at world size 2 (B1 there), the
+        # main path's steps/s and peak bytes at world 1 under NCCL
+        # (materialized against the one-hop ring), and world 2's steps/s:
+        # two processes time-slicing one card over gloo, not a multi-GPU speed
+        "mesh": {"world2_rank_stack": mesh_time,
+                 "world1": {k: {f: r[f] for f in ("steps_per_sec", "stack_bytes", "peak_bytes")}
+                            for k, r in mesh_rec["world1"].items() if k != "deep"},
+                 "world1_no_group_steps_per_sec": mesh_rec["no_group_steps_per_sec"],
+                 "world1_nccl_all_reduce_us": mesh_rec["nccl_all_reduce_us"],
+                 "world2_steps_per_sec": mesh_rec["world2"]["steps_per_sec"],
+                 "world2_gloo_all_reduce_us": mesh_rec["world2"]["gloo_all_reduce_us"],
+                 "world2_loss_max_rel_vs_world1": mesh_rec["world2"]["loss_max_rel_vs_world1"],
+                 "phase_s": mesh_rec["seconds"]},
     }, {
         "name": "fused_block_decode",
         "route": "cuda",
@@ -5098,4 +5400,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.exit(mesh_child(sys.argv[2]))
     sys.exit(main())

@@ -161,7 +161,11 @@ def train_adaptive(
     :class:`AdaptiveResult` whose ``result`` reads like one
     ``trainer.train`` result over the full horizon (history on the run's
     device, clocks with the -1 sentinel, the decode-error series stitched
-    from the chunks)."""
+    from the chunks). One process: a world of several raises
+    (parallel/mesh.require_one_process)."""
+    from erasurehead_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh_lib.require_one_process("adapt.train_adaptive")
     from erasurehead_tpu_torch.models.glm import params_from_numpy
     from erasurehead_tpu_torch.obs import events as obs_events
     from erasurehead_tpu_torch.train import evaluate as evaluate_lib

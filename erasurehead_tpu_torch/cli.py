@@ -99,6 +99,16 @@ saddle, where the loss stays at log 2)::
    model. The optional trailing flags are the port's: the 13 arguments carry
    no round count, device or output directory.
 
+Across processes: ``torchrun --nproc-per-node N -m erasurehead_tpu_torch.cli
+...`` runs the same command on N devices, one process each (NCCL on the
+card, gloo with ``--device cpu``; parallel/backend.initialize_distributed
+reads torchrun's environment). The W workers split over the largest group
+of processes whose size divides W; each rank trains on its slice and the
+decoded gradient is all-reduced; rank 0 alone writes the artifacts and the
+event log. ``--stack-mode ring [--ring-pipeline on|off|auto]`` keeps only
+the partition-major stack and moves the redundant slots between the ranks
+every round.
+
 Run flow: load the reference-layout dataset under ``--input-dir`` if it is
 there, else generate the synthetic one (a real dataset, any but
 ``artificial``, raises without its layout); train on the device (``cuda``
@@ -129,6 +139,8 @@ from erasurehead_tpu_torch.data import io as data_io
 from erasurehead_tpu_torch.data.synthetic import Dataset, generate_gmm, generate_linear
 from erasurehead_tpu_torch.obs import events as events_lib
 from erasurehead_tpu_torch.parallel import failures
+from erasurehead_tpu_torch.parallel import mesh as mesh_lib
+from erasurehead_tpu_torch.parallel.backend import initialize_distributed, is_writer
 from erasurehead_tpu_torch.train import artifacts, evaluate, trainer
 from erasurehead_tpu_torch.utils.config import ModelKind, RunConfig, resolve_telemetry
 from erasurehead_tpu_torch.utils.tracing import device_trace
@@ -284,6 +296,22 @@ def _flags_parser() -> argparse.ArgumentParser:
                    help="uniform per-worker speed spread in [1-s,1+s]")
     p.add_argument("--partitions-per-worker", type=int, default=0)
     p.add_argument("--compute-mode", default="faithful", choices=["faithful", "deduped"])
+    p.add_argument("--stack-mode", default="materialized",
+                   choices=["materialized", "ring", "auto"],
+                   help="faithful-mode stack transport: 'ring' keeps only "
+                        "the partition-major stack and rebuilds each rank's "
+                        "redundant slots from its ring neighbours every "
+                        "round (bitwise-identical trajectories, (s+1)x "
+                        "less device data; on one process a local gather); "
+                        "'auto' switches to ring past a footprint estimate")
+    p.add_argument("--ring-pipeline", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="ring-transport scheduling under --stack-mode ring: "
+                        "'on' posts hop t+1 before hop t's fill and waits on "
+                        "it after (same hops, same bytes, bitwise-identical "
+                        "trajectories); 'off' sends and fills hop by hop; "
+                        "'auto' = a cached ring_pipeline race verdict, else "
+                        "off")
     p.add_argument("--use-pallas", default="auto", choices=["auto", "on", "off"],
                    help="fused one-pass GLM gradient kernel "
                         "(ops/kernels.fused_glm_grad): auto/on route dense "
@@ -317,7 +345,7 @@ def _flags_parser() -> argparse.ArgumentParser:
     p.add_argument("--seq-shards", type=int, default=1,
                    help="sequence-parallel shards for the attention model: "
                         "> 1 spans the token axis over several devices, "
-                        "which the port does not run (it raises)")
+                        "which waits for ROADMAP A9b (it raises)")
     p.add_argument("--sp-form", default="ring", choices=["ring", "ulysses"],
                    help="SP form carrying the attention: ppermute ring or "
                         "all-to-all head sharding (validated and kept)")
@@ -434,8 +462,8 @@ def _flags_parser() -> argparse.ArgumentParser:
 
 def _check_seq_shards(seq_shards: int, model: ModelKind) -> None:
     """--seq-shards with the JAX package's RunConfig checks and messages.
-    The port runs one device, so only 1 is legal and it is no config
-    field: > 1 would span the token axis over several devices."""
+    Only 1 is legal and it is no config field: > 1 would span the token
+    axis over several devices, a model-internal axis (ROADMAP A9b)."""
     if seq_shards < 1:
         raise ValueError(f"seq_shards must be >= 1, got {seq_shards}")
     if seq_shards > 1:
@@ -446,8 +474,8 @@ def _check_seq_shards(seq_shards: int, model: ModelKind) -> None:
             )
         raise ValueError(
             "seq_shards > 1 spans the token axis over several devices "
-            "(ring or Ulysses sequence parallelism); the multi-GPU "
-            "transports are not ported: use seq_shards=1"
+            "(ring or Ulysses sequence parallelism); the model-internal "
+            f"axes wait for {mesh_lib.A9B}: use seq_shards=1"
         )
 
 
@@ -481,6 +509,8 @@ def _flags_to_config(ns: argparse.Namespace) -> RunConfig:
         is_real_data=ns.input_dir is not None and ns.dataset != "artificial",
         partitions_per_worker=ns.partitions_per_worker,
         compute_mode=ns.compute_mode,
+        stack_mode=ns.stack_mode,
+        ring_pipeline=ns.ring_pipeline,
         use_pallas=ns.use_pallas,
         arrival_mode=ns.arrival_mode,
         layer_coding=ns.layer_coding,
@@ -817,6 +847,11 @@ def run(cfg: RunConfig, output_dir: str | None = None, quiet: bool = False,
     telemetry_on = resolve_telemetry(telemetry, output_dir is not None)
     if output_dir is None:
         output_dir = os.path.join(dataset_dir(cfg) or ".", "results")
+    # join torchrun's process group, if any (a no-op in one process); rank
+    # 0 alone writes the artifacts and the event log
+    initialize_distributed(device=device)
+    writer = is_writer()
+    telemetry_on = telemetry_on and writer
     dataset = load_dataset(cfg)
     events_path = os.path.join(output_dir, "events.jsonl")
     capture = events_lib.capture(events_path) if telemetry_on else contextlib.nullcontext()
@@ -873,6 +908,8 @@ def run(cfg: RunConfig, output_dir: str | None = None, quiet: bool = False,
                 final_test_loss=float(ev.testing_loss[-1]),
                 final_auc=auc if np.isfinite(auc) else None,
             )
+    if not writer:
+        return result, ev, {}
     paths = artifacts.write_run_artifacts(result, ev, output_dir)
     if telemetry_on:
         paths["events"] = events_path

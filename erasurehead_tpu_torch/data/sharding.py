@@ -16,6 +16,13 @@ take per leaf.
 Row-count convention (the reference's src/coded.py:23): rows_per_partition =
 n_samples // P, trailing remainder rows dropped from training.
 
+``stack_mode="ring"`` drops the materialized redundancy: only the
+partition-major stack is resident, each rank holding its ``[P/D, rows, F]``
+shard, and every round each rank rebuilds its workers' slot buffer from its
+ring neighbours' shards (:class:`RingPlan`; the transport is
+parallel/step.make_ring_faithful_grad_fn). Same science, 1/(s+1) of the
+device data.
+
 A streamed run (``stack_residency="streamed"``) stages windows of the stack
 from a shard store (data/store.py) instead: :func:`plan_stream_windows` says
 which partitions each window stages and how its slot-groups gather them.
@@ -92,11 +99,13 @@ def partition_stack(dataset: Dataset, n_partitions: int, sparse_format: str = "p
     return Xp, yp
 
 
-def worker_stack(layout: CodingLayout, Xp, yp):
+def worker_stack(layout: CodingLayout, Xp, yp, workers: slice = slice(None)):
     """[W, S, rows, F] + [W, S, rows]: the redundant worker-major stacks,
     gathered through the assignment (leaf by leaf for a container: a
-    QuantizedStack's scale table rides the same gather as its payload)."""
-    return take_lead(Xp, layout.assignment), yp[layout.assignment]
+    QuantizedStack's scale table rides the same gather as its payload).
+    ``workers`` gathers only those workers' rows (a rank's slice)."""
+    assignment = np.asarray(layout.assignment)[workers]
+    return take_lead(Xp, assignment), yp[assignment]
 
 
 #: bytes an element of each stack dtype takes on the device (numpy has no
@@ -130,10 +139,121 @@ def estimate_worker_stack_bytes(dataset: Dataset, layout: CodingLayout, dtype) -
 
 
 # ---------------------------------------------------------------------------
+# the ring-streamed faithful stack (stack_mode="ring")
+
+#: stack_mode="auto" switches faithful runs to the ring transport once the
+#: materialized worker stack would exceed this many device bytes (summed over
+#: the ranks); below it the redundant stack is cheap and the materialized
+#: mode keeps its transport-free round
+RING_AUTO_MIN_BYTES = 1 << 30
+
+
+@dataclasses.dataclass(frozen=True)
+class RingPlan:
+    """The static transport plan that turns the partition-major stack into
+    each rank's worker-major slot buffer over ring neighbour hops (the JAX
+    package's plan, byte for byte).
+
+    ``sel[d, h, wl, s]`` is the index INTO THE VISITING BLOCK (the partition
+    shard first held by rank ``(d + h) % D``) that fills local worker
+    ``wl``'s slot ``s`` on rank ``d`` at fill step ``h``, or -1 when that
+    slot is not filled at this hop. Hop 0 is the rank's own block (no
+    communication); ring-local assignments (cyclic supports, block-local
+    FRC groups) need ``1 + ceil(s / Pl)`` fill steps, and any other
+    assignment at most a full rotation of ``D``: the same program with more
+    hops, never another code path."""
+
+    n_devices: int
+    n_hops: int  # fill steps; n_hops - 1 ring shifts a round
+    sel: np.ndarray  # [D, n_hops, Wl, S] int32, -1 = not filled this hop
+
+    @property
+    def local_workers(self) -> int:
+        return self.sel.shape[2]
+
+    @property
+    def n_slots(self) -> int:
+        return self.sel.shape[3]
+
+
+def plan_ring_transport(layout: CodingLayout, n_devices: int) -> RingPlan:
+    """The :class:`RingPlan` of ``layout`` on a ring of ``n_devices`` ranks.
+    Both the worker axis (the compute split) and the partition axis (the
+    data split) must fold evenly onto the ring."""
+    W, S, P = layout.n_workers, layout.n_slots, layout.n_partitions
+    D = int(n_devices)
+    if W % D or P % D:
+        raise ValueError(
+            f"ring stack mode needs n_workers={W} and n_partitions={P} "
+            f"divisible by the {D} worker-axis devices"
+        )
+    Wl, Pl = W // D, P // D
+    assignment = np.asarray(layout.assignment)
+    sel = np.full((D, _ring_hops(layout, D), Wl, S), -1, dtype=np.int32)
+    for w in range(W):
+        d = w // Wl
+        for s in range(S):
+            p = int(assignment[w, s])
+            hop = (p // Pl - d) % D
+            sel[d, hop, w % Wl, s] = p % Pl
+    return RingPlan(n_devices=D, n_hops=sel.shape[1], sel=sel)
+
+
+def _ring_hops(layout: CodingLayout, n_devices: int) -> int:
+    """Fill steps needed: 1 + the farthest forward ring distance from any
+    worker's rank to a rank holding one of its assigned partitions."""
+    W, P = layout.n_workers, layout.n_partitions
+    D = n_devices
+    Wl, Pl = W // D, P // D
+    assignment = np.asarray(layout.assignment)
+    dev_of_w = np.arange(W)[:, None] // Wl
+    hop = (assignment // Pl - dev_of_w) % D
+    return int(hop.max()) + 1
+
+
+def resolve_ring_stack(stack_mode: str, layout: CodingLayout, dataset: Dataset,
+                       n_devices: int, dtype, *, device=None,
+                       supported: bool = True) -> bool:
+    """Should this faithful run stream its stack over the ring?
+
+    "ring" forces (plan_ring_transport checks the divisibility at use);
+    "materialized" keeps the reference's redundancy as device memory;
+    "auto" picks ring only where the stack is redundant (storage overhead
+    above 1), folds onto the worker axis, and a cached ``stack_mode`` race
+    verdict at this pre-stack shape says "ring" or, without one, the
+    footprint estimate crosses :data:`RING_AUTO_MIN_BYTES`. The verdict
+    replaces only the threshold: the structural gates stand.
+    ``supported=False`` (a path with no ring body) pins auto to
+    materialized. ``dtype`` names the stack dtype ("float32", "bfloat16",
+    "int8"); ``device`` is the run's (the verdict's device dimension)."""
+    if stack_mode == "ring":
+        return True
+    if stack_mode != "auto" or not supported:
+        return False
+    if layout.storage_overhead <= 1.0:
+        return False  # nothing redundant to stream
+    W, P, D = layout.n_workers, layout.n_partitions, int(n_devices)
+    if W % D or P % D:
+        return False
+    from erasurehead_tpu_torch import tune as tune_lib
+
+    rows = dataset.n_samples // layout.n_partitions
+    sig = tune_lib.stack_mode_signature(layout, rows, dataset.X_train.shape[1], dtype)
+    by_footprint = estimate_worker_stack_bytes(dataset, layout, dtype) >= RING_AUTO_MIN_BYTES
+    choice = tune_lib.lookup(
+        "stack_mode", sig, device_kind=tune_lib.default_device_kind(device),
+        fallback="ring" if by_footprint else "materialized",
+    )
+    if choice is not None:
+        return choice == "ring"
+    return by_footprint
+
+
+# ---------------------------------------------------------------------------
 # stream windows (stack_residency="streamed"; train/trainer._train_streamed)
 
 #: the ROADMAP step that brings the ring transport of faithful windows
-RING_STEP = "ROADMAP queue A, A9 (the multi-device ring transport)"
+RING_STEP = "ROADMAP A9b (streamed windows across ranks and ring stream windows)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,7 +301,7 @@ class StreamWindowPlan:
 
     def sub_layout(self):
         """The one-window layout a ring plan is built over: the ring
-        transport is not ported, so this raises."""
+        transport of stream windows waits for A9b, so this raises."""
         raise NotImplementedError(
             "sub_layout() plans the ring transport of a stream window, "
             f"which waits for {RING_STEP}"
@@ -197,7 +317,7 @@ def plan_stream_windows(layout: CodingLayout, window: int, *, mode: str = "dedup
     contiguous slot-groups and stage each group's whole assigned span,
     window plus halo, refusing when the worker axis does not split evenly
     or the assignment is not window-uniform. ``mode="ring"`` raises: its
-    transport waits for A9."""
+    transport waits for A9b."""
     P = int(layout.n_partitions)
     window = int(window)
     if window < 1 or P % window:

@@ -211,8 +211,12 @@ def train_elastic_online(
     membership stream to ``elastic_journal.jsonl``; ``checkpoint_dir`` +
     ``resume=True`` restart from the latest checkpoint with the controller
     ledger restored from its aux sidecar. ``device`` defaults to ``cuda``;
-    ``init_params`` replaces the first chunk's seeded init."""
+    ``init_params`` replaces the first chunk's seeded init. One process: a
+    world of several raises (parallel/mesh.require_one_process)."""
     from erasurehead_tpu_torch import schemes
+    from erasurehead_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh_lib.require_one_process("elastic.train_elastic_online")
     from erasurehead_tpu_torch.adapt.controller import (
         AdaptiveController,
         ChunkStats,

@@ -257,6 +257,7 @@ def train_elastic(
     survivor_overrides: Optional[dict] = None,
     dynamic: bool = False,
     init_params=None,
+    mesh=None,
 ):
     """Elastic recovery: re-shard onto the survivors and keep training.
 
@@ -280,9 +281,12 @@ def train_elastic(
 
     ``dynamic=True`` runs both phases through trainer.train_dynamic (the
     on-device control plane), else through trainer.train's restart
-    contract. Where the JAX package takes a ``mesh`` (and ``measure``), the
-    port takes the run's ``device`` (cuda unless "cpu" is asked for), and
-    ``init_params`` for the first phase as train() takes it."""
+    contract. ``device`` is the run's (cuda unless "cpu" is asked for),
+    ``init_params`` the first phase's as train() takes it, and ``mesh`` the
+    first phase's worker mesh (parallel/mesh.py; None: the auto mesh). As
+    in the JAX package the survivor phase takes the auto mesh over W',
+    which shrinks the worker group (7 survivors over 2 processes run on
+    one; the other rank contributes zeros and stays a replica)."""
     from erasurehead_tpu_torch.train import trainer
 
     W = cfg.n_workers
@@ -316,7 +320,7 @@ def train_elastic(
     train_fn = trainer.train_dynamic if dynamic else trainer.train
     phase1 = train_fn(
         dataclasses.replace(cfg, rounds=death_round, lr_schedule=lr_full[:death_round]),
-        dataset, device=device, init_params=init_params,
+        dataset, device=device, init_params=init_params, mesh=mesh,
     )
     phase2 = train_fn(
         cfg2, dataset, device=device,

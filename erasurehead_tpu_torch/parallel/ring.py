@@ -3,8 +3,9 @@
 
 The JAX module also holds the sequence-parallel transports (ring attention
 over ``lax.ppermute``, Ulysses over ``all_to_all``) that span a sequence
-over several devices; they are not ported. On one device the attention
-family runs this plain form.
+over several devices; they wait for ROADMAP A9b (the model-internal
+axes). Every rank of the worker mesh runs the attention family in this
+plain form.
 """
 
 from __future__ import annotations

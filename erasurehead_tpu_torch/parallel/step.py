@@ -1,11 +1,17 @@
-"""The coded gradient step on one device.
+"""The coded gradient step over the worker mesh.
 
 In the JAX package (erasurehead_tpu/parallel/step.py) the step is a
 ``shard_map`` over a worker mesh axis: each chip computes the slot gradients
 of its logical workers, contracts them with the collection weights, and a
-``psum`` over the worker axis decodes. On one card the W logical workers fold
-onto the one device, so the ``psum`` is the identity and a round's device
-work is one op: the decoded gradient of the whole stack.
+``psum`` over the worker axis decodes. Here each process of the worker mesh
+(parallel/mesh.py) holds its rank's slice of the stack and of the weights,
+computes the local decoded gradient of that slice, and one
+``all_reduce(SUM)`` over the group follows at exactly the places where the
+JAX package psums (:func:`_psum`; ranks outside the worker group contribute
+zeros). With no process group (``mesh`` None, or a mesh of world size 1
+without a group) the W logical workers fold onto the one device, the
+``psum`` is the identity and a round's device work is one op: the decoded
+gradient of the whole stack.
 
 The forms of that op, each a function ``(params, X, y, weights) -> grads``
 (an [F] tensor for a GLM, a dict of tensors for the deep families):
@@ -33,6 +39,12 @@ package's own XLA lowering. For the autodiff families (``grads_via_loss``)
 it is one ``torch.func.grad`` of the weighted summed loss, as in the JAX
 package's ``_weighted_loss_grad`` (without its psum: one device).
 
+The faithful mode's ring transport (``stack_mode="ring"``,
+:func:`make_ring_faithful_grad_fn`) keeps only the partition-major stack and
+rebuilds each rank's worker-major slot buffer every round over ring hops
+between the ranks (:func:`_ring_fill`), then runs any of the bodies above on
+it; at world size 1 the plan has one hop and the fill is a local gather.
+
 The bodies name their phases as the JAX package's do (utils/tracing.annotate,
 host spans of a ``--trace-dir`` trace): ``eh_step/partial_grads`` around the
 slot gradients, ``eh_step/decode`` around their weighted contraction.
@@ -52,12 +64,34 @@ from typing import Callable
 import numpy as np
 import torch
 
+from torch.utils import _pytree as pytree
+
 from erasurehead_tpu_torch.ops import blocks as blocks_lib
 from erasurehead_tpu_torch.ops import features as features_lib
 from erasurehead_tpu_torch.ops import kernels
 from erasurehead_tpu_torch.utils.tracing import annotate
 
 GradFn = Callable[..., object]  # (params, X, y, weights) -> [F] or dict
+
+
+def _psum(body: GradFn, mesh) -> GradFn:
+    """``body``'s local decoded gradient summed over the worker mesh: the
+    JAX package's ``lax.psum(g, WORKER_AXIS)`` as one all-reduce
+    (mesh.WorkerMesh.all_reduce). A rank outside the worker group holds no
+    slots and contributes zeros shaped like the params (a cohort's
+    ``params_B``). The body itself without a process group."""
+    if mesh is None or not mesh.distributed:
+        return body
+
+    def grad(params, Xs, ys, ws):
+        if mesh.member:
+            g = body(params, Xs, ys, ws)
+        else:
+            g = blocks_lib.tree_map(torch.zeros_like, params)
+        with annotate("eh_step/decode"):
+            return mesh.all_reduce(g)
+
+    return grad
 
 
 def _dq(body: GradFn) -> GradFn:
@@ -79,8 +113,9 @@ def _grads_via_loss(model) -> bool:
 
 def _weighted_loss_grad(model, params, Xs, ys, ws, contract: str):
     """Gradient of sum_slots w_slot * loss_sum(params, X_slot, y_slot): the
-    decoded gradient of an autodiff family in one backward pass (the JAX
-    package's step._weighted_loss_grad on one device)."""
+    decoded gradient of an autodiff family in one backward pass over the
+    rank's slots (the JAX package's step._weighted_loss_grad; its psum is
+    the factory's :func:`_psum`)."""
 
     def total(p):
         per = model.loss_sum
@@ -96,7 +131,7 @@ def _weighted_sum(weights: torch.Tensor, grads: torch.Tensor, contract: str):
     return torch.einsum(f"{contract},{contract}f->f", weights, grads)
 
 
-def make_faithful_grad_fn(model) -> GradFn:
+def make_faithful_grad_fn(model, mesh=None) -> GradFn:
     """Every logical worker computes all of its (redundant) slot gradients.
 
     Matches the reference's cost model: an FRC/MDS worker does (s+1)
@@ -104,8 +139,9 @@ def make_faithful_grad_fn(model) -> GradFn:
 
     Args of the returned fn:
       params: [F] float32, or the deep families' dict of tensors.
-      Xw, yw: worker-major stacks [W, S, rows, F] / [W, S, rows].
-      slot_weights: [W, S] decode x coding weight per slot message.
+      Xw, yw: the rank's worker-major stacks [Wl, S, rows, F] / [Wl, S, rows].
+      slot_weights: [Wl, S] decode x coding weight per slot message.
+    Every factory here all-reduces over ``mesh`` (:func:`_psum`).
     """
 
     def grad(params, Xw, yw, slot_weights):
@@ -117,18 +153,18 @@ def make_faithful_grad_fn(model) -> GradFn:
         with annotate("eh_step/decode"):
             return _weighted_sum(slot_weights, per_slot, "ws")
 
-    return _dq(grad)
+    return _psum(_dq(grad), mesh)
 
 
-def make_deduped_grad_fn(model) -> GradFn:
+def make_deduped_grad_fn(model, mesh=None) -> GradFn:
     """Each partition gradient once, combined with folded decode weights
     (CodingLayout.fold_slot_weights): the same decoded gradient as the
     faithful mode at 1/(s+1) the work.
 
     Args of the returned fn:
       params: [F] float32, or the deep families' dict of tensors.
-      Xp, yp: partition-major stacks [P, rows, F] / [P, rows].
-      part_weights: [P] folded per-partition weights.
+      Xp, yp: the rank's partition-major stacks [Pl, rows, F] / [Pl, rows].
+      part_weights: [Pl] folded per-partition weights.
     """
 
     def grad(params, Xp, yp, part_weights):
@@ -140,7 +176,7 @@ def make_deduped_grad_fn(model) -> GradFn:
         with annotate("eh_step/decode"):
             return _weighted_sum(part_weights, per_part, "p")
 
-    return _dq(grad)
+    return _psum(_dq(grad), mesh)
 
 
 def _closed_form(model) -> bool:
@@ -182,11 +218,11 @@ def _hybrid_margin_flat_grad(model, params, Xs, ys, ws):
         return -torch.einsum("mrf,mr->f", X3, wr)
 
 
-def make_margin_flat_grad_fn(model) -> GradFn:
+def make_margin_flat_grad_fn(model, mesh=None) -> GradFn:
     """The hybrid lowering as a drop-in for make_faithful_grad_fn /
     make_deduped_grad_fn on dense closed-form stacks (the caller gates on
     :func:`supports_margin_flat`)."""
-    return _dq(functools.partial(_hybrid_margin_flat_grad, model))
+    return _psum(_dq(functools.partial(_hybrid_margin_flat_grad, model)), mesh)
 
 
 # Whether flat_grad="auto" resolves to the flat lowering for dense and
@@ -241,20 +277,21 @@ def _flat_local_body(model) -> GradFn:
     return grad
 
 
-def make_flat_grad_fn(model) -> GradFn:
+def make_flat_grad_fn(model, mesh=None) -> GradFn:
     """The flat lowering as a drop-in for make_faithful_grad_fn (worker-major
     [W, S, rows, ...]) and make_deduped_grad_fn (partition-major
     [P, rows, ...]); the caller gates on :func:`supports_flat_grad`. Same
     math as the per-slot form in another reduction order."""
-    return _dq(_flat_local_body(model))
+    return _psum(_dq(_flat_local_body(model)), mesh)
 
 
-def make_fused_grad_fn(kind: str) -> GradFn:
+def make_fused_grad_fn(kind: str, mesh=None) -> GradFn:
     """The one-pass kernel (ops/kernels.py) as a drop-in for either grad fn
     above on dense GLM stacks: the worker-major [W, S, rows, F] or the
     partition-major [P, rows, F] stack, leading dims flattened into kernel
     slots (views, no copy). The decode is folded into the kernel's one
-    pass, so its one region is ``eh_step/partial_grads``."""
+    pass, so its one region is ``eh_step/partial_grads`` (and the
+    all-reduce's ``eh_step/decode`` over a mesh)."""
 
     def grad(params, Xs, ys, ws):
         M = int(np.prod(Xs.shape[:-2]))
@@ -266,6 +303,132 @@ def make_fused_grad_fn(kind: str) -> GradFn:
                 ws.reshape(M),
                 kind,
             )
+
+    return _psum(grad, mesh)
+
+
+# ---------------------------------------------------------------------------
+# the ring transport (stack_mode="ring")
+
+# Whether ring_pipeline="auto" resolves to the double-buffered schedule
+# absent a cached ring_pipeline verdict: off, as in the JAX package (its
+# RING_PIPELINE_DEFAULT). Both schedules move the same blocks in the same
+# fill order, so the knob is a pure lowering choice.
+RING_PIPELINE_DEFAULT = False
+
+
+def resolve_ring_pipeline(ring_pipeline: str, model=None, X=None) -> bool:
+    """Should a ring-transport run take the double-buffered schedule?
+    "on"/"off" force; "auto" resolves a cached ``ring_pipeline`` race
+    verdict at the run's shape on its device (``model`` and the
+    partition-major stack ``X`` give the consult its signature), else
+    :data:`RING_PIPELINE_DEFAULT`."""
+    if ring_pipeline == "on":
+        return True
+    if ring_pipeline == "off":
+        return False
+    if model is not None and X is not None:
+        choice = _tuned(
+            "ring_pipeline", model, X,
+            "pipelined" if RING_PIPELINE_DEFAULT else "sequential",
+        )
+        if choice is not None:
+            return choice == "pipelined"
+    return RING_PIPELINE_DEFAULT
+
+
+def _ring_fill(plan, mesh, Xp, yp, pipeline: bool, index_cache: dict):
+    """This rank's worker-major slot buffer ``([Wl, S, rows, ...],
+    [Wl, S, rows])`` from its partition-major shard ``[Pl, rows, ...]``
+    over ``plan.n_hops - 1`` ring shifts (the JAX package's
+    step._ring_fill).
+
+    Hop 0 fills from the rank's own block; each further hop shifts the
+    visiting block one ring position (rank d receives rank d+1's block:
+    mesh.WorkerMesh.ring_shift) and copies the slots the plan says that
+    block owns into the buffer. The buffer is a temporary of the round.
+    Values are moved, never transformed, so the buffer is bitwise the
+    materialized stack's slice and the slot gradients downstream see the
+    same inputs. At world size 1 the plan has one hop: a local gather of
+    the resident stack, with no communication.
+
+    ``pipeline`` (cfg.ring_pipeline): False sends hop t and then fills it;
+    True posts hop t+1's shift before it fills hop t and waits on it after,
+    so the transfer flies under the fill. Same shifts, same bytes, same
+    fill order. ``index_cache`` holds each hop's (slot positions, block
+    rows) index tensors per device, built at first use."""
+    d = 0 if mesh is None else mesh.index
+    Wl, S = plan.local_workers, plan.n_slots
+    blk = (Xp, yp)
+    dev = yp.device
+    idx = index_cache.get(dev)
+    if idx is None:
+        idx = []
+        for sel_h in plan.sel[d].reshape(plan.n_hops, Wl * S):
+            pos = np.flatnonzero(sel_h >= 0)
+            idx.append((
+                torch.from_numpy(pos).to(dev), torch.from_numpy(sel_h[pos].astype(np.int64)).to(dev),
+                pos.size == Wl * S,
+            ))
+        index_cache[dev] = idx
+
+    def fill(buf, block, h):
+        pos, src, whole = idx[h]
+        if not len(pos):
+            return buf
+        if buf is None and whole:
+            return pytree.tree_map(lambda leaf: leaf.index_select(0, src), block)
+        if buf is None:
+            buf = pytree.tree_map(
+                lambda leaf: leaf.new_zeros((Wl * S,) + tuple(leaf.shape[1:])), block
+            )
+        pytree.tree_map(lambda b, leaf: b.index_copy_(0, pos, leaf.index_select(0, src)),
+                        buf, block)
+        return buf
+
+    H = plan.n_hops
+    with annotate("eh_step/ring_fill"):
+        if pipeline and H > 1:
+            pending = mesh.ring_shift(blk)
+            buf = fill(None, blk, 0)
+            for h in range(1, H):
+                cur = pending()
+                if h < H - 1:
+                    pending = mesh.ring_shift(cur)
+                buf = fill(buf, cur, h)
+        else:
+            buf = fill(None, blk, 0)
+            for h in range(1, H):
+                blk = mesh.ring_shift(blk)()
+                buf = fill(buf, blk, h)
+    Xb, yb = buf
+    return features_lib.reshape_lead(Xb, (Wl, S)), yb.reshape((Wl, S) + tuple(yb.shape[1:]))
+
+
+def make_ring_faithful_grad_fn(model, plan, mesh=None, local_body: GradFn = None,
+                               pipeline: bool = False) -> GradFn:
+    """The faithful decoded gradient from the partition-major stack
+    (stack_mode="ring"): :func:`_ring_fill` rebuilds the rank's
+    ``[Wl, S, rows, ...]`` slot buffer every round, then ``local_body``, any
+    grad fn of this module built over the same ``mesh`` (the faithful
+    default, the fused kernel, the flat, margin-flat and blockwise
+    lowerings, a cohort body), runs on it exactly as on the materialized
+    stack: the trajectories are bitwise the materialized run's.
+
+    Args of the returned fn:
+      params: as ``local_body`` takes them.
+      Xp, yp: the rank's partition-major shards [Pl, rows, ...] / [Pl, rows].
+      slot_weights: the rank's [Wl, S] (a cohort's [B, Wl, S]).
+    A rank outside the worker group fills nothing and goes straight to the
+    body's all-reduce."""
+    body = local_body if local_body is not None else make_faithful_grad_fn(model, mesh)
+    index_cache: dict = {}
+
+    def grad(params, Xp, yp, slot_weights):
+        if mesh is not None and not mesh.member:
+            return body(params, Xp, yp, slot_weights)
+        Xw, yw = _ring_fill(plan, mesh, Xp, yp, pipeline, index_cache)
+        return body(params, Xw, yw, slot_weights)
 
     return grad
 
@@ -295,11 +458,12 @@ def supports_layer_coding(model) -> bool:
     Deviation from the JAX package, whose gate refuses every autodiff family
     on jax >= 0.6: there, per-slot ``jax.grad`` w.r.t. replicated params
     inside ``shard_map`` implicitly psums cotangents per slot position, so
-    per-slot grads would double-count. The port runs on one device with no
-    ``shard_map`` and no implicit psum: per-slot ``torch.func.grad`` is
+    per-slot grads would double-count. The port has no ``shard_map`` and
+    no implicit psum (each rank differentiates its own slots and the
+    all-reduce comes after the decode): per-slot ``torch.func.grad`` is
     exact for every family it has (the GLMs, mlp, deepmlp, moe). The other
     JAX exclusion, model-internal mesh axes, stays; the port's models have
-    none."""
+    none (ROADMAP A9b)."""
     return all(getattr(model, ax, None) is None for ax in _MODEL_AXES)
 
 
@@ -421,15 +585,18 @@ def _fused_layer_block_body(model, spec, contract: str) -> GradFn:
     return grad
 
 
-def make_layer_block_grad_fn(model, spec, *, faithful: bool, fused: bool) -> GradFn:
+def make_layer_block_grad_fn(model, spec, *, faithful: bool, fused: bool,
+                             mesh=None) -> GradFn:
     """Per-layer (blockwise) decoded gradient: drop-in for
     make_faithful_grad_fn / make_deduped_grad_fn on any model, taking the
     faithful worker-major stack with [W, S] weights or the partition-major
     stack with [P] weights. ``fused`` picks the lowering
-    (:func:`resolve_block_decode`); on CUDA both decode through the kernel."""
+    (:func:`resolve_block_decode`); on CUDA both decode through the kernel,
+    each rank its own slots, and the decoded leaves are all-reduced after
+    (the JAX package's per-leaf psum)."""
     contract = "ws" if faithful else "p"
     body = _fused_layer_block_body if fused else _layer_block_body
-    return _dq(body(model, spec, contract))
+    return _psum(_dq(body(model, spec, contract)), mesh)
 
 
 def staleness_slot_params(params, stale_params, pipeline_depth: int):
@@ -541,7 +708,7 @@ def _cohort_layer_block_body(model, spec, contract: str, fused: bool) -> GradFn:
 
 def make_cohort_grad_fn(
     model, params_template, X, *, faithful: bool, layer_coding: str,
-    block_decode: str, flat_grad: str,
+    block_decode: str, flat_grad: str, mesh=None,
 ):
     """The cohort's gradient fn and the name of its lowering, picked as the
     JAX trainer picks them (trainer._train_cohort_impl):
@@ -556,8 +723,18 @@ def make_cohort_grad_fn(
       - "per_slot_vmap": otherwise, the compute mode's one-trajectory grad
         fn under vmap (:func:`batched_grad_fn`).
     ``params_template`` is one trajectory's params (the block spec of the
-    layer-coded lowering); ``X`` the cohort's device stack. Every body
-    dequantizes an int8 stack once a round for the whole cohort."""
+    layer-coded lowering); ``X`` the cohort's device stack (the rank's
+    slice, its weights ``[B, Wl, S]`` or ``[B, Pl]``). Every body
+    dequantizes an int8 stack once a round for the whole cohort, and the
+    B decoded gradients are all-reduced over ``mesh`` in one collective."""
+    grad_fn, lowering = _cohort_body(model, params_template, X, faithful=faithful,
+                                     layer_coding=layer_coding, block_decode=block_decode,
+                                     flat_grad=flat_grad)
+    return _psum(grad_fn, mesh), lowering
+
+
+def _cohort_body(model, params_template, X, *, faithful: bool, layer_coding: str,
+                 block_decode: str, flat_grad: str):
     contract = "ws" if faithful else "p"
     if resolve_layer_coding(layer_coding, model, X):
         spec = blocks_lib.model_block_spec(model, params_template)

@@ -99,9 +99,8 @@ class RegimeShift:
         spread over unrelated workers leaves every group a fast member
         while the targeted form stalls one group every round.
 
-    The JAX package's adaptive controller (adapt/, not ported yet) reacts
-    to these: a policy tuned to the pre-shift regime stops being the best
-    arm at ``round``.
+    The adaptive controller (adapt/) reacts to these: a policy tuned to
+    the pre-shift regime stops being the best arm at ``round``.
     """
 
     kind: str  # "heavytail" | "adversary" | "targeted"

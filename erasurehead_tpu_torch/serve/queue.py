@@ -13,7 +13,7 @@ byte; :func:`config_from_payload` is the single place a wire payload
 becomes a RunConfig, so a front can never accept a field the in-process
 surface would refuse.
 
-Four payload fields of the JAX package name RunConfig fields the port does
+Two payload fields of the JAX package name RunConfig fields the port does
 not have yet (:data:`ABSENT_PAYLOAD_FIELDS`): a payload that sets one is
 refused, naming the ROADMAP queue A item that brings it. The request digest
 hashes the port's own ``events.config_hash``, so it never equals the JAX
@@ -207,8 +207,6 @@ CONFIG_PAYLOAD_FIELDS = frozenset(
 #: payload fields of the JAX package that name RunConfig fields the port
 #: does not have yet -> the ROADMAP queue A item that brings each
 ABSENT_PAYLOAD_FIELDS = {
-    "stack_mode": "A9 (the multi-device ring transport)",
-    "ring_pipeline": "A9 (the multi-device ring transport)",
     "donate": "A5r (the compiled round loop)",
     "scan_unroll": "A5r (the compiled round loop)",
 }

@@ -206,6 +206,9 @@ class SweepServer:
         replica_name: Optional[str] = None,
         device=None,
     ):
+        from erasurehead_tpu_torch.parallel import mesh as mesh_lib
+
+        mesh_lib.require_one_process("the serve daemon (SweepServer)")
         self.device = resolve_device(device)
         self.admission = admission_lib.AdmissionController(budget_bytes)
         # admission-time ETA quotes from a what-if surface
@@ -1273,6 +1276,9 @@ def main(argv=None) -> int:
     max_cohort = resolve_serve_max_cohort(
         ns.max_cohort, default=DEFAULT_MAX_COHORT
     )
+    from erasurehead_tpu_torch.parallel.backend import initialize_distributed
+
+    initialize_distributed(device=ns.device)
 
     eta_surface = None
     if ns.eta_surface:

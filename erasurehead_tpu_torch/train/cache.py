@@ -10,8 +10,12 @@ device) to the device-resident stack, so repeated runs reuse the upload.
 
 The JAX module's executable cache (``get_or_compile``) and its persistent
 compilation cache have no counterpart: the port's round loop is eager
-PyTorch with nothing compiled per run. A CUDA-graph cache (ROADMAP queue D)
-will take their place, so the JAX ``exec_*`` statistics are not reported.
+PyTorch with nothing compiled per run. A CUDA-graph cache (ROADMAP A5r, the
+compiled round loop) will take their place, so the JAX ``exec_*``
+statistics are not reported.
+
+Over a worker mesh (parallel/mesh.py) each rank caches its own slice of the
+stack: the key carries :func:`mesh_signature` and the stack transport.
 
 A cached stack is shared by later runs: nothing in the trainer writes into
 it, and the statics a sparse stack builds at first use (the scatter plans,
@@ -169,6 +173,14 @@ def layout_stack_signature(
     else:
         content = ("parts", int(layout.n_partitions))
     return content + ((stack_dtype, dtype), sparse_format)
+
+
+def mesh_signature(mesh, device) -> tuple:
+    """A worker mesh as a cache key: the JAX package's (axis names, axis
+    sizes, device ids), the ids being the group's world ranks, then the
+    world size and the device kind (the CUDA device name, or ``cpu``)."""
+    kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    return (tuple(mesh.axis_names), (mesh.size,), tuple(mesh.ranks), mesh.world, kind)
 
 
 def device_nbytes(obj) -> int:

@@ -46,6 +46,7 @@ from typing import Optional
 import numpy as np
 
 from erasurehead_tpu_torch.obs import events as events_lib
+from erasurehead_tpu_torch.parallel import backend as backend_lib
 from erasurehead_tpu_torch.obs.metrics import REGISTRY as _METRICS
 
 #: journal file name inside the journal directory
@@ -248,16 +249,19 @@ class SweepJournal:
         class docstring)."""
         payload = summary_payload(summary)
         with self._lock:
-            if self._logger is None:
-                self._logger = events_lib.EventLogger(self.path)
-            self._logger.emit(
-                "sweep_trajectory",
-                key=key,
-                label=label,
-                status=summary.status,
-                scheme=summary.config.scheme.value,
-                row=payload,
-            )
+            # across processes every rank holds the row; rank 0 alone
+            # appends it (parallel/backend.is_writer)
+            if backend_lib.is_writer():
+                if self._logger is None:
+                    self._logger = events_lib.EventLogger(self.path)
+                self._logger.emit(
+                    "sweep_trajectory",
+                    key=key,
+                    label=label,
+                    status=summary.status,
+                    scheme=summary.config.scheme.value,
+                    row=payload,
+                )
             self._completed[key] = {
                 "type": "sweep_trajectory", "key": key, "label": label,
                 "status": summary.status, "row": payload,

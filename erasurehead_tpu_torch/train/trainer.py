@@ -1,4 +1,4 @@
-"""The synchronous trainer: a Python loop over rounds on one device.
+"""The synchronous trainer: a Python loop over rounds on each rank's device.
 
 The counterpart of erasurehead_tpu/train/trainer.py::train, of its
 trajectory-cohort engine (train_cohort, train_batch; see
@@ -13,7 +13,9 @@ per round, the decoded gradient of the stack (parallel/step.py) and the
 GD/AGD/Adam update; the iterate history stays on the device.
 
 Which gradient lowering a round takes (the JAX trainer's dispatch,
-erasurehead_tpu/train/trainer.py:934-985, on one device):
+erasurehead_tpu/train/trainer.py:934-985; in the port the ring transport
+composes with every lowering, the fused kernel included, where JAX's ring
+declines its kernel):
   - ``margin_flat`` and then ``flat_grad`` may swap in their lowering
     (step.make_margin_flat_grad_fn, step.make_flat_grad_fn): "on" forces
     it and raises where the model or stack cannot take it, "auto" resolves
@@ -80,6 +82,19 @@ step: the kernel library's build and load (kernels.load_library), its
 seconds in this call and whether it was loaded already. ``train_dynamic``
 emits nothing, as in the JAX package.
 
+The worker mesh (parallel/mesh.py; ``mesh=None`` is the largest group of
+the world's processes whose size divides the sharded axis, as the JAX
+package's ``_auto_mesh``): each rank keeps its slice of the stack and of the
+round weights, computes the local decoded gradient, and all-reduces it over
+the group where the JAX package psums (parallel/step.py). Every rank runs
+the same host control plane from the same seeds and applies the same update,
+so the ranks' params stay bitwise equal; rank 0 alone writes checkpoints.
+``cfg.stack_mode="ring"`` (or "auto" past a footprint) keeps only the
+partition-major stack and rebuilds the worker slots every round over ring
+hops between the ranks (step.make_ring_faithful_grad_fn), bitwise the
+materialized run. Without a process group the mesh is this one process and
+nothing changes.
+
 Timing artifacts keep two clocks apart, as the JAX package does:
   - ``timeset``/``worker_times``: *simulated* cluster seconds from the
     arrival model;
@@ -106,6 +121,7 @@ from erasurehead_tpu_torch.data import store as store_lib
 from erasurehead_tpu_torch.data.prefetch import Prefetcher
 from erasurehead_tpu_torch.data.sharding import (
     partition_stack,
+    plan_ring_transport,
     plan_stream_windows,
     worker_stack,
 )
@@ -121,6 +137,7 @@ from erasurehead_tpu_torch.obs import events as obs_events
 from erasurehead_tpu_torch.ops import blocks, codes, kernels
 from erasurehead_tpu_torch.ops import features as features_lib
 from erasurehead_tpu_torch.parallel import collect, pipeline as pipeline_lib
+from erasurehead_tpu_torch.parallel import mesh as mesh_lib
 from erasurehead_tpu_torch.parallel import step as step_lib, straggler
 from erasurehead_tpu_torch.train import cache as cache_lib
 from erasurehead_tpu_torch.train import checkpoint as ckpt_lib
@@ -273,11 +290,15 @@ def _to_device(a: np.ndarray, device, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
 
-def _build_stack(cfg: RunConfig, dataset: Dataset, layout, faithful: bool, dev):
+def _build_stack(cfg: RunConfig, dataset: Dataset, layout, faithful: bool, dev,
+                 mesh=None, ring: bool = False):
     """The run's data stack, moved to the device: worker-major
-    [W, S, rows, F] (faithful) or partition-major [P, rows, F], its labels,
-    and the training row count (the JAX package's shard_run_data on one
-    device). A CSR dataset stacks as PaddedRows or FieldOnehot per
+    [W, S, rows, F] (faithful) or partition-major [P, rows, F] (deduped, or
+    the ring transport), its labels, and the training row count (the JAX
+    package's shard_run_data). Over a worker ``mesh`` the rank builds and
+    uploads only its slice: its workers ``[Wl, S, rows, F]``, or its
+    partitions ``[Pl, rows, F]`` (empty outside the worker group); the row
+    count stays the whole stack's. A CSR dataset stacks as PaddedRows or FieldOnehot per
     ``cfg.sparse_format``; under ``stack_dtype="int8"`` the partition-major
     stack is quantized before the worker-major gather
     (ops/features.QuantizedStack), so every slot holds its partition's int8
@@ -307,7 +328,16 @@ def _build_stack(cfg: RunConfig, dataset: Dataset, layout, faithful: bool, dev):
             Xp_h = features_lib.QuantizedStack(np.asarray(pre.q), np.asarray(pre.scale))
         else:
             Xp_h = features_lib.QuantizedStack.quantize(Xp_h)
-    Xh, yh = worker_stack(layout, Xp_h, yp_h) if faithful else (Xp_h, yp_h)
+    mesh = mesh or mesh_lib.worker_mesh(1)
+    if faithful:
+        mesh_lib.check_divisible(layout.n_workers, mesh, "n_workers")
+    if faithful and not ring:
+        lo, hi = mesh.slice(layout.n_workers)
+        Xh, yh = worker_stack(layout, Xp_h, yp_h, workers=slice(lo, hi))
+    else:
+        mesh_lib.check_divisible(layout.n_partitions, mesh, "n_partitions")
+        lo, hi = mesh.slice(layout.n_partitions)
+        Xh, yh = features_lib.take_lead(Xp_h, slice(lo, hi)), yp_h[lo:hi]
     # the data dtype: the stored float dtype, or cfg.dtype under int8
     data_dtype = _torch_dtype(cfg.dtype if stack_dtype == "int8" else stack_dtype)
     X = features_lib.to_device(Xh, dev, data_dtype)
@@ -317,46 +347,107 @@ def _build_stack(cfg: RunConfig, dataset: Dataset, layout, faithful: bool, dev):
     return X, y, yp_h.size
 
 
-def _device_stack(cfg: RunConfig, dataset: Dataset, layout, faithful: bool, dev):
+def _device_stack(cfg: RunConfig, dataset: Dataset, layout, faithful: bool, dev,
+                  mesh=None, ring: bool = False):
     """:func:`_build_stack` through the data cache: ``(X, y, n_train,
     hit)``. The key is the JAX package's upload key (dataset identity, the
-    layout's stacking signature with the storage, the partition count) plus
-    the device, so a CPU run never receives a card stack. A FieldOnehot
-    stack takes the run's ``fields_margin``/``fields_scatter``/
+    layout's stacking signature with the storage, the partition count, the
+    mesh) plus the device, so a CPU run never receives a card stack. A
+    FieldOnehot stack takes the run's ``fields_margin``/``fields_scatter``/
     ``sparse_lanes`` after the lookup: the lowering is not part of the
     cached stack."""
+    mesh = mesh or mesh_lib.worker_mesh(1)
     key = (
         "stacks",
         cache_lib.dataset_token(dataset),
-        _stack_signature(cfg, layout),
+        _stack_signature(cfg, layout, ring),
         layout.n_partitions,
         str(dev),
+        cache_lib.mesh_signature(mesh, dev),
     )
     (X, y, n_train), hit = cache_lib.get_or_build_data(
-        key, lambda: _build_stack(cfg, dataset, layout, faithful, dev)
+        key, lambda: _build_stack(cfg, dataset, layout, faithful, dev, mesh, ring)
     )
     if isinstance(X, features_lib.FieldOnehot):
         X = X.with_lowering(cfg.fields_margin, cfg.fields_scatter, cfg.sparse_lanes)
     return X, y, n_train, hit
 
 
-def resolved_stack(cfg: RunConfig, dataset: Dataset, device=None):
+def resolved_stack(cfg: RunConfig, dataset: Dataset, device=None, mesh=None):
     """``(model, X)`` exactly as :func:`train` resolves them on ``device``:
-    the worker-major stack for faithful runs, the partition-major stack for
-    deduped runs, through the data cache (so a race's thunks then hit it).
-    The shape the tune plane races and resolves under (tune/races.py): the
-    decision cache keys on ``tune.run_shape_signature(model, X)`` of THIS
-    pair, so races and warm-run resolutions can never key apart."""
+    the worker-major stack for materialized faithful runs, the
+    partition-major stack for deduped and ring-transported runs (the rank's
+    slice over a mesh), through the data cache (so a race's thunks then hit
+    it). The shape the tune plane races and resolves under (tune/races.py):
+    the decision cache keys on ``tune.run_shape_signature(model, X)`` of
+    THIS pair, so races and warm-run resolutions can never key apart."""
     dev = resolve_device(device)
     faithful = cfg.compute_mode == ComputeMode.FAITHFUL
-    X, _, _, _ = _device_stack(cfg, dataset, build_layout(cfg), faithful, dev)
+    layout = build_layout(cfg)
+    mesh, ring = _resolve_transport(cfg, dataset, layout, faithful, dev, mesh)
+    X, _, _, _ = _device_stack(cfg, dataset, layout, faithful, dev, mesh, ring)
     return build_model(cfg), X
 
 
+def _run_mesh(mesh, need: int, dev):
+    """The run's worker mesh: ``mesh``, or the largest group of the world's
+    processes whose size divides ``need`` (the JAX trainer's _auto_mesh).
+    A group formed for one device type never runs another's: no silent move
+    from the card to the CPU."""
+    if mesh is None:
+        mesh = mesh_lib.auto_mesh(need)
+    if mesh.device is not None and mesh.device.type != dev.type:
+        raise ValueError(
+            f"the process group was formed on {mesh.device.type}, and this "
+            f"run asks for {dev.type}: pass the group's device"
+        )
+    return mesh
+
+
+def _resolve_transport(cfg: RunConfig, dataset: Dataset, layout, faithful: bool, dev, mesh):
+    """``(mesh, ring)``: the run's worker mesh over the axis it shards (the
+    workers of a faithful run, the partitions of a deduped one) and whether
+    its faithful stack takes the ring transport (sharding.
+    resolve_ring_stack; ``use_pallas="on"`` pins "auto" to materialized)."""
+    mesh = _run_mesh(mesh, layout.n_workers if faithful else layout.n_partitions, dev)
+    ring = faithful and sharding_lib.resolve_ring_stack(
+        cfg.stack_mode, layout, dataset, mesh.size, cfg.resolve_stack_dtype(),
+        device=dev, supported=cfg.use_pallas != "on",
+    )
+    return mesh, ring
+
+
+def _local_weights(mesh, layout, weights: np.ndarray, faithful: bool) -> np.ndarray:
+    """The rank's columns of the run's ``[R, W, S]`` (faithful) or
+    ``[R, P]`` (deduped) weights, host float64: the slots its stack holds."""
+    lo, hi = mesh.slice(layout.n_workers if faithful else layout.n_partitions)
+    return weights[:, lo:hi]
+
+
+def _ring_grad(cfg: RunConfig, model, layout, mesh, X, grad_fn):
+    """The ring transport around ``grad_fn`` (step.make_ring_faithful_grad_fn)
+    and the resolved schedule: ``(grad_fn, "pipelined" | "sequential")``."""
+    pipe = step_lib.resolve_ring_pipeline(cfg.ring_pipeline, model, X)
+    grad_fn = step_lib.make_ring_faithful_grad_fn(
+        model, plan_ring_transport(layout, mesh.size), mesh, local_body=grad_fn,
+        pipeline=pipe,
+    )
+    return grad_fn, "pipelined" if pipe else "sequential"
+
+
+def _stack_mode(faithful: bool, ring_pipe: Optional[str]) -> str:
+    """The resolved transport's name, as the JAX trainer records it."""
+    if ring_pipe is not None:
+        return "ring"
+    return "materialized" if faithful else "deduped"
+
+
 def _cache_info(cfg: RunConfig, hit: bool, stats_before: dict, X, y, faithful: bool,
-                setup_seconds: float, final_params, residency: str) -> dict:
+                setup_seconds: float, final_params, residency: str,
+                ring_pipe: Optional[str] = None) -> dict:
     """A run's ``TrainResult.cache_info`` (the JAX trainer's, without the
-    executable cache's fields)."""
+    executable cache's fields): ``stack_mode`` the resolved transport and
+    ``ring_pipeline`` its schedule (None off the ring)."""
     return {
         "residency": residency,
         "enabled": cache_lib.enabled(),
@@ -364,7 +455,8 @@ def _cache_info(cfg: RunConfig, hit: bool, stats_before: dict, X, y, faithful: b
         "bytes_reused": cache_lib.stats().bytes_reused - stats_before["bytes_reused"],
         "stack_bytes": cache_lib.device_nbytes((X, y)),
         "setup_seconds": setup_seconds,
-        "stack_mode": "materialized" if faithful else "deduped",
+        "stack_mode": _stack_mode(faithful, ring_pipe),
+        "ring_pipeline": ring_pipe,
         "pipeline_depth": cfg.pipeline_depth,
         "pipeline_params_slot_bytes": (
             cache_lib.device_nbytes(final_params) if cfg.pipeline_depth else 0
@@ -400,7 +492,7 @@ def _model_name(model) -> str:
     return getattr(model, "name", type(model).__name__)
 
 
-def _apply_margin_flat(cfg: RunConfig, model, X, grad_fn):
+def _apply_margin_flat(cfg: RunConfig, model, X, grad_fn, mesh=None):
     """Swap in the hybrid dense lowering per ``cfg.margin_flat``: "on"
     forces it (raising off the dense closed-form path), "auto" defers to
     step.resolve_margin_flat. Returns (grad_fn, swapped)."""
@@ -410,11 +502,11 @@ def _apply_margin_flat(cfg: RunConfig, model, X, grad_fn):
             f"got model={_model_name(model)!r}, X={type(X).__name__}"
         )
     if step_lib.resolve_margin_flat(cfg.margin_flat, model, X):
-        return step_lib.make_margin_flat_grad_fn(model), True
+        return step_lib.make_margin_flat_grad_fn(model, mesh), True
     return grad_fn, False
 
 
-def _apply_flat_grad(cfg: RunConfig, model, X, grad_fn):
+def _apply_flat_grad(cfg: RunConfig, model, X, grad_fn, mesh=None):
     """Swap in the flat-stack lowering per ``cfg.flat_grad``: "on" forces
     it (raising off the closed-form path), "auto" defers to
     step.resolve_flat_grad. Returns (grad_fn, swapped)."""
@@ -425,11 +517,12 @@ def _apply_flat_grad(cfg: RunConfig, model, X, grad_fn):
             f"got model={_model_name(model)!r}, X={type(X).__name__}"
         )
     if step_lib.resolve_flat_grad(cfg.flat_grad, model, X):
-        return step_lib.make_flat_grad_fn(model), True
+        return step_lib.make_flat_grad_fn(model, mesh), True
     return grad_fn, False
 
 
-def _apply_layer_coding(cfg: RunConfig, model, X, grad_fn, params_template, faithful: bool):
+def _apply_layer_coding(cfg: RunConfig, model, X, grad_fn, params_template, faithful: bool,
+                        mesh=None):
     """Swap in the blockwise decode (step.make_layer_block_grad_fn) per
     ``cfg.layer_coding``; ``cfg.block_decode`` picks its lowering. Both
     resolve "auto" through the tune cache at the stack ``X``'s signature.
@@ -440,7 +533,7 @@ def _apply_layer_coding(cfg: RunConfig, model, X, grad_fn, params_template, fait
     spec = blocks.model_block_spec(model, params_template)
     fused = step_lib.resolve_block_decode(cfg.block_decode, model, X)
     return step_lib.make_layer_block_grad_fn(
-        model, spec, faithful=faithful, fused=fused
+        model, spec, faithful=faithful, fused=fused, mesh=mesh
     ), True
 
 
@@ -475,20 +568,22 @@ def _warn_pallas_declined(reason: str) -> None:
     obs_events.emit("warning", kind="use_pallas_declined", message=reason)
 
 
-def _grad_lowering(cfg: RunConfig, model, X, faithful: bool, params0):
+def _grad_lowering(cfg: RunConfig, model, X, faithful: bool, params0, mesh=None):
     """The round's gradient fn over the stack ``X`` and the name of its
     lowering, by the ladder of the module docstring: margin-flat, then
     flat, then the fused kernel, then the blockwise decode, else the
-    per-slot form. A streamed window takes the same ladder over its own
-    stack."""
+    per-slot form, each all-reducing over ``mesh``. A streamed window takes
+    the same ladder over its own stack, and a ring-transported run over its
+    partition-major shard (the fill then feeds the body its worker
+    slots)."""
     if faithful:
-        grad_fn = step_lib.make_faithful_grad_fn(model)
+        grad_fn = step_lib.make_faithful_grad_fn(model, mesh)
     else:
-        grad_fn = step_lib.make_deduped_grad_fn(model)
+        grad_fn = step_lib.make_deduped_grad_fn(model, mesh)
     lowering = "per_slot"
-    grad_fn, swapped = _apply_margin_flat(cfg, model, X, grad_fn)
+    grad_fn, swapped = _apply_margin_flat(cfg, model, X, grad_fn, mesh)
     lowering = "margin_flat" if swapped else lowering
-    grad_fn, swapped = _apply_flat_grad(cfg, model, X, grad_fn)
+    grad_fn, swapped = _apply_flat_grad(cfg, model, X, grad_fn, mesh)
     lowering = "flat" if swapped else lowering
     if cfg.use_pallas != "off":
         if cfg.use_pallas == "on" and cfg.flat_grad == "on":
@@ -501,13 +596,16 @@ def _grad_lowering(cfg: RunConfig, model, X, faithful: bool, params0):
         # kernel, as does a forced blockwise decode
         forced = cfg.use_pallas == "on" or "on" not in (cfg.flat_grad, cfg.margin_flat)
         if dense_glm and cfg.layer_coding != "on" and forced and _fused_wins(cfg, model, X):
-            reason = kernels.unsupported_reason(X.reshape((-1,) + tuple(X.shape[-2:])))
+            # a rank outside the worker group holds an empty stack and
+            # never launches
+            reason = None if mesh is not None and not mesh.member else (
+                kernels.unsupported_reason(X.reshape((-1,) + tuple(X.shape[-2:]))))
             if reason is not None:  # no quiet fallback to the two-pass gradient
                 raise ValueError(
                     f"the fused kernel declines this stack ({reason}); "
                     "use_pallas='off' takes the two-pass gradient"
                 )
-            grad_fn = step_lib.make_fused_grad_fn(model.name)
+            grad_fn = step_lib.make_fused_grad_fn(model.name, mesh)
             lowering = "fused"
         elif cfg.use_pallas == "on":
             raise ValueError(
@@ -515,7 +613,8 @@ def _grad_lowering(cfg: RunConfig, model, X, faithful: bool, params0):
                 f"got model={model.name!r}, X={type(X).__name__}"
             )
     if lowering != "fused":
-        grad_fn, layer_coded = _apply_layer_coding(cfg, model, X, grad_fn, params0, faithful)
+        grad_fn, layer_coded = _apply_layer_coding(cfg, model, X, grad_fn, params0,
+                                                   faithful, mesh)
         lowering = "layer_block" if layer_coded else lowering
     return grad_fn, lowering
 
@@ -565,15 +664,15 @@ def _history_update_norms(history) -> np.ndarray:
     return np.sqrt(total)
 
 
-def _mesh_signature(dev) -> tuple:
-    """The one-device mesh in the shape of the JAX package's
-    cache.mesh_signature at world size 1: axes, sizes, device ids."""
-    return (("workers",), (1,), (dev.index or 0,))
+def _mesh_signature(mesh, dev) -> tuple:
+    """The run's mesh in the shape of the JAX package's run_start ``mesh``:
+    axes, sizes, device ids (the group's ranks; cache.mesh_signature)."""
+    return cache_lib.mesh_signature(mesh or mesh_lib.worker_mesh(1), dev)[:3]
 
 
 def _emit_run_start(run_id, cfg: RunConfig, dev, lowering: str, stack_mode: str,
                     data_bytes: int, data_hit: bool, compiled: tuple, chunk_rounds: int,
-                    cohort: Optional[dict] = None) -> None:
+                    cohort: Optional[dict] = None, mesh=None) -> None:
     """A run's opening records, as the JAX trainer emits them: run_start,
     data_upload, the cohort record of a cohort, then the compile record of
     the port's one compile step."""
@@ -584,7 +683,7 @@ def _emit_run_start(run_id, cfg: RunConfig, dev, lowering: str, stack_mode: str,
         model=cfg.model.value,
         platform=dev.type,
         config_hash=obs_events.config_hash(cfg),
-        mesh=_mesh_signature(dev),
+        mesh=_mesh_signature(mesh, dev),
         lowering=lowering,
         static_signature=cfg.static_signature_fields(),
         n_workers=cfg.n_workers,
@@ -597,7 +696,7 @@ def _emit_run_start(run_id, cfg: RunConfig, dev, lowering: str, stack_mode: str,
     )
     obs_events.emit(
         "data_upload", run_id=run_id, bytes=int(data_bytes),
-        cache_hit=data_hit, ring=False,
+        cache_hit=data_hit, ring=stack_mode == "ring",
     )
     if cohort is not None:
         obs_events.emit("cohort", run_id=run_id, **cohort)
@@ -652,6 +751,7 @@ def train(
     resume: bool = False,
     initial_state: Optional[optimizer.OptState] = None,
     initial_round: int = 0,
+    mesh=None,
 ) -> TrainResult:
     """Run one full training run for ``cfg`` on ``dataset``.
 
@@ -692,7 +792,14 @@ def train(
     to a temporary directory): a window covering every partition trains
     through this resident loop over the store's rows, bitwise the resident
     run; a smaller window trains block by block (:func:`_train_streamed`),
-    which refuses ``pipeline_depth=1`` and a mid-schedule restart."""
+    which refuses ``pipeline_depth=1`` and a mid-schedule restart.
+
+    ``mesh`` (parallel/mesh.WorkerMesh; None: the largest group of the
+    world's processes whose size divides the sharded axis) splits the
+    workers (or a deduped run's partitions) over the processes of a group:
+    each rank trains on its slice and all-reduces the decoded gradient, and
+    every rank returns the same params; rank 0 alone saves checkpoints,
+    every rank restores them."""
     t_call = time.perf_counter()
     # a bare initial_round would otherwise silently run the whole horizon
     # from round 0; resume takes its start round from the checkpoint
@@ -758,14 +865,16 @@ def train(
                 cfg, dataset, store, window, device=dev, init_params=init_params,
                 arrivals=arrivals, schedule=schedule, checkpoint_dir=checkpoint_dir,
                 resume=resume, initial_state=initial_state, initial_round=initial_round,
+                mesh=mesh,
             )
         if getattr(dataset, "_sweep_cache_token", None) != store.cache_token:
             dataset = store.dataset()
     layout = build_layout(cfg)
     model = build_model(cfg)
     faithful = cfg.compute_mode == ComputeMode.FAITHFUL
+    mesh, ring = _resolve_transport(cfg, dataset, layout, faithful, dev, mesh)
 
-    # ---- control plane (host, float64) ------------------------------------
+    # ---- control plane (host, float64, replicated on every rank) ----------
     if arrivals is None:
         arrivals = default_arrivals(cfg)
     if schedule is None:
@@ -782,17 +891,23 @@ def train(
     lr = cfg.resolve_lr_schedule()
     alpha = cfg.effective_alpha
 
-    # ---- data plane: the stack moves to the device once --------------------
+    # ---- data plane: the rank's slice moves to the device once ------------
     stats_before = cache_lib.stats().snapshot()
-    X, y, n_train, data_hit = _device_stack(cfg, dataset, layout, faithful, dev)
-    weights = _to_device(_round_weights(layout, slot_w, faithful), dev, torch.float32)
+    X, y, n_train, data_hit = _device_stack(cfg, dataset, layout, faithful, dev, mesh, ring)
+    weights = _to_device(
+        _local_weights(mesh, layout, _round_weights(layout, slot_w, faithful), faithful),
+        dev, torch.float32,
+    )
 
     if init_params is None:
         params0 = model.init_params(cfg.seed, dataset.n_features, dev)
     else:
         params0 = params_from_numpy(init_params, dev)
 
-    grad_fn, lowering = _grad_lowering(cfg, model, X, faithful, params0)
+    grad_fn, lowering = _grad_lowering(cfg, model, X, faithful, params0, mesh)
+    ring_pipe = None
+    if ring:
+        grad_fn, ring_pipe = _ring_grad(cfg, model, layout, mesh, X, grad_fn)
     compiled = _prepare_lowering(dev, model, lowering, grad_fn, X, y, params0, weights[0])
     run_id = obs_events.new_run_id() if obs_events.active() else None
 
@@ -863,16 +978,15 @@ def train(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         wall += time.perf_counter() - t0
-        if checkpoint_dir and checkpoint_every and hi < cfg.rounds:
+        if checkpoint_dir and checkpoint_every and hi < cfg.rounds and mesh.rank == 0:
             ckpt_lib.save(os.path.join(checkpoint_dir, f"round_{hi}"), state, hi)
     steps_per_sec = (cfg.rounds - start_round) / wall if wall > 0 else 0.0
     if run_id is not None:
         # after the timed loop, from host arrays and the history the run
         # already holds: the records never touch the loop
-        _emit_run_start(run_id, cfg, dev, lowering,
-                        "materialized" if faithful else "deduped",
+        _emit_run_start(run_id, cfg, dev, lowering, _stack_mode(faithful, ring_pipe),
                         cache_lib.device_nbytes((X, y)), data_hit, compiled,
-                        cfg.rounds - start_round)
+                        cfg.rounds - start_round, mesh=mesh)
         obs_events.emit_round_chunks(
             run_id, start_round=start_round, timeset=schedule.sim_time,
             worker_times=schedule.worker_times, decode_error=decode_err,
@@ -923,7 +1037,7 @@ def train(
         decode_error=decode_err,
         lowering=lowering,
         cache_info=_cache_info(cfg, data_hit, stats_before, X, y, faithful,
-                               setup_seconds or 0.0, state.params, residency),
+                               setup_seconds or 0.0, state.params, residency, ring_pipe),
         schedule=schedule,
         run_id=run_id,
     )
@@ -942,6 +1056,7 @@ def train_dynamic(
     init_params=None,
     initial_state: Optional[optimizer.OptState] = None,
     initial_round: int = 0,
+    mesh=None,
     _sync_debug_mode: Optional[str] = None,
 ) -> TrainResult:
     """A run whose control plane lives on the device: each round's arrival
@@ -978,7 +1093,12 @@ def train_dynamic(
     host. ``_sync_debug_mode`` ("warn" or "error"), on the card, runs the
     round loop under ``torch.cuda.set_sync_debug_mode``: "error" raises at
     any operation that waits for the device (the check that the loop is
-    free of host synchronisation)."""
+    free of host synchronisation).
+
+    ``mesh`` as in :func:`train`: every rank draws the same arrivals from
+    the same key (the draw is replicated), takes its workers' columns of
+    the round's [W, S] weights on the device, and all-reduces the decoded
+    gradient."""
     from erasurehead_tpu_torch.parallel import dynamic as dynamic_lib
     from erasurehead_tpu_torch.utils import threefry
 
@@ -1010,15 +1130,21 @@ def train_dynamic(
         deadline=cfg.deadline, device=dev,
     )
     stats_before = cache_lib.stats().snapshot()
-    X, y, n_train, data_hit = _device_stack(cfg, dataset, layout, True, dev)
+    mesh, ring = _resolve_transport(cfg, dataset, layout, True, dev, mesh)
+    X, y, n_train, data_hit = _device_stack(cfg, dataset, layout, True, dev, mesh, ring)
     if init_params is None:
         params0 = model.init_params(cfg.seed, dataset.n_features, dev)
     else:
         params0 = params_from_numpy(init_params, dev)
     coeffs = _to_device(layout.coeffs, dev, torch.float32)
     slot_coded = torch.from_numpy(np.asarray(layout.slot_is_coded, dtype=bool)).to(dev)
-    grad_fn, lowering = _grad_lowering(cfg, model, X, True, params0)
-    _prepare_lowering(dev, model, lowering, grad_fn, X, y, params0, torch.zeros_like(coeffs))
+    lo, hi = mesh.slice(layout.n_workers)  # the rank's workers of the [W, S] weights
+    grad_fn, lowering = _grad_lowering(cfg, model, X, True, params0, mesh)
+    ring_pipe = None
+    if ring:
+        grad_fn, ring_pipe = _ring_grad(cfg, model, layout, mesh, X, grad_fn)
+    _prepare_lowering(dev, model, lowering, grad_fn, X, y, params0,
+                      torch.zeros_like(coeffs)[lo:hi])
 
     state = optimizer.init_state(params0, cfg.update_rule)
     start = 0
@@ -1051,7 +1177,7 @@ def train_dynamic(
         for j, i in enumerate(range(start, R)):
             rs = sched_fn(threefry.fold_in(key, i))
             slot_w = step_lib.expand_slot_weights(rs.message_weights.float(), coeffs, slot_coded)
-            g = grad_fn(state.params, X, y, slot_w)
+            g = grad_fn(state.params, X, y, slot_w[lo:hi])
             state = update_fn(state, g, float(lr32[i]), alpha, n_train, float(i))
             blocks.tree_map(lambda h, p: h[j].copy_(p), history, state.params)
             sim[j] = rs.sim_time
@@ -1087,8 +1213,26 @@ def train_dynamic(
         final_state=state,
         lowering=lowering,
         cache_info=_cache_info(cfg, data_hit, stats_before, X, y, True, t0 - t_call,
-                               state.params, "resident"),
+                               state.params, "resident", ring_pipe),
     )
+
+
+def _gather_sum(mesh, t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` gathered and summed in rank order: the same bits
+    on every rank."""
+    total = None
+    for part in mesh.all_gather(t):
+        total = part if total is None else total + part
+    return total
+
+
+def _split_like(flat: torch.Tensor, like: list) -> list:
+    """``flat`` cut into tensors shaped as ``like``'s, in order."""
+    out, at = [], 0
+    for t in like:
+        out.append(flat[at:at + t.numel()].view(t.shape))
+        at += t.numel()
+    return out
 
 
 def _make_worker_msg(model):
@@ -1126,6 +1270,7 @@ def train_measured(
     device=None,
     init_params=None,
     work_multiplier=None,
+    mesh=None,
     _clock=time.perf_counter,
 ) -> TrainResult:
     """Measured-arrival mode: every round, each logical worker's message is
@@ -1152,11 +1297,21 @@ def train_measured(
     ``_clock``: the per-worker clock (tests pass a deterministic one); the
     round loop's wall time always reads ``time.perf_counter``.
 
+    Over a worker ``mesh`` of several processes (the JAX package's
+    _train_measured_cluster) every rank is a replica of the master: it
+    times only its own workers' messages, the ``[W]`` arrival row (zeros
+    for the workers another rank timed) meets by ``all_gather`` and sums,
+    every rank builds the same collection on the host, decodes its own
+    messages with its rows of the weights (one decode launch a round), and
+    the partial decoded gradients meet by ``all_gather`` and sum in rank
+    order, so the replicas apply the same update bitwise. Worker ``w`` is
+    timed on the rank whose slice holds it.
+
     Refused as in the JAX package: pipelining, the simulated heterogeneity
     knobs, deduped compute, the forced fused kernel and the forced flat
     lowerings, and schemes whose descriptor lacks ``supports_measured``
-    (the partial two-part schemes). The JAX package's multi-device and
-    multi-process measured paths have no counterpart on one card."""
+    (the partial two-part schemes); and a ``device`` list (the JAX
+    package's one-process multi-device queue replay)."""
     if cfg.pipeline_depth:
         raise PipelineRefusal(
             "measured_arrivals",
@@ -1202,19 +1357,19 @@ def train_measured(
             "misattribute the arrival the mode exists to measure — use the "
             "simulated trainer for partial schemes"
         )
-    if isinstance(device, (list, tuple)) or (
-        torch.distributed.is_available() and torch.distributed.is_initialized()
-        and torch.distributed.get_world_size() > 1
-    ):
+    if isinstance(device, (list, tuple)):
         raise ValueError(
-            "arrival_mode='measured' runs one process on one device here; "
-            "the multi-device queue replay and the multi-process cluster "
-            "path are not ported (ROADMAP A9)"
+            "arrival_mode='measured' drives one device per process; one "
+            "process replaying several devices' queues waits for "
+            f"{mesh_lib.A9B} (one process driving several GPUs): run one "
+            "process per device instead"
         )
     dev = resolve_device(device)
     layout = build_layout(cfg)
     model = build_model(cfg)
     W = layout.n_workers
+    mesh = _run_mesh(mesh, W, dev)
+    lo, hi = mesh.slice(W)  # the workers this rank times
     mult = (
         np.ones(W, dtype=np.int64)
         if work_multiplier is None
@@ -1223,12 +1378,14 @@ def train_measured(
     if mult.shape != (W,) or (mult < 1).any():
         raise ValueError(f"work_multiplier must be [W] ints >= 1, got {mult}")
 
-    X, y, n_train, data_hit = _device_stack(cfg, dataset, layout, True, dev)
+    X, y, n_train, data_hit = _device_stack(cfg, dataset, layout, True, dev, mesh)
     if init_params is None:
         params0 = model.init_params(cfg.seed, dataset.n_features, dev)
     else:
         params0 = params_from_numpy(init_params, dev)
-    run_id = obs_events.new_run_id() if obs_events.active() else None
+    # as in the JAX package, a replica in a cluster emits no records: N
+    # processes appending to one log would interleave
+    run_id = obs_events.new_run_id() if obs_events.active() and not mesh.distributed else None
     state = optimizer.init_state(params0, cfg.update_rule)
     update_fn = optimizer.make_update_fn(cfg.update_rule)
     lr32 = cfg.resolve_lr_schedule().astype(np.float32)
@@ -1237,7 +1394,7 @@ def train_measured(
     slot_coded = np.asarray(layout.slot_is_coded)
     keys = tuple(sorted(params0)) if isinstance(params0, dict) else None  # decode order
     worker_msg = _make_worker_msg(model)
-    slices = [(features_lib.take_lead(X, w), y[w]) for w in range(W)]
+    slices = [(features_lib.take_lead(X, j), y[j]) for j in range(hi - lo)]
 
     # warm every worker's computation before the clock (autodiff imports,
     # a sparse stack's scatter plans, the library's load): measured times
@@ -1245,7 +1402,7 @@ def train_measured(
     if dev.type == "cuda":
         kernels.load_library()
     step_lib.warm_autodiff()
-    for w, (Xs, ys) in enumerate(slices):
+    for w, (Xs, ys) in enumerate(slices, start=lo):
         worker_msg(state.params, Xs, ys, n=int(mult[w]))
         _sync(dev)
 
@@ -1268,18 +1425,28 @@ def train_measured(
         _sync(dev)
         t_row = np.zeros(W)
         msgs = []
-        for w, (Xs, ys) in enumerate(slices):
+        for w, (Xs, ys) in enumerate(slices, start=lo):
             t0 = _clock()
             m = worker_msg(state.params, Xs, ys, n=int(mult[w]))
             _sync(dev)
             t_row[w] = _clock() - t0
             msgs.append(m)
+        if mesh.distributed:
+            # one rank timed each worker, the rest hold zeros there
+            t_row = _gather_sum(mesh, torch.from_numpy(t_row).to(dev)).cpu().numpy()
         sched = build_schedule(cfg, (t_row + delays[r])[None, :], layout)
         slot_w = step_lib.expand_slot_weights(sched.message_weights, coeffs, slot_coded)[0]
-        leaves = [torch.stack(ls) for ls in zip(*(blocks.tree_leaves(m) for m in msgs))]
-        g = blocks.tree_unflatten(
-            keys, kernels.fused_block_decode_leaves(_to_device(slot_w, dev, torch.float32), leaves)
-        )
+        if msgs:
+            leaves = [torch.stack(ls) for ls in zip(*(blocks.tree_leaves(m) for m in msgs))]
+            parts = kernels.fused_block_decode_leaves(
+                _to_device(slot_w[lo:hi], dev, torch.float32), leaves)
+        else:
+            parts = [torch.zeros_like(p) for p in blocks.tree_leaves(state.params)]
+        if mesh.distributed:
+            # the distributed Gather + decode: the ranks' partials, summed
+            parts = _split_like(_gather_sum(mesh, torch.cat([p.reshape(-1) for p in parts])),
+                                parts)
+        g = blocks.tree_unflatten(keys, parts)
         state = update_fn(state, g, float(lr32[r]), alpha, n_train, float(r))
         blocks.tree_map(lambda h, p: h[r].copy_(p), history, state.params)
         timeset[r] = sched.sim_time[0]
@@ -1561,7 +1728,10 @@ def _plan_stream(cfg: RunConfig, layout, store, window: int) -> _StreamPlan:
     _check_streamed_compat(cfg)
     faithful = cfg.compute_mode == ComputeMode.FAITHFUL
     try:
-        plan = plan_stream_windows(layout, window, mode="materialized" if faithful else "deduped")
+        mode = "deduped"
+        if faithful:
+            mode = "ring" if cfg.stack_mode == "ring" else "materialized"
+        plan = plan_stream_windows(layout, window, mode=mode)
     except ValueError as e:
         raise ValueError(f"{e} — or {_stream_remedy(cfg)}") from None
     stack_dtype = cfg.resolve_stack_dtype()
@@ -1703,6 +1873,7 @@ def _train_streamed(
     resume: bool = False,
     initial_state: Optional[optimizer.OptState] = None,
     initial_round: int = 0,
+    mesh=None,
 ) -> TrainResult:
     """Windowed streamed training: the stack never resides on the device
     whole. ``window`` partitions (a divisor of P, from
@@ -1725,8 +1896,11 @@ def _train_streamed(
     JAX's messages: the forced kernel and the forced blockwise decode
     (:func:`_check_streamed_compat`), assignments that are not
     window-uniform (the planner), ``checkpoint_dir``, ``resume`` and a
-    mid-schedule restart (``initial_state``/``initial_round``)."""
+    mid-schedule restart (``initial_state``/``initial_round``), and a world
+    of several processes (mesh.require_one_process)."""
     t_call = time.perf_counter()
+    mesh_lib.require_one_process("windowed streamed residency (streamed windows across ranks)",
+                                 mesh)
     if checkpoint_dir or resume or initial_state is not None or initial_round:
         raise ValueError(
             "checkpoint/resume/mid-schedule restart are not supported on "
@@ -1841,10 +2015,10 @@ def estimate_stack_bytes(cfg: RunConfig, dataset: Dataset) -> int:
     unit (serve/admission.py), the JAX package's estimate on the port's
     stacks.
 
-    Deduped runs keep the partition-major stack; faithful runs pay the
-    (s+1)x worker-major stack (the port has no ring transport, so every
-    faithful stack is materialized: the JAX package's ``stack_mode``
-    "materialized" case). bfloat16 counts 2 bytes an element, int8 1 plus
+    Deduped runs and explicitly ring-streamed faithful runs keep the
+    partition-major stack; other faithful runs pay the (s+1)x worker-major
+    stack (``stack_mode="auto"`` is charged at the materialized footprint,
+    as in the JAX package). bfloat16 counts 2 bytes an element, int8 1 plus
     its float32 scale rows (data/sharding.estimate_worker_stack_bytes).
     Streamed-residency runs are charged their resident WINDOWS, at most two
     (the one computing and the one in flight), never the whole stack; a
@@ -1856,7 +2030,7 @@ def estimate_stack_bytes(cfg: RunConfig, dataset: Dataset) -> int:
     dtype_name = cfg.resolve_stack_dtype()
     worker_stack_est = sharding_lib.estimate_worker_stack_bytes(dataset, layout, dtype_name)
     per_block = worker_stack_est / max(1, layout.n_workers * layout.n_slots)
-    partition_major = cfg.compute_mode != ComputeMode.FAITHFUL
+    partition_major = cfg.compute_mode != ComputeMode.FAITHFUL or cfg.stack_mode == "ring"
     streamed = _resolve_residency(cfg) == "streamed"
     w = None
     if streamed:
@@ -1926,9 +2100,9 @@ def cohort_signature(cfg: RunConfig) -> Optional[tuple]:
     )
 
 
-def _stack_signature(cfg: RunConfig, layout) -> tuple:
+def _stack_signature(cfg: RunConfig, layout, ring: bool = False) -> tuple:
     return cache_lib.layout_stack_signature(
-        layout, worker_major=cfg.compute_mode == ComputeMode.FAITHFUL,
+        layout, worker_major=cfg.compute_mode == ComputeMode.FAITHFUL and not ring,
         stack_dtype=cfg.resolve_stack_dtype(), dtype=cfg.dtype,
         sparse_format=cfg.sparse_format,
     )
@@ -1973,12 +2147,13 @@ def _cohort_lr_alpha(cfgs, dev):
     return lr_B, alpha_B
 
 
-def _cohort_fields(B: int, lowering: str, faithful: bool) -> dict:
+def _cohort_fields(B: int, lowering: str, faithful: bool,
+                   ring_pipe: Optional[str] = None) -> dict:
     return {
         "cohort_size": B,
         "cohort_lowering": lowering,
         "cohort_dispatches": 1,
-        "stack_mode": "materialized" if faithful else "deduped",
+        "stack_mode": _stack_mode(faithful, ring_pipe),
     }
 
 
@@ -2017,7 +2192,7 @@ def _cohort_results(cfgs, schedules, layouts, state, history, wall: float, n_tra
 
 def _emit_cohort(run_id, cfgs, results, dev, stack_mode: str, data_hit: bool,
                  compiled: tuple, stack_bytes: int, prefetch_stall_s: float = 0.0,
-                 staged=()) -> None:
+                 staged=(), mesh=None) -> None:
     """A cohort's records, as the JAX cohort emits them, after its loop: the
     opening records with one ``cohort`` record (its one round loop is its
     one dispatch), each trajectory's chunk stream tagged
@@ -2032,7 +2207,7 @@ def _emit_cohort(run_id, cfgs, results, dev, stack_mode: str, data_hit: bool,
         seeds=[c.seed for c in cfgs], dispatches=1, lowering=lowering,
     )
     _emit_run_start(run_id, cfg, dev, lowering, stack_mode, stack_bytes, data_hit, compiled,
-                    cfg.rounds, cohort=cohort)
+                    cfg.rounds, cohort=cohort, mesh=mesh)
     _emit_stream_records(run_id, staged)
     for b, (c, res) in enumerate(zip(cfgs, results)):
         obs_events.emit_round_chunks(
@@ -2089,11 +2264,14 @@ def _cohort_params(model, cfgs, init_params, n_features: int, dev):
     return blocks.tree_map(lambda *leaves: torch.stack(leaves), *params)
 
 
-def _cohort_lowering(cfg: RunConfig, model, X, y, faithful: bool, params0, w0, dev):
+def _cohort_lowering(cfg: RunConfig, model, X, y, faithful: bool, params0, w0, dev,
+                     mesh=None, layout=None, ring: bool = False):
     """The cohort's gradient fn over the stack ``X``, its lowering
-    (step.make_cohort_grad_fn) and its compile step (:func:`_load_kernels`),
-    with the set-up before the clock starts: build the kernels, import
-    torch.func, build a sparse stack's scatter plans."""
+    (step.make_cohort_grad_fn, all-reducing over ``mesh``), its compile step
+    (:func:`_load_kernels`) and the ring schedule (None off the ring: a
+    ``ring`` cohort fills its worker slots from the partition-major ``X``
+    and ``layout``'s plan), with the set-up before the clock starts: build
+    the kernels, import torch.func, build a sparse stack's scatter plans."""
     if cfg.flat_grad == "on" and not step_lib.supports_flat_grad(model, X):
         raise ValueError(
             "flat_grad='on' needs a closed-form GLM stack; "
@@ -2103,12 +2281,15 @@ def _cohort_lowering(cfg: RunConfig, model, X, y, faithful: bool, params0, w0, d
     grad_fn, lowering = step_lib.make_cohort_grad_fn(
         model, blocks.tree_map(lambda p: p[0], params0), X, faithful=faithful,
         layer_coding=cfg.layer_coding, block_decode=cfg.block_decode,
-        flat_grad=cfg.flat_grad,
+        flat_grad=cfg.flat_grad, mesh=mesh,
     )
+    ring_pipe = None
+    if ring:
+        grad_fn, ring_pipe = _ring_grad(cfg, model, layout, mesh, X, grad_fn)
     compiled = _load_kernels(dev, lowering == "layer_block_vmap")
     step_lib.warm_autodiff()
     _prepare_sparse(X, grad_fn, params0, y, w0)
-    return grad_fn, lowering, compiled
+    return grad_fn, lowering, compiled, ring_pipe
 
 
 def _train_cohort_streamed(cfgs, store, window: int, *, arrivals, device, init_params,
@@ -2123,6 +2304,7 @@ def _train_cohort_streamed(cfgs, store, window: int, *, arrivals, device, init_p
     cohort matmul for a dense GLM; no blockwise form), its update the
     vmapped one. Members match their sequential streamed runs to float
     tolerance."""
+    mesh_lib.require_one_process("a windowed streamed cohort (streamed windows across ranks)")
     # the same chaos site as the resident cohort dispatch: a raise exercises
     # compare()'s bisection (experiments._dispatch_cohort)
     chaos_lib.maybe_fire("cohort")
@@ -2150,7 +2332,7 @@ def _train_cohort_streamed(cfgs, store, window: int, *, arrivals, device, init_p
     run = {}
 
     def setup(X0, y0):
-        run["grad_fn"], run["lowering"], run["compiled"] = _cohort_lowering(
+        run["grad_fn"], run["lowering"], run["compiled"], _ = _cohort_lowering(
             cfg, model, X0, y0, faithful, params0, weights[0], dev
         )
 
@@ -2186,6 +2368,7 @@ def train_cohort(
     *,
     device=None,
     init_params=None,
+    mesh=None,
 ) -> list:
     """Run a cohort of training trajectories, (scheme, seed, lr/alpha)
     variants, as ONE round loop over one shared device data stack.
@@ -2219,7 +2402,11 @@ def train_cohort(
 
     A streamed cohort (``stack_residency``) shares the store: a window
     covering every partition runs this loop on the store's rows, a smaller
-    one the windowed cohort loop (:func:`_train_cohort_streamed`)."""
+    one the windowed cohort loop (:func:`_train_cohort_streamed`).
+
+    ``mesh`` as in :func:`train`: each rank holds its slice of the shared
+    stack and of every trajectory's weights, and the B decoded gradients
+    are all-reduced in one collective a round."""
     if isinstance(cfgs, RunConfig):
         cfgs = [cfgs]
     cfgs = list(cfgs)
@@ -2281,6 +2468,7 @@ def train_cohort(
     chaos_lib.maybe_fire("cohort")
     faithful = cfg.compute_mode == ComputeMode.FAITHFUL
     layouts = _cohort_layouts(cfgs)
+    mesh, ring = _resolve_transport(cfg, dataset, layouts[0], faithful, dev, mesh)
 
     # ---- control plane, per trajectory, exactly as train() builds it ------
     schedules = _cohort_schedules(cfgs, layouts, arrivals)
@@ -2294,16 +2482,18 @@ def train_cohort(
         )
         for s, lay in zip(schedules, layouts)
     ], axis=1)  # [R, B, W, S] (faithful) or [R, B, P] (deduped)
+    lo, hi = mesh.slice(layouts[0].n_workers if faithful else layouts[0].n_partitions)
+    weights_h = weights_h[:, :, lo:hi]  # the rank's slots
     lr_B, alpha_B = _cohort_lr_alpha(cfgs, dev)
 
     # ---- data plane: one stack for the cohort ------------------------------
     stats_before = cache_lib.stats().snapshot()
-    X, y, n_train, data_hit = _device_stack(cfg, dataset, layouts[0], faithful, dev)
+    X, y, n_train, data_hit = _device_stack(cfg, dataset, layouts[0], faithful, dev, mesh, ring)
     weights = _to_device(weights_h, dev, torch.float32)
     model = build_model(cfg)
     params0 = _cohort_params(model, cfgs, init_params, dataset.n_features, dev)
-    grad_fn, lowering, compiled = _cohort_lowering(cfg, model, X, y, faithful, params0,
-                                                   weights[0], dev)
+    grad_fn, lowering, compiled, ring_pipe = _cohort_lowering(
+        cfg, model, X, y, faithful, params0, weights[0], dev, mesh, layouts[0], ring)
     run_id = obs_events.new_run_id() if obs_events.active() else None
 
     state = optimizer.init_state(params0, cfg.update_rule)
@@ -2317,7 +2507,7 @@ def train_cohort(
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     cache_info = _cache_info(cfg, data_hit, stats_before, X, y, faithful, t0 - t_call, None,
-                             residency)
+                             residency, ring_pipe)
     for i in range(cfg.rounds):
         with annotate("eh_scan/coded_step"):
             g = grad_fn(state.params, X, y, weights[i])
@@ -2328,12 +2518,12 @@ def train_cohort(
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
 
-    cohort = _cohort_fields(B, lowering, faithful)
+    cohort = _cohort_fields(B, lowering, faithful, ring_pipe)
     results = _cohort_results(cfgs, schedules, layouts, state, history, wall, n_train,
                               lowering, cohort, {**cache_info, **cohort}, run_id)
     if run_id is not None:
         _emit_cohort(run_id, cfgs, results, dev, cache_info["stack_mode"], data_hit,
-                     compiled, cache_info["stack_bytes"])
+                     compiled, cache_info["stack_bytes"], mesh=mesh)
     return results
 
 

@@ -25,8 +25,10 @@ validate in both packages):
     layer_coding   blockwise | treewise  per-layer coding on/off
     glm_fused      pallas | xla          B1 (csrc/fused_glm_grad.cu) vs the
                                          two-pass torch gradient
-    ring_pipeline  pipelined | sequential  (no ring transport on one card:
-    stack_mode     ring | materialized      both races always skip)
+    ring_pipeline  pipelined | sequential  the ring transport's schedules
+    stack_mode     ring | materialized      the faithful stack's transports
+                                            (at world size 1 the ring is a
+                                            per-round local gather)
 
 The cache's device dimension is the run's device: the CUDA device name on
 the card, ``"cpu"`` for a CPU run (a ``--device cpu`` run on a machine with
@@ -104,6 +106,17 @@ def run_shape_signature(model, X) -> str:
     return (
         f"model={type(model).__name__}"
         f"|nl={nl}|X={type(X).__name__}{shape}|{dtype}"
+    )
+
+
+def stack_mode_signature(layout, rows: int, n_features: int, dtype) -> str:
+    """Shape key of the stack-transport race (data/sharding.
+    resolve_ring_stack): the pre-stack quantities its footprint gate reads,
+    as JAX keys them (no stack exists yet when it resolves)."""
+    return (
+        f"W={layout.n_workers}|P={layout.n_partitions}"
+        f"|S={layout.n_slots}|rows={int(rows)}|F={int(n_features)}"
+        f"|{dtype_name(dtype)}"
     )
 
 

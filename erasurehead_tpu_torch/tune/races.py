@@ -15,9 +15,13 @@ two-pass path's 0.163 ms at the main shape [90, 4400, 128] on an H100),
 ``block_decode`` to ``fused`` (step.BLOCK_DECODE_FUSED_DEFAULT);
 ``layer_coding`` to ``treewise``, as in JAX.
 
-``ring_pipeline`` and ``stack_mode`` race the ring transport, which the
-port does not have on one device (ROADMAP A9): they always SKIP, returning
-None and recording nothing. A skipped race is not a verdict.
+``ring_pipeline`` races the ring transport's two schedules and
+``stack_mode`` the ring transport against the materialized stack, each as
+two wired ``trainer.train`` runs over the run's worker mesh. In one process
+the ring has one hop (a per-round local gather of the resident
+partition-major stack), so ``stack_mode`` races that gather against the
+materialized stack's resident redundancy, and the two ``ring_pipeline``
+schedules run the same program.
 
 ``python -m erasurehead_tpu_torch.cli tune`` (:func:`main`) drives these
 from flags.
@@ -27,8 +31,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
-
 import numpy as np
 import torch
 
@@ -160,19 +162,53 @@ def race_glm_fused(
 def race_ring_pipeline(
     cfg, dataset=None, *, reps: int = racer_lib.DEFAULT_REPS,
     timer=None, record: bool = True, device=None,
-) -> Optional[racer_lib.RaceResult]:
-    """Sequential vs double-buffered ring transport: SKIPPED (None). The
-    port runs on one device with no ring transport (ROADMAP A9)."""
-    return None
+) -> racer_lib.RaceResult:
+    """Sequential vs double-buffered ring transport, ``stack_mode="ring"``
+    forced (the pair behind step.resolve_ring_pipeline), keyed by the
+    partition-major stack the resolver consults. Both move the same blocks
+    in the same order: the trajectories are bitwise equal and the race is
+    about time (a tie in one process, where there is one hop)."""
+    dev = resolve_device(device)
+    dataset = dataset if dataset is not None else _dataset(cfg)
+    base = dataclasses.replace(cfg, stack_mode="ring")
+    return racer_lib.race(
+        "ring_pipeline", _signature(base, dataset, dev),
+        {
+            "sequential": _train_thunk(dataclasses.replace(base, ring_pipeline="off"), dataset, dev),
+            "pipelined": _train_thunk(dataclasses.replace(base, ring_pipeline="on"), dataset, dev),
+        },
+        fallback="sequential", device_kind=tune_lib.default_device_kind(dev),
+        reps=reps, timer=timer, record=record,
+    )
 
 
 def race_stack_mode(
     cfg, dataset=None, *, reps: int = racer_lib.DEFAULT_REPS,
     timer=None, record: bool = True, device=None,
-) -> Optional[racer_lib.RaceResult]:
-    """Materialized vs ring-streamed faithful stack: SKIPPED (None), for the
-    same reason as :func:`race_ring_pipeline`."""
-    return None
+) -> racer_lib.RaceResult:
+    """Materialized faithful stack vs the ring transport (the pair behind
+    sharding.resolve_ring_stack's auto threshold), keyed by the PRE-stack
+    signature (tune.stack_mode_signature): the resolver runs before any
+    stack exists. Bitwise-equal trajectories; the ring holds 1/(s+1) of the
+    stack and gathers the redundant slots every round."""
+    from erasurehead_tpu_torch.train import trainer
+
+    dev = resolve_device(device)
+    dataset = dataset if dataset is not None else _dataset(cfg)
+    layout = trainer.build_layout(cfg)
+    sig = tune_lib.stack_mode_signature(
+        layout, dataset.n_samples // layout.n_partitions, dataset.X_train.shape[1],
+        cfg.resolve_stack_dtype(),
+    )
+    return racer_lib.race(
+        "stack_mode", sig,
+        {
+            name: _train_thunk(dataclasses.replace(cfg, stack_mode=name), dataset, dev)
+            for name in ("materialized", "ring")
+        },
+        fallback="materialized", device_kind=tune_lib.default_device_kind(dev),
+        reps=reps, timer=timer, record=record,
+    )
 
 
 RACE_FNS = {
@@ -250,9 +286,6 @@ def main(argv=None) -> int:
         results[name] = res
         if ns.json:
             continue
-        if res is None:
-            print(f"{name}: SKIPPED (no ring transport on one device)")
-            continue
         timings = "  ".join(
             f"{k}={v * 1e3:.2f}ms" for k, v in sorted(res.timings.items())
         )
@@ -268,18 +301,16 @@ def main(argv=None) -> int:
             "device_kind": tune_lib.default_device_kind(dev),
             "cache": tune_lib.default_path(),
             "races": {
-                name: (
-                    None if res is None else {
-                        "choice": res.choice,
-                        "fallback": res.fallback,
-                        "decisive": res.decisive,
-                        "shape": res.shape,
-                        "timings_ms": {
-                            k: round(v * 1e3, 3)
-                            for k, v in sorted(res.timings.items())
-                        },
-                    }
-                )
+                name: {
+                    "choice": res.choice,
+                    "fallback": res.fallback,
+                    "decisive": res.decisive,
+                    "shape": res.shape,
+                    "timings_ms": {
+                        k: round(v * 1e3, 3)
+                        for k, v in sorted(res.timings.items())
+                    },
+                }
                 for name, res in results.items()
             },
         }))

@@ -6,7 +6,8 @@ every scheme of the scheme registry (erasurehead_tpu_torch/schemes/) with
 its fixed or least-squares-optimal decode, the two GLM families and the
 unsharded mlp, deepmlp and moe families, GD/AGD/ADAM updates, the faithful
 and deduped compute modes, float32 or bfloat16 data, the int8 stack, the
-sparse stack formats and their lowerings, the flat and margin-flat
+sparse stack formats and their lowerings, the faithful stack's transport
+(``stack_mode``, ``ring_pipeline``), the flat and margin-flat
 gradient lowerings, the fused-kernel switch and the per-layer (blockwise)
 gradient coding knobs, the arrival mode (simulated or measured), the
 heterogeneous-cluster arrival model and the recorded arrival trace, the
@@ -199,6 +200,26 @@ class RunConfig:
     is_real_data: bool = False
     partitions_per_worker: int = 0  # >0 selects partial schemes' slot count
     compute_mode: ComputeMode = ComputeMode.FAITHFUL
+    # the faithful mode's stack transport (data/sharding.py):
+    #   "materialized" keeps the worker-major [W, S, rows, F] stack resident
+    #                  (the redundancy is real memory, as in the reference);
+    #   "ring"         keeps only the partition-major [P, rows, F] stack and
+    #                  rebuilds each rank's worker slots every round over
+    #                  ring hops between the ranks (parallel/step.
+    #                  make_ring_faithful_grad_fn; at world size 1 a local
+    #                  gather): bitwise the materialized run, 1/(s+1) the
+    #                  resident stack;
+    #   "auto"         ring once the materialized stack's footprint estimate
+    #                  crosses sharding.RING_AUTO_MIN_BYTES (or a cached
+    #                  stack_mode race verdict says so).
+    # Deduped mode has no redundancy to stream and refuses "ring".
+    stack_mode: str = "materialized"
+    # the ring transport's schedule (parallel/step._ring_fill): "off" sends
+    # and fills hop by hop; "on" posts hop t+1 before it fills hop t and
+    # waits on it after (same hops, same bytes, same fill order: bitwise);
+    # "auto" resolves through a cached ring_pipeline race verdict, else
+    # step.RING_PIPELINE_DEFAULT (off). Inert off the ring transport
+    ring_pipeline: str = "auto"
     seed: int = 0  # data, generator matrix and the port's own params init
     # DATA dtype: bfloat16 halves the bytes the gradient pass streams; params
     # and optimizer updates always run in float32
@@ -381,6 +402,16 @@ class RunConfig:
             raise ValueError(
                 f"dtype must be float32/bfloat16, got {self.dtype!r}"
             )
+        if self.stack_mode not in ("materialized", "ring", "auto"):
+            raise ValueError(
+                f"stack_mode must be materialized/ring/auto, got "
+                f"{self.stack_mode!r}"
+            )
+        if self.ring_pipeline not in ("auto", "on", "off"):
+            raise ValueError(
+                f"ring_pipeline must be auto/on/off, got "
+                f"{self.ring_pipeline!r}"
+            )
         if self.stack_dtype not in ("auto", "float32", "bfloat16", "int8"):
             raise ValueError(
                 f"stack_dtype must be auto/float32/bfloat16/int8, got "
@@ -401,6 +432,27 @@ class RunConfig:
                 "dequantizing body; force at most one of "
                 "stack_dtype='int8' / use_pallas='on'"
             )
+        if self.stack_mode == "ring":
+            if self.compute_mode != ComputeMode.FAITHFUL:
+                raise ValueError(
+                    "stack_mode='ring' streams the faithful mode's "
+                    "redundant worker stack; deduped mode has no "
+                    "redundancy to stream — drop one of the two"
+                )
+            if self.arrival_mode == "measured":
+                raise ValueError(
+                    "arrival_mode='measured' times each worker's own "
+                    "resident slot stack per dispatch; the ring transport "
+                    "only exists inside the SPMD step — use "
+                    "stack_mode='materialized' (or 'auto') with measured "
+                    "mode"
+                )
+            if self.use_pallas == "on":
+                raise ValueError(
+                    "use_pallas='on' forces the fused kernel, which has no "
+                    "ring-transport body; force at most one of "
+                    "stack_mode='ring' / use_pallas='on'"
+                )
         if self.stack_residency not in ("resident", "streamed", "auto"):
             raise ValueError(
                 f"stack_residency must be resident/streamed/auto, got "
@@ -515,13 +567,17 @@ class RunConfig:
         lowering or update (not its weights, arrivals or lr values): the
         JAX package's RunConfig.static_signature_fields, in its order,
         restricted to the fields this port has and to those that change
-        its step (not ``sp_form``: with no mesh the attention runs the same
-        for both forms; A9's transports will key it). Trajectories whose
+        its step (not ``sp_form``: without a sequence axis the attention runs
+        the same for both forms; A9b's transports will key it). Trajectories whose
         signatures differ cannot share one cohort round loop
         (train/trainer.train_cohort)."""
         return {
             "model": self.model.value,
             "compute_mode": self.compute_mode.value,
+            # the raw transport knobs, as the JAX package keys them: ring
+            # and materialized trajectories never share a cohort
+            "stack_mode": self.stack_mode,
+            "ring_pipeline": self.ring_pipeline,
             "stack_dtype": self.stack_dtype,
             # the raw residency knobs keep streamed and resident
             # trajectories (and two stream windows) in separate cohorts

@@ -89,8 +89,13 @@ def run_whatif(
     trajectory starts from (the grid's model seed is fixed across points
     and seeds); None = the port's own seeded draw at ``spec.model_seed``.
     JAX's engine has no such argument: the port's tests pass JAX's draw.
+    One process: a world of several raises (parallel/mesh.
+    require_one_process).
     """
+    from erasurehead_tpu_torch.parallel import mesh as mesh_lib
     from erasurehead_tpu_torch.train import evaluate, experiments, trainer
+
+    mesh_lib.require_one_process("whatif.run_whatif")
     from erasurehead_tpu_torch.utils.config import resolve_batch_trajectories
     from erasurehead_tpu_torch.utils.device import resolve_device
 
@@ -336,9 +341,9 @@ def run_whatif(
 def main(argv=None) -> int:
     """Grid spec flags -> surface artifact -> rendered crossover table.
 
-    JAX's entry calls ``parallel.backend.initialize_distributed`` first; on
-    one device (world size 1, the port's only world until ROADMAP A9) that
-    call is a no-op, so the port makes none."""
+    Calls ``parallel.backend.initialize_distributed`` first, as JAX's entry
+    does (a no-op in one process); the grid runs in one process
+    (run_whatif refuses a world of several, ROADMAP A9b)."""
     import argparse
     import contextlib
     import os
@@ -429,6 +434,9 @@ def main(argv=None) -> int:
     except ValueError as e:
         p.error(str(e))
 
+    from erasurehead_tpu_torch.parallel.backend import initialize_distributed
+
+    initialize_distributed(device=ns.device)
     capture = (
         obs_events.capture(os.path.join(ns.out, "events.jsonl"))
         if ns.out

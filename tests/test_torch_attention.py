@@ -237,7 +237,7 @@ def test_config_refusals_carry_jax_messages(kw):
 def test_seq_shards_over_one_is_refused_on_one_device():
     JRunConfig(**_kw(seq_shards=2))  # the JAX package runs it on a mesh
     ns = t_cli._flags_parser().parse_args(["--model", "attention", "--seq-shards", "2"])
-    with pytest.raises(ValueError, match="multi-GPU transports are not ported"):
+    with pytest.raises(ValueError, match="model-internal axes wait for ROADMAP A9b"):
         t_cli._flags_to_config(ns)
 
 

@@ -324,16 +324,27 @@ def test_config_payload_is_jax_dict(extra):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("stack_mode", "ring", "A9"), ("ring_pipeline", "off", "A9"),
     ("donate", "off", "A5r"), ("scan_unroll", 2, "A5r"),
 ])
 def test_absent_payload_fields_refused_naming_their_item(field, value, item):
-    """The JAX package serves these four fields; the port refuses them
+    """The JAX package serves these two fields; the port refuses them
     loudly, naming the ROADMAP queue A item that brings each."""
     j_queue.config_from_payload({"scheme": "naive", field: value})
     with pytest.raises(ValueError, match=f"ROADMAP queue A, {item}") as ei:
         serve_queue.config_from_payload({"scheme": "naive", field: value})
     assert repr(field) in str(ei.value)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("stack_mode", "ring"), ("ring_pipeline", "off"),
+])
+def test_ring_payload_fields_are_served_as_jax_serves_them(field, value):
+    """The ring transport's two knobs ride the wire: the port's payload is
+    the JAX package's dict, and it round-trips to an equal config."""
+    got = serve_queue.config_from_payload({"scheme": "naive", field: value})
+    assert getattr(got, field) == value
+    want = j_queue.config_from_payload({"scheme": "naive", field: value})
+    assert serve_queue.config_payload(got) == j_queue.config_payload(want)
 
 
 def test_config_from_payload_validates():
@@ -887,8 +898,8 @@ def test_socket_submit_roundtrip_and_bad_payload(tmp_path):
                 client.submit("w", "bad", {"scheme": "naive", "warp_drive": 9})
             with pytest.raises(RuntimeError, match="unserveable"):
                 client.submit("w", "bad2", {"input_dir": "/etc"})
-            with pytest.raises(RuntimeError, match="ROADMAP queue A, A9"):
-                client.submit("w", "bad3", {"scheme": "naive", "stack_mode": "ring"})
+            with pytest.raises(RuntimeError, match="ROADMAP queue A, A5r"):
+                client.submit("w", "bad3", {"scheme": "naive", "donate": "off"})
             client.close()
         finally:
             front.close()

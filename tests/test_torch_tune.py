@@ -412,9 +412,30 @@ def test_glm_fused_race_on_the_cpu(gmm):
 
 
 def test_ring_races_skip_and_record_nothing(gmm, isolated_cache):
-    assert t_races.race_ring_pipeline(_cfg(), gmm, device="cpu") is None
-    assert t_races.race_stack_mode(_cfg(), gmm, device="cpu") is None
-    assert t_tune.get_cache().decisions() == {} and not os.path.exists(isolated_cache)
+    """The ring races race for real in one process (they skipped before the
+    ring transport was ported): ring_pipeline under the partition-major
+    stack's run signature, stack_mode under JAX's pre-stack signature, each
+    verdict recorded, the trajectories of both candidates bitwise equal."""
+    cfg = _cfg(model="logistic")
+    pipe = t_races.race_ring_pipeline(cfg, gmm, reps=1, device="cpu")
+    mode = t_races.race_stack_mode(cfg, gmm, reps=1, device="cpu")
+    assert set(pipe.timings) == {"sequential", "pipelined"} and pipe.fallback == "sequential"
+    assert set(mode.timings) == {"materialized", "ring"} and mode.fallback == "materialized"
+    model, Xp = t_trainer.resolved_stack(dataclasses.replace(cfg, stack_mode="ring"), gmm,
+                                         device="cpu")
+    assert tuple(Xp.shape) == (W, N_ROWS // W, N_COLS)  # partition-major
+    assert pipe.shape == t_tune.run_shape_signature(model, Xp)
+    layout = t_trainer.build_layout(cfg)
+    jlayout = j_trainer.build_layout(JRunConfig(**_kw(model="logistic")))
+    assert mode.shape == j_tune.stack_mode_signature(jlayout, N_ROWS // W, N_COLS, "float32")
+    assert mode.shape == t_tune.stack_mode_signature(layout, N_ROWS // W, N_COLS, "float32")
+    decisions = t_tune.get_cache().decisions()
+    assert decisions[f"cpu|ring_pipeline|{pipe.shape}"] == pipe.choice
+    assert decisions[f"cpu|stack_mode|{mode.shape}"] == mode.choice
+    runs = [t_trainer.train(dataclasses.replace(cfg, **kw), gmm, device="cpu").params_history
+            for kw in (dict(), dict(stack_mode="ring", ring_pipeline="off"),
+                       dict(stack_mode="ring", ring_pipeline="on"))]
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
 
 
 # ---------------------------------------------------------------------------
@@ -453,13 +474,15 @@ def test_kill_mid_race_leaves_cache_bytes(tmp_path):
 
 
 def test_cli_race_all_skips_the_ring_races(tmp_path, capsys):
+    """``--race all`` runs all five races: the ring races no longer skip."""
     from erasurehead_tpu_torch import cli as t_cli
 
     assert t_cli.main(["tune", "--race", "all"] + TINY) == 0
     out = capsys.readouterr().out
-    assert "ring_pipeline: SKIPPED" in out and "stack_mode: SKIPPED" in out
+    assert "SKIPPED" not in out
+    assert "ring_pipeline: choice=" in out and "stack_mode: choice=" in out
     keys = {k.split("|")[1] for k in t_tune.get_cache().decisions()}
-    assert keys == {"block_decode", "layer_coding", "glm_fused"}
+    assert keys == {"block_decode", "layer_coding", "glm_fused", "ring_pipeline", "stack_mode"}
 
 
 def test_tune_race_site_is_wired():
