@@ -111,7 +111,7 @@ Phases, one JSON line each:
                  padded --flat-grad on, fields (flat), fields with one-hot
                  scatter and margin, and fields --sparse-lanes 8: each 100
                  rounds on the card with no kernel launch and its loss
-                 falling; its first 10 rounds (2 for the one-hot lowering)
+                 falling; its first 10 rounds (1 for the one-hot lowering)
                  on the card and on the CPU, replayed losses within relative
                  1e-4 and simulated clocks byte-equal; two card reruns of
                  as many rounds with bitwise-equal iterates (the script
@@ -148,8 +148,9 @@ Phases, one JSON line each:
                  8 features a row, d_model 16, 2 heads) on the main path's
                  data and AGD, layer-coded with the fused decode: 100 rounds
                  on the card with exactly 100 decode launches and no GLM
-                 kernel, its loss falling; 10 rounds card vs CPU within
-                 relative 1e-4; treewise bitwise equal on the card; a
+                 kernel, its loss falling; ATTN_SHORT_ROUNDS (2) rounds
+                 card vs CPU within relative 1e-4; treewise bitwise equal
+                 on the card over the same rounds; a
                  4-trajectory cohort (lr 10 and 5 x seeds 0 and 1) in one
                  dispatch with 100 decode launches, each member within
                  relative 1e-6 of its sequential card run;
@@ -365,7 +366,18 @@ Phases, one JSON line each:
                  relative 1e-4 of world 1's), train_dynamic and the measured
                  cluster over 20 rounds. World 2's steps/s are two processes
                  time-slicing one card, not a multi-GPU speed. B1 is timed at
-                 [45, 4400, 128] beside its bound (``time_mesh``).
+                 [45, 4400, 128] beside its bound (``time_mesh``). The same
+                 two processes then run the model-internal axes
+                 (``model_axes``): tensor-parallel mlp, pipeline-parallel
+                 deepmlp, expert-parallel moe and sequence-parallel
+                 attention under ring and Ulysses, each at its default
+                 widths on the (workers 1, axis 2) mesh on the flagship
+                 data for AXES_ROUNDS rounds: the ranks bitwise every round,
+                 the first round's decoded gradient within rtol 2e-4 / atol
+                 2e-5 of the unsharded card run's from the same params, the
+                 replayed loss falling, 0 B1 / 0 B2; steps/s a rank, the
+                 share of a profiled round in the axis collectives, peak
+                 device bytes.
 Later, beside ``time`` and ``profile``: the attention run's per-slot leaves
 through ``decode_ops``, its round's decode (one launch, six leaves of
 [90, 913] floats) against its plain version, six GEMVs and the bound, and
@@ -488,7 +500,8 @@ PROFILE_ROUNDS = 20  # the sparse, int8 and dense-lowering profiles
 # seconds on the CPU at the covtype size: its card-vs-CPU comparison and
 # reruns run ONEHOT_SHORT_ROUNDS (the others SHORT_ROUNDS), its profiles
 # ONEHOT_PROFILE_ROUNDS
-ONEHOT_SHORT_ROUNDS, ONEHOT_PROFILE_ROUNDS = 2, 2
+# (1 from PR 17, which paid so for the mesh phase's model axes)
+ONEHOT_SHORT_ROUNDS, ONEHOT_PROFILE_ROUNDS = 1, 2
 SPARSE_RUNS = (  # (name, flags, the trainer's lowering, short rounds, profile rounds)
     ("padded", ["--sparse-format", "padded"], "per_slot", SHORT_ROUNDS, PROFILE_ROUNDS),
     ("padded_flat", ["--sparse-format", "padded", "--flat-grad", "on"], "flat",
@@ -521,6 +534,10 @@ ATTN_ARGS = MAIN_ARGS + ["--model", "attention", "--layer-coding", "on", "--bloc
                          "fused"]
 # its cohort: two lrs x two seeds
 ATTN_COHORT = [(lr, seed) for lr in (10.0, 5.0) for seed in (0, 1)]
+# its card-vs-CPU and treewise comparisons: the CPU runs about 0.3 rounds
+# a second at this size (10 rounds until PR 17, which paid so for the mesh
+# phase's model axes)
+ATTN_SHORT_ROUNDS = 2
 CKPT_EVERY, ATTN_CKPT_EVERY = 25, 50
 # the sweep runner: the suite's rounds in the real-kill drill, and pipelined
 # tau=1 training on the main path (GD: AGD is refused under pipelining) and
@@ -653,7 +670,8 @@ def run_main(cli, out_dir, device, args=MAIN_ARGS, prefix=None, workers=30, star
         raise AssertionError(f"missing artifacts: {missing}")
     with open(os.path.join(out_dir, f"{prefix}_run_manifest.json")) as f:
         manifest = json.load(f)
-    arts = {a: np.loadtxt(p, ndmin=1) for a, p in paths.items()}
+    arts = {a: np.loadtxt(p, ndmin=2 if a == "worker_timeset" else 1)
+            for a, p in paths.items()}  # a one-round [1, W] stays 2-D
     for a in ("training_loss", "testing_loss", "auc", "timeset"):
         if arts[a].shape != (rounds,) or not np.isfinite(arts[a]).all():
             raise AssertionError(f"{a}: shape {arts[a].shape} or non-finite values")
@@ -1788,8 +1806,9 @@ def arrivals_phase(cli, kernels, tmp, both0) -> list:
 def attention_phase(cli, kernels, tmp, both0) -> dict:
     """ATTN_ARGS through the CLI: 100 rounds on the card with exactly 100
     decode launches and none of the GLM kernel, the loss falling; its first
-    10 rounds on the card and on the CPU within relative 1e-4; the same 10
-    rounds with --block-decode treewise bitwise equal on the card; then a
+    ATTN_SHORT_ROUNDS rounds on the card and on the CPU within relative
+    1e-4; the same rounds with --block-decode treewise bitwise equal on the
+    card; then a
     4-trajectory cohort (ATTN_COHORT) in one dispatch and 100 decode
     launches, each member's replayed loss within relative 1e-6 of its
     sequential card run."""
@@ -1797,12 +1816,12 @@ def attention_phase(cli, kernels, tmp, both0) -> dict:
 
     run = counted_run(cli, kernels, os.path.join(tmp, "attention"), ATTN_ARGS,
                       {**both0, "fused_block_decode": ROUNDS})
-    short = with_rounds(ATTN_ARGS, SHORT_ROUNDS)
+    short = with_rounds(ATTN_ARGS, ATTN_SHORT_ROUNDS)
     gpu10 = run_main(cli, os.path.join(tmp, "attention10_cuda"), "cuda", short)
     cpu10 = run_main(cli, os.path.join(tmp, "attention10_cpu"), "cpu", short)
     treewise = short[:short.index("fused")] + ["treewise"]
     tree10 = counted_run(cli, kernels, os.path.join(tmp, "attention10_treewise"), treewise,
-                         {**both0, "fused_block_decode": SHORT_ROUNDS})
+                         {**both0, "fused_block_decode": ATTN_SHORT_ROUNDS})
     same = {a: tree10["arts"][a].tobytes() == gpu10["arts"][a].tobytes() for a in ARTIFACTS}
     if not all(same.values()):
         raise AssertionError(f"attention treewise vs fused artifacts differ on the card: {same}")
@@ -1810,7 +1829,7 @@ def attention_phase(cli, kernels, tmp, both0) -> dict:
                steps_per_sec=run["manifest"]["steps_per_sec"],
                wall_time_s=run["manifest"]["wall_time"],
                train_loss_first_last=check_falls(run), final_auc=float(run["arts"]["auc"][-1]),
-               short_rounds=SHORT_ROUNDS, cpu_steps_per_sec=cpu10["manifest"]["steps_per_sec"],
+               short_rounds=ATTN_SHORT_ROUNDS, cpu_steps_per_sec=cpu10["manifest"]["steps_per_sec"],
                **compare_runs(gpu10, cpu10), treewise_launches=tree10["launches"],
                treewise_artifacts_bitwise_equal_fused=same)
 
@@ -4565,6 +4584,22 @@ MESH_VARIANTS = (  # (name, RunConfig fields): the transports of the main path
     ("ring_on", {"stack_mode": "ring", "ring_pipeline": "on"}),
 )
 MESH_SHORT = 20  # rounds of the world-2 train_dynamic and measured-cluster runs
+# the model-internal axes in the same two processes: each family at its
+# default widths (mlp hidden 64; deepmlp hidden 32, 4 layers; moe hidden 16,
+# 4 experts; attention d_in 8, d_model 16, 2 heads) at 2 shards on the
+# (workers 1, axis 2) mesh, on the flagship data, with its update rule of the
+# deep and attention phases (GD lr 0.5; AGD at the preset's lr 10)
+AXES_ROUNDS = 5
+_AXES_GD = with_rounds(DEEP_ARGS[:DEEP_ARGS.index("--model")], AXES_ROUNDS)
+_AXES_ATTN = with_rounds(MAIN_ARGS, AXES_ROUNDS) + ["--model", "attention"]
+AXES_RUNS = (  # (name, flags)
+    ("tp_mlp", _AXES_GD + ["--model", "mlp", "--tp-shards", "2"]),
+    ("pp_deepmlp", _AXES_GD + ["--model", "deepmlp", "--pp-shards", "2"]),
+    ("ep_moe", _AXES_GD + ["--model", "moe", "--ep-shards", "2"]),
+    ("seq_ring", _AXES_ATTN + ["--seq-shards", "2", "--sp-form", "ring"]),
+    ("seq_ulysses", _AXES_ATTN + ["--seq-shards", "2", "--sp-form", "ulysses"]),
+)
+AXES_GRAD_TOL = dict(rtol=2e-4, atol=2e-5)  # the JAX package's tests/test_train.py
 DEEP_DECODE_FLOATS = sum(DEEP_LEAVES)  # a deep round's decoded gradient, 8,385 floats
 MESH_CHILD_TIMEOUT_S = 600
 
@@ -4613,13 +4648,125 @@ def _bitwise_runs(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(_history_leaves(a), _history_leaves(b)))
 
 
+@contextlib.contextmanager
+def first_gradient(trainer):
+    """Observe a run's first decoded gradient: the grad fn the trainer
+    resolves (trainer._grad_lowering) is wrapped to keep a copy of its first
+    result, a dict of leaves. Yields the dict it fills under ``"g"``."""
+    resolve, box = trainer._grad_lowering, {}
+
+    def lowering(*args, **kw):
+        fn, name = resolve(*args, **kw)
+
+        def grad(*a):
+            g = fn(*a)
+            box.setdefault("g", {k: v.detach().clone() for k, v in g.items()})
+            return g
+
+        return grad, name
+
+    trainer._grad_lowering = lowering
+    try:
+        yield box
+    finally:
+        trainer._grad_lowering = resolve
+
+
+def axis_share(trace_path: str) -> dict:
+    """Host seconds of a traced run's rounds (``eh_scan/*`` spans) and of the
+    axis collectives inside them (``eh_axis/*``, forward and backward), from
+    its Chrome trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    dur = lambda prefix: sum(e.get("dur", 0) for e in events
+                             if str(e.get("name", "")).startswith(prefix)) / 1e6
+    rounds, axis = dur("eh_scan/"), dur("eh_axis/")
+    return dict(round_s=rounds, axis_s=axis, share=axis / rounds if rounds else None)
+
+
+def model_axes_child(cli, kernels, ds) -> tuple:
+    """The AXES_RUNS in this rank of the world-2 group: each run's params
+    history and first decoded gradient, its launches, steps/s, peak device
+    bytes above the run's start, and the share of a traced round's time
+    spent in the axis collectives."""
+    from erasurehead_tpu_torch.train import trainer
+    from erasurehead_tpu_torch.utils import tracing
+
+    t0 = time.perf_counter()
+    rec, hist = {}, {}
+    for name, args in AXES_RUNS:
+        cfg = parse_config(cli, args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with first_gradient(trainer) as box:
+            res, launches = counted_library_run(kernels, lambda: trainer.train(cfg, ds))
+        peak = torch.cuda.max_memory_allocated() - base
+        for k, v in res.params_history.items():
+            hist[f"axes/{name}/{k}"] = v.cpu().numpy()
+        for k, v in box["g"].items():
+            hist[f"axes_g0/{name}/{k}"] = v.cpu().numpy()
+        with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-axes-") as tdir:
+            # host spans only: the collectives block the host under gloo
+            with tracing.device_trace(tdir, device="cpu") as trace:
+                trainer.train(dataclasses.replace(cfg, rounds=1), ds)
+            share = axis_share(trace.path)
+        rec[name] = dict(launches=launches, steps_per_sec=res.steps_per_sec, peak_bytes=peak,
+                         lowering=res.lowering, collectives=share)
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, hist
+
+
+def model_axes_check(cli, kernels, ds, ranks, hists, both0) -> dict:
+    """The parent's half of ``model_axes``: the unsharded card runs of
+    AXES_RUNS from the same params (the port's seeded init), their first
+    decoded gradients against rank 0's, the ranks' histories bitwise, the
+    replayed loss falling, 0 B1 / 0 B2 a rank."""
+    from erasurehead_tpu_torch.train import trainer
+
+    out, bad = {}, []
+    for name, args in AXES_RUNS:
+        cfg = parse_config(cli, args)
+        plain = dataclasses.replace(cfg, tp_shards=1, pp_shards=1, ep_shards=1, seq_shards=1)
+        with first_gradient(trainer) as box:
+            ref, ref_launches = counted_library_run(kernels, lambda: trainer.train(plain, ds))
+        keys = sorted(ref.params_history)
+        bitwise = all(np.array_equal(hists[0][f"axes/{name}/{k}"], hists[1][f"axes/{name}/{k}"])
+                      for k in keys)
+        grad_err = {}
+        for k in keys:
+            got, want = hists[0][f"axes_g0/{name}/{k}"], box["g"][k].cpu().numpy()
+            grad_err[k] = float(np.max(np.abs(got - want) / (AXES_GRAD_TOL["atol"]
+                                                             + AXES_GRAD_TOL["rtol"] * np.abs(want))))
+        sharded = dataclasses.replace(ref, params_history={
+            k: torch.from_numpy(hists[0][f"axes/{name}/{k}"]).cuda() for k in keys})
+        loss = replayed_loss(sharded, ds)
+        launches = [r["model_axes"][name]["launches"] for r in ranks]
+        out[name] = dict(
+            ranks_bitwise=bitwise, grad_err_over_tol=max(grad_err.values()),
+            loss_first_last=[float(loss[0]), float(loss[-1])],
+            unsharded_loss_last=float(replayed_loss(ref, ds)[-1]),
+            unsharded_steps_per_sec=ref.steps_per_sec, launches=launches,
+            steps_per_sec=[r["model_axes"][name]["steps_per_sec"] for r in ranks],
+            peak_bytes=[r["model_axes"][name]["peak_bytes"] for r in ranks],
+            collectives=[r["model_axes"][name]["collectives"] for r in ranks],
+        )
+        if not bitwise or out[name]["grad_err_over_tol"] > 1.0 or not loss[-1] < loss[0] \
+                or any(v != both0 for v in launches) or ref_launches != both0:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"model_axes runs failed their checks: {bad}: {out}")
+    return out
+
+
 def mesh_child(out_dir: str) -> int:
     """One rank of the world-2 group (``python3 chip_smoke.py --mesh-child
     DIR``, torchrun's environment from the parent): gloo on the card, B1 at
     the rank's [45, 4400, 128] against its plain version, the main path
     materialized and ring-transported (off and on), then train_dynamic and
     the measured cluster at MESH_SHORT rounds; histories and counts into
-    ``DIR/rank<r>.npz`` and ``.json``."""
+    ``DIR/rank<r>.npz`` and ``.json``; then the model-internal axes
+    (:func:`model_axes_child`)."""
     import torch.distributed as dist
 
     cli, kernels = import_port()
@@ -4654,6 +4801,8 @@ def mesh_child(out_dir: str) -> int:
     hist["measured_worker_times"] = res.worker_times
     rec["measured"] = dict(launches=launches, steps_per_sec=res.steps_per_sec)
     rec["all_reduce_us"] = all_reduce_us(mesh)
+    rec["model_axes"], axes_hist = model_axes_child(cli, kernels, ds)
+    hist.update(axes_hist)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **hist)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
@@ -4772,6 +4921,13 @@ def mesh_phase(cli, kernels, ds, both0) -> dict:
             raise AssertionError(f"world-2 children failed: {failed}")
         ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in (0, 1)]
         hists = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in (0, 1)]
+    t_axes = time.perf_counter()
+    axes = model_axes_check(cli, kernels, ds, ranks, hists, both0)
+    emit("model_axes", note="two processes time-slicing one card over gloo; not a "
+         "multi-GPU speed", rounds=AXES_ROUNDS, runs=axes,
+         child_seconds=[r["model_axes"]["seconds"] for r in ranks],
+         check_seconds=time.perf_counter() - t_axes)
+    hists = [{k: v for k, v in h.items() if not k.startswith("axes")} for h in hists]
     ranks_bitwise = {k: bool(np.array_equal(hists[0][k], hists[1][k])) for k in hists[0]}
     ring_bitwise = {name: bool(np.array_equal(h[name], h["materialized"]))
                     for h in hists for name, _ in MESH_VARIANTS[1:]}
@@ -4802,7 +4958,7 @@ def mesh_phase(cli, kernels, ds, both0) -> dict:
     if any(v != want_ranks for v in ({k: r[k]["launches"] for k in want_ranks}
                                      for r in ranks)):
         raise AssertionError(f"world-2 launches: {launches}")
-    return dict(world1=one, world2=rec, nccl_all_reduce_us=nccl_us,
+    return dict(world1=one, world2=rec, nccl_all_reduce_us=nccl_us, model_axes=axes,
                 no_group_steps_per_sec=[ref.steps_per_sec, again.steps_per_sec],
                 seconds=time.perf_counter() - t_phase,
                 launches_by_run={
@@ -4810,7 +4966,9 @@ def mesh_phase(cli, kernels, ds, both0) -> dict:
                     "mesh_reference_main": ref_launches, "mesh_reference_deep": deep_launches,
                     "mesh_rerun_main": again_launches, "mesh_rerun_deep": again_deep_launches,
                     **{f"mesh_world2_{rk}_{k}": n for rk, by in launches.items()
-                       for k, n in by.items()}})
+                       for k, n in by.items()},
+                    **{f"model_axes_rank{r}_{name}": a["launches"][r]
+                       for name, a in axes.items() for r in (0, 1)}})
 
 
 def main() -> int:
@@ -5323,6 +5481,12 @@ def main() -> int:
                  "world2_steps_per_sec": mesh_rec["world2"]["steps_per_sec"],
                  "world2_gloo_all_reduce_us": mesh_rec["world2"]["gloo_all_reduce_us"],
                  "world2_loss_max_rel_vs_world1": mesh_rec["world2"]["loss_max_rel_vs_world1"],
+                 # the model axes in the same two processes (same caveat):
+                 # steps/s a rank, the collectives' share of a traced round,
+                 # peak device bytes a rank
+                 "model_axes": {name: {f: a[f] for f in (
+                     "steps_per_sec", "collectives", "peak_bytes", "unsharded_steps_per_sec")}
+                     for name, a in mesh_rec["model_axes"].items()},
                  "phase_s": mesh_rec["seconds"]},
     }, {
         "name": "fused_block_decode",

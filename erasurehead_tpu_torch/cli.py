@@ -107,7 +107,10 @@ of processes whose size divides W; each rank trains on its slice and the
 decoded gradient is all-reduced; rank 0 alone writes the artifacts and the
 event log. ``--stack-mode ring [--ring-pipeline on|off|auto]`` keeps only
 the partition-major stack and moves the redundant slots between the ranks
-every round.
+every round. ``--tp-shards`` (mlp), ``--pp-shards`` (deepmlp),
+``--ep-shards`` (moe) or ``--seq-shards`` (attention, ``--sp-form ring`` or
+``ulysses``) above 1 adds a model-internal axis: a 2-D mesh of that many
+processes a row (parallel/mesh.worker_plus_axis_mesh).
 
 Run flow: load the reference-layout dataset under ``--input-dir`` if it is
 there, else generate the synthetic one (a real dataset, any but
@@ -139,7 +142,6 @@ from erasurehead_tpu_torch.data import io as data_io
 from erasurehead_tpu_torch.data.synthetic import Dataset, generate_gmm, generate_linear
 from erasurehead_tpu_torch.obs import events as events_lib
 from erasurehead_tpu_torch.parallel import failures
-from erasurehead_tpu_torch.parallel import mesh as mesh_lib
 from erasurehead_tpu_torch.parallel.backend import initialize_distributed, is_writer
 from erasurehead_tpu_torch.train import artifacts, evaluate, trainer
 from erasurehead_tpu_torch.utils.config import ModelKind, RunConfig, resolve_telemetry
@@ -344,11 +346,23 @@ def _flags_parser() -> argparse.ArgumentParser:
                         "multiplier on the trace rows")
     p.add_argument("--seq-shards", type=int, default=1,
                    help="sequence-parallel shards for the attention model: "
-                        "> 1 spans the token axis over several devices, "
-                        "which waits for ROADMAP A9b (it raises)")
+                        ">1 builds a 2-D (workers, seq) mesh and spans the "
+                        "token axis over it")
     p.add_argument("--sp-form", default="ring", choices=["ring", "ulysses"],
                    help="SP form carrying the attention: ppermute ring or "
-                        "all-to-all head sharding (validated and kept)")
+                        "all-to-all head sharding")
+    p.add_argument("--tp-shards", type=int, default=1,
+                   help="tensor-parallel shards for the MLP model: >1 "
+                        "builds a 2-D (workers, model) mesh and splits the "
+                        "hidden dimension over it")
+    p.add_argument("--pp-shards", type=int, default=1,
+                   help="pipeline stages for the deepmlp model: >1 builds "
+                        "a 2-D (workers, pipe) mesh and streams GPipe "
+                        "microbatches through the layer stages")
+    p.add_argument("--ep-shards", type=int, default=1,
+                   help="expert-parallel shards for the moe model: >1 "
+                        "builds a 2-D (workers, expert) mesh and splits "
+                        "the experts over it")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                    help="DATA dtype (params/updates stay float32)")
     p.add_argument("--arrival-mode", default="simulated",
@@ -460,32 +474,12 @@ def _flags_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_seq_shards(seq_shards: int, model: ModelKind) -> None:
-    """--seq-shards with the JAX package's RunConfig checks and messages.
-    Only 1 is legal and it is no config field: > 1 would span the token
-    axis over several devices, a model-internal axis (ROADMAP A9b)."""
-    if seq_shards < 1:
-        raise ValueError(f"seq_shards must be >= 1, got {seq_shards}")
-    if seq_shards > 1:
-        if model != ModelKind.ATTENTION:
-            raise ValueError(
-                "seq_shards > 1 requires model='attention' (the only "
-                "family with a sequence axis to shard)"
-            )
-        raise ValueError(
-            "seq_shards > 1 spans the token axis over several devices "
-            "(ring or Ulysses sequence parallelism); the model-internal "
-            f"axes wait for {mesh_lib.A9B}: use seq_shards=1"
-        )
-
-
 def _flags_to_config(ns: argparse.Namespace) -> RunConfig:
     model = ns.model
     if model is None:
         model = (
             ModelKind.LINEAR if ns.dataset == "kc_house_data" else ModelKind.LOGISTIC
         )
-    _check_seq_shards(ns.seq_shards, ModelKind(model))
     return RunConfig(
         scheme=ns.scheme,
         model=model,
@@ -517,7 +511,11 @@ def _flags_to_config(ns: argparse.Namespace) -> RunConfig:
         block_decode=ns.block_decode,
         deep_layers=ns.deep_layers,
         arrival_trace=ns.arrival_trace,
+        seq_shards=ns.seq_shards,
         sp_form=ns.sp_form,
+        tp_shards=ns.tp_shards,
+        pp_shards=ns.pp_shards,
+        ep_shards=ns.ep_shards,
         dtype=ns.dtype,
         stack_dtype=ns.stack_dtype,
         stack_residency=ns.stack_residency,

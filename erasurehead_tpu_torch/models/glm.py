@@ -80,17 +80,39 @@ class MarginClassifierBase:
 
     grads_via_loss = True
 
-    def loss_sum(self, params, X, y):
+    # the mesh of a model-internal axis (the families' for_mesh copies set it)
+    mesh = None
+
+    def row_losses(self, params, X, y):
+        """Every row's loss, [..., n]: the terms :meth:`loss_sum` adds."""
         # logaddexp(0, z) is jax.nn.softplus; torch's softplus switches to
         # the identity above its threshold (20) and differs there
         z = -y * self.predict(params, X)
-        return torch.logaddexp(torch.zeros_like(z), z).sum()
+        return torch.logaddexp(torch.zeros_like(z), z)
+
+    def loss_sum(self, params, X, y):
+        return self.row_losses(params, X, y).sum()
 
     def loss_mean(self, params, X, y):
         return self.loss_sum(params, X, y) / y.shape[0]
 
     def grad_sum(self, params, X, y):
-        return torch.func.grad(self.loss_sum)(params, X, y)
+        """Gradient of the summed loss. On a rank of a model-internal axis
+        (``mesh`` set) the forward runs collectives, which ``torch.func``
+        cannot trace: the JAX package's standalone recipe instead, one
+        backward pass of the loss scaled by 1/axis size, then every leaf
+        summed over the axis (leaves the axis replicates arrive whole on
+        each member and the sum undoes the scaling; leaves it splits arrive
+        as member slices and the sum assembles them)."""
+        if self.mesh is None:
+            return torch.func.grad(self.loss_sum)(params, X, y)
+        keys = sorted(params)
+        with torch.enable_grad():
+            live = {k: params[k].detach().requires_grad_() for k in keys}
+            loss = self.loss_sum(live, X, y) / self.mesh.shards
+            grads = torch.autograd.grad(loss, [live[k] for k in keys],
+                                        materialize_grads=True)
+        return {k: self.mesh._axis_all_reduce(g) for k, g in zip(keys, grads)}
 
 
 class _GLMBase:

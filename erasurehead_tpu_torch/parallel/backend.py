@@ -156,3 +156,6 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _device = None
+    from erasurehead_tpu_torch.parallel import mesh
+
+    mesh._ROW_GROUPS.clear()  # the sub-groups died with their world

@@ -37,7 +37,20 @@ The forms of that op, each a function ``(params, X, y, weights) -> grads``
 The first two are the monolithic PyTorch form, the counterpart of the JAX
 package's own XLA lowering. For the autodiff families (``grads_via_loss``)
 it is one ``torch.func.grad`` of the weighted summed loss, as in the JAX
-package's ``_weighted_loss_grad`` (without its psum: one device).
+package's ``_weighted_loss_grad`` (its psum is the factory's all-reduce).
+
+Under a model-internal axis (a model made by ``for_mesh`` on a 2-D mesh:
+tensor-, pipeline-, expert- or sequence-parallel, parallel/mesh.py) the
+forward runs collectives, which ``torch.func`` cannot trace. The rank's
+slots then flatten into one batch, so every collective runs once for the
+whole batch, and one ``torch.autograd.grad`` of the weighted per-slot loss
+sums gives the rank's gradient (:func:`_axis_grad_body`). The backward of the
+forward's sum all-reduce all-reduces the cotangent, so every member of an
+axis, computing the same loss, would get the axis size times its share: the
+JAX package's explicit recipe (its ``_weighted_loss_grad`` without the
+implicit psum) undoes that, scaling the loss by 1/axis size and then summing
+every leaf over both mesh axes, which here is the factory's one all-reduce
+over the world.
 
 The faithful mode's ring transport (``stack_mode="ring"``,
 :func:`make_ring_faithful_grad_fn`) keeps only the partition-major stack and
@@ -111,6 +124,36 @@ def _grads_via_loss(model) -> bool:
     return getattr(model, "grads_via_loss", False)
 
 
+def _on_model_axis(model) -> bool:
+    """Does this model run a model-internal mesh axis (a ``for_mesh`` copy)?"""
+    return any(getattr(model, ax, None) is not None for ax in _MODEL_AXES)
+
+
+def _axis_grad_body(model, contract: str) -> GradFn:
+    """The rank's share of the decoded gradient of a model on a
+    model-internal axis (module docstring): the stack's ``contract`` slot
+    dims flatten into one, the weighted per-slot loss sums, scaled by
+    1/axis size, take one backward pass through the forward's collectives.
+    Summed over the world by the factory's all-reduce, the shares are the
+    decoded gradient."""
+    shards = model.mesh.shards
+
+    def grad(params, Xs, ys, ws):
+        lead = tuple(ys.shape[:len(contract)])
+        M = int(np.prod(lead))
+        X = features_lib.reshape_lead(Xs, (M,))
+        y = ys.reshape((M,) + tuple(ys.shape[len(contract):]))
+        leaves, spec = pytree.tree_flatten(params)
+        with annotate("eh_step/partial_grads"), torch.enable_grad():
+            live = [leaf.detach().requires_grad_() for leaf in leaves]
+            per_slot = model.row_losses(pytree.tree_unflatten(live, spec), X, y).sum(-1)
+            total = (ws.reshape(M).float() * per_slot).sum() / shards
+            grads = torch.autograd.grad(total, live, materialize_grads=True)
+        return pytree.tree_unflatten(list(grads), spec)
+
+    return grad
+
+
 def _weighted_loss_grad(model, params, Xs, ys, ws, contract: str):
     """Gradient of sum_slots w_slot * loss_sum(params, X_slot, y_slot): the
     decoded gradient of an autodiff family in one backward pass over the
@@ -144,6 +187,9 @@ def make_faithful_grad_fn(model, mesh=None) -> GradFn:
     Every factory here all-reduces over ``mesh`` (:func:`_psum`).
     """
 
+    if _on_model_axis(model):
+        return _psum(_dq(_axis_grad_body(model, "ws")), mesh)
+
     def grad(params, Xw, yw, slot_weights):
         if _grads_via_loss(model):
             with annotate("eh_step/partial_grads"):
@@ -166,6 +212,9 @@ def make_deduped_grad_fn(model, mesh=None) -> GradFn:
       Xp, yp: the rank's partition-major stacks [Pl, rows, F] / [Pl, rows].
       part_weights: [Pl] folded per-partition weights.
     """
+
+    if _on_model_axis(model):
+        return _psum(_dq(_axis_grad_body(model, "p")), mesh)
 
     def grad(params, Xp, yp, part_weights):
         if _grads_via_loss(model):
@@ -462,9 +511,10 @@ def supports_layer_coding(model) -> bool:
     no implicit psum (each rank differentiates its own slots and the
     all-reduce comes after the decode): per-slot ``torch.func.grad`` is
     exact for every family it has (the GLMs, mlp, deepmlp, moe). The other
-    JAX exclusion, model-internal mesh axes, stays; the port's models have
-    none (ROADMAP A9b)."""
-    return all(getattr(model, ax, None) is None for ax in _MODEL_AXES)
+    JAX exclusion stays: a model on a model-internal mesh axis takes the
+    flattened-slot gradient (:func:`_axis_grad_body`), which decodes over
+    the whole mesh, never per slot."""
+    return not _on_model_axis(model)
 
 
 def _tuned(race: str, model, X, fallback: str):
@@ -733,9 +783,26 @@ def make_cohort_grad_fn(
     return _psum(grad_fn, mesh), lowering
 
 
+def looped_grad_fn(body: GradFn) -> GradFn:
+    """The cohort body of a model on a model-internal axis: the
+    one-trajectory grad fn once per trajectory, in order (its collectives
+    cannot run under ``torch.func.vmap``), the B gradients stacked; the
+    factory's all-reduce then sums all B in one collective."""
+
+    def grad(params_B, Xs, ys, ws_B):
+        outs = [body(blocks_lib.tree_map(lambda p: p[b], params_B), Xs, ys, ws_B[b])
+                for b in range(ws_B.shape[0])]
+        return pytree.tree_map(lambda *leaves: torch.stack(leaves), *outs)
+
+    return grad
+
+
 def _cohort_body(model, params_template, X, *, faithful: bool, layer_coding: str,
                  block_decode: str, flat_grad: str):
     contract = "ws" if faithful else "p"
+    if _on_model_axis(model):
+        # JAX's per_slot_vmap lowering, the trajectories in turn
+        return looped_grad_fn(_dq(_axis_grad_body(model, contract))), "per_slot_vmap"
     if resolve_layer_coding(layer_coding, model, X):
         spec = blocks_lib.model_block_spec(model, params_template)
         fused = resolve_block_decode(block_decode, model, X)

@@ -180,7 +180,8 @@ def mesh_signature(mesh, device) -> tuple:
     sizes, device ids), the ids being the group's world ranks, then the
     world size and the device kind (the CUDA device name, or ``cpu``)."""
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    return (tuple(mesh.axis_names), (mesh.size,), tuple(mesh.ranks), mesh.world, kind)
+    return (tuple(mesh.axis_names), tuple(mesh.shape.values()), tuple(mesh.ranks), mesh.world,
+            kind)
 
 
 def device_nbytes(obj) -> int:

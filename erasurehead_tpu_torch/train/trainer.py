@@ -93,7 +93,11 @@ so the ranks' params stay bitwise equal; rank 0 alone writes checkpoints.
 partition-major stack and rebuilds the worker slots every round over ring
 hops between the ranks (step.make_ring_faithful_grad_fn), bitwise the
 materialized run. Without a process group the mesh is this one process and
-nothing changes.
+nothing changes. A config with a model-internal axis (``tp_shards``,
+``pp_shards``, ``ep_shards`` or ``seq_shards`` above 1) runs on the 2-D
+(workers, axis) mesh (``_auto_2d_mesh``, or an explicit mesh that must carry
+the axis), and the round's step takes the family's model-parallel copy
+(``for_mesh``); eval replay stays unsharded.
 
 Timing artifacts keep two clocks apart, as the JAX package does:
   - ``timeset``/``worker_times``: *simulated* cluster seconds from the
@@ -136,6 +140,7 @@ from erasurehead_tpu_torch.obs import decode as obs_decode
 from erasurehead_tpu_torch.obs import events as obs_events
 from erasurehead_tpu_torch.ops import blocks, codes, kernels
 from erasurehead_tpu_torch.ops import features as features_lib
+from erasurehead_tpu_torch.parallel import backend as backend_lib
 from erasurehead_tpu_torch.parallel import collect, pipeline as pipeline_lib
 from erasurehead_tpu_torch.parallel import mesh as mesh_lib
 from erasurehead_tpu_torch.parallel import step as step_lib, straggler
@@ -386,16 +391,77 @@ def resolved_stack(cfg: RunConfig, dataset: Dataset, device=None, mesh=None):
     layout = build_layout(cfg)
     mesh, ring = _resolve_transport(cfg, dataset, layout, faithful, dev, mesh)
     X, _, _, _ = _device_stack(cfg, dataset, layout, faithful, dev, mesh, ring)
-    return build_model(cfg), X
+    return _step_model(cfg, mesh), X
 
 
-def _run_mesh(mesh, need: int, dev):
-    """The run's worker mesh: ``mesh``, or the largest group of the world's
-    processes whose size divides ``need`` (the JAX trainer's _auto_mesh).
-    A group formed for one device type never runs another's: no silent move
-    from the card to the CPU."""
+def _model_axis_request(cfg: RunConfig):
+    """(axis_name, shards) of the config's model-internal axis: seq for
+    attention, model for the mlp's tensor parallelism, pipe for deepmlp,
+    expert for moe; or None. Config validation allows at most one above
+    1."""
+    if cfg.seq_shards > 1:
+        from erasurehead_tpu_torch.parallel.ring import SEQ_AXIS
+
+        return SEQ_AXIS, cfg.seq_shards
+    if cfg.tp_shards > 1:
+        return mesh_lib.MODEL_AXIS, cfg.tp_shards
+    if cfg.pp_shards > 1:
+        from erasurehead_tpu_torch.models.deep_mlp import PIPE_AXIS
+
+        return PIPE_AXIS, cfg.pp_shards
+    if cfg.ep_shards > 1:
+        from erasurehead_tpu_torch.models.moe import EXPERT_AXIS
+
+        return EXPERT_AXIS, cfg.ep_shards
+    return None
+
+
+def _auto_2d_mesh(need: int, axis_name: str, shards: int):
+    """The 2-D (workers, <axis>) mesh: ``shards`` processes a row, the
+    worker axis the largest divisor of ``need`` that fits in the world (the
+    JAX trainer's _auto_2d_mesh)."""
+    avail = backend_lib.world_size()
+    if shards > avail:
+        raise ValueError(
+            f"{axis_name} shards={shards} exceeds the {avail} available "
+            f"devices"
+        )
+    per = avail // shards
+    wd = max(d for d in range(1, per + 1) if need % d == 0)
+    return mesh_lib.worker_plus_axis_mesh(axis_name, shards, wd)
+
+
+def _step_model(cfg: RunConfig, mesh):
+    """The model the round's step runs: the model-parallel copy of the
+    family when the mesh carries its axis (its ``for_mesh``), else the
+    plain model. Eval replay builds its own, unsharded."""
+    model = build_model(cfg)
+    return model.for_mesh(mesh) if hasattr(model, "for_mesh") else model
+
+
+def _run_mesh(mesh, need: int, dev, axis_req=None):
+    """The run's mesh: ``mesh``, or the largest group of the world's
+    processes whose size divides ``need`` (the JAX trainer's _auto_mesh),
+    or under a model-internal axis request ``(axis, shards)`` the 2-D mesh
+    (:func:`_auto_2d_mesh`), which an explicit mesh must carry. A group
+    formed for one device type never runs another's: no silent move from
+    the card to the CPU."""
     if mesh is None:
-        mesh = mesh_lib.auto_mesh(need)
+        if axis_req is not None:
+            mesh = _auto_2d_mesh(need, *axis_req)
+        else:
+            mesh = mesh_lib.auto_mesh(need)
+    if axis_req is not None:
+        # an explicit mesh must actually carry the requested axis: these
+        # modes preserve parity, so running without them would look right
+        # while testing nothing
+        ax, shards = axis_req
+        if ax not in mesh.axis_names or mesh.shape[ax] != shards:
+            raise ValueError(
+                f"requested {shards} '{ax}' shards but the mesh axes are "
+                f"{dict(mesh.shape)}; pass mesh=None (auto) or a 2-D mesh "
+                f"with a matching '{ax}' axis"
+            )
     if mesh.device is not None and mesh.device.type != dev.type:
         raise ValueError(
             f"the process group was formed on {mesh.device.type}, and this "
@@ -409,7 +475,8 @@ def _resolve_transport(cfg: RunConfig, dataset: Dataset, layout, faithful: bool,
     workers of a faithful run, the partitions of a deduped one) and whether
     its faithful stack takes the ring transport (sharding.
     resolve_ring_stack; ``use_pallas="on"`` pins "auto" to materialized)."""
-    mesh = _run_mesh(mesh, layout.n_workers if faithful else layout.n_partitions, dev)
+    mesh = _run_mesh(mesh, layout.n_workers if faithful else layout.n_partitions, dev,
+                     _model_axis_request(cfg))
     ring = faithful and sharding_lib.resolve_ring_stack(
         cfg.stack_mode, layout, dataset, mesh.size, cfg.resolve_stack_dtype(),
         device=dev, supported=cfg.use_pallas != "on",
@@ -480,10 +547,15 @@ def _round_weights(layout, slot_w: np.ndarray, faithful: bool) -> np.ndarray:
 
 
 def _check_layer_coding(cfg: RunConfig, model) -> None:
+    """The JAX package's refusal, with its message: the blockwise decode
+    needs per-slot gradients, which a model on a model-internal axis does
+    not take (step.supports_layer_coding)."""
     if cfg.layer_coding == "on" and not step_lib.supports_layer_coding(model):
         raise ValueError(
             "layer_coding='on' needs a model whose per-slot gradients are "
-            "exact (no model-internal mesh axes) - got "
+            "exact under the worker-axis step (no model-internal mesh "
+            "axes; autodiff families need a jax without the implicit "
+            "replicated-grad psum) — got "
             f"model={getattr(model, 'name', type(model).__name__)!r}"
         )
 
@@ -870,9 +942,9 @@ def train(
         if getattr(dataset, "_sweep_cache_token", None) != store.cache_token:
             dataset = store.dataset()
     layout = build_layout(cfg)
-    model = build_model(cfg)
     faithful = cfg.compute_mode == ComputeMode.FAITHFUL
     mesh, ring = _resolve_transport(cfg, dataset, layout, faithful, dev, mesh)
+    model = _step_model(cfg, mesh)
 
     # ---- control plane (host, float64, replicated on every rank) ----------
     if arrivals is None:
@@ -1124,13 +1196,13 @@ def train_dynamic(
         )
     dev = resolve_device(device)
     layout = build_layout(cfg)
-    model = build_model(cfg)
     sched_fn = dynamic_lib.make_round_schedule_fn(
         cfg.scheme, layout, cfg.num_collect, cfg.delay_mean, cfg.add_delay,
         deadline=cfg.deadline, device=dev,
     )
     stats_before = cache_lib.stats().snapshot()
     mesh, ring = _resolve_transport(cfg, dataset, layout, True, dev, mesh)
+    model = _step_model(cfg, mesh)
     X, y, n_train, data_hit = _device_stack(cfg, dataset, layout, True, dev, mesh, ring)
     if init_params is None:
         params0 = model.init_params(cfg.seed, dataset.n_features, dev)
@@ -1589,10 +1661,9 @@ def _stream_remedy(cfg: RunConfig) -> str:
 
 def _check_streamed_compat(cfg: RunConfig) -> None:
     """Refuse the knobs with no windowed body: the forced whole-stack
-    kernel (``use_pallas="on"``) and the forced blockwise decode
-    (``layer_coding="on"``), naming the knob that led to the streamed path.
-    (The JAX package also refuses model-parallel meshes here; the port has
-    no model axes.)"""
+    kernel (``use_pallas="on"``), the forced blockwise decode
+    (``layer_coding="on"``) and the model-internal axes (a 2-D mesh),
+    naming the knob that led to the streamed path."""
     if cfg.use_pallas == "on":
         raise ValueError(
             "use_pallas='on' forces the fused whole-stack kernel, which "
@@ -1604,6 +1675,11 @@ def _check_streamed_compat(cfg: RunConfig) -> None:
             "layer_coding='on' forces the blockwise decode, which has no "
             "windowed streamed body; use layer_coding='auto'/'off', "
             f"or {_stream_remedy(cfg)}"
+        )
+    if _model_axis_request(cfg) is not None:
+        raise ValueError(
+            "streamed windows have no model-parallel (2-D mesh) body; "
+            f"{_stream_remedy(cfg)}"
         )
 
 
@@ -1899,6 +1975,7 @@ def _train_streamed(
     mid-schedule restart (``initial_state``/``initial_round``), and a world
     of several processes (mesh.require_one_process)."""
     t_call = time.perf_counter()
+    _check_streamed_compat(cfg)
     mesh_lib.require_one_process("windowed streamed residency (streamed windows across ranks)",
                                  mesh)
     if checkpoint_dir or resume or initial_state is not None or initial_round:
@@ -2066,13 +2143,15 @@ def cohort_eligible(cfg: RunConfig) -> bool:
     forced fused kernel (``use_pallas="on"``: a one-trajectory kernel), not
     pipelined (the cohort loop has no batched stale-params slot, so those
     run as per-run train()), not a streamed run with the forced blockwise
-    decode (no windowed body), and only where the scheme's descriptor
+    decode or a model-internal axis (no windowed body), and only where the scheme's descriptor
     allows it (``cohort_batchable``). Streamed runs batch: trajectories of
     one store and window plan ride one windowed cohort loop
     (:func:`_train_cohort_streamed`), and ``static_signature`` carries the
     residency knobs, so they never group with resident ones. Measured-
     arrival runs time each worker on its own and never batch."""
-    if _resolve_residency(cfg) == "streamed" and cfg.layer_coding == "on":
+    if _resolve_residency(cfg) == "streamed" and (
+        cfg.layer_coding == "on" or _model_axis_request(cfg) is not None
+    ):
         return False
     return (
         cfg.arrival_mode == "simulated"
@@ -2304,6 +2383,7 @@ def _train_cohort_streamed(cfgs, store, window: int, *, arrivals, device, init_p
     cohort matmul for a dense GLM; no blockwise form), its update the
     vmapped one. Members match their sequential streamed runs to float
     tolerance."""
+    _check_streamed_compat(cfgs[0])
     mesh_lib.require_one_process("a windowed streamed cohort (streamed windows across ranks)")
     # the same chaos site as the resident cohort dispatch: a raise exercises
     # compare()'s bisection (experiments._dispatch_cohort)
@@ -2490,7 +2570,7 @@ def train_cohort(
     stats_before = cache_lib.stats().snapshot()
     X, y, n_train, data_hit = _device_stack(cfg, dataset, layouts[0], faithful, dev, mesh, ring)
     weights = _to_device(weights_h, dev, torch.float32)
-    model = build_model(cfg)
+    model = _step_model(cfg, mesh)
     params0 = _cohort_params(model, cfgs, init_params, dataset.n_features, dev)
     grad_fn, lowering, compiled, ring_pipe = _cohort_lowering(
         cfg, model, X, y, faithful, params0, weights[0], dev, mesh, layouts[0], ring)

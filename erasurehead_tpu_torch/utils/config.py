@@ -256,11 +256,27 @@ class RunConfig:
     # worker_speed_spread composes as a per-worker multiplier ON the trace
     # rows (heterogeneous replay); refused under arrival_mode="measured"
     arrival_trace: Optional[str] = None
-    # which sequence-parallel form would carry the attention: "ring" or
-    # "ulysses"; validated and kept (models/attention.AttentionModel). The
-    # port runs one device, so it changes no step (the JAX package's
-    # seq_shards > 1 transports are refused by the CLI's --seq-shards)
+    # sequence-parallel shards for the attention family: >1 builds a 2-D
+    # (workers, seq) mesh; each row's token axis splits over seq and
+    # attention spans it (parallel/ring.py, models/attention._predict_seq)
+    seq_shards: int = 1
+    # which canonical SP form carries the attention: "ring" (one hop at a
+    # time around the axis) or "ulysses" (two all-to-alls, head-sharded;
+    # needs n_heads divisible by seq_shards)
     sp_form: str = "ring"
+    # tensor-parallel shards for the MLP family: >1 builds a 2-D
+    # (workers, model) mesh; the hidden dimension splits over the model
+    # axis (Megatron column/row split, models/mlp._predict_tp)
+    tp_shards: int = 1
+    # pipeline-parallel stages for the deepmlp family: >1 builds a 2-D
+    # (workers, pipe) mesh; layers split contiguously across stages and a
+    # GPipe microbatch schedule streams the rows through them
+    # (models/deep_mlp._predict_pp)
+    pp_shards: int = 1
+    # expert-parallel shards for the moe family: >1 builds a 2-D
+    # (workers, expert) mesh; experts split contiguously across it
+    # (models/moe._predict_ep)
+    ep_shards: int = 1
     # per-round collection deadline in simulated seconds (scheme="deadline")
     deadline: Optional[float] = None
     # feature-stack STORAGE dtype (train/trainer._device_stack): "auto"
@@ -521,10 +537,7 @@ class RunConfig:
             # an explicit lane width pins the PaddedRows stack, as in the
             # JAX package: the fields x lanes lowering is asked for by name
             self.sparse_format = "padded"
-        if self.sp_form not in ("ring", "ulysses"):
-            raise ValueError(
-                f"sp_form must be ring/ulysses, got {self.sp_form!r}"
-            )
+        self._validate_model_axes()
         if self.decode not in ("fixed", "optimal"):
             raise ValueError(
                 f"decode must be fixed/optimal, got {self.decode!r}"
@@ -562,13 +575,65 @@ class RunConfig:
         # descriptor
         schemes.get(self.scheme).validate(self)
 
+    def _validate_model_axes(self) -> None:
+        """The model-internal axes, with the JAX package's rules and
+        messages: each is tied to its family, runs under simulated arrivals
+        only, and at most one exceeds 1."""
+        if self.seq_shards < 1:
+            raise ValueError(f"seq_shards must be >= 1, got {self.seq_shards}")
+        axes_over_one = sum(
+            v > 1
+            for v in (
+                self.seq_shards, self.tp_shards, self.pp_shards,
+                self.ep_shards,
+            )
+        )
+        if axes_over_one > 1:
+            raise ValueError(
+                "at most one of seq_shards/tp_shards/pp_shards/ep_shards "
+                "may exceed 1 (each belongs to a different model family)"
+            )
+        if self.sp_form not in ("ring", "ulysses"):
+            raise ValueError(
+                f"sp_form must be ring/ulysses, got {self.sp_form!r}"
+            )
+        if self.seq_shards > 1:
+            if self.model != ModelKind.ATTENTION:
+                raise ValueError(
+                    "seq_shards > 1 requires model='attention' (the only "
+                    "family with a sequence axis to shard)"
+                )
+            if self.arrival_mode != "simulated":
+                raise ValueError(
+                    "seq_shards > 1 runs under the simulated-arrival "
+                    "trainer only (measured mode dispatches per-worker on "
+                    "single devices)"
+                )
+        for field, family, what in (
+            ("tp_shards", ModelKind.MLP, "with a hidden dimension to split"),
+            ("pp_shards", ModelKind.DEEPMLP, "with a layer pipeline"),
+            ("ep_shards", ModelKind.MOE, "with experts to shard"),
+        ):
+            shards = getattr(self, field)
+            if shards < 1:
+                raise ValueError(f"{field} must be >= 1, got {shards}")
+            if shards > 1:
+                if self.model != family:
+                    raise ValueError(
+                        f"{field} > 1 requires model='{family.value}' (the "
+                        f"only family {what})"
+                    )
+                if self.arrival_mode != "simulated":
+                    raise ValueError(
+                        f"{field} > 1 runs under the simulated-arrival "
+                        "trainer only"
+                    )
+
     def static_signature_fields(self) -> dict:
         """Field name -> value of every knob that changes a run's gradient
         lowering or update (not its weights, arrivals or lr values): the
         JAX package's RunConfig.static_signature_fields, in its order,
-        restricted to the fields this port has and to those that change
-        its step (not ``sp_form``: without a sequence axis the attention runs
-        the same for both forms; A9b's transports will key it). Trajectories whose
+        restricted to the fields this port has. Trajectories whose
         signatures differ cannot share one cohort round loop
         (train/trainer.train_cohort)."""
         return {
@@ -596,6 +661,12 @@ class RunConfig:
             "sparse_format": self.sparse_format,
             "fields_scatter": self.fields_scatter,
             "fields_margin": self.fields_margin,
+            # model-family internal axes (change for_mesh's model variant)
+            "sp_form": self.sp_form,
+            "seq_shards": self.seq_shards,
+            "tp_shards": self.tp_shards,
+            "pp_shards": self.pp_shards,
+            "ep_shards": self.ep_shards,
         }
 
     def static_signature(self) -> tuple:

@@ -226,34 +226,40 @@ def test_refusals_carry_jax_messages(model_case):
 ])
 def test_config_refusals_carry_jax_messages(kw):
     full = _kw(**kw)
-    if "seq_shards" in kw:  # the port's --seq-shards flag, not a config field
+    _refusal(lambda: RunConfig(**full), lambda: JRunConfig(**full), ValueError)
+    if "seq_shards" in kw:  # the --seq-shards flag reaches the same check
         argv = ["--model", full["model"], "--seq-shards", str(kw["seq_shards"])]
-        t_call = lambda: t_cli._flags_to_config(t_cli._flags_parser().parse_args(argv))
-    else:
-        t_call = lambda: RunConfig(**full)
-    _refusal(t_call, lambda: JRunConfig(**full), ValueError)
+        _refusal(lambda: t_cli._flags_to_config(t_cli._flags_parser().parse_args(argv)),
+                 lambda: JRunConfig(**full), ValueError)
 
 
 def test_seq_shards_over_one_is_refused_on_one_device():
-    JRunConfig(**_kw(seq_shards=2))  # the JAX package runs it on a mesh
+    """One process is one device: a 2-shard sequence axis cannot form, and
+    the trainer raises the JAX trainer's device-count refusal."""
     ns = t_cli._flags_parser().parse_args(["--model", "attention", "--seq-shards", "2"])
-    with pytest.raises(ValueError, match="model-internal axes wait for ROADMAP A9b"):
-        t_cli._flags_to_config(ns)
+    cfg = t_cli._flags_to_config(ns)
+    assert cfg.seq_shards == 2 and cfg.model is ModelKind.ATTENTION
+    with pytest.raises(ValueError) as want:  # JAX's rule on its 8 devices
+        j_trainer._auto_2d_mesh(4, "seq", 9)
+    assert str(want.value) == "seq shards=9 exceeds the 8 available devices"
+    with pytest.raises(ValueError, match=r"^seq shards=2 exceeds the 1 available devices$"):
+        t_trainer.train(RunConfig(**_kw(seq_shards=2, rounds=1)),
+                        generate_gmm(N_ROWS, N_COLS, W, seed=0), device="cpu")
 
 
 def test_config_and_cli_carry_the_attention_knobs():
     assert ModelKind("attention") is ModelKind.ATTENTION
     cfg = RunConfig(**_kw(sp_form="ulysses"))
     assert t_trainer.build_model(cfg).sp_form == "ulysses"
-    # with no mesh both forms run the same step: one cohort, unlike JAX's key
-    assert "sp_form" not in cfg.static_signature_fields()
+    # the two forms are two steps under a sequence axis: keyed as JAX keys them
+    assert cfg.static_signature_fields()["sp_form"] == "ulysses"
     assert JRunConfig(**_kw(sp_form="ulysses")).static_signature_fields()["sp_form"] == "ulysses"
-    assert t_trainer.cohort_signature(cfg) == t_trainer.cohort_signature(RunConfig(**_kw()))
+    assert t_trainer.cohort_signature(cfg) != t_trainer.cohort_signature(RunConfig(**_kw()))
     ns = t_cli._flags_parser().parse_args(["--model", "attention", "--sp-form", "ulysses",
                                            "--seq-shards", "1"])
     got = t_cli._flags_to_config(ns)
     assert got.model is ModelKind.ATTENTION and got.sp_form == "ulysses"
-    assert not hasattr(got, "seq_shards")
+    assert got.seq_shards == 1
 
 
 # ---------------------------------------------------------------------------

@@ -134,8 +134,14 @@ def test_ring_order_devices_passes_the_order_through():
     lambda: mesh_lib.worker_plus_axis_mesh("pipe", 2, 2),
 ])
 def test_two_dimensional_meshes_name_a9b(make):
-    with pytest.raises(NotImplementedError, match="A9b"):
+    """One process without a group is one device: a 2x2 grid cannot form,
+    and the refusal is JAX's on one device (the 2-D meshes themselves run
+    across processes, tests/test_torch_model_axes.py)."""
+    with pytest.raises(ValueError) as want:
+        j_mesh.worker_plus_axis_mesh("pipe", 2, 2, devices=jax.devices()[:1])
+    with pytest.raises(ValueError) as got:
         make()
+    assert str(got.value) == str(want.value) == "mesh 2x2 needs 4 devices, have 1"
 
 
 def test_require_one_process_names_a9b(monkeypatch):
@@ -250,8 +256,7 @@ def test_ring_fields_are_keyed_as_jax_keys_them():
     assert RunConfig().ring_pipeline == JRunConfig().ring_pipeline == "auto"
     missing = {f.name for f in dataclasses.fields(JRunConfig)} - {
         f.name for f in dataclasses.fields(RunConfig)}
-    assert missing == {"donate", "scan_unroll", "tp_shards", "pp_shards", "ep_shards",
-                       "seq_shards"}
+    assert missing == {"donate", "scan_unroll"}
 
 
 # ---------------------------------------------------------------------------

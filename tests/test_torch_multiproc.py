@@ -21,10 +21,10 @@ import subprocess
 import sys
 import textwrap
 import time
+import uuid
 
 import numpy as np
 import pytest
-from conftest import free_port
 
 from erasurehead_tpu.data.synthetic import generate_gmm as j_generate_gmm
 from erasurehead_tpu.parallel import failures as j_failures
@@ -102,7 +102,8 @@ _PRELUDE = textwrap.dedent("""
     torch.set_num_threads(1)
     from erasurehead_tpu_torch.parallel import backend
 
-    backend.initialize_distributed(device="cpu", timeout_s=float(os.environ["EH_TIMEOUT"]))
+    backend.initialize_distributed(os.environ["EH_INIT"], device="cpu",
+                                   timeout_s=float(os.environ["EH_TIMEOUT"]))
     from erasurehead_tpu_torch.data.synthetic import generate_gmm
     from erasurehead_tpu_torch.parallel import failures
     from erasurehead_tpu_torch.train import trainer
@@ -196,17 +197,20 @@ _CHILD_CKPT = _PRELUDE + textwrap.dedent("""
 
 
 def _launch(n, code, out_dir, spec, inits=None, rank_env=None, timeout_s=60.0):
-    """Start ``n`` children of one gloo group (torchrun's environment) and
-    wait for all of them within SPAWN_TIMEOUT_S; a child still running then
-    is killed, and so is every child when this raises. Returns
-    ``[(returncode, log)]`` in rank order."""
+    """Start ``n`` children of one gloo group (torchrun's RANK/WORLD_SIZE)
+    and wait for all of them within SPAWN_TIMEOUT_S; a child still running
+    then is killed, and so is every child when this raises. The group meets
+    at a file store new to this launch (``EH_INIT``), not at a TCP port: a
+    port found free here could be taken by another process before rank 0
+    binds it, which is how cluster tests fail under a loaded test run.
+    Returns ``[(returncode, log)]`` in rank order."""
     os.makedirs(out_dir, exist_ok=True)
     spec_path = os.path.join(out_dir, "spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
     env = {k: v for k, v in os.environ.items() if not k.startswith("ERASUREHEAD_")}
     env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1", WORLD_SIZE=str(n),
-               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               EH_INIT="file://" + os.path.join(out_dir, f"rdzv-{uuid.uuid4().hex}"),
                EH_SPEC=spec_path, EH_OUT=out_dir, EH_TIMEOUT=str(timeout_s))
     if inits is not None:
         env["EH_INITS"] = os.path.join(out_dir, "inits.npz")
@@ -443,9 +447,11 @@ def test_torchrun_cli_across_two_processes(tmp_path):
     env = {k: v for k, v in os.environ.items() if not k.startswith("ERASUREHEAD_")}
     env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out2 = str(tmp_path / "two")
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
-           "--master-port", str(free_port()), "-m", "erasurehead_tpu_torch.cli",
-           *CLI_ARGS, "--output-dir", out2]
+    # --standalone: torchrun's rendezvous store binds a free port itself and
+    # the workers share it (a port picked here and passed as --master-port
+    # can be taken by another process first)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+           "-m", "erasurehead_tpu_torch.cli", *CLI_ARGS, "--output-dir", out2]
     proc = subprocess.run(cmd, env=env, cwd=REPO, capture_output=True, text=True,
                           timeout=SPAWN_TIMEOUT_S)
     assert proc.returncode == 0, proc.stderr[-3000:]
