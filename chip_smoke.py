@@ -111,7 +111,7 @@ Phases, one JSON line each:
                  padded --flat-grad on, fields (flat), fields with one-hot
                  scatter and margin, and fields --sparse-lanes 8: each 100
                  rounds on the card with no kernel launch and its loss
-                 falling; its first 10 rounds (1 for the one-hot lowering)
+                 falling; its first 5 rounds (1 for the one-hot lowering)
                  on the card and on the CPU, replayed losses within relative
                  1e-4 and simulated clocks byte-equal; two card reruns of
                  as many rounds with bitwise-equal iterates (the script
@@ -201,7 +201,13 @@ Phases, one JSON line each:
                  rounds' replayed loss within relative 1e-4 of the CPU run,
                  the loop's peak device bytes at most depth + 2 windows;
                  the same for cyccoded --stream-window 10 (halo 2, the last
-                 span wraps, B1 at [30, 4400, 128]); an
+                 span wraps, B1 at [30, 4400, 128]), materialized and under
+                 --stack-mode ring (12 partitions staged partition-major a
+                 window, the [30, 4400, 128] slots rebuilt every round; the
+                 peak within the bound plus those slots; the first launch
+                 held against its plain version on its own inputs; bitwise
+                 the materialized run) and auto (resolves to the ring,
+                 bitwise the ring run; ``ring_window``); an
                  int8 store written by ``data.prepare --store
                  --store-dtype int8`` (13,200 x 128) trained windowed with
                  no launch; a 16x store (2,112,000 x 128 float32, about
@@ -321,7 +327,7 @@ Phases, one JSON line each:
                  the pipelined, cohort and streamed runs plain and under a
                  capture and a trace (bitwise, equal launches); the
                  registry's Prometheus text; the steps/s of the main runs,
-                 of 60 off/on pairs of train() and 15 traced runs, and the
+                 of 40 off/on pairs of train() and 10 traced runs, and the
                  records' host cost after the loop.
   39. serve    - (after telemetry) the serve daemon (serve/) at the flagship
                  data on two dispatch threads: four tenants' eight GLM
@@ -377,7 +383,20 @@ Phases, one JSON line each:
                  2e-5 of the unsharded card run's from the same params, the
                  replayed loss falling, 0 B1 / 0 B2; steps/s a rank, the
                  share of a profiled round in the axis collectives, peak
-                 device bytes.
+                 device bytes. Then (``stream_mesh``) each rank stages its
+                 share of every window of one store the parent wrote, 20
+                 rounds: deduped window 6 (B1 at [3, 4400, 128]),
+                 materialized window 6 ([9, 4400, 128]) and the ring window
+                 10 ([15, 4400, 128] on 6 of the 12 staged partitions), the
+                 seven schemes' streamed cohort (no launch), train_adaptive,
+                 train_elastic_online with worker 29 dead at round 5 (the 29
+                 survivors re-fold onto one rank: 20 B1 on rank 0, 10 on
+                 rank 1) and run_whatif (rank 0 writes the surface); each
+                 held to the same run with no group in the parent: ranks
+                 bitwise, the replayed loss within relative 1e-4, decisions
+                 equal, B1's counts and shapes a rank, a rank's staged bytes
+                 half of world 1's, each rank's first launch against its
+                 plain version; B1 timed at the three rank shapes.
 Later, beside ``time`` and ``profile``: the attention run's per-slot leaves
 through ``decode_ops``, its round's decode (one launch, six leaves of
 [90, 913] floats) against its plain version, six GEMVs and the bound, and
@@ -498,20 +517,24 @@ SPARSE_BASE = [
 PROFILE_ROUNDS = 20  # the sparse, int8 and dense-lowering profiles
 # the one-hot matmul lowering takes about 0.1 s a round on the card and
 # seconds on the CPU at the covtype size: its card-vs-CPU comparison and
-# reruns run ONEHOT_SHORT_ROUNDS (the others SHORT_ROUNDS), its profiles
+# reruns run ONEHOT_SHORT_ROUNDS (the others SPARSE_SHORT_ROUNDS), its profiles
 # ONEHOT_PROFILE_ROUNDS
 # (1 from PR 17, which paid so for the mesh phase's model axes)
 ONEHOT_SHORT_ROUNDS, ONEHOT_PROFILE_ROUNDS = 1, 2
+# the other covtype lowerings' card-vs-CPU comparison and reruns (5 from
+# PR 18, which paid so for the ring stream windows and the world-2 streamed
+# and driver runs; was SHORT_ROUNDS, 10)
+SPARSE_SHORT_ROUNDS = 5
 SPARSE_RUNS = (  # (name, flags, the trainer's lowering, short rounds, profile rounds)
-    ("padded", ["--sparse-format", "padded"], "per_slot", SHORT_ROUNDS, PROFILE_ROUNDS),
+    ("padded", ["--sparse-format", "padded"], "per_slot", SPARSE_SHORT_ROUNDS, PROFILE_ROUNDS),
     ("padded_flat", ["--sparse-format", "padded", "--flat-grad", "on"], "flat",
-     SHORT_ROUNDS, PROFILE_ROUNDS),
-    ("fields", ["--sparse-format", "fields"], "flat", SHORT_ROUNDS, PROFILE_ROUNDS),
+     SPARSE_SHORT_ROUNDS, PROFILE_ROUNDS),
+    ("fields", ["--sparse-format", "fields"], "flat", SPARSE_SHORT_ROUNDS, PROFILE_ROUNDS),
     ("fields_onehot", ["--sparse-format", "fields", "--fields-scatter", "onehot",
                        "--fields-margin", "onehot"], "flat",
      ONEHOT_SHORT_ROUNDS, ONEHOT_PROFILE_ROUNDS),
     ("fields_lanes8", ["--sparse-format", "fields", "--sparse-lanes", "8"], "flat",
-     SHORT_ROUNDS, PROFILE_ROUNDS),
+     SPARSE_SHORT_ROUNDS, PROFILE_ROUNDS),
 )
 # the arrivals phase: the main path under each arrival model (a regime
 # armed by ERASUREHEAD_REGIME, or the heterogeneity and trace flags; the
@@ -599,6 +622,12 @@ def check_glm(kernels, shape, dtype, kind, zero_every, seed, weights=None):
     b, X, y, w = make_inputs(*shape, dtype, seed, zero_every)
     if weights is not None:
         w = torch.from_numpy(weights).cuda()
+    return check_glm_inputs(kernels, b, X, y, w, kind)
+
+
+def check_glm_inputs(kernels, b, X, y, w, kind, **fields) -> dict:
+    """B1 against its plain version on these inputs, with check_glm's
+    tolerance; ``fields`` ride the ``check`` record."""
     got = kernels.fused_glm_grad(b, X, y, w, kind)
     again = kernels.fused_glm_grad(b, X, y, w, kind)
     want = kernels.reference_glm_grad(b, X, y, w, kind)
@@ -610,10 +639,10 @@ def check_glm(kernels, shape, dtype, kind, zero_every, seed, weights=None):
     tol = 1e-5 * scale + 1e-6
     ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
     rec = dict(
-        kernel="fused_glm_grad", shape=list(shape), dtype=str(dtype).split(".")[-1],
+        kernel="fused_glm_grad", shape=list(X.shape), dtype=str(X.dtype).split(".")[-1],
         kind=kind, zero_weight_slots=int((w == 0).sum()),
         max_abs_err=float(err.max()), max_err_over_tol=float((err / tol).max()),
-        bitwise_rerun=bool(torch.equal(got, again)), ok=ok,
+        bitwise_rerun=bool(torch.equal(got, again)), ok=ok, **fields,
     )
     emit("check", **rec)
     if not ok or not rec["bitwise_rerun"]:
@@ -644,9 +673,13 @@ def glm_bound_ms(M, R, F, x_itemsize) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def set_flag(args, flag, value):
+    i = args.index(flag)
+    return args[:i + 1] + [str(value)] + args[i + 2:]
+
+
 def with_rounds(args, rounds):
-    i = args.index("--rounds")
-    return args[:i + 1] + [str(rounds)] + args[i + 2:]
+    return set_flag(args, "--rounds", rounds)
 
 
 def parse_config(cli, args):
@@ -2265,26 +2298,35 @@ STREAM_SHAPE = (18, 4400, 128)
 HALO_ARGS = STREAM_ARGS[:1] + ["cyccoded"] + STREAM_ARGS[2:STREAM_ARGS.index("--num-collect")] \
     + STREAM_ARGS[STREAM_ARGS.index("--num-collect") + 2:] + ["--stream-window", "10"]
 HALO_SHAPE = (30, 4400, 128)
+# the same windows under the ring transport (--stack-mode ring, or auto on
+# this redundant layout): each stages its 12 partitions (window and halo)
+# partition-major, and every round the ring fill rebuilds the slot-group's
+# [30, 4400, 128] slots from them, B1 on those
+RING_STAGED = (12, 4400, 128)
 BIG_ROWS = 16 * 132000  # the 16x store: 2,112,000 x 128 float32, about 1.08 GB
 BIG_SHAPE = (3, BIG_ROWS // 30, 128)  # a 3-partition deduped window
 INT8_STORE_ROWS = 13200  # the prepare --store int8 run (W = 30, 440 rows a partition)
 
 
-def stream_bound(res) -> dict:
+def stream_bound(res, slot_bytes=0) -> dict:
     """A streamed run's peak device bytes over its loop, in windows, against
-    the prefetcher's bound (depth + 2 windows)."""
+    the prefetcher's bound (depth + 2 windows) plus ``slot_bytes``, what a
+    round holds beside its windows (a ring window's rebuilt slots)."""
     from erasurehead_tpu_torch.data.prefetch import DEFAULT_DEPTH
 
     ci = res.cache_info
     peak_windows = ci["device_peak_bytes"] / ci["stack_bytes"]
     bound = DEFAULT_DEPTH + 2
-    if peak_windows > bound:
-        raise AssertionError(f"streamed loop peaked at {peak_windows} windows > {bound}")
+    bound_bytes = bound * ci["stack_bytes"] + slot_bytes
+    if ci["device_peak_bytes"] > bound_bytes:
+        raise AssertionError(f"streamed loop peaked at {peak_windows} windows > {bound} "
+                             f"and {slot_bytes} bytes of slots")
     return dict(peak_bytes=ci["device_peak_bytes"], window_bytes=ci["stack_bytes"],
-                peak_windows=peak_windows, bound_windows=bound)
+                peak_windows=peak_windows, bound_windows=bound, slot_bytes=slot_bytes,
+                bound_bytes=bound_bytes)
 
 
-def windowed_runs(cli, kernels, tmp, args, shape, halo, want) -> tuple:
+def windowed_runs(cli, kernels, tmp, args, shape, halo, want, slot_bytes=0) -> tuple:
     """A windowed streamed CLI run twice on the card and once on the CPU:
     ``want`` launches each on the card, windows of ``shape`` with ``halo``,
     reruns bitwise, the loss falling, clocks byte-equal to the CPU run's and
@@ -2322,9 +2364,54 @@ def windowed_runs(cli, kernels, tmp, args, shape, halo, want) -> tuple:
         **{k: ci[k] for k in ("stream_window", "n_windows", "stream_halo",
                               "stream_group_workers", "setup_seconds")},
         prefetch=[r["res"].cache_info["prefetch"] for r in runs[:2]],
-        **stream_bound(a["res"]),
+        **stream_bound(a["res"], slot_bytes),
     )
     return rec, a, b
+
+
+def ring_windows(cli, kernels, tmp, halo, b1) -> tuple:
+    """HALO_ARGS under the ring transport: ``--stack-mode ring`` through
+    windowed_runs (two card reruns bitwise, the CPU run's clocks and first
+    10 rounds' loss, 100 B1, the peak within the prefetcher's bound plus the
+    round's rebuilt slots) with 12 staged partitions a window, and ``--stack-mode auto`` once on the
+    card: both resolve to the ring, the auto run bitwise the ring run, every
+    B1 launch at the rebuilt [30, 4400, 128] slots, the first one held
+    against its plain version on its own inputs, the first 10 rounds' loss
+    within relative 1e-4 of the materialized windowed run (``halo``)."""
+    shapes, restore = record_glm_shapes(kernels)
+    try:
+        with first_glm_launch(kernels) as box:
+            # beside its windows a round holds the rebuilt slots, X and y
+            slots = HALO_SHAPE[0] * HALO_SHAPE[1] * (HALO_SHAPE[2] + 1) * 4
+            rec, ring, ring_b = windowed_runs(cli, kernels, tmp, HALO_ARGS + ["--stack-mode", "ring"],
+                                              RING_STAGED, 2, b1, slots)
+        kernels.reset_launches()
+        auto, auto_ev, _ = cli.run(parse_config(cli, HALO_ARGS + ["--stack-mode", "auto"]),
+                                   quiet=True, device="cuda",
+                                   output_dir=os.path.join(tmp, "win_auto"))
+        auto_launches = dict(kernels.LAUNCHES)
+    finally:
+        restore()
+    rec["check"] = check_first_launch(kernels, box, "ring_window")
+    modes = [r.cache_info["stack_mode"] for r in (ring["res"], ring_b["res"], auto)]
+    rec.update(
+        stack_modes=modes, auto_launches=auto_launches,
+        auto_bitwise_ring=torch.equal(auto.params_history, ring["res"].params_history),
+        bitwise_materialized=torch.equal(ring["res"].params_history, halo["res"].params_history),
+        max_rel_loss_vs_materialized_10_rounds=max_rel(ring["loss"][:SHORT_ROUNDS],
+                                                       halo["loss"][:SHORT_ROUNDS]),
+        b1_shapes=[list(sh) for sh in sorted(set(shapes))],
+        materialized_window_bytes=halo["res"].cache_info["stack_bytes"],
+        materialized_peak_bytes=halo["res"].cache_info["device_peak_bytes"],
+        materialized_steps_per_sec=halo["res"].steps_per_sec,
+        ring_pipeline=ring["res"].cache_info["ring_pipeline"],
+    )
+    emit("ring_window", **{k: v for k, v in rec.items() if k != "args"})
+    if modes != ["ring"] * 3 or auto_launches != b1 or not rec["auto_bitwise_ring"] \
+            or rec["max_rel_loss_vs_materialized_10_rounds"] > 1e-4 \
+            or set(shapes) != {HALO_SHAPE}:
+        raise AssertionError(f"ring windows: {rec}")
+    return rec, ring, ring_b, auto_launches
 
 
 def streamed_phase(cli, kernels, experiments, both0, main_gpu) -> dict:
@@ -2335,7 +2422,8 @@ def streamed_phase(cli, kernels, experiments, both0, main_gpu) -> dict:
     first 10 rounds' replayed loss within relative 1e-4 of the CPU run, the
     peak device bytes within the prefetcher's bound; the same for cyccoded
     at ``--stream-window 10`` (halo 2, a wrapping span, B1 on
-    [30, 4400, 128]); an int8 store written by ``prepare --store`` trains
+    [30, 4400, 128]), materialized and under the ring transport
+    (ring_windows); an int8 store written by ``prepare --store`` trains
     with no launch; a 16x store (about 1 GB)
     under an ERASUREHEAD_STREAM_WINDOW budget of a 3-partition window:
     steps/s, staging and stall seconds, overlap, peak windows, a profile;
@@ -2364,6 +2452,8 @@ def streamed_phase(cli, kernels, experiments, both0, main_gpu) -> dict:
             rec["window"], a, b = windowed_runs(cli, kernels, tmp, win_args, STREAM_SHAPE, 0, b1)
             rec["halo_window"], halo, halo_b = windowed_runs(cli, kernels, tmp, HALO_ARGS, HALO_SHAPE,
                                                         2, b1)
+            rec["ring_window"], ring, ring_b, auto_launches = ring_windows(cli, kernels, tmp, halo,
+                                                                         b1)
 
             # an int8 store written by the prepare CLI
             sdir = os.path.join(tmp, "int8_store")
@@ -2446,6 +2536,9 @@ def streamed_phase(cli, kernels, experiments, both0, main_gpu) -> dict:
     rec["launches_by_run"] = {"full_cover": full["launches"], "window": a["launches"],
                               "window_rerun": b["launches"], "halo_window": halo["launches"],
                               "halo_window_rerun": halo_b["launches"],
+                              "ring_window": ring["launches"],
+                              "ring_window_rerun": ring_b["launches"],
+                              "auto_window": auto_launches,
                               "int8_store": launches8,
                               "big_store": launches, "compare": run["launches"]}
     return rec
@@ -2480,6 +2573,37 @@ def record_glm_shapes(kernels):
         kernels.fused_glm_grad = orig
 
     return shapes, restore
+
+
+@contextlib.contextmanager
+def first_glm_launch(kernels):
+    """Keep a copy of the inputs of the first fused_glm_grad call inside the
+    block (its launch count stays the wrapper's own), in host memory, so
+    that the copy adds nothing to the run's peak device bytes. Yields the
+    dict it fills under ``"args"``: (beta, X, y, w, kind) and ``"device"``."""
+    box, orig = {}, kernels.fused_glm_grad
+
+    def wrapped(beta, X, y, w, kind="logistic"):
+        if "args" not in box:
+            box["device"] = X.device
+            box["args"] = tuple(t.detach().to("cpu", copy=True)
+                                for t in (beta, X, y, w)) + (kind,)
+        return orig(beta, X, y, w, kind)
+
+    kernels.fused_glm_grad = wrapped
+    try:
+        yield box
+    finally:
+        kernels.fused_glm_grad = orig
+
+
+def check_first_launch(kernels, box, label) -> dict:
+    """B1 against its plain version on the inputs of a run's first launch
+    (first_glm_launch); this check's own launches are outside every count."""
+    if "args" not in box:
+        raise AssertionError(f"{label}: no B1 launch to check")
+    *tensors, kind = box.pop("args")
+    return check_glm_inputs(kernels, *(t.to(box["device"]) for t in tensors), kind, run=label)
 
 
 def dynamic_phase(cli, kernels, both0) -> dict:
@@ -3334,7 +3458,9 @@ TELEMETRY_SHORT = 30  # the cohort's and the audit's rounds
 TELEMETRY_STREAM_ROUNDS = 20  # the windowed run: 5 windows of 4 rounds
 # steps/s of train() at the main path, telemetry off against on in
 # alternating pairs (the order flips each pair), then traced runs
-TELEMETRY_PAIRS, TELEMETRY_TRACED = 60, 15
+# (60 and 15 until PR 18, which paid so, with the sparse comparisons'
+# rounds, for its ring stream windows and world-2 streamed and driver runs)
+TELEMETRY_PAIRS, TELEMETRY_TRACED = 40, 10
 ONE_EACH = ("run_start", "data_upload", "compile", "rounds", "decode", "run_end",
             "critical_path", "eval", "metrics")
 
@@ -4759,6 +4885,240 @@ def model_axes_check(cli, kernels, ds, ranks, hists, both0) -> dict:
     return out
 
 
+# streamed windows and the drivers over train() across ranks, in the same two
+# processes: each rank stages its share of every window from one store the
+# parent writes (the flagship data); STREAM_MESH_ROUNDS rounds a run
+STREAM_MESH_ROUNDS = 20
+STREAM_MESH_RUNS = (  # (name, flags, B1's [M, R, F] on a rank)
+    ("dedup", set_flag(with_rounds(STREAM_ARGS, STREAM_MESH_ROUNDS), "--compute-mode", "deduped")
+     + ["--stream-window", str(STREAM_WINDOW)], (3, 4400, 128)),  # 3 of the 6 partitions
+    ("mat", with_rounds(STREAM_ARGS, STREAM_MESH_ROUNDS) + ["--stream-window", str(STREAM_WINDOW)],
+     (9, 4400, 128)),  # 3 of the 6 workers, 3 slots each
+    ("ring", with_rounds(HALO_ARGS, STREAM_MESH_ROUNDS) + ["--stack-mode", "ring"],
+     (15, 4400, 128)),  # 6 of the 12 staged partitions, 5 of the 10 workers' slots
+)
+MESH_ADAPT_CHUNK = 5
+# naive (every worker awaited): a dead worker costs failover rounds at the
+# 2 s timeout, so death_rounds 3 sees worker 29 (dead at round 5) by the
+# boundary at 10; 29 survivors do not fold onto 2 ranks and re-fold to 1
+MESH_ELASTIC_ARGS = ["--scheme", "naive"] + with_rounds(SCHEME_BASE, STREAM_MESH_ROUNDS)
+MESH_ELASTIC_DEATHS = {29: 5}
+MESH_ELASTIC_SHAPES = ((15, 4400, 128), (29, 4551, 128))  # a rank of 2; the one rank of 29
+MESH_WHATIF = dict(policies="approx:c15,naive", workers="30", stragglers="2", regimes="exp:0.5",
+                   seeds=2, rounds=10)
+
+
+def mesh_whatif_grid(spec_lib, target_loss=None):
+    """The small what-if grid both worlds run: 2 policies x 2 seeds x 10
+    rounds at the flagship data."""
+    return spec_lib.GridSpec(
+        policies=spec_lib.parse_policies(MESH_WHATIF["policies"]),
+        n_workers=spec_lib.parse_ints(MESH_WHATIF["workers"]),
+        n_stragglers=spec_lib.parse_ints(MESH_WHATIF["stragglers"]),
+        regimes=spec_lib.parse_regimes(MESH_WHATIF["regimes"]),
+        n_seeds=MESH_WHATIF["seeds"], rounds=MESH_WHATIF["rounds"],
+        n_rows=COHORT_BASE["n_rows"], n_cols=COHORT_BASE["n_cols"], model="logistic",
+        target_loss=target_loss)
+
+
+def stream_mesh_cohort(cli) -> list:
+    """The seven cohort schemes, deduped and streamed in windows of 6."""
+    return [dataclasses.replace(c, stack_residency="streamed", stream_window=STREAM_WINDOW)
+            for c in cohort_configs("deduped", (0,), rounds=STREAM_MESH_ROUNDS).values()]
+
+
+def stream_mesh_child(cli, kernels, ds, out_dir) -> tuple:
+    """This rank's half of the streamed and driver runs of the world-2 group:
+    STREAM_MESH_RUNS from the shared store (launches, B1's shapes, the first
+    launch held against its plain version, steps/s, the staged window's
+    bytes and partitions, the prefetcher's staging and stall seconds, the
+    peak device bytes), the streamed cohort of the seven schemes,
+    train_adaptive (progress reward, chunks of 5), train_elastic_online
+    (MESH_ELASTIC_DEATHS, its journal in ``out_dir``) and run_whatif (its
+    surface in ``out_dir``; the loss target the parent's world-1 grid's)."""
+    from erasurehead_tpu_torch import adapt, elastic
+    from erasurehead_tpu_torch.data import store as store_lib
+    from erasurehead_tpu_torch.train import trainer
+    from erasurehead_tpu_torch.whatif import run_whatif
+    from erasurehead_tpu_torch.whatif import spec as spec_lib
+
+    t0 = time.perf_counter()
+    sds = store_lib.open_store(os.path.join(out_dir, "store")).dataset()
+    rec, hist = {}, {}
+    for name, args, _ in STREAM_MESH_RUNS:
+        cfg = parse_config(cli, args)
+        shapes, restore = record_glm_shapes(kernels)
+        try:
+            with first_glm_launch(kernels) as box:
+                res, launches = counted_library_run(kernels, lambda: trainer.train(cfg, sds))
+        finally:
+            restore()
+        ci = res.cache_info
+        hist[f"stream/{name}"] = res.params_history.cpu().numpy()
+        rec[name] = dict(
+            launches=launches, b1_shapes=[list(x) for x in sorted(set(shapes))],
+            check=check_first_launch(kernels, box, f"stream_{name}"),
+            steps_per_sec=res.steps_per_sec, stack_mode=ci["stack_mode"],
+            stack_bytes=ci["stack_bytes"], staged_partitions=ci["stream_staged_partitions"],
+            prefetch=ci["prefetch"], peak_bytes=ci["device_peak_bytes"], lowering=res.lowering)
+    configs = stream_mesh_cohort(cli)
+    res, launches = counted_library_run(kernels, lambda: trainer.train_cohort(configs, sds))
+    for c, r in zip(configs, res):
+        hist[f"stream/cohort_{c.scheme.value}"] = r.params_history.cpu().numpy()
+    rec["cohort"] = dict(launches=launches, lowering=res[0].lowering,
+                         steps_per_sec=res[0].steps_per_sec,
+                         stack_bytes=res[0].cache_info["stack_bytes"],
+                         prefetch=res[0].cache_info["prefetch"])
+    acfg = parse_config(cli, with_rounds(ADAPT_ARGS, STREAM_MESH_ROUNDS))
+    with first_glm_launch(kernels) as box:
+        ares, launches = counted_library_run(kernels, lambda: adapt.train_adaptive(
+            acfg, ds, controller=adapt.ControllerConfig(chunk_rounds=MESH_ADAPT_CHUNK,
+                                                        seed=acfg.seed)))
+    hist["stream/adapt"] = ares.result.params_history.cpu().numpy()
+    rec["adapt"] = dict(launches=launches, check=check_first_launch(kernels, box, "adapt"),
+                        decisions=[[d["arm"], d["reason"]] for d in ares.decisions],
+                        steps_per_sec=ares.result.steps_per_sec,
+                        decision_overhead_s=ares.decision_overhead_s,
+                        total_wall_s=ares.total_wall_s)
+    ecfg = parse_config(cli, MESH_ELASTIC_ARGS)
+    shapes, restore = record_glm_shapes(kernels)
+    try:
+        eres, launches = counted_library_run(kernels, lambda: elastic.train_elastic_online(
+            ecfg, ds, elastic=elastic.ElasticConfig(chunk_rounds=MESH_ADAPT_CHUNK, death_rounds=3,
+                                                    timeout=2.0),
+            deaths=MESH_ELASTIC_DEATHS, journal_dir=os.path.join(out_dir, "journal")))
+    finally:
+        restore()
+    hist["stream/elastic"] = eres.result.params_history.cpu().numpy()
+    rec["elastic"] = dict(launches=launches, b1_shapes={str(x): shapes.count(x) for x in set(shapes)},
+                          decisions=json.loads(json.dumps(eres.decisions)),
+                          epochs=[e["n_workers"] for e in eres.epochs],
+                          steps_per_sec=eres.result.steps_per_sec)
+    with open(os.path.join(out_dir, "whatif_target.json")) as f:
+        target = json.load(f)["target_loss"]
+    surf, launches = counted_library_run(kernels, lambda: run_whatif(
+        mesh_whatif_grid(spec_lib, target), out_dir=os.path.join(out_dir, "surface")))
+    rec["whatif"] = dict(launches=launches, rows=surf.rows, runs_per_sec=surf.stats["runs_per_sec"])
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, hist
+
+
+def stream_mesh_check(cli, kernels, ds, sds, ranks, hists, whatif1, out_dir, both0) -> dict:
+    """The parent's half of the world-2 streamed and driver runs: each run
+    again in this process with no group (world 1), and against it the
+    ranks' params bitwise each other, the replayed loss within relative
+    1e-4 in every round, B1's launches a rank (20 at its share's shape;
+    the rank left out of the re-folded elastic epoch 10) and the rank's
+    staged window half of world 1's, the first launch a rank within its
+    plain version's tolerance; adapt's and elastic's decisions those of
+    world 1; the what-if rows within relative 1e-4 of world 1's, one copy
+    of the journal's rows and of the surface (rank 0 writes)."""
+    from types import SimpleNamespace
+
+    from erasurehead_tpu_torch import adapt, elastic
+    from erasurehead_tpu_torch.train import trainer
+
+    t0 = time.perf_counter()
+    per = [r["stream"] for r in ranks]
+    b1 = {**both0, "fused_glm_grad": STREAM_MESH_ROUNDS}
+    out, bad = {}, []
+
+    def loss_rel(ref, key, data):
+        two = dataclasses.replace(ref, params_history=torch.from_numpy(hists[0][key]).to(
+            ref.params_history.device))
+        return max_rel(replayed_loss(two, data), replayed_loss(ref, data))
+
+    bitwise = {k: bool(np.array_equal(hists[0][k], hists[1][k]))
+               for k in hists[0] if k.startswith("stream/")}
+    for name, args, shape in STREAM_MESH_RUNS:
+        cfg = parse_config(cli, args)
+        ref, launches = counted_library_run(kernels, lambda: trainer.train(cfg, sds))
+        ci = ref.cache_info
+        o = out[name] = dict(
+            world1_launches=launches,
+            world1=dict(steps_per_sec=ref.steps_per_sec,
+                        stack_bytes=ci["stack_bytes"], staged_partitions=ci["stream_staged_partitions"],
+                        prefetch=ci["prefetch"], peak_bytes=ci["device_peak_bytes"]),
+            loss_max_rel_vs_world1=loss_rel(ref, f"stream/{name}", sds),
+            **{k: [p[name][k] for p in per] for k in (
+                "launches", "b1_shapes", "steps_per_sec", "stack_mode", "stack_bytes",
+                "staged_partitions", "prefetch", "peak_bytes")},
+            max_abs_err=[p[name]["check"]["max_abs_err"] for p in per])
+        if launches != b1 or any(n != b1 for n in o["launches"]) \
+                or any(sh != [list(shape)] for sh in o["b1_shapes"]) \
+                or o["loss_max_rel_vs_world1"] > 1e-4 or not bitwise[f"stream/{name}"] \
+                or any(2 * b != ci["stack_bytes"] for b in o["stack_bytes"]):
+            bad.append(name)
+    configs = stream_mesh_cohort(cli)
+    ref, launches = counted_library_run(kernels, lambda: trainer.train_cohort(configs, sds))
+    rels = {c.scheme.value: loss_rel(r, f"stream/cohort_{c.scheme.value}", sds)
+            for c, r in zip(configs, ref)}
+    out["cohort"] = dict(world1_launches=launches, world1_steps_per_sec=ref[0].steps_per_sec,
+                         loss_max_rel_vs_world1=max(rels.values()),
+                         **{k: [p["cohort"][k] for p in per] for k in (
+                             "launches", "lowering", "steps_per_sec", "stack_bytes", "prefetch")})
+    if launches != both0 or any(n != both0 for n in out["cohort"]["launches"]) \
+            or max(rels.values()) > 1e-4:
+        bad.append("cohort")
+    acfg = parse_config(cli, with_rounds(ADAPT_ARGS, STREAM_MESH_ROUNDS))
+    aref, launches = counted_library_run(kernels, lambda: adapt.train_adaptive(
+        acfg, ds, controller=adapt.ControllerConfig(chunk_rounds=MESH_ADAPT_CHUNK,
+                                                    seed=acfg.seed)))
+    decisions = [[d["arm"], d["reason"]] for d in aref.decisions]
+    out["adapt"] = dict(world1_launches=launches, world1_steps_per_sec=aref.result.steps_per_sec,
+                        decisions_equal_world1=[p["adapt"]["decisions"] == decisions for p in per],
+                        loss_max_rel_vs_world1=loss_rel(aref.result, "stream/adapt", ds),
+                        **{k: [p["adapt"][k] for p in per] for k in (
+                            "launches", "steps_per_sec", "decision_overhead_s", "total_wall_s")},
+                        max_abs_err=[p["adapt"]["check"]["max_abs_err"] for p in per])
+    if launches != b1 or any(n != b1 for n in out["adapt"]["launches"]) \
+            or not all(out["adapt"]["decisions_equal_world1"]) \
+            or out["adapt"]["loss_max_rel_vs_world1"] > 1e-4:
+        bad.append("adapt")
+    ecfg = parse_config(cli, MESH_ELASTIC_ARGS)
+    eref, launches = counted_library_run(kernels, lambda: elastic.train_elastic_online(
+        ecfg, ds, elastic=elastic.ElasticConfig(chunk_rounds=MESH_ADAPT_CHUNK, death_rounds=3,
+                                                timeout=2.0), deaths=MESH_ELASTIC_DEATHS))
+    with open(os.path.join(out_dir, "journal", "elastic_journal.jsonl")) as f:
+        chunk_rows = sum(1 for r in map(json.loads, f) if r.get("action") == "chunk")
+    want_rank = [{**both0, "fused_glm_grad": STREAM_MESH_ROUNDS},
+                 {**both0, "fused_glm_grad": STREAM_MESH_ROUNDS // 2}]
+    out["elastic"] = dict(
+        world1_launches=launches, world1_steps_per_sec=eref.result.steps_per_sec,
+        epochs=per[0]["elastic"]["epochs"], journal_chunk_rows=chunk_rows,
+        decisions_equal_world1=[p["elastic"]["decisions"] == json.loads(json.dumps(eref.decisions))
+                                for p in per],
+        loss_max_rel_vs_world1=loss_rel(eref.result, "stream/elastic", ds),
+        **{k: [p["elastic"][k] for p in per] for k in ("launches", "b1_shapes", "steps_per_sec")})
+    first, after = (str(sh) for sh in MESH_ELASTIC_SHAPES)
+    half = STREAM_MESH_ROUNDS // 2
+    want_shapes = [{first: half, after: half}, {first: half}]
+    if launches != b1 or out["elastic"]["launches"] != want_rank \
+            or out["elastic"]["b1_shapes"] != want_shapes \
+            or not all(out["elastic"]["decisions_equal_world1"]) \
+            or out["elastic"]["epochs"] != [30, 29] or chunk_rows != 4 \
+            or out["elastic"]["loss_max_rel_vs_world1"] > 1e-4:
+        bad.append("elastic")
+    surface = sorted(os.listdir(os.path.join(out_dir, "surface")))
+    out["whatif"] = dict(
+        world1_launches=whatif1["launches"], world1_runs_per_sec=whatif1["runs_per_sec"],
+        max_rel_vs_world1=surfaces_agree(SimpleNamespace(rows=per[0]["whatif"]["rows"]),
+                                         whatif1["surface"]),
+        rows_equal_across_ranks=per[0]["whatif"]["rows"] == per[1]["whatif"]["rows"],
+        surface_files=surface,
+        **{k: [p["whatif"][k] for p in per] for k in ("launches", "runs_per_sec")})
+    if not out["whatif"]["rows_equal_across_ranks"] or "surface_rows.jsonl" not in surface \
+            or any(n != whatif1["launches"] for n in out["whatif"]["launches"]):
+        bad.append("whatif")
+    out.update(ranks_bitwise=bitwise, child_seconds=[p["seconds"] for p in per],
+               check_seconds=time.perf_counter() - t0)
+    emit("stream_mesh", note="two processes time-slicing one card over gloo; not a "
+         "multi-GPU speed", rounds=STREAM_MESH_ROUNDS, **out)
+    if bad or not all(bitwise.values()):
+        raise AssertionError(f"world-2 streamed and driver runs failed {bad}: {out}")
+    return out
+
+
 def mesh_child(out_dir: str) -> int:
     """One rank of the world-2 group (``python3 chip_smoke.py --mesh-child
     DIR``, torchrun's environment from the parent): gloo on the card, B1 at
@@ -4766,7 +5126,8 @@ def mesh_child(out_dir: str) -> int:
     materialized and ring-transported (off and on), then train_dynamic and
     the measured cluster at MESH_SHORT rounds; histories and counts into
     ``DIR/rank<r>.npz`` and ``.json``; then the model-internal axes
-    (:func:`model_axes_child`)."""
+    (:func:`model_axes_child`), and the streamed windows and the drivers
+    (:func:`stream_mesh_child`)."""
     import torch.distributed as dist
 
     cli, kernels = import_port()
@@ -4803,6 +5164,8 @@ def mesh_child(out_dir: str) -> int:
     rec["all_reduce_us"] = all_reduce_us(mesh)
     rec["model_axes"], axes_hist = model_axes_child(cli, kernels, ds)
     hist.update(axes_hist)
+    rec["stream"], stream_hist = stream_mesh_child(cli, kernels, ds, out_dir)
+    hist.update(stream_hist)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **hist)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
@@ -4912,7 +5275,20 @@ def mesh_phase(cli, kernels, ds, both0) -> dict:
     if bad:
         raise AssertionError(f"world-1 group runs: {bad}")
 
+    from erasurehead_tpu_torch.data import store as store_lib
+    from erasurehead_tpu_torch.whatif import run_whatif
+    from erasurehead_tpu_torch.whatif import spec as spec_lib
+
     with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-mesh2-") as out_dir:
+        # the children's shared store, and the world-1 what-if grid whose
+        # loss target the children's grid takes
+        sds = store_lib.write_store(ds, os.path.join(out_dir, "store"), 30).dataset()
+        surf1, w1_launches = counted_library_run(kernels, lambda: run_whatif(
+            mesh_whatif_grid(spec_lib)))
+        whatif1 = dict(surface=surf1, launches=w1_launches,
+                       runs_per_sec=surf1.stats["runs_per_sec"])
+        with open(os.path.join(out_dir, "whatif_target.json"), "w") as f:
+            json.dump({"target_loss": surf1.target_loss}, f)
         t0 = time.perf_counter()
         children = _spawn_mesh_children(out_dir)
         children_s = time.perf_counter() - t0
@@ -4921,6 +5297,9 @@ def mesh_phase(cli, kernels, ds, both0) -> dict:
             raise AssertionError(f"world-2 children failed: {failed}")
         ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in (0, 1)]
         hists = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in (0, 1)]
+        stream = stream_mesh_check(cli, kernels, ds, sds, ranks, hists, whatif1, out_dir, both0)
+        del sds
+    hists = [{k: v for k, v in h.items() if not k.startswith("stream/")} for h in hists]
     t_axes = time.perf_counter()
     axes = model_axes_check(cli, kernels, ds, ranks, hists, both0)
     emit("model_axes", note="two processes time-slicing one card over gloo; not a "
@@ -4959,9 +5338,14 @@ def mesh_phase(cli, kernels, ds, both0) -> dict:
                                      for r in ranks)):
         raise AssertionError(f"world-2 launches: {launches}")
     return dict(world1=one, world2=rec, nccl_all_reduce_us=nccl_us, model_axes=axes,
-                no_group_steps_per_sec=[ref.steps_per_sec, again.steps_per_sec],
+                stream=stream, no_group_steps_per_sec=[ref.steps_per_sec, again.steps_per_sec],
                 seconds=time.perf_counter() - t_phase,
                 launches_by_run={
+                    **{f"stream_mesh_world1_{k}": stream[k]["world1_launches"]
+                       for k in ("dedup", "mat", "ring", "cohort", "adapt", "elastic", "whatif")},
+                    **{f"stream_mesh_rank{r}_{k}": stream[k]["launches"][r]
+                       for k in ("dedup", "mat", "ring", "cohort", "adapt", "elastic", "whatif")
+                       for r in (0, 1)},
                     **{f"mesh_world1_{k}": r["launches"] for k, r in one.items()},
                     "mesh_reference_main": ref_launches, "mesh_reference_deep": deep_launches,
                     "mesh_rerun_main": again_launches, "mesh_rerun_deep": again_deep_launches,
@@ -5273,7 +5657,8 @@ def main() -> int:
     del b, X, y, w, Xb
     stream_times = {}
     for label, shape in (("approx_window_6", STREAM_SHAPE), ("cyccoded_window_10", HALO_SHAPE),
-                         ("window_3_of_16x", BIG_SHAPE)):
+                         ("window_3_of_16x", BIG_SHAPE),
+                         *((f"world2_{name}_rank", shape) for name, _, shape in STREAM_MESH_RUNS)):
         b, X, y, w = make_inputs(*shape, torch.float32, seed=102)
         k1 = time_ms(lambda: kernels.fused_glm_grad(b, X, y, w, "logistic"))
         p1 = time_ms(lambda: kernels.reference_glm_grad(b, X, y, w, "logistic"))
@@ -5389,7 +5774,10 @@ def main() -> int:
                              **{f"checkpoint_{k}": n["fused_glm_grad"]
                                 for k, n in ckpt["launches"].items()},
                              **{k: n["fused_glm_grad"] for k, n in sweep_launches.items()}},
-        "max_abs_err": max(main_err, max(c["max_abs_err"] for c in mesh_rec["world2"]["check"])),
+        "max_abs_err": max(main_err, max(c["max_abs_err"] for c in mesh_rec["world2"]["check"]),
+                           streamed["ring_window"]["check"]["max_abs_err"],
+                           *(e for k in ("dedup", "mat", "ring", "adapt")
+                             for e in mesh_rec["stream"][k]["max_abs_err"])),
         "ms": kernel_ms_best,
         "plain_ms": min(plain_ms, plain_ms_2),  # the two-pass torch yardstick
         "bound_ms": bound_ms,
@@ -5410,6 +5798,19 @@ def main() -> int:
         # the streamed phase's windows: B1 at each, its launches,
         # steps/s, staging overlap and peak device windows
         "stream_windows": stream_times,
+        # the ring transport of the cyccoded window 10 (12 staged
+        # partitions, the [30, 4400, 128] slots rebuilt a round) against the
+        # materialized window; then the world-2 ranks' streamed windows and
+        # drivers (two processes time-slicing one card over gloo, not a
+        # multi-GPU speed): steps/s, staged bytes and partitions, staging
+        # and stall seconds, peak device bytes a rank, beside world 1's
+        "ring_window": {k: streamed["ring_window"][k] for k in (
+            "steps_per_sec", "materialized_steps_per_sec", "window_bytes",
+            "materialized_window_bytes", "peak_bytes", "materialized_peak_bytes",
+            "prefetch", "bitwise_materialized")},
+        "stream_mesh": {k: {f: v for f, v in r.items() if f not in ("b1_shapes", "max_abs_err")}
+                        for k, r in mesh_rec["stream"].items()
+                        if k in ("dedup", "mat", "ring", "cohort", "adapt", "elastic", "whatif")},
         "streamed": {"window_steps_per_sec": streamed["window"]["steps_per_sec"],
                      "window_peak_windows": streamed["window"]["peak_windows"],
                      "big_store_steps_per_sec": streamed["big_store"]["steps_per_sec"],

@@ -24,8 +24,17 @@ put on the run's device once per call. Decisions are deterministic given
 (controller seed, arrival schedule), so a rerun replays the same sequence
 bitwise (chaos site ``adapt`` arms a mid-adaptation fault).
 
-Deviations from the JAX driver: ``device=`` takes the place of ``mesh=``,
-and ``init_params`` (as train() takes it) replaces the first chunk's seeded
+Across processes (``mesh=``, forwarded into every chunk's train(), as the
+JAX driver does; None: train()'s own rule per chunk) every rank runs the
+same driver: the controller's inputs are the simulated clocks, the decode
+errors and the raw arrival schedule, which every rank builds alike from the
+same seeds, and the boundary loss of the ``progress`` reward, which each
+rank computes from its bitwise-equal params and then takes from rank 0
+(parallel/backend.agree), so every rank makes the same decisions and joins
+the same collectives. The wall clock (``decision_wall``) is only reported.
+
+Deviations from the JAX driver: ``device=`` sits beside ``mesh=``, and
+``init_params`` (as train() takes it) replaces the first chunk's seeded
 init, e.g. with a JAX run's draw for parity.
 """
 
@@ -148,6 +157,7 @@ def train_adaptive(
     arrivals: Optional[np.ndarray] = None,
     priors: Optional[dict] = None,
     init_params=None,
+    mesh=None,
 ) -> AdaptiveResult:
     """Train ``cfg.rounds`` rounds, re-choosing the collection policy at
     every ``controller.chunk_rounds`` boundary (module docstring).
@@ -157,17 +167,15 @@ def train_adaptive(
     :func:`default_arms`. ``priors`` ({arm label: simulated expected reward},
     e.g. a what-if surface's ``adapt_priors``) seeds the bandit's cold start.
     ``device`` defaults to ``cuda``; ``init_params`` replaces the first
-    chunk's seeded init as train() takes it. Returns an
+    chunk's seeded init as train() takes it; ``mesh`` (None: train()'s
+    rule) is every chunk's worker mesh. Returns an
     :class:`AdaptiveResult` whose ``result`` reads like one
     ``trainer.train`` result over the full horizon (history on the run's
     device, clocks with the -1 sentinel, the decode-error series stitched
-    from the chunks). One process: a world of several raises
-    (parallel/mesh.require_one_process)."""
-    from erasurehead_tpu_torch.parallel import mesh as mesh_lib
-
-    mesh_lib.require_one_process("adapt.train_adaptive")
+    from the chunks)."""
     from erasurehead_tpu_torch.models.glm import params_from_numpy
     from erasurehead_tpu_torch.obs import events as obs_events
+    from erasurehead_tpu_torch.parallel import backend
     from erasurehead_tpu_torch.train import evaluate as evaluate_lib
     from erasurehead_tpu_torch.train import trainer
     from erasurehead_tpu_torch.utils import chaos as chaos_lib
@@ -226,8 +234,10 @@ def train_adaptive(
         y_probe = evaluate_lib.to_device(dataset.y_train, dev)
 
         def _loss_of(params) -> float:
+            # rank 0's value on every rank: the reward steers the bandit,
+            # whose choices every rank must make alike
             with torch.no_grad():
-                return float(probe_model.loss_mean(params, X_probe, y_probe))
+                return backend.agree(float(probe_model.loss_mean(params, X_probe, y_probe)))
 
         if init_params is None:
             p0 = probe_model.init_params(cfg.seed, dataset.n_features, dev)
@@ -252,6 +262,7 @@ def train_adaptive(
             arm_cfg, dataset, device=dev, arrivals=arrivals[:hi],
             init_params=init_params if state is None else None,
             initial_state=state, initial_round=lo if state is not None else 0,
+            mesh=mesh,
         )
         state = res.final_state
         last_res = res

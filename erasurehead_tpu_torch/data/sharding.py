@@ -252,8 +252,18 @@ def resolve_ring_stack(stack_mode: str, layout: CodingLayout, dataset: Dataset,
 # ---------------------------------------------------------------------------
 # stream windows (stack_residency="streamed"; train/trainer._train_streamed)
 
-#: the ROADMAP step that brings the ring transport of faithful windows
-RING_STEP = "ROADMAP A9b (streamed windows across ranks and ring stream windows)"
+@dataclasses.dataclass(frozen=True)
+class _WindowedLayout:
+    """The layout of one staged window of a :class:`StreamWindowPlan`: the
+    four attributes :func:`plan_ring_transport` reads, the assignment
+    localized to staged positions. Every window shares it (the planner
+    enforces window-uniformity), so one ring hop table serves every window
+    of the stream."""
+
+    n_workers: int
+    n_slots: int
+    n_partitions: int
+    assignment: np.ndarray  # [gw, S] staged positions
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,9 +284,14 @@ class StreamWindowPlan:
     ``local_assignment[wl, s]`` maps slot-group worker ``wl``'s slot ``s``
     to its staged position; it is the same for every window (the planner
     refuses assignments that are not window-uniform), so one worker-major
-    gather serves every window."""
+    gather, and one ring hop table, serve every window.
 
-    mode: str  # "deduped" | "materialized"
+    A ring (``"ring"``) plan stages the same span partition-major and
+    rebuilds the slot-group's worker slots every round over the ring
+    transport of :meth:`sub_layout`; the staged order is the ring-hop order
+    (position ``i``'s block arrives at fill step ``i // (staged / D)``)."""
+
+    mode: str  # "deduped" | "materialized" | "ring"
     n_partitions: int
     window: int  # partition-window size (divides P)
     n_windows: int
@@ -299,13 +314,74 @@ class StreamWindowPlan:
             "group_workers": int(self.group_workers),
         }
 
-    def sub_layout(self):
-        """The one-window layout a ring plan is built over: the ring
-        transport of stream windows waits for A9b, so this raises."""
-        raise NotImplementedError(
-            "sub_layout() plans the ring transport of a stream window, "
-            f"which waits for {RING_STEP}"
+    def shard(self, index: Optional[int], size: int) -> "WindowShard":
+        """What the rank at position ``index`` of a worker axis of ``size``
+        stages of every window (``index`` None: a rank outside the worker
+        group, which stages nothing). Deduped: its ``window / size``
+        partitions. Ring: its ``staged / size`` span of the staged
+        positions, the block the ring plan gives it. Materialized: the
+        staged positions its ``group_workers / size`` workers' slots read,
+        and their slots' indices into what it stages. The caller checks the
+        divisibility (mesh.check_divisible)."""
+        S = 0 if self.local_assignment is None else int(self.local_assignment.shape[1])
+        local = None
+        if index is None:
+            pos = np.zeros(0, dtype=np.int64)
+            if self.mode == "materialized":
+                local = np.zeros((0, S), dtype=np.int64)
+        elif self.mode == "deduped":
+            per = self.window // size
+            pos = np.arange(index * per, (index + 1) * per)
+        elif self.mode == "ring":
+            per = self.staged_partitions // size
+            pos = np.arange(index * per, (index + 1) * per)
+        else:
+            per = self.group_workers // size
+            rows = self.local_assignment[index * per:(index + 1) * per]
+            pos = np.unique(rows)
+            local = np.searchsorted(pos, rows).astype(np.int64)
+        P = self.n_partitions
+        ranges = []
+        for k in range(self.n_windows):
+            parts = (k * self.window + pos) % P
+            cuts = np.flatnonzero(np.diff(parts) != 1) + 1
+            ranges.append(tuple((int(run[0]), int(run[-1]) + 1)
+                                for run in np.split(parts, cuts) if run.size))
+        return WindowShard(ranges=tuple(ranges), n_partitions=int(pos.size),
+                           local_assignment=local)
+
+    def sub_layout(self) -> _WindowedLayout:
+        """The one-window layout a sub-:class:`RingPlan` is built over
+        (``plan_ring_transport(plan.sub_layout(), D)``). A full-cover plan
+        localizes to the identity, so its hop table is byte-identical to
+        the resident ``plan_ring_transport(layout, D)``: a full-cover
+        streamed ring run is bitwise the resident ring run."""
+        if self.local_assignment is None:
+            raise ValueError(
+                "deduped stream windows have no slot-groups (no ring "
+                "transport to plan); sub_layout() is a faithful/ring-"
+                "mode call"
+            )
+        return _WindowedLayout(
+            n_workers=self.group_workers,
+            n_slots=int(self.local_assignment.shape[1]),
+            n_partitions=self.staged_partitions,
+            assignment=self.local_assignment,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowShard:
+    """One rank's share of every window of a :class:`StreamWindowPlan`
+    (StreamWindowPlan.shard): ``ranges[k]`` the contiguous partition ranges
+    it stages of window k (empty outside the worker group), in staged
+    order, ``n_partitions`` in all (the same for every window);
+    ``local_assignment`` (materialized plans) its workers' slots as indices
+    into what it stages."""
+
+    ranges: tuple
+    n_partitions: int
+    local_assignment: Optional[np.ndarray]
 
 
 def plan_stream_windows(layout: CodingLayout, window: int, *, mode: str = "deduped") -> StreamWindowPlan:
@@ -316,8 +392,9 @@ def plan_stream_windows(layout: CodingLayout, window: int, *, mode: str = "dedup
     windows. Faithful plans split the worker axis into ``P // window``
     contiguous slot-groups and stage each group's whole assigned span,
     window plus halo, refusing when the worker axis does not split evenly
-    or the assignment is not window-uniform. ``mode="ring"`` raises: its
-    transport waits for A9b."""
+    or the assignment is not window-uniform. Ring plans are the faithful
+    plans whose windows the ring transport fills (the same ranges, halo
+    and slot-groups)."""
     P = int(layout.n_partitions)
     window = int(window)
     if window < 1 or P % window:
@@ -332,12 +409,7 @@ def plan_stream_windows(layout: CodingLayout, window: int, *, mode: str = "dedup
             ranges=tuple(((k * window, (k + 1) * window),) for k in range(n_windows)),
             local_assignment=None,
         )
-    if mode == "ring":
-        raise NotImplementedError(
-            f"stream window mode 'ring' needs the ring transport, which "
-            f"waits for {RING_STEP}; use mode 'materialized'"
-        )
-    if mode != "materialized":
+    if mode not in ("materialized", "ring"):
         raise ValueError(
             f"stream window mode must be 'deduped', 'materialized' or "
             f"'ring', got {mode!r}"

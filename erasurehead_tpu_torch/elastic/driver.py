@@ -33,7 +33,16 @@ bandit (when composed) re-seeds per epoch. So a killed run REPLAYS: resumed
 from the checkpoint and its aux sidecar, the finished chunks' rows
 rehydrate bitwise from the journal and the rest recompute identically.
 
-Deviations from the JAX driver: ``device=`` takes the place of ``mesh=``;
+Across processes (``mesh=``, forwarded into every chunk's train(), as the
+JAX driver does) every rank runs the same driver: membership reads only the
+simulated clocks of the chunk's schedule (the ``detect_dead`` timeout
+included), which every rank builds alike, and the chaos membership specs,
+which fire by chunk boundary on every rank alike. With ``mesh=None`` an
+epoch whose survivors no longer fold onto the world re-folds by train()'s
+rule (29 survivors on 2 ranks run on 1; the other rank adds zeros). Rank 0
+alone writes the journal and the checkpoints; every rank restores them.
+
+Deviations from the JAX driver: ``device=`` sits beside ``mesh=``;
 ``init_params`` (as train() takes it) replaces the first chunk's seeded
 init; the params digest hashes the port's own float32 bytes, so it is
 stable within the port (reruns, resumes) but never equal to the JAX
@@ -197,6 +206,7 @@ def train_elastic_online(
     checkpoint_dir: Optional[str] = None,
     resume: bool = False,
     init_params=None,
+    mesh=None,
 ):
     """Train ``cfg.rounds`` rounds with ONLINE membership (module docstring).
 
@@ -211,12 +221,9 @@ def train_elastic_online(
     membership stream to ``elastic_journal.jsonl``; ``checkpoint_dir`` +
     ``resume=True`` restart from the latest checkpoint with the controller
     ledger restored from its aux sidecar. ``device`` defaults to ``cuda``;
-    ``init_params`` replaces the first chunk's seeded init. One process: a
-    world of several raises (parallel/mesh.require_one_process)."""
+    ``init_params`` replaces the first chunk's seeded init; ``mesh`` (None:
+    train()'s rule, per epoch) is every chunk's worker mesh."""
     from erasurehead_tpu_torch import schemes
-    from erasurehead_tpu_torch.parallel import mesh as mesh_lib
-
-    mesh_lib.require_one_process("elastic.train_elastic_online")
     from erasurehead_tpu_torch.adapt.controller import (
         AdaptiveController,
         ChunkStats,
@@ -225,7 +232,7 @@ def train_elastic_online(
     from erasurehead_tpu_torch.adapt.driver import _cat_history
     from erasurehead_tpu_torch.models.glm import params_from_numpy
     from erasurehead_tpu_torch.obs import events as obs_events
-    from erasurehead_tpu_torch.parallel import failures
+    from erasurehead_tpu_torch.parallel import backend, failures
     from erasurehead_tpu_torch.train import checkpoint as ckpt_lib
     from erasurehead_tpu_torch.train import optimizer, trainer
     from erasurehead_tpu_torch.utils import chaos as chaos_lib
@@ -279,9 +286,11 @@ def train_elastic_online(
     # ---- journal + resume state ---------------------------------------------
     journal_path = None
     logger = None
+    writer = backend.is_writer()
     if journal_dir:
         journal_path = os.path.join(journal_dir, JOURNAL_NAME)
-        logger = obs_events.EventLogger(journal_path, mode="a")
+        if writer:
+            logger = obs_events.EventLogger(journal_path, mode="a")
 
     mem = MembershipController(W, ecfg)
     state = None
@@ -410,6 +419,7 @@ def train_elastic_online(
             cfg_chunk, dataset, device=dev, arrivals=arr_e, schedule=schedule,
             init_params=init_params if state is None else None,
             initial_state=state, initial_round=lo if state is not None else 0,
+            mesh=mesh,
         )
         state = res.final_state
         last_res = res
@@ -461,7 +471,7 @@ def train_elastic_online(
         _emit(logger, "membership", **row)
         rows.append(dict(type="membership", **row))
 
-        if checkpoint_dir:
+        if checkpoint_dir and writer:
             aux = {
                 "controller": mem.snapshot(),
                 "bandit": bandit.state_dict() if bandit is not None else None,

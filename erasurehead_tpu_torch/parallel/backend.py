@@ -131,6 +131,20 @@ def is_writer() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
+def agree(value):
+    """``value`` as rank 0 of the group has it, on every rank: a host
+    decision every rank must take alike, or their collectives deadlock or
+    their params part (a tune verdict read from a file another process may
+    be writing, a float that steers a controller). One broadcast of a
+    picklable object from rank 0; the identity without a group or in a
+    world of one. Every rank of the world must call it at the same point."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def topology_info() -> dict:
     """Process and device counts, under the JAX package's keys (the
     reference's size == n_procs sanity check, main.py:55-57). One process

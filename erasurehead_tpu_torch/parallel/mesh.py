@@ -67,9 +67,8 @@ WORKER_AXIS = "workers"
 # the tensor-parallel axis of the JAX package's MLP family (its 2-D meshes)
 MODEL_AXIS = "model"
 
-#: the ROADMAP item that brings streamed windows across ranks, one process
-#: driving several devices, and the drivers layered over train() at world
-#: sizes above 1
+#: the ROADMAP item that brings one process driving several devices and the
+#: serve daemon over several devices
 A9B = "ROADMAP A9b"
 
 

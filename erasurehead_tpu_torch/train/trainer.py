@@ -60,7 +60,11 @@ covering every partition trains the resident loop on the store's rows
 (bitwise the resident run); a smaller one trains block by block
 (:func:`_train_streamed`, :func:`_train_cohort_streamed`), a window of
 partitions staged per chunk of rounds behind the previous chunk's compute,
-the round's gradient taking the same lowering ladder over the window.
+the round's gradient taking the same lowering ladder over the window. A
+faithful window is materialized worker-major or, under the ring transport
+(``stack_mode`` "ring", or "auto" on a redundant layout), staged
+partition-major and its slots rebuilt every round; over a worker mesh each
+rank stages only its share of every window.
 
 Pipelined training (``cfg.pipeline_depth=1``, parallel/pipeline.py): the
 schedule is the pipelined recurrence over the same arrivals, and the loop
@@ -110,6 +114,7 @@ Timing artifacts keep two clocks apart, as the JAX package does:
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import sys
 import tempfile
@@ -491,10 +496,14 @@ def _local_weights(mesh, layout, weights: np.ndarray, faithful: bool) -> np.ndar
     return weights[:, lo:hi]
 
 
-def _ring_grad(cfg: RunConfig, model, layout, mesh, X, grad_fn):
-    """The ring transport around ``grad_fn`` (step.make_ring_faithful_grad_fn)
-    and the resolved schedule: ``(grad_fn, "pipelined" | "sequential")``."""
-    pipe = step_lib.resolve_ring_pipeline(cfg.ring_pipeline, model, X)
+def _ring_grad(cfg: RunConfig, model, layout, mesh, X, grad_fn, tuned: bool = True):
+    """The ring transport of ``layout`` (a CodingLayout, or a stream
+    window's sub-layout) around ``grad_fn`` (step.make_ring_faithful_grad_fn)
+    and the resolved schedule: ``(grad_fn, "pipelined" | "sequential")``.
+    ``tuned=False`` resolves "auto" without a race verdict, as the JAX
+    package's streamed trainers do."""
+    pipe = (step_lib.resolve_ring_pipeline(cfg.ring_pipeline, model, X) if tuned
+            else step_lib.resolve_ring_pipeline(cfg.ring_pipeline))
     grad_fn = step_lib.make_ring_faithful_grad_fn(
         model, plan_ring_transport(layout, mesh.size), mesh, local_body=grad_fn,
         pipeline=pipe,
@@ -1683,23 +1692,26 @@ def _check_streamed_compat(cfg: RunConfig) -> None:
         )
 
 
-def _make_stream_put(plan, dev, quantize: bool, data_dtype: torch.dtype):
+def _make_stream_put(plan, dev, quantize: bool, data_dtype: torch.dtype, shard=None):
     """The host-to-device transfer of one staged window (it runs on the
     prefetch staging thread; the per-run and cohort streamed trainers share
-    it). The staged partition-major span (window and halo, as
-    ``read_ranges`` returns it) is copied as it is; a materialized faithful
-    window then gathers the slot-group's worker-major ``[gw, S, rows, F]``
-    view on the device through the plan's local assignment. (The JAX
-    package gathers on the host and sends (s+1)x the bytes; a gather is
-    exact, so the bits are the same.) An int8 store's window brings its
-    ``(q, scale)``; a float32 window of an int8 run is quantized per
-    partition on the host before the gather, as the resident path does.
-    Labels take the data dtype and then float32, as in the resident stack.
-    Every tensor is a fresh copy: the host buffers are refilled."""
-    local = (
-        torch.from_numpy(np.asarray(plan.local_assignment))
-        if plan.mode == "materialized" else None
-    )
+    it). The staged partition-major span (as ``read_ranges`` returns it) is
+    copied as it is: a deduped window and a ring window (whose slots the
+    ring transport rebuilds every round) stay partition-major. A
+    materialized faithful window then gathers the slot-group's worker-major
+    ``[gw, S, rows, F]`` view on the device through the plan's local
+    assignment, or through ``shard``'s (data/sharding.WindowShard: a rank's
+    workers over the positions it staged). (The JAX package gathers on the
+    host and sends (s+1)x the bytes; a gather is exact, so the bits are the
+    same.) An int8 store's window brings its ``(q, scale)``; a float32
+    window of an int8 run is quantized per partition on the host before the
+    gather, as the resident path does. Labels take the data dtype and then
+    float32, as in the resident stack. Every tensor is a fresh copy: the
+    host buffers are refilled."""
+    local = None
+    if plan.mode == "materialized":
+        local = torch.from_numpy(np.asarray(
+            plan.local_assignment if shard is None else shard.local_assignment))
 
     def upload(t, dtype=None):
         return t.to(device=dev, dtype=dtype, non_blocking=True, copy=True)
@@ -1774,12 +1786,29 @@ def _stream_group_slot_weights(layout, plan, schedule) -> np.ndarray:
     return out
 
 
+def _resolve_stream_ring(cfg: RunConfig, layout) -> bool:
+    """The transport of a streamed faithful run (the JAX trainer's rule):
+    "ring" forces the ring, "materialized" forbids it, and "auto" takes it
+    whenever the assignment duplicates partitions (storage overhead above
+    1). A streamed stack never resides whole, so the resident footprint
+    gate does not apply: the staged window carries each partition once and
+    the (s+1)x redundancy exists only in the round's rebuilt slots."""
+    if cfg.stack_mode == "ring":
+        return True
+    if cfg.stack_mode != "auto":
+        return False
+    return float(layout.storage_overhead) > 1.0
+
+
 @dataclasses.dataclass
 class _StreamPlan:
     """What the per-run and cohort streamed trainers share: the window plan,
-    the chunks of rounds and the window each consumes, the storage."""
+    the worker mesh and this rank's share of each window, the chunks of
+    rounds and the window each consumes, the storage."""
 
     plan: object  # data/sharding.StreamWindowPlan
+    mesh: object  # parallel/mesh.WorkerMesh
+    shard: object  # data/sharding.WindowShard: what this rank stages
     chunks: list  # [(lo, hi)] round ranges
     win_of: list  # the window each chunk consumes
     round_win: np.ndarray  # [R] the window each round reads
@@ -1791,25 +1820,63 @@ class _StreamPlan:
         return self.plan.mode
 
     @property
+    def faithful(self) -> bool:
+        """Does the round's body take worker slots (materialized or
+        ring-filled)?"""
+        return self.plan.mode != "deduped"
+
+    @property
     def windows(self) -> list:
-        """The prefetcher's consume-order window list."""
-        return [self.plan.ranges[k] for k in self.win_of]
+        """The prefetcher's consume-order list of this rank's ranges."""
+        return [self.shard.ranges[k] for k in self.win_of]
+
+    def local_weights(self, weights: np.ndarray) -> np.ndarray:
+        """This rank's columns of per-round window weights, ``[R, ...]``
+        with the window's partitions (deduped) or the slot-group's workers
+        (faithful) on axis ``-2`` of a faithful ``[.., gw, S]`` or the last
+        axis of a deduped ``[.., window]`` table."""
+        axis = weights.ndim - (2 if self.faithful else 1)
+        n = weights.shape[axis]
+        lo, hi = self.mesh.slice(n)
+        return np.take(weights, np.arange(lo, hi), axis=axis)
 
 
-def _plan_stream(cfg: RunConfig, layout, store, window: int) -> _StreamPlan:
-    """The window plan of a streamed run and its chunks of rounds: each
-    chunk of ``L = max(1, rounds // n_windows)`` rounds consumes one window,
-    chunk i window ``i mod n_windows`` (fewer rounds visit a prefix of the
-    windows), as in the JAX package."""
+def _plan_stream(cfg: RunConfig, layout, store, window: int, dev, mesh=None) -> _StreamPlan:
+    """The window plan of a streamed run, its worker mesh, and its chunks of
+    rounds: each chunk of ``L = max(1, rounds // n_windows)`` rounds
+    consumes one window, chunk i window ``i mod n_windows`` (fewer rounds
+    visit a prefix of the windows), as in the JAX package.
+
+    ``mesh=None`` is the JAX trainer's rule with the port's "largest group
+    whose size divides the axis": a deduped run splits the window's
+    partitions, a materialized faithful run the slot-group's workers, a
+    ring run ``gcd(group workers, staged partitions)`` (the sub-ring plan
+    shards both). An explicit mesh must fold the same axes (JAX's
+    refusals), and a 2-D mesh has no windowed body."""
     _check_streamed_compat(cfg)
     faithful = cfg.compute_mode == ComputeMode.FAITHFUL
     try:
         mode = "deduped"
         if faithful:
-            mode = "ring" if cfg.stack_mode == "ring" else "materialized"
+            mode = "ring" if _resolve_stream_ring(cfg, layout) else "materialized"
         plan = plan_stream_windows(layout, window, mode=mode)
     except ValueError as e:
         raise ValueError(f"{e} — or {_stream_remedy(cfg)}") from None
+    gw = plan.group_workers
+    if mesh is not None and mesh.axis_name is not None:
+        raise ValueError(
+            "streamed windows have no model-parallel (2-D mesh) body; "
+            f"{_stream_remedy(cfg)}"
+        )
+    need = (window if mode == "deduped" else gw if mode == "materialized"
+            else math.gcd(gw, plan.staged_partitions))
+    mesh = _run_mesh(mesh, need, dev)
+    if mode == "deduped":
+        mesh_lib.check_divisible(window, mesh, "stream_window")
+    else:
+        mesh_lib.check_divisible(gw, mesh, "stream slot-group workers")
+        if mode == "ring":
+            mesh_lib.check_divisible(plan.staged_partitions, mesh, "staged stream window")
     stack_dtype = cfg.resolve_stack_dtype()
     if store.quantized and stack_dtype != "int8":
         raise ValueError(
@@ -1825,8 +1892,8 @@ def _plan_stream(cfg: RunConfig, layout, store, window: int) -> _StreamPlan:
     for (lo, hi), k in zip(chunks, win_of):
         round_win[lo:hi] = k
     return _StreamPlan(
-        plan=plan, chunks=chunks, win_of=win_of, round_win=round_win,
-        stack_dtype=stack_dtype,
+        plan=plan, mesh=mesh, shard=plan.shard(mesh.index, mesh.size), chunks=chunks,
+        win_of=win_of, round_win=round_win, stack_dtype=stack_dtype,
         data_dtype=_torch_dtype(cfg.dtype if stack_dtype == "int8" else stack_dtype),
     )
 
@@ -1851,10 +1918,12 @@ def _stream_round_weights(sp: _StreamPlan, layout, schedule) -> np.ndarray:
 
 
 def _stream_cache_info(sp: _StreamPlan, window_nbytes: int, setup_seconds: float,
-                       pf_stats: dict, peak: Optional[int]) -> dict:
+                       pf_stats: dict, peak: Optional[int],
+                       ring_pipe: Optional[str] = None) -> dict:
     """A streamed run's ``cache_info``: the JAX trainer's keys (without the
     executable cache's), and the device's peak bytes over the round loop
-    above its start (cuda; None on the CPU)."""
+    above its start (cuda; None on the CPU). ``stack_bytes`` and
+    ``prefetch`` are this rank's: what it staged."""
     plan = sp.plan
     return {
         "enabled": cache_lib.enabled(),
@@ -1862,12 +1931,14 @@ def _stream_cache_info(sp: _StreamPlan, window_nbytes: int, setup_seconds: float
         # residency bound
         "data_hit": False,
         "bytes_reused": 0,
-        # device bytes of one staged window (for a faithful plan the
-        # slot-group's worker-major gather)
+        # device bytes of one staged window on this rank (for a
+        # materialized plan its workers' worker-major gather, for a ring
+        # plan its partition-major share of window and halo)
         "stack_bytes": window_nbytes,
         "setup_seconds": setup_seconds,
         "stack_mode": plan.mode,
         "stack_dtype": sp.stack_dtype,
+        "ring_pipeline": ring_pipe,
         "pipeline_depth": 0,
         "pipeline_params_slot_bytes": 0,
         "residency": "streamed",
@@ -1875,9 +1946,38 @@ def _stream_cache_info(sp: _StreamPlan, window_nbytes: int, setup_seconds: float
         "n_windows": plan.n_windows,
         "stream_halo": plan.halo,
         "stream_group_workers": plan.group_workers,
+        "stream_staged_partitions": sp.shard.n_partitions,
         "prefetch": pf_stats,
         "device_peak_bytes": peak,
     }
+
+
+class _NoWindows:
+    """The window source of a rank outside the worker group: it stages
+    nothing, and every window is an empty stack of the store's kind (the
+    rank's round adds exact zeros to the all-reduce)."""
+
+    records: tuple = ()
+
+    def __init__(self, store, dev, data_dtype: torch.dtype):
+        rows, F = store.rows_per_partition, store.n_features
+        if store.quantized:
+            self._X = features_lib.QuantizedStack(
+                torch.zeros((0, rows, F), dtype=torch.int8, device=dev),
+                torch.zeros((0, F), dtype=torch.float32, device=dev))
+        else:
+            self._X = torch.zeros((0, rows, F), dtype=data_dtype, device=dev)
+        self._y = torch.zeros((0, rows), dtype=torch.float32, device=dev)
+
+    def get(self, i: int):
+        return self._X, self._y
+
+    def stats(self) -> dict:
+        return {"windows": 0, "bytes": 0, "fetch_s": 0.0, "blocked_s": 0.0,
+                "overlap_efficiency": 1.0}
+
+    def close(self) -> None:
+        pass
 
 
 def _stream_loop(dev, store, sp: _StreamPlan, put, setup, grad_fn, update_fn,
@@ -1894,6 +1994,10 @@ def _stream_loop(dev, store, sp: _StreamPlan, put, setup, grad_fn, update_fn,
     over the loop are read above the level before the first stage (this
     resets the device's peak-memory statistic).
 
+    Each rank stages only its share of every window (``sp.shard``) through
+    its own prefetcher against the shared store; a rank outside the worker
+    group stages nothing (:class:`_NoWindows`).
+
     Returns ``(wall, setup_seconds, window_nbytes, prefetch stats, peak,
     staging records)``, the last data/prefetch.Prefetcher.records (each
     window's held ``io`` record and its ``prefetch`` payload), which the
@@ -1904,7 +2008,10 @@ def _stream_loop(dev, store, sp: _StreamPlan, put, setup, grad_fn, update_fn,
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-    pf = Prefetcher(store, sp.windows, put, device=dev, plan_fields=sp.plan.event_fields())
+    if sp.shard.n_partitions:
+        pf = Prefetcher(store, sp.windows, put, device=dev, plan_fields=sp.plan.event_fields())
+    else:
+        pf = _NoWindows(store, dev, sp.data_dtype)
     wall = 0.0
     try:
         X, y = pf.get(0)
@@ -1962,22 +2069,31 @@ def _train_streamed(
     window's rows), and chunks cycle through the windows in a fixed order;
     deterministic run to run for a (config, store). Deduped windows are
     partition windows with the folded weights' columns; faithful windows
-    are the plan's slot-groups, gathered worker-major on the device, each
-    decoded by its own least-squares weights
-    (:func:`_stream_group_slot_weights`). The round's gradient takes the
-    resident ladder over the window's stack (:func:`_grad_lowering`): a
-    dense float GLM under ``use_pallas="auto"`` goes through the fused
-    kernel, one launch a round (where the JAX package's auto declines its
-    kernel here), an int8 window its dequantizing lowering. Refused, with
-    JAX's messages: the forced kernel and the forced blockwise decode
-    (:func:`_check_streamed_compat`), assignments that are not
+    are the plan's slot-groups, each decoded by its own least-squares
+    weights (:func:`_stream_group_slot_weights`). A materialized window is
+    gathered worker-major on the device; a ring window
+    (:func:`_resolve_stream_ring`) stays partition-major, window plus halo,
+    and every round the ring transport rebuilds the slot-group's worker
+    slots from it (step.make_ring_faithful_grad_fn over the plan's
+    sub-layout; a full-cover ring window is bitwise the resident ring
+    run). The round's gradient takes the resident ladder over the window's
+    stack (:func:`_grad_lowering`): a dense float GLM under
+    ``use_pallas="auto"`` goes through the fused kernel, one launch a round
+    (where the JAX package's auto declines its kernel here), an int8
+    window its dequantizing lowering.
+
+    ``mesh`` (None: :func:`_plan_stream`'s rule) splits each window over
+    the worker mesh: every rank stages only its share (its partitions, the
+    partitions its workers' slots read, or its span of the staged
+    partitions for the ring), computes its local decoded gradient and
+    all-reduces it, as the resident trainer does; every rank returns the
+    same params. Refused, with JAX's messages: the forced kernel and the
+    forced blockwise decode (:func:`_check_streamed_compat`), a 2-D mesh,
+    a mesh that does not fold the window, assignments that are not
     window-uniform (the planner), ``checkpoint_dir``, ``resume`` and a
-    mid-schedule restart (``initial_state``/``initial_round``), and a world
-    of several processes (mesh.require_one_process)."""
+    mid-schedule restart (``initial_state``/``initial_round``)."""
     t_call = time.perf_counter()
     _check_streamed_compat(cfg)
-    mesh_lib.require_one_process("windowed streamed residency (streamed windows across ranks)",
-                                 mesh)
     if checkpoint_dir or resume or initial_state is not None or initial_round:
         raise ValueError(
             "checkpoint/resume/mid-schedule restart are not supported on "
@@ -1987,9 +2103,9 @@ def _train_streamed(
         )
     dev = resolve_device(device)
     layout = build_layout(cfg)
-    model = build_model(cfg)
-    sp = _plan_stream(cfg, layout, store, window)
-    faithful = sp.mode == "materialized"
+    sp = _plan_stream(cfg, layout, store, window, dev, mesh)
+    mesh = sp.mesh
+    model = _step_model(cfg, mesh)
 
     # ---- control plane: the resident trainer's, then the window's slices
     if arrivals is None:
@@ -2000,7 +2116,8 @@ def _train_streamed(
     lr32 = cfg.resolve_lr_schedule().astype(np.float32)
     alpha = cfg.effective_alpha
     n_train = window * store.rows_per_partition  # the block a round averages
-    weights = _to_device(_stream_round_weights(sp, layout, schedule), dev, torch.float32)
+    weights = _to_device(sp.local_weights(_stream_round_weights(sp, layout, schedule)),
+                         dev, torch.float32)
 
     if init_params is None:
         params0 = model.init_params(cfg.seed, store.n_features, dev)
@@ -2015,8 +2132,13 @@ def _train_streamed(
     run = {}
 
     def setup(X0, y0):
-        run["grad_fn"], run["lowering"] = _grad_lowering(cfg, model, X0, faithful, params0)
-        run["compiled"] = _prepare_lowering(dev, model, run["lowering"], run["grad_fn"],
+        grad_fn, run["lowering"] = _grad_lowering(cfg, model, X0, sp.faithful, params0, mesh)
+        run["ring_pipe"] = None
+        if sp.mode == "ring":
+            grad_fn, run["ring_pipe"] = _ring_grad(cfg, model, sp.plan.sub_layout(), mesh, X0,
+                                                   grad_fn, tuned=False)
+        run["grad_fn"] = grad_fn
+        run["compiled"] = _prepare_lowering(dev, model, run["lowering"], grad_fn,
                                             X0, y0, params0, weights[0])
 
     def grad_r(r, X, y):
@@ -2028,14 +2150,14 @@ def _train_streamed(
         blocks.tree_map(lambda h, p: h[r].copy_(p), history, state.params)
 
     run_id = obs_events.new_run_id() if obs_events.active() else None
-    put = _make_stream_put(sp.plan, dev, sp.stack_dtype == "int8", sp.data_dtype)
+    put = _make_stream_put(sp.plan, dev, sp.stack_dtype == "int8", sp.data_dtype, sp.shard)
     wall, setup_seconds, window_nbytes, pf_stats, peak, staged = _stream_loop(
         dev, store, sp, put, setup, grad_r, update_r, t_call
     )
     steps_per_sec = cfg.rounds / wall if wall > 0 else 0.0
     if run_id is not None:
         _emit_run_start(run_id, cfg, dev, run["lowering"], sp.mode, window_nbytes, False,
-                        run["compiled"], cfg.rounds)
+                        run["compiled"], cfg.rounds, mesh=mesh)
         _emit_stream_records(run_id, staged)
         obs_events.emit_round_chunks(
             run_id, start_round=0, timeset=schedule.sim_time,
@@ -2059,6 +2181,7 @@ def _train_streamed(
         obs_cpath.emit_event(run_id, obs_cpath.attribute(
             schedule.sim_time, schedule.worker_times, schedule.collected, wall_s=wall,
             prefetch_stall_s=float(pf_stats.get("blocked_s", 0.0)),
+            transport="ring" if sp.mode == "ring" else "none",
         ))
     return TrainResult(
         params_history=history,
@@ -2075,7 +2198,8 @@ def _train_streamed(
         final_state=state,
         decode_error=decode_err,
         lowering=run["lowering"],
-        cache_info=_stream_cache_info(sp, window_nbytes, setup_seconds, pf_stats, peak),
+        cache_info=_stream_cache_info(sp, window_nbytes, setup_seconds, pf_stats, peak,
+                                      run["ring_pipe"]),
         schedule=schedule,
         run_id=run_id,
     )
@@ -2098,9 +2222,11 @@ def estimate_stack_bytes(cfg: RunConfig, dataset: Dataset) -> int:
     as in the JAX package). bfloat16 counts 2 bytes an element, int8 1 plus
     its float32 scale rows (data/sharding.estimate_worker_stack_bytes).
     Streamed-residency runs are charged their resident WINDOWS, at most two
-    (the one computing and the one in flight), never the whole stack; a
-    faithful window is its slot-group's worker gather, ``2/n_windows`` of
-    the worker stack. A pipelined run adds its stale params slot. An
+    (the one computing and the one in flight), never the whole stack, over
+    the whole dispatch (every rank's share together): a partition-major
+    window is charged staged (window and halo for a ring window), a
+    materialized faithful window its slot-group's worker gather,
+    ``2/n_windows`` of the worker stack. A pipelined run adds its stale params slot. An
     estimate, not an accounting: the daemon refines it per signature with
     the measured peak of a dispatch on the card."""
     layout = build_layout(cfg)
@@ -2124,7 +2250,15 @@ def estimate_stack_bytes(cfg: RunConfig, dataset: Dataset) -> int:
     if partition_major:
         blocks_n = layout.n_partitions
         if streamed and w < blocks_n:
-            blocks_n = min(blocks_n, 2 * w)  # deduped windows have no halo
+            # a staged window's device bytes are its span: window and halo
+            # for the ring fill (deduped windows have no halo)
+            staged = w
+            if cfg.compute_mode == ComputeMode.FAITHFUL:
+                try:
+                    staged = plan_stream_windows(layout, w, mode="ring").staged_partitions
+                except ValueError:
+                    pass  # the run itself will refuse; charge the window
+            blocks_n = min(blocks_n, 2 * staged)
         est = per_block * blocks_n
     else:
         est = worker_stack_est
@@ -2372,36 +2506,37 @@ def _cohort_lowering(cfg: RunConfig, model, X, y, faithful: bool, params0, w0, d
 
 
 def _train_cohort_streamed(cfgs, store, window: int, *, arrivals, device, init_params,
-                           t_call: float) -> list:
+                           t_call: float, mesh=None) -> list:
     """A cohort over a shard store's windows: the streamed counterpart of
     the resident cohort loop. One prefetch stream and one staging a chunk
     serve all B trajectories; each trajectory's rounds are
     :func:`_train_streamed`'s block training exactly (the same window plan,
-    chunks, window cycle and per-window weights: deduped the window's
+    mesh, chunks, window cycle and per-window weights: deduped the window's
     columns of ``[R, B, P]``, faithful each trajectory's slot-group
     decode), its gradient one cohort body over the window's stack (the
-    cohort matmul for a dense GLM; no blockwise form), its update the
-    vmapped one. Members match their sequential streamed runs to float
-    tolerance."""
+    cohort matmul for a dense GLM; no blockwise form; a ring window's slots
+    rebuilt by the ring transport first), its update the vmapped one. Over
+    a worker ``mesh`` each rank stages its share of the window and the B
+    decoded gradients are all-reduced in one collective a round. Members
+    match their sequential streamed runs to float tolerance."""
     _check_streamed_compat(cfgs[0])
-    mesh_lib.require_one_process("a windowed streamed cohort (streamed windows across ranks)")
     # the same chaos site as the resident cohort dispatch: a raise exercises
     # compare()'s bisection (experiments._dispatch_cohort)
     chaos_lib.maybe_fire("cohort")
     cfg = cfgs[0]
     dev = device
     layouts = _cohort_layouts(cfgs)
-    sp = _plan_stream(cfg, layouts[0], store, window)
-    faithful = sp.mode == "materialized"
+    sp = _plan_stream(cfg, layouts[0], store, window, dev, mesh)
+    mesh = sp.mesh
     schedules = _cohort_schedules(cfgs, layouts, arrivals)
     weights = _to_device(
-        np.stack([_stream_round_weights(sp, lay, sched)
-                  for lay, sched in zip(layouts, schedules)], axis=1),
+        sp.local_weights(np.stack([_stream_round_weights(sp, lay, sched)
+                                   for lay, sched in zip(layouts, schedules)], axis=1)),
         dev, torch.float32,
-    )  # [R, B, window] (deduped) or [R, B, gw, S] (faithful)
+    )  # [R, B, window] (deduped) or [R, B, gw, S] (faithful), this rank's columns
     lr_B, alpha_B = _cohort_lr_alpha(cfgs, dev)
     n_train = window * store.rows_per_partition
-    model = build_model(cfg)
+    model = _step_model(cfg, mesh)
     params0 = _cohort_params(model, cfgs, init_params, store.n_features, dev)
     state = optimizer.init_state(params0, cfg.update_rule)
     update_fn = optimizer.make_cohort_update_fn(cfg.update_rule)
@@ -2412,9 +2547,13 @@ def _train_cohort_streamed(cfgs, store, window: int, *, arrivals, device, init_p
     run = {}
 
     def setup(X0, y0):
-        run["grad_fn"], run["lowering"], run["compiled"], _ = _cohort_lowering(
-            cfg, model, X0, y0, faithful, params0, weights[0], dev
-        )
+        grad_fn, run["lowering"], run["compiled"], _ = _cohort_lowering(
+            cfg, model, X0, y0, sp.faithful, params0, weights[0], dev, mesh)
+        run["ring_pipe"] = None
+        if sp.mode == "ring":
+            grad_fn, run["ring_pipe"] = _ring_grad(cfg, model, sp.plan.sub_layout(), mesh, X0,
+                                                   grad_fn, tuned=False)
+        run["grad_fn"] = grad_fn
 
     def grad_r(r, X, y):
         return run["grad_fn"](state.params, X, y, weights[r])
@@ -2425,18 +2564,20 @@ def _train_cohort_streamed(cfgs, store, window: int, *, arrivals, device, init_p
         blocks.tree_map(lambda h, p: h[r].copy_(p), history, state.params)
 
     run_id = obs_events.new_run_id() if obs_events.active() else None
-    put = _make_stream_put(sp.plan, dev, sp.stack_dtype == "int8", sp.data_dtype)
+    put = _make_stream_put(sp.plan, dev, sp.stack_dtype == "int8", sp.data_dtype, sp.shard)
     wall, setup_seconds, window_nbytes, pf_stats, peak, staged = _stream_loop(
         dev, store, sp, put, setup, grad_r, update_r, t_call
     )
-    cohort = _cohort_fields(len(cfgs), run["lowering"], faithful)
-    cache_info = _stream_cache_info(sp, window_nbytes, setup_seconds, pf_stats, peak)
+    cohort = _cohort_fields(len(cfgs), run["lowering"], sp.faithful, run["ring_pipe"])
+    cache_info = _stream_cache_info(sp, window_nbytes, setup_seconds, pf_stats, peak,
+                                    run["ring_pipe"])
     results = _cohort_results(cfgs, schedules, layouts, state, history, wall, n_train,
                               run["lowering"], cohort, {**cache_info, **cohort}, run_id)
     if run_id is not None:
         _emit_cohort(run_id, cfgs, results, dev, sp.mode, False,
                      run["compiled"], window_nbytes,
-                     prefetch_stall_s=float(pf_stats.get("blocked_s", 0.0)), staged=staged)
+                     prefetch_stall_s=float(pf_stats.get("blocked_s", 0.0)), staged=staged,
+                     mesh=mesh)
     return results
 
 
@@ -2538,7 +2679,7 @@ def train_cohort(
         if window < store.n_partitions:
             return _train_cohort_streamed(
                 cfgs, store, window, arrivals=arrivals, device=dev,
-                init_params=init_params, t_call=t_call,
+                init_params=init_params, t_call=t_call, mesh=mesh,
             )
         if getattr(dataset, "_sweep_cache_token", None) != store.cache_token:
             dataset = store.dataset()

@@ -167,9 +167,16 @@ def lookup(
     ``use_pallas="auto"`` gate). Warm path: one stat(2) + dict lookup.
     Emits the decision as a ``tune`` record: ``source="cache"`` when a
     verdict applies, ``source="default"`` (with ``fallback`` as the
-    choice, when given) when the hardcoded constant stands."""
+    choice, when given) when the hardcoded constant stands. In a process
+    group every rank takes rank 0's verdict (parallel/backend.agree): every
+    rank must consult at the same points."""
     dk = device_kind or default_device_kind()
-    choice = get_cache().lookup(dk, race, shape_sig)
+    # across ranks, rank 0's read decides: the cache is a file that a
+    # racing process may rewrite between two ranks' reads, and ranks that
+    # took different lowerings would part
+    from erasurehead_tpu_torch.parallel import backend
+
+    choice = backend.agree(get_cache().lookup(dk, race, shape_sig))
     if choice is not None:
         emit_decision(race, dk, shape_sig, choice, "cache")
         return choice

@@ -89,19 +89,21 @@ def run_whatif(
     trajectory starts from (the grid's model seed is fixed across points
     and seeds); None = the port's own seeded draw at ``spec.model_seed``.
     JAX's engine has no such argument: the port's tests pass JAX's draw.
-    One process: a world of several raises (parallel/mesh.
-    require_one_process).
-    """
-    from erasurehead_tpu_torch.parallel import mesh as mesh_lib
-    from erasurehead_tpu_torch.train import evaluate, experiments, trainer
 
-    mesh_lib.require_one_process("whatif.run_whatif")
+    Across processes every rank runs every grid point with the same cohort
+    dispatch (the plan reads the configs only), each run over train()'s own
+    worker mesh, as JAX's engine spreads its runs over every device; rank 0
+    alone writes the surface.
+    """
+    from erasurehead_tpu_torch.parallel import backend
+    from erasurehead_tpu_torch.train import evaluate, experiments, trainer
     from erasurehead_tpu_torch.utils.config import resolve_batch_trajectories
     from erasurehead_tpu_torch.utils.device import resolve_device
 
     spec_hash = spec.spec_hash()
     if out_dir is not None and rehydrate:
-        saved = surface_lib.Surface.saved_hash(out_dir)
+        # rank 0's read decides for every rank: all rehydrate or all run
+        saved = backend.agree(surface_lib.Surface.saved_hash(out_dir))
         if saved == spec_hash:
             surf = surface_lib.Surface.load(out_dir)
             _emit("rehydrate", spec_hash, n_rows=len(surf.rows))
@@ -324,7 +326,7 @@ def run_whatif(
             ),
         },
     )
-    if out_dir is not None:
+    if out_dir is not None and backend.is_writer():
         paths = surf.save(out_dir)
         _emit(
             "surface",
@@ -342,8 +344,9 @@ def main(argv=None) -> int:
     """Grid spec flags -> surface artifact -> rendered crossover table.
 
     Calls ``parallel.backend.initialize_distributed`` first, as JAX's entry
-    does (a no-op in one process); the grid runs in one process
-    (run_whatif refuses a world of several, ROADMAP A9b)."""
+    does (a no-op in one process); under ``torchrun`` every rank runs the
+    grid and rank 0 alone writes the surface, its event log and the
+    table."""
     import argparse
     import contextlib
     import os
@@ -434,12 +437,13 @@ def main(argv=None) -> int:
     except ValueError as e:
         p.error(str(e))
 
-    from erasurehead_tpu_torch.parallel.backend import initialize_distributed
+    from erasurehead_tpu_torch.parallel.backend import initialize_distributed, is_writer
 
     initialize_distributed(device=ns.device)
+    writer = is_writer()
     capture = (
         obs_events.capture(os.path.join(ns.out, "events.jsonl"))
-        if ns.out
+        if ns.out and writer
         else contextlib.nullcontext()
     )
     with capture:
@@ -450,7 +454,7 @@ def main(argv=None) -> int:
             batch=ns.batch_trajectories,
             device=ns.device,
         )
-    if not ns.quiet:
+    if not ns.quiet and writer:
         print(f"spec {surf.spec_hash}: {len(surf.rows)} grid points", end="")
         if surf.stats:
             print(

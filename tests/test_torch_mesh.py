@@ -343,7 +343,22 @@ def test_ring_stack_is_partition_major(gmm12):
 
 
 def test_windowed_ring_streaming_names_a9b(gmm12):
+    """Windowed ring streaming, which this test once found refused (naming
+    ROADMAP A9b), runs: at world size 1 the ring fill of a staged window is
+    a local gather, so the run is bitwise the windowed materialized run,
+    while its window stays partition-major (window plus halo) and "auto"
+    resolves to the ring on this redundant layout."""
     cfg = _cfg(scheme="cyccoded", n_stragglers=2, stack_mode="ring",
                stack_residency="streamed", stream_window=6, compute_mode="faithful")
-    with pytest.raises(NotImplementedError, match="A9b"):
-        trainer.train(cfg, gmm12, device="cpu")
+    ring = trainer.train(cfg, gmm12, device="cpu")
+    auto = trainer.train(dataclasses.replace(cfg, stack_mode="auto"), gmm12, device="cpu")
+    mat = trainer.train(dataclasses.replace(cfg, stack_mode="materialized"), gmm12, device="cpu")
+    assert ring.cache_info["stack_mode"] == auto.cache_info["stack_mode"] == "ring"
+    assert ring.cache_info["ring_pipeline"] == "sequential"
+    assert mat.cache_info["stack_mode"] == "materialized"
+    assert torch.equal(ring.params_history, mat.params_history)
+    assert torch.equal(auto.params_history, mat.params_history)
+    ci = ring.cache_info
+    assert (ci["stream_halo"], ci["stream_group_workers"], ci["stream_staged_partitions"]) == (2, 6, 8)
+    assert ci["stack_bytes"] == 8 * 8 * (16 + 1) * 4  # [8, rows, F] and [8, rows], float32
+    assert mat.cache_info["stack_bytes"] == 6 * 3 * 8 * (16 + 1) * 4  # [gw, S, rows, F]

@@ -1,7 +1,8 @@
 """Card-side pins of out-of-core streaming: the prefetcher stages through
 pinned host buffers on its own copy stream and hands the consuming stream
 windows equal to the host's reads; a windowed streamed GLM run launches the
-fused GLM kernel once a round on each staged window, stays within the
+fused GLM kernel once a round on each staged window (a ring window on the
+slots its ring fill rebuilds), stays within the
 prefetcher's residency bound, reruns bitwise and follows the CPU run; the
 kernel holds its tolerance against its plain version at the window shapes.
 Every test is marked ``cuda`` and skips without a card.
@@ -104,6 +105,40 @@ def test_windowed_run_launches_b1_each_round_within_the_bound(store_dir, compute
     cpu = t_trainer.train(cfg, ds, device="cpu")
     np.testing.assert_allclose(a.params_history.cpu().numpy(), cpu.params_history.numpy(),
                                rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stack_mode", ["ring", "auto"])
+def test_ring_window_launches_b1_on_the_rebuilt_slots(store_dir, stack_mode):
+    """A ring window stages window and halo partition-major and rebuilds the
+    slot-group's slots every round: B1 once a round at [gw * S, rows, F],
+    reruns bitwise, bitwise the materialized windowed run, which gathers
+    the same slots, with fewer staged bytes."""
+    _card()
+    ds = t_store.open_store(str(store_dir / "float32")).dataset()
+    shapes, orig = [], t_kernels.fused_glm_grad
+
+    def recorded(b, X, y, w, kind="logistic"):
+        shapes.append(tuple(X.shape))
+        return orig(b, X, y, w, kind)
+
+    cfg = _cfg(stack_mode=stack_mode)
+    runs = []
+    t_kernels.fused_glm_grad = recorded
+    try:
+        for _ in range(2):
+            t_kernels.reset_launches()
+            runs.append(t_trainer.train(cfg, ds, device="cuda"))
+            assert t_kernels.LAUNCHES == {"fused_glm_grad": ROUNDS, "fused_block_decode": 0}
+    finally:
+        t_kernels.fused_glm_grad = orig
+    a, b = runs
+    assert a.cache_info["stack_mode"] == "ring" and a.lowering == "fused"
+    assert set(shapes) == {(9, N_ROWS // W, N_COLS)}  # 3 workers x 3 slots
+    assert torch.equal(a.params_history, b.params_history)
+    mat = t_trainer.train(dataclasses.replace(cfg, stack_mode="materialized"), ds, device="cuda")
+    assert torch.equal(a.params_history, mat.params_history)
+    assert a.cache_info["stack_bytes"] < mat.cache_info["stack_bytes"]
 
 
 @pytest.mark.cuda
