@@ -397,6 +397,29 @@ Phases, one JSON line each:
                  equal, B1's counts and shapes a rank, a rank's staged bytes
                  half of world 1's, each rank's first launch against its
                  plain version; B1 timed at the three rank shapes.
+  43. graphs   - (after cohort_deep) the compiled round loop
+                 (train/graphs.py): from empty caches, the main path, a
+                 second run of its signature with another lr schedule and
+                 seed (an executable hit), the deep path, train_dynamic, the
+                 pipelined run, a checkpoint-chunked run and the
+                 28-trajectory compare_deduped cohort, each replayed from
+                 its captured CUDA graphs and held bitwise (params history,
+                 final params, timeset, worker_times, collected,
+                 decode_error) against the same run's eager loop
+                 (graphs.disabled()), with the eager launch counts; B1's
+                 and B2's 100 launches a run equal to one profiled graph
+                 run's kernel events; B1 replayed in a one-round graph at
+                 [90, 4400, 128] within tolerance of its plain version and
+                 bitwise an eager launch, B2 bitwise its plain version under
+                 replay; approx then repcoded on one stack 1 miss then 1 hit
+                 with 1 data hit; a scan_unroll change one recompile warning
+                 naming it; scan_unroll 1, 4, 7 and 100 bitwise at 100, 25,
+                 15 and 1 replays; donate on and off bitwise, with their
+                 peak bytes; steps/s, device ms a round and busy share,
+                 graph and eager, of the main path, deep, train_dynamic and
+                 the cohort. Every other phase runs its card runs through
+                 the graph path too (the paths named eager in
+                 train/trainer._loop_mode keep the eager loop).
 Later, beside ``time`` and ``profile``: the attention run's per-slot leaves
 through ``decode_ops``, its round's decode (one launch, six leaves of
 [90, 913] floats) against its plain version, six GEMVs and the bound, and
@@ -2558,19 +2581,42 @@ SURVIVOR_SHAPE = (81, 4888, 128)  # 27 survivors x 3 slots; 132000 // 27 rows a 
 
 
 def record_glm_shapes(kernels):
-    """Wrap the fused GLM kernel's wrapper so each call's stack shape is
-    recorded (the launch count stays the wrapper's own); returns the list
-    and a function restoring the wrapper."""
-    shapes, orig = [], kernels.fused_glm_grad
+    """Record the fused GLM kernel's stack shape at each launch (the launch
+    count stays the wrapper's own); returns the list and a function
+    restoring the wrappers. An eager call is a launch; a call captured into
+    a CUDA graph (train/graphs.py) launches at each replay of that graph,
+    which adds the graph's tally (kernels.add_launches), so its shapes are
+    kept with the tally and recorded per replay; a graph's warm-up call is
+    no launch. The executable cache is emptied first, so every graph a
+    recorded run replays is captured under the recorder."""
+    from erasurehead_tpu_torch.train import cache
+
+    cache.drop_executables()
+    shapes, captured = [], {}
+    orig, orig_recording, orig_add = (kernels.fused_glm_grad, kernels.recording,
+                                      kernels.add_launches)
 
     def wrapped(beta, X, y, w, kind="logistic"):
-        shapes.append(tuple(X.shape))
+        tally = getattr(kernels._RECORDING, "tally", None)
+        (shapes if tally is None else captured[id(tally)]).append(tuple(X.shape))
         return orig(beta, X, y, w, kind)
 
-    kernels.fused_glm_grad = wrapped
+    @contextlib.contextmanager
+    def recording(tally):
+        captured[id(tally)] = []  # a new tally: an id the collector freed
+        with orig_recording(tally) as t:
+            yield t
+
+    def add_launches(tally):
+        shapes.extend(captured.get(id(tally), ()))
+        orig_add(tally)
+
+    kernels.fused_glm_grad, kernels.recording, kernels.add_launches = (
+        wrapped, recording, add_launches)
 
     def restore():
-        kernels.fused_glm_grad = orig
+        kernels.fused_glm_grad, kernels.recording, kernels.add_launches = (
+            orig, orig_recording, orig_add)
 
     return shapes, restore
 
@@ -4408,8 +4454,10 @@ def fleet_phase(cli, kernels, tmp, both0, ds) -> dict:
          request's row from an in-process daemon on the card (max_cohort 8:
          the same dispatch; the forced-kernel request is
          experiments._train_one there), whose launches are exactly 30 B1
-         at [90, 4400, 128] and 20 B2; the replica's compile records say
-         the library was loaded already (cache_hit); then the same set
+         at [90, 4400, 128] and 20 B2; the replica's compile records are
+         its CUDA-graph programs (train/graphs.py: captures and hits; the
+         build directory's unchanged files show it built no kernel); then
+         the same set
          FLEET_GOODPUT_SETS times back to back with other seeds, timed
          (the one-replica goodput);
       2. three replicas and a kill: ``kill:fleet_replica:2`` armed on the
@@ -4478,13 +4526,14 @@ def fleet_phase(cli, kernels, tmp, both0, ds) -> dict:
               if wire_science(r["row"]) != serve_science(ref[label].summary)]
     if (differ or baseline["delivered"] != len(specs) or ref_launches != want_launches
             or set(shapes) != {MAIN_SHAPE} or not compiles
-            or not all(r["cache_hit"] for r in compiles)):
+            or any(r["memory_analysis"]["executor"] != "graph" for r in compiles)):
         raise AssertionError(f"one-replica fleet: rows differ {differ}, delivered "
                              f"{baseline['delivered']}, in-process {ref_launches} at "
                              f"{set(shapes)}, compile records {compiles[:3]}")
     emit("fleet_one", replicas=1, requests=len(specs), rows_bitwise_in_process=True,
          in_process_launches=ref_launches, b1_shapes=[list(s) for s in sorted(set(shapes))],
-         compile_cache_hits=len(compiles), boot_s=boot_one, goodput=goodput_one)
+         graph_captures=sum(not r["cache_hit"] for r in compiles),
+         graph_hits=sum(r["cache_hit"] for r in compiles), boot_s=boot_one, goodput=goodput_one)
 
     # 2. three replicas; the one fa routes to dies in its second dispatch
     fa = [(t, label, cfg) for t, label, cfg in specs if t == "fa"]
@@ -5355,6 +5404,251 @@ def mesh_phase(cli, kernels, ds, both0) -> dict:
                        for name, a in axes.items() for r in (0, 1)}})
 
 
+# ---------------------------------------------------------------------------
+# the compiled round loop: CUDA graphs from the executable cache
+
+
+def result_artifacts_equal(a, b) -> dict:
+    """Two TrainResults' artifacts, each compared bitwise: the params
+    history, the final params, the simulated clock, the workers' times,
+    the collected sets and the decode error."""
+    def leaves_equal(x, y):
+        lx, ly = torch.utils._pytree.tree_leaves(x), torch.utils._pytree.tree_leaves(y)
+        return len(lx) == len(ly) and all(torch.equal(p, q) for p, q in zip(lx, ly))
+
+    same = lambda x, y: (x is None and y is None) or (  # noqa: E731
+        x is not None and y is not None and np.array_equal(x, y))
+    return dict(params_history=leaves_equal(a.params_history, b.params_history),
+                final_params=leaves_equal(a.final_params, b.final_params),
+                timeset=same(a.timeset, b.timeset), worker_times=same(a.worker_times, b.worker_times),
+                collected=same(a.collected, b.collected),
+                decode_error=same(a.decode_error, b.decode_error))
+
+
+def graph_vs_eager(kernels, graphs, name, run, want, count=1) -> dict:
+    """``run()`` on the graph path, then under ``graphs.disabled()`` (the
+    eager loop on the card): each must launch exactly ``want``, and every
+    artifact must be bitwise (a list of results: member for member).
+    ``count`` more graph runs first make the compared graph run a hit."""
+    warm = [launches_of(kernels, run) for _ in range(count)]
+    g, g_l = launches_of(kernels, run)
+    first, first_l = warm[0] if warm else (g, g_l)
+    with graphs.disabled():
+        e, e_l = launches_of(kernels, run)
+    pairs = list(zip(g, e)) if isinstance(g, list) else [(g, e)]
+    eq = [result_artifacts_equal(a, b) for a, b in pairs]
+    bitwise = {k: all(x[k] for x in eq) for k in eq[0]}
+    g0 = g[0] if isinstance(g, list) else g
+    e0 = e[0] if isinstance(e, list) else e
+    f0 = first[0] if isinstance(first, list) else first
+    rec = dict(run=name, launches=g_l, warm_launches=first_l if warm else None,
+               eager_launches=e_l, bitwise=bitwise,
+               graph_steps_per_sec=g0.steps_per_sec, eager_steps_per_sec=e0.steps_per_sec,
+               executor=g0.cache_info["executor"], eager_executor=e0.cache_info["executor"],
+               first_exec=[f0.cache_info["exec_hits"], f0.cache_info["exec_misses"]],
+               exec=[g0.cache_info["exec_hits"], g0.cache_info["exec_misses"]],
+               capture_seconds=f0.cache_info["compile_seconds"],
+               memory_analysis=f0.cache_info["memory_analysis"])
+    emit("graphs_run", **rec)
+    if first_l != want or g_l != want or e_l != want:
+        raise AssertionError(f"graphs {name}: launches {first_l} {g_l} {e_l}, want {want}")
+    if not all(bitwise.values()) or rec["executor"] != "graph" or rec["eager_executor"] != "eager":
+        raise AssertionError(f"graphs {name}: graph run is not its eager run: {rec}")
+    return rec
+
+
+def replay_checks(kernels) -> dict:
+    """B1 captured in a one-round graph at the main shape and replayed:
+    within check_glm's tolerance of its plain version and bitwise an eager
+    launch; B2 on the deep path's six leaves replayed: bitwise its plain
+    version. Each capture records one launch into its tally."""
+    def capture(fn):
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side), kernels.recording({}):
+            fn()
+        cur.wait_stream(side)
+        graph, tally = torch.cuda.CUDAGraph(), {}
+        with kernels.recording(tally), torch.cuda.graph(graph):
+            out = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        return out, tally
+
+    b, X, y, w = make_inputs(*MAIN_SHAPE, torch.float32, seed=140, zero_every=2)
+    eager = kernels.fused_glm_grad(b, X, y, w, "logistic")
+    want = kernels.reference_glm_grad(b, X, y, w, "logistic")
+    got, b1_tally = capture(lambda: kernels.fused_glm_grad(b, X, y, w, "logistic"))
+    Xf = X.float()
+    s = kernels._residual("logistic", torch.einsum("mrf,f->mr", Xf, b), y) * w[:, None]
+    tol = 1e-5 * torch.einsum("mrf,mr->f", Xf.abs(), s.abs()) + 1e-6
+    err = (got - want).abs()
+    b1 = dict(shape=list(MAIN_SHAPE), tally=b1_tally, max_abs_err=float(err.max()),
+              max_err_over_tol=float((err / tol).max()), bitwise_eager=bool(torch.equal(got, eager)))
+    del b, X, y, w, Xf, s
+    ws, leaves = slot_leaves(leaf_shapes("deepmlp"), torch.float32, seed=141)
+    plain = kernels.reference_block_decode_leaves(ws, leaves)
+    outs, b2_tally = capture(lambda: kernels.fused_block_decode_leaves(ws, leaves))
+    b2 = dict(leaves=len(leaves), tally=b2_tally,
+              bitwise_plain=all(torch.equal(a, p) for a, p in zip(outs, plain)))
+    rec = dict(fused_glm_grad=b1, fused_block_decode=b2)
+    emit("graphs_replay_check", **rec)
+    if not (b1["max_err_over_tol"] <= 1 and b1["bitwise_eager"] and b2["bitwise_plain"]
+            and b1_tally == {"fused_glm_grad": 1} and b2_tally == {"fused_block_decode": 1}):
+        raise AssertionError(f"a kernel under replay disagrees: {rec}")
+    return rec
+
+
+def profiled_kernel_events(run, tag) -> int:
+    """Device events of the kernel named by ``tag`` in one profiled run."""
+    prof, _ = profiled(run)
+    return sum(ev.count for ev in device_events(prof) if tag in ev.key)
+
+
+def graphs_phase(cli, kernels, ds, both0) -> dict:
+    """The round loop as CUDA graphs (train/graphs.py) against the eager
+    loop on the card (graphs.disabled()), from empty caches:
+
+      - bitwise, every artifact (params history, final params, timeset,
+        worker_times, collected, decode_error), with the eager launch
+        counts, on the main path, a second signature's run with another lr
+        schedule and seed (an executable hit), the deep path,
+        train_dynamic, the pipelined run, a checkpoint-chunked run (30
+        rounds a chunk: two programs) and the 28-trajectory compare_deduped
+        cohort;
+      - B1's and B2's 100 launches a run, counted by the replay tally,
+        equal to one profiled run's kernel events; B1 replayed in a
+        one-round graph within tolerance of its plain version and bitwise
+        an eager launch, B2 bitwise its plain version under replay;
+      - the cache: approx then repcoded on one stack make 1 miss then 1 hit
+        with 1 data hit; a scan_unroll change emits one recompile warning
+        naming it; scan_unroll 1, 4, 7 and 100 bitwise each other at
+        ceil(100/u) replays; donate on and off bitwise, with their peak
+        bytes above the loop's start;
+      - steps/s, the profiled device ms a round and busy share, graph and
+        eager, on the main path, deep, train_dynamic and the cohort; each
+        first capture's seconds and graph-pool bytes."""
+    from erasurehead_tpu_torch.obs import events as events_lib
+    from erasurehead_tpu_torch.train import cache, graphs, trainer
+
+    t_phase = time.perf_counter()
+    cache.clear()
+    cfg, dcfg, pcfg = (parse_config(cli, a) for a in (MAIN_ARGS, DEEP_ARGS, PIPE_ARGS))
+    b1 = {**both0, "fused_glm_grad": ROUNDS}
+    b2 = {**both0, "fused_block_decode": ROUNDS}
+    runs = {}
+    runs["main"] = graph_vs_eager(kernels, graphs, "main", lambda: trainer.train(cfg, ds), b1)
+    other = dataclasses.replace(cfg, seed=5, lr_schedule=np.linspace(12.0, 6.0, ROUNDS))
+    runs["main_other_lr_seed"] = graph_vs_eager(
+        kernels, graphs, "main_other_lr_seed", lambda: trainer.train(other, ds), b1, count=0)
+    runs["deep"] = graph_vs_eager(kernels, graphs, "deep", lambda: trainer.train(dcfg, ds), b2)
+    runs["dynamic"] = graph_vs_eager(kernels, graphs, "dynamic",
+                                     lambda: trainer.train_dynamic(cfg, ds), b1)
+    runs["pipelined"] = graph_vs_eager(kernels, graphs, "pipelined",
+                                       lambda: trainer.train(pcfg, ds), b1)
+    with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-graphs-") as ck:
+        runs["chunked"] = graph_vs_eager(
+            kernels, graphs, "chunked",
+            lambda: trainer.train(cfg, ds, checkpoint_dir=tempfile.mkdtemp(dir=ck),
+                                  checkpoint_every=30), b1)
+    cohort_cfgs = list(cohort_configs("deduped", COHORT_SEEDS).values())
+    runs["cohort28"] = graph_vs_eager(kernels, graphs, "cohort28",
+                                      lambda: trainer.train_cohort(cohort_cfgs, ds), both0)
+    if runs["main_other_lr_seed"]["first_exec"] != [1, 0] \
+            or runs["chunked"]["first_exec"] != [0, 2]:
+        raise AssertionError(f"graphs: exec counts {runs['main_other_lr_seed']} "
+                             f"{runs['chunked']}")
+
+    # the launches a replay tally counts are the kernels the device ran
+    events = {"fused_glm_grad": profiled_kernel_events(lambda: trainer.train(cfg, ds),
+                                                       "glm_grad_partials"),
+              "fused_block_decode": profiled_kernel_events(lambda: trainer.train(dcfg, ds),
+                                                           "block_decode")}
+    if events != {"fused_glm_grad": ROUNDS, "fused_block_decode": ROUNDS}:
+        raise AssertionError(f"graphs: profiled kernel events {events}, want {ROUNDS} each")
+    replay = replay_checks(kernels)
+
+    # the executable cache, as the JAX package's sweep tests hold it
+    cache.clear()
+    approx_cfg = dataclasses.replace(cfg, rounds=20)
+    rep_cfg = dataclasses.replace(approx_cfg, scheme="repcoded", num_collect=None)
+    a = trainer.train(approx_cfg, ds)
+    r = trainer.train(rep_cfg, ds)
+    cache_seq = dict(approx=[a.cache_info[k] for k in ("exec_hits", "exec_misses", "data_hit")],
+                     repcoded=[r.cache_info[k] for k in ("exec_hits", "exec_misses", "data_hit")])
+    if cache_seq != {"approx": [0, 1, False], "repcoded": [1, 0, True]}:
+        raise AssertionError(f"graphs: approx then repcoded {cache_seq}")
+    with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-graphs-") as tmp:
+        log = os.path.join(tmp, "events.jsonl")
+        with events_lib.capture(log):
+            trainer.train(dataclasses.replace(approx_cfg, scan_unroll=4), ds)
+        warns = [rec for rec in read_records(log) if rec["type"] == "warning"
+                 and rec["kind"] == "recompile"]
+    if len(warns) != 1 or warns[0]["changed"] != ["scan_unroll"]:
+        raise AssertionError(f"graphs: recompile warnings {warns}")
+    unroll = {}
+    for u in (1, 4, 7, 100):
+        res, launched = launches_of(kernels, lambda u=u: trainer.train(
+            dataclasses.replace(cfg, scan_unroll=u), ds))
+        unroll[u] = dict(res=res, launches=launched,
+                         replays=res.cache_info["memory_analysis"]["replays"])
+    same_unroll = {u: all(result_artifacts_equal(unroll[1]["res"], v["res"]).values())
+                   for u, v in unroll.items()}
+    replays = {u: v["replays"] for u, v in unroll.items()}
+    if not all(same_unroll.values()) or replays != {1: 100, 4: 25, 7: 15, 100: 1} \
+            or any(v["launches"] != b1 for v in unroll.values()):
+        raise AssertionError(f"graphs: scan_unroll {same_unroll} {replays}")
+    donate = {}
+    for d in ("on", "off"):
+        dcfg_d = dataclasses.replace(cfg, donate=d)
+        trainer.train(dcfg_d, ds)  # captured: the peak below is a hit's
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = trainer.train(dcfg_d, ds)
+        donate[d] = dict(res=res, peak_above_start_bytes=torch.cuda.max_memory_allocated() - base,
+                         donation=res.cache_info["donation"])
+    donate_bitwise = all(result_artifacts_equal(donate["on"]["res"], donate["off"]["res"]).values())
+    if not donate_bitwise or [donate[d]["donation"] for d in ("on", "off")] != [True, False]:
+        raise AssertionError(f"graphs: donate on/off {donate_bitwise}")
+
+    # where a round's time goes, graph and eager, each profiled once warm
+    profiles = {}
+    for path, run in (("main", lambda: trainer.train(cfg, ds)),
+                      ("deep", lambda: trainer.train(dcfg, ds)),
+                      ("dynamic", lambda: trainer.train_dynamic(cfg, ds)),
+                      ("cohort28", lambda: trainer.train_cohort(cohort_cfgs, ds)[0])):
+        for mode in ("graph", "eager"):
+            with (graphs.disabled() if mode == "eager" else contextlib.nullcontext()):
+                p = profile_run(run)
+            profiles[f"{path}_{mode}"] = {k: p[k] for k in (
+                "warm_steps_per_sec", "profiled_loop_wall_ms", "device_ms_per_round",
+                "device_busy_share")}
+            emit("graphs_profile", path=path, mode=mode, **profiles[f"{path}_{mode}"])
+    rec = dict(
+        runs={k: {f: v for f, v in r.items() if f != "run"} for k, r in runs.items()},
+        profiled_kernel_events=events, replay=replay, cache_sequence=cache_seq,
+        recompile_warning=warns[0]["changed"], unroll_replays=replays,
+        unroll_bitwise=same_unroll,
+        donate={d: {k: v for k, v in r.items() if k != "res"} for d, r in donate.items()},
+        donate_bitwise=donate_bitwise, profiles=profiles,
+        seconds=time.perf_counter() - t_phase,
+    )
+    emit("graphs", **{k: v for k, v in rec.items() if k != "runs"})
+    # each path's graph runs (the warm capture run's count added where it
+    # has one) and its eager run, and the unroll runs; the cache-sequence,
+    # donate and profiled runs stay outside the line
+    rec["launches_by_run"] = {
+        **{f"graphs_{k}": {n: v + (r["warm_launches"] or {}).get(n, 0)
+                           for n, v in r["launches"].items()}
+           for k, r in runs.items()},
+        **{f"graphs_{k}_eager": dict(r["eager_launches"]) for k, r in runs.items()},
+        **{f"graphs_unroll{u}": v["launches"] for u, v in unroll.items()},
+    }
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -5544,6 +5838,9 @@ def main() -> int:
     deep_cohort = cohort_deep_phase(cli, kernels, cohort_ds, both0)
     cohort_phases_s = time.perf_counter() - t_cohort
 
+    # the compiled round loop: graph runs against the eager loop on the card
+    graphs_rec = graphs_phase(cli, kernels, cohort_ds, both0)
+
     # the sweep runner and pipelined training
     t_sweep = time.perf_counter()
     data_cache = data_cache_phase(kernels, experiments, cohort_ds, both0)
@@ -5557,6 +5854,7 @@ def main() -> int:
         **{f"journal_{k}": n for k, n in journal_rec["launches"].items()},
         **{f"pipeline_{k}": n for k, n in pipe["launches_by_run"].items()},
     }
+    sweep_launches.update(graphs_rec["launches_by_run"])
     # out-of-core streaming: the main path out of a shard store
     streamed = streamed_phase(cli, kernels, experiments, both0, gpu)
     sweep_launches.update({f"streamed_{k}": n for k, n in streamed["launches_by_run"].items()})
@@ -5784,6 +6082,16 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "steps_per_sec": gpu["manifest"]["steps_per_sec"],
+        # the compiled round loop: B1 replayed in a one-round graph, each
+        # path's graph and eager steps/s, the profiled kernel events of a
+        # graph run, the first captures' seconds and graph-pool bytes
+        "graphs": {"replay": graphs_rec["replay"]["fused_glm_grad"],
+                   "profiled_kernel_events": graphs_rec["profiled_kernel_events"],
+                   "steps_per_sec": {k: [r["graph_steps_per_sec"], r["eager_steps_per_sec"]]
+                                     for k, r in graphs_rec["runs"].items()},
+                   "capture": {k: {**r["memory_analysis"], "seconds": r["capture_seconds"]}
+                               for k, r in graphs_rec["runs"].items()},
+                   "phase_s": graphs_rec["seconds"]},
         "scheme_stacks": {label: dict(shape=r["shape"], ms=min(r["kernel_ms"]),
                                       plain_ms=min(r["plain_ms"]), bound_ms=r["bound_ms"])
                           for label, r in stack_times.items()},
@@ -5955,6 +6263,8 @@ def main() -> int:
         "tune": tuned["deep"]["races"],
         # the traced deep run's B2 device events
         "telemetry_trace_device_events": telemetry["deep_trace"]["device_events"],
+        # B2 replayed on the deep round's six leaves
+        "graphs_replay": graphs_rec["replay"]["fused_block_decode"],
     }]}
     print(json.dumps(line))
     print(card)

@@ -1,7 +1,7 @@
 """Static analysis for the port's batching/cohort/telemetry contracts.
 
 The port of erasurehead_tpu/analysis/. ``python -m erasurehead_tpu_torch.cli
-lint [paths]`` (or ``python -m erasurehead_tpu_torch.analysis``) runs four
+lint [paths]`` (or ``python -m erasurehead_tpu_torch.analysis``) runs five
 AST checkers over the tree — no imports of the checked code, no torch:
 
   =======================  ==============================================
@@ -23,11 +23,14 @@ AST checkers over the tree — no imports of the checked code, no torch:
                            validator, the tune vocabulary and the
                            modules that delegate to the validator cannot
                            drift apart
+  donation-safety          a plain name passed to a donating call (a
+                           function marked ``@donates``, train/graphs.py:
+                           the trainers' ``initial_state``) is not read
+                           after it without a rebind
   =======================  ==============================================
 
-The JAX package's fifth checker, ``donation-safety``, waits for the port's
-buffer donation (ROADMAP queue A, A5r). tests/test_torch_analysis.py pins
-the shipped port tree at zero unsuppressed findings. Intentional
+tests/test_torch_analysis.py and tests/test_torch_graphs.py pin the shipped
+port tree at zero unsuppressed findings. Intentional
 exceptions are whitelisted in place with ``# lint: allow(<checker>):
 <reason>`` (line) or ``# lint: allow-file(<checker>): <reason>`` (file); a
 suppression without a reason is itself a finding, and ``lint --strict``

@@ -1,9 +1,8 @@
 """``python -m erasurehead_tpu_torch.cli lint``: load files, run
 checkers, render.
 
-The port of erasurehead_tpu/analysis/runner.py, with four of its five
-checkers: ``donation-safety`` waits for the port's buffer donation
-(ROADMAP queue A, A5r). Deterministic by construction (the tests pin it
+The port of erasurehead_tpu/analysis/runner.py, with its five checkers.
+Deterministic by construction (the tests pin it
 byte-for-byte): files are walked in sorted order, findings sort on (path,
 line, col, checker, message), and the report carries no timestamps —
 wall time goes to stderr only. Pure stdlib + AST: no torch import
@@ -12,6 +11,7 @@ anywhere on this path.
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import os
 import sys
@@ -20,6 +20,7 @@ from typing import Iterable, Optional
 
 from erasurehead_tpu_torch.analysis import (
     dispatch,
+    donation,
     purity,
     schema,
     signature,
@@ -37,6 +38,7 @@ CHECKERS = {
     signature.CHECKER: signature.check,
     dispatch.CHECKER: dispatch.check,
     schema.CHECKER: schema.check,
+    donation.CHECKER: donation.check,
 }
 
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,6 +61,9 @@ class LintContext:
     # (empty tuples disable them — doctored test sources)
     tune_races: tuple = ()
     tune_sources: tuple = ()
+    # donation-safety: function name -> (positions, keyword names) of the
+    # package's functions marked ``@donates`` (train/graphs.donates)
+    donating: dict = dataclasses.field(default_factory=dict)
 
     @classmethod
     def load(
@@ -75,6 +80,12 @@ class LintContext:
                 schema_source = f.read()
         fields, keys = signature.parse_config_info(config_source)
         races, sources = schema.parse_tune_vocab(schema_source)
+        donating = {}
+        for path in iter_python_files([_PKG_ROOT]):
+            with open(path, encoding="utf-8") as f:
+                source = f.read()
+            if "donates(" in source:
+                donating.update(donation.collect_donating(ast.parse(source)))
         return cls(
             config_fields=frozenset(fields),
             signature_keys=frozenset(keys),
@@ -82,6 +93,7 @@ class LintContext:
             strict=strict,
             tune_races=races,
             tune_sources=sources,
+            donating=donating,
         )
 
 

@@ -392,6 +392,18 @@ def _flags_parser() -> argparse.ArgumentParser:
                         "(default: sized so TWO windows fit the "
                         "ERASUREHEAD_STREAM_WINDOW byte budget; rounded "
                         "down to a divisor of the partition count)")
+    p.add_argument("--donate", default="auto", choices=["auto", "on", "off"],
+                   help="buffer donation for the round loop's carry "
+                        "(params + optimizer state) and per-round weight "
+                        "tables: their storage is released once copied "
+                        "into the CUDA graph's buffers; bitwise-identical "
+                        "math, cached data stacks are never donated. "
+                        "auto = on")
+    p.add_argument("--scan-unroll", type=int, default=1,
+                   help="rounds per CUDA-graph replay of the round loop "
+                        "(the JAX package's lax.scan unroll factor; "
+                        "identical math, a lowering knob; no effect on "
+                        "the CPU)")
     p.add_argument("--sparse-format", default="padded",
                    choices=["padded", "fields", "auto"],
                    help="sparse (CSR) stack representation: padded = "
@@ -520,6 +532,8 @@ def _flags_to_config(ns: argparse.Namespace) -> RunConfig:
         stack_dtype=ns.stack_dtype,
         stack_residency=ns.stack_residency,
         stream_window=ns.stream_window,
+        donate=ns.donate,
+        scan_unroll=ns.scan_unroll,
         sparse_format=ns.sparse_format,
         fields_scatter=ns.fields_scatter,
         fields_margin=ns.fields_margin,

@@ -45,6 +45,7 @@ call together. A build failure raises; there is no fallback.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -60,10 +61,15 @@ GLM_KINDS = ("logistic", "linear")
 
 #: launches of each kernel since the last :func:`reset_launches` (incremented
 #: only where a kernel is really launched, never on the CPU path, and only
-#: through :func:`_count_launch`, under :data:`_LAUNCH_LOCK`: the serve
-#: daemon launches from several dispatch threads at once)
+#: through :func:`_count_launch` or :func:`add_launches`, under
+#: :data:`_LAUNCH_LOCK`: the serve daemon launches from several dispatch
+#: threads at once)
 LAUNCHES = {"fused_glm_grad": 0, "fused_block_decode": 0}
 _LAUNCH_LOCK = threading.Lock()
+#: a thread's CUDA-graph warm-up or capture (train/graphs.py) counts its
+#: launches into its own tally instead of :data:`LAUNCHES`: a captured
+#: kernel launches when its graph replays, and the replay adds the tally
+_RECORDING = threading.local()
 
 #: kernel-library builds (nvcc runs) in this process; a warm start from an
 #: existing build, or a second caller, adds none
@@ -92,9 +98,35 @@ def reset_launches() -> None:
 
 def _count_launch(name: str) -> None:
     """Count one launch of ``name``: a read-modify-write of a dict shared by
-    every thread, so it is taken under a lock."""
+    every thread, so it is taken under a lock. Under :func:`recording` the
+    launch goes to the thread's tally instead."""
+    tally = getattr(_RECORDING, "tally", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + 1
+        return
     with _LAUNCH_LOCK:
         LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recording(tally: dict):
+    """Count this thread's launches into ``tally`` (not :data:`LAUNCHES`)
+    for the duration: a CUDA graph's warm-up, which is not counted, or its
+    capture, whose tally each replay adds (:func:`add_launches`)."""
+    prev = getattr(_RECORDING, "tally", None)
+    _RECORDING.tally = tally
+    try:
+        yield tally
+    finally:
+        _RECORDING.tally = prev
+
+
+def add_launches(tally: dict) -> None:
+    """Count the launches of one replay of a captured graph whose capture
+    recorded ``tally``."""
+    with _LAUNCH_LOCK:
+        for name, n in tally.items():
+            LAUNCHES[name] += n
 
 
 def set_build_dir(path) -> None:

@@ -208,7 +208,8 @@ def make_round_schedule_fn(
     deadline: Optional[float] = None,
     device=None,
 ) -> Callable[[tuple], RoundSchedule]:
-    """(per-round threefry key) -> RoundSchedule on ``device``.
+    """(per-round threefry key: host ints, or a [2] int64 tensor on the
+    device) -> RoundSchedule on ``device``.
 
     The arrivals are ``delay_mean * exponential(key, (W,))``
     (straggler.threefry_delay_schedule's draw: JAX's numbers, not the
@@ -240,4 +241,7 @@ def make_round_schedule_fn(
         rs = rule(t)
         return rs._replace(worker_times=torch.where(rs.collected, t, NEVER))
 
+    # a rule that reads the device from the host (the float32 decode solve)
+    # keeps train_dynamic's eager loop: a CUDA graph cannot capture it
+    schedule.host_sync = getattr(rule, "host_sync", None)
     return schedule

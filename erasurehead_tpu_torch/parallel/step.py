@@ -649,6 +649,23 @@ def make_layer_block_grad_fn(model, spec, *, faithful: bool, fused: bool,
     return _psum(_dq(body(model, spec, contract)), mesh)
 
 
+def lowering_signature(cfg, model, X) -> tuple:
+    """The resolved gradient-lowering choice for (cfg, model, stack): the
+    part of the executable-cache key (train/cache.py) that cfg alone cannot
+    determine, as in the JAX package's step.lowering_signature. The
+    resolvers read the model, the stack kind and the tune decision cache, so
+    the tuple moves when a race verdict lands and a cached graph never
+    outlives a changed lowering. The last entry names the stack's type: the
+    port's (a tensor, PaddedRows, FieldOnehot, QuantizedStack), not JAX's."""
+    return (
+        bool(resolve_flat_grad(cfg.flat_grad, model, X)),
+        bool(resolve_margin_flat(cfg.margin_flat, model, X)),
+        bool(resolve_layer_coding(cfg.layer_coding, model, X)),
+        bool(resolve_block_decode(getattr(cfg, "block_decode", "auto"), model, X)),
+        type(X).__name__,
+    )
+
+
 def staleness_slot_params(params, stale_params, pipeline_depth: int):
     """The params a round's gradient is taken at: the live params of a
     synchronous run (``pipeline_depth=0``), or, pipelined (tau=1), the

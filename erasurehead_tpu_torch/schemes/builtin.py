@@ -105,6 +105,20 @@ def _mds_table_or_warn(scheme_name, layout, max_stragglers, exact_only):
     return table
 
 
+#: why a rule without a decode table keeps train_dynamic's eager loop
+FLOAT32_SOLVE_SYNC = ("the float32 decode solve: the SVD inside torch.linalg.pinv "
+                      "synchronises with the host, which a CUDA graph cannot capture")
+
+
+def _solving(rule, table):
+    """``rule``, marked ``host_sync`` when it has no decode table and takes
+    the float32 on-device solve (parallel/dynamic.make_round_schedule_fn
+    passes the mark on)."""
+    if table is None:
+        rule.host_sync = FLOAT32_SOLVE_SYNC
+    return rule
+
+
 def _on(a, device, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
 
@@ -123,7 +137,9 @@ def _dyn_cyclic_mds(layout, *, num_collect=None, deadline=None, device=None):
     B = _on(layout.B, device)
     table = _table_on(_mds_table_or_warn(
         "cyccoded", layout, layout.n_stragglers, exact_only=True), device)
-    return lambda t: dynamic.collect_first_k_mds(t, B, layout.n_stragglers, decode_table=table)
+    return _solving(
+        lambda t: dynamic.collect_first_k_mds(t, B, layout.n_stragglers, decode_table=table),
+        table)
 
 
 def _onehot(layout, device):
@@ -158,10 +174,10 @@ def _dyn_partial_cyclic(layout, *, num_collect=None, deadline=None, device=None)
     table = _table_on(_mds_table_or_warn(
         "partialcyccoded", layout, layout.n_stragglers, exact_only=False), device)
     frac = layout.uncoded_frac
-    return lambda t: dynamic.collect_partial(
+    return _solving(lambda t: dynamic.collect_partial(
         t, variant="mds", frac=frac, n_stragglers=layout.n_stragglers,
         B=B, decode_table=table,
-    )
+    ), table)
 
 
 def _dyn_partial_frc(layout, *, num_collect=None, deadline=None, device=None):
@@ -344,7 +360,8 @@ def _first_k_optimal_family(name, summary, build_layout, *, seed_dependent, swee
         B = _on(layout.B, device)
         table = _table_on(_mds_table_or_warn(
             name, layout, layout.n_workers - num_collect, exact_only=True), device)
-        return lambda t: dynamic._first_k_lstsq(t, B, num_collect, decode_table=table)
+        return _solving(
+            lambda t: dynamic._first_k_lstsq(t, B, num_collect, decode_table=table), table)
 
     return register(SchemeDescriptor(
         name=name,

@@ -21,14 +21,18 @@ of that footprint against a byte budget before it may dispatch:
     from its start to its end (server.SweepServer._run_cohort); a
     concurrent dispatch's reading would be inflated by, or reset under, its
     neighbour's. On the CPU nothing is measured and the estimate stands;
-  - the data cache's device pins (cache.data_cache_bytes) count against the
-    budget alongside in-flight charges: they are real device memory;
+  - the caches' device pins count against the budget alongside in-flight
+    charges: they are real device memory. They are the data cache's stacks
+    (cache.data_cache_bytes) and the executable cache's captured programs
+    (cache.exec_cache_bytes: their static buffers and the shared graph
+    pool, counted once);
   - an over-footprint cohort QUEUES: it stays pending and is retried after
     in-flight dispatches release their charge. It never joins a running
     cohort's memory;
-  - when dropping the data cache's pins would change the verdict, the
-    controller EVICTS the cache (cache.drop_data_cache, the same pressure
-    valve the out-of-memory bisection uses) and re-runs the FULL decision,
+  - when dropping those pins would change the verdict, the controller
+    EVICTS both caches (cache.drop_data_cache, the same pressure valve the
+    out-of-memory bisection uses, and cache.drop_executables where programs
+    pin bytes) and re-runs the FULL decision,
     so eviction can admit in the same call and an idle daemon never
     strands a pending cohort;
   - a cohort too big for the budget even on an idle daemon admits alone
@@ -135,13 +139,15 @@ class AdmissionController:
 
     def _decide_locked(self, est: int) -> str:
         """The verdict for ``est`` charged bytes (caller holds the lock):
-        ``"admit"``, ``"evict"`` (dropping the data cache's pins would
-        change the verdict: re-decide after) or ``"defer"``."""
+        ``"admit"``, ``"evict"`` (dropping the caches' pins would change
+        the verdict: re-decide after) or ``"defer"``. The pins are the data
+        cache's stacks and the executable cache's programs: their static
+        buffers and the shared graph pool, counted once."""
         budget = self.budget_bytes
         if budget is None:
             return "admit"
         in_flight = sum(self._in_flight.values())
-        cached = cache_lib.data_cache_bytes()
+        cached = cache_lib.data_cache_bytes() + cache_lib.exec_cache_bytes()
         if in_flight + cached + est <= budget:
             return "admit"
         if cached > 0 and (in_flight + est <= budget or in_flight == 0):
@@ -157,8 +163,8 @@ class AdmissionController:
 
     def try_admit(self, cohort, dispatch_id: str, width: Optional[int] = None) -> bool:
         """Admit ``cohort`` (charging its footprint until :meth:`release`),
-        or defer it. Emits one ``admit`` record either way; evicts the data
-        cache's pins here when they are what stands between the cohort and
+        or defer it. Emits one ``admit`` record either way; evicts the
+        caches' pins here when they are what stands between the cohort and
         the budget."""
         est = self.charge_for(cohort, width=width)
         with self._lock:
@@ -167,6 +173,10 @@ class AdmissionController:
                 self._in_flight[dispatch_id] = est
         if verdict == "evict":
             released = cache_lib.drop_data_cache()
+            pinned = cache_lib.exec_cache_bytes()
+            if pinned:  # the programs' buffers and graph pool
+                cache_lib.drop_executables()
+                released += pinned
             _METRICS.counter("serve.evictions").inc()
             events_lib.emit(
                 "evict",

@@ -13,11 +13,10 @@ byte; :func:`config_from_payload` is the single place a wire payload
 becomes a RunConfig, so a front can never accept a field the in-process
 surface would refuse.
 
-Two payload fields of the JAX package name RunConfig fields the port does
-not have yet (:data:`ABSENT_PAYLOAD_FIELDS`): a payload that sets one is
-refused, naming the ROADMAP queue A item that brings it. The request digest
-hashes the port's own ``events.config_hash``, so it never equals the JAX
-package's digest for the same request (as the journal key does not).
+Every payload field of the JAX package names a RunConfig field of the
+port, so the port serves every payload the JAX package serves. The request
+digest hashes the port's own ``events.config_hash``, so it never equals the
+JAX package's digest for the same request (as the journal key does not).
 """
 
 from __future__ import annotations
@@ -204,14 +203,6 @@ CONFIG_PAYLOAD_FIELDS = frozenset(
     }
 )
 
-#: payload fields of the JAX package that name RunConfig fields the port
-#: does not have yet -> the ROADMAP queue A item that brings each
-ABSENT_PAYLOAD_FIELDS = {
-    "donate": "A5r (the compiled round loop)",
-    "scan_unroll": "A5r (the compiled round loop)",
-}
-
-
 class ServeOverloadedError(RuntimeError):
     """Backpressure: the daemon's intake queue crossed its high-water mark
     and this request was REJECTED rather than accepted-then-starved.
@@ -291,14 +282,5 @@ def config_from_payload(payload: dict) -> RunConfig:
         raise ValueError(
             f"config payload has unserveable field(s) {unknown}; "
             f"accepted: {sorted(CONFIG_PAYLOAD_FIELDS)}"
-        )
-    absent = sorted(set(payload) & set(ABSENT_PAYLOAD_FIELDS))
-    if absent:
-        raise ValueError(
-            "config payload sets field(s) the PyTorch port does not run yet: "
-            + "; ".join(
-                f"{name!r} waits for ROADMAP queue A, {ABSENT_PAYLOAD_FIELDS[name]}"
-                for name in absent
-            )
         )
     return RunConfig(**payload)

@@ -81,10 +81,34 @@ records), all after the timed round loop, from host arrays the run already
 holds: telemetry adds no launch, no host read and no synchronise to a round,
 and a run with it on is bitwise the run with it off. The round loop names
 its phases (``eh_scan/coded_step``, ``eh_scan/update``; utils/tracing.annotate)
-for a ``--trace-dir`` trace. The port's ``compile`` record is its one compile
-step: the kernel library's build and load (kernels.load_library), its
-seconds in this call and whether it was loaded already. ``train_dynamic``
-emits nothing, as in the JAX package.
+for a ``--trace-dir`` trace. ``train_dynamic`` emits nothing, as in the JAX
+package.
+
+The round loop's executable (train/graphs.py, train/cache.py): on the card,
+``train``, ``train_dynamic`` and ``train_cohort`` run each chunk of rounds
+as replays of a captured CUDA graph, one program per chunk length from the
+executable cache, keyed as the JAX package keys its executables
+(:func:`_exec_signature_fields`) plus the data stack's identity; the per-round
+scalars (learning rate, round index, round key) and weights are device
+tables the run copies in, so a sweep's runs share the program. Each of the
+three has one round body, ``round_fn(carry, row, consts)`` over those
+tables: the program captures it, and the uncaptured executor
+(graphs.run_eager) calls it once a round with the round's row read by host
+index. Each chunk length's ``compile`` record carries the capture's
+seconds, the hit and the program's memory (``memory_analysis``: graph pool
+and static bytes, replays, unroll); a miss that lands near an earlier
+signature warns (obs/detect.py). The CPU runs the round body uncaptured,
+counted in the cache as the JAX package's CPU executable is. It also runs
+uncaptured, by name and decided before any capture (:func:`_loop_mode`),
+under ``graphs.disabled()``, over a process group, under a
+``device_trace``, for a rule that synchronises with the host (the float32
+decode solve); ``train_measured`` (the host times each worker) and the
+streamed windows (a staging thread stages each window into new tensors)
+keep eager loops of their own. An eager run's ``compile`` record is the
+kernel library's load and names the reason. ``cfg.donate``
+(:func:`_resolve_donate`) releases the starting carry and weight table
+once they are in the program's buffers (graphs.release), after the loop
+on the eager path.
 
 The worker mesh (parallel/mesh.py; ``mesh=None`` is the largest group of
 the world's processes whose size divides the sharded axis, as the JAX
@@ -108,12 +132,15 @@ Timing artifacts keep two clocks apart, as the JAX package does:
     arrival model;
   - ``wall_time``/``steps_per_sec``: real seconds of the round loop, between
     two ``torch.cuda.synchronize()`` calls on the card (the kernel library is
-    built and loaded, and ``torch.func`` imported, before the clock starts).
+    built and loaded, ``torch.func`` imported and the graphs captured before
+    the clock starts; a graph run's clock covers copying its carry and tables
+    in, the replays and copying its history out).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 import os
 import sys
@@ -123,6 +150,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from erasurehead_tpu_torch import schemes, tune
 from erasurehead_tpu_torch.data import sharding as sharding_lib
@@ -142,6 +170,7 @@ from erasurehead_tpu_torch.models.mlp import MLPModel
 from erasurehead_tpu_torch.models.moe import MoEModel
 from erasurehead_tpu_torch.obs import critical_path as obs_cpath
 from erasurehead_tpu_torch.obs import decode as obs_decode
+from erasurehead_tpu_torch.obs import detect as obs_detect
 from erasurehead_tpu_torch.obs import events as obs_events
 from erasurehead_tpu_torch.ops import blocks, codes, kernels
 from erasurehead_tpu_torch.ops import features as features_lib
@@ -151,7 +180,7 @@ from erasurehead_tpu_torch.parallel import mesh as mesh_lib
 from erasurehead_tpu_torch.parallel import step as step_lib, straggler
 from erasurehead_tpu_torch.train import cache as cache_lib
 from erasurehead_tpu_torch.train import checkpoint as ckpt_lib
-from erasurehead_tpu_torch.train import optimizer
+from erasurehead_tpu_torch.train import graphs, optimizer
 from erasurehead_tpu_torch.utils import chaos as chaos_lib
 from erasurehead_tpu_torch.utils.config import (
     STREAM_WINDOW_ENV,
@@ -162,6 +191,7 @@ from erasurehead_tpu_torch.utils.config import (
     resolve_arrival_trace,
     resolve_stream_budget,
 )
+from erasurehead_tpu_torch.utils import tracing
 from erasurehead_tpu_torch.utils.device import resolve_device
 from erasurehead_tpu_torch.utils.tracing import annotate
 
@@ -521,9 +551,10 @@ def _stack_mode(faithful: bool, ring_pipe: Optional[str]) -> str:
 def _cache_info(cfg: RunConfig, hit: bool, stats_before: dict, X, y, faithful: bool,
                 setup_seconds: float, final_params, residency: str,
                 ring_pipe: Optional[str] = None) -> dict:
-    """A run's ``TrainResult.cache_info`` (the JAX trainer's, without the
-    executable cache's fields): ``stack_mode`` the resolved transport and
-    ``ring_pipeline`` its schedule (None off the ring)."""
+    """A run's ``TrainResult.cache_info``, the JAX trainer's keys but the
+    executable cache's (:meth:`_LoopExec.cache_fields` adds those):
+    ``stack_mode`` the resolved transport and ``ring_pipeline`` its schedule
+    (None off the ring)."""
     return {
         "residency": residency,
         "enabled": cache_lib.enabled(),
@@ -752,11 +783,11 @@ def _mesh_signature(mesh, dev) -> tuple:
 
 
 def _emit_run_start(run_id, cfg: RunConfig, dev, lowering: str, stack_mode: str,
-                    data_bytes: int, data_hit: bool, compiled: tuple, chunk_rounds: int,
+                    data_bytes: int, data_hit: bool, loop, chunk_rounds: int,
                     cohort: Optional[dict] = None, mesh=None) -> None:
     """A run's opening records, as the JAX trainer emits them: run_start,
-    data_upload, the cohort record of a cohort, then the compile record of
-    the port's one compile step."""
+    data_upload, the cohort record of a cohort, then the loop's compile
+    records (:meth:`_LoopExec.report`; ``loop`` None emits none)."""
     obs_events.emit(
         "run_start",
         run_id=run_id,
@@ -781,21 +812,239 @@ def _emit_run_start(run_id, cfg: RunConfig, dev, lowering: str, stack_mode: str,
     )
     if cohort is not None:
         obs_events.emit("cohort", run_id=run_id, **cohort)
-    if compiled is not None:
-        seconds, hit = compiled
-        obs_events.emit(
-            "compile", run_id=run_id, seconds=round(seconds, 4), cache_hit=hit,
-            chunk_rounds=chunk_rounds, memory_analysis=None,
-        )
+    if loop is not None:
+        loop.report(run_id, chunk_rounds)
 
 
-def _exec_fields(compiled: tuple) -> dict:
-    """run_end's cache fields: the compile step as one hit or one miss."""
-    seconds, hit = compiled
-    return {
-        "exec_hits": int(hit), "exec_misses": int(not hit),
-        "compile_seconds": round(seconds, 4),
+# ---------------------------------------------------------------------------
+# the round loop's executable: CUDA graphs through the executable cache
+
+# Whether donate="auto" resolves to donating the round loop's starting carry
+# (params + optimizer state) and per-round weight table (the JAX package's
+# DONATE_DEFAULT): on. Once a graph run has copied them into its program's
+# static buffers it releases their storage (graphs.release), so the
+# duplicate is gone for the loop; the eager loop (the CPU's) releases them
+# after its loop, so a read after donation raises on both. Bitwise-identical
+# math, and the data cache's stacks are never donated. The JAX package's
+# persistent-compilation-cache branch has no counterpart: the port writes no
+# executable to disk.
+DONATE_DEFAULT = True
+
+
+def _resolve_donate(cfg: RunConfig) -> bool:
+    if cfg.donate == "on":
+        return True
+    if cfg.donate == "off":
+        return False
+    return DONATE_DEFAULT
+
+
+#: why the measured-arrival trainer keeps the eager loop
+_MEASURED_EAGER = "measured arrivals: the host times each worker's message"
+#: why a windowed streamed run keeps the eager loop
+_STREAMED_EAGER = "streamed windows: a staging thread stages each window into new tensors"
+#: why a run over a process group keeps the eager loop
+_GROUP_EAGER = ("a process group: gloo cannot be captured, and NCCL capture "
+                "(world 1 included) waits for ROADMAP A9b")
+
+
+def _loop_mode(dev, mesh, eager_reason: Optional[str] = None) -> tuple:
+    """``(mode, reason)``: how a run's round body executes, decided before
+    any capture. "graph": captured CUDA graphs from the executable cache
+    (train/graphs.py); "cpu": uncaptured on the CPU (graphs.run_eager),
+    counted in the executable cache as the JAX package's CPU executable is;
+    "eager": uncaptured, by name."""
+    if graphs.is_disabled():
+        return "eager", "graphs.disabled()"
+    if eager_reason is not None:
+        return "eager", eager_reason
+    if mesh is not None and mesh.distributed:
+        return "eager", _GROUP_EAGER
+    if tracing.active():
+        return "eager", tracing.TRACE_EAGER
+    if dev.type == "cuda":
+        return "graph", None
+    return "cpu", None
+
+
+#: why an autodiff family on a PaddedRows stack keeps the eager loop
+_GATHER_EAGER = ("an autodiff family on a PaddedRows stack: its gather's gradient sizes "
+                 "its scatter plan on the host each round (torch.unique_consecutive), "
+                 "which a CUDA graph cannot capture")
+
+
+def _host_sync_reason(model, X) -> Optional[str]:
+    """Why this lowering's round reads the device from the host (seen on
+    the card: its capture is invalidated), or None. Only the autodiff
+    families' PaddedRows gather does (ops/features._ScatterRows); the
+    closed-form GLMs' sparse plans are statics of the stack."""
+    if getattr(model, "grads_via_loss", False) and isinstance(X, features_lib.PaddedRows):
+        return _GATHER_EAGER
+    return None
+
+
+def _code_digest(layout) -> str:
+    """The layout's code tables (assignment, coefficients, generator
+    matrix) as a key: the on-device control plane bakes them into the
+    round."""
+    h = hashlib.sha256()
+    for name in ("assignment", "coeffs", "B", "groups"):
+        a = getattr(layout, name, None)
+        if a is not None:
+            h.update(name.encode() + np.ascontiguousarray(np.asarray(a)).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _release_consumed(start_leaves, final_state, extra=()) -> None:
+    """Donation on the eager loop: after the loop, release the starting
+    carry's leaves the final state does not hold (GD carries its momentum
+    through unchanged) and ``extra`` (graphs.release)."""
+    final = {id(t) for t in pytree.tree_leaves(tuple(final_state))}
+    graphs.release([t for t in start_leaves if id(t) not in final] + list(extra))
+
+
+def _ring_signature(layout, ring_pipe: Optional[str]) -> tuple:
+    """The ring transport as a key: its plan is a function of the layout's
+    assignment and the mesh (keyed apart), baked into the round, and the
+    partition-major stack does not carry it."""
+    if ring_pipe is None:
+        return ("materialized",)
+    return ("ring", np.asarray(layout.assignment).tobytes(), ring_pipe)
+
+
+def _exec_signature_fields(kind: str, dev, cfg: RunConfig, model, X, y, lowering: str,
+                           ring: tuple, weights_shape, mesh, state0, alpha, n_train,
+                           **extra) -> dict:
+    """The labelled executable-cache signature (the JAX trainer's
+    ``_exec_signature_fields``): field name -> value, the key being
+    ``tuple(fields.values())`` plus the chunk length. The names feed the
+    recompile detector (obs/detect.py). Everything that changes the
+    captured program is here: the config's static signature, the resolved
+    lowering, the transport, the mesh, the state and stack shapes, the
+    constants baked into the round (alpha, the row count). The learning
+    rates, weights, seeds and round keys are tables the run copies in.
+    ``stack`` is the port's deviation: a graph reads the data stack at its
+    address, so the stack's identity (cache.stack_token) is keyed and an
+    executable hit needs a data hit."""
+    with tune.quiet():  # the run resolved these knobs already, with records
+        lowering_sig = step_lib.lowering_signature(cfg, model, X)
+    fields = {
+        "kind": kind,
+        "platform": dev.type,
+        **cfg.static_signature_fields(),
+        "lowering": lowering_sig,
+        "fused": lowering == "fused",
+        "ring": ring,
+        "weights_shape": tuple(weights_shape),
+        "mesh": cache_lib.mesh_signature(mesh or mesh_lib.worker_mesh(1), dev),
+        "state_tree": cache_lib.tree_signature(state0),
+        "data_tree": cache_lib.tree_signature((X, y)),
+        "alpha": float(alpha),
+        "n_train": int(n_train),
+        "stack": cache_lib.stack_token(y),
     }
+    fields.update(extra)
+    return fields
+
+
+class _LoopExec:
+    """A run's round-loop executor: its mode (:func:`_loop_mode`), the
+    program of each chunk length through the executable cache, and what the
+    run reports (the compile records, the run_end and cache_info fields, the
+    recompile detector's warnings)."""
+
+    def __init__(self, mode: str, reason: Optional[str] = None, fields: Optional[dict] = None,
+                 library: tuple = (0.0, True)):
+        self.mode, self.reason, self.fields = mode, reason, fields
+        self.library = library  # the kernel library's load: (seconds, hit)
+        self.chunks: list = []  # (n, seconds, hit, memory_analysis), first use order
+        self._programs: dict = {}
+        self._misses: list = []
+
+    @property
+    def graph(self) -> bool:
+        return self.mode == "graph"
+
+    def program(self, n: int, build):
+        """The program of chunk length ``n`` (None unless the mode is
+        "graph"), looked up once per run. ``build()`` makes a
+        graphs.Program on a miss."""
+        if n in self._programs:
+            return self._programs[n]
+        if self.mode == "eager":
+            self._programs[n] = None
+            return None
+
+        def compile_fn():
+            t0 = time.perf_counter()
+            entry = build() if self.graph else graphs.EAGER
+            return entry, time.perf_counter() - t0
+
+        key = tuple(self.fields.values()) + (n,)
+        t0 = time.perf_counter()
+        entry, hit = cache_lib.get_or_compile(key, compile_fn)
+        seconds = time.perf_counter() - t0
+        if not hit:
+            self._misses.append(len(self.chunks))
+        mem = entry.memory_analysis() if isinstance(entry, graphs.Program) else {}
+        self.chunks.append((n, seconds, hit, {"executor": self.mode, **mem}))
+        self._programs[n] = entry if self.graph else None
+        return self._programs[n]
+
+    @staticmethod
+    @graphs.donates(names=("donate",))
+    def run(prog, round_fn, carry, tables, consts, out, donate=()):
+        """One chunk: replays of ``prog``, or ``round_fn`` uncaptured
+        (graphs.run_eager) where :meth:`program` gave None. ``donate``
+        goes to the program's run; an eager caller releases after its
+        loop. Returns the final carry."""
+        if prog is not None:
+            return prog.run(carry, tables, consts, out, donate=donate)
+        return graphs.run_eager(round_fn, carry, tables, consts, out)
+
+    def report(self, run_id, chunk_rounds: int) -> None:
+        """After the loop: each miss's recompile check (obs/detect.py, its
+        warning emitted before its compile record) and, with a ``run_id``,
+        the compile records, one per chunk length; an eager loop's one
+        record is the kernel library's load and names the reason."""
+        for k, (n, seconds, hit, mem) in enumerate(self.chunks):
+            if k in self._misses:
+                obs_detect.observe_and_warn({**self.fields, "chunk_rounds": n}, run_id)
+            if run_id is not None:
+                obs_events.emit("compile", run_id=run_id, seconds=round(seconds, 4),
+                                cache_hit=hit, chunk_rounds=n, memory_analysis=mem)
+        if self.mode == "eager" and run_id is not None:
+            seconds, hit = self.library
+            obs_events.emit("compile", run_id=run_id, seconds=round(seconds, 4),
+                            cache_hit=hit, chunk_rounds=chunk_rounds,
+                            memory_analysis={"executor": "eager", "reason": self.reason})
+
+    def exec_fields(self) -> dict:
+        """run_end's executable fields, the JAX trainer's: this run's hits
+        and misses and their seconds (an eager loop: the kernel library's
+        load and no lookup)."""
+        if self.mode == "eager":
+            return {"exec_hits": 0, "exec_misses": 0,
+                    "compile_seconds": round(self.library[0], 4)}
+        return {"exec_hits": sum(1 for c in self.chunks if c[2]),
+                "exec_misses": sum(1 for c in self.chunks if not c[2]),
+                "compile_seconds": round(sum(c[1] for c in self.chunks), 4)}
+
+    def cache_fields(self, stats_before: dict, donate: bool) -> dict:
+        """cache_info's executable fields: the JAX trainer's, and the
+        executor with its reason."""
+        fields = self.exec_fields()
+        saved = cache_lib.stats().compile_seconds_saved - stats_before["compile_seconds_saved"]
+        return {
+            "exec_hits": fields["exec_hits"],
+            "exec_misses": fields["exec_misses"],
+            "compile_seconds": fields["compile_seconds"],
+            "compile_seconds_saved": round(saved, 4),
+            "donation": donate,
+            "executor": self.mode,
+            "eager_reason": self.reason,
+            "memory_analysis": self.chunks[0][3] if self.chunks else None,
+        }
 
 
 def _emit_stream_records(run_id, records: list) -> None:
@@ -819,6 +1068,7 @@ def _state_on(state: optimizer.OptState, dev) -> optimizer.OptState:
     return optimizer.OptState(params=move(state.params), momentum=mom)
 
 
+@graphs.donates(names=("initial_state",))
 def train(
     cfg: RunConfig,
     dataset: Dataset,
@@ -1017,7 +1267,6 @@ def train(
             )
         else:
             state, start_round, _ = restored
-    update_fn = optimizer.make_update_fn(cfg.update_rule)
     lr32 = lr.astype(np.float32)
     history = blocks.tree_map(
         lambda p: torch.empty(
@@ -1033,6 +1282,39 @@ def train(
     depth = cfg.pipeline_depth
     stale = blocks.tree_map(torch.clone, state.params) if depth else None
 
+    # the round loop's executable (train/graphs.py): one program per chunk
+    # length from the executable cache on the card; on the CPU and on the
+    # paths named eager the same round body runs uncaptured
+    donate = _resolve_donate(cfg)
+    loop = _LoopExec(*_loop_mode(dev, mesh, _host_sync_reason(model, X)), library=compiled)
+    if loop.mode != "eager":
+        loop.fields = _exec_signature_fields(
+            "scan", dev, cfg, model, X, y, lowering, _ring_signature(layout, ring_pipe),
+            weights.shape, mesh, state, alpha, n_train, donation=donate,
+        )
+    # the update's round scalars as a table: the absolute round index
+    # (AGD's theta, Adam's bias correction), so a resumed run continues
+    # the count
+    recip = dev.type == "cuda"
+    coef = _to_device(optimizer.round_table(cfg.update_rule, lr32, np.arange(cfg.rounds),
+                                            alpha, n_train, recip), dev, torch.float32)
+    table_update = optimizer.make_table_update_fn(cfg.update_rule, recip)
+
+    def round_fn(carry, row, consts):
+        st = carry["state"]
+        p_grad = step_lib.staleness_slot_params(st.params, carry.get("stale"), depth)
+        with annotate("eh_scan/coded_step"):
+            g = grad_fn(p_grad, X, y, row["w"])
+        with annotate("eh_scan/update"):
+            new = table_update(st, g, row["coef"], alpha, n_train)
+        if depth:  # the params that entered this round
+            return {"state": new, "stale": st.params}, new.params
+        return {"state": new}, new.params
+
+    def as_carry(state, stale):
+        return {"state": state, "stale": stale} if depth else {"state": state}
+
+    start_leaves = pytree.tree_leaves(tuple(state))
     # chunk boundaries [start, start + every, ..., rounds]: a save between
     # chunks, none after the last; the clock covers the rounds only
     step_len = checkpoint_every or max(cfg.rounds - start_round, 1)
@@ -1040,33 +1322,35 @@ def train(
     wall = 0.0
     setup_seconds = None
     for lo, hi in zip(bounds[:-1], bounds[1:]):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        tables = {"w": weights[lo:hi], "coef": coef[lo:hi]}
+        prog = loop.program(hi - lo, lambda tables=tables, n=hi - lo: graphs.Program(
+            round_fn, as_carry(state, stale), tables, {}, n=n, unroll=cfg.scan_unroll,
+            holds=(cache_lib.stack_token(y),)))
+        graphs.sync(dev)
         t0 = time.perf_counter()
         if setup_seconds is None:
             setup_seconds = t0 - t_call
-        for i in range(lo, hi):
-            # the absolute round index: AGD's theta and Adam's bias
-            # correction read it, so a resumed run continues the count
-            p_grad = step_lib.staleness_slot_params(state.params, stale, depth)
-            with annotate("eh_scan/coded_step"):
-                g = grad_fn(p_grad, X, y, weights[i])
-            if depth:
-                stale = state.params  # the params that entered this round
-            with annotate("eh_scan/update"):
-                state = update_fn(state, g, float(lr32[i]), alpha, n_train, float(i))
-                blocks.tree_map(lambda h, p: h[i - start_round].copy_(p), history, state.params)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        carry = loop.run(
+            prog, round_fn, as_carry(state, stale), tables, {},
+            blocks.tree_map(lambda h: h[lo - start_round:hi - start_round], history),
+            donate=(pytree.tree_leaves(tuple(state))
+                    + ([weights, coef] if hi == cfg.rounds else []) if donate else ()),
+        )
+        state, stale = carry["state"], carry.get("stale")
+        graphs.sync(dev)
         wall += time.perf_counter() - t0
         if checkpoint_dir and checkpoint_every and hi < cfg.rounds and mesh.rank == 0:
             ckpt_lib.save(os.path.join(checkpoint_dir, f"round_{hi}"), state, hi)
+    if donate and not loop.graph:
+        _release_consumed(start_leaves, state, [weights, coef])
     steps_per_sec = (cfg.rounds - start_round) / wall if wall > 0 else 0.0
-    if run_id is not None:
+    if run_id is None:
+        loop.report(None, cfg.rounds - start_round)
+    else:
         # after the timed loop, from host arrays and the history the run
         # already holds: the records never touch the loop
         _emit_run_start(run_id, cfg, dev, lowering, _stack_mode(faithful, ring_pipe),
-                        cache_lib.device_nbytes((X, y)), data_hit, compiled,
+                        cache_lib.device_nbytes((X, y)), data_hit, loop,
                         cfg.rounds - start_round, mesh=mesh)
         obs_events.emit_round_chunks(
             run_id, start_round=start_round, timeset=schedule.sim_time,
@@ -1082,7 +1366,7 @@ def train(
             data_cache_hit=data_hit,
             stack_bytes=cache_lib.device_nbytes((X, y)),
             arrival=obs_events.arrival_summary(schedule.worker_times[start_round:]),
-            **_exec_fields(compiled),
+            **loop.exec_fields(),
             **obs_decode.summarize(decode_err),
         )
         if depth:
@@ -1117,18 +1401,19 @@ def train(
         final_state=state,
         decode_error=decode_err,
         lowering=lowering,
-        cache_info=_cache_info(cfg, data_hit, stats_before, X, y, faithful,
-                               setup_seconds or 0.0, state.params, residency, ring_pipe),
+        cache_info={**_cache_info(cfg, data_hit, stats_before, X, y, faithful,
+                                  setup_seconds or 0.0, state.params, residency, ring_pipe),
+                    **loop.cache_fields(stats_before, donate)},
         schedule=schedule,
         run_id=run_id,
     )
 
 
 def _sync(dev) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    graphs.sync(dev)
 
 
+@graphs.donates(names=("initial_state",))
 def train_dynamic(
     cfg: RunConfig,
     dataset: Dataset,
@@ -1156,15 +1441,16 @@ def train_dynamic(
     Faithful compute mode only, as in the JAX package.
 
     Per round: the threefry draw (its key folded in from the seed and the
-    round index on the host, as integers), the rule, the [W, S] slot
+    round index on the host, as integers, before the loop: a row of a
+    device table), the rule, the [W, S] slot
     weights (step.expand_slot_weights on the device), the gradient through
     :func:`_grad_lowering`'s ladder (a dense float GLM under
     ``use_pallas="auto"`` launches the fused kernel once a round, where
     the JAX package's has no kernel path; ``layer_coding="on"`` decodes
     with the decode kernel once a round), then the update. The round's
     clock, worker stamps and mask go into [R, W] device tensors copied to
-    the host once, after the loop. ``lr`` and the round index stay host
-    floats, as in :func:`train`.
+    the host once, after the loop. ``lr`` and the round index are rows of
+    the update's round table, as in :func:`train`.
 
     ``initial_state``/``initial_round`` are :func:`train`'s mid-schedule
     restart: the loop covers [initial_round, rounds); the telemetry rows
@@ -1172,9 +1458,10 @@ def train_dynamic(
     history has ``rounds - initial_round`` entries. ``init_params`` as in
     :func:`train`. No decode-error series: the weights never reach the
     host. ``_sync_debug_mode`` ("warn" or "error"), on the card, runs the
-    round loop under ``torch.cuda.set_sync_debug_mode``: "error" raises at
-    any operation that waits for the device (the check that the loop is
-    free of host synchronisation).
+    uncaptured round loop, or a graph's warm-up round, under
+    ``torch.cuda.set_sync_debug_mode``: "error" raises at any operation
+    that waits for the device (the check that the loop is free of host
+    synchronisation; a capture refuses one in any case).
 
     ``mesh`` as in :func:`train`: every rank draws the same arrivals from
     the same key (the draw is replicated), takes its workers' columns of
@@ -1238,7 +1525,6 @@ def train_dynamic(
         start = initial_round
     R, W = cfg.rounds, layout.n_workers
     n = R - start
-    update_fn = optimizer.make_update_fn(cfg.update_rule)
     lr32 = cfg.resolve_lr_schedule().astype(np.float32)
     alpha = cfg.effective_alpha
     key = threefry.key(cfg.seed + 1)
@@ -1249,26 +1535,61 @@ def train_dynamic(
     wtimes = torch.empty((n, W), device=dev)
     collected = torch.empty((n, W), dtype=torch.bool, device=dev)
 
+    donate = _resolve_donate(cfg)
+    loop = _LoopExec(*_loop_mode(dev, mesh, getattr(sched_fn, "host_sync", None)
+                                 or _host_sync_reason(model, X)))
+    if loop.mode != "eager":
+        loop.fields = _exec_signature_fields(
+            "dynamic_scan", dev, cfg, model, X, y, lowering, _ring_signature(layout, ring_pipe),
+            (R,) + tuple(coeffs.shape), mesh, state, alpha, n_train, donation=donate,
+            # the rule's tables and constants are baked into the round
+            scheme=cfg.scheme.value, num_collect=cfg.num_collect, deadline=cfg.deadline,
+            delay_mean=cfg.delay_mean, add_delay=cfg.add_delay,
+            code=_code_digest(layout),
+        )
+    start_leaves = pytree.tree_leaves(tuple(state))
     guard = _sync_debug_mode is not None and dev.type == "cuda"
+    # the round's scalars and threefry keys as tables: a round reads its
+    # key on the device, as the captured program must
+    recip = dev.type == "cuda"
+    coef = _to_device(optimizer.round_table(cfg.update_rule, lr32[start:],
+                                            np.arange(start, R), alpha, n_train, recip),
+                      dev, torch.float32)
+    keys = torch.tensor([threefry.fold_in(key, i) for i in range(start, R)],
+                        dtype=torch.int64, device=dev).reshape(n, 2)
+    tables = {"key": keys, "coef": coef}
+    table_update = optimizer.make_table_update_fn(cfg.update_rule, recip)
+
+    def round_fn(carry, row, consts):
+        st = carry["state"]
+        rs = sched_fn(row["key"])
+        slot_w = step_lib.expand_slot_weights(rs.message_weights.float(), coeffs, slot_coded)
+        g = grad_fn(st.params, X, y, slot_w[lo:hi])
+        new = table_update(st, g, row["coef"], alpha, n_train)
+        return {"state": new}, (new.params, rs.sim_time, rs.worker_times, rs.collected)
+
+    prog = None
+    if n > 0:
+        prog = loop.program(n, lambda: graphs.Program(
+            round_fn, {"state": state}, tables, {}, n=n, unroll=cfg.scan_unroll,
+            holds=(cache_lib.stack_token(y),), sync_debug=_sync_debug_mode if guard else None))
     _sync(dev)
     t0 = time.perf_counter()
-    if guard:
+    if guard and prog is None:
         torch.cuda.set_sync_debug_mode(_sync_debug_mode)
     try:
-        for j, i in enumerate(range(start, R)):
-            rs = sched_fn(threefry.fold_in(key, i))
-            slot_w = step_lib.expand_slot_weights(rs.message_weights.float(), coeffs, slot_coded)
-            g = grad_fn(state.params, X, y, slot_w[lo:hi])
-            state = update_fn(state, g, float(lr32[i]), alpha, n_train, float(i))
-            blocks.tree_map(lambda h, p: h[j].copy_(p), history, state.params)
-            sim[j] = rs.sim_time
-            wtimes[j] = rs.worker_times
-            collected[j] = rs.collected
+        carry = loop.run(prog, round_fn, {"state": state}, tables, {},
+                         (history, sim, wtimes, collected),
+                         donate=start_leaves + [keys, coef] if donate else ())
     finally:
-        if guard:
+        if guard and prog is None:
             torch.cuda.set_sync_debug_mode("default")
+    state = carry["state"]
+    if donate and prog is None:
+        _release_consumed(start_leaves, state, [keys, coef])
     _sync(dev)
     wall = time.perf_counter() - t0
+    loop.report(None, n)
 
     # telemetry padded to the whole horizon (train()'s restart contract):
     # rows before ``start`` belong to the donor phase
@@ -1293,8 +1614,9 @@ def train_dynamic(
         layout=layout,
         final_state=state,
         lowering=lowering,
-        cache_info=_cache_info(cfg, data_hit, stats_before, X, y, True, t0 - t_call,
-                               state.params, "resident", ring_pipe),
+        cache_info={**_cache_info(cfg, data_hit, stats_before, X, y, True, t0 - t_call,
+                                  state.params, "resident", ring_pipe),
+                    **loop.cache_fields(stats_before, donate)},
     )
 
 
@@ -1574,6 +1896,7 @@ def train_measured(
         decode_error=decode_err,
         lowering="measured",
         run_id=run_id,
+        cache_info={"executor": "eager", "eager_reason": _MEASURED_EAGER},
     )
 
 
@@ -1921,7 +2244,8 @@ def _stream_cache_info(sp: _StreamPlan, window_nbytes: int, setup_seconds: float
                        pf_stats: dict, peak: Optional[int],
                        ring_pipe: Optional[str] = None) -> dict:
     """A streamed run's ``cache_info``: the JAX trainer's keys (without the
-    executable cache's), and the device's peak bytes over the round loop
+    executable cache's: the windows run the eager loop, named), and the
+    device's peak bytes over the round loop
     above its start (cuda; None on the CPU). ``stack_bytes`` and
     ``prefetch`` are this rank's: what it staged."""
     plan = sp.plan
@@ -1949,6 +2273,8 @@ def _stream_cache_info(sp: _StreamPlan, window_nbytes: int, setup_seconds: float
         "stream_staged_partitions": sp.shard.n_partitions,
         "prefetch": pf_stats,
         "device_peak_bytes": peak,
+        "executor": "eager",
+        "eager_reason": _STREAMED_EAGER,
     }
 
 
@@ -2005,7 +2331,7 @@ def _stream_loop(dev, store, sp: _StreamPlan, put, setup, grad_fn, update_fn,
     cuda = dev.type == "cuda"
     base = None
     if cuda:
-        torch.cuda.synchronize(dev)
+        _sync(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
     if sp.shard.n_partitions:
@@ -2019,8 +2345,7 @@ def _stream_loop(dev, store, sp: _StreamPlan, put, setup, grad_fn, update_fn,
         setup(X, y)
         setup_seconds = None
         for i, (lo, hi) in enumerate(sp.chunks):
-            if cuda:
-                torch.cuda.synchronize(dev)
+            _sync(dev)
             t0 = time.perf_counter()
             if setup_seconds is None:
                 setup_seconds = t0 - t_call
@@ -2032,8 +2357,7 @@ def _stream_loop(dev, store, sp: _StreamPlan, put, setup, grad_fn, update_fn,
                     g = grad_fn(r, X, y)
                 with annotate("eh_scan/update"):
                     update_fn(r, g)
-            if cuda:
-                torch.cuda.synchronize(dev)
+            _sync(dev)
             wall += time.perf_counter() - t0
         X = y = None
     finally:
@@ -2138,8 +2462,8 @@ def _train_streamed(
             grad_fn, run["ring_pipe"] = _ring_grad(cfg, model, sp.plan.sub_layout(), mesh, X0,
                                                    grad_fn, tuned=False)
         run["grad_fn"] = grad_fn
-        run["compiled"] = _prepare_lowering(dev, model, run["lowering"], grad_fn,
-                                            X0, y0, params0, weights[0])
+        run["loop"] = _LoopExec("eager", _STREAMED_EAGER, library=_prepare_lowering(
+            dev, model, run["lowering"], grad_fn, X0, y0, params0, weights[0]))
 
     def grad_r(r, X, y):
         return run["grad_fn"](state.params, X, y, weights[r])
@@ -2157,7 +2481,7 @@ def _train_streamed(
     steps_per_sec = cfg.rounds / wall if wall > 0 else 0.0
     if run_id is not None:
         _emit_run_start(run_id, cfg, dev, run["lowering"], sp.mode, window_nbytes, False,
-                        run["compiled"], cfg.rounds, mesh=mesh)
+                        run["loop"], cfg.rounds, mesh=mesh)
         _emit_stream_records(run_id, staged)
         obs_events.emit_round_chunks(
             run_id, start_round=0, timeset=schedule.sim_time,
@@ -2173,7 +2497,7 @@ def _train_streamed(
             data_cache_hit=False,
             stack_bytes=window_nbytes,
             arrival=obs_events.arrival_summary(schedule.worker_times),
-            **_exec_fields(run["compiled"]),
+            **run["loop"].exec_fields(),
             **obs_decode.summarize(decode_err),
         )
         # the timed loop includes the staging waits; the prefetcher's
@@ -2351,8 +2675,8 @@ def _cohort_schedules(cfgs, layouts, arrivals) -> list:
 def _cohort_lr_alpha(cfgs, dev):
     """The cohort's [R, B] learning rates and [B] l2 coefficients. They are
     trajectory axes, float32 tensors (as in the JAX cohort): the update's
-    scalar coefficients are formed in float32, where train() forms them
-    from Python floats."""
+    scalar coefficients are formed in float32, where train()'s round table
+    forms them in double."""
     lr_B = _to_device(
         np.stack([c.resolve_lr_schedule() for c in cfgs], axis=1), dev, torch.float32
     )
@@ -2404,7 +2728,7 @@ def _cohort_results(cfgs, schedules, layouts, state, history, wall: float, n_tra
 
 
 def _emit_cohort(run_id, cfgs, results, dev, stack_mode: str, data_hit: bool,
-                 compiled: tuple, stack_bytes: int, prefetch_stall_s: float = 0.0,
+                 loop: "_LoopExec", stack_bytes: int, prefetch_stall_s: float = 0.0,
                  staged=(), mesh=None) -> None:
     """A cohort's records, as the JAX cohort emits them, after its loop: the
     opening records with one ``cohort`` record (its one round loop is its
@@ -2419,7 +2743,7 @@ def _emit_cohort(run_id, cfgs, results, dev, stack_mode: str, data_hit: bool,
         n_trajectories=len(cfgs), schemes=sorted({c.scheme.value for c in cfgs}),
         seeds=[c.seed for c in cfgs], dispatches=1, lowering=lowering,
     )
-    _emit_run_start(run_id, cfg, dev, lowering, stack_mode, stack_bytes, data_hit, compiled,
+    _emit_run_start(run_id, cfg, dev, lowering, stack_mode, stack_bytes, data_hit, loop,
                     cfg.rounds, cohort=cohort, mesh=mesh)
     _emit_stream_records(run_id, staged)
     for b, (c, res) in enumerate(zip(cfgs, results)):
@@ -2438,7 +2762,7 @@ def _emit_cohort(run_id, cfgs, results, dev, stack_mode: str, data_hit: bool,
         data_cache_hit=data_hit,
         stack_bytes=stack_bytes,
         arrival=obs_events.arrival_summary(np.stack([r.worker_times for r in results])),
-        **_exec_fields(compiled),
+        **loop.exec_fields(),
         **obs_decode.summarize(np.concatenate([r.decode_error for r in results])),
     )
     obs_cpath.emit_event(run_id, obs_cpath.attribute(
@@ -2547,8 +2871,9 @@ def _train_cohort_streamed(cfgs, store, window: int, *, arrivals, device, init_p
     run = {}
 
     def setup(X0, y0):
-        grad_fn, run["lowering"], run["compiled"], _ = _cohort_lowering(
+        grad_fn, run["lowering"], library, _ = _cohort_lowering(
             cfg, model, X0, y0, sp.faithful, params0, weights[0], dev, mesh)
+        run["loop"] = _LoopExec("eager", _STREAMED_EAGER, library=library)
         run["ring_pipe"] = None
         if sp.mode == "ring":
             grad_fn, run["ring_pipe"] = _ring_grad(cfg, model, sp.plan.sub_layout(), mesh, X0,
@@ -2575,7 +2900,7 @@ def _train_cohort_streamed(cfgs, store, window: int, *, arrivals, device, init_p
                               run["lowering"], cohort, {**cache_info, **cohort}, run_id)
     if run_id is not None:
         _emit_cohort(run_id, cfgs, results, dev, sp.mode, False,
-                     run["compiled"], window_nbytes,
+                     run["loop"], window_nbytes,
                      prefetch_stall_s=float(pf_stats.get("blocked_s", 0.0)), staged=staged,
                      mesh=mesh)
     return results
@@ -2718,33 +3043,60 @@ def train_cohort(
     run_id = obs_events.new_run_id() if obs_events.active() else None
 
     state = optimizer.init_state(params0, cfg.update_rule)
-    update_fn = optimizer.make_cohort_update_fn(cfg.update_rule)
     history = blocks.tree_map(
         lambda p: torch.empty((cfg.rounds,) + tuple(p.shape), dtype=torch.float32, device=dev),
         params0,
     )  # leaves [R, B, ...]
 
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    donate = _resolve_donate(cfg)
+    loop = _LoopExec(*_loop_mode(dev, mesh, _host_sync_reason(model, X)), library=compiled)
+    if loop.mode != "eager":
+        loop.fields = _exec_signature_fields(
+            "cohort_scan", dev, cfg, model, X, y, lowering,
+            _ring_signature(layouts[0], ring_pipe), weights.shape, mesh, state, 0.0, n_train,
+            donation=donate, batch_size=B, chunk_rounds=cfg.rounds, cohort_lowering=lowering,
+        )
+    # the round-index scalars shared by the cohort as a table
+    recip = dev.type == "cuda"
+    coef = _to_device(optimizer.cohort_round_table(cfg.update_rule, np.arange(cfg.rounds),
+                                                   recip), dev, torch.float32)
+    table_update = optimizer.make_cohort_table_update_fn(cfg.update_rule, recip)
+
+    def round_fn(carry, row, consts):
+        st = carry["state"]
+        with annotate("eh_scan/coded_step"):
+            g = grad_fn(st.params, X, y, row["w"])
+        with annotate("eh_scan/update"):
+            new = table_update(st, g, row["lr"], consts["alpha"], n_train, row["coef"])
+        return {"state": new}, new.params
+
+    tables = {"w": weights, "lr": lr_B, "coef": coef}
+    prog = loop.program(cfg.rounds, lambda: graphs.Program(
+        round_fn, {"state": state}, tables, {"alpha": alpha_B}, n=cfg.rounds,
+        unroll=cfg.scan_unroll, holds=(cache_lib.stack_token(y),)))
+    start_leaves = pytree.tree_leaves(tuple(state))
+
+    _sync(dev)
     t0 = time.perf_counter()
     cache_info = _cache_info(cfg, data_hit, stats_before, X, y, faithful, t0 - t_call, None,
                              residency, ring_pipe)
-    for i in range(cfg.rounds):
-        with annotate("eh_scan/coded_step"):
-            g = grad_fn(state.params, X, y, weights[i])
-        with annotate("eh_scan/update"):
-            state = update_fn(state, g, lr_B[i], alpha_B, n_train, float(i))
-            blocks.tree_map(lambda h, p: h[i].copy_(p), history, state.params)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    carry = loop.run(prog, round_fn, {"state": state}, tables, {"alpha": alpha_B}, history,
+                     donate=start_leaves + [weights, coef] if donate else ())
+    state = carry["state"]
+    if donate and prog is None:
+        _release_consumed(start_leaves, state, [weights, coef])
+    _sync(dev)
     wall = time.perf_counter() - t0
+    if run_id is None:
+        loop.report(None, cfg.rounds)
+    cache_info.update(loop.cache_fields(stats_before, donate))
 
     cohort = _cohort_fields(B, lowering, faithful, ring_pipe)
     results = _cohort_results(cfgs, schedules, layouts, state, history, wall, n_train,
                               lowering, cohort, {**cache_info, **cohort}, run_id)
     if run_id is not None:
         _emit_cohort(run_id, cfgs, results, dev, cache_info["stack_mode"], data_hit,
-                     compiled, cache_info["stack_bytes"], mesh=mesh)
+                     loop, cache_info["stack_bytes"], mesh=mesh)
     return results
 
 

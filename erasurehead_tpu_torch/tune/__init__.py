@@ -37,6 +37,8 @@ a card keys as ``"cpu"``).
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -129,6 +131,21 @@ def glm_fused_signature(shape, dtype, kind: str) -> str:
 # -- tune records, deduplicated per process ----------------------------------
 
 _emitted: set = set()
+#: a thread inside :func:`quiet` consults without emitting
+_quiet = threading.local()
+
+
+@contextlib.contextmanager
+def quiet():
+    """Consult the cache without emitting ``tune`` records: the executable
+    cache's key resolves the knobs again (parallel/step.lowering_signature)
+    after the run has resolved them, and its records are the run's."""
+    prev = getattr(_quiet, "on", False)
+    _quiet.on = True
+    try:
+        yield
+    finally:
+        _quiet.on = prev
 
 
 def emit_decision(
@@ -138,7 +155,7 @@ def emit_decision(
     current obs/events capture, if any). Observation only: emission happens
     after the choice is made and never feeds back."""
     key = (race, device_kind, shape, choice, source)
-    if key in _emitted:
+    if key in _emitted or getattr(_quiet, "on", False):
         return
     _emitted.add(key)
     from erasurehead_tpu_torch.obs import events as events_lib

@@ -15,7 +15,8 @@ attention family's sequence-parallel knobs (validated; one device runs
 them unsharded), and bounded-staleness
 pipelining (``pipeline_depth``, refused with :class:`PipelineRefusal` where
 it is unsound), and out-of-core streaming (``stack_residency``,
-``stream_window``, the :data:`STREAM_WINDOW_ENV` byte budget). Also the
+``stream_window``, the :data:`STREAM_WINDOW_ENV` byte budget), and the
+compiled round loop's ``donate`` and ``scan_unroll``. Also the
 static lowering signature the trajectory-cohort engine groups by, and the
 sweep harness's switches: batching (:func:`resolve_batch_trajectories`) and
 the sweep journal (:func:`resolve_sweep_journal`,
@@ -300,6 +301,14 @@ class RunConfig:
     # STREAM_WINDOW_ENV budget (two windows in flight), else to every
     # partition
     stream_window: Optional[int] = None
+    # buffer donation for the round loop's carry (params + optimizer state)
+    # and per-round weight tables: once a run has copied them into its
+    # CUDA graph's static buffers (train/graphs.py), their storage is
+    # released instead of held as a duplicate across the loop (the JAX
+    # package's donate_argnums). "auto" = on (trainer.DONATE_DEFAULT:
+    # bitwise-identical math; the cached device DATA stacks are never
+    # donated); "off" for debugging and before/after measurement
+    donate: str = "auto"
     # sparse margin lane width (a power of two in [1, 1024], or None): a TPU
     # lane-replication device in the JAX package; on the card its only
     # effect is the FieldOnehot pairing plan (ops/features.fields_margin_plan)
@@ -336,6 +345,12 @@ class RunConfig:
     # optimal_decode hook (the partial two-part layouts) keep their fixed
     # weights
     decode: str = "fixed"
+    # rounds per CUDA-graph replay of the round loop (the JAX package's
+    # lax.scan unroll factor): a chunk of n rounds is ceil(n/u) replays of
+    # a graph of u = min(scan_unroll, n) rounds (the last covering the
+    # n mod u tail). Identical math at any value; a lowering knob, keyed
+    # like dtype/flat_grad. No effect on the CPU's eager loop
+    scan_unroll: int = 1
     # bounded-staleness pipelined training (parallel/pipeline.py): 0 keeps
     # the synchronous round barrier; 1 dispatches round t+1's worker compute
     # against the params of round t-1 while round t's arrivals drain
@@ -409,6 +424,10 @@ class RunConfig:
                 "simulated-arrival trainer; arrival_mode='measured' times "
                 "real arrivals — drop one of the two"
             )
+        if self.scan_unroll < 1:
+            raise ValueError(
+                f"scan_unroll must be >= 1, got {self.scan_unroll}"
+            )
         if self.arrival_mode not in ("simulated", "measured"):
             raise ValueError(
                 f"arrival_mode must be simulated/measured, got "
@@ -432,6 +451,10 @@ class RunConfig:
             raise ValueError(
                 f"stack_dtype must be auto/float32/bfloat16/int8, got "
                 f"{self.stack_dtype!r}"
+            )
+        if self.donate not in ("auto", "on", "off"):
+            raise ValueError(
+                f"donate must be auto/on/off, got {self.donate!r}"
             )
         if self.stack_dtype == "int8" and self.arrival_mode == "measured":
             raise ValueError(
@@ -648,8 +671,11 @@ class RunConfig:
             # trajectories (and two stream windows) in separate cohorts
             "stack_residency": self.stack_residency,
             "stream_window": self.stream_window,
+            "donate": self.donate,
             "update_rule": self.update_rule.value,
             "dtype": self.dtype,
+            # rounds per graph replay: another captured program
+            "scan_unroll": self.scan_unroll,
             # the staleness slot restructures the round's carry, so tau=0
             # and tau=1 trajectories never share a cohort
             "pipeline_depth": self.pipeline_depth,

@@ -91,9 +91,14 @@ def key_tensor(keys, device=None) -> torch.Tensor:
 def random_bits(k, n: int, device=None) -> torch.Tensor:
     """``jax.random.bits(k, (n,), uint32)`` under the partitionable
     threefry (JAX's default): [n] int64 words in [0, 2^32). ``k`` a
-    ``[K, 2]`` key tensor: [K, n], row k under key k (``device`` is then
-    the keys' own)."""
-    if isinstance(k, torch.Tensor):
+    ``[K, 2]`` key tensor: [K, n], row k under key k; a ``[2]`` key tensor:
+    [n], the same words as the host key (``device`` is then the keys'
+    own)."""
+    if isinstance(k, torch.Tensor) and k.dim() == 1:
+        # one key's [2] words on the device: a captured round reads its key
+        # from a device table, where host ints would be frozen at capture
+        k0, k1, device = k[0], k[1], k.device
+    elif isinstance(k, torch.Tensor):
         k0, k1, device = k[:, 0:1], k[:, 1:2], k.device
     else:
         k0, k1 = k

@@ -32,6 +32,13 @@ from typing import Iterator, Optional
 #: reads it
 _tracing: Optional[str] = None
 
+#: why a run under a device_trace keeps the eager loop (train/trainer.
+#: _loop_mode): the trace records each round's host spans, where a captured
+#: graph's would be recorded once, at capture. So a trace times the eager
+#: loop, not the graph replays an untraced run on the card times; the trace
+#: file says so in its metadata (``executor``, ``eager_reason``)
+TRACE_EAGER = "a device_trace records each round's host spans"
+
 _NO_REGION = contextlib.nullcontext()
 
 
@@ -50,7 +57,8 @@ def device_trace(log_dir: Optional[str], device=None) -> Iterator[Optional[Trace
 
     The CPU activity always, plus the CUDA activity when ``device`` is a
     cuda device (None: when a card is present). On exit the trace is
-    written as ``log_dir/eh_<pid>_<ns>.pt.trace.json``; a failed export
+    written as ``log_dir/eh_<pid>_<ns>.pt.trace.json``, its metadata naming
+    the round loop's executor (:data:`TRACE_EAGER`); a failed export
     raises. Traces do not nest."""
     global _tracing
     if not log_dir:
@@ -69,6 +77,10 @@ def device_trace(log_dir: Optional[str], device=None) -> Iterator[Optional[Trace
     os.makedirs(log_dir, exist_ok=True)
     trace = Trace()
     with profile(activities=activities) as prof:
+        # what the traced rounds ran: a reader of the trace must not take
+        # its per-layer times for the graph path's
+        prof.add_metadata("executor", "eager")
+        prof.add_metadata("eager_reason", TRACE_EAGER)
         _tracing = "cuda" if cuda else "cpu"
         try:
             yield trace
@@ -105,6 +117,12 @@ class _Region:
             torch.cuda.nvtx.range_pop()
         self._span.__exit__(*exc)
         return False
+
+
+def active() -> bool:
+    """Is a :func:`device_trace` in progress? (The trainers then run their
+    round bodies uncaptured, :data:`TRACE_EAGER`.)"""
+    return _tracing is not None
 
 
 def annotate(name: str):

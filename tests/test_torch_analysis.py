@@ -399,10 +399,18 @@ def test_suppressions_apply_count_and_need_a_reason(tmp_path):
 
 
 def test_checkers_and_unknown_checker():
-    assert set(analysis.CHECKERS) == {
-        "trace-purity", "signature-completeness", "registry-dispatch", "event-schema"}
+    """The port registers the JAX package's five checkers, and the fifth,
+    donation-safety, runs over the JAX fixtures' directory (their donating
+    calls are jax.jit's, which the port's checker does not read, so they
+    give the port nothing: the restated fixtures are in
+    tests/test_torch_graphs.py)."""
+    assert set(analysis.CHECKERS) == set(j_runner.CHECKERS) == {
+        "trace-purity", "signature-completeness", "registry-dispatch", "event-schema",
+        "donation-safety"}
+    report = runner.lint_paths([FIXTURES], checkers=["donation-safety"])
+    assert [f for f in report.unsuppressed if f.checker == "donation-safety"] == []
     with pytest.raises(ValueError, match="unknown checker"):
-        runner.lint_paths([FIXTURES], checkers=["donation-safety"])
+        runner.lint_paths([FIXTURES], checkers=["no-such-checker"])
 
 
 # ---- the CLI ---------------------------------------------------------------
@@ -422,7 +430,7 @@ def test_module_entry_exit_codes(tmp_path):
 @pytest.mark.parametrize("argv,rc", [
     (["--checker"], 2),
     (["--bogus"], 2),
-    (["--checker", "donation-safety"], 2),
+    (["--checker", "donation-safety"], 0),
     (["--help"], 0),
 ])
 def test_cli_lint_usage(argv, rc, capsys):

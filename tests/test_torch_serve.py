@@ -327,12 +327,21 @@ def test_config_payload_is_jax_dict(extra):
     ("donate", "off", "A5r"), ("scan_unroll", 2, "A5r"),
 ])
 def test_absent_payload_fields_refused_naming_their_item(field, value, item):
-    """The JAX package serves these two fields; the port refuses them
-    loudly, naming the ROADMAP queue A item that brings each."""
-    j_queue.config_from_payload({"scheme": "naive", field: value})
-    with pytest.raises(ValueError, match=f"ROADMAP queue A, {item}") as ei:
-        serve_queue.config_from_payload({"scheme": "naive", field: value})
-    assert repr(field) in str(ei.value)
+    """The two fields ROADMAP item A5r (the compiled round loop) brought:
+    the wire takes them as the JAX package's does (the port's payload is the
+    JAX package's dict and round-trips to an equal config), and the packer
+    keys them: a request that sets one never shares a cohort with one that
+    does not."""
+    j_cfg = j_queue.config_from_payload({"scheme": "naive", field: value})
+    got = serve_queue.config_from_payload({"scheme": "naive", field: value})
+    assert getattr(got, field) == getattr(j_cfg, field) == value
+    assert serve_queue.config_payload(got) == j_queue.config_payload(j_cfg)
+    assert serve_queue.config_from_payload(serve_queue.config_payload(got)) == got
+    gmm = generate_gmm(N_ROWS, N_COLS, n_partitions=W, seed=0)
+    plain = packer_lib.pack_key(_req(gmm))
+    keyed = packer_lib.pack_key(_req(gmm, **{field: value}))
+    assert plain is not None and keyed is not None and plain != keyed
+    assert packer_lib.pack_key(_req(gmm, **{field: value})) == keyed
 
 
 @pytest.mark.parametrize("field,value", [
@@ -898,8 +907,10 @@ def test_socket_submit_roundtrip_and_bad_payload(tmp_path):
                 client.submit("w", "bad", {"scheme": "naive", "warp_drive": 9})
             with pytest.raises(RuntimeError, match="unserveable"):
                 client.submit("w", "bad2", {"input_dir": "/etc"})
-            with pytest.raises(RuntimeError, match="ROADMAP queue A, A5r"):
-                client.submit("w", "bad3", {"scheme": "naive", "donate": "off"})
+            # a donate payload is served as the JAX package serves it
+            client.submit("w", "donate-wire", {**WIRE, "donate": "off"})
+            res = client.result(timeout=120)
+            assert res["status"] == "ok" and res["row"]["label"] == "donate-wire"
             client.close()
         finally:
             front.close()

@@ -288,7 +288,9 @@ def test_device_nbytes_walks_containers(gmm, onehot):
 
 def test_cache_stats_view():
     s = cache.stats()
-    assert s.snapshot() == {"data_hits": 0, "data_misses": 0, "bytes_reused": 0}
+    assert s.snapshot() == {"exec_hits": 0, "exec_misses": 0, "data_hits": 0,
+                            "data_misses": 0, "compile_seconds_saved": 0, "bytes_reused": 0}
+    assert s.exec_hits == 0  # the executable cache (train/graphs.py's programs)
     with pytest.raises(AttributeError):
-        s.exec_hits  # the executable cache has no counterpart
+        s.no_such_field
     assert np.isscalar(s.data_hits)
