@@ -8,8 +8,12 @@ Phases, one JSON line each:
   2. build     - compile both CUDA kernels from the sources in this checkout
                  (one nvcc per source, started together, sm_90a), and time it;
   3. check     - each kernel against its plain PyTorch version on the card:
-                 fused_glm_grad within tolerance at ragged, zero-weight,
-                 bfloat16 and main-path shapes, and at the partial schemes'
+                 fused_glm_grad within tolerance (and bitwise on a rerun)
+                 at ragged, zero-weight, bfloat16 and main-path shapes, at
+                 its edges (fewer flat rows than CTAs, R = 1, a CTA range
+                 across slots whose weights all differ, the covtype width at
+                 a small M, an odd width on a base that is not 16-byte
+                 aligned: a contiguous X[1:]), and at the partial schemes'
                  [180, 1100, 128] and sparsegraph's [210, 4400, 128] stacks
                  with their round weights' zero pattern; fused_block_decode
                  bitwise at ragged, zero-weight and bfloat16 shapes, the deep
@@ -62,11 +66,12 @@ Phases, one JSON line each:
                  shapes (fused_glm_grad also at the partial and sparsegraph
                  stacks, and on sparsegraph's nonzero-weight slots alone:
                  the share of its time spent on zero-weight slots);
-                 fused_glm_grad's wide (re-read) path at two widths
-                 off the main path; the decode per leaf, per round (one
-                 launch against six cuBLAS GEMVs) and off the deep path at
-                 one wide leaf on each side of the width from which the
-                 kernel streams rows instead of staging them;
+                 fused_glm_grad's column path (rows wider than a lane's
+                 registers) at two widths off the main path; the decode per
+                 leaf and per round (one launch against six cuBLAS GEMVs);
+                 the decode off the deep path at one wide leaf on each side
+                 of the width from which the kernel streams rows instead of
+                 staging them is timed right after the checks (phase 3);
   12. profile  - device time by kernel over one more training run of the GLM
                  main path and of the deep path, from torch.profiler, and the
                  device's busy share of each round loop;
@@ -282,7 +287,7 @@ Phases, one JSON line each:
                  before the tune plane) on its own cache: the glm_fused race
                  (B1 against the two-pass gradient) at the main stack
                  [30, 3, 4400, 128] and at cyccoded W = 3, s = 1, 6,600 x
-                 15,509 ([3, 2, 2200, 15509], B1's re-read path), each
+                 15,509 ([3, 2, 2200, 15509], B1's column path), each
                  verdict in the cache and its 100-round auto run launching
                  100 B1 if it is "pallas" and none if "xla", with a tune
                  record of source "cache"; the deep path's block_decode and
@@ -314,7 +319,7 @@ Phases, one JSON line each:
                  rounds, decode, run_end, critical_path, eval and metrics,
                  run_end's steps/s the run's own; the torch.profiler trace
                  with 100 eh_scan/coded_step and 100 eh_scan/update host
-                 spans and glm_grad_partials/glm_grad_reduce device events
+                 spans and glm_grad_onepass device events (B1, one a call)
                  (between 1 and 100: a fresh window may drop its first
                  device records); ``cli report`` (and --validate) and ``cli
                  top`` on the log; the deep path traced, 20 rounds (20 B2,
@@ -473,6 +478,42 @@ DEEP_ARGS = MAIN_ARGS[:MAIN_ARGS.index("--update-rule")] + [
     "--block-decode", "fused",
 ]
 SHORT_ROUNDS = 10  # the card-vs-CPU and fused-vs-treewise comparisons
+# B1 against its plain version on the card (check phase; b1_ab.py too):
+# (shape, dtype, zero every, leading slots cut off X)
+B1_CASES = [
+    ((6, 40, 32), torch.float32, 0, 0),  # fewer rows than a stage holds
+    ((3, 17, 128), torch.float32, 0, 0),
+    ((5, 300, 17), torch.float32, 2, 0),  # F % 4 != 0: scalar reads, ragged spans
+    ((4, 33, 64), torch.bfloat16, 2, 0),
+    ((7, 1000, 1000), torch.bfloat16, 3, 0),  # ragged R and F, 8 chunks a lane
+    ((3, 600, 2048), torch.float32, 2, 0),  # the column path
+    ((2, 300, 5001), torch.bfloat16, 0, 0),  # the column path, scalar reads
+    (MAIN_SHAPE, torch.float32, 2, 0),
+    (MAIN_SHAPE, torch.bfloat16, 2, 0),
+    ((1, 3, 128), torch.float32, 0, 0),  # fewer flat rows than CTAs
+    ((2, 1, 7), torch.float32, 0, 0),
+    ((2, 1, 7), torch.bfloat16, 0, 0),
+    ((2, 40, 15509), torch.float32, 0, 0),  # the covtype width at a small M
+    ((2, 40, 15509), torch.bfloat16, 0, 0),
+    ((3, 5, 17), torch.float32, 0, 1),  # X[1:]: odd F, base % 16 == 4
+    ((4, 33, 17), torch.bfloat16, 0, 1),  # X[1:]: base % 16 == 2
+    ((7, 1000, 96), torch.float32, 0, 0),  # ranges across slots, weights all differ
+    ((7, 1000, 96), torch.bfloat16, 0, 0),
+    ((300, 1, 64), torch.float32, 2, 0),  # R = 1: every row its own slot
+    ((3, 7, 16384), torch.float32, 0, 1),  # the column path's widest rows, base offset
+    ((2, 40, 20000), torch.float32, 0, 0),  # a cluster of two CTAs splits each row
+    ((2, 40, 20000), torch.bfloat16, 0, 0),
+    ((3, 7, 20001), torch.float32, 0, 1),  # the cluster path: odd F, base % 16 == 12
+    ((16, 500, 16385), torch.bfloat16, 2, 1),  # many clusters, three tiles a row
+    ((3, 7, 131072), torch.float32, 0, 1),  # a cluster of eight CTAs
+    ((2, 3, 131073), torch.float32, 0, 1),  # wider than a cluster: the re-read path
+    ((2, 3, 131075), torch.bfloat16, 0, 1),
+]
+# the trainer on rows wider than one CTA holds: naive W = 6, 1,200 x 20,000
+WIDE_COLS_ARGS = [
+    "--scheme", "naive", "--workers", "6", "--stragglers", "1", "--rounds", str(SHORT_ROUNDS),
+    "--rows", "1200", "--cols", "20000", "--add-delay", "--quiet",
+]
 # the schemes phase: every other registry scheme at the main path's data
 SCHEME_BASE = [
     "--workers", "30", "--stragglers", "2", "--rounds", "100", "--rows", "132000",
@@ -507,9 +548,10 @@ COVTYPE_W_IN = 15509 * 32
 # (1.9 MiB) stream (the kernel's kStreamMinRowBytes is 1.5 MiB)
 STAGED_WIDE = 262144
 SLOTS = (30, 3)  # the faithful stack's [W, S] slot layout
-# rows wider than the kernel's registers: one re-read tile, and the covtype
-# preset's width (eight tiles)
-WIDE_SHAPES = ((30, 4400, 2048), (6, 2200, 15509))
+# rows wider than a lane's registers (B1's column path): 2,048 columns, and
+# the covtype preset's width; rows a cluster of two CTAs splits (20,000
+# columns), and rows wider than a cluster holds (140,000: the re-read path)
+WIDE_SHAPES = ((30, 4400, 2048), (6, 2200, 15509), (6, 1700, 20000), (2, 1000, 140000))
 # the cohort phases: the seven schemes of the JAX cohort tests at the main
 # path's data, W = 30, s = 2, AGD at the artificial preset's lr (10)
 COHORT_SCHEMES = {
@@ -627,9 +669,12 @@ def import_port():
     return cli, kernels
 
 
-def make_inputs(M, R, F, dtype, seed, zero_every=0):
+def make_inputs(M, R, F, dtype, seed, zero_every=0, offset=0):
+    """Seeded B1 inputs on the card; ``offset`` leading slots of X are made
+    and cut off there (X[offset:]: contiguous, its base offset * R * F
+    elements into its storage)."""
     g = torch.Generator().manual_seed(seed)
-    X = (torch.randn(M, R, F, generator=g) * (10 / F**0.5)).to(dtype).cuda()
+    X = (torch.randn(M + offset, R, F, generator=g) * (10 / F**0.5)).to(dtype).cuda()[offset:]
     y = torch.randn(M, R, generator=g).sign().cuda()
     b = (torch.randn(F, generator=g) * 0.1).cuda()
     w = torch.rand(M, generator=g).cuda()
@@ -638,11 +683,11 @@ def make_inputs(M, R, F, dtype, seed, zero_every=0):
     return b, X, y, w
 
 
-def check_glm(kernels, shape, dtype, kind, zero_every, seed, weights=None):
+def check_glm(kernels, shape, dtype, kind, zero_every, seed, weights=None, offset=0):
     """Kernel vs plain version: |err| <= 1e-5 * sum_r |w s x| + 1e-6 per
     column, the float32 rounding of sums taken in another order.
     ``weights`` (a numpy [M] array) replaces the random slot weights."""
-    b, X, y, w = make_inputs(*shape, dtype, seed, zero_every)
+    b, X, y, w = make_inputs(*shape, dtype, seed, zero_every, offset)
     if weights is not None:
         w = torch.from_numpy(weights).cuda()
     return check_glm_inputs(kernels, b, X, y, w, kind)
@@ -663,7 +708,7 @@ def check_glm_inputs(kernels, b, X, y, w, kind, **fields) -> dict:
     ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
     rec = dict(
         kernel="fused_glm_grad", shape=list(X.shape), dtype=str(X.dtype).split(".")[-1],
-        kind=kind, zero_weight_slots=int((w == 0).sum()),
+        kind=kind, zero_weight_slots=int((w == 0).sum()), x_base_mod16=X.data_ptr() % 16,
         max_abs_err=float(err.max()), max_err_over_tol=float((err / tol).max()),
         bitwise_rerun=bool(torch.equal(got, again)), ok=ok, **fields,
     )
@@ -3148,8 +3193,8 @@ def elastic_phase(cli, kernels, tmp, both0) -> dict:
 
 
 # the tune phase: glm_fused races at the main stack and at the wide
-# cyccoded stack (W = 3, s = 1, 6,600 x 15,509: B1's re-read path at
-# [6, 2200, 15509], where the two-pass path beat it in PR 1's timing), the
+# cyccoded stack (W = 3, s = 1, 6,600 x 15,509: B1's column path at
+# [6, 2200, 15509], where the two-pass path once beat B1's earlier design), the
 # deep path's block_decode and layer_coding races at 8 rounds, then the
 # auto runs each verdict resolves
 WIDE_ARGS = ["--scheme", "cyccoded", "--workers", "3", "--stragglers", "1", "--rounds", "100",
@@ -3610,7 +3655,7 @@ def telemetry_phase(cli, kernels, experiments, tmp, both0) -> dict:
     compile_rec = next(r for r in recs if r["type"] == "compile")
     main_trace = trace_counts(read_trace(os.path.join(tmp, "trace_main")),
                               ("eh_scan/coded_step", "eh_scan/update", "eh_step/partial_grads"),
-                              ("glm_grad_partials", "glm_grad_reduce"))
+                              ("glm_grad_onepass",))
     spans = main_trace["host_spans"]
     dev = main_trace["device_events"]
     if spans["eh_scan/coded_step"] != ROUNDS or spans["eh_scan/update"] != ROUNDS \
@@ -5562,7 +5607,7 @@ def graphs_phase(cli, kernels, ds, both0) -> dict:
 
     # the launches a replay tally counts are the kernels the device ran
     events = {"fused_glm_grad": profiled_kernel_events(lambda: trainer.train(cfg, ds),
-                                                       "glm_grad_partials"),
+                                                       "glm_grad_onepass"),
               "fused_block_decode": profiled_kernel_events(lambda: trainer.train(dcfg, ds),
                                                            "block_decode")}
     if events != {"fused_glm_grad": ROUNDS, "fused_block_decode": ROUNDS}:
@@ -5671,20 +5716,10 @@ def main() -> int:
          library=os.path.relpath(str(kernels.library_path()), HERE))
 
     checks = []
-    cases = [
-        ((6, 40, 32), torch.float32, 0),  # ragged R (< one 256-row block)
-        ((3, 17, 128), torch.float32, 0),
-        ((5, 300, 17), torch.float32, 2),  # F % 4 != 0: the scalar path
-        ((4, 33, 64), torch.bfloat16, 2),
-        ((7, 1000, 1000), torch.bfloat16, 3),  # ragged R and F, 4 chunks
-        ((3, 600, 2048), torch.float32, 2),  # the wide (re-read) path, one tile
-        ((2, 300, 5001), torch.bfloat16, 0),  # wide, scalar, three tiles
-        (MAIN_SHAPE, torch.float32, 2),  # R = 4400 ragged in 256-row blocks
-        (MAIN_SHAPE, torch.bfloat16, 2),
-    ]
-    for i, (shape, dtype, zero_every) in enumerate(cases):
+    for i, (shape, dtype, zero_every, offset) in enumerate(B1_CASES):
         for kind in kernels.GLM_KINDS:
-            checks.append(check_glm(kernels, shape, dtype, kind, zero_every, seed=i))
+            checks.append(check_glm(kernels, shape, dtype, kind, zero_every, seed=i,
+                                    offset=offset))
     main_err = max(
         c["max_abs_err"] for c in checks
         if c["shape"] == list(MAIN_SHAPE) and c["dtype"] == "float32" and c["kind"] == "logistic"
@@ -5719,6 +5754,12 @@ def main() -> int:
     for i, (shapes, dtype, lead) in enumerate(leaf_cases):
         decode_checks.append(check_decode_leaves(kernels, shapes, dtype, 240 + i, lead))
     decode_err = max(c["max_abs_err"] for c in decode_checks)
+    # B2 off the deep path at one wide leaf on each side of the width from
+    # which it streams rows, beside its plain version and one cuBLAS GEMV:
+    # timed here, early, because late in a whole run the profiler has kept
+    # fewer than 98% of the GEMV's records in every window (PERF.md §7)
+    for D, path in ((STAGED_WIDE, "staged"), (COVTYPE_W_IN, "streamed")):
+        emit("time_wide", kernel="fused_block_decode", path=path, **time_decode(kernels, 90, D))
     attn_errs = [c["max_abs_err"] for c in decode_checks
                  if c["kernel"] == "fused_block_decode_leaves"
                  and c["leaf_shapes"] == [list(s) for s in attn_shapes]]
@@ -5758,6 +5799,14 @@ def main() -> int:
             decode_error_mean=gpu["manifest"].get("decode_error_mean"),
             **compare_runs(gpu, cpu),
         )
+
+        # rows wider than one CTA holds through the trainer: 20,000 columns,
+        # which a cluster of two CTAs splits, one B1 launch a round
+        wide = counted_run(cli, kernels, os.path.join(tmp, "wide_cuda"), WIDE_COLS_ARGS,
+                           {**both0, "fused_glm_grad": SHORT_ROUNDS}, workers=6)
+        wide_cpu = run_main(cli, os.path.join(tmp, "wide_cpu"), "cpu", WIDE_COLS_ARGS, workers=6)
+        emit("wide_cols", args=WIDE_COLS_ARGS, launches=wide["launches"],
+             train_loss_first_last=check_falls(wide), **compare_runs(wide, wide_cpu))
 
         # one decode launch a round, whatever the leaf count
         deep = counted_run(cli, kernels, os.path.join(tmp, "deep"), DEEP_ARGS,
@@ -6004,8 +6053,6 @@ def main() -> int:
     attn_errs += [r["max_abs_err"] for r in ops if r["model"] == "attention"]
     for D in DEEP_LEAVES:
         emit("time", kernel="fused_block_decode", **time_decode(kernels, 90, D))
-    for D, path in ((STAGED_WIDE, "staged"), (COVTYPE_W_IN, "streamed")):
-        emit("time_wide", kernel="fused_block_decode", path=path, **time_decode(kernels, 90, D))
     per_round = time_round(kernels, deep_shapes)
     emit("time_round", kernel="fused_block_decode_leaves", **per_round)
     attn_round = time_round(kernels, leaf_shapes("attention"))
@@ -6043,10 +6090,21 @@ def main() -> int:
         "source": "erasurehead_tpu_torch/csrc/fused_glm_grad.cu",
         "replaces": "erasurehead_tpu/ops/kernels.py:68",
         "tpu_kernel": "erasurehead_tpu/ops/kernels.py:_kernel",
+        # the kernel's design (the source's header has the whole account)
+        "design": "one launch a call (a memset node zeroes its tickets first): a persistent "
+                  "grid, one or two CTAs an SM, each over one contiguous range of flat rows; "
+                  "one producer warp feeds a ring of shared-memory stages by TMA bulk copies "
+                  "(ragged head and tail loaded directly, y and w by cp.async); X crosses HBM "
+                  "once up to 131,072 columns (row path F <= 1024, column path F <= 16384, "
+                  "then a cluster of up to 8 CTAs splits each row by columns and adds their "
+                  "margins through distributed shared memory), and wider rows are read twice, "
+                  "four at a time; the last CTA of each group sums the partials in a "
+                  "fixed order, no float atomics",
         # the main path's 100, each schemes run's 100, the input_dir run's,
         # and the cohort harness's sequential runs (compare_deduped's seed-0
         # runs with batch "off", compare_faithful's singletons)
         "launches": launches["fused_glm_grad"]
+        + wide["launches"]["fused_glm_grad"]
         + sum(r["launches"]["fused_glm_grad"] for r in scheme_rows)
         + on_disk["launches"]["fused_glm_grad"]
         + deduped["sequential_launches"]["fused_glm_grad"]
@@ -6055,6 +6113,7 @@ def main() -> int:
         + sum(n["fused_glm_grad"] for n in ckpt["launches"].values())
         + sum(n["fused_glm_grad"] for n in sweep_launches.values()),
         "launches_by_path": {"main": launches["fused_glm_grad"],
+                             "wide_cols": wide["launches"]["fused_glm_grad"],
                              **{r["run"]: r["launches"]["fused_glm_grad"] for r in scheme_rows},
                              "legacy": [n["fused_glm_grad"] for n in legacy["launches"]],
                              "input_dir": on_disk["launches"]["fused_glm_grad"],

@@ -8,465 +8,304 @@
 //
 // with the residual s = -y / (exp(p*y) + 1) (logistic) or s = -2 (y - p)
 // (linear). X is [M, R, F] float32 or bfloat16 (upcast to float32 as it is
-// loaded); y [M, R], beta [F] and w [M] are float32; out is [F] float32.
+// read); y [M, R], beta [F] and w [M] are float32; out is [F] float32.
 // Every product and sum is plain float32 (no tensor cores, no fast-math,
 // expf rather than __expf), so the result matches the two-pass PyTorch
-// version to float32 rounding.
+// version to float32 rounding. Every slot is computed, including slots
+// whose weight is 0, as on the TPU.
 //
-// Bound: the work is about 4 flops per element of X, so the kernel is bound
-// by the bytes it must move: one read of X, plus y, beta and w, plus the [F]
-// output. At the flagship shape [90, 4400, 128] float32 that is
-// 202,752,000 B of X (1,584,000 B of y): about 61 us at the H100 SXM's
-// 3.35 TB/s. XLA's two-pass lowering read X twice.
+// Bound: about 4 flops per element of X, so the bytes bound it: one read of
+// X, plus y, beta and w, plus the [F] output. At the flagship shape
+// [90, 4400, 128] float32 that is 202,752,000 B of X (1,584,000 B of y):
+// about 61 us at the H100 SXM's 3.35 TB/s.
 //
 // Design. The TPU kernel ran its (slot, row block) grid in order on one core
-// and carried the [F] sum from step to step in its output block. Hopper
-// blocks run in parallel and in no order, so the sum is split in two
-// stages and nothing is carried between blocks:
+// and carried the [F] sum from step to step in its output block. Here one
+// launch does it all, at every width:
 //
-//   Stage 1 writes one [F] partial per (slot m, chunk of kRowsPerBlock
-//   rows) block. Each warp takes rows, reduces each row's margin with
-//   butterfly shuffles, forms s = w[m] * residual, and accumulates s * x in
-//   per-lane registers; at the end the block sums its warps' partials
-//   through shared memory in warp order. Rows past R are masked (no padding
-//   copy). Two forms, by width:
+//   - A persistent grid sized from the card (make_plan): two CTAs an SM
+//     where a thread's beta and accumulator fit 16 registers each
+//     (F <= 512, and 1024 < F <= 4096), one otherwise, never more CTAs
+//     than rows. A unit (a CTA, or on the cluster path a cluster) owns one
+//     contiguous range of the flat rows g = m * R + r (glm_grad_plan.h), so
+//     its share of X is one contiguous byte span whatever F is; a range may
+//     cross slot boundaries, and each row carries its own slot's w[m].
 //
-//   - glm_grad_partials (F <= kRegCols): every lane owns the same columns
-//     for the whole launch, so beta lives in registers. A warp loads UNROLL
-//     rows at a time with coalesced vector loads (16 B per lane for
-//     float32, 8 B for bfloat16) and keeps them in registers between the
-//     margin and the accumulate: X is read from device memory exactly once.
+//   - A ring of shared-memory stages fed by one producer warp: per stage,
+//     one TMA bulk copy (cp.async.bulk with an mbarrier) of the span's
+//     16-byte-aligned interior and direct loads of its ragged head and tail
+//     (so F = 17, F = 15509 or an offset base pointer need no scalar-only
+//     global path), plus each row's y and w by 4-byte cp.async copies that
+//     complete on the same mbarrier, so the producer never waits on a load.
+//     Three stages where two CTAs share an SM, four otherwise (three where
+//     a stage is wider than a quarter of the budget); the producer refills
+//     a stage as soon as 8 consumer warps release it, so the loads overlap
+//     the margin, the exp and the accumulate.
 //
-//   - glm_grad_partials_wide (F > kRegCols): a row no longer fits a lane's
-//     registers. Each block also owns one tile of kTileCols columns. With
-//     one tile (F <= kTileCols) a warp computes a row's margin over all F
-//     columns (beta read through L1), then re-reads the row, which it has
-//     just loaded, from L1/L2 for the accumulate: X crosses HBM once. With
-//     several tiles every tile needs the row's residual, so a pre-pass,
-//     glm_residuals, computes s once per row into scratch and each tile
-//     block reads only its columns: X crosses HBM twice, where recomputing
-//     the margin in every tile would read it once per tile.
+//   - X crosses HBM once up to 131,072 columns: consumers take a row's
+//     margin from shared memory and accumulate s * x from the same staged
+//     bytes.
+//       * Row path, F <= kRegCols: a warp takes a row at a time (UNROLL rows
+//         interleaved), each lane owning fixed columns with beta and its
+//         accumulator in registers; a reduce-scatter of shuffles gives each
+//         lane one row's margin. At the end the CTA sums its warps'
+//         accumulators in warp order.
+//       * Column path, kRegCols < F <= kMaxCols: a stage holds 1-8 whole
+//         rows and all 256 consumer threads split the columns, each with
+//         its beta and accumulator in registers; a row's margin is summed
+//         over the warps in warp order through shared memory.
+//       * Cluster path, kMaxCols < F <= kMaxCluster * kMaxCols: a cluster
+//         of ceil(F / kMaxCols) CTAs shares each row range; CTA k stages
+//         column tile k of the same rows (each tile at its global
+//         alignment) and runs the column path on it. Each CTA's part of a
+//         row's margin goes to its shared memory; after a cluster barrier
+//         every CTA adds the parts in rank order through distributed shared
+//         memory, so all form the same residual. The grid holds as many
+//         clusters as the card runs at once (cudaOccupancyMaxActiveClusters).
+//     Wider rows than a cluster holds take the re-read path: one CTA an
+//     SM reads a block of kRereadRows rows once for their margins and
+//     again for s * x, and adds them to its partial in global memory.
 //
-//   Stage 2, glm_grad_reduce: sums the per-block partials in a fixed order.
-//   There are no float atomics, so reruns are bitwise identical.
-//
-// Columns: with VEC = 4 (F % 4 == 0 and an aligned X) lane l owns columns
-// 4*(32k + l) .. 4*(32k + l) + 3 of its range; with VEC = 1 it owns columns
-// 32k + l.
-//
-// Every slot is computed, including slots whose weight is 0, as on the TPU.
+//   - A deterministic reduction in the same launch: every unit writes its
+//     [F] partial to scratch, fences, and each CTA takes a ticket of its
+//     group; the last CTA of the group to finish sums the group's partials
+//     in unit order. Small partials (units * F <= 65,536 floats, as at
+//     F = 128) form one group, so that CTA writes the gradient; wider ones
+//     form groups of about sqrt(units), whose last CTAs write group sums,
+//     fence and take a ticket of the groups, and the last group sums the
+//     group sums in group order. No float atomics: reruns, and CUDA-graph
+//     replays, are bitwise equal. The tickets are zeroed by a memset node
+//     before the kernel.
 
-#include <climits>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_glm_grad.cuh"
 
-namespace {
+namespace eh_glm {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerBlock = 256;  // rows of one slot per stage-1 block
-constexpr int kRegCols = 1024;      // widest F whose row stays in registers
-constexpr int kTileCols = 2048;     // columns per block on the wide path
-constexpr int kReduceCols = 32;     // stage 2: columns per block
-constexpr int kReduceLanes = 16;    // stage 2: partial rows per block
-
-template <typename T, int VEC>
-struct Loader;
-
-template <>
-struct Loader<float, 4> {
-  __device__ __forceinline__ static void load(const float* p, float (&v)[4]) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
-  }
-};
-
-template <>
-struct Loader<float, 1> {
-  __device__ __forceinline__ static void load(const float* p, float (&v)[1]) {
-    v[0] = __ldg(p);
-  }
-};
-
-template <>
-struct Loader<__nv_bfloat16, 4> {
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float (&v)[4]) {
-    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-    __nv_bfloat162 lo, hi;
-    lo = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
-    hi = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
-    const float2 a = __bfloat1622float2(lo);
-    const float2 b = __bfloat1622float2(hi);
-    v[0] = a.x;
-    v[1] = a.y;
-    v[2] = b.x;
-    v[3] = b.y;
-  }
-};
-
-template <>
-struct Loader<__nv_bfloat16, 1> {
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float (&v)[1]) {
-    const unsigned short bits =
-        __ldg(reinterpret_cast<const unsigned short*>(p));
-    v[0] = __bfloat162float(__ushort_as_bfloat16(bits));
-  }
-};
-
-__device__ __forceinline__ float residual(float p, float y, int logistic) {
-  return logistic ? -y / (expf(p * y) + 1.0f) : -2.0f * (y - p);
+KernelFn pick_f32(int F, int mode, bool vec4, int device) {
+  return pick<float>(F, mode, vec4, device);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+// ---------------------------------------------------------------------------
+// Host side
+
+int align_up(int v, int a) { return (v + a - 1) / a * a; }
+
+struct Plan {
+  int mode, Fp, row_bytes, n_units, cluster, n_ctas, group_size, n_groups;
+  long long n_rows, tickets_floats, total_floats;
+  Layout L;
+};
+
+int device_attr(cudaDeviceAttr attr, int device) {
+  // one card's attributes, read once (a race writes the same value)
+  static std::atomic<int> cache[2][64];
+  const int slot = attr == cudaDevAttrMultiProcessorCount ? 0 : 1;
+  if (device < 0 || device >= 64) return 0;
+  int v = cache[slot][device].load(std::memory_order_relaxed);
+  if (v == 0) {
+    if (cudaDeviceGetAttribute(&v, attr, device) != cudaSuccess) return 0;
+    cache[slot][device].store(v, std::memory_order_relaxed);
+  }
   return v;
 }
 
-// p = sum_f row[f] * beta[f] over the whole row, reduced over the warp
-template <typename T, int VEC>
-__device__ __forceinline__ float row_margin(const T* __restrict__ row,
-                                            const float* __restrict__ beta,
-                                            int F, int lane) {
-  float p = 0.0f;
-  for (int c = lane * VEC; c < F; c += 32 * VEC) {
-    float x[VEC];
-    Loader<T, VEC>::load(row + c, x);
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) p = fmaf(x[v], __ldg(beta + c + v), p);
+// A launch's configuration on the cluster path: clusters of `cluster` CTAs.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  ClusterLaunch(int n_ctas, int cluster, int smem_bytes, cudaStream_t stream) : cfg{}, attr{} {
+    cfg.gridDim = dim3(n_ctas);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem_bytes;
+    cfg.stream = stream;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
   }
-  return warp_sum(p);
-}
-
-// Sums the block's per-lane partials over its warps, in warp order, and
-// writes the block's partial for columns [0, ncols) of its range to `out`.
-// One 32*VEC-column chunk at a time through `red`, so shared memory stays
-// small whatever the width.
-template <int VEC, int CHUNKS>
-__device__ __forceinline__ void store_block_partial(
-    const float (&acc)[CHUNKS][VEC], float* __restrict__ out, int ncols,
-    float (&red)[kWarps][32 * VEC]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < CHUNKS; ++k) {
-    if (k * 32 * VEC < ncols) {  // uniform over the block
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) red[warp][lane * VEC + v] = acc[k][v];
-      __syncthreads();
-      const int c = k * 32 * VEC + threadIdx.x;
-      if (threadIdx.x < 32 * VEC && c < ncols) {
-        float total = 0.0f;
-#pragma unroll
-        for (int j = 0; j < kWarps; ++j) total += red[j][threadIdx.x];
-        out[c] = total;
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// blockIdx.x = m * n_chunks + chunk
-template <typename T, int VEC, int CHUNKS, int UNROLL>
-__global__ void __launch_bounds__(kThreads)
-    glm_grad_partials(const T* __restrict__ X, const float* __restrict__ y,
-                      const float* __restrict__ beta,
-                      const float* __restrict__ w,
-                      float* __restrict__ partials, int R, int F,
-                      int n_chunks, int logistic) {
-  __shared__ float red[kWarps][32 * VEC];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int block = blockIdx.x;
-  const int m = block / n_chunks;
-  const int row_begin = (block % n_chunks) * kRowsPerBlock;
-  const int row_end = min(R, row_begin + kRowsPerBlock);
-  const float wm = w[m];
-  const T* Xm = X + static_cast<size_t>(m) * R * F;
-  const float* ym = y + static_cast<size_t>(m) * R;
-
-  bool live[CHUNKS];
-  float b[CHUNKS][VEC];
-  float acc[CHUNKS][VEC];
-#pragma unroll
-  for (int k = 0; k < CHUNKS; ++k) {
-    const int c0 = (k * 32 + lane) * VEC;
-    live[k] = c0 < F;  // F % VEC == 0, so a live vector is whole
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      b[k][v] = live[k] ? beta[c0 + v] : 0.0f;
-      acc[k][v] = 0.0f;
-    }
-  }
-
-  for (int r0 = row_begin + warp * UNROLL; r0 < row_end;
-       r0 += kWarps * UNROLL) {
-    float x[UNROLL][CHUNKS][VEC];
-    float p[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int r = r0 + u;
-      const T* row = Xm + static_cast<size_t>(r) * F;
-#pragma unroll
-      for (int k = 0; k < CHUNKS; ++k) {
-        if (r < row_end && live[k]) {
-          Loader<T, VEC>::load(row + (k * 32 + lane) * VEC, x[u][k]);
-        } else {
-#pragma unroll
-          for (int v = 0; v < VEC; ++v) x[u][k][v] = 0.0f;
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      float acc_p = 0.0f;
-#pragma unroll
-      for (int k = 0; k < CHUNKS; ++k) {
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) acc_p = fmaf(x[u][k][v], b[k][v], acc_p);
-      }
-      p[u] = acc_p;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u)
-        p[u] += __shfl_xor_sync(0xffffffffu, p[u], off);
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int r = r0 + u;
-      // a masked row has x == 0 and s == 0: it contributes exactly 0
-      const float s = r < row_end ? residual(p[u], __ldg(ym + r), logistic) * wm
-                                  : 0.0f;
-#pragma unroll
-      for (int k = 0; k < CHUNKS; ++k) {
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[k][v] = fmaf(s, x[u][k][v], acc[k][v]);
-      }
-    }
-  }
-  store_block_partial<VEC, CHUNKS>(acc, partials + static_cast<size_t>(block) * F,
-                                   F, red);
-}
-
-// s_out[g] = w[m] * residual(p[g], y[g]) for the flat row g = m * R + r,
-// one warp per row and kWarps rows per block (a grid as fine as the rows,
-// so that a few wide slots still fill the card)
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-    glm_residuals(const T* __restrict__ X, const float* __restrict__ y,
-                  const float* __restrict__ beta, const float* __restrict__ w,
-                  float* __restrict__ s_out, long long n_rows, int R, int F,
-                  int logistic) {
-  const long long g = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (g >= n_rows) return;  // no block-wide sync in this kernel
-  const int lane = threadIdx.x & 31;
-  const float p = row_margin<T, VEC>(X + g * F, beta, F, lane);
-  if (lane == 0) s_out[g] = residual(p, __ldg(y + g), logistic) * w[g / R];
-}
-
-// blockIdx.x = (m * n_chunks + chunk) * n_tiles + tile. s_pre holds the
-// rows' residuals when n_tiles > 1 (glm_residuals), else is null.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-    glm_grad_partials_wide(const T* __restrict__ X,
-                           const float* __restrict__ y,
-                           const float* __restrict__ beta,
-                           const float* __restrict__ w,
-                           const float* __restrict__ s_pre,
-                           float* __restrict__ partials, int R, int F,
-                           int n_chunks, int n_tiles, int logistic) {
-  constexpr int CHUNKS = kTileCols / (32 * VEC);
-  __shared__ float red[kWarps][32 * VEC];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int block = blockIdx.x / n_tiles;
-  const int col0 = (blockIdx.x % n_tiles) * kTileCols;
-  const int ncols = min(kTileCols, F - col0);
-  const int m = block / n_chunks;
-  const int row_begin = (block % n_chunks) * kRowsPerBlock;
-  const int row_end = min(R, row_begin + kRowsPerBlock);
-  const float wm = w[m];
-  const T* Xm = X + static_cast<size_t>(m) * R * F;
-  const float* ym = y + static_cast<size_t>(m) * R;
-
-  float acc[CHUNKS][VEC];
-#pragma unroll
-  for (int k = 0; k < CHUNKS; ++k) {
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) acc[k][v] = 0.0f;
-  }
-
-  for (int r = row_begin + warp; r < row_end; r += kWarps) {
-    const T* row = Xm + static_cast<size_t>(r) * F;
-    // one tile: the margin here, then the accumulate re-reads the row this
-    // warp loaded a moment ago (L1/L2)
-    const float s =
-        s_pre != nullptr
-            ? __ldg(s_pre + static_cast<size_t>(m) * R + r)
-            : residual(row_margin<T, VEC>(row, beta, F, lane), __ldg(ym + r),
-                       logistic) * wm;
-    const T* tile = row + col0;
-#pragma unroll
-    for (int k = 0; k < CHUNKS; ++k) {
-      const int c = (k * 32 + lane) * VEC;
-      if (c < ncols) {
-        float x[VEC];
-        Loader<T, VEC>::load(tile + c, x);
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[k][v] = fmaf(s, x[v], acc[k][v]);
-      }
-    }
-  }
-  store_block_partial<VEC, CHUNKS>(
-      acc, partials + static_cast<size_t>(block) * F + col0, ncols, red);
-}
-
-// out[c] = sum over the n_partials rows of partials[:, c], in a fixed order:
-// lane row t sums rows t, t + kReduceLanes, ... in turn, then the block adds
-// the kReduceLanes row sums in order.
-__global__ void __launch_bounds__(kReduceCols * kReduceLanes)
-    glm_grad_reduce(const float* __restrict__ partials,
-                    float* __restrict__ out, int n_partials, int F) {
-  __shared__ float sums[kReduceLanes][kReduceCols + 1];
-  const int c = blockIdx.x * kReduceCols + threadIdx.x;
-  float total = 0.0f;
-  if (c < F) {
-    for (int b = threadIdx.y; b < n_partials; b += kReduceLanes)
-      total += partials[static_cast<size_t>(b) * F + c];
-  }
-  sums[threadIdx.y][threadIdx.x] = total;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < F) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kReduceLanes; ++j) acc += sums[j][threadIdx.x];
-    out[c] = acc;
-  }
-}
-
-template <int N>
-constexpr int unroll_for() {
-  // registers per lane for one row is VEC * CHUNKS; keep about 16 row
-  // values in flight per lane, between 1 and 4 rows at a time
-  return N >= 16 ? 1 : (16 / N > 4 ? 4 : 16 / N);
-}
-
-struct Shape {
-  int M, R, F, n_chunks, n_tiles, logistic;
+  ClusterLaunch(const ClusterLaunch&) = delete;
 };
 
-template <typename T, int VEC, int CHUNKS>
-void launch_partials(const T* X, const float* y, const float* beta,
-                     const float* w, float* partials, const Shape& s,
-                     cudaStream_t stream) {
-  constexpr int U = unroll_for<VEC * CHUNKS>();
-  glm_grad_partials<T, VEC, CHUNKS, U><<<s.M * s.n_chunks, kThreads, 0, stream>>>(
-      X, y, beta, w, partials, s.R, s.F, s.n_chunks, s.logistic);
-}
-
-// the register path with the smallest power-of-two CHUNKS that covers F,
-// else the wide path
-template <typename T, int VEC>
-void launch_stage1(const T* X, const float* y, const float* beta,
-                   const float* w, float* partials, const Shape& s,
-                   cudaStream_t stream) {
-  const int need = (s.F + 32 * VEC - 1) / (32 * VEC);
-#define EH_CASE(C)                                                    \
-  if (need <= C) {                                                    \
-    launch_partials<T, VEC, C>(X, y, beta, w, partials, s, stream);   \
-    return;                                                           \
+// Clusters of `cluster` CTAs that `device` holds at once: a cluster's CTAs
+// share one GPC, so the SM count alone overstates it. Asked once per card
+// and cluster size (every cluster layout holds one CTA an SM); 0 if the
+// runtime cannot say.
+int active_clusters(int cluster, int smem_bytes, int dtype, int device) {
+  static std::atomic<int> cache[64][kMaxCluster + 1];
+  if (device < 0 || device >= 64) return 0;
+  int v = cache[device][cluster].load(std::memory_order_relaxed);
+  if (v == 0) {
+    KernelFn fn = dtype == 0 ? pick_f32(0, kClusterPath, true, device)
+                             : pick_bf16(0, kClusterPath, true, device);
+    ClusterLaunch cl(cluster, cluster, smem_bytes, nullptr);
+    if (fn == nullptr || cudaOccupancyMaxActiveClusters(&v, fn, &cl.cfg) != cudaSuccess || v < 1) {
+      cudaGetLastError();  // clear it: the caller falls back to the SM count
+      return 0;
+    }
+    cache[device][cluster].store(v, std::memory_order_relaxed);
   }
-  EH_CASE(1)
-  EH_CASE(2)
-  EH_CASE(4)
-  EH_CASE(8)
-  if constexpr (VEC == 1) {
-    EH_CASE(16)
-    EH_CASE(32)
+  return v;
+}
+
+// The launch's grid, shared memory and scratch for this shape on `device`;
+// false if the kernel does not take it.
+bool make_plan(int M, int R, int F, int dtype, int device, Plan* out) {
+  if (M < 1 || R < 1 || F < 1 || (dtype != 0 && dtype != 1)) return false;
+  Plan pl{};
+  const int es = dtype == 0 ? 4 : 2;
+  if (F > (1 << 28)) return false;  // a row's bytes are an int
+  pl.Fp = align_up(F, 4);
+  pl.row_bytes = F * es;
+  pl.n_rows = static_cast<long long>(M) * R;
+  pl.cluster = 1;
+  if (F <= kRegCols) {
+    pl.mode = kRowPath;
+  } else if (F <= kMaxCols) {
+    pl.mode = kColPath;
+  } else if (eh_plan_tiles(F, kMaxCols) <= kMaxCluster) {
+    pl.mode = kClusterPath;
+    pl.cluster = eh_plan_tiles(F, kMaxCols);
+  } else {
+    pl.mode = kRereadPath;
   }
-#undef EH_CASE
-  float* s_pre = nullptr;
-  if (s.n_tiles > 1) {  // residuals after the partials in scratch
-    s_pre = partials + static_cast<size_t>(s.M) * s.n_chunks * s.F;
-    const long long n_rows = static_cast<long long>(s.M) * s.R;
-    glm_residuals<T, VEC>
-        <<<static_cast<int>((n_rows + kWarps - 1) / kWarps), kThreads, 0, stream>>>(
-            X, y, beta, w, s_pre, n_rows, s.R, s.F, s.logistic);
+  Layout& L = pl.L;
+  // F <= 512, or 1024 < F <= 4096: two CTAs an SM (ctas_per_sm), each
+  // with a three-stage ring; otherwise one, with four stages where they fit
+  const bool two = F <= 512 || (pl.mode == kColPath && F <= 4096);
+  if (pl.mode == kRowPath) {
+    L.stages = two ? 3 : kMaxStages;
+    L.stage_bytes = kStageBytes;
+    L.meta_rows = kRowStageRows;
+    L.stage_rows = (kStageBytes - 16) / pl.row_bytes;
+    if (L.stage_rows > kRowStageRows) L.stage_rows = kRowStageRows;
+  } else if (pl.mode != kRereadPath) {
+    L.meta_rows = kColStageRows;
+    if (pl.mode == kColPath) {  // whole rows, contiguous
+      L.stage_bytes = align_up(pl.row_bytes + 16, 128);
+      if (L.stage_bytes < kStageBytes) L.stage_bytes = kStageBytes;
+      L.stage_rows = (L.stage_bytes - 16) / pl.row_bytes;
+    } else {
+      // a row's tile every `stride` bytes, at its global alignment; as many
+      // as a quarter of the budget holds, since a stage costs a cluster
+      // barrier
+      L.stride = align_up(static_cast<int>(eh_plan_tile_begin(F, pl.cluster, 1)) * es + 15, 16);
+      L.stage_rows = kSmemBudget / kMaxStages / L.stride;
+      if (L.stage_rows < 1) L.stage_rows = 1;
+      L.stage_bytes = align_up(L.stage_rows * L.stride, 128);
+    }
+    if (L.stage_rows > kColStageRows) L.stage_rows = kColStageRows;
+    L.stages = kSmemBudget / L.stage_bytes;
+    if (L.stages > (two ? 3 : kMaxStages)) L.stages = two ? 3 : kMaxStages;
+    if (L.stages < 2 || L.stage_rows < 1) return false;
   }
-  glm_grad_partials_wide<T, VEC>
-      <<<s.M * s.n_chunks * s.n_tiles, kThreads, 0, stream>>>(
-          X, y, beta, w, s_pre, partials, s.R, s.F, s.n_chunks, s.n_tiles,
-          s.logistic);
+  L.y_off = 16 * kMaxStages;  // the barriers
+  L.w_off = L.y_off + 4 * L.stages * L.meta_rows;
+  L.red_off = L.w_off + 4 * L.stages * L.meta_rows;
+  L.xb_off = L.red_off + 4 * 2 * kConsumerWarps * kColStageRows;
+  L.sres_off = L.xb_off + 4 * 2 * kColStageRows;
+  L.flag_off = L.sres_off + 4 * kColStageRows;
+  L.data_off = align_up(L.flag_off + 16, 128);
+  // the stages' memory later holds the row path's warp accumulators and
+  // the reduction's lane sums
+  int data_bytes = L.stages * L.stage_bytes;
+  if (pl.mode == kRowPath && data_bytes < kConsumerWarps * kRegCols * 4) return false;
+  if (data_bytes < kThreads * 16) data_bytes = kThreads * 16;
+  L.smem_bytes = L.data_off + data_bytes;
+  if (L.smem_bytes > kSmemMax) return false;
+  const int sms = device_attr(cudaDevAttrMultiProcessorCount, device);
+  const int smem_sm = device_attr(cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+  if (sms < 1 || smem_sm < 1) return false;
+  int per_sm = smem_sm / (L.smem_bytes + 1024);  // 1 KB the runtime reserves per CTA
+  if (per_sm > 2048 / kThreads) per_sm = 2048 / kThreads;
+  if (per_sm < 1) return false;
+  long long max_units = static_cast<long long>(sms) * per_sm / pl.cluster;
+  if (pl.mode == kClusterPath) {
+    const int held = active_clusters(pl.cluster, L.smem_bytes, dtype, device);
+    if (held > 0 && held < max_units) max_units = held;
+  }
+  if (pl.mode == kRereadPath) max_units = sms;  // a partial of F floats each
+  if (max_units < 1) max_units = 1;
+  pl.n_units = static_cast<int>(eh_plan_grid(pl.n_rows, max_units));
+  pl.n_ctas = pl.n_units * pl.cluster;
+  pl.group_size = eh_plan_group_size(pl.n_units, pl.Fp);
+  pl.n_groups = eh_plan_groups(pl.n_units, pl.Fp);
+  pl.tickets_floats = align_up(pl.n_groups + 1, 4);
+  pl.total_floats =
+      pl.tickets_floats + static_cast<long long>(pl.n_units + pl.n_groups) * pl.Fp;
+  *out = pl;
+  return true;
 }
 
-template <typename T>
-void launch_typed(const void* X, const float* y, const float* beta,
-                  const float* w, float* partials, const Shape& s,
-                  cudaStream_t stream) {
-  const T* Xt = static_cast<const T*>(X);
-  // rows start on 4-element boundaries when F % 4 == 0 and X itself does
-  const bool vec4 = s.F % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(X) % (4 * sizeof(T)) == 0;
-  if (vec4)
-    launch_stage1<T, 4>(Xt, y, beta, w, partials, s, stream);
-  else
-    launch_stage1<T, 1>(Xt, y, beta, w, partials, s, stream);
-}
+}  // namespace eh_glm
 
-long long n_chunks_for(int R) { return (R + kRowsPerBlock - 1) / kRowsPerBlock; }
-
-long long n_tiles_for(int F) {
-  return F <= kRegCols ? 1 : (F + kTileCols - 1) / kTileCols;
-}
-
-}  // namespace
+using namespace eh_glm;
 
 extern "C" {
 
-// Floats of scratch that eh_fused_glm_grad needs: one [F] partial per
-// (slot, row chunk), then the [M, R] residuals when F takes several tiles.
-long long eh_fused_glm_grad_scratch_floats(int M, int R, int F) {
-  const long long partials = static_cast<long long>(M) * n_chunks_for(R) * F;
-  return partials + (n_tiles_for(F) > 1 ? static_cast<long long>(M) * R : 0);
+// Floats of scratch that eh_fused_glm_grad needs on `device`: the tickets,
+// one [Fp] partial per unit (a CTA, or a cluster of them) and one per
+// reduction group (Fp = F rounded up to 4). 0 if the kernel does not take
+// the shape.
+long long eh_fused_glm_grad_scratch_floats(int M, int R, int F, int dtype, int device) {
+  Plan pl;
+  return make_plan(M, R, F, dtype, device, &pl) ? pl.total_floats : 0;
 }
 
-// Launches both stages on `stream`. `scratch` holds
-// eh_fused_glm_grad_scratch_floats(M, R, F) floats. dtype: 0 = float32,
-// 1 = bfloat16. Returns cudaGetLastError() after the launches (0 = success).
-int eh_fused_glm_grad(const void* X, const void* y, const void* beta,
-                      const void* w, void* out, void* scratch, int M, int R,
-                      int F, int dtype, int logistic, void* stream_ptr) {
-  if (M < 1 || R < 1 || F < 1 || (dtype != 0 && dtype != 1))
+// Zeroes the tickets and launches the kernel on `stream` (of `device`, the
+// current device). `scratch` holds eh_fused_glm_grad_scratch_floats(...)
+// floats, 16-byte aligned. dtype: 0 = float32, 1 = bfloat16. Returns
+// cudaGetLastError() after the launch (0 = success).
+int eh_fused_glm_grad(const void* X, const void* y, const void* beta, const void* w, void* out,
+                      void* scratch, int M, int R, int F, int dtype, int logistic, int device,
+                      void* stream_ptr) {
+  Plan pl;
+  if (!make_plan(M, R, F, dtype, device, &pl) ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_chunks = n_chunks_for(R);
-  const long long n_tiles = n_tiles_for(F);
-  // grid.x and the block indices are int
-  if (M * n_chunks * n_tiles > INT_MAX ||
-      (n_tiles > 1 && (static_cast<long long>(M) * R + kWarps - 1) / kWarps > INT_MAX))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Shape s{M, R, F, static_cast<int>(n_chunks), static_cast<int>(n_tiles),
-                logistic};
+  const int es = dtype == 0 ? 4 : 2;
+  // rows (and tiles, 4-column multiples) start on 4-element boundaries
+  // when F % 4 == 0 and X itself does; a row keeps its global alignment in
+  // shared memory
+  const bool vec4 = F % 4 == 0 && reinterpret_cast<uintptr_t>(X) % (4 * es) == 0;
+  KernelFn fn =
+      dtype == 0 ? pick_f32(F, pl.mode, vec4, device) : pick_bf16(F, pl.mode, vec4, device);
+  if (fn == nullptr) {
+    const cudaError_t e = cudaGetLastError();
+    return static_cast<int>(e != cudaSuccess ? e : cudaErrorInvalidValue);
+  }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const float* yf = static_cast<const float*>(y);
-  const float* bf = static_cast<const float*>(beta);
-  const float* wf = static_cast<const float*>(w);
-  float* partials = static_cast<float*>(scratch);
-  if (dtype == 0)
-    launch_typed<float>(X, yf, bf, wf, partials, s, stream);
-  else
-    launch_typed<__nv_bfloat16>(X, yf, bf, wf, partials, s, stream);
-  const dim3 grid((F + kReduceCols - 1) / kReduceCols);
-  const dim3 block(kReduceCols, kReduceLanes);
-  glm_grad_reduce<<<grid, block, 0, stream>>>(
-      partials, static_cast<float*>(out), M * s.n_chunks, F);
+  float* base = static_cast<float*>(scratch);
+  Params p;
+  p.X = X;
+  p.y = static_cast<const float*>(y);
+  p.beta = static_cast<const float*>(beta);
+  p.w = static_cast<const float*>(w);
+  p.out = static_cast<float*>(out);
+  p.tickets = reinterpret_cast<unsigned*>(base);
+  p.partials = base + pl.tickets_floats;
+  p.gpartials = p.partials + static_cast<size_t>(pl.n_units) * pl.Fp;
+  p.n_rows = pl.n_rows;
+  p.R = R;
+  p.F = F;
+  p.Fp = pl.Fp;
+  p.row_bytes = pl.row_bytes;
+  p.n_units = pl.n_units;
+  p.cluster = pl.cluster;
+  p.group_size = pl.group_size;
+  p.n_groups = pl.n_groups;
+  p.logistic = logistic;
+  p.L = pl.L;
+  cudaError_t e = cudaMemsetAsync(p.tickets, 0, sizeof(unsigned) * (pl.n_groups + 1), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (pl.cluster == 1) {
+    fn<<<pl.n_ctas, kThreads, pl.L.smem_bytes, stream>>>(p);
+  } else {
+    ClusterLaunch cl(pl.n_ctas, pl.cluster, pl.L.smem_bytes, stream);
+    e = cudaLaunchKernelEx(&cl.cfg, fn, p);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels for Hopper, and their plain versions.
 
-B1, the decoded GLM gradient (``csrc/fused_glm_grad.cu``). The coded-GD step
+B1, the decoded GLM gradient (``csrc/fused_glm_grad.cu``, its bfloat16
+half ``csrc/fused_glm_grad_bf16.cu`` and their shared ``.cuh``). The coded-GD step
 is bandwidth-bound: the per-slot GLM gradient needs a margin matvec
 ``p = X @ beta`` and a transpose matvec ``g = X^T @ s(p, y)``, two reads of
 the feature stack X when written as two products. The kernel fuses
@@ -9,7 +10,10 @@ folds the per-slot decode weights in, so the *decoded* gradient
 
     g = sum_m w_m * sum_r s(p_{m,r}, y_{m,r}) * X[m, r, :]
 
-comes out of a single streaming read. s is the residual:
+comes out of a single streaming read, in one launch at every width (a
+persistent grid fed by TMA bulk copies, rows wider than a CTA holds split
+by columns over a thread-block cluster, the partials summed in a fixed
+order by the last CTA to finish; the source's header has the design). s is the residual:
   logistic: s = -y / (exp(p*y) + 1)
   linear:   s = -2 * (y - p)
 It is the port of the Pallas TPU kernel erasurehead_tpu/ops/kernels.py::_kernel
@@ -48,6 +52,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -78,8 +83,11 @@ BUILDS = 0
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _SOURCES = (
     _PKG_DIR / "csrc" / "fused_glm_grad.cu",
+    _PKG_DIR / "csrc" / "fused_glm_grad_bf16.cu",
     _PKG_DIR / "csrc" / "fused_block_decode.cu",
 )
+#: headers the sources include: part of the build's key, not compiled alone
+_HEADERS = (_PKG_DIR / "csrc" / "fused_glm_grad.cuh", _PKG_DIR / "csrc" / "glm_grad_plan.h")
 _BUILD_DIR = _PKG_DIR.parent / "build" / "erasurehead_tpu_torch"
 #: the loaded library; built and loaded once, under :data:`_LIB_LOCK`
 _LIB: "ctypes.CDLL | None" = None
@@ -178,7 +186,7 @@ def _nvcc() -> str:
 
 def _source_key() -> str:
     h = hashlib.sha256()
-    for src in _SOURCES:
+    for src in _SOURCES + _HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(_NVCC_FLAGS).encode())
@@ -268,11 +276,11 @@ def _library() -> ctypes.CDLL:
 
 def _load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    lib.eh_fused_glm_grad.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    lib.eh_fused_glm_grad.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p
     ]
     lib.eh_fused_glm_grad.restype = ctypes.c_int
-    lib.eh_fused_glm_grad_scratch_floats.argtypes = [ctypes.c_int] * 3
+    lib.eh_fused_glm_grad_scratch_floats.argtypes = [ctypes.c_int] * 5
     lib.eh_fused_glm_grad_scratch_floats.restype = ctypes.c_longlong
     lib.eh_fused_block_decode_leaves.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -327,6 +335,14 @@ def _check(beta, X, y, w, kind) -> None:
             )
 
 
+@functools.lru_cache(maxsize=256)
+def _glm_scratch_floats(M: int, R: int, F: int, dtype: int, dev: int) -> int:
+    """Floats of B1's scratch for this shape on card ``dev``: its tickets,
+    one partial per CTA of the grid and one per reduction group (the grid
+    follows the card's SM count). Kept per shape: a round loop asks once."""
+    return _library().eh_fused_glm_grad_scratch_floats(M, R, F, dtype, dev)
+
+
 def fused_glm_grad(
     beta: torch.Tensor,  # [F] float32
     X: torch.Tensor,  # [M, R, F] float32 or bfloat16, slot-major
@@ -348,17 +364,18 @@ def fused_glm_grad(
             raise ValueError(f"fused_glm_grad: {name} must be contiguous")
     lib = _library()
     M, R, F = X.shape
+    dtype = 0 if X.dtype == torch.float32 else 1
+    dev = X.device.index
+    n_scratch = _glm_scratch_floats(M, R, F, dtype, dev)
+    if n_scratch < 1:
+        raise RuntimeError(f"fused_glm_grad: no launch plan for {tuple(X.shape)} on {X.device}")
     out = torch.empty(F, dtype=torch.float32, device=X.device)
-    scratch = torch.empty(
-        lib.eh_fused_glm_grad_scratch_floats(M, R, F),
-        dtype=torch.float32, device=X.device,
-    )
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     rc = lib.eh_fused_glm_grad(
         X.data_ptr(), y.data_ptr(), beta.data_ptr(), w.data_ptr(),
         out.data_ptr(), scratch.data_ptr(),
-        M, R, F, 0 if X.dtype == torch.float32 else 1,
-        1 if kind == "logistic" else 0, stream,
+        M, R, F, dtype, 1 if kind == "logistic" else 0, dev, stream,
     )
     if rc != 0:
         msg = lib.eh_cuda_error_string(rc).decode()

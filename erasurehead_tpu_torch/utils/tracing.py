@@ -7,7 +7,7 @@ arrival matrix ``worker_timeset``, which the trainers keep as the simulated
 clock. On top, :func:`device_trace` captures a real trace of the host and
 the card (the CLI's ``--trace-dir``): a Chrome trace, ``*.pt.trace.json``,
 that opens in ui.perfetto.dev, with the kernels by their device symbols
-(``glm_grad_partials``, ``glm_grad_reduce``, ``block_decode_leaves``) and
+(``glm_grad_onepass``: B1, one launch a call; ``block_decode_leaves``) and
 the trainers' named regions (:func:`annotate`: ``eh_scan/coded_step``,
 ``eh_scan/update``, ``eh_step/partial_grads``, ``eh_step/decode``) as host
 spans.

@@ -106,8 +106,9 @@ def test_fused_grad_fn_flattens_leading_dims(lead):
 
 @pytest.mark.parametrize("kind", t_kernels.GLM_KINDS)
 def test_wrapper_takes_wide_stacks(kind):
-    """Any F: rows wider than the kernel's registers take its re-read path
-    on the card, so the wrapper refuses no width."""
+    """Rows wider than a lane's registers: on the card they take the
+    kernel's column path (a CTA's threads split the columns), and wider
+    rows its cluster or re-read path, so the wrapper refuses no width."""
     b, X, y, w = _case(2, 9, 2500)
     X /= np.float32(50.0)  # unit-scale margins, as for the narrow cases
     got, _ = _both(b, X, y, w, kind)
@@ -137,25 +138,54 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         t_kernels.fused_glm_grad(**args)
 
 
+@pytest.mark.parametrize("F", [16384, 20000, 131073])
+def test_wrapper_takes_rows_wider_than_a_cta(F):
+    """The widest column-path rows, rows a cluster of CTAs splits, and rows
+    past what a cluster holds (re-read): the wrapper takes every width,
+    and on the CPU its plain version agrees with the JAX package's oracle."""
+    b, X, y, w = _case(1, 2, F)
+    X /= np.float32(np.sqrt(F))  # unit-scale margins
+    got, _ = _both(b, X, y, w, "logistic")
+    want = j_kernels.reference_glm_grad(*map(jnp.asarray, (b, X, y, w)), "logistic")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
-    "shape",
+    "shape,offset,zero_every",
     [
-        (6, 40, 32), (3, 17, 128), (5, 300, 17), (90, 4400, 128),
-        (3, 300, 2048),  # wider than a lane's registers: one re-read tile
-        (2, 70, 5001),  # three tiles, F % 4 != 0: the scalar wide path
+        ((6, 40, 32), 0, 2), ((3, 17, 128), 0, 2), ((5, 300, 17), 0, 2),
+        ((90, 4400, 128), 0, 2),
+        ((3, 300, 2048), 0, 2),  # wider than a lane's registers: the column path
+        ((2, 70, 5001), 0, 2),  # the column path with F % 4 != 0
+        ((1, 3, 128), 0, 0), ((2, 1, 7), 0, 0),  # fewer flat rows than CTAs
+        ((2, 40, 15509), 0, 0),  # the covtype width at a small M
+        ((3, 5, 17), 1, 0),  # a contiguous X[1:]: odd F, base not 16-byte aligned
+        ((7, 1000, 96), 0, 0),  # CTA ranges across slot boundaries, weights all differ
+        ((300, 1, 64), 0, 2),  # R = 1: every row its own slot
+        ((2, 40, 20000), 0, 0),  # a cluster of two CTAs splits each row
+        ((3, 7, 20001), 1, 0),  # the cluster path, odd F, base not 16-byte aligned
+        ((3, 7, 131072), 1, 0),  # a cluster of eight CTAs
+        ((2, 3, 131073), 1, 0),  # past what a cluster holds: the re-read path
     ],
 )
-def test_cuda_kernel_matches_plain_version(shape, dtype):
+def test_cuda_kernel_matches_plain_version(shape, offset, zero_every, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    b, X, y, w = _case(*shape)
-    w[::2] = 0.0
+    M, R, F = shape
+    b, X, y, w = _case(M + offset, R, F)
+    X, y, w = X, y[offset:], w[offset:]
+    if zero_every:
+        w[::zero_every] = 0.0
+    # the offset slots are made on the card and cut off there: X[offset:]
+    # is contiguous and starts offset * R * F elements into its storage
+    X_card = torch.from_numpy(X).to(dtype).cuda()[offset:]
     args = (
-        torch.from_numpy(b).cuda(), torch.from_numpy(X).to(dtype).cuda(),
-        torch.from_numpy(y).cuda(), torch.from_numpy(w).cuda(),
+        torch.from_numpy(b).cuda(), X_card,
+        torch.from_numpy(np.ascontiguousarray(y)).cuda(),
+        torch.from_numpy(np.ascontiguousarray(w)).cuda(),
     )
     for kind in t_kernels.GLM_KINDS:
         before = t_kernels.LAUNCHES["fused_glm_grad"]

@@ -2,8 +2,7 @@
 ``--trace-dir`` trace on, a GLM run launches B1 once a round and a
 layer-coded deep run B2 once a round, exactly as with both off, and their
 histories are bitwise the untraced runs'; the trace holds the kernels by
-their device symbols (``glm_grad_partials``/``glm_grad_reduce``,
-``block_decode_leaves``) and the round loop's host spans; the ``compile``
+their device symbols (``glm_grad_onepass``, ``block_decode_leaves``) and the round loop's host spans; the ``compile``
 record is the kernel library's load; the determinism audit is bitwise on the
 card. Every test is marked ``cuda`` and skips without a card.
 
@@ -72,8 +71,9 @@ def test_traced_glm_run_launches_b1_as_untraced(tmp_path):
     start = next(r for r in recs if r["type"] == "run_start")
     assert start["platform"] == "cuda" and start["lowering"] == "fused"
     names = _kernel_names(trace)
-    assert 1 <= sum("glm_grad_partials" in n for n in names) <= ROUNDS
-    assert sum("glm_grad_reduce" in n for n in names) <= ROUNDS
+    # B1 is one kernel a call: one device event a launch
+    assert 1 <= sum("glm_grad_onepass" in n for n in names) <= ROUNDS
+    assert not any("glm_grad" in n and "glm_grad_onepass" not in n for n in names)
     spans = [e["name"] for e in trace if e.get("cat") == "user_annotation"]
     assert spans.count("eh_scan/coded_step") == spans.count("eh_scan/update") == ROUNDS
 

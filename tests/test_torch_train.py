@@ -100,6 +100,22 @@ def test_two_pass_and_fused_paths_agree(scheme):
         np.testing.assert_allclose(h, ref, rtol=2e-4, atol=1e-5, err_msg=str(key))
 
 
+@pytest.mark.parametrize("use", ["auto", "on"])
+def test_fused_path_takes_rows_wider_than_a_cta(use):
+    """A dense stack of 20,000 columns (rows a cluster of CTAs splits on the
+    card) takes the fused kernel under "auto" and "on", and decodes the
+    gradient the two-pass form does."""
+    cols = 20000
+    data = generate_gmm(ROWS, cols, n_partitions=W, seed=3)
+    hist = {}
+    for u in (use, "off"):
+        cfg = RunConfig(**{**_cfg_kw("naive", "faithful"), "n_cols": cols, "use_pallas": u})
+        res = t_trainer.train(cfg, data, device="cpu")
+        assert res.fused == (u != "off")
+        hist[u] = res.params_history.numpy()
+    np.testing.assert_allclose(hist[use], hist["off"], rtol=2e-4, atol=1e-5)
+
+
 def test_linear_bf16_and_gd_run_finite():
     from erasurehead_tpu_torch.data.synthetic import generate_linear
 
