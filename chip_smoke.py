@@ -91,6 +91,10 @@ Phases, one JSON line each:
                  fused_glm_grad launches each), its simulated clock and
                  decode error the same bytes; the first 10 rounds of the
                  cohort on the card and on the CPU within relative 1e-4;
+                 then ``transient``: the seven schemes, seed 0, 20 rounds,
+                 as one cohort, undisturbed and under
+                 ERASUREHEAD_CHAOS=raise:cohort:1:UNAVAILABLE (one
+                 ``cohort.retry``, no split, the rows bitwise);
   15. compare_faithful - the seven schemes, seed 0, faithful: dispatches and
                  fused_glm_grad launches as plan_cohorts predicts (groups of
                  two or more batch, singletons run 100 launches each);
@@ -102,7 +106,7 @@ Phases, one JSON line each:
                  exactly one decode launch a round for the whole cohort, each
                  member's replayed loss within relative 1e-4 of its
                  sequential card run and its control-plane arrays the same
-                 bytes, 10 rounds card vs CPU within 1e-4;
+                 bytes, 5 rounds card vs CPU within 1e-4;
   18. time_cohort, profile_cohort - the cohort decode at B = 4 and 28 against
                  B one-trajectory launches, one torch.bmm per leaf and its
                  bound; 28 fused_glm_grad launches at [30, 4400, 128]; device
@@ -156,9 +160,9 @@ Phases, one JSON line each:
                  kernel, its loss falling; ATTN_SHORT_ROUNDS (2) rounds
                  card vs CPU within relative 1e-4; treewise bitwise equal
                  on the card over the same rounds; a
-                 4-trajectory cohort (lr 10 and 5 x seeds 0 and 1) in one
-                 dispatch with 100 decode launches, each member within
-                 relative 1e-6 of its sequential card run;
+                 4-trajectory cohort (lr 10 and 5 x seeds 0 and 1), 30
+                 rounds, in one dispatch with 30 decode launches, each
+                 member within relative 1e-6 of its sequential card run;
   26. checkpoint - the main path saving every 25 rounds (artifacts bitwise
                  the uninterrupted run's); round_75's commit marker deleted
                  and round_50's state file cut in half, so --resume falls
@@ -248,7 +252,11 @@ Phases, one JSON line each:
                  compute) or -1, the measured compute's median and p90 in
                  microseconds; avoidstragg without delays, workers 0 and 1
                  doing 400x the work: excluded in more than half of 10
-                 rounds;
+                 rounds; then (``measured_device_list``) the queue replay
+                 over ["cuda:0", "cuda:0"] in this process, avoidstragg at
+                 W = 4 (workers 0 and 2 on device 0): both heavy, then
+                 worker 0 alone heavy, workers 0 and 2 excluded in more
+                 than half of 10 rounds each, 10 decode launches each;
   33. failures - workers 3, 7 and 11 killed at round 40 through the CLI:
                  --on-death failover --death-timeout 2.0 (100 launches at
                  [90, 4400, 128], rewritten rounds' clocks 2.0; naive too,
@@ -347,12 +355,19 @@ Phases, one JSON line each:
                  no loss, /metrics, ``cli top``); the kill drill (``cli
                  serve`` exits 43 under kill:serve_dispatch:1, its restart
                  replays the WAL bitwise with no new kernel build); every
-                 log valid, ``cli report``'s serve section.
+                 log valid, ``cli report``'s serve section. While the
+                 drill's daemon builds, ``serve_ranks``: ``torchrun
+                 --standalone --nproc-per-node 2`` of this script
+                 (``--serve-child``), the daemon on two gloo ranks of the
+                 one card, three wire requests (two packed, one
+                 use_pallas="on"), 20 rounds: both ranks exit 0, every row
+                 as a one-process daemon's (clocks equal, losses within
+                 rtol 2e-5), 20 B1 on each rank.
   40. fleet    - (after serve) the serve fleet (serve/router.py,
                  serve/fleet.py): ``cli serve --device cuda`` replicas behind
                  the router sharing this process's kernel build directory
                  (its files unchanged: no replica builds); one replica's
-                 rows bitwise an in-process daemon's (30 B1 at
+                 rows bitwise an in-process daemon's (20 B1 at
                  [90, 4400, 128], 20 B2 there); three replicas and
                  kill:fleet_replica:2 on the one the ring routes a tenant
                  to (declared dead at a streak >= 3, its WAL adopted by its
@@ -543,6 +558,9 @@ LAYER_ROUNDS = 20  # the moe and glm_layer runs
 # M = 90 slots; per-slot leaf sizes of deepmlp at F = 128 in sorted-key order
 # (W, W_in, b, b_in, b_out, w_out), and its W_in at the covtype preset's width
 DEEP_LEAVES = (4096, 4096, 128, 32, 1, 32)
+# the one-leaf decode timed at the widest and the narrowest of them (a deep
+# round's six leaves are timed together by ``time_round``)
+TIMED_LEAVES = (4096, 1)
 COVTYPE_W_IN = 15509 * 32
 # a [90, D] float32 leaf with 1 MiB rows: staged, where COVTYPE_W_IN's rows
 # (1.9 MiB) stream (the kernel's kStreamMinRowBytes is 1.5 MiB)
@@ -622,6 +640,7 @@ ATTN_ARGS = MAIN_ARGS + ["--model", "attention", "--layer-coding", "on", "--bloc
                          "fused"]
 # its cohort: two lrs x two seeds
 ATTN_COHORT = [(lr, seed) for lr in (10.0, 5.0) for seed in (0, 1)]
+ATTN_COHORT_ROUNDS = 30
 # its card-vs-CPU and treewise comparisons: the CPU runs about 0.3 rounds
 # a second at this size (10 rounds until PR 17, which paid so for the mesh
 # phase's model axes)
@@ -642,8 +661,14 @@ FP32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 ARTIFACTS = ("training_loss", "testing_loss", "auc", "timeset", "worker_timeset")
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, stamped with the seconds since the script started
+    (``at_s``: where the run's time went)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": round(time.perf_counter() - _T0, 1)}), flush=True)
 
 
 def card_line() -> str:
@@ -1048,7 +1073,7 @@ def time_round(kernels, shapes) -> dict:
     flat = [leaf.reshape(M, -1) for leaf in leaves]  # views, no copy
     dev, call = time_turns(dict(
         kernel=(lambda: kernels.fused_block_decode_leaves(ws, leaves), 200),
-        plain=(lambda: kernels.reference_block_decode_leaves(ws, leaves), 10),
+        plain=(lambda: kernels.reference_block_decode_leaves(ws, leaves), 5),
         library=(lambda: [g.t() @ wf for g in flat], 200),
     ))
     bound, by = decode_bound_ms(M, sum(g.shape[1] for g in flat))
@@ -1486,6 +1511,43 @@ def compare_deduped_phase(kernels, experiments, ds, both0) -> dict:
     return rec
 
 
+TRANSIENT_ROUNDS = 20
+TRANSIENT_CHAOS = "raise:cohort:1:UNAVAILABLE"
+
+
+def transient_phase(kernels, experiments, ds, both0) -> dict:
+    """The guard's transient retry on the card: the seven deduped schemes
+    (seed 0, TRANSIENT_ROUNDS rounds) as one cohort, undisturbed, then under
+    ERASUREHEAD_CHAOS=TRANSIENT_CHAOS: the failed dispatch is retried once
+    (one ``cohort.retry``, no ``cohort.split``) and the rows are bitwise the
+    undisturbed compare's."""
+    from erasurehead_tpu_torch.utils import chaos
+
+    t0 = time.perf_counter()
+    configs = cohort_configs("deduped", (0,), TRANSIENT_ROUNDS)
+    clean = counted_compare(kernels, experiments, configs, ds, both0, batch="on")
+    os.environ[chaos.CHAOS_ENV] = TRANSIENT_CHAOS
+    chaos.reset()
+    try:
+        hit = counted_compare(kernels, experiments, configs, ds, both0, batch="on")
+    finally:
+        del os.environ[chaos.CHAOS_ENV]
+        chaos.reset()
+    c = hit["counters"]
+    rec = dict(chaos=TRANSIENT_CHAOS, trajectories=len(hit["rows"]), counters=c,
+               clean_counters=clean["counters"], launches=hit["launches"],
+               rows_bitwise=rows_bitwise(hit["rows"], clean["rows"]),
+               compare_seconds=hit["seconds"], clean_compare_seconds=clean["seconds"],
+               seconds=time.perf_counter() - t0)
+    emit("transient", **rec)
+    if (c["cohort.retry"] != 1 or c["cohort.split"] != 0 or c["cohort.sequential_fallback"]
+            or len(hit["rows"]) != len(configs)):
+        raise AssertionError(f"the transient drill counted {c}")
+    if not rec["rows_bitwise"]:
+        raise AssertionError("the retried compare's rows differ from the undisturbed rows")
+    return rec
+
+
 def compare_faithful_phase(kernels, experiments, ds, both0) -> dict:
     """The seven schemes, seed 0, faithful: groups of two or more batch,
     singletons run sequentially through fused_glm_grad."""
@@ -1540,10 +1602,14 @@ def replayed_loss(res, ds) -> np.ndarray:
                            ds.X_test, ds.y_test).training_loss
 
 
+COHORT_DEEP_CPU_ROUNDS = 5
+
+
 def cohort_deep_phase(cli, kernels, ds, both0) -> dict:
     """DEEP_ARGS' run at four (lr, seed) variants as one train_cohort on the
     faithful stack: one decode launch a round for the whole cohort, each
-    member held to its sequential card run, 10 rounds card vs CPU."""
+    member held to its sequential card run, COHORT_DEEP_CPU_ROUNDS rounds
+    card vs CPU."""
     from erasurehead_tpu_torch.train import trainer
 
     t0 = time.perf_counter()
@@ -1560,7 +1626,7 @@ def cohort_deep_phase(cli, kernels, ds, both0) -> dict:
     same_control = [all(np.asarray(getattr(a, f)).tobytes() == np.asarray(getattr(b, f)).tobytes()
                         for f in ("timeset", "worker_times", "collected", "decode_error"))
                     for a, b in zip(res, seq)]
-    short = [dataclasses.replace(c, rounds=SHORT_ROUNDS) for c in cfgs]
+    short = [dataclasses.replace(c, rounds=COHORT_DEEP_CPU_ROUNDS) for c in cfgs]
     gpu10 = trainer.train_cohort(short, ds)
     cpu10 = trainer.train_cohort(short, ds, device="cpu")
     vs_cpu = max(max_rel(replayed_loss(g, ds), replayed_loss(c, ds)) for g, c in zip(gpu10, cpu10))
@@ -1569,8 +1635,8 @@ def cohort_deep_phase(cli, kernels, ds, both0) -> dict:
         launches=launches, cohort=res[0].cohort,
         cohort_steps_per_sec=res[0].steps_per_sec,
         sequential_steps_per_sec=[s.steps_per_sec for s in seq],
-        max_rel_loss_vs_sequential=vs_seq, max_rel_loss_vs_cpu_10_rounds=vs_cpu,
-        control_plane_equal_sequential=same_control,
+        max_rel_loss_vs_sequential=vs_seq, cpu_rounds=COHORT_DEEP_CPU_ROUNDS,
+        max_rel_loss_vs_cpu=vs_cpu, control_plane_equal_sequential=same_control,
         train_loss_first_last=[[float(l[0]), float(l[-1])] for l in losses],
         phase_seconds=time.perf_counter() - t0,
     )
@@ -1910,9 +1976,9 @@ def attention_phase(cli, kernels, tmp, both0) -> dict:
     ATTN_SHORT_ROUNDS rounds on the card and on the CPU within relative
     1e-4; the same rounds with --block-decode treewise bitwise equal on the
     card; then a
-    4-trajectory cohort (ATTN_COHORT) in one dispatch and 100 decode
-    launches, each member's replayed loss within relative 1e-6 of its
-    sequential card run."""
+    4-trajectory cohort (ATTN_COHORT, ATTN_COHORT_ROUNDS rounds) in one
+    dispatch and ATTN_COHORT_ROUNDS decode launches, each member's replayed
+    loss within relative 1e-6 of its sequential card run."""
     from erasurehead_tpu_torch.train import trainer
 
     run = counted_run(cli, kernels, os.path.join(tmp, "attention"), ATTN_ARGS,
@@ -1935,7 +2001,7 @@ def attention_phase(cli, kernels, tmp, both0) -> dict:
                treewise_artifacts_bitwise_equal_fused=same)
 
     t0 = time.perf_counter()
-    base = parse_config(cli, ATTN_ARGS)
+    base = parse_config(cli, with_rounds(ATTN_ARGS, ATTN_COHORT_ROUNDS))
     ds = cli.load_dataset(base)
     cfgs = [dataclasses.replace(base, lr_schedule=lr, seed=seed) for lr, seed in ATTN_COHORT]
     if not all(trainer.cohort_eligible(c) for c in cfgs):
@@ -1959,7 +2025,7 @@ def attention_phase(cli, kernels, tmp, both0) -> dict:
     )
     emit("attention", **rec)
     rec["run"] = run
-    if cohort_launches != {**both0, "fused_block_decode": ROUNDS}:
+    if cohort_launches != {**both0, "fused_block_decode": ATTN_COHORT_ROUNDS}:
         raise AssertionError(f"the attention cohort launched {cohort_launches}")
     if res[0].cohort["cohort_dispatches"] != 1 or res[0].lowering != "layer_block_vmap":
         raise AssertionError(f"the attention cohort's dispatch: {res[0].cohort}")
@@ -2618,6 +2684,11 @@ DYN_SPLIT = 4  # the split restart: 4 + 6 rounds against the unsplit 10
 CYC_ARGS = ["--scheme", "cyccoded"] + SCHEME_BASE  # W = 30, s = 2: C(30, 2) table rows
 PINV_ARGS = ["--scheme", "randreg", "--num-collect", "15"] + SCHEME_BASE  # C(30, 15): no table
 MEASURED_ROUNDS, SLOW_ROUNDS, SLOW_MULT = 20, 10, 400
+# the measured queue replay over a device list in one process: two devices
+# (both cuda:0), W = 4 so each device holds two workers (w % 2) as in the
+# JAX package's multi-device tests; avoidstragg drops the s = 2 slowest
+LIST_DEVICES = ["cuda:0", "cuda:0"]
+LIST_ARGS = ["--scheme", "avoidstragg", "--workers", "4"] + SCHEME_BASE[2:]
 MEASURED_ARGS = with_rounds(MAIN_ARGS, MEASURED_ROUNDS) + ["--arrival-mode", "measured"]
 KILLS = {3: 40, 7: 40, 11: 40}
 KILL_ARGS = ["--kill-workers", ",".join(f"{w}:{r}" for w, r in KILLS.items())]
@@ -2813,7 +2884,14 @@ def measured_phase(cli, kernels, tmp, both0) -> dict:
     seconds (the injected delay plus a positive measured compute) where a
     worker was collected and -1 where not; a worker's measured compute
     (median, p90 in microseconds). Then avoidstragg without delays, workers
-    0 and 1 doing 400x the work: excluded in more than half the rounds."""
+    0 and 1 doing 400x the work: excluded in more than half the rounds.
+    Then the queue replay over LIST_DEVICES in one process (W = 4, no
+    delays, SLOW_ROUNDS rounds, each exactly SLOW_ROUNDS B2 launches on
+    device 0): workers 0 and 2, device 0's queue, both heavy, are excluded
+    and the light workers collected in more than half the rounds (JAX's
+    multi-device imbalance test); with worker 0 alone heavy, the light
+    worker 2 queued behind it is excluded with it in more than half the
+    rounds (JAX's queue-contention test)."""
     from erasurehead_tpu_torch.parallel import straggler
     from erasurehead_tpu_torch.train import trainer
 
@@ -2864,7 +2942,42 @@ def measured_phase(cli, kernels, tmp, both0) -> dict:
     if not excluded.sum() > SLOW_ROUNDS // 2:
         raise AssertionError(f"slow workers excluded in {int(excluded.sum())} of {SLOW_ROUNDS}")
     rec["launches_by_run"] = {"measured_main": launches, "measured_slow": slow_launches}
+    rec["device_list"] = device_list_runs(cli, kernels, both0)
+    for name, run in rec["device_list"].items():
+        rec["launches_by_run"][f"measured_list_{name}"] = run["launches"]
     return rec
+
+
+def device_list_runs(cli, kernels, both0) -> dict:
+    """The measured queue replay over LIST_DEVICES (measured_phase's last
+    part): the heavy-device run and the queue-contention run."""
+    from erasurehead_tpu_torch.train import trainer
+
+    cfg = dataclasses.replace(parse_config(cli, with_rounds(LIST_ARGS, SLOW_ROUNDS)),
+                              add_delay=False, arrival_mode="measured")
+    ds = cli.load_dataset(cfg)
+    out = {}
+    for name, heavy, excluded_pair in (("heavy_device", [0, 2], [0, 2]),
+                                       ("queue", [0], [0, 2])):
+        mult = np.ones(cfg.n_workers, dtype=np.int64)
+        mult[heavy] = SLOW_MULT
+        kernels.reset_launches()
+        res = trainer.train_measured(cfg, ds, device=LIST_DEVICES, work_multiplier=mult)
+        launches = dict(kernels.LAUNCHES)
+        excluded = (res.worker_times[:, excluded_pair] == -1.0).all(axis=1)
+        light = [w for w in range(cfg.n_workers) if w not in excluded_pair]
+        out[name] = dict(heavy=heavy, launches=launches, excluded_rounds=int(excluded.sum()),
+                         light_collected_when_excluded=bool(res.collected[excluded][:, light].all()),
+                         worker_times_s=res.worker_times.tolist(),
+                         steps_per_sec=res.steps_per_sec)
+        if launches != {**both0, "fused_block_decode": SLOW_ROUNDS}:
+            raise AssertionError(f"the device-list {name} run launched {launches}")
+        if not (excluded.sum() > SLOW_ROUNDS // 2 and out[name]["light_collected_when_excluded"]):
+            raise AssertionError(f"device-list {name} run: workers {excluded_pair} excluded in "
+                                 f"{int(excluded.sum())} of {SLOW_ROUNDS} rounds: "
+                                 f"{res.worker_times.tolist()}")
+    emit("measured_device_list", devices=LIST_DEVICES, args=LIST_ARGS, **out)
+    return out
 
 
 def failures_phase(cli, kernels, tmp, both0, main_gpu) -> dict:
@@ -3968,7 +4081,10 @@ def serve_phase(cli, kernels, tmp, both0, ds) -> dict:
       6. the kill drill: ``cli serve --device cuda --cache-dir C`` in a
          subprocess (started after the timed steps 1-2 and waited for
          before the timed step 5: its boot and its nvcc build into C
-         overlap only the untimed steps 3-4) under
+         overlap only the untimed steps 3-4 and the serve daemon across
+         ranks (:func:`serve_ranks_phase`, which times nothing; its record
+         is this one's ``serve_ranks``), so ``cold_boot_s`` is a boot under
+         that contention) under
          ERASUREHEAD_CHAOS=kill:serve_dispatch:1 takes
          3 requests and exits 43; restarted on the same journal and C it
          replays its WAL (the restart record splits it), the resubmissions'
@@ -4175,7 +4291,14 @@ def serve_phase(cli, kernels, tmp, both0, ds) -> dict:
                     for name in est},
          launches=adm_launches)
 
-    # the drill daemon listens before the timed step 5 starts
+    # the drill daemon listens before the timed step 5 starts; the serve
+    # daemon across ranks runs while it builds
+    try:
+        ranks_rec = serve_ranks_phase(cli, kernels, tmp, both0)
+    except BaseException:
+        killed.kill()
+        killed.wait()
+        raise
     t0 = time.perf_counter()
     cold_boot_s = killed_listening()
     drill_wait_s = time.perf_counter() - t0
@@ -4313,21 +4436,165 @@ def serve_phase(cli, kernels, tmp, both0, ds) -> dict:
                          "serve_b1_direct": direct_launches, "serve_deep": deep_launches,
                          "serve_deep_alone": deep_alone_launches,
                          "serve_admission": adm_launches, "serve_load": load_launches},
+        serve_ranks=ranks_rec,
     )
 
 
+# the daemon across ranks: two gloo ranks of this script on the one card
+# under torchrun, wire requests on rank 0's socket
+SERVE_RANKS_ROUNDS, SERVE_RANKS_COHORT, SERVE_RANKS_WINDOW_S = 20, 4, 0.5
+SERVE_RANKS_WIRE = (  # (label, RunConfig fields over MAIN_ARGS's): two pack, one alone
+    ("approx_s0", dict(compute_mode="deduped")),
+    ("approx_s1", dict(compute_mode="deduped", seed=1)),
+    ("fused", dict(use_pallas="on", seed=2)),  # faithful, forced B1: sequential train()
+)
+SERVE_RANKS_TIMEOUT_S = 600
+#: the one-process daemon's rows against a local compare() (tests/test_torch_serve.py)
+SERVE_RANKS_TOL = dict(rtol=2e-5, atol=1e-6)
+
+
+def serve_ranks_wire(cli) -> list:
+    """``(label, wire payload)`` of SERVE_RANKS_WIRE."""
+    from erasurehead_tpu_torch.serve import queue as serve_queue
+
+    base = parse_config(cli, with_rounds(MAIN_ARGS, SERVE_RANKS_ROUNDS))
+    out = []
+    for label, kw in SERVE_RANKS_WIRE:
+        payload = serve_queue.config_payload(dataclasses.replace(base, **kw))
+        if payload is None:
+            raise AssertionError(f"{label}: the wire cannot carry {kw}")
+        out.append((label, payload))
+    return out
+
+
+def serve_child(out_dir: str) -> int:
+    """One rank of the serve daemon across ranks (``torchrun --standalone
+    --nproc-per-node 2 chip_smoke.py --serve-child DIR``): gloo on the card,
+    both ranks on cuda:0. Rank 0 serves SERVE_RANKS_WIRE through its socket
+    front to a client in its own process, then stops the daemon, which
+    releases rank 1; rank 1 follows rank 0's dispatches. Each rank's
+    launches (rank 0's rows too) into ``DIR/rank<r>.json``; both leave the
+    group cleanly (parallel/backend.joined)."""
+    import torch.distributed as dist
+
+    cli, kernels = import_port()
+    from erasurehead_tpu_torch.parallel import backend
+    from erasurehead_tpu_torch.serve import server
+    from erasurehead_tpu_torch.serve.client import ServeClient
+
+    with backend.joined(device="cuda", backend="gloo", local_rank=0):
+        rank = dist.get_rank()
+        kernels.load_library()  # built by the parent in this checkout: no nvcc here
+        kernels.reset_launches()
+        rec = {"rank": rank, "world": dist.get_world_size()}
+        t0 = time.perf_counter()
+        if rank == 0:
+            srv = server.SweepServer(device="cuda", max_cohort=SERVE_RANKS_COHORT,
+                                     window_s=SERVE_RANKS_WINDOW_S)
+            srv.start()
+            sock = os.path.join(out_dir, "serve.sock")
+            try:
+                front = server.SocketFront(srv, sock)
+                try:
+                    client = ServeClient(sock)
+                    for label, payload in serve_ranks_wire(cli):
+                        client.submit("t", label, payload, timeout=120)
+                    rows = [client.result(timeout=SERVE_RANKS_TIMEOUT_S)
+                            for _ in SERVE_RANKS_WIRE]
+                    client.close()
+                finally:
+                    front.close()
+            finally:
+                srv.stop()
+            rec["rows"] = {r["label"]: r for r in rows}
+        else:
+            rec["followed"] = server.SweepServer(device="cuda").follow()
+        rec["seconds"] = time.perf_counter() - t0
+        rec["launches"] = dict(kernels.LAUNCHES)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    return 0
+
+
+def serve_ranks_phase(cli, kernels, tmp, both0) -> dict:
+    """The serve daemon across two ranks on the card: ``torchrun
+    --standalone --nproc-per-node 2`` of :func:`serve_child`, which must
+    exit 0 (both ranks did); every wire row ok and equal to the row of a
+    one-process daemon on the card served the same requests at the same
+    width (statuses, clocks and decode error exactly, losses within
+    SERVE_RANKS_TOL); B1 launched on both ranks, SERVE_RANKS_ROUNDS times
+    each (the forced-kernel request's rounds on the rank's [45, 4400, 128]
+    slice), and rank 1 followed both dispatches."""
+    from erasurehead_tpu_torch.serve import queue as serve_queue
+    from erasurehead_tpu_torch.serve import server
+    from erasurehead_tpu_torch.train import journal as journal_lib
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(tmp, "serve_ranks")
+    os.makedirs(out_dir)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "2", os.path.abspath(__file__), "--serve-child", out_dir]
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                          timeout=SERVE_RANKS_TIMEOUT_S)
+    children_s = time.perf_counter() - t_phase
+    if proc.returncode != 0:
+        raise AssertionError(f"serve ranks exited {proc.returncode}: "
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(2)]
+    wire = serve_ranks_wire(cli)
+    kernels.reset_launches()
+    with server.serving(device="cuda", max_cohort=SERVE_RANKS_COHORT,
+                        window_s=SERVE_RANKS_WINDOW_S) as srv:
+        handles = {label: srv.submit(tenant="t", label=label,
+                                     config=serve_queue.config_from_payload(payload))
+                   for label, payload in wire}
+        one = {label: h.result(timeout=900) for label, h in handles.items()}
+    one_launches = dict(kernels.LAUNCHES)
+    rows, worst = {}, 0.0
+    for label, payload in wire:
+        got, want = ranks[0]["rows"][label], one[label]
+        if got["status"] != "ok" or want.status != "ok":
+            raise AssertionError(f"serve ranks {label}: {got['status']} {got.get('error')}, "
+                                 f"one process {want.status} {want.error}")
+        g = journal_lib.rehydrate_summary(got["row"], want.summary.config)
+        w = want.summary
+        same = (g.sim_total_time == w.sim_total_time and g.timeset.tobytes() == w.timeset.tobytes()
+                and g.decode_error_mean == w.decode_error_mean)
+        rel = max_rel(g.training_loss, w.training_loss)
+        worst = max(worst, rel)
+        rows[label] = dict(control_plane_equal=same, max_rel_loss=rel,
+                           within_tol=bool(np.allclose(g.training_loss, w.training_loss,
+                                                       **SERVE_RANKS_TOL)),
+                           final_train_loss=[g.final_train_loss, w.final_train_loss])
+    b1 = [r["launches"].get("fused_glm_grad", 0) for r in ranks]
+    rec = dict(requests=[label for label, _ in wire], rows=rows, max_rel_loss=worst,
+               launches_by_rank=[r["launches"] for r in ranks], one_process_launches=one_launches,
+               followed=ranks[1]["followed"], rank_seconds=[r["seconds"] for r in ranks],
+               children_s=children_s, seconds=time.perf_counter() - t_phase)
+    emit("serve_ranks", **rec)
+    bad = {label: r for label, r in rows.items()
+           if not (r["control_plane_equal"] and r["within_tol"])}
+    if bad:
+        raise AssertionError(f"serve rows across ranks differ from one process: {bad}")
+    if b1 != [SERVE_RANKS_ROUNDS, SERVE_RANKS_ROUNDS] or ranks[1]["followed"] != 2:
+        raise AssertionError(f"serve ranks launched B1 {b1}, rank 1 followed "
+                             f"{ranks[1]['followed']} dispatches")
+    rec["launches_by_run"] = {f"serve_ranks_rank{r}": ranks[r]["launches"] for r in range(2)}
+    return rec
+
+
 # the fleet phase: serve replicas on the card behind the router
-FLEET_ROUNDS, FLEET_K, FLEET_MAX_COHORT = 30, 3, 8
+FLEET_ROUNDS, FLEET_K, FLEET_MAX_COHORT = 20, 3, 8
 FLEET_GLM = (("fa", (0, 1, 2)), ("fb", (3, 4)))  # tenant -> seeds of the packed GLM set
 # the deploy's load: closed-loop batches of the same 4 tenants x
-# FLEET_LOAD_JOBS, until it holds twice the rows the survivors finished in
-# the deploy's window
+# FLEET_LOAD_JOBS, until a batch ends after the deploy is done (the last
+# batch's requests reach the bounced replicas)
 FLEET_LOAD_TENANTS, FLEET_LOAD_JOBS, FLEET_LOAD_DEPTH = ("la", "lb", "lc", "ld"), 4, 2
 FLEET_LOAD_MAX_BATCHES = 200
 # the goodput window: this many fleet_specs sets back to back (seeds moved
 # by 100 + 10 k, below the survivors' warm-up set's 300: no row is served
-# from a journal), several seconds at either fleet size
-FLEET_GOODPUT_SETS = 8
+# from a journal), a few seconds at either fleet size
+FLEET_GOODPUT_SETS = 2
 # the deep path as the wire carries it: ``block_decode`` is not a wire field
 # (the JAX protocol's), so the request leaves it at auto; on the card the
 # decode is B2 either way (``deep``'s treewise run launches it too)
@@ -4515,8 +4782,8 @@ def fleet_phase(cli, kernels, tmp, both0, ds) -> dict:
       3. rolling deploy under load on the two survivors: batches of the
          same four closed-loop tenants (4 requests each, 2 in flight,
          FLEET_ROUNDS rounds) through the router while rolling_deploy()
-         bounces both, until the load holds twice the rows finished by the
-         end of the deploy: no loss, no duplicate, every row ok; the
+         bounces both, until a batch ends after the deploy is done: no
+         loss, no duplicate, every row ok; the
          slowest request's accepting replica and times beside the deploy's
          phases;
       4. goodput: step 1's timed sets through the two survivors (after a
@@ -4634,8 +4901,8 @@ def fleet_phase(cli, kernels, tmp, both0, ds) -> dict:
                                      f"{rest['delivered']}, marks {marks}")
 
             # 3. rolling deploy under closed-loop load through the router:
-            # batches of closed-loop requests until the deploy is done, then
-            # until the load holds twice the rows finished in its window
+            # batches of closed-loop requests until one ends after the
+            # deploy is done
             payload = serve_queue.config_payload(fa[0][2])
             deploy: dict = {}
             deployed = threading.Event()
@@ -4651,8 +4918,7 @@ def fleet_phase(cli, kernels, tmp, both0, ds) -> dict:
             t0 = time.perf_counter()
             deployer = threading.Thread(target=do_deploy)
             deployer.start()
-            while window_rows is None or sum(
-                    led["rows"] for o in batches for led in o["tenants"].values()) < 2 * window_rows:
+            while window_rows is None:
                 b = len(batches)
                 if b >= FLEET_LOAD_MAX_BATCHES:
                     raise AssertionError(f"deploy load: {b} batches, window rows {window_rows}")
@@ -4665,7 +4931,7 @@ def fleet_phase(cli, kernels, tmp, both0, ds) -> dict:
                 batches.append(loadgen.run_fleet(
                     sup.router.host, sup.router.port, jobs, concurrency=FLEET_LOAD_DEPTH,
                     max_retries=16, timeout=120))
-                if window_rows is None and deployed.is_set():
+                if deployed.is_set():
                     window_rows = sum(led["rows"] for o in batches
                                       for led in o["tenants"].values())
             load_wall = time.perf_counter() - t0
@@ -4809,7 +5075,7 @@ MESH_SHORT = 20  # rounds of the world-2 train_dynamic and measured-cluster runs
 # 4 experts; attention d_in 8, d_model 16, 2 heads) at 2 shards on the
 # (workers 1, axis 2) mesh, on the flagship data, with its update rule of the
 # deep and attention phases (GD lr 0.5; AGD at the preset's lr 10)
-AXES_ROUNDS = 5
+AXES_ROUNDS = 3
 _AXES_GD = with_rounds(DEEP_ARGS[:DEEP_ARGS.index("--model")], AXES_ROUNDS)
 _AXES_ATTN = with_rounds(MAIN_ARGS, AXES_ROUNDS) + ["--model", "attention"]
 AXES_RUNS = (  # (name, flags)
@@ -5263,7 +5529,7 @@ def mesh_child(out_dir: str) -> int:
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **hist)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
-    backend.shutdown()
+    backend.leave()  # a barrier, then the group's teardown
     return 0
 
 
@@ -5882,6 +6148,7 @@ def main() -> int:
     attn_errs += [r["max_abs_err"] for r in vmap_ops if r["model"] == "attention"]
     cohort_ds = cli.load_dataset(parse_config(cli, MAIN_ARGS))
     deduped = compare_deduped_phase(kernels, experiments, cohort_ds, both0)
+    transient = transient_phase(kernels, experiments, cohort_ds, both0)
     faithful = compare_faithful_phase(kernels, experiments, cohort_ds, both0)
     sweep = straggler_sweep_phase(kernels, experiments, cohort_ds, both0)
     deep_cohort = cohort_deep_phase(cli, kernels, cohort_ds, both0)
@@ -5948,7 +6215,9 @@ def main() -> int:
     # the fronts under load, the kill drill
     with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-serve-") as tmp:
         served_rec = serve_phase(cli, kernels, tmp, both0, cohort_ds)
+        serve_ranks = served_rec["serve_ranks"]
     sweep_launches.update(served_rec["launches_by_run"])
+    sweep_launches.update(serve_ranks["launches_by_run"])
 
     # the serve fleet: replica processes on the card behind the router
     # (baseline, kill and adoption, rolling deploy under load, goodput);
@@ -6051,7 +6320,7 @@ def main() -> int:
 
     ops = [decode_ops(kernels, m) for m in ("deepmlp", "moe", "attention")]
     attn_errs += [r["max_abs_err"] for r in ops if r["model"] == "attention"]
-    for D in DEEP_LEAVES:
+    for D in TIMED_LEAVES:
         emit("time", kernel="fused_block_decode", **time_decode(kernels, 90, D))
     per_round = time_round(kernels, deep_shapes)
     emit("time_round", kernel="fused_block_decode_leaves", **per_round)
@@ -6336,4 +6605,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-child"]:
         sys.exit(mesh_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--serve-child"]:
+        sys.exit(serve_child(sys.argv[2]))
     sys.exit(main())

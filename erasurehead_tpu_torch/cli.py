@@ -142,9 +142,11 @@ from erasurehead_tpu_torch.data import io as data_io
 from erasurehead_tpu_torch.data.synthetic import Dataset, generate_gmm, generate_linear
 from erasurehead_tpu_torch.obs import events as events_lib
 from erasurehead_tpu_torch.parallel import failures
-from erasurehead_tpu_torch.parallel.backend import initialize_distributed, is_writer
+from erasurehead_tpu_torch.parallel import backend as backend_lib
+from erasurehead_tpu_torch.parallel.backend import is_writer
 from erasurehead_tpu_torch.train import artifacts, evaluate, trainer
 from erasurehead_tpu_torch.utils.config import ModelKind, RunConfig, resolve_telemetry
+from erasurehead_tpu_torch.utils.device import local_devices
 from erasurehead_tpu_torch.utils.tracing import device_trace
 
 #: legacy (is_coded=1) dispatch: coded_ver -> scheme, without and with
@@ -859,78 +861,81 @@ def run(cfg: RunConfig, output_dir: str | None = None, quiet: bool = False,
     telemetry_on = resolve_telemetry(telemetry, output_dir is not None)
     if output_dir is None:
         output_dir = os.path.join(dataset_dir(cfg) or ".", "results")
-    # join torchrun's process group, if any (a no-op in one process); rank
-    # 0 alone writes the artifacts and the event log
-    initialize_distributed(device=device)
-    writer = is_writer()
-    telemetry_on = telemetry_on and writer
-    dataset = load_dataset(cfg)
-    events_path = os.path.join(output_dir, "events.jsonl")
-    capture = events_lib.capture(events_path) if telemetry_on else contextlib.nullcontext()
-    with capture, device_trace(trace_dir, device=device):
-        if elastic == "on":
-            result = _run_elastic(cfg, dataset, deaths, device, quiet, elastic_chunk,
-                                  death_rounds, death_timeout,
-                                  output_dir if telemetry_on else None)
-        elif adapt == "on":
-            result = _run_adapt(cfg, dataset, device, quiet, adapt_chunk, adapt_arms, adapt_priors)
-        elif cfg.arrival_mode == "measured":
-            result = trainer.train_measured(cfg, dataset, device=device)
-        elif deaths and on_death == "elastic":
-            result, report = failures.train_elastic(cfg, dataset, deaths, device=device)
-            if not quiet:
-                print(
-                    f"elastic restart at round {report.death_round}: "
-                    f"{report.n_workers_before} -> {report.n_workers_after} "
-                    f"workers (dead: {list(report.dead_workers)})"
+    # join torchrun's process group, if any (a no-op in one process), and
+    # leave it cleanly on the way out, success or not (parallel/backend.
+    # joined); rank 0 alone writes the artifacts and the event log
+    with backend_lib.joined(device=device):
+        writer = is_writer()
+        telemetry_on = telemetry_on and writer
+        dataset = load_dataset(cfg)
+        events_path = os.path.join(output_dir, "events.jsonl")
+        capture = events_lib.capture(events_path) if telemetry_on else contextlib.nullcontext()
+        with capture, device_trace(trace_dir, device=device):
+            if elastic == "on":
+                result = _run_elastic(cfg, dataset, deaths, device, quiet, elastic_chunk,
+                                      death_rounds, death_timeout,
+                                      output_dir if telemetry_on else None)
+            elif adapt == "on":
+                result = _run_adapt(cfg, dataset, device, quiet, adapt_chunk, adapt_arms, adapt_priors)
+            elif cfg.arrival_mode == "measured":
+                # every visible card in one process, as the JAX package's
+                # measured mode takes every local device
+                result = trainer.train_measured(cfg, dataset, device=local_devices(device))
+            elif deaths and on_death == "elastic":
+                result, report = failures.train_elastic(cfg, dataset, deaths, device=device)
+                if not quiet:
+                    print(
+                        f"elastic restart at round {report.death_round}: "
+                        f"{report.n_workers_before} -> {report.n_workers_after} "
+                        f"workers (dead: {list(report.dead_workers)})"
+                    )
+            elif deaths:
+                # error|failover: the deaths enter the arrival schedule, and the
+                # run is planned; "error" raises where the reference's master would
+                # block in Waitany forever
+                arrivals = failures.inject_worker_death(trainer.default_arrivals(cfg), deaths)
+                sched, _ = failures.plan_run(
+                    cfg.scheme, trainer.build_layout(cfg), arrivals,
+                    num_collect=cfg.num_collect, deadline=cfg.deadline,
+                    timeout=death_timeout if death_timeout is not None else np.inf,
+                    on_infeasible=on_death,
                 )
-        elif deaths:
-            # error|failover: the deaths enter the arrival schedule, and the
-            # run is planned; "error" raises where the reference's master would
-            # block in Waitany forever
-            arrivals = failures.inject_worker_death(trainer.default_arrivals(cfg), deaths)
-            sched, _ = failures.plan_run(
-                cfg.scheme, trainer.build_layout(cfg), arrivals,
-                num_collect=cfg.num_collect, deadline=cfg.deadline,
-                timeout=death_timeout if death_timeout is not None else np.inf,
-                on_infeasible=on_death,
+                result = trainer.train(cfg, dataset, device=device, arrivals=arrivals, schedule=sched)
+            else:
+                result = trainer.train(
+                    cfg, dataset, device=device, checkpoint_dir=checkpoint_dir,
+                    checkpoint_every=checkpoint_every, resume=resume,
+                )
+            n = result.n_train
+            ev = evaluate.replay(
+                trainer.build_model(cfg),
+                cfg.model,
+                result.params_history,
+                dataset.X_train[:n],
+                dataset.y_train[:n],
+                dataset.X_test,
+                dataset.y_test,
             )
-            result = trainer.train(cfg, dataset, device=device, arrivals=arrivals, schedule=sched)
-        else:
-            result = trainer.train(
-                cfg, dataset, device=device, checkpoint_dir=checkpoint_dir,
-                checkpoint_every=checkpoint_every, resume=resume,
-            )
-        n = result.n_train
-        ev = evaluate.replay(
-            trainer.build_model(cfg),
-            cfg.model,
-            result.params_history,
-            dataset.X_train[:n],
-            dataset.y_train[:n],
-            dataset.X_test,
-            dataset.y_test,
-        )
-        if result.run_id is not None:
-            auc = float(ev.auc[-1])
-            events_lib.emit(
-                "eval",
-                run_id=result.run_id,
-                final_train_loss=float(ev.training_loss[-1]),
-                final_test_loss=float(ev.testing_loss[-1]),
-                final_auc=auc if np.isfinite(auc) else None,
-            )
-    if not writer:
-        return result, ev, {}
-    paths = artifacts.write_run_artifacts(result, ev, output_dir)
-    if telemetry_on:
-        paths["events"] = events_path
-    if not quiet:
-        artifacts.print_iteration_table(result, ev)
-        print(f"artifacts -> {output_dir}")
+            if result.run_id is not None:
+                auc = float(ev.auc[-1])
+                events_lib.emit(
+                    "eval",
+                    run_id=result.run_id,
+                    final_train_loss=float(ev.training_loss[-1]),
+                    final_test_loss=float(ev.testing_loss[-1]),
+                    final_auc=auc if np.isfinite(auc) else None,
+                )
+        if not writer:
+            return result, ev, {}
+        paths = artifacts.write_run_artifacts(result, ev, output_dir)
         if telemetry_on:
-            print(f"events -> {events_path}")
-    return result, ev, paths
+            paths["events"] = events_path
+        if not quiet:
+            artifacts.print_iteration_table(result, ev)
+            print(f"artifacts -> {output_dir}")
+            if telemetry_on:
+                print(f"events -> {events_path}")
+        return result, ev, paths
 
 
 def main(argv: list[str] | None = None) -> int:

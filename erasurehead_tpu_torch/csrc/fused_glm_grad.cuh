@@ -817,17 +817,24 @@ __global__ void __launch_bounds__(kThreads, ctas_per_sm(VEC* CH))
 
 using KernelFn = void (*)(const Params);
 
-// The kernel, its dynamic shared memory limit raised on `device` (CUDA
-// keeps that attribute per device) the first time it is asked for there.
+// The kernel, its dynamic shared memory limit raised on `device` the first
+// time it is asked for there. CUDA keeps that attribute per device and
+// cudaFuncSetAttribute sets it on the current one, so `device` is made
+// current for the call and the caller's current device restored after.
 template <typename T, int VEC, int CH, int MODE>
 KernelFn kernel_ptr(int device) {
   static std::atomic<bool> attr_set[64];
   KernelFn fn = glm_grad_onepass<T, VEC, CH, MODE>;
   if (device < 0 || device >= 64) return nullptr;
   if (!attr_set[device].load(std::memory_order_acquire)) {
-    if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax) !=
-        cudaSuccess)
-      return nullptr;
+    int current = -1;
+    if (cudaGetDevice(&current) != cudaSuccess) return nullptr;
+    if (current != device && cudaSetDevice(device) != cudaSuccess) return nullptr;
+    const bool ok =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax) ==
+        cudaSuccess;
+    if (current != device && cudaSetDevice(current) != cudaSuccess) return nullptr;
+    if (!ok) return nullptr;
     attr_set[device].store(true, std::memory_order_release);
   }
   return fn;

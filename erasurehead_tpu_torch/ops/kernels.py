@@ -366,17 +366,20 @@ def fused_glm_grad(
     M, R, F = X.shape
     dtype = 0 if X.dtype == torch.float32 else 1
     dev = X.device.index
-    n_scratch = _glm_scratch_floats(M, R, F, dtype, dev)
-    if n_scratch < 1:
-        raise RuntimeError(f"fused_glm_grad: no launch plan for {tuple(X.shape)} on {X.device}")
-    out = torch.empty(F, dtype=torch.float32, device=X.device)
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=X.device)
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = lib.eh_fused_glm_grad(
-        X.data_ptr(), y.data_ptr(), beta.data_ptr(), w.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(),
-        M, R, F, dtype, 1 if kind == "logistic" else 0, dev, stream,
-    )
+    # CUDA launches into the current device's streams only: X's card is
+    # made current for the query and the launch, whatever the caller's is
+    with torch.cuda.device(X.device):
+        n_scratch = _glm_scratch_floats(M, R, F, dtype, dev)
+        if n_scratch < 1:
+            raise RuntimeError(f"fused_glm_grad: no launch plan for {tuple(X.shape)} on {X.device}")
+        out = torch.empty(F, dtype=torch.float32, device=X.device)
+        scratch = torch.empty(n_scratch, dtype=torch.float32, device=X.device)
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        rc = lib.eh_fused_glm_grad(
+            X.data_ptr(), y.data_ptr(), beta.data_ptr(), w.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(),
+            M, R, F, dtype, 1 if kind == "logistic" else 0, dev, stream,
+        )
     if rc != 0:
         msg = lib.eh_cuda_error_string(rc).decode()
         raise RuntimeError(f"fused_glm_grad launch failed: CUDA error {rc} ({msg})")
@@ -484,22 +487,23 @@ def _launch_decode(ws, leaves, cohort: bool, name: str) -> list:
         for leaf in leaves
     ]
     dtype = 0 if leaves[0].dtype == torch.float32 else 1
-    stream = torch.cuda.current_stream(ws.device).cuda_stream
     cap = lib.eh_fused_block_decode_max_leaves()
-    for i in range(0, len(leaves), cap):
-        part = range(i, min(i + cap, len(leaves)))
-        n = len(part)
-        rc = lib.eh_fused_block_decode_leaves(
-            ws.data_ptr(),
-            (ctypes.c_void_p * n)(*(leaves[k].data_ptr() for k in part)),
-            (ctypes.c_void_p * n)(*(outs[k].data_ptr() for k in part)),
-            (ctypes.c_longlong * n)(*(outs[k].numel() // B for k in part)),
-            n, W, S, B, dtype, stream,
-        )
-        if rc != 0:
-            msg = lib.eh_cuda_error_string(rc).decode()
-            raise RuntimeError(f"fused_block_decode launch failed: CUDA error {rc} ({msg})")
-        _count_launch("fused_block_decode")
+    with torch.cuda.device(ws.device):  # launch on ws's card, as B1 does
+        stream = torch.cuda.current_stream(ws.device).cuda_stream
+        for i in range(0, len(leaves), cap):
+            part = range(i, min(i + cap, len(leaves)))
+            n = len(part)
+            rc = lib.eh_fused_block_decode_leaves(
+                ws.data_ptr(),
+                (ctypes.c_void_p * n)(*(leaves[k].data_ptr() for k in part)),
+                (ctypes.c_void_p * n)(*(outs[k].data_ptr() for k in part)),
+                (ctypes.c_longlong * n)(*(outs[k].numel() // B for k in part)),
+                n, W, S, B, dtype, stream,
+            )
+            if rc != 0:
+                msg = lib.eh_cuda_error_string(rc).decode()
+                raise RuntimeError(f"fused_block_decode launch failed: CUDA error {rc} ({msg})")
+            _count_launch("fused_block_decode")
     return outs
 
 

@@ -12,11 +12,15 @@ for ``cpu``, or an explicit ``backend=``. A group that does not form raises:
 nothing falls back from NCCL to gloo, or from the card to the CPU.
 
 With no cluster environment and no arguments this is a no-op, so entry points
-call it unconditionally at start; it is idempotent.
+call it unconditionally at start; it is idempotent. An entry point that forms
+the group leaves it on the way out (:func:`joined`): a barrier once every
+rank's work is done, then ``destroy_process_group``, so no rank exits while a
+peer's group threads still talk to it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 from typing import Optional
@@ -31,6 +35,10 @@ CLUSTER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 #: how long a collective may wait for a peer before it raises: a dead rank
 #: must end its survivors' runs, not hang them
 DEFAULT_TIMEOUT_S = 300.0
+
+#: how long a collective of :func:`untimed_group` may wait: as long as a
+#: daemon may stay idle (ten years)
+UNTIMED_S = 10 * 365 * 86400.0
 
 # the device this process's group was formed for (None: no group formed
 # here); parallel/mesh.py builds its WorkerMesh on it
@@ -131,18 +139,43 @@ def is_writer() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
-def agree(value):
+def every_rank(value) -> list:
+    """``value`` of every rank of the world, in rank order, on every rank:
+    one ``all_gather_object`` (``[value]`` without a group). Every rank of
+    the world must call it at the same point."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return [value]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, value)
+    return out
+
+
+def agree(value, group=None):
     """``value`` as rank 0 of the group has it, on every rank: a host
     decision every rank must take alike, or their collectives deadlock or
     their params part (a tune verdict read from a file another process may
     be writing, a float that steers a controller). One broadcast of a
     picklable object from rank 0; the identity without a group or in a
-    world of one. Every rank of the world must call it at the same point."""
+    world of one. Every rank of the world must call it at the same point;
+    ``group`` (default: the world's) is another group of the whole world,
+    such as :func:`untimed_group`."""
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return value
     box = [value]
-    dist.broadcast_object_list(box, src=0)
+    dist.broadcast_object_list(box, src=0, group=group)
     return box[0]
+
+
+def untimed_group():
+    """A gloo group of the whole world whose collectives wait as long as the
+    process lives (:data:`UNTIMED_S`), for a rank that waits for rank 0's
+    next decision with no bound on when it comes (the serve daemon's
+    followers between dispatches); None without a group of several. A peer
+    that exits still ends the wait: its connection closes. Forming it is a
+    collective of the world: every rank calls it at the same point."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return None
+    return dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=UNTIMED_S))
 
 
 def topology_info() -> dict:
@@ -162,6 +195,36 @@ def topology_info() -> dict:
         "global_devices": world_size(),
         "platform": platform,
     }
+
+
+def leave(barrier: bool = True) -> None:
+    """Leave the process group cleanly: with ``barrier`` (the rank's work
+    succeeded, so the group is healthy) wait until every rank is done, then
+    :func:`shutdown`, whether or not the barrier raised. A no-op without a
+    group."""
+    try:
+        if barrier and dist.is_initialized():
+            dist.barrier()
+    finally:
+        shutdown()
+
+
+@contextlib.contextmanager
+def joined(**kw):
+    """:func:`initialize_distributed` (``kw``) for the body; a group formed
+    here is left on the way out (:func:`leave`, with its barrier only when
+    the body returned). A group that was already formed is the caller's and
+    stays; an exception from the body propagates."""
+    formed = not dist.is_initialized()
+    info = initialize_distributed(**kw)
+    formed = formed and dist.is_initialized()
+    ok = False
+    try:
+        yield info
+        ok = True
+    finally:
+        if formed:
+            leave(barrier=ok)
 
 
 def shutdown() -> None:

@@ -67,10 +67,6 @@ WORKER_AXIS = "workers"
 # the tensor-parallel axis of the JAX package's MLP family (its 2-D meshes)
 MODEL_AXIS = "model"
 
-#: the ROADMAP item that brings one process driving several devices and the
-#: serve daemon over several devices
-A9B = "ROADMAP A9b"
-
 
 @dataclasses.dataclass(frozen=True)
 class WorkerMesh:
@@ -440,17 +436,6 @@ def axis_active(mesh, axis_name: str) -> bool:
     if mesh is None:
         return False
     return axis_name in mesh.axis_names and mesh.shape[axis_name] > 1
-
-
-def require_one_process(what: str, mesh=None) -> None:
-    """Refuse a world of several processes on a path that runs in one, by
-    name: ``what`` at world size above 1 waits for :data:`A9B`."""
-    world = mesh.world if mesh is not None else backend_lib.world_size()
-    if world > 1:
-        raise ValueError(
-            f"{what} runs in one process; at world size {world} it waits "
-            f"for {A9B}"
-        )
 
 
 def check_divisible(n: int, mesh, what: str) -> None:

@@ -138,6 +138,9 @@ class RequestHandle:
         # resubmission of an in-flight request): they receive a copy of
         # this handle's result, re-tagged with their own ids
         self._followers: list["RequestHandle"] = []
+        # resolved from the daemon's dataset pool at intake (no in-process
+        # dataset): across ranks the followers resolve it by the same key
+        self.pooled = False
 
     @property
     def request_id(self) -> str:
@@ -284,3 +287,57 @@ def config_from_payload(payload: dict) -> RunConfig:
             f"accepted: {sorted(CONFIG_PAYLOAD_FIELDS)}"
         )
     return RunConfig(**payload)
+
+
+# ---------------------------------------------------------------------------
+# the daemon across ranks (serve/server.SweepServer over a process group of
+# several): the message rank 0 broadcasts for each dispatch, from which
+# every other rank runs the same dispatch over the worker mesh
+
+#: the message that ends the other ranks' follower loops
+STOP_MESSAGE = {"op": "stop"}
+
+
+def config_entry(cfg: RunConfig) -> dict:
+    """One config as a broadcast carries it: its wire payload, or, for a
+    config the wire cannot express (an in-process request may set any
+    field), the RunConfig itself, which the broadcast pickles."""
+    payload = config_payload(cfg)
+    return {"payload": payload} if payload is not None else {"config": cfg}
+
+
+def config_from_entry(entry: dict) -> RunConfig:
+    """Inverse of :func:`config_entry`."""
+    if "payload" in entry:
+        return config_from_payload(entry["payload"])
+    return entry["config"]
+
+
+def dataset_payload(dataset) -> dict:
+    """An in-process dataset's arrays (its dataclass fields), without the
+    marks this process's caches put on the object: what crosses to the
+    other ranks once per dataset token."""
+    return {f.name: getattr(dataset, f.name) for f in dataclasses.fields(dataset)}
+
+
+def dispatch_message(dispatch_id: str, batchable: bool, ids, configs: dict,
+                     arrivals: dict) -> dict:
+    """What rank 0 broadcasts for one dispatch: its id, whether it goes
+    through the cohort engine, the trajectory ids in dispatch order (the
+    padded seats included), each one's config entry and arrival matrix.
+    Rank 0 adds, in broadcast order (serve/server.SweepServer._lead), how
+    the other ranks find the dataset (``data``: ``{"pool": entry,
+    "data_seed": n}`` for a request resolved from the daemon's dataset
+    pool, ``{"token": t, "arrays": payload or None}`` for an in-process
+    dataset, its arrays sent unless the other ranks still hold its token)
+    and ``evict``: whether an admission eviction came since the last
+    broadcast, which the other ranks then repeat."""
+    ids = list(ids)
+    return {
+        "op": "dispatch",
+        "dispatch_id": dispatch_id,
+        "batchable": bool(batchable),
+        "ids": ids,
+        "configs": {rid: config_entry(configs[rid]) for rid in ids},
+        "arrivals": {rid: arrivals[rid] for rid in ids},
+    }

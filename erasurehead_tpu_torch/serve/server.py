@@ -43,6 +43,32 @@ its neighbour's launches too, so ``real_steps_per_sec`` under concurrency
 is a shared-device figure. The admission controller is what keeps the
 concurrency from overcommitting device memory.
 
+Across ranks (a process group of several, e.g. ``torchrun
+--nproc-per-node N -m erasurehead_tpu_torch.cli serve``): rank 0
+(``backend.is_writer()``) owns the socket and HTTP fronts, admission, the
+WAL, the journals and the event log; every other rank runs
+:meth:`SweepServer.follow`. Every rank constructs its SweepServer at the
+same point (the constructor forms the group the dispatches are broadcast
+in). For each dispatch rank 0 broadcasts one message (serve/queue.
+dispatch_message: the configs, the arrivals, how to find the dataset, an
+admission eviction to repeat) in a group with no timeout
+(parallel/backend.untimed_group), since a follower waits there for as long
+as the daemon stays idle, and every rank runs the same ``_dispatch_cohort`` or
+``_train_one_guarded`` over the worker mesh, B1 inside ``train`` and
+``train_cohort`` on each rank's slice; rank 0 answers. The ranks agree on
+each dispatch's outcome twice (after the followers resolved the dataset,
+and after the run), so a failure on any rank fails that cohort's requests
+on rank 0 and the daemon lives on; inside the run the harness's guard
+agrees on each attempt (train/experiments._attempt), so the ranks retry or
+bisect together. Collectives must meet in the same order
+on every rank, so across ranks the daemon runs one dispatch at a time,
+serialized by rank 0's broadcast, where the JAX package's two dispatch
+threads overlap on one mesh: a deliberate deviation. A failure on one rank
+only, inside a dispatch's collectives, is seen by the others when their
+collectives time out (parallel/backend.DEFAULT_TIMEOUT_S); the daemon then
+answers that cohort with the error, and a group that lost a rank fails
+every later dispatch the same way. ``stop()`` ends the followers.
+
 ``cache_dir`` names the directory the kernel library is built into and
 loaded from, where the JAX package names its persistent compilation cache:
 a restarted daemon pointed at the same directory builds nothing. The
@@ -55,6 +81,7 @@ sets it (ops/kernels.set_build_dir) before it constructs the daemon;
 from __future__ import annotations
 
 import contextlib
+import collections
 import dataclasses
 import itertools
 import math
@@ -62,15 +89,19 @@ import os
 import queue as queue_lib
 import threading
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from erasurehead_tpu_torch.data.synthetic import Dataset
 from erasurehead_tpu_torch.obs import events as events_lib
 from erasurehead_tpu_torch.obs.metrics import REGISTRY as _METRICS
+from erasurehead_tpu_torch.parallel import backend as backend_lib
 from erasurehead_tpu_torch.serve import admission as admission_lib
+from erasurehead_tpu_torch.serve import queue as serve_queue
 from erasurehead_tpu_torch.serve import packer as packer_lib
 from erasurehead_tpu_torch.serve import wal as wal_lib
 from erasurehead_tpu_torch.serve.queue import (
@@ -81,6 +112,7 @@ from erasurehead_tpu_torch.serve.queue import (
     config_payload,
     request_digest,
 )
+from erasurehead_tpu_torch.train import cache as cache_lib
 from erasurehead_tpu_torch.train import experiments, trainer
 from erasurehead_tpu_torch.train import journal as journal_lib
 from erasurehead_tpu_torch.utils import chaos
@@ -167,6 +199,27 @@ def _summarize(
     return summary
 
 
+#: in-process datasets a follower keeps by rank 0's token (and rank 0's
+#: record of the tokens it sent): the data cache's bound
+RANK_DATASETS_MAX = cache_lib.DATA_CACHE_MAX
+
+
+def _lru_touch(lru: collections.OrderedDict, key, value) -> None:
+    """Mark ``key`` used in ``lru``, holding ``value`` (None keeps what it
+    holds), then drop the least recently used keys beyond
+    :data:`RANK_DATASETS_MAX`."""
+    if value is not None or key not in lru:
+        lru[key] = value
+    lru.move_to_end(key)
+    while len(lru) > RANK_DATASETS_MAX:
+        lru.popitem(last=False)
+
+
+class RankDispatchError(RuntimeError):
+    """A dispatch across ranks failed on some rank: every rank learns it
+    from the agreement after the step that failed, and goes on."""
+
+
 class SweepServer:
     """In-process serve daemon (see module docstring).
 
@@ -206,10 +259,26 @@ class SweepServer:
         replica_name: Optional[str] = None,
         device=None,
     ):
-        from erasurehead_tpu_torch.parallel import mesh as mesh_lib
-
-        mesh_lib.require_one_process("the serve daemon (SweepServer)")
         self.device = resolve_device(device)
+        # across ranks (module docstring): this rank follows rank 0's
+        # dispatches when it is not rank 0; rank 0 serializes its
+        # dispatches' collectives under _ranks_lock and broadcasts each one
+        # in _control, where a follower may wait between dispatches as long
+        # as the daemon stays idle. Rank 0 sends an in-process dataset's
+        # arrays when its token is not among the RANK_DATASETS_MAX it sent
+        # last (_sent_tokens); a follower keeps the same tokens
+        # (_rank_datasets): both go through _lru_touch in broadcast order,
+        # so they drop the same ones. _evictions_sent: the serve.evictions
+        # count at the last broadcast (an admission eviction since then is
+        # passed on to the followers)
+        self._world = backend_lib.world_size()
+        self._follower = not backend_lib.is_writer()
+        self._control = backend_lib.untimed_group() if self._world > 1 else None
+        self._ranks_lock = threading.Lock()
+        self._sent_tokens: collections.OrderedDict = collections.OrderedDict()
+        self._rank_datasets: collections.OrderedDict = collections.OrderedDict()
+        self._evictions_sent = _METRICS.counter("serve.evictions").value
+        self._followers_released = False
         self.admission = admission_lib.AdmissionController(budget_bytes)
         # admission-time ETA quotes from a what-if surface
         # (whatif/surface.Surface; None = quoting off): each accepted
@@ -315,7 +384,8 @@ class SweepServer:
         # intake WAL (journal_dir only): acceptances persisted before any
         # dispatch work, replayed on start()
         self.wal: Optional[wal_lib.IntakeWAL] = (
-            wal_lib.IntakeWAL(journal_dir) if journal_dir else None
+            wal_lib.IntakeWAL(journal_dir)
+            if journal_dir and not self._follower else None
         )
         self._watch: dict[str, tuple[RequestHandle, float]] = {}
         self._watch_lock = threading.Lock()
@@ -334,9 +404,7 @@ class SweepServer:
 
     # ---- lifecycle -------------------------------------------------------
 
-    def start(self) -> "SweepServer":
-        if self._thread is not None:
-            raise RuntimeError("serve loop already started")
+    def _warm(self) -> None:
         # Preload the autotune decision cache ONCE, before any request
         # can dispatch: every auto-knob resolution inside a cohort
         # dispatch is then a warm in-memory dict lookup. Races never run
@@ -355,6 +423,16 @@ class SweepServer:
             from erasurehead_tpu_torch.ops import kernels as kernels_lib
 
             kernels_lib.load_library()
+
+    def start(self) -> "SweepServer":
+        if self._follower:
+            raise RuntimeError(
+                f"rank {torch.distributed.get_rank()} of {self._world} "
+                "follows rank 0's dispatches: call follow(), not start()"
+            )
+        if self._thread is not None:
+            raise RuntimeError("serve loop already started")
+        self._warm()
         self._thread = threading.Thread(
             target=self._loop, name="eh-serve-loop", daemon=True
         )
@@ -372,8 +450,10 @@ class SweepServer:
         """Stop the loop. ``drain=True`` (default) finishes every pending
         and in-flight request first; ``drain=False`` fails pending
         requests with status="error" and returns as soon as in-flight
-        dispatches land."""
+        dispatches land. Across ranks the followers are then released
+        (their :meth:`follow` returns)."""
         if self._thread is None:
+            self._release_followers()
             return
         self._drain = drain
         self._stopping = True
@@ -389,6 +469,7 @@ class SweepServer:
         self._journals.clear()
         if self.wal is not None:
             self.wal.close()
+        self._release_followers()
 
     def __enter__(self) -> "SweepServer":
         return self.start()
@@ -559,19 +640,22 @@ class SweepServer:
         identity via cache.dataset_token)."""
         if request.dataset is not None:
             return request.dataset
-        cfg = request.config
+        return self._pooled_dataset(request.config, request.data_seed)
+
+    def _pooled_dataset(self, cfg: RunConfig, data_seed: int):
+        """The pool's dataset for ``cfg``'s data-defining fields and
+        ``data_seed``, loaded once (on every rank alike: the followers
+        resolve a wire request's dataset by the same key)."""
         key = (
             cfg.dataset, cfg.n_rows, cfg.n_cols, cfg.n_workers,
             cfg.n_stragglers, cfg.partitions_per_worker, cfg.model.value,
-            cfg.is_real_data, cfg.input_dir, request.data_seed,
+            cfg.is_real_data, cfg.input_dir, data_seed,
         )
         ds = self._datasets.get(key)
         if ds is None:
             from erasurehead_tpu_torch.cli import load_dataset
 
-            ds = load_dataset(
-                dataclasses.replace(cfg, seed=request.data_seed)
-            )
+            ds = load_dataset(dataclasses.replace(cfg, seed=data_seed))
             self._datasets[key] = ds
         return ds
 
@@ -664,6 +748,7 @@ class SweepServer:
                     self._classify_replay(handle, resubmitted=False)
                     return
                 self._by_digest[handle.digest] = handle
+        handle.pooled = req.dataset is None
         try:
             req.dataset = self._resolve_dataset(req)
             if req.arrivals is None:
@@ -1029,6 +1114,163 @@ class SweepServer:
             peak = torch.cuda.max_memory_allocated(self.device) - base
         return out, peak
 
+    def _dispatch_fn(self, batchable: bool, ids, configs, arrivals, dataset):
+        """The dispatch of ``ids``, as a call: a batchable cohort through
+        the harness's guarded cohort engine, otherwise each run through
+        sequential train(), the bottom of the harness's ladder, retried on
+        a transient failure (experiments._train_one_guarded), as the JAX
+        daemon's non-batchable path. Every rank runs the same call."""
+        if batchable:
+            return lambda: experiments._dispatch_cohort(
+                list(ids), configs, dataset, arrivals, self.device, None,
+            )
+        return lambda: {
+            rid: experiments._train_one_guarded(
+                rid, configs, dataset, arrivals, self.device, None,
+            )
+            for rid in ids
+        }
+
+    # ---- across ranks ----------------------------------------------------
+
+    def _data_spec(self, handle: RequestHandle) -> dict:
+        """How the followers find a dispatch's dataset (serve/queue.
+        dispatch_message): by the pool's key for a pooled request, else
+        by rank 0's dataset token, with the arrays unless the token is among
+        the followers' last :data:`RANK_DATASETS_MAX`. Called under
+        ``_ranks_lock``, in broadcast order."""
+        req = handle.request
+        if handle.pooled:
+            return {"pool": serve_queue.config_entry(req.config),
+                    "data_seed": req.data_seed}
+        tok = cache_lib.dataset_token(req.dataset)
+        sent = tok in self._sent_tokens
+        _lru_touch(self._sent_tokens, tok, True)
+        return {"token": tok,
+                "arrays": None if sent else serve_queue.dataset_payload(req.dataset)}
+
+    def _lead(self, msg: dict, handle: RequestHandle, run):
+        """Rank 0's side of one dispatch across ranks: complete ``msg`` with
+        how to find ``handle``'s dataset and whether an admission eviction
+        came since the last broadcast, broadcast it, then run it with the
+        followers (:meth:`_agreed`). One dispatch at a time: the ranks'
+        collectives must meet in one order."""
+        with self._ranks_lock:
+            msg["data"] = self._data_spec(handle)
+            evictions = _METRICS.counter("serve.evictions").value
+            msg["evict"] = evictions != self._evictions_sent
+            self._evictions_sent = evictions
+            backend_lib.agree(msg, self._control)
+            return self._agreed(lambda: None, run)
+
+    @staticmethod
+    def _agreed(prepare, run):
+        """Run one dispatch on every rank together: ``prepare()`` (a
+        follower resolves the configs and the dataset), then the ranks
+        agree that every one prepared before any collective of ``run()``
+        starts, then ``run()``, then they agree on its outcome. Raises,
+        naming each rank that failed and its error, when any rank failed:
+        on rank 0 that fails the cohort's requests."""
+        out = None
+        for step in (prepare, run):
+            err = None
+            try:
+                out = step()
+            except Exception as e:  # noqa: BLE001 — agreed on below
+                err = f"{type(e).__name__}: {e}"
+                if not backend_lib.is_writer():
+                    # rank 0 answers with the message; the trace stays here
+                    traceback.print_exc()
+            errs = backend_lib.every_rank(err)
+            failed = [(r, e) for r, e in enumerate(errs) if e is not None]
+            if failed:
+                raise RankDispatchError(
+                    "dispatch failed across ranks: "
+                    + "; ".join(f"rank {r}: {e}" for r, e in failed)
+                )
+        return out
+
+    def follow(self) -> int:
+        """Serve rank 0's dispatches on this rank (not rank 0) until rank 0
+        stops: each broadcast dispatch message is resolved (configs,
+        arrivals, the dataset by the pool's key or rank 0's token) and run
+        with the same call rank 0 runs, over the worker mesh; the results
+        are rank 0's to deliver. A dispatch that fails on any rank is
+        reported by rank 0, and this rank goes on to the next. Returns the
+        number of dispatches followed."""
+        if not self._follower:
+            raise RuntimeError("rank 0 serves the requests: call start()")
+        self._warm()
+        n = 0
+        while True:
+            # no bound on the wait: the daemon may stay idle for days
+            msg = backend_lib.agree(None, self._control)
+            if msg["op"] == "stop":
+                return n
+            n += 1
+            self._take_message(msg)
+            state: dict = {}
+
+            def prepare(msg=msg):
+                configs = {rid: serve_queue.config_from_entry(e)
+                           for rid, e in msg["configs"].items()}
+                state["run"] = self._dispatch_fn(
+                    msg["batchable"], msg["ids"], configs, msg["arrivals"],
+                    self._message_dataset(msg["data"]),
+                )
+
+            try:
+                self._agreed(prepare, lambda: state["run"]())
+            except RankDispatchError:
+                pass  # rank 0 fails the cohort's requests with the errors
+
+    def _take_message(self, msg: dict) -> None:
+        """A follower's bookkeeping for a dispatch message, before it runs
+        the dispatch (and whether or not it can): repeat an admission
+        eviction of rank 0's, and keep the dataset's arrays by rank 0's
+        token, dropping the tokens rank 0 drops."""
+        if msg["evict"]:
+            self._evict_caches()
+        data = msg["data"]
+        if "token" in data:
+            _lru_touch(self._rank_datasets, data["token"], data["arrays"])
+
+    def _message_dataset(self, data: dict):
+        """A follower's dataset for a dispatch message's ``data`` (its
+        arrays, kept by :meth:`follow`, become one Dataset object per
+        token, so the data cache hits across dispatches)."""
+        if "token" not in data:
+            return self._pooled_dataset(
+                serve_queue.config_from_entry(data["pool"]), data["data_seed"]
+            )
+        held = self._rank_datasets.get(data["token"])
+        if held is None:
+            raise RuntimeError(
+                f"rank {torch.distributed.get_rank()} holds no dataset for "
+                f"token {data['token']}"
+            )
+        if not isinstance(held, Dataset):
+            held = Dataset(**held)
+            self._rank_datasets[data["token"]] = held
+        return held
+
+    @staticmethod
+    def _evict_caches() -> None:
+        """A follower's side of an admission eviction on rank 0 (serve/
+        admission.AdmissionController.try_admit): drop the same caches'
+        pins."""
+        cache_lib.drop_data_cache()
+        if cache_lib.exec_cache_bytes():
+            cache_lib.drop_executables()
+
+    def _release_followers(self) -> None:
+        """Across ranks, rank 0 ends the followers' loops (once)."""
+        if self._world == 1 or self._follower or self._followers_released:
+            return
+        with self._ranks_lock:
+            self._followers_released = True
+            backend_lib.agree(serve_queue.STOP_MESSAGE, self._control)
+
     def _run_cohort(self, cohort, handles, dispatch_id: str) -> None:
         """Dispatch one admitted cohort (executor thread) and deliver each
         request's result as it is summarized. Failures here are isolated:
@@ -1060,24 +1302,22 @@ class SweepServer:
                         configs[pid] = first.config
                         arrivals[pid] = first.arrivals
                         dispatch_ids.append(pid)
-                results, peak = self._measured(
-                    lambda: experiments._dispatch_cohort(
-                        dispatch_ids, configs, dataset, arrivals,
-                        self.device, None,
-                    )
-                )
             else:
-                # sequential train(), the bottom of the harness's ladder
-                # (the JAX daemon's guarded retry is not ported yet)
-                results, peak = self._measured(
-                    lambda: {
-                        rid: experiments._train_one(
-                            rid, configs, dataset, arrivals, self.device,
-                            None,
-                        )
-                        for rid in ids
-                    }
+                dispatch_ids = ids
+            run = self._dispatch_fn(
+                cohort.batchable, dispatch_ids, configs, arrivals, dataset
+            )
+            if self._world > 1:
+                msg = serve_queue.dispatch_message(
+                    dispatch_id, cohort.batchable, dispatch_ids, configs,
+                    arrivals,
                 )
+                # the peak is measured inside the ranks' one-at-a-time
+                # section: only there does a dispatch run alone
+                results, peak = self._lead(msg, handles[0],
+                                           lambda: self._measured(run))
+            else:
+                results, peak = self._measured(run)
             self.admission.observe(cohort, {"device_peak_bytes": peak})
             for h in handles:
                 req = h.request
@@ -1162,7 +1402,9 @@ def main(argv=None) -> int:
     (SIGINT drains and stops it). Clients: serve/client.ServeClient and
     HttpServeClient, or any tool that can write JSON lines to an AF_UNIX
     stream. ``--device cpu`` runs the dispatches on the CPU; the default is
-    the card, and the daemon refuses to start where there is none."""
+    the card, and the daemon refuses to start where there is none. Under
+    ``torchrun`` (a process group of several) rank 0 serves the fronts and
+    the other ranks follow its dispatches (module docstring)."""
     import argparse
 
     from erasurehead_tpu_torch.utils.config import (
@@ -1276,9 +1518,42 @@ def main(argv=None) -> int:
     max_cohort = resolve_serve_max_cohort(
         ns.max_cohort, default=DEFAULT_MAX_COHORT
     )
-    from erasurehead_tpu_torch.parallel.backend import initialize_distributed
+    # torchrun's process group, if any: rank 0 serves the fronts, every
+    # other rank follows its dispatches; every rank leaves the group
+    # cleanly on the way out (parallel/backend.joined)
+    with backend_lib.joined(device=ns.device):
+        if not backend_lib.is_writer():
+            return _follow(ns)
+        return _serve(ns, budget, max_cohort)
 
-    initialize_distributed(device=ns.device)
+
+def _follow(ns) -> int:
+    """``cli serve`` on a rank other than 0: follow rank 0's dispatches until
+    rank 0 drains and stops. An interrupt is rank 0's to handle (a signal
+    sent to the whole process group reaches every rank): this rank ends
+    when rank 0 releases it."""
+    import signal
+
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+    if ns.cache_dir is not None:
+        from erasurehead_tpu_torch.ops import kernels as kernels_lib
+
+        kernels_lib.set_build_dir(ns.cache_dir)
+    srv = SweepServer(device=ns.device, cache_dir=ns.cache_dir)
+    print(
+        f"serve: rank {torch.distributed.get_rank()} follows rank 0 "
+        f"(device {srv.device})",
+        flush=True,
+    )
+    n = srv.follow()
+    print(f"serve: rank {torch.distributed.get_rank()} followed {n} dispatches",
+          flush=True)
+    return 0
+
+
+def _serve(ns, budget, max_cohort) -> int:
+    """``cli serve`` alone, or on rank 0 of a process group."""
 
     eta_surface = None
     if ns.eta_surface:

@@ -20,18 +20,26 @@ A sweep journal (train/journal.py) makes a sweep preemption-safe: each
 trajectory's row is journaled as it finishes, and a resumed sweep
 rehydrates the journaled rows instead of training them again.
 
-A cohort that runs out of device memory (``torch.cuda.OutOfMemoryError``,
-or a chaos ``raise`` at site ``cohort`` whose message carries an
-out-of-memory marker, utils/chaos.py) is bisected into halves, down to
-sequential ``train()`` on the same device, after the data cache's pins are
-dropped: the JAX package's own degradation. Every other exception
-propagates untouched, a kernel's launch failure included: nothing is
-retried.
+The dispatch guard is the JAX package's. It classifies the failures of the
+types :func:`_guarded_error_types` names (a chaos fault, utils/chaos.py;
+``torch.cuda.OutOfMemoryError``; ``torch.AcceleratorError``;
+``torch.distributed.DistBackendError``) by the JAX package's message
+markers. A cohort that runs out of device memory is bisected into halves,
+down to sequential ``train()`` on the same device, after the data cache's
+pins are dropped. A transient failure (``UNAVAILABLE``, ``ABORTED``, ...)
+is retried with capped backoff, up to :data:`COHORT_MAX_RETRIES` times,
+before the cohort degrades; a sequential ``train()`` is retried the same
+way (:func:`_train_one_guarded`). Every other exception propagates
+untouched, a kernel's launch failure included. Across ranks every rank runs
+the same dispatch, and each attempt ends in an agreement on its outcome
+(:func:`_attempt`), so a retry or a bisection happens on every rank or on
+none.
 
 Run telemetry: ``main --events PATH`` captures the whole suite into one
 events.jsonl (obs/events.capture; render it with the CLI's ``report``). The
 harness's own degradations are ``warning`` records, as in the JAX package:
-``cohort_dispatch`` (a cohort failed), ``cohort_split`` (it was bisected),
+``cohort_dispatch`` (a cohort failed), ``cohort_retry`` (a sequential run
+is retried after a transient failure), ``cohort_split`` (it was bisected),
 ``cohort_fallback`` (a singleton went to sequential ``train()``) and
 ``divergence`` (a quarantined row).
 
@@ -45,6 +53,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import time
 from collections.abc import Mapping
 from typing import Callable, Optional, Sequence
 
@@ -57,6 +66,7 @@ from erasurehead_tpu_torch.obs import events as obs_events
 from erasurehead_tpu_torch.obs.metrics import REGISTRY as _METRICS
 from erasurehead_tpu_torch.obs.metrics import warn_once
 from erasurehead_tpu_torch.ops import blocks
+from erasurehead_tpu_torch.parallel import backend as backend_lib
 from erasurehead_tpu_torch.parallel import straggler
 from erasurehead_tpu_torch.train import cache as cache_lib
 from erasurehead_tpu_torch.train import evaluate, trainer
@@ -94,12 +104,14 @@ class _CounterView(Mapping):
 #:   cohort.dispatches       train_cohort calls (one a cohort, one a half)
 #:   cohort.trajectories     trajectories handed to those calls
 #:   cohort.sequential_runs  train() calls of the plan (singletons, "off")
-#:   cohort.split            cohorts bisected after running out of memory
+#:   cohort.retry            dispatches and train() runs retried after a
+#:                           transient failure
+#:   cohort.split            cohorts bisected after a failure
 #:   cohort.sequential_fallback  trajectories sent to train() by that bisection
 #:   sweep.diverged          rows quarantined as diverged
 COUNTERS = _CounterView((
     "cohort.dispatches", "cohort.trajectories", "cohort.sequential_runs",
-    "cohort.split", "cohort.sequential_fallback", "sweep.diverged",
+    "cohort.retry", "cohort.split", "cohort.sequential_fallback", "sweep.diverged",
 ))
 
 
@@ -229,51 +241,184 @@ def _train_one(label, configs, dataset, arrivals, device, init_params):
     )
 
 
-#: substrings that make an injected cohort fault (utils/chaos.py, site
-#: "cohort") an out-of-memory failure: the JAX package's markers
+# A sweep survives its dispatch engine, as in the JAX package: the guard
+# retries transients with capped backoff, bisects failing cohorts into
+# halves, and bottoms out at sequential train(); no trajectory is lost to a
+# cohort failure.
+
+#: backoff retries a dispatch takes for a TRANSIENT failure (an
+#: out-of-memory failure bisects at once: the same allocation would fail
+#: again)
+COHORT_MAX_RETRIES = 2
+#: backoff base and cap in seconds (doubling per retry; tests shrink the base)
+COHORT_BACKOFF_S = 0.05
+COHORT_BACKOFF_CAP_S = 2.0
+
+#: substrings that make a failure an out-of-memory one (bisection halves
+#: the cohort, and with it the dispatch's live set): the JAX package's
 _OOM_MARKERS = ("RESOURCE_EXHAUSTED", "Out of memory", "out of memory")
+#: substrings that make a failure transient (retried with backoff before
+#: the cohort degrades): the JAX package's
+_TRANSIENT_MARKERS = (
+    "DEADLINE_EXCEEDED", "UNAVAILABLE", "ABORTED", "CANCELLED", "INTERNAL",
+)
+
+
+def _guarded_error_types() -> tuple:
+    """The exception types the guard may classify: the runtime's own
+    failures (device memory, a CUDA error the accelerator raises, a
+    collective's backend) and the chaos stand-in. Anything else (a config's
+    ValueError, a kernel wrapper's RuntimeError) propagates untouched."""
+    types = [chaos_lib.ChaosInjection, torch.cuda.OutOfMemoryError]
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None:
+        types.append(accel)
+    backend_err = getattr(torch.distributed, "DistBackendError", None)
+    if backend_err is not None:
+        types.append(backend_err)
+    return tuple(types)
+
+
+def _dispatch_error_kind(e: BaseException) -> Optional[str]:
+    """"oom" / "transient" / None (not the guard's to handle: re-raise)."""
+    if isinstance(e, torch.cuda.OutOfMemoryError):
+        return "oom"
+    msg = str(e)
+    if any(m in msg for m in _OOM_MARKERS):
+        return "oom"
+    if any(m in msg for m in _TRANSIENT_MARKERS):
+        return "transient"
+    return None
+
+
+def _backoff(attempt: int) -> float:
+    return min(COHORT_BACKOFF_S * (2 ** (attempt - 1)), COHORT_BACKOFF_CAP_S)
+
+
+def _head(e: BaseException) -> str:
+    return (str(e).splitlines() or [type(e).__name__])[0][:160]
+
+
+class RankAttemptError(RuntimeError):
+    """This rank's attempt of a dispatch succeeded, or failed more mildly,
+    but another rank's failed: raised (or handled) in its stead, so every
+    rank takes the same branch."""
+
+
+def _attempt(fn):
+    """One attempt of a guarded dispatch: ``(result, None, None)``, or
+    ``(None, error, kind)`` for a failure the guard handles (``kind`` "oom"
+    or "transient", :func:`_dispatch_error_kind`). Any other exception is
+    raised untouched.
+
+    Across ranks (a process group of several, every rank running the same
+    dispatch over the worker mesh) every rank's attempt ends in one
+    agreement (parallel/backend.every_rank) before the guard retries or
+    bisects, so the ranks take one branch and their collectives go on
+    meeting: an out-of-memory failure on any rank bisects on every rank; a
+    transient one, and nothing worse, retries on every rank; any other
+    failure is raised on every rank (the failing rank's own exception, a
+    :class:`RankAttemptError` naming it on the others). A rank that fails
+    before a collective its peers wait in is seen by them only when the
+    group's timeout ends their wait."""
+    out, err, kind = None, None, None
+    try:
+        out = fn()
+    except Exception as e:  # noqa: BLE001 — classified below
+        err = e
+        guarded = isinstance(e, _guarded_error_types())
+        kind = (_dispatch_error_kind(e) if guarded else None) or "other"
+    if backend_lib.world_size() == 1:
+        if kind == "other":
+            raise err
+        return out, err, kind
+    seen = backend_lib.every_rank(None if err is None else (kind, f"{type(err).__name__}: {_head(err)}"))
+    failed = [(r, s) for r, s in enumerate(seen) if s is not None]
+    if not failed:
+        return out, None, None
+    kinds = {k for _, (k, _) in failed}
+    agreed = "other" if "other" in kinds else "oom" if "oom" in kinds else "transient"
+    if kind != agreed:
+        err = RankAttemptError(
+            "dispatch failed on another rank: "
+            + "; ".join(f"rank {r}: {m}" for r, (_, m) in failed)
+        )
+    if agreed == "other":
+        raise err
+    return None, err, agreed
+
+
+def _train_one_guarded(label, configs, dataset, arrivals, device, init_params):
+    """Sequential train() with capped-backoff retry of transient failures.
+    Out-of-memory and persistent failures propagate: sequential is the
+    bottom of the degradation ladder."""
+    attempts = 0
+    while True:
+        out, err, kind = _attempt(
+            lambda: _train_one(label, configs, dataset, arrivals, device, init_params)
+        )
+        if err is None:
+            return out
+        if kind != "transient" or attempts >= COHORT_MAX_RETRIES:
+            raise err
+        attempts += 1
+        _METRICS.counter("cohort.retry").inc()
+        obs_events.emit(
+            "warning",
+            kind="cohort_retry",
+            message=(
+                f"sequential train of {label!r} hit a transient "
+                f"failure (attempt {attempts}): {_head(err)}"
+            ),
+        )
+        time.sleep(_backoff(attempts))
 
 
 def _dispatch_cohort(labels, configs, dataset, arrivals, device, init_params) -> dict:
-    """One cohort through train_cohort; on ``torch.cuda.OutOfMemoryError``
-    (or an injected chaos fault whose message carries an out-of-memory
-    marker) drop the data cache's pins, then bisect into halves (half the
-    live set per dispatch), bottoming out at sequential train() on the same
-    device. Any other injected fault propagates. ``arrivals`` is a shared
-    matrix, None, or a per-label dict, which threads through the halves and
-    the sequential fallback. Returns label -> TrainResult."""
-    _METRICS.counter("cohort.dispatches").inc()
-    _METRICS.counter("cohort.trajectories").inc(len(labels))
-    try:
-        results = trainer.train_cohort(
+    """One cohort through train_cohort, guarded as the JAX package guards
+    it: a transient failure retries the same cohort with capped backoff
+    (:data:`COHORT_MAX_RETRIES` times); an out-of-memory failure drops the
+    data cache's pins and bisects at once; a transient that outlasts its
+    retries bisects too, bottoming out at sequential train() on the same
+    device. Other failures propagate. ``arrivals`` is a shared matrix,
+    None, or a per-label dict, which threads through the halves and the
+    sequential fallback. Returns label -> TrainResult."""
+    attempts = 0
+    while True:
+        _METRICS.counter("cohort.dispatches").inc()
+        _METRICS.counter("cohort.trajectories").inc(len(labels))
+        results, err, kind = _attempt(lambda: trainer.train_cohort(
             [configs[l] for l in labels], dataset, arrivals=_arrivals_arg(arrivals, labels),
             device=device,
             init_params=None if init_params is None else [init_params[l] for l in labels],
-        )
-        return dict(zip(labels, results))
-    except (torch.cuda.OutOfMemoryError, chaos_lib.ChaosInjection) as e:
-        if isinstance(e, chaos_lib.ChaosInjection) and not any(
-            m in str(e) for m in _OOM_MARKERS
-        ):
-            raise
-        head = (str(e).splitlines() or [type(e).__name__])[0][:160]
+        ))
+        if err is None:
+            return dict(zip(labels, results))
+        head = _head(err)
         obs_events.emit(
             "warning",
             kind="cohort_dispatch",
             message=(
-                f"cohort dispatch failed (oom) for {len(labels)} "
+                f"cohort dispatch failed ({kind}) for {len(labels)} "
                 f"trajectories {list(labels)}: {head}"
             ),
         )
         warn_once(
             "cohort_dispatch",
-            f"sweep: cohort dispatch failed (oom); degrading via bisection "
-            f"— first failure: {list(labels)}: {head}",
+            f"sweep: cohort dispatch failed ({kind}); degrading via retry/"
+            f"bisection — first failure: {list(labels)}: {head}",
         )
-        # the halves re-upload what they need, without contending with
-        # stacks no live run is using
-        cache_lib.drop_data_cache()
-        torch.cuda.empty_cache()
+        if kind == "oom":
+            # the halves re-upload what they need, without contending
+            # with stacks no live run is using
+            cache_lib.drop_data_cache()
+            torch.cuda.empty_cache()
+        if kind == "transient" and attempts < COHORT_MAX_RETRIES:
+            attempts += 1
+            _METRICS.counter("cohort.retry").inc()
+            time.sleep(_backoff(attempts))
+            continue
+        break  # degrade: bisect (or sequential for a singleton)
     if len(labels) == 1:
         _METRICS.counter("cohort.sequential_fallback").inc()
         obs_events.emit(
@@ -284,7 +429,8 @@ def _dispatch_cohort(labels, configs, dataset, arrivals, device, init_params) ->
                 f"train() after cohort dispatch failure"
             ),
         )
-        return {labels[0]: _train_one(labels[0], configs, dataset, arrivals, device, init_params)}
+        return {labels[0]: _train_one_guarded(labels[0], configs, dataset, arrivals, device,
+                                              init_params)}
     mid = len(labels) // 2
     _METRICS.counter("cohort.split").inc()
     obs_events.emit(
@@ -337,7 +483,8 @@ def _run_configs(
         else:
             for label in labels:
                 _METRICS.counter("cohort.sequential_runs").inc()
-                finish(label, _train_one(label, configs, dataset, arrivals, device, init_params))
+                finish(label, _train_one_guarded(label, configs, dataset, arrivals, device,
+                                                 init_params))
     return raw
 
 

@@ -844,8 +844,8 @@ _MEASURED_EAGER = "measured arrivals: the host times each worker's message"
 #: why a windowed streamed run keeps the eager loop
 _STREAMED_EAGER = "streamed windows: a staging thread stages each window into new tensors"
 #: why a run over a process group keeps the eager loop
-_GROUP_EAGER = ("a process group: gloo cannot be captured, and NCCL capture "
-                "(world 1 included) waits for ROADMAP A9b")
+_GROUP_EAGER = ("a process group: gloo cannot be captured, and the port keeps "
+                "NCCL collectives out of graph capture (world 1 included)")
 
 
 def _loop_mode(dev, mesh, eager_reason: Optional[str] = None) -> tuple:
@@ -1638,6 +1638,63 @@ def _split_like(flat: torch.Tensor, like: list) -> list:
     return out
 
 
+def _measured_devices(device, mesh) -> list:
+    """The devices a measured run drives: ``device``, or each device of a
+    list of them (one process driving several; all of one type). A list
+    of several is refused under a process group of several ranks, whose
+    worker mesh runs one process per device."""
+    if not isinstance(device, (list, tuple)):
+        return [resolve_device(device)]
+    devices = [resolve_device(d) for d in device]
+    if not devices:
+        raise ValueError("train_measured: the device list is empty")
+    if len({d.type for d in devices}) > 1:
+        raise ValueError(
+            f"train_measured: a device list must hold one device type, got "
+            f"{[str(d) for d in devices]}"
+        )
+    world = mesh.world if mesh is not None else backend_lib.world_size()
+    if len(devices) > 1 and world > 1:
+        raise ValueError(
+            f"train_measured: a list of {len(devices)} devices drives them "
+            f"all from one process, and this process is one rank of a world "
+            f"of {world}: the worker mesh runs one process per device, so "
+            f"pass this rank's one device"
+        )
+    return devices
+
+
+def _put(tree, device):
+    """Every tensor of ``tree`` (params, a message, a worker's slice of a
+    stack of any kind) on ``device``."""
+    return pytree.tree_map(lambda t: t.to(device), tree)
+
+
+def _replay_device_queues(worker_msg, params, slices, mult, devices, t_row, clock) -> list:
+    """One measured round over several devices in one process (the JAX
+    package's per-device queue replay): the params staged on every device
+    and synced before any clock opens (the update leaves them on
+    ``devices[0]``; timing the copy would charge the other devices a
+    transfer device 0's workers never pay), then each device's queue,
+    workers ``d, d + D, ...`` in dispatch order, timed on the device's own
+    clock, so ``t_row[w]`` is worker w's wait behind its queue plus its
+    own compute. The devices are timed one after another: concurrent host
+    timing of several devices measures thread scheduling, not devices.
+    Returns the W messages, each staged on ``devices[0]``."""
+    D, W = len(devices), len(slices)
+    params_on = [_put(params, d) for d in devices]
+    for d in devices:
+        _sync(d)
+    msgs = [None] * W
+    for d_idx, d in enumerate(devices):
+        t0 = clock()
+        for w in range(d_idx, W, D):
+            msgs[w] = worker_msg(params_on[d_idx], *slices[w], n=int(mult[w]))
+            _sync(d)
+            t_row[w] = clock() - t0
+    return [_put(m, devices[0]) for m in msgs]
+
+
 def _make_worker_msg(model):
     """One worker's transmitted message: its per-slot gradient stack over
     its [S, rows, ...] slots (a GLM's closed-form ``grad_sum`` takes the
@@ -1710,11 +1767,24 @@ def train_measured(
     order, so the replicas apply the same update bitwise. Worker ``w`` is
     timed on the rank whose slice holds it.
 
+    ``device`` may be a list of devices that this one process drives (the
+    JAX package's measured mode over a mesh of several local devices): the
+    logical workers are pinned round-robin (worker ``w`` on
+    ``device[w % D]``, its slice placed there once before the clock), and
+    each round, after the params are staged on every device and synced,
+    each device's queue is replayed in dispatch order on its own clock, so
+    a worker's arrival is its wait behind the workers sharing its device
+    plus its own compute. The devices are timed one after another, as the
+    JAX package times them: the semantics are a pod's, and need no
+    distinct chips. Every message is then staged on ``device[0]``, where
+    the decode (one B2 launch) and the update run. A list of one device is
+    the one-device run. A list of several under a process group of
+    several ranks is refused: the worker mesh runs one process per device.
+
     Refused as in the JAX package: pipelining, the simulated heterogeneity
     knobs, deduped compute, the forced fused kernel and the forced flat
     lowerings, and schemes whose descriptor lacks ``supports_measured``
-    (the partial two-part schemes); and a ``device`` list (the JAX
-    package's one-process multi-device queue replay)."""
+    (the partial two-part schemes)."""
     if cfg.pipeline_depth:
         raise PipelineRefusal(
             "measured_arrivals",
@@ -1760,14 +1830,9 @@ def train_measured(
             "misattribute the arrival the mode exists to measure — use the "
             "simulated trainer for partial schemes"
         )
-    if isinstance(device, (list, tuple)):
-        raise ValueError(
-            "arrival_mode='measured' drives one device per process; one "
-            "process replaying several devices' queues waits for "
-            f"{mesh_lib.A9B} (one process driving several GPUs): run one "
-            "process per device instead"
-        )
-    dev = resolve_device(device)
+    devices = _measured_devices(device, mesh)
+    dev = devices[0]  # the decode device
+    D = len(devices)
     layout = build_layout(cfg)
     model = build_model(cfg)
     W = layout.n_workers
@@ -1798,16 +1863,22 @@ def train_measured(
     keys = tuple(sorted(params0)) if isinstance(params0, dict) else None  # decode order
     worker_msg = _make_worker_msg(model)
     slices = [(features_lib.take_lead(X, j), y[j]) for j in range(hi - lo)]
+    dev_of = [devices[w % D] for w in range(W)]
+    if D > 1:
+        # each logical worker's slice pinned to its device once, before the
+        # clock, so workers sharing a device contend for it for real
+        slices = [_put(sl, dev_of[w]) for w, sl in enumerate(slices)]
 
     # warm every worker's computation before the clock (autodiff imports,
-    # a sparse stack's scatter plans, the library's load): measured times
-    # are then steady-state compute
+    # a sparse stack's scatter plans, the library's load), each on its own
+    # device: measured times are then steady-state compute
     if dev.type == "cuda":
         kernels.load_library()
     step_lib.warm_autodiff()
     for w, (Xs, ys) in enumerate(slices, start=lo):
-        worker_msg(state.params, Xs, ys, n=int(mult[w]))
-        _sync(dev)
+        params = state.params if D == 1 else _put(state.params, dev_of[w])
+        worker_msg(params, Xs, ys, n=int(mult[w]))
+        _sync(dev_of[w])
 
     # the injected delay on top of the real compute, like the reference's
     # post-compute sleep (src/naive.py:140-149)
@@ -1827,13 +1898,17 @@ def train_measured(
         # clock opens, or its cost would be charged to worker 0
         _sync(dev)
         t_row = np.zeros(W)
-        msgs = []
-        for w, (Xs, ys) in enumerate(slices, start=lo):
-            t0 = _clock()
-            m = worker_msg(state.params, Xs, ys, n=int(mult[w]))
-            _sync(dev)
-            t_row[w] = _clock() - t0
-            msgs.append(m)
+        if D > 1:
+            msgs = _replay_device_queues(worker_msg, state.params, slices, mult, devices,
+                                         t_row, _clock)
+        else:
+            msgs = []
+            for w, (Xs, ys) in enumerate(slices, start=lo):
+                t0 = _clock()
+                m = worker_msg(state.params, Xs, ys, n=int(mult[w]))
+                _sync(dev)
+                t_row[w] = _clock() - t0
+                msgs.append(m)
         if mesh.distributed:
             # one rank timed each worker, the rest hold zeros there
             t_row = _gather_sum(mesh, torch.from_numpy(t_row).to(dev)).cpu().numpy()

@@ -39,3 +39,19 @@ def resolve_device(device=None) -> torch.device:
         raise ValueError(f"device must be cuda or cpu, got {dev.type!r}")
     pin_float32_precision()
     return dev
+
+
+def local_devices(device=None) -> list:
+    """The devices one process drives for ``device``: every visible card
+    for an unindexed ``cuda`` on a host with several (the JAX package's
+    ``mesh=None``, every local device), else the one device. Inside a
+    process group of several ranks each rank drives its own device (the
+    worker mesh, one process per device), so that is the one."""
+    dev = resolve_device(device)
+    if dev.type != "cuda" or dev.index is not None or torch.cuda.device_count() <= 1:
+        return [dev]
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

@@ -7,7 +7,9 @@ arrivals, the port started from JAX's init draws: the rows' control-plane
 numbers (simulated clocks, decode error, labels, collect counts) must be
 equal, the losses within the cohort tolerance of tests/test_cohort.py
 (rtol 2e-5, atol 1e-6). The guard's out-of-memory bisection is held to the
-JAX guard's counts under the same injected failure pattern.
+JAX guard's counts under the same injected failure pattern, and so is its
+transient retry: a cohort retried with backoff before it degrades, a
+sequential run retried alone.
 """
 
 import json
@@ -45,8 +47,10 @@ SCHEME_EXTRAS = {
 }
 JAX_COUNTERS = (
     "cohort.dispatches", "cohort.trajectories", "cohort.sequential_runs",
-    "cohort.split", "cohort.sequential_fallback", "sweep.diverged",
+    "cohort.retry", "cohort.split", "cohort.sequential_fallback", "sweep.diverged",
 )
+#: the guard's degradation counters, which the port counts as JAX does
+GUARD_COUNTERS = ("cohort.retry", "cohort.split", "cohort.sequential_fallback")
 
 
 def _kw(**kw):
@@ -427,6 +431,177 @@ def test_injected_cohort_oom_bisects_as_jax(spec, data, jdata, monkeypatch):
     for g, c in zip(got, clean):
         np.testing.assert_allclose(g.training_loss, c.training_loss, rtol=2e-5, atol=1e-6)
         assert g.decode_error_mean == c.decode_error_mean
+
+
+@pytest.fixture
+def quick_backoff(monkeypatch):
+    for mod in (t_exp, j_exp):
+        monkeypatch.setattr(mod, "COHORT_BACKOFF_S", 0.001)
+
+
+@pytest.mark.parametrize("marker", t_exp._TRANSIENT_MARKERS)
+def test_injected_transient_retries_as_jax(marker, data, jdata, monkeypatch, quick_backoff):
+    """ERASUREHEAD_CHAOS=raise:cohort:1:<transient marker>: the port's
+    compare() retries the same cohort once, as the JAX guard does (one
+    ``cohort.retry``, no split), and returns every row, equal to JAX's."""
+    labels = ("approx", "repcoded", "naive", "avoidstragg")
+    t, j = _pair({k: v for k, v in _labelled(compute_mode="deduped").items() if k in labels})
+    init = {label: _jax_init(c) for label, c in j.items()}
+    monkeypatch.setenv(t_chaos.CHAOS_ENV, f"raise:cohort:1:{marker}")
+    for mod in (t_chaos, j_chaos):
+        mod.reset()
+    want = j_exp.compare(j, jdata, batch="on")
+    got = t_exp.compare(dict(t), data, batch="on", device="cpu", init_params=init)
+    for name in GUARD_COUNTERS:
+        assert t_exp.COUNTERS[name] == REGISTRY.counter(name).value, name
+    assert t_exp.COUNTERS["cohort.retry"] == 1 and t_exp.COUNTERS["cohort.split"] == 0
+    # the port counts the failed train_cohort call too
+    assert t_exp.COUNTERS["cohort.dispatches"] == 2
+    _rows_match(got, want)
+
+
+def test_sticky_transient_retries_then_degrades_as_jax(data, jdata, monkeypatch,
+                                                       quick_backoff):
+    """Every cohort dispatch fails with UNAVAILABLE: each cohort retries
+    COHORT_MAX_RETRIES times, then bisects down to sequential train(), with
+    JAX's retry, split and fallback counts and JAX's rows."""
+    labels = ("approx", "repcoded")
+    t, j = _pair({k: v for k, v in _labelled(compute_mode="deduped").items() if k in labels})
+    init = {label: _jax_init(c) for label, c in j.items()}
+    monkeypatch.setenv(t_chaos.CHAOS_ENV, "raise:cohort:1+:UNAVAILABLE")
+    for mod in (t_chaos, j_chaos):
+        mod.reset()
+    want = j_exp.compare(j, jdata, batch="on")
+    got = t_exp.compare(dict(t), data, batch="on", device="cpu", init_params=init)
+    for name in GUARD_COUNTERS:
+        assert t_exp.COUNTERS[name] == REGISTRY.counter(name).value, name
+    # the pair, then each half: three dispatches, each retried the cap
+    assert t_exp.COUNTERS["cohort.retry"] == 3 * t_exp.COHORT_MAX_RETRIES
+    assert t_exp.COUNTERS["cohort.split"] == 1
+    assert t_exp.COUNTERS["cohort.sequential_fallback"] == 2
+    _rows_match(got, want)
+
+
+def test_train_one_guarded_retries_a_transient_and_passes_others(data, monkeypatch,
+                                                                quick_backoff, tmp_path):
+    """The sequential guard: a transient failure of train() is retried
+    (``cohort.retry``, a ``cohort_retry`` warning), a transient that
+    outlasts COHORT_MAX_RETRIES propagates, and any other failure
+    propagates at once."""
+    t, _ = _pair({"approx": _kw(compute_mode="deduped")})
+    real, fails = t_trainer.train, []
+
+    def flaky(*a, **k):
+        if fails:
+            raise fails.pop()
+        return real(*a, **k)
+
+    monkeypatch.setattr(t_trainer, "train", flaky)
+    path = str(tmp_path / "events.jsonl")
+    fails[:] = [t_chaos.ChaosInjection("UNAVAILABLE: injected")]
+    with t_exp.obs_events.capture(path):
+        res = t_exp._train_one_guarded("approx", t, data, None, "cpu", None)
+    assert res.params_history.shape[0] == ROUNDS
+    assert t_exp.COUNTERS["cohort.retry"] == 1
+    kinds = [json.loads(line).get("kind") for line in open(path)]
+    assert kinds.count("cohort_retry") == 1
+    fails[:] = [t_chaos.ChaosInjection("ABORTED: injected")] * (t_exp.COHORT_MAX_RETRIES + 1)
+    with pytest.raises(t_chaos.ChaosInjection, match="ABORTED"):
+        t_exp._train_one_guarded("approx", t, data, None, "cpu", None)
+    assert t_exp.COUNTERS["cohort.retry"] == 1 + t_exp.COHORT_MAX_RETRIES
+    for err in (t_chaos.ChaosInjection("BOOM"),
+                RuntimeError("fused_glm_grad launch failed: CUDA error 700 (UNAVAILABLE)"),
+                torch.cuda.OutOfMemoryError("CUDA out of memory")):
+        fails[:] = [err]
+        with pytest.raises(type(err)):
+            t_exp._train_one_guarded("approx", t, data, None, "cpu", None)
+    assert t_exp.COUNTERS["cohort.retry"] == 1 + t_exp.COHORT_MAX_RETRIES
+
+
+def test_the_guard_classifies_torch_runtime_failures():
+    """The guarded types are the runtime's (and the chaos stand-in); each is
+    classified by JAX's markers, a device out-of-memory error always as
+    out-of-memory."""
+    types = t_exp._guarded_error_types()
+    assert t_chaos.ChaosInjection in types and torch.cuda.OutOfMemoryError in types
+    assert torch.distributed.DistBackendError in types
+    if hasattr(torch, "AcceleratorError"):
+        assert torch.AcceleratorError in types
+    assert RuntimeError not in types
+    kind = t_exp._dispatch_error_kind
+    assert kind(torch.cuda.OutOfMemoryError("CUDA error")) == "oom"
+    assert kind(torch.distributed.DistBackendError("gloo: UNAVAILABLE peer")) == "transient"
+    for marker in t_exp._TRANSIENT_MARKERS:
+        assert kind(t_chaos.ChaosInjection(marker)) == j_exp._dispatch_error_kind(
+            j_chaos.ChaosInjection(marker)) == "transient"
+    assert kind(t_chaos.ChaosInjection("RESOURCE_EXHAUSTED")) == "oom"
+    assert kind(t_chaos.ChaosInjection("BOOM")) is None
+    assert [t_exp._backoff(a) for a in (1, 2, 3)] == [j_exp._backoff(a) for a in (1, 2, 3)]
+
+
+@pytest.mark.parametrize("peer, want", [
+    (("oom", "OutOfMemoryError: CUDA out of memory"),
+     dict(retry=0, split=1, agreements=3, out="c1")),
+    (("transient", "ChaosInjection: UNAVAILABLE: injected"),
+     dict(retry=1, split=0, agreements=2, out="c2")),
+    (("other", "RuntimeError: BOOM"), dict(raises="rank 1: RuntimeError: BOOM", agreements=1)),
+], ids=["oom", "transient", "other"])
+def test_ranks_take_one_branch_after_each_attempt(peer, want, monkeypatch, quick_backoff):
+    """Across ranks each attempt ends in an agreement on its outcome: this
+    rank's cohort dispatch succeeds, rank 1's first attempt fails, and this
+    rank bisects, retries or raises as rank 1 does, so the ranks'
+    collectives go on meeting."""
+    cfg = RunConfig(**_kw(compute_mode="deduped"))
+    peers, seen = [peer], []
+
+    def every_rank(value):
+        seen.append(value)
+        return [value, peers.pop() if peers else None]
+
+    monkeypatch.setattr(t_exp.backend_lib, "world_size", lambda: 2)
+    monkeypatch.setattr(t_exp.backend_lib, "every_rank", every_rank)
+    monkeypatch.setattr(t_trainer, "train_cohort",
+                        lambda cfgs, *a, **k: [f"c{len(cfgs)}"] * len(cfgs))
+    run = lambda: t_exp._dispatch_cohort(["a", "b"], {"a": cfg, "b": cfg}, None, None,
+                                         "cpu", None)
+    if "raises" in want:
+        with pytest.raises(t_exp.RankAttemptError, match=want["raises"]):
+            run()
+    else:
+        assert run() == {"a": want["out"], "b": want["out"]}
+        assert t_exp.COUNTERS["cohort.retry"] == want["retry"]
+        assert t_exp.COUNTERS["cohort.split"] == want["split"]
+    assert seen == [None] * want["agreements"]
+
+
+def test_a_rank_failure_joins_the_agreement_before_it_propagates(monkeypatch):
+    """Across ranks a failure the guard does not handle is still agreed on
+    (the other ranks raise too) and then propagates untouched; a sequential
+    run retries a transient of another rank's."""
+    cfg = RunConfig(**_kw(compute_mode="deduped"))
+    peers, seen = [], []
+
+    def every_rank(value):
+        seen.append(value)
+        return [value, peers.pop() if peers else None]
+
+    boom = t_chaos.ChaosInjection("BOOM")
+
+    def fail(*a, **k):
+        raise boom
+
+    monkeypatch.setattr(t_exp.backend_lib, "world_size", lambda: 2)
+    monkeypatch.setattr(t_exp.backend_lib, "every_rank", every_rank)
+    monkeypatch.setattr(t_exp, "COHORT_BACKOFF_S", 0.001)
+    monkeypatch.setattr(t_trainer, "train_cohort", fail)
+    with pytest.raises(t_chaos.ChaosInjection) as raised:
+        t_exp._dispatch_cohort(["a"], {"a": cfg}, None, None, "cpu", None)
+    assert raised.value is boom and seen == [("other", "ChaosInjection: BOOM")]
+    seen.clear()
+    peers[:] = [("transient", "DistBackendError: UNAVAILABLE")]
+    monkeypatch.setattr(t_trainer, "train", lambda *a, **k: "seq")
+    assert t_exp._train_one_guarded("a", {"a": cfg}, None, None, "cpu", None) == "seq"
+    assert seen == [None, None] and t_exp.COUNTERS["cohort.retry"] == 1
 
 
 def test_other_injected_cohort_faults_propagate(data, monkeypatch):

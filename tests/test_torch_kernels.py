@@ -10,8 +10,13 @@ sums in a different order). fused_block_decode: float32 within
 XLA's dot in its own order); bfloat16 within one bfloat16 ulp of the result
 (both round a float32 sum once). The card itself is checked by the
 ``cuda``-marked tests, which skip where there is no card: there the kernel
-must equal its plain version bitwise.
+must equal its plain version bitwise. The device guard (each launch with
+its tensors' card current) is held here with a stand-in library, and on a
+host with two cards by a ``cuda`` test.
 """
+
+import contextlib
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -300,3 +305,127 @@ def test_cuda_block_decode_bitwise_equals_plain_version(shape, dtype):
     assert t_kernels.LAUNCHES["fused_block_decode"] == before + 2
     assert got.dtype == dtype
     assert torch.equal(got, want) and torch.equal(got, again)
+
+
+# ---------------------------------------------------------------------------
+# the device guard: each launch runs with its tensors' card current
+
+
+class _CardTensor:
+    """A stand-in for a CUDA tensor on a CPU-only host: what the wrappers
+    read of their arguments (shape, dtype, device, contiguity, address)."""
+
+    def __init__(self, shape, dtype=torch.float32, device="cuda:1"):
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.device = torch.device(device)
+
+    def dim(self):
+        return len(self.shape)
+
+    def numel(self):
+        return self.shape.numel()
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return 4096
+
+
+class _GuardedLibrary:
+    """The kernel library's C entries, recording the device the guard had
+    made current at each call."""
+
+    def __init__(self, current):
+        self.current = current
+        self.calls = []
+
+    def _seen(self, name, rc=0):
+        self.calls.append((name, self.current[-1] if self.current else None))
+        return rc
+
+    def eh_fused_glm_grad_scratch_floats(self, *args):
+        return self._seen("scratch", 64)
+
+    def eh_fused_glm_grad(self, *args):
+        return self._seen("glm_grad")
+
+    def eh_fused_block_decode_max_leaves(self):
+        return 32
+
+    def eh_fused_block_decode_leaves(self, *args):
+        return self._seen("block_decode")
+
+
+@pytest.fixture
+def guarded_library(monkeypatch):
+    current = []
+
+    @contextlib.contextmanager
+    def device(d):
+        current.append(torch.device(d))
+        try:
+            yield
+        finally:
+            current.pop()
+
+    lib = _GuardedLibrary(current)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch, "empty", lambda shape, dtype=None, device=None: _CardTensor(
+        tuple(shape) if not isinstance(shape, int) else (shape,), dtype, device))
+    monkeypatch.setattr(t_kernels, "_LIB", lib)
+    t_kernels._glm_scratch_floats.cache_clear()
+    yield lib
+    t_kernels._glm_scratch_floats.cache_clear()
+
+
+def test_kernel_wrappers_launch_under_their_tensors_device(guarded_library):
+    """B1's scratch query and launch, and B2's launch (one leaf table and a
+    cohort), each run inside ``torch.cuda.device`` of their tensors' card:
+    cuda:1 here, whatever the caller's current device is."""
+    M, R, F = 3, 5, 8
+    X = _CardTensor((M, R, F))
+    out = t_kernels.fused_glm_grad(_CardTensor((F,)), X, _CardTensor((M, R)), _CardTensor((M,)))
+    assert out.device == X.device
+    t_kernels.fused_block_decode_leaves(_CardTensor((M, 2)), [_CardTensor((M, 2, 7))])
+    t_kernels.fused_block_decode_cohort(_CardTensor((4, M)), [_CardTensor((4, M, 6))], "p")
+    card = torch.device("cuda:1")
+    assert guarded_library.calls == [("scratch", card), ("glm_grad", card),
+                                     ("block_decode", card), ("block_decode", card)]
+
+
+def test_kernel_wrappers_refuse_a_mix_of_devices(guarded_library):
+    M, R, F = 3, 5, 8
+    with pytest.raises(ValueError, match="y is on cuda:0, X on cuda:1"):
+        t_kernels.fused_glm_grad(_CardTensor((F,)), _CardTensor((M, R, F)),
+                                 _CardTensor((M, R), device="cuda:0"), _CardTensor((M,)))
+    with pytest.raises(ValueError, match="leaf 1 is on cuda:0, ws on cuda:1"):
+        t_kernels.fused_block_decode_leaves(
+            _CardTensor((M,)), [_CardTensor((M, 4)), _CardTensor((M, 4), device="cuda:0")])
+    assert guarded_library.calls == []
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_launch_on_their_card_when_another_is_current():
+    """Both kernels on cuda:0 while cuda:1 is the current device: each
+    equals its plain version (B2 bitwise), and the current device is left
+    as the caller set it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: with one, the tensors' card is always the current one")
+    b, X, y, w = _case(6, 40, 32)
+    args = [torch.from_numpy(a).to("cuda:0") for a in (b, X, y, w)]
+    wd, gd = _decode_case(6, 4096, zero_every=4)
+    tw, tg = torch.from_numpy(wd).to("cuda:0"), torch.from_numpy(gd).to("cuda:0")
+    with torch.cuda.device(1):
+        got = t_kernels.fused_glm_grad(*args)
+        dec = t_kernels.fused_block_decode(tw, tg)
+        torch.cuda.synchronize(0)
+        assert torch.cuda.current_device() == 1
+    want = t_kernels.reference_glm_grad(*args)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(dec, t_kernels.reference_block_decode(tw, tg))

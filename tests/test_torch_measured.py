@@ -14,6 +14,11 @@ tests/test_torch_dynamic_cuda.py).
   - every refusal with JAX's message (the trainer's and RunConfig's);
   - ``work_multiplier``: validated with JAX's message; an n-fold message is
     bitwise the one-fold message;
+  - several devices in one process (``device=[...]``, CPU devices here):
+    JAX's multi-device imbalance and queue-contention tests on the real
+    clock, and under a clock that advances by each message's work the
+    per-device queue replay equals JAX's simulated ``train`` on the
+    arrivals that replay implies;
   - the cohort paths and the CLI.
 """
 
@@ -33,10 +38,23 @@ from erasurehead_tpu_torch import cli as t_cli
 from erasurehead_tpu_torch.data.synthetic import generate_gmm
 from erasurehead_tpu_torch.ops import blocks
 from erasurehead_tpu_torch.ops import features as t_features
+from erasurehead_tpu_torch.parallel import mesh as mesh_lib
 from erasurehead_tpu_torch.train import trainer as t_trainer
 from erasurehead_tpu_torch.utils.config import PipelineRefusal, RunConfig
 
 W, S, R = 8, 2, 6
+
+
+def jax_tree_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: np.asarray(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def jax_leaves(tree):
+    if isinstance(tree, dict):
+        return [np.asarray(tree[k]) for k in sorted(tree)]
+    return [np.asarray(tree)]
 
 
 def _kw(**kw):
@@ -184,8 +202,137 @@ def test_config_refusals_match_jax(extra):
 
 
 def test_multi_device_requests_are_refused(data):
-    with pytest.raises(ValueError, match="A9"):
-        t_trainer.train_measured(RunConfig(**_kw()), data, device=["cpu", "cpu"])
+    """A device list drives its devices from one process: under a world of
+    several ranks it is refused (the worker mesh runs one process per
+    device), and so is an empty list."""
+    two = mesh_lib.WorkerMesh(ranks=(0, 1), world=2)
+    with pytest.raises(ValueError, match="one process per device") as ei:
+        t_trainer.train_measured(RunConfig(**_kw()), data, device=["cpu", "cpu"], mesh=two)
+    assert "A9" not in str(ei.value)
+    with pytest.raises(ValueError, match="device list is empty"):
+        t_trainer.train_measured(RunConfig(**_kw()), data, device=[])
+
+
+# ---------------------------------------------------------------------------
+# several devices in one process: the per-device queue replay
+
+
+MULT = 400  # the heavy workers' work: dwarfs timing noise, as JAX's tests
+
+
+def test_measured_multidevice_imbalance_changes_collection(data):
+    """JAX's test of the same name, on four CPU devices of one process:
+    overloading one DEVICE (both of its workers, 0 and 4) pushes exactly
+    its workers out of the collected set, in a majority of rounds (the
+    host clock is real)."""
+    mult = np.ones(W, dtype=np.int64)
+    mult[[0, 4]] = MULT
+    res = t_trainer.train_measured(RunConfig(**_kw(add_delay=False)), data,
+                                   device=["cpu"] * 4, work_multiplier=mult)
+    slow_excluded = (res.worker_times[:, [0, 4]] == -1.0).all(axis=1)
+    assert slow_excluded.sum() > R // 2, res.worker_times
+    fast = [w for w in range(W) if w not in (0, 4)]
+    assert res.collected[slow_excluded][:, fast].all()
+
+
+def test_measured_multidevice_queue_contention(data):
+    """JAX's test of the same name: a LIGHT worker (4) sharing a device with
+    a heavy one (0) arrives late because it queues behind it, and is
+    excluded alongside it in most rounds."""
+    mult = np.ones(W, dtype=np.int64)
+    mult[0] = MULT
+    res = t_trainer.train_measured(RunConfig(**_kw(add_delay=False)), data,
+                                   device=["cpu"] * 4, work_multiplier=mult)
+    both_excluded = (res.worker_times[:, [0, 4]] == -1.0).all(axis=1)
+    assert both_excluded.sum() > R // 2, res.worker_times
+
+
+def _unit_clock(monkeypatch):
+    """A clock that advances by n units whenever a worker's message of
+    n-fold work is computed, and a record of the devices each message ran
+    on: the replay's arrivals are then exact."""
+    now, where = [0.0], []
+    real = t_trainer._make_worker_msg
+
+    def make(model):
+        msg = real(model)
+
+        def timed(params, Xs, ys, n=1):
+            where.append(blocks.tree_leaves(params)[0].device)
+            now[0] += n
+            return msg(params, Xs, ys, n=n)
+
+        return timed
+
+    monkeypatch.setattr(t_trainer, "_make_worker_msg", make)
+    return (lambda: now[0]), where
+
+
+def _queue_arrivals(mult, D):
+    """Each worker's arrival on its device's queue: the work of the workers
+    before it on that device, plus its own."""
+    t = np.zeros(len(mult))
+    for d in range(D):
+        t[d::D] = np.cumsum(mult[d::D])
+    return t
+
+
+@pytest.mark.parametrize("D,scheme,extra", [
+    (4, "avoidstragg", {}),
+    (4, "approx", dict(n_stragglers=1, num_collect=5)),
+    (3, "cyccoded", {}),
+    (2, "approx", dict(n_stragglers=1, num_collect=5, model="mlp", update_rule="GD")),
+])
+def test_device_list_replay_equals_jax_on_its_arrivals(data, jdata, monkeypatch, D, scheme,
+                                                       extra):
+    """Under a clock that advances by mult[w] units per message, the replay
+    over D devices gives worker w the arrival ``sum of its queue up to w``
+    plus the injected delay. The port's clocks and collection then equal,
+    byte for byte, the JAX package's simulated ``train`` on that arrival
+    matrix, and its iterates JAX's within rtol 2e-4 / atol 1e-5 (the port
+    started from JAX's init draw)."""
+    mult = np.array([5, 1, 3, 1, 1, 7, 2, 1], dtype=np.int64)
+    kw = _kw(scheme=scheme, **extra)
+    clock, where = _unit_clock(monkeypatch)
+    jcfg = JRunConfig(**kw)
+    init = jax_tree_numpy(j_trainer._init_params_f32(jcfg, j_trainer.build_model(jcfg), 32))
+    got = t_trainer.train_measured(RunConfig(**kw), data, device=["cpu"] * D,
+                                   work_multiplier=mult, init_params=init, _clock=clock)
+    assert len(where) == W * (R + 1)  # the warm-up and R rounds, W messages each
+    arrivals = _queue_arrivals(mult, D)[None, :] + j_straggler.arrival_schedule(
+        R, W, True, jcfg.delay_mean)
+    want = j_trainer.train(jcfg, jdata, arrivals=arrivals, measure=False)
+    for field in ("timeset", "worker_times", "collected"):
+        a, b = getattr(got, field), np.asarray(getattr(want, field))
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), field
+    for a, b in zip(blocks.tree_leaves(got.params_history),
+                    jax_leaves(want.params_history)):
+        np.testing.assert_allclose(a.numpy(), b, rtol=2e-4, atol=1e-5)
+
+
+def test_a_list_of_one_device_is_the_one_device_run(data):
+    mult = np.arange(1, W + 1)
+    one = t_trainer.train_measured(RunConfig(**_kw()), data, device="cpu", _clock=_zero,
+                                   work_multiplier=mult)
+    listed = t_trainer.train_measured(RunConfig(**_kw()), data, device=["cpu"], _clock=_zero,
+                                      work_multiplier=mult)
+    assert torch.equal(one.params_history, listed.params_history)
+    assert one.collected.tobytes() == listed.collected.tobytes()
+
+
+def test_the_decode_is_one_launch_a_round_on_the_first_device(data, monkeypatch):
+    """The replay stages every message on device[0] and decodes there with
+    one call of B2's wrapper a round."""
+    calls = []
+    real = t_trainer.kernels.fused_block_decode_leaves
+
+    def spy(ws, leaves):
+        calls.append({str(ws.device)} | {str(t.device) for t in leaves})
+        return real(ws, leaves)
+
+    monkeypatch.setattr(t_trainer.kernels, "fused_block_decode_leaves", spy)
+    t_trainer.train_measured(RunConfig(**_kw()), data, device=["cpu"] * 4, _clock=_zero)
+    assert calls == [{"cpu"}] * R
 
 
 def test_work_multiplier(data, jdata):

@@ -1,6 +1,8 @@
 """The port's worker mesh, distributed init and ring plan against the JAX package.
 
-One process: ``initialize_distributed`` with no cluster, the mesh's rules
+One process: ``initialize_distributed`` with no cluster, ``cli.main``
+leaving the group it joined (a barrier, then ``backend.shutdown()``), the
+mesh's rules
 (a prefix of the world, the auto-mesh divisor, divisibility, the 2-D meshes'
 refusal), ``mesh_signature``, the ring plan's ``sel`` and ``n_hops``
 byte-equal to JAX's (data/sharding.plan_ring_transport), the ``stack_mode``
@@ -144,10 +146,56 @@ def test_two_dimensional_meshes_name_a9b(make):
     assert str(got.value) == str(want.value) == "mesh 2x2 needs 4 devices, have 1"
 
 
-def test_require_one_process_names_a9b(monkeypatch):
-    mesh_lib.require_one_process("x")
-    with pytest.raises(ValueError, match="world size 2 it waits for ROADMAP A9b"):
-        mesh_lib.require_one_process("x", mesh_lib.WorkerMesh(ranks=(0, 1), world=2))
+CLI_ARGS = ["--scheme", "approx", "--workers", "4", "--stragglers", "1", "--num-collect", "3",
+            "--rounds", "2", "--rows", "64", "--cols", "8", "--device", "cpu", "--quiet"]
+
+
+@pytest.mark.parametrize("fail", [False, True], ids=["success", "exception"])
+def test_cli_leaves_the_group_it_joined(fail, no_cluster_env, tmp_path, monkeypatch):
+    """cli.main joins a process group (a world of one at a file store here)
+    and leaves it on the way out: a barrier then backend.shutdown() after a
+    run that succeeded, shutdown() alone after one that raised, whose
+    exception propagates."""
+    from erasurehead_tpu_torch import cli
+
+    dist = torch.distributed
+    real_init, real_shutdown, real_barrier = (backend.initialize_distributed,
+                                              backend.shutdown, dist.barrier)
+    rdzv = "file://" + str(tmp_path / "rdzv")
+    monkeypatch.setattr(backend, "initialize_distributed", lambda **kw: real_init(
+        rdzv, world_size=1, rank=0, **kw))
+    calls = []
+    monkeypatch.setattr(backend, "shutdown", lambda: (
+        calls.append(("shutdown", dist.is_initialized())), real_shutdown()))
+    monkeypatch.setattr(dist, "barrier", lambda *a, **k: (
+        calls.append(("barrier", dist.get_world_size())), real_barrier(*a, **k)))
+    if fail:
+        def broken(*a, **k):
+            assert dist.is_initialized()
+            raise RuntimeError("boom")
+
+        monkeypatch.setattr(trainer, "train", broken)
+        with pytest.raises(RuntimeError, match="boom"):
+            cli.main(CLI_ARGS + ["--output-dir", str(tmp_path / "out")])
+        assert calls == [("shutdown", True)]
+    else:
+        assert cli.main(CLI_ARGS + ["--output-dir", str(tmp_path / "out")]) == 0
+        assert calls == [("barrier", 1), ("shutdown", True)]
+    assert not dist.is_initialized() and backend.group_device() is None
+
+
+def test_a_group_the_caller_formed_stays_formed(no_cluster_env, tmp_path):
+    """backend.joined leaves only a group it formed: inside a caller's group
+    (the cluster tests' children run cli.main so) the group outlives it."""
+    backend.initialize_distributed("file://" + str(tmp_path / "rdzv"), world_size=1, rank=0,
+                                   device="cpu")
+    try:
+        with backend.joined(device="cpu"):
+            pass
+        assert torch.distributed.is_initialized()
+    finally:
+        backend.leave()
+    assert not torch.distributed.is_initialized()
 
 
 def test_mesh_signature():

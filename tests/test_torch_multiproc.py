@@ -196,6 +196,23 @@ _CHILD_CKPT = _PRELUDE + textwrap.dedent("""
 """)
 
 
+#: how every child runs its code: in a try/finally that leaves the process
+#: group before the interpreter exits (parallel/backend.leave: a barrier
+#: once every rank's code returned, then destroy_process_group), so no rank
+#: tears down while a peer's group threads still talk to it; an exception
+#: still propagates, and the child exits nonzero
+_RUN_CHILD = textwrap.dedent("""
+    import sys
+    from erasurehead_tpu_torch.parallel import backend
+    ok = False
+    try:
+        exec(compile(sys.argv[1], "<cluster child>", "exec"), {"__name__": "__main__"})
+        ok = True
+    finally:
+        backend.leave(barrier=ok)
+""")
+
+
 def _launch(n, code, out_dir, spec, inits=None, rank_env=None, timeout_s=60.0):
     """Start ``n`` children of one gloo group (torchrun's RANK/WORLD_SIZE)
     and wait for all of them within SPAWN_TIMEOUT_S; a child still running
@@ -203,7 +220,8 @@ def _launch(n, code, out_dir, spec, inits=None, rank_env=None, timeout_s=60.0):
     at a file store new to this launch (``EH_INIT``), not at a TCP port: a
     port found free here could be taken by another process before rank 0
     binds it, which is how cluster tests fail under a loaded test run.
-    Returns ``[(returncode, log)]`` in rank order."""
+    Each child runs ``code`` through :data:`_RUN_CHILD`, which leaves the
+    group cleanly. Returns ``[(returncode, log)]`` in rank order."""
     os.makedirs(out_dir, exist_ok=True)
     spec_path = os.path.join(out_dir, "spec.json")
     with open(spec_path, "w") as f:
@@ -220,7 +238,7 @@ def _launch(n, code, out_dir, spec, inits=None, rank_env=None, timeout_s=60.0):
         for r in range(n):
             extra = (rank_env or {}).get(r, {})
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", code],
+                [sys.executable, "-c", _RUN_CHILD, code],
                 env={**env, "RANK": str(r), "LOCAL_RANK": str(r), **extra},
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=REPO,
             ))

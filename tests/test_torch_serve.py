@@ -16,8 +16,10 @@ What is held, and how:
   - dispatch: packed rows bitwise equal to the same requests dispatched
     alone (each at another column), rows' simulated clocks equal to the
     JAX daemon's and losses/AUC within rtol 1e-4 of them from JAX's initial
-    params, divergence and errors isolated per cohort, per-tenant resume
-    bitwise, backpressure, timeouts, warm restart from the WAL;
+    params, divergence and errors isolated per cohort, a transient retried
+    on the non-batchable path, per-tenant resume bitwise, backpressure,
+    timeouts, warm restart from the WAL (the daemon across ranks is in
+    tests/test_torch_serve_ranks.py);
   - the event logs validate, the report's serve section is the JAX
     report's text, and ``cli serve --device cpu`` answers, dies with exit
     43 under a chaos kill and replays its WAL on restart.
@@ -867,6 +869,31 @@ def test_use_pallas_on_is_its_own_sequential_singleton(gmm, tmp_path):
     direct = trainer.train(_cfg(compute_mode="faithful", use_pallas="on"), gmm, device="cpu")
     assert direct.lowering == "fused"
     np.testing.assert_array_equal(res["fused"].summary.timeset, direct.timeset)
+
+
+def test_the_non_batchable_path_retries_a_transient(gmm, monkeypatch):
+    """A forced-kernel request goes through sequential train(), the
+    non-batchable path: a transient failure of its train() is retried, as
+    the JAX daemon's guarded path retries it (one ``cohort.retry``), and
+    its row is bitwise the undisturbed daemon's."""
+    cfg = _cfg(compute_mode="faithful", use_pallas="on")
+    with _serving(window_s=0.01) as srv:
+        clean = srv.submit(tenant="t", label="fused", config=cfg, dataset=gmm).result(timeout=120)
+    monkeypatch.setattr(experiments, "COHORT_BACKOFF_S", 0.001)
+    real, fails = trainer.train, [chaos.ChaosInjection("UNAVAILABLE: injected")]
+
+    def flaky(*a, **k):
+        if fails:
+            raise fails.pop()
+        return real(*a, **k)
+
+    monkeypatch.setattr(trainer, "train", flaky)
+    r0 = _counter("cohort.retry")
+    with _serving(window_s=0.01) as srv:
+        res = srv.submit(tenant="t", label="fused", config=cfg, dataset=gmm).result(timeout=120)
+    assert res.status == clean.status == "ok" and not fails
+    assert _counter("cohort.retry") == r0 + 1
+    assert _science(res.summary) == _science(clean.summary)
 
 
 def test_two_dispatch_threads_run_glm_and_deep_cohorts_together(gmm):

@@ -29,8 +29,8 @@ JAX package's references on a CPU mesh of as many devices:
     not: both ranks take rank 0's lowering and stay bitwise equal;
   - the CLI (``--stack-residency streamed --stack-mode ring``, ``--adapt
     on``, ``--elastic on``) inside the 2-rank group: one copy of each
-    artifact, the timeset bytes of the world-1 run; the serve daemon still
-    refusing the group, naming ROADMAP A9b.
+    artifact, the timeset bytes of the world-1 run. (The serve daemon across
+    ranks is in tests/test_torch_serve_ranks.py.)
 """
 
 import concurrent.futures
@@ -235,15 +235,6 @@ _CHILD_2 = _PRELUDE + textwrap.dedent("""
         tune.get_cache().record("cpu", "glm_fused", sig, "xla")
     out["tune:own_verdict"] = np.array(str(tune.get_cache().lookup("cpu", "glm_fused", sig)))
     keep("tune", trainer.train(tcfg, tds, device="cpu"))
-
-    # the serve daemon over several processes still waits for ROADMAP A9b
-    from erasurehead_tpu_torch.serve.server import SweepServer
-
-    try:
-        SweepServer(device="cpu")
-        out["serve:refusal"] = np.array("")
-    except ValueError as e:
-        out["serve:refusal"] = np.array(str(e))
 
     for name, argv in spec["cli"].items():
         assert cli.main(argv + ["--output-dir", os.path.join(root, "cli_" + name)]) == 0
@@ -484,13 +475,6 @@ def test_tune_verdict_is_rank_zeros(clusters):
     assert str(ranks[0]["tune:own_verdict"]) == "None"
     assert str(ranks[0]["tune:lowering"]) == str(ranks[1]["tune:lowering"]) == "fused"
     assert np.array_equal(ranks[0]["tune"], ranks[1]["tune"])
-
-
-def test_the_serve_daemon_still_refuses_a_world_of_two(clusters):
-    ranks, *_ = clusters
-    for r in ranks:
-        msg = str(r["serve:refusal"])
-        assert "the serve daemon (SweepServer)" in msg and "ROADMAP A9b" in msg
 
 
 @pytest.mark.parametrize("name", list(CLI_RUNS))
