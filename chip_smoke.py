@@ -355,26 +355,30 @@ Phases, one JSON line each:
                  no loss, /metrics, ``cli top``); the kill drill (``cli
                  serve`` exits 43 under kill:serve_dispatch:1, its restart
                  replays the WAL bitwise with no new kernel build); every
-                 log valid, ``cli report``'s serve section. While the
-                 drill's daemon builds, ``serve_ranks``: ``torchrun
-                 --standalone --nproc-per-node 2`` of this script
-                 (``--serve-child``), the daemon on two gloo ranks of the
-                 one card, three wire requests (two packed, one
-                 use_pallas="on"), 20 rounds: both ranks exit 0, every row
-                 as a one-process daemon's (clocks equal, losses within
-                 rtol 2e-5), 20 B1 on each rank.
+                 log valid, ``cli report``'s serve section. (The daemon
+                 across ranks runs in ``fleet``, as its group replica.)
   40. fleet    - (after serve) the serve fleet (serve/router.py,
                  serve/fleet.py): ``cli serve --device cuda`` replicas behind
                  the router sharing this process's kernel build directory
                  (its files unchanged: no replica builds); one replica's
                  rows bitwise an in-process daemon's (20 B1 at
-                 [90, 4400, 128], 20 B2 there); three replicas and
-                 kill:fleet_replica:2 on the one the ring routes a tenant
-                 to (declared dead at a streak >= 3, its WAL adopted by its
-                 ring peer, every row once and bitwise); a rolling deploy
-                 of the survivors under closed-loop load (0 lost, 0
-                 duplicates); one request set's goodput through one and
-                 two replicas, boot seconds; every fleet record valid.
+                 [90, 4400, 128], 20 B2 there); three replicas booted at
+                 once, and kill:fleet_replica:2 on the one the ring routes a
+                 tenant to (declared dead at a streak >= 3, its WAL adopted
+                 by its ring peer, every row once); that peer is a group
+                 replica, the daemon across ranks: two gloo ranks of one
+                 ``cli serve`` on the one card (``ranks=``,
+                 ``share_card=True``), rank 0 serving, rank 1 following
+                 every dispatch; the adopted rows and the group's own set
+                 (two packed wire requests, a use_pallas="on" one and a
+                 deep one) through the router with the control plane of
+                 one process's rows and losses within rtol 2e-5 (20 B1 on
+                 each rank's [45, 4400, 128], 20 B2 on each rank); a
+                 rolling deploy of the survivors under closed-loop load (0
+                 lost, 0 duplicates; the group re-forms at a new
+                 rendezvous); one request set's goodput through one and two
+                 replicas, boot seconds; every fleet record valid; no
+                 process of any replica's group left after stop().
   41. native   - the native text parser on a 13,500 x 100 text matrix:
                  bitwise np.loadtxt, both timed, a cold load_dense_text on
                  the native path.
@@ -447,6 +451,11 @@ its profile (device time a round, busy share, decode against the rest).
 A ``profiler`` line lists every timing window that lost device records and
 was taken again.
 
+A ``host`` line after ``main`` gives the host's speed (the nvcc build's
+seconds, the main path's CPU reference steps/s), and a ``timeline`` line
+before the last ones the seconds by phase (each line's ``at_s`` less the
+line before it's).
+
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
 exits non-zero; without a CUDA card, or without the erasurehead_tpu_torch
@@ -457,6 +466,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -666,9 +676,23 @@ _T0 = time.perf_counter()
 
 def emit(phase: str, **fields) -> None:
     """One JSON line, stamped with the seconds since the script started
-    (``at_s``: where the run's time went)."""
-    print(json.dumps({"phase": phase, **fields,
-                      "at_s": round(time.perf_counter() - _T0, 1)}), flush=True)
+    (``at_s``: where the run's time went; :func:`timeline` sums them)."""
+    at = round(time.perf_counter() - _T0, 1)
+    _EMITTED.append((phase, at))
+    print(json.dumps({"phase": phase, **fields, "at_s": at}), flush=True)
+
+
+_EMITTED: list = []  # (phase, at_s) of every emitted line
+
+
+def timeline() -> dict:
+    """Seconds by phase name: each emitted line's ``at_s`` less the line
+    before it's, summed over the lines of one name, in first-seen order."""
+    out, prev = {}, 0.0
+    for phase, at in _EMITTED:
+        out[phase] = round(out.get(phase, 0.0) + at - prev, 1)
+        prev = at
+    return out
 
 
 def card_line() -> str:
@@ -2196,15 +2220,17 @@ def data_cache_phase(kernels, experiments, ds, both0) -> dict:
     return rec
 
 
-def sweep_cli(args, env=None) -> subprocess.CompletedProcess:
-    """``python -m erasurehead_tpu_torch.cli sweep`` in a subprocess of this
-    checkout, ``env`` over this process's environment."""
+def sweep_cli(args, err_path, env=None) -> subprocess.Popen:
+    """``python -m erasurehead_tpu_torch.cli sweep`` started in a subprocess
+    of this checkout, ``env`` over this process's environment, its stderr
+    into ``err_path`` (its stdout dropped)."""
     full = {k: v for k, v in os.environ.items() if k != "ERASUREHEAD_CHAOS"}
     full.update(env or {})
-    return subprocess.run(
-        [sys.executable, "-m", "erasurehead_tpu_torch.cli", "sweep"] + args, cwd=HERE,
-        env=full, capture_output=True, text=True, timeout=600,
-    )
+    with open(err_path, "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-m", "erasurehead_tpu_torch.cli", "sweep"] + args, cwd=HERE,
+            env=full, stdout=subprocess.DEVNULL, stderr=err,
+        )
 
 
 def science(path) -> list:
@@ -2214,122 +2240,167 @@ def science(path) -> list:
         return [journal.science_row(r) for r in json.load(f)]
 
 
-def journal_phase(kernels, experiments, ds, tmp, both0) -> dict:
+def journal_phase(kernels, experiments, ds, tmp, both0):
     """Three drills. (1) ERASUREHEAD_CHAOS=raise:trajectory:2 on the
     seven-scheme deduped compare under batch off, auto and on, resumed from
     its journal and held to the uninterrupted rows: bitwise under "off" (the
     script fails otherwise), the largest difference reported for the
     cohorts. (2) A real kill: ``cli sweep --rounds 30`` under
-    kill:trajectory:3 exits 43; ``--resume-sweep`` finishes the suite with
-    the science rows of an uninterrupted in-process run. (3) A third resume over the complete journal trains
-    nothing: no launch of either kernel. The in-process uninterrupted suite
-    runs twice: the two must be bitwise equal (the MLP on the covtype-shaped
-    PaddedRows stand-in included, whose gather's gradient is a sorted segment
-    sum, not atomics)."""
+    kill:trajectory:3 (started first, beside drill 1) exits 43; ``cli sweep
+    --resume-sweep``, a fresh process as after a crash (started once the
+    kill has ended, beside the in-process uninterrupted suite and whatever
+    the caller runs before it calls the returned function), finishes the
+    suite with the science rows of an uninterrupted in-process run. (3) A
+    third resume over the complete journal trains nothing: no launch of
+    either kernel. The in-process uninterrupted suite runs twice: the two
+    must be bitwise equal (the MLP on the covtype-shaped PaddedRows
+    stand-in included, whose gather's gradient is a sorted segment sum, not
+    atomics).
+
+    Returns the resume's process and a function of no argument that waits
+    for it, runs (3), emits the ``journal`` line and returns its record."""
     from erasurehead_tpu_torch.obs import events
     from erasurehead_tpu_torch.obs.metrics import REGISTRY
     from erasurehead_tpu_torch.train import journal
     from erasurehead_tpu_torch.utils import chaos
 
-    out, launches = {}, {}
-    configs = cohort_configs("deduped", (0,))
-    for batch in ("off", "auto", "on"):
-        t0 = time.perf_counter()
-        kernels.reset_launches()
-        base = experiments.compare(configs, ds, batch=batch)
-        jdir = os.path.join(tmp, f"journal_{batch}")
-        os.environ[chaos.CHAOS_ENV] = "raise:trajectory:2"
-        chaos.reset()
-        j = journal.SweepJournal(jdir)
-        try:
-            experiments.compare(configs, ds, batch=batch, journal=j)
-            raise AssertionError("the chaos spec did not fire")
-        except chaos.ChaosInjection:
-            pass
-        finally:
-            j.close()
-            del os.environ[chaos.CHAOS_ENV]
+    # (2)'s real kill, in a subprocess beside drill 1
+    suite_jdir = os.path.join(tmp, "suite_journal")
+    killed_out = os.path.join(tmp, "suite_a.json")
+    args = ["--rounds", str(SWEEP_ROUNDS), "--sweep-journal", suite_jdir, "--out", killed_out]
+    t_kill = time.perf_counter()
+    killed_err_path = os.path.join(tmp, "suite_killed.err")
+    killed = sweep_cli(args, killed_err_path, {"ERASUREHEAD_CHAOS": "kill:trajectory:3"})
+    try:
+        out, launches = {}, {}
+        configs = cohort_configs("deduped", (0,))
+        for batch in ("off", "auto", "on"):
+            t0 = time.perf_counter()
+            kernels.reset_launches()
+            base = experiments.compare(configs, ds, batch=batch)
+            jdir = os.path.join(tmp, f"journal_{batch}")
+            os.environ[chaos.CHAOS_ENV] = "raise:trajectory:2"
             chaos.reset()
-        j2 = journal.SweepJournal(jdir, resume=True)
-        recorded = len(j2)
-        resumed = experiments.compare(configs, ds, batch=batch, journal=j2)
-        j2.close()
-        launches[f"drill1_{batch}"] = dict(kernels.LAUNCHES)
-        diff = max(float(np.max(np.abs(a.training_loss - b.training_loss)))
-                   for a, b in zip(base, resumed))
-        out[batch] = dict(
-            recorded_before_fault=recorded, bitwise=rows_bitwise(base, resumed),
-            science_rows_equal=[journal.science_row(s.row()) for s in base]
-            == [journal.science_row(s.row()) for s in resumed],
-            max_abs_loss_diff=diff, max_rel_loss_diff=max(
-                max_rel(b.training_loss, a.training_loss) for a, b in zip(base, resumed)),
-            journal_errors=events.validate_file(j2.path), launches=launches[f"drill1_{batch}"],
-            wall_s=time.perf_counter() - t0)
-        if recorded != 2 or out[batch]["journal_errors"]:
-            raise AssertionError(f"journal drill ({batch}): {out[batch]}")
-        if batch == "off" and not (out[batch]["bitwise"] and out[batch]["science_rows_equal"]):
-            raise AssertionError(f"the sequential resume is not bitwise: {out[batch]}")
-    # the uninterrupted seven, the two before the fault, the five resumed
-    want_off = {**both0, "fused_glm_grad": ROUNDS * 2 * len(configs)}
-    if launches["drill1_off"] != want_off:
-        raise AssertionError(f"drill 1 off launched {launches['drill1_off']}, want {want_off}")
+            j = journal.SweepJournal(jdir)
+            try:
+                experiments.compare(configs, ds, batch=batch, journal=j)
+                raise AssertionError("the chaos spec did not fire")
+            except chaos.ChaosInjection:
+                pass
+            finally:
+                j.close()
+                del os.environ[chaos.CHAOS_ENV]
+                chaos.reset()
+            j2 = journal.SweepJournal(jdir, resume=True)
+            recorded = len(j2)
+            resumed = experiments.compare(configs, ds, batch=batch, journal=j2)
+            j2.close()
+            launches[f"drill1_{batch}"] = dict(kernels.LAUNCHES)
+            diff = max(float(np.max(np.abs(a.training_loss - b.training_loss)))
+                       for a, b in zip(base, resumed))
+            out[batch] = dict(
+                recorded_before_fault=recorded, bitwise=rows_bitwise(base, resumed),
+                science_rows_equal=[journal.science_row(s.row()) for s in base]
+                == [journal.science_row(s.row()) for s in resumed],
+                max_abs_loss_diff=diff, max_rel_loss_diff=max(
+                    max_rel(b.training_loss, a.training_loss) for a, b in zip(base, resumed)),
+                journal_errors=events.validate_file(j2.path), launches=launches[f"drill1_{batch}"],
+                wall_s=time.perf_counter() - t0)
+            if recorded != 2 or out[batch]["journal_errors"]:
+                raise AssertionError(f"journal drill ({batch}): {out[batch]}")
+            if batch == "off" and not (out[batch]["bitwise"] and out[batch]["science_rows_equal"]):
+                raise AssertionError(f"the sequential resume is not bitwise: {out[batch]}")
+        # the uninterrupted seven, the two before the fault, the five resumed
+        want_off = {**both0, "fused_glm_grad": ROUNDS * 2 * len(configs)}
+        if launches["drill1_off"] != want_off:
+            raise AssertionError(f"drill 1 off launched {launches['drill1_off']}, want {want_off}")
+    except BaseException:
+        killed.kill()
+        killed.wait()
+        raise
+    try:
+        killed.wait(timeout=600)
+    finally:
+        if killed.poll() is None:
+            killed.kill()
+            killed.wait()
+    killed_err = open(killed_err_path).read()
+    kill_s = time.perf_counter() - t_kill  # the subprocess's wall, drill 1 beside it
 
-    # (2) a real kill in a subprocess, then --resume-sweep
-    jdir, killed_out = os.path.join(tmp, "suite_journal"), os.path.join(tmp, "suite_a.json")
-    args = ["--rounds", str(SWEEP_ROUNDS), "--sweep-journal", jdir, "--out", killed_out]
-    t0 = time.perf_counter()
-    killed = sweep_cli(args, {"ERASUREHEAD_CHAOS": "kill:trajectory:3"})
-    kill_s = time.perf_counter() - t0
-    journaled = len(journal.SweepJournal(jdir, resume=True))
+    # (2) then --resume-sweep in a fresh process, beside the uninterrupted
+    # suite in this one
+    journaled = len(journal.SweepJournal(suite_jdir, resume=True))
     if killed.returncode != chaos.KILL_EXIT or os.path.exists(killed_out) or journaled != 3:
         raise AssertionError(f"the killed sweep exited {killed.returncode} with {journaled} "
-                             f"rows journaled: {killed.stderr[-2000:]}")
-    t0 = time.perf_counter()
-    finished = sweep_cli(args + ["--resume-sweep"])
-    resume_s = time.perf_counter() - t0
-    if finished.returncode != 0:
-        raise AssertionError(f"--resume-sweep failed: {finished.stderr[-2000:]}")
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    whole = [s for rows in experiments.baseline_suite(rounds=SWEEP_ROUNDS).values() for s in rows]
-    whole_s = time.perf_counter() - t0
-    launches["suite"] = dict(kernels.LAUNCHES)
-    rerun = [s for rows in experiments.baseline_suite(rounds=SWEEP_ROUNDS).values() for s in rows]
-    rerun_bitwise = rows_bitwise(whole, rerun)
-    whole_out = os.path.join(tmp, "suite_u.json")
-    experiments.save_summaries(whole, whole_out)
-    suite_rows = science(whole_out)
-    if science(killed_out) != suite_rows:
-        raise AssertionError("the resumed suite's science rows differ from an uninterrupted run's")
+                             f"rows journaled: {killed_err[-2000:]}")
+    t_resume = time.perf_counter()
+    resumed_err_path = os.path.join(tmp, "suite_resumed.err")
+    resuming = sweep_cli(args + ["--resume-sweep"], resumed_err_path)
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        whole = [s for rows in experiments.baseline_suite(rounds=SWEEP_ROUNDS).values()
+                 for s in rows]
+        whole_s = time.perf_counter() - t0
+        launches["suite"] = dict(kernels.LAUNCHES)
+        rerun = [s for rows in experiments.baseline_suite(rounds=SWEEP_ROUNDS).values()
+                 for s in rows]
+        rerun_bitwise = rows_bitwise(whole, rerun)
+        whole_out = os.path.join(tmp, "suite_u.json")
+        experiments.save_summaries(whole, whole_out)
+        suite_rows = science(whole_out)
+    except BaseException:
+        resuming.kill()
+        resuming.wait()
+        raise
 
-    # (3) a resume over the complete journal trains nothing
-    kernels.reset_launches()
-    resumed_before = REGISTRY.counter("sweep_journal.resumed").value
-    again_out = os.path.join(tmp, "suite_c.json")
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        experiments.main(args[:-1] + [again_out, "--resume-sweep"])
-    again_s = time.perf_counter() - t0
-    launches["full_resume"] = dict(kernels.LAUNCHES)
-    rehydrated = REGISTRY.counter("sweep_journal.resumed").value - resumed_before
-    journal_path = os.path.join(jdir, journal.JOURNAL_NAME)
-    rec = dict(
-        drill1=out, kill_exit=killed.returncode, journaled_before_kill=journaled,
-        resumed_science_rows_equal=True, suite_rows=suite_rows,
-        suite_rerun_bitwise=rerun_bitwise, full_resume_launches=launches["full_resume"],
-        full_resume_rehydrated=rehydrated, journal_errors=events.validate_file(journal_path),
-        wall_s={"kill": kill_s, "resume": resume_s, "uninterrupted": whole_s,
-                "full_resume": again_s},
-    )
-    emit("journal", **rec)
-    if launches["full_resume"] != both0 or rehydrated != len(suite_rows) \
-            or science(again_out) != suite_rows or rec["journal_errors"]:
-        raise AssertionError(f"the full resume trained or differs: {launches['full_resume']}, "
-                             f"{rehydrated} rehydrated, {rec['journal_errors']}")
-    if not rerun_bitwise:
-        raise AssertionError("two card runs of the suite differ (a row is not deterministic)")
-    rec["launches"] = launches
-    return rec
+    def finish() -> dict:
+        """Wait for the ``--resume-sweep`` process and hold its rows to the
+        uninterrupted suite's, then drill (3); emits the ``journal`` line."""
+        try:
+            resuming.wait(timeout=600)
+        finally:
+            if resuming.poll() is None:
+                resuming.kill()
+                resuming.wait()
+        resume_s = time.perf_counter() - t_resume  # its wall, other work beside it
+        if resuming.returncode != 0:
+            raise AssertionError(f"--resume-sweep exited {resuming.returncode}: "
+                                 f"{open(resumed_err_path).read()[-2000:]}")
+        if science(killed_out) != suite_rows:
+            raise AssertionError(
+                "the resumed suite's science rows differ from an uninterrupted run's")
+
+        # (3) a resume over the complete journal trains nothing
+        kernels.reset_launches()
+        resumed_before = REGISTRY.counter("sweep_journal.resumed").value
+        again_out = os.path.join(tmp, "suite_c.json")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            experiments.main(args[:-1] + [again_out, "--resume-sweep"])
+        again_s = time.perf_counter() - t0
+        launches["full_resume"] = dict(kernels.LAUNCHES)
+        rehydrated = REGISTRY.counter("sweep_journal.resumed").value - resumed_before
+        journal_path = os.path.join(suite_jdir, journal.JOURNAL_NAME)
+        rec = dict(
+            drill1=out, kill_exit=killed.returncode, journaled_before_kill=journaled,
+            resumed_science_rows_equal=True, suite_rows=suite_rows,
+            suite_rerun_bitwise=rerun_bitwise, full_resume_launches=launches["full_resume"],
+            full_resume_rehydrated=rehydrated, journal_errors=events.validate_file(journal_path),
+            wall_s={"kill": kill_s, "resume": resume_s, "uninterrupted": whole_s,
+                    "full_resume": again_s},
+        )
+        emit("journal", **rec)
+        if launches["full_resume"] != both0 or rehydrated != len(suite_rows) \
+                or science(again_out) != suite_rows or rec["journal_errors"]:
+            raise AssertionError(f"the full resume trained or differs: {launches['full_resume']}, "
+                                 f"{rehydrated} rehydrated, {rec['journal_errors']}")
+        if not rerun_bitwise:
+            raise AssertionError("two card runs of the suite differ (a row is not deterministic)")
+        rec["launches"] = launches
+        return rec
+
+    return resuming, finish
 
 
 def pipeline_phase(cli, kernels, tmp, both0) -> dict:
@@ -2339,7 +2410,9 @@ def pipeline_phase(cli, kernels, tmp, both0) -> dict:
     relative 1e-4 of the CPU's; the loss falls; the depth-0 run is bitwise
     the run without the flag and parts from the pipelined one after round
     0. Then deepmlp layer-coded pipelined: 20 B2 launches, card vs CPU
-    within 1e-4. The refusals of cyccoded, AGD and --checkpoint-dir."""
+    within 1e-4. The refusals of cyccoded, AGD and --checkpoint-dir. main()
+    runs the journal's ``cli sweep --resume-sweep`` process beside this
+    phase, so its steps/s are taken beside it (the record's ``beside``)."""
     from erasurehead_tpu_torch.parallel import pipeline
     from erasurehead_tpu_torch.train import trainer
     from erasurehead_tpu_torch.utils.config import PipelineRefusal
@@ -2396,7 +2469,7 @@ def pipeline_phase(cli, kernels, tmp, both0) -> dict:
         deep=dict(args=DEEP_PIPE_ARGS, launches=deep["launches"],
                   steps_per_sec=deep["res"].steps_per_sec, max_rel_loss_vs_cpu_10_rounds=deep_rel,
                   train_loss_first_last=[float(deep["loss"][0]), float(deep["loss"][-1])]),
-        refusals=refusals,
+        refusals=refusals, beside="the journal's cli sweep --resume-sweep process",
     )
     emit("pipeline", **rec)
     if gpu["launches"] != b1 or sync["launches"] != b1 or sync0["launches"] != b1:
@@ -3390,7 +3463,8 @@ def tune_phase(cli, kernels, tmp, both0) -> dict:
     ``cli tune --race all``: all five races run and record a verdict (the
     ring races race the one-hop ring, a local gather, in one process). A
     chaos kill at tune_race (a subprocess of ``cli
-    tune``) exits 43 with the cache's bytes unchanged; the rerun records
+    tune``) exits 43 with the cache's bytes unchanged; the rerun (``cli
+    tune`` in this process, from the file as the kill left it) records
     the key the race keys. The warm lookup's cost in microseconds. Every
     tune record validates."""
     from erasurehead_tpu_torch import tune as tune_lib
@@ -3442,12 +3516,17 @@ def tune_phase(cli, kernels, tmp, both0) -> dict:
         race_all = out.getvalue()
         raced_kinds = {k.split("|")[1] for k in tune_lib.get_cache().decisions()}
 
-        # the kill drill, in subprocesses of `cli tune` on this cache file
+        # the kill drill: a subprocess of `cli tune` on this cache file, then
+        # the rerun in this process, from the file as the kill left it
         before = open(cache_path, "rb").read()
         killed = tune_cli(TUNE_MAIN, cache_path, chaos="kill:tune_race:1")
         after_kill = open(cache_path, "rb").read()
-        rerun = tune_cli(TUNE_MAIN + ["--json"], cache_path)
-        rerun_out = json.loads(rerun.stdout.strip().splitlines()[-1]) if rerun.stdout else {}
+        tune_lib.reset()
+        rerun_stdout = io.StringIO()
+        with contextlib.redirect_stdout(rerun_stdout):
+            rerun_rc = cli.main(["tune"] + TUNE_MAIN + ["--json"])
+        rerun_lines = rerun_stdout.getvalue().strip().splitlines()
+        rerun_out = json.loads(rerun_lines[-1]) if rerun_lines else {}
         rerun_key = tune_lib.decision_key(rerun_out.get("device_kind", "?"), "glm_fused",
                                           (rerun_out.get("races", {}).get("glm_fused") or {})
                                           .get("shape", "?"))
@@ -3481,7 +3560,7 @@ def tune_phase(cli, kernels, tmp, both0) -> dict:
         race_all_lines=[ln for ln in race_all.splitlines() if "choice=" in ln],
         race_all_recorded=sorted(raced_kinds),
         kill=dict(exit_code=killed.returncode, cache_bytes_unchanged=after_kill == before,
-                  rerun_exit_code=rerun.returncode, rerun_key=rerun_key,
+                  rerun_exit_code=rerun_rc, rerun_key=rerun_key,
                   rerun_recorded=rerun_key in json.loads(open(cache_path).read())["decisions"]),
         warm_lookup_us=lookup_us, warm_resolve_us=resolve_us,
         tune_records=n_records, validation_errors=errors,
@@ -3498,9 +3577,9 @@ def tune_phase(cli, kernels, tmp, both0) -> dict:
     if killed.returncode != chaos_lib.KILL_EXIT or after_kill != before:
         raise AssertionError(f"kill drill: exit {killed.returncode}, cache changed "
                              f"{after_kill != before}: {killed.stderr[-2000:]}")
-    if rerun.returncode != 0 or not rec["kill"]["rerun_recorded"] \
+    if rerun_rc != 0 or not rec["kill"]["rerun_recorded"] \
             or rerun_key.split("|", 2)[2] != sig:
-        raise AssertionError(f"kill drill rerun: {rec['kill']}: {rerun.stderr[-2000:]}")
+        raise AssertionError(f"kill drill rerun: {rec['kill']}: {rerun_lines[-20:]}")
     if lookup_us >= 1000 or errors or not n_records:
         raise AssertionError(f"warm lookup {lookup_us} us, {n_records} records, {errors}")
     rec["launches_by_run"] = {**{f"tune_{k}_auto": g["launches"] for k, g in glm.items()},
@@ -4081,10 +4160,8 @@ def serve_phase(cli, kernels, tmp, both0, ds) -> dict:
       6. the kill drill: ``cli serve --device cuda --cache-dir C`` in a
          subprocess (started after the timed steps 1-2 and waited for
          before the timed step 5: its boot and its nvcc build into C
-         overlap only the untimed steps 3-4 and the serve daemon across
-         ranks (:func:`serve_ranks_phase`, which times nothing; its record
-         is this one's ``serve_ranks``), so ``cold_boot_s`` is a boot under
-         that contention) under
+         overlap only the untimed steps 3-4, so ``cold_boot_s`` is a boot
+         beside them) under
          ERASUREHEAD_CHAOS=kill:serve_dispatch:1 takes
          3 requests and exits 43; restarted on the same journal and C it
          replays its WAL (the restart record splits it), the resubmissions'
@@ -4114,251 +4191,253 @@ def serve_phase(cli, kernels, tmp, both0, ds) -> dict:
     def dispatches():
         return REGISTRY.counter("serve.dispatches").value
 
-    # 1. packing
-    specs = [(f"t{k}", f"{scheme}_{k}", dataclasses.replace(
-        base, scheme=scheme, num_collect=nc, seed=k + 10 * i))
-        for k in range(SERVE_TENANTS) for i, (scheme, nc) in enumerate(SERVE_SCHEMES)]
-    keys = {packer.pack_key(serve_queue.RunRequest(tenant="x", label="x", config=c, dataset=ds))
-            for _, _, c in specs}
-    pack_log = os.path.join(tmp, "serve_pack.jsonl")
-    kernels.reset_launches()
-    d0 = dispatches()
-    # the same eight again with other seeds, timed warm (the first pass pays
-    # the daemon's first dispatch: new threads, the stack upload)
-    warm_specs = [(tn, f"warm_{label}", dataclasses.replace(cfg, seed=cfg.seed + 100))
-                  for tn, label, cfg in specs]
-    with events_lib.capture(pack_log):
-        with server.serving(device="cuda", max_cohort=8, dispatch_workers=2,
-                            window_s=0.5) as srv:
-            t0 = time.perf_counter()
-            packed = served(srv, specs, ds)
-            cold_wall = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            warm_rows = served(srv, warm_specs, ds)
-            packed_wall = time.perf_counter() - t0
-    packed_launches, packed_dispatches = dict(kernels.LAUNCHES), dispatches() - d0
-    if packed_launches != both0 or not packed_dispatches < 2 * len(specs):
-        raise AssertionError(f"packing: {packed_dispatches} dispatches for {len(specs)} "
-                             f"requests, launches {packed_launches}")
-    columns = pack_columns(pack_log)
-    if not any(col for _, col in columns.values()):
-        raise AssertionError(f"no request packed beyond column 0: {columns}")
-    kernels.reset_launches()
-    alone = alone_rows(server, specs, ds, 8)
-    alone_launches = dict(kernels.LAUNCHES)
-    differ = [label for label in packed
-              if serve_science(alone[label].summary) != serve_science(packed[label].summary)]
-    if differ or alone_launches != both0:
-        raise AssertionError(f"packed rows differ from alone: {differ} ({alone_launches})")
-    kernels.reset_launches()
-    seq_rel, seq_wall, seq_loop = {}, 0.0, 0.0
-    for _, label, cfg in specs:
-        # timed with its replay, as the daemon's row is (its eval replay)
-        t0 = time.perf_counter()
-        res = trainer.train(cfg, ds)
-        loss = replayed_loss(res, ds)
-        seq_wall += time.perf_counter() - t0
-        seq_loop += res.wall_time
-        seq_rel[label] = max_rel(packed[label].summary.training_loss, loss)
-    seq_launches = dict(kernels.LAUNCHES)
-    if max(seq_rel.values()) > 1e-4 or seq_launches != {
-            **both0, "fused_glm_grad": ROUNDS * len(specs)}:
-        raise AssertionError(f"packed vs sequential train(): {seq_rel}, {seq_launches}")
-    warm_cache = next(iter(warm_rows.values())).summary.cache
-    emit("serve_pack", requests=2 * len(specs), pack_keys=len(keys),
-         dispatches=packed_dispatches,
-         columns=columns, launches=packed_launches, alone_launches=alone_launches,
-         sequential_launches=seq_launches, rows_bitwise_alone=True,
-         max_rel_loss_vs_sequential=max(seq_rel.values()),
-         cold_wall_s=cold_wall, packed_wall_s=packed_wall, sequential_wall_s=seq_wall,
-         warm_setup_s=warm_cache["setup_seconds"],
-         # the first set pays the daemon's first dispatch (new threads, the
-         # stack upload): end to end and its round loop
-         cold_aggregate_steps_per_sec=ROUNDS * len(specs) / cold_wall,
-         cold_loop_steps_per_sec=sorted({r.summary.real_steps_per_sec
-                                         for r in packed.values()}),
-         packed_aggregate_steps_per_sec=ROUNDS * len(specs) / packed_wall,
-         sequential_aggregate_steps_per_sec=ROUNDS * len(specs) / seq_wall,
-         # the round loops alone: the cohort's R * B / wall (B = 8, no pad)
-         # against R * 8 over the eight train() loops' seconds
-         cohort_loop_steps_per_sec=sorted({r.summary.real_steps_per_sec
-                                           for r in warm_rows.values()}),
-         sequential_loop_steps_per_sec=ROUNDS * len(specs) / seq_loop)
-
-    # 2. B1 through the daemon, beside a packed cohort
-    fused_cfg = dataclasses.replace(base, use_pallas="on")
-    beside = [("p", f"beside_{k}", dataclasses.replace(base, seed=20 + k)) for k in range(4)]
-    b1_log = os.path.join(tmp, "serve_b1.jsonl")
-    shapes, restore = record_glm_shapes(kernels)
-    kernels.reset_launches()
+    killed = None  # the drill daemon, from step 2 on
     try:
-        with events_lib.capture(b1_log):
+        # 1. packing
+        specs = [(f"t{k}", f"{scheme}_{k}", dataclasses.replace(
+            base, scheme=scheme, num_collect=nc, seed=k + 10 * i))
+            for k in range(SERVE_TENANTS) for i, (scheme, nc) in enumerate(SERVE_SCHEMES)]
+        keys = {packer.pack_key(serve_queue.RunRequest(tenant="x", label="x", config=c, dataset=ds))
+                for _, _, c in specs}
+        pack_log = os.path.join(tmp, "serve_pack.jsonl")
+        kernels.reset_launches()
+        d0 = dispatches()
+        # the same eight again with other seeds, timed warm (the first pass pays
+        # the daemon's first dispatch: new threads, the stack upload)
+        warm_specs = [(tn, f"warm_{label}", dataclasses.replace(cfg, seed=cfg.seed + 100))
+                      for tn, label, cfg in specs]
+        with events_lib.capture(pack_log):
             with server.serving(device="cuda", max_cohort=8, dispatch_workers=2,
                                 window_s=0.5) as srv:
-                b1_rows = served(srv, beside + [("b1", "fused", fused_cfg)], ds)
-    finally:
-        restore()
-    b1_launches = dict(kernels.LAUNCHES)
-    packs = [json.loads(line) for line in open(b1_log)]
-    packs = [r for r in packs if r["type"] == "pack"]
-    if (b1_launches != {**both0, "fused_glm_grad": ROUNDS} or set(shapes) != {MAIN_SHAPE}
-            or sorted(p["batchable"] for p in packs) != [False, True]):
-        raise AssertionError(f"B1 through the daemon: {b1_launches}, {set(shapes)}, {packs}")
-    kernels.reset_launches()
-    direct = trainer.train(fused_cfg, ds)
-    direct_launches = dict(kernels.LAUNCHES)
-    got = b1_rows["fused"].summary
-    same = (got.training_loss.tobytes() == replayed_loss(direct, ds).tobytes()
-            and got.timeset.tobytes() == direct.timeset.tobytes())
-    if not same or direct.lowering != "fused":
-        raise AssertionError("the daemon's forced-kernel row is not a direct train()'s bitwise")
-    emit("serve_b1", launches=b1_launches, shapes=[list(s) for s in sorted(set(shapes))],
-         dispatch_ids=[p["dispatch_id"] for p in packs], direct_launches=direct_launches,
-         bitwise_direct_train=same, steps_per_sec=got.real_steps_per_sec)
-
-    # 6, started here: the daemon's boot and its nvcc build into its own
-    # directory (CPU-heavy) overlap the untimed steps 3-4, never a timing
-    drill_dir = os.path.join(tmp, "drill")
-    jdir, cdir = os.path.join(drill_dir, "journal"), os.path.join(drill_dir, "build")
-    sock, drill_log = os.path.join(drill_dir, "s.sock"), os.path.join(drill_dir, "events.jsonl")
-    os.makedirs(drill_dir)
-    daemon_args = ["--socket", sock, "--journal-dir", jdir, "--cache-dir", cdir,
-                   "--events", drill_log, "--window-ms", "200"]
-    env = {k: v for k, v in os.environ.items() if k != chaos.CHAOS_ENV}
-    drill_out: list = []
-    killed, killed_listening = spawn_daemon(
-        daemon_args, {**env, chaos.CHAOS_ENV: "kill:serve_dispatch:1"}, drill_out)
-
-    # 3. B2 through the daemon: a packed deep cohort
-    deep_base = parse_config(cli, with_rounds(DEEP_ARGS, LAYER_ROUNDS))
-    deep_specs = [(f"d{k % 2}", f"deep{k}", dataclasses.replace(deep_base, seed=k))
-                  for k in range(4)]
-    kernels.reset_launches()
-    d0 = dispatches()
-    with server.serving(device="cuda", max_cohort=4, window_s=0.5) as srv:
-        deep_rows = served(srv, deep_specs, ds)
-    deep_launches, deep_dispatches = dict(kernels.LAUNCHES), dispatches() - d0
-    kernels.reset_launches()
-    deep_alone = alone_rows(server, deep_specs, ds, 4)
-    deep_alone_launches = dict(kernels.LAUNCHES)
-    differ = [label for label in deep_rows if serve_science(deep_alone[label].summary)
-              != serve_science(deep_rows[label].summary)]
-    want_alone = {**both0, "fused_block_decode": LAYER_ROUNDS * len(deep_specs)}
-    if (deep_launches != {**both0, "fused_block_decode": LAYER_ROUNDS} or deep_dispatches != 1
-            or differ or deep_alone_launches != want_alone):
-        raise AssertionError(f"deep cohort: {deep_launches}, {deep_dispatches} dispatches, "
-                             f"differ {differ}, alone {deep_alone_launches}")
-    emit("serve_deep", launches=deep_launches, dispatches=deep_dispatches,
-         alone_launches=deep_alone_launches, rows_bitwise_alone=True)
-
-    # 4. admission under a budget of 1.5 cohorts
-    from erasurehead_tpu_torch.serve import admission
-
-    a_specs = [("a", f"adm_approx{k}", dataclasses.replace(base, rounds=ADMIT_ROUNDS, seed=k))
-               for k in range(4)]
-    b_specs = [("b", f"adm_cyc{k}", dataclasses.replace(base, rounds=ADMIT_ROUNDS, seed=k,
-                                                         scheme="cyccoded", num_collect=None))
-               for k in range(4)]
-    cohorts = {name: packer.plan_packs([serve_queue.RunRequest(tenant=t, label=label, config=c,
-                                                               dataset=ds)
-                                        for t, label, c in sp])[0]
-               for name, sp in (("approx", a_specs), ("cyccoded", b_specs))}
-    est = {name: admission.estimate_cohort_bytes(c, width=4) for name, c in cohorts.items()}
-    budget = int(1.5 * est["approx"])
-    adm_log = os.path.join(tmp, "serve_admission.jsonl")
-    cache_lib.drop_data_cache()  # the first cohort uploads its stack (a measured miss)
-    kernels.reset_launches()
-    with events_lib.capture(adm_log):
-        with server.serving(device="cuda", budget_bytes=budget, max_cohort=4,
-                            window_s=0.5) as srv:
-            served(srv, a_specs + b_specs, ds)
-            measured = {name: srv.admission.measured_bytes(c.key_digest)
-                        for name, c in cohorts.items()}
-    adm_launches = dict(kernels.LAUNCHES)
-    recs = [json.loads(line) for line in open(adm_log)]
-    # the verdicts in order: T admitted, F deferred, e an eviction. The
-    # first cohort admits; the second defers while it runs, then admits
-    # once it released, after an eviction of the data cache's pins
-    trail = "".join("e" if r["type"] == "evict" else "TF"[not r["admitted"]]
-                    for r in recs if r["type"] in ("admit", "evict"))
-    if (not trail.startswith("T") or "F" not in trail or not trail.endswith("eT")
-            or any(m is None for m in measured.values()) or adm_launches != both0):
-        raise AssertionError(f"admission trail {trail}, measured {measured}, "
-                             f"launches {adm_launches}")
-    emit("serve_admission", budget_bytes=budget, trail=trail,
-         footprint={name: dict(est_bytes=est[name], measured_peak_bytes=measured[name],
-                               est_over_peak=est[name] / measured[name])
-                    for name in est},
-         launches=adm_launches)
-
-    # the drill daemon listens before the timed step 5 starts; the serve
-    # daemon across ranks runs while it builds
-    try:
-        ranks_rec = serve_ranks_phase(cli, kernels, tmp, both0)
-    except BaseException:
-        killed.kill()
-        killed.wait()
-        raise
-    t0 = time.perf_counter()
-    cold_boot_s = killed_listening()
-    drill_wait_s = time.perf_counter() - t0
-
-    # 5. the HTTP front under closed-loop load
-    payload = serve_queue.config_payload(dataclasses.replace(base, rounds=LOAD_ROUNDS))
-    if payload is None:
-        raise AssertionError("the main config has no wire payload")
-    jobs = {t: [(f"{t}{k}", {**payload, "seed": k}) for k in range(LOAD_JOBS)]
-            for t in LOAD_TENANTS}
-    load_log = os.path.join(tmp, "serve_load.jsonl")
-    kernels.reset_launches()
-    with events_lib.capture(load_log):
-        with server.serving(device="cuda", max_cohort=8, max_pending=LOAD_MAX_PENDING,
-                            window_s=0.05) as srv:
-            front = HttpFront(srv)
-            try:
                 t0 = time.perf_counter()
-                load = loadgen.run_fleet(front.host, front.port, jobs,
-                                         concurrency=LOAD_DEPTH, timeout=600)
-                load_wall = time.perf_counter() - t0
-                import urllib.request
+                packed = served(srv, specs, ds)
+                cold_wall = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                warm_rows = served(srv, warm_specs, ds)
+                packed_wall = time.perf_counter() - t0
+        packed_launches, packed_dispatches = dict(kernels.LAUNCHES), dispatches() - d0
+        if packed_launches != both0 or not packed_dispatches < 2 * len(specs):
+            raise AssertionError(f"packing: {packed_dispatches} dispatches for {len(specs)} "
+                                 f"requests, launches {packed_launches}")
+        columns = pack_columns(pack_log)
+        if not any(col for _, col in columns.values()):
+            raise AssertionError(f"no request packed beyond column 0: {columns}")
+        kernels.reset_launches()
+        alone = alone_rows(server, specs, ds, 8)
+        alone_launches = dict(kernels.LAUNCHES)
+        differ = [label for label in packed
+                  if serve_science(alone[label].summary) != serve_science(packed[label].summary)]
+        if differ or alone_launches != both0:
+            raise AssertionError(f"packed rows differ from alone: {differ} ({alone_launches})")
+        kernels.reset_launches()
+        seq_rel, seq_wall, seq_loop = {}, 0.0, 0.0
+        for _, label, cfg in specs:
+            # timed with its replay, as the daemon's row is (its eval replay)
+            t0 = time.perf_counter()
+            res = trainer.train(cfg, ds)
+            loss = replayed_loss(res, ds)
+            seq_wall += time.perf_counter() - t0
+            seq_loop += res.wall_time
+            seq_rel[label] = max_rel(packed[label].summary.training_loss, loss)
+        seq_launches = dict(kernels.LAUNCHES)
+        if max(seq_rel.values()) > 1e-4 or seq_launches != {
+                **both0, "fused_glm_grad": ROUNDS * len(specs)}:
+            raise AssertionError(f"packed vs sequential train(): {seq_rel}, {seq_launches}")
+        warm_cache = next(iter(warm_rows.values())).summary.cache
+        emit("serve_pack", requests=2 * len(specs), pack_keys=len(keys),
+             dispatches=packed_dispatches,
+             columns=columns, launches=packed_launches, alone_launches=alone_launches,
+             sequential_launches=seq_launches, rows_bitwise_alone=True,
+             max_rel_loss_vs_sequential=max(seq_rel.values()),
+             cold_wall_s=cold_wall, packed_wall_s=packed_wall, sequential_wall_s=seq_wall,
+             warm_setup_s=warm_cache["setup_seconds"],
+             # the first set pays the daemon's first dispatch (new threads, the
+             # stack upload): end to end and its round loop
+             cold_aggregate_steps_per_sec=ROUNDS * len(specs) / cold_wall,
+             cold_loop_steps_per_sec=sorted({r.summary.real_steps_per_sec
+                                             for r in packed.values()}),
+             packed_aggregate_steps_per_sec=ROUNDS * len(specs) / packed_wall,
+             sequential_aggregate_steps_per_sec=ROUNDS * len(specs) / seq_wall,
+             # the round loops alone: the cohort's R * B / wall (B = 8, no pad)
+             # against R * 8 over the eight train() loops' seconds
+             cohort_loop_steps_per_sec=sorted({r.summary.real_steps_per_sec
+                                               for r in warm_rows.values()}),
+             sequential_loop_steps_per_sec=ROUNDS * len(specs) / seq_loop)
 
-                with urllib.request.urlopen(f"http://{front.host}:{front.port}/metrics",
-                                            timeout=30) as resp:
-                    prom = resp.read().decode()
-                top_out = io.StringIO()
-                with contextlib.redirect_stdout(top_out):
-                    top_rc = cli.main(["top", f"http://{front.host}:{front.port}"])
-            finally:
-                front.close()
-    load_launches = dict(kernels.LAUNCHES)
-    ledgers = load["tenants"].values()
-    statuses = {r["status"] for led in ledgers for r in led["rows_by_label"].values()}
-    prom_names = {line.split("{")[0].split(" ")[0] for line in prom.splitlines()
-                  if line and not line.startswith("#")}
-    bad_lines = []
-    for line in prom.splitlines():
-        if line and not line.startswith("#"):
-            try:
-                float(line.rsplit(" ", 1)[1])
-            except (IndexError, ValueError):
-                bad_lines.append(line)
-    want_names = {"erasurehead_serve_requests", "erasurehead_serve_dispatches",
-                  "erasurehead_serve_rejected", "erasurehead_serve_results"}
-    if (load["lost"] or load["duplicates"] or statuses != {"ok"}
-            or any(led["rejected_final"] or led["rows"] != LOAD_JOBS for led in ledgers)
-            or not load["rejected_429s"] or bad_lines or not want_names <= prom_names
-            or top_rc != 0 or "erasurehead_serve_requests" not in top_out.getvalue()
-            or load_launches != both0):
-        raise AssertionError(f"load: lost {load['lost']}, dups {load['duplicates']}, "
-                             f"statuses {statuses}, 429s {load['rejected_429s']}, "
-                             f"prom missing {want_names - prom_names}, top {top_rc}, "
-                             f"launches {load_launches}")
-    rows_total = sum(led["rows"] for led in ledgers)
-    emit("serve_load", tenants=len(jobs), requests=rows_total,
-         ttfr_p50_s=load["latency_p50_s"], ttfr_p99_s=load["latency_p99_s"],
-         ttlr_p99_s=load["ttlr_p99_s"], goodput_rows_per_s=rows_total / load_wall,
-         rejected_429s=load["rejected_429s"], retries=load["retries"], wall_s=load_wall,
-         prometheus_lines=len(prom.splitlines()), launches=load_launches)
+        # 2. B1 through the daemon, beside a packed cohort
+        fused_cfg = dataclasses.replace(base, use_pallas="on")
+        beside = [("p", f"beside_{k}", dataclasses.replace(base, seed=20 + k)) for k in range(4)]
+        b1_log = os.path.join(tmp, "serve_b1.jsonl")
+        shapes, restore = record_glm_shapes(kernels)
+        kernels.reset_launches()
+        try:
+            with events_lib.capture(b1_log):
+                with server.serving(device="cuda", max_cohort=8, dispatch_workers=2,
+                                    window_s=0.5) as srv:
+                    b1_rows = served(srv, beside + [("b1", "fused", fused_cfg)], ds)
+        finally:
+            restore()
+        b1_launches = dict(kernels.LAUNCHES)
+        packs = [json.loads(line) for line in open(b1_log)]
+        packs = [r for r in packs if r["type"] == "pack"]
+        if (b1_launches != {**both0, "fused_glm_grad": ROUNDS} or set(shapes) != {MAIN_SHAPE}
+                or sorted(p["batchable"] for p in packs) != [False, True]):
+            raise AssertionError(f"B1 through the daemon: {b1_launches}, {set(shapes)}, {packs}")
+        kernels.reset_launches()
+        direct = trainer.train(fused_cfg, ds)
+        direct_launches = dict(kernels.LAUNCHES)
+        got = b1_rows["fused"].summary
+        same = (got.training_loss.tobytes() == replayed_loss(direct, ds).tobytes()
+                and got.timeset.tobytes() == direct.timeset.tobytes())
+        if not same or direct.lowering != "fused":
+            raise AssertionError("the daemon's forced-kernel row is not a direct train()'s bitwise")
+        emit("serve_b1", launches=b1_launches, shapes=[list(s) for s in sorted(set(shapes))],
+             dispatch_ids=[p["dispatch_id"] for p in packs], direct_launches=direct_launches,
+             bitwise_direct_train=same, steps_per_sec=got.real_steps_per_sec)
+
+        # 6, started here: the daemon's boot and its nvcc build into its own
+        # directory (CPU-heavy) overlap the untimed steps 3-4, never a timing
+        drill_dir = os.path.join(tmp, "drill")
+        jdir, cdir = os.path.join(drill_dir, "journal"), os.path.join(drill_dir, "build")
+        sock = os.path.join(drill_dir, "s.sock")
+        drill_log = os.path.join(drill_dir, "events.jsonl")
+        os.makedirs(drill_dir)
+        daemon_args = ["--socket", sock, "--journal-dir", jdir, "--cache-dir", cdir,
+                       "--events", drill_log, "--window-ms", "200"]
+        env = {k: v for k, v in os.environ.items() if k != chaos.CHAOS_ENV}
+        drill_out: list = []
+        killed, killed_listening = spawn_daemon(
+            daemon_args, {**env, chaos.CHAOS_ENV: "kill:serve_dispatch:1"}, drill_out)
+
+        # 3. B2 through the daemon: a packed deep cohort
+        deep_base = parse_config(cli, with_rounds(DEEP_ARGS, LAYER_ROUNDS))
+        deep_specs = [(f"d{k % 2}", f"deep{k}", dataclasses.replace(deep_base, seed=k))
+                      for k in range(4)]
+        kernels.reset_launches()
+        d0 = dispatches()
+        with server.serving(device="cuda", max_cohort=4, window_s=0.5) as srv:
+            deep_rows = served(srv, deep_specs, ds)
+        deep_launches, deep_dispatches = dict(kernels.LAUNCHES), dispatches() - d0
+        kernels.reset_launches()
+        deep_alone = alone_rows(server, deep_specs, ds, 4)
+        deep_alone_launches = dict(kernels.LAUNCHES)
+        differ = [label for label in deep_rows if serve_science(deep_alone[label].summary)
+                  != serve_science(deep_rows[label].summary)]
+        want_alone = {**both0, "fused_block_decode": LAYER_ROUNDS * len(deep_specs)}
+        if (deep_launches != {**both0, "fused_block_decode": LAYER_ROUNDS} or deep_dispatches != 1
+                or differ or deep_alone_launches != want_alone):
+            raise AssertionError(f"deep cohort: {deep_launches}, {deep_dispatches} dispatches, "
+                                 f"differ {differ}, alone {deep_alone_launches}")
+        emit("serve_deep", launches=deep_launches, dispatches=deep_dispatches,
+             alone_launches=deep_alone_launches, rows_bitwise_alone=True)
+
+        # 4. admission under a budget of 1.5 cohorts
+        from erasurehead_tpu_torch.serve import admission
+
+        a_specs = [("a", f"adm_approx{k}", dataclasses.replace(base, rounds=ADMIT_ROUNDS, seed=k))
+                   for k in range(4)]
+        b_specs = [("b", f"adm_cyc{k}", dataclasses.replace(base, rounds=ADMIT_ROUNDS, seed=k,
+                                                             scheme="cyccoded", num_collect=None))
+                   for k in range(4)]
+        cohorts = {name: packer.plan_packs([serve_queue.RunRequest(tenant=t, label=label, config=c,
+                                                                   dataset=ds)
+                                            for t, label, c in sp])[0]
+                   for name, sp in (("approx", a_specs), ("cyccoded", b_specs))}
+        est = {name: admission.estimate_cohort_bytes(c, width=4) for name, c in cohorts.items()}
+        budget = int(1.5 * est["approx"])
+        adm_log = os.path.join(tmp, "serve_admission.jsonl")
+        cache_lib.drop_data_cache()  # the first cohort uploads its stack (a measured miss)
+        kernels.reset_launches()
+        with events_lib.capture(adm_log):
+            with server.serving(device="cuda", budget_bytes=budget, max_cohort=4,
+                                window_s=0.5) as srv:
+                served(srv, a_specs + b_specs, ds)
+                measured = {name: srv.admission.measured_bytes(c.key_digest)
+                            for name, c in cohorts.items()}
+        adm_launches = dict(kernels.LAUNCHES)
+        recs = [json.loads(line) for line in open(adm_log)]
+        # the verdicts in order: T admitted, F deferred, e an eviction. The
+        # first cohort admits; the second defers while it runs, then admits
+        # once it released, after an eviction of the data cache's pins
+        trail = "".join("e" if r["type"] == "evict" else "TF"[not r["admitted"]]
+                        for r in recs if r["type"] in ("admit", "evict"))
+        if (not trail.startswith("T") or "F" not in trail or not trail.endswith("eT")
+                or any(m is None for m in measured.values()) or adm_launches != both0):
+            raise AssertionError(f"admission trail {trail}, measured {measured}, "
+                                 f"launches {adm_launches}")
+        emit("serve_admission", budget_bytes=budget, trail=trail,
+             footprint={name: dict(est_bytes=est[name], measured_peak_bytes=measured[name],
+                                   est_over_peak=est[name] / measured[name])
+                        for name in est},
+             launches=adm_launches)
+
+
+        # the drill daemon listens before the timed step 5 starts
+        t0 = time.perf_counter()
+        cold_boot_s = killed_listening()
+        drill_wait_s = time.perf_counter() - t0
+
+        # 5. the HTTP front under closed-loop load
+        payload = serve_queue.config_payload(dataclasses.replace(base, rounds=LOAD_ROUNDS))
+        if payload is None:
+            raise AssertionError("the main config has no wire payload")
+        jobs = {t: [(f"{t}{k}", {**payload, "seed": k}) for k in range(LOAD_JOBS)]
+                for t in LOAD_TENANTS}
+        load_log = os.path.join(tmp, "serve_load.jsonl")
+        kernels.reset_launches()
+        with events_lib.capture(load_log):
+            with server.serving(device="cuda", max_cohort=8, max_pending=LOAD_MAX_PENDING,
+                                window_s=0.05) as srv:
+                front = HttpFront(srv)
+                try:
+                    t0 = time.perf_counter()
+                    load = loadgen.run_fleet(front.host, front.port, jobs,
+                                             concurrency=LOAD_DEPTH, timeout=600)
+                    load_wall = time.perf_counter() - t0
+                    import urllib.request
+
+                    with urllib.request.urlopen(f"http://{front.host}:{front.port}/metrics",
+                                                timeout=30) as resp:
+                        prom = resp.read().decode()
+                    top_out = io.StringIO()
+                    with contextlib.redirect_stdout(top_out):
+                        top_rc = cli.main(["top", f"http://{front.host}:{front.port}"])
+                finally:
+                    front.close()
+        load_launches = dict(kernels.LAUNCHES)
+        ledgers = load["tenants"].values()
+        statuses = {r["status"] for led in ledgers for r in led["rows_by_label"].values()}
+        prom_names = {line.split("{")[0].split(" ")[0] for line in prom.splitlines()
+                      if line and not line.startswith("#")}
+        bad_lines = []
+        for line in prom.splitlines():
+            if line and not line.startswith("#"):
+                try:
+                    float(line.rsplit(" ", 1)[1])
+                except (IndexError, ValueError):
+                    bad_lines.append(line)
+        want_names = {"erasurehead_serve_requests", "erasurehead_serve_dispatches",
+                      "erasurehead_serve_rejected", "erasurehead_serve_results"}
+        if (load["lost"] or load["duplicates"] or statuses != {"ok"}
+                or any(led["rejected_final"] or led["rows"] != LOAD_JOBS for led in ledgers)
+                or not load["rejected_429s"] or bad_lines or not want_names <= prom_names
+                or top_rc != 0 or "erasurehead_serve_requests" not in top_out.getvalue()
+                or load_launches != both0):
+            raise AssertionError(f"load: lost {load['lost']}, dups {load['duplicates']}, "
+                                 f"statuses {statuses}, 429s {load['rejected_429s']}, "
+                                 f"prom missing {want_names - prom_names}, top {top_rc}, "
+                                 f"launches {load_launches}")
+        rows_total = sum(led["rows"] for led in ledgers)
+        emit("serve_load", tenants=len(jobs), requests=rows_total,
+             ttfr_p50_s=load["latency_p50_s"], ttfr_p99_s=load["latency_p99_s"],
+             ttlr_p99_s=load["ttlr_p99_s"], goodput_rows_per_s=rows_total / load_wall,
+             rejected_429s=load["rejected_429s"], retries=load["retries"], wall_s=load_wall,
+             prometheus_lines=len(prom.splitlines()), launches=load_launches)
+    except BaseException:
+        if killed is not None:
+            killed.kill()
+            killed.wait()
+        raise
 
     # 6. the kill drill: accepted requests survive the daemon's death
     drill_cfgs = {f"k{k}": dataclasses.replace(base, rounds=DRILL_ROUNDS, seed=k)
@@ -4436,151 +4515,7 @@ def serve_phase(cli, kernels, tmp, both0, ds) -> dict:
                          "serve_b1_direct": direct_launches, "serve_deep": deep_launches,
                          "serve_deep_alone": deep_alone_launches,
                          "serve_admission": adm_launches, "serve_load": load_launches},
-        serve_ranks=ranks_rec,
     )
-
-
-# the daemon across ranks: two gloo ranks of this script on the one card
-# under torchrun, wire requests on rank 0's socket
-SERVE_RANKS_ROUNDS, SERVE_RANKS_COHORT, SERVE_RANKS_WINDOW_S = 20, 4, 0.5
-SERVE_RANKS_WIRE = (  # (label, RunConfig fields over MAIN_ARGS's): two pack, one alone
-    ("approx_s0", dict(compute_mode="deduped")),
-    ("approx_s1", dict(compute_mode="deduped", seed=1)),
-    ("fused", dict(use_pallas="on", seed=2)),  # faithful, forced B1: sequential train()
-)
-SERVE_RANKS_TIMEOUT_S = 600
-#: the one-process daemon's rows against a local compare() (tests/test_torch_serve.py)
-SERVE_RANKS_TOL = dict(rtol=2e-5, atol=1e-6)
-
-
-def serve_ranks_wire(cli) -> list:
-    """``(label, wire payload)`` of SERVE_RANKS_WIRE."""
-    from erasurehead_tpu_torch.serve import queue as serve_queue
-
-    base = parse_config(cli, with_rounds(MAIN_ARGS, SERVE_RANKS_ROUNDS))
-    out = []
-    for label, kw in SERVE_RANKS_WIRE:
-        payload = serve_queue.config_payload(dataclasses.replace(base, **kw))
-        if payload is None:
-            raise AssertionError(f"{label}: the wire cannot carry {kw}")
-        out.append((label, payload))
-    return out
-
-
-def serve_child(out_dir: str) -> int:
-    """One rank of the serve daemon across ranks (``torchrun --standalone
-    --nproc-per-node 2 chip_smoke.py --serve-child DIR``): gloo on the card,
-    both ranks on cuda:0. Rank 0 serves SERVE_RANKS_WIRE through its socket
-    front to a client in its own process, then stops the daemon, which
-    releases rank 1; rank 1 follows rank 0's dispatches. Each rank's
-    launches (rank 0's rows too) into ``DIR/rank<r>.json``; both leave the
-    group cleanly (parallel/backend.joined)."""
-    import torch.distributed as dist
-
-    cli, kernels = import_port()
-    from erasurehead_tpu_torch.parallel import backend
-    from erasurehead_tpu_torch.serve import server
-    from erasurehead_tpu_torch.serve.client import ServeClient
-
-    with backend.joined(device="cuda", backend="gloo", local_rank=0):
-        rank = dist.get_rank()
-        kernels.load_library()  # built by the parent in this checkout: no nvcc here
-        kernels.reset_launches()
-        rec = {"rank": rank, "world": dist.get_world_size()}
-        t0 = time.perf_counter()
-        if rank == 0:
-            srv = server.SweepServer(device="cuda", max_cohort=SERVE_RANKS_COHORT,
-                                     window_s=SERVE_RANKS_WINDOW_S)
-            srv.start()
-            sock = os.path.join(out_dir, "serve.sock")
-            try:
-                front = server.SocketFront(srv, sock)
-                try:
-                    client = ServeClient(sock)
-                    for label, payload in serve_ranks_wire(cli):
-                        client.submit("t", label, payload, timeout=120)
-                    rows = [client.result(timeout=SERVE_RANKS_TIMEOUT_S)
-                            for _ in SERVE_RANKS_WIRE]
-                    client.close()
-                finally:
-                    front.close()
-            finally:
-                srv.stop()
-            rec["rows"] = {r["label"]: r for r in rows}
-        else:
-            rec["followed"] = server.SweepServer(device="cuda").follow()
-        rec["seconds"] = time.perf_counter() - t0
-        rec["launches"] = dict(kernels.LAUNCHES)
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(rec, f)
-    return 0
-
-
-def serve_ranks_phase(cli, kernels, tmp, both0) -> dict:
-    """The serve daemon across two ranks on the card: ``torchrun
-    --standalone --nproc-per-node 2`` of :func:`serve_child`, which must
-    exit 0 (both ranks did); every wire row ok and equal to the row of a
-    one-process daemon on the card served the same requests at the same
-    width (statuses, clocks and decode error exactly, losses within
-    SERVE_RANKS_TOL); B1 launched on both ranks, SERVE_RANKS_ROUNDS times
-    each (the forced-kernel request's rounds on the rank's [45, 4400, 128]
-    slice), and rank 1 followed both dispatches."""
-    from erasurehead_tpu_torch.serve import queue as serve_queue
-    from erasurehead_tpu_torch.serve import server
-    from erasurehead_tpu_torch.train import journal as journal_lib
-
-    t_phase = time.perf_counter()
-    out_dir = os.path.join(tmp, "serve_ranks")
-    os.makedirs(out_dir)
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           "2", os.path.abspath(__file__), "--serve-child", out_dir]
-    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                          timeout=SERVE_RANKS_TIMEOUT_S)
-    children_s = time.perf_counter() - t_phase
-    if proc.returncode != 0:
-        raise AssertionError(f"serve ranks exited {proc.returncode}: "
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(2)]
-    wire = serve_ranks_wire(cli)
-    kernels.reset_launches()
-    with server.serving(device="cuda", max_cohort=SERVE_RANKS_COHORT,
-                        window_s=SERVE_RANKS_WINDOW_S) as srv:
-        handles = {label: srv.submit(tenant="t", label=label,
-                                     config=serve_queue.config_from_payload(payload))
-                   for label, payload in wire}
-        one = {label: h.result(timeout=900) for label, h in handles.items()}
-    one_launches = dict(kernels.LAUNCHES)
-    rows, worst = {}, 0.0
-    for label, payload in wire:
-        got, want = ranks[0]["rows"][label], one[label]
-        if got["status"] != "ok" or want.status != "ok":
-            raise AssertionError(f"serve ranks {label}: {got['status']} {got.get('error')}, "
-                                 f"one process {want.status} {want.error}")
-        g = journal_lib.rehydrate_summary(got["row"], want.summary.config)
-        w = want.summary
-        same = (g.sim_total_time == w.sim_total_time and g.timeset.tobytes() == w.timeset.tobytes()
-                and g.decode_error_mean == w.decode_error_mean)
-        rel = max_rel(g.training_loss, w.training_loss)
-        worst = max(worst, rel)
-        rows[label] = dict(control_plane_equal=same, max_rel_loss=rel,
-                           within_tol=bool(np.allclose(g.training_loss, w.training_loss,
-                                                       **SERVE_RANKS_TOL)),
-                           final_train_loss=[g.final_train_loss, w.final_train_loss])
-    b1 = [r["launches"].get("fused_glm_grad", 0) for r in ranks]
-    rec = dict(requests=[label for label, _ in wire], rows=rows, max_rel_loss=worst,
-               launches_by_rank=[r["launches"] for r in ranks], one_process_launches=one_launches,
-               followed=ranks[1]["followed"], rank_seconds=[r["seconds"] for r in ranks],
-               children_s=children_s, seconds=time.perf_counter() - t_phase)
-    emit("serve_ranks", **rec)
-    bad = {label: r for label, r in rows.items()
-           if not (r["control_plane_equal"] and r["within_tol"])}
-    if bad:
-        raise AssertionError(f"serve rows across ranks differ from one process: {bad}")
-    if b1 != [SERVE_RANKS_ROUNDS, SERVE_RANKS_ROUNDS] or ranks[1]["followed"] != 2:
-        raise AssertionError(f"serve ranks launched B1 {b1}, rank 1 followed "
-                             f"{ranks[1]['followed']} dispatches")
-    rec["launches_by_run"] = {f"serve_ranks_rank{r}": ranks[r]["launches"] for r in range(2)}
-    return rec
 
 
 # the fleet phase: serve replicas on the card behind the router
@@ -4600,6 +4535,18 @@ FLEET_GOODPUT_SETS = 2
 # decode is B2 either way (``deep``'s treewise run launches it too)
 _BD = DEEP_ARGS.index("--block-decode")
 FLEET_DEEP_ARGS = DEEP_ARGS[:_BD] + DEEP_ARGS[_BD + 2:]
+# the group replica: step 2's adopter as FLEET_GROUP_RANKS gloo ranks on the
+# one card, and its request set through the router (RunConfig fields over
+# MAIN_ARGS's at FLEET_ROUNDS: two that pack, a forced-kernel request; then a
+# deep request, FLEET_DEEP_ARGS at LAYER_ROUNDS)
+FLEET_GROUP_RANKS = 2
+FLEET_GROUP_WIRE = (
+    ("approx_s0", dict(compute_mode="deduped")),
+    ("approx_s1", dict(compute_mode="deduped", seed=1)),
+    ("fused", dict(use_pallas="on", seed=2)),  # faithful, forced B1: sequential train()
+)
+#: the one-process daemon's rows against a local compare() (tests/test_torch_serve.py)
+SERVE_RANKS_TOL = dict(rtol=2e-5, atol=1e-6)
 
 
 def fleet_specs(cli, shift=0) -> list:
@@ -4617,6 +4564,60 @@ def fleet_specs(cli, shift=0) -> list:
                                                                 seed=shift)))
     specs.append(("fdeep", f"deep_{shift}", dataclasses.replace(deep, seed=shift)))
     return specs
+
+
+def fleet_group_specs(cli) -> list:
+    """``(label, RunConfig)`` of the group replica's request set."""
+    base = parse_config(cli, with_rounds(MAIN_ARGS, FLEET_ROUNDS))
+    deep = parse_config(cli, with_rounds(FLEET_DEEP_ARGS, LAYER_ROUNDS))
+    return [(label, dataclasses.replace(base, **kw)) for label, kw in FLEET_GROUP_WIRE] + [
+        ("deep_g", dataclasses.replace(deep, seed=3))]
+
+
+def tenant_routed_to(members, target, payloads) -> str:
+    """The first tenant name ``g0``, ``g1``, ... whose affinity key of every
+    payload the hash ring of ``members`` maps to ``target``."""
+    from erasurehead_tpu_torch.serve.router import HashRing, affinity_key
+
+    ring = HashRing(members)
+    for i in range(4096):
+        if all(ring.lookup(affinity_key(f"g{i}", p)) == target for p in payloads):
+            return f"g{i}"
+    raise AssertionError(f"no tenant routes every payload to {target}")
+
+
+def rows_within(got_row, want_row, cfg) -> dict:
+    """A row served across ranks against the same request's row from one
+    process: the control plane exactly (clock, timeset, decode error), the
+    losses within SERVE_RANKS_TOL (the ranks add their partial sums in
+    another order)."""
+    from erasurehead_tpu_torch.train import journal as journal_lib
+
+    g = journal_lib.rehydrate_summary(got_row, cfg)
+    w = journal_lib.rehydrate_summary(want_row, cfg)
+    return dict(control_plane_equal=(g.sim_total_time == w.sim_total_time
+                                     and g.timeset.tobytes() == w.timeset.tobytes()
+                                     and g.decode_error_mean == w.decode_error_mean),
+                max_rel_loss=max_rel(g.training_loss, w.training_loss),
+                within_tol=bool(np.allclose(g.training_loss, w.training_loss,
+                                            **SERVE_RANKS_TOL)))
+
+
+def rank_lines(rep) -> list:
+    """Each incarnation of a group replica, from its ranks' last lines:
+    ``[{"led": n, "followed": [n, ...], "launches": [{...} by rank]}]``
+    (``cli serve`` across ranks prints them when the group stops)."""
+    import re
+
+    pat = re.compile(r"serve: rank (\d+) (led|followed) (\d+) dispatches.*\(launches (\{.*\})\)")
+    per_rank = []
+    for r in range(rep.ranks):
+        with open(rep.rank_log_path(r)) as f:
+            per_rank.append([pat.match(line) for line in f if pat.match(line)])
+    return [{"led": int(lines[0].group(3)),
+             "followed": [int(m.group(3)) for m in lines[1:]],
+             "launches": [json.loads(m.group(4)) for m in lines]}
+            for lines in zip(*per_rank)]
 
 
 def fleet_clients(host, port, tenants) -> tuple:
@@ -4771,15 +4772,32 @@ def fleet_phase(cli, kernels, tmp, both0, ds) -> dict:
          build directory's unchanged files show it built no kernel); then
          the same set
          FLEET_GOODPUT_SETS times back to back with other seeds, timed
-         (the one-replica goodput);
+         (the one-replica goodput). The replica boots while the in-process
+         reference runs, so its ``boot_s`` is a boot beside that work;
+         nothing else runs while the goodput is timed;
       2. three replicas and a kill: ``kill:fleet_replica:2`` armed on the
-         replica the ring routes tenant fa to; fa's first request is
-         served, the next two are accepted and the replica dies in its
-         second dispatch (exit 43); the supervisor declares it dead at a
-         streak >= K = 3, the next replica in its ring order adopts its
-         WAL, and every row reaches fa exactly once through the router,
-         bitwise step 1's; death-to-adoption seconds;
-      3. rolling deploy under load on the two survivors: batches of the
+         replica the ring routes tenant fa to, and the next replica in its
+         ring order (the adopter) a group of FLEET_GROUP_RANKS gloo ranks on
+         the one card (``ranks=``, ``share_card=True``; the three boot at
+         once, after step 1's goodput, so their ``boot_s`` are boots beside
+         each other); fa's first request is served, bitwise step 1's, the next
+         two are accepted and the replica dies in its second dispatch (exit
+         43, rank 0's own); the supervisor declares it dead at a streak >=
+         K = 3, the group adopts its WAL, and every row reaches fa exactly
+         once through the router, the group's with step 1's control plane
+         and losses within SERVE_RANKS_TOL; death-to-adoption seconds.
+         Then the group's own set (FLEET_GROUP_WIRE and a deep request)
+         through the router, by a tenant the survivors' ring maps to it:
+         every row's control plane equal to an in-process daemon's on the
+         card, losses within SERVE_RANKS_TOL; when the group stops (bounced
+         by step 3, then at the end), each of its ranks prints its
+         dispatches and launches: rank 1 followed every dispatch rank 0
+         led, both ranks launched alike, and before the bounce 20 B1 (the
+         forced-kernel request, on each rank's [45, 4400, 128]) and 20 B2
+         (the deep request); after stop() no process of any replica's
+         process group is left (/proc);
+      3. rolling deploy under load on the two survivors (the group re-forms
+         at a new rendezvous): batches of the
          same four closed-loop tenants (4 requests each, 2 in flight,
          FLEET_ROUNDS rounds) through the router while rolling_deploy()
          bounces both, until a batch ends after the deploy is done: no
@@ -4798,11 +4816,19 @@ def fleet_phase(cli, kernels, tmp, both0, ds) -> dict:
     from erasurehead_tpu_torch.obs import events as events_lib
     from erasurehead_tpu_torch.serve import loadgen, server
     from erasurehead_tpu_torch.serve import queue as serve_queue
-    from erasurehead_tpu_torch.serve.fleet import FleetSupervisor
+    from erasurehead_tpu_torch.serve.fleet import FleetSupervisor, group_pids
     from erasurehead_tpu_torch.serve.router import HashRing, affinity_key
+    from erasurehead_tpu_torch.train import journal as journal_lib
     from erasurehead_tpu_torch.utils import chaos
 
     t_phase = time.perf_counter()
+    laps, t_lap = {}, [t_phase]
+
+    def lap(name):  # the phase's seconds by step, for the fleet line
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
     build_dir = str(kernels.library_path().parent)
     files_before = sorted(os.listdir(build_dir))
     extra = ("--max-cohort", str(FLEET_MAX_COHORT), "--dispatch-workers", "1")
@@ -4811,56 +4837,92 @@ def fleet_phase(cli, kernels, tmp, both0, ds) -> dict:
         raise AssertionError(f"{chaos.CHAOS_ENV} is set in the smoke's environment")
     specs = fleet_specs(cli)
 
-    # 1. one replica: the baseline rows and the one-replica goodput
-    one = FleetSupervisor(n=1, base_dir=os.path.join(tmp, "one"), k=FLEET_K,
-                          probe_interval_s=0.3, cache_dir=build_dir, device="cuda",
-                          extra_args=extra)
-    one.start()
-    try:
-        baseline = fleet_serve(one.router.host, one.router.port, specs)
-        goodput_one = fleet_goodput(cli, one.router.host, one.router.port)
-    finally:
-        one.stop()
-    boot_one = one.replicas["r0"].boot_s
-    compiles = [json.loads(line) for line in open(one.replicas["r0"].events_path)]
-    compiles = [r for r in compiles if r["type"] == "compile"]
-    shapes, restore = record_glm_shapes(kernels)
-    kernels.reset_launches()
-    try:
-        with server.serving(device="cuda", max_cohort=FLEET_MAX_COHORT, dispatch_workers=1,
-                            window_s=0.05) as srv:
-            ref = served(srv, specs, ds)
-    finally:
-        restore()
-    ref_launches = dict(kernels.LAUNCHES)
-    want_launches = {**both0, "fused_glm_grad": FLEET_ROUNDS, "fused_block_decode": LAYER_ROUNDS}
-    differ = [label for label, r in baseline["rows"].items()
-              if wire_science(r["row"]) != serve_science(ref[label].summary)]
-    if (differ or baseline["delivered"] != len(specs) or ref_launches != want_launches
-            or set(shapes) != {MAIN_SHAPE} or not compiles
-            or any(r["memory_analysis"]["executor"] != "graph" for r in compiles)):
-        raise AssertionError(f"one-replica fleet: rows differ {differ}, delivered "
-                             f"{baseline['delivered']}, in-process {ref_launches} at "
-                             f"{set(shapes)}, compile records {compiles[:3]}")
-    emit("fleet_one", replicas=1, requests=len(specs), rows_bitwise_in_process=True,
-         in_process_launches=ref_launches, b1_shapes=[list(s) for s in sorted(set(shapes))],
-         graph_captures=sum(not r["cache_hit"] for r in compiles),
-         graph_hits=sum(r["cache_hit"] for r in compiles), boot_s=boot_one, goodput=goodput_one)
-
-    # 2. three replicas; the one fa routes to dies in its second dispatch
+    # step 1's replica boots while this process runs its in-process
+    # reference; step 2's three replicas (fa's victim, and the next in its
+    # ring order, a rank group, which adopts its WAL) boot at once after the
+    # one-replica goodput, so nothing else runs on the card while it is timed
     fa = [(t, label, cfg) for t, label, cfg in specs if t == "fa"]
     victim = HashRing(["r0", "r1", "r2"]).lookup(
         affinity_key("fa", serve_queue.config_payload(fa[0][2])))
+    survivors = sorted({"r0", "r1", "r2"} - {victim})
+    adopter = HashRing(survivors).lookup(victim)
+    sup = FleetSupervisor(n=3, base_dir=os.path.join(tmp, "three"), k=FLEET_K,
+                          probe_interval_s=0.3, cache_dir=build_dir, device="cuda",
+                          chaos={victim: "kill:fleet_replica:2"}, extra_args=extra,
+                          ranks={adopter: FLEET_GROUP_RANKS}, share_card=True)
+    one = FleetSupervisor(n=1, base_dir=os.path.join(tmp, "one"), k=FLEET_K,
+                          probe_interval_s=0.3, cache_dir=build_dir, device="cuda",
+                          extra_args=extra)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    booting_one = pool.submit(one.start)
+    booting = None
+
+    # 1. one replica: the baseline rows and the one-replica goodput
+    try:
+        shapes, restore = record_glm_shapes(kernels)
+        group_specs = fleet_group_specs(cli)
+        kernels.reset_launches()
+        try:
+            with server.serving(device="cuda", max_cohort=FLEET_MAX_COHORT,
+                                dispatch_workers=1, window_s=0.05) as srv:
+                ref = served(srv, specs, ds)
+                ref_launches = dict(kernels.LAUNCHES)
+                # the group's set from one process, for step 2
+                kernels.reset_launches()
+                group_ref = served(srv, [("g", label, cfg) for label, cfg in group_specs],
+                                   ds)
+                group_ref_launches = dict(kernels.LAUNCHES)
+        finally:
+            restore()
+        lap("in_process_reference")
+        booting_one.result()
+        lap("boot_wait")
+        baseline = fleet_serve(one.router.host, one.router.port, specs)
+        lap("baseline")
+        goodput_one = fleet_goodput(cli, one.router.host, one.router.port)
+        lap("goodput_one")
+        t_start = time.perf_counter()
+        booting = pool.submit(lambda: (sup.start(), time.perf_counter() - t_start)[1])
+        one.stop()
+        lap("one_stop")
+        boot_one = one.replicas["r0"].boot_s
+        compiles = [json.loads(line) for line in open(one.replicas["r0"].events_path)]
+        compiles = [r for r in compiles if r["type"] == "compile"]
+        want_launches = {**both0, "fused_glm_grad": FLEET_ROUNDS,
+                         "fused_block_decode": LAYER_ROUNDS}
+        differ = [label for label, r in baseline["rows"].items()
+                  if wire_science(r["row"]) != serve_science(ref[label].summary)]
+        if (differ or baseline["delivered"] != len(specs) or ref_launches != want_launches
+                or group_ref_launches != want_launches
+                or set(shapes) != {MAIN_SHAPE} or not compiles
+                or any(r["memory_analysis"]["executor"] != "graph" for r in compiles)):
+            raise AssertionError(f"one-replica fleet: rows differ {differ}, delivered "
+                                 f"{baseline['delivered']}, in-process {ref_launches} and "
+                                 f"{group_ref_launches} at {set(shapes)}, compile records "
+                                 f"{compiles[:3]}")
+        emit("fleet_one", replicas=1, requests=len(specs), rows_bitwise_in_process=True,
+             in_process_launches=ref_launches, b1_shapes=[list(s) for s in sorted(set(shapes))],
+             graph_captures=sum(not r["cache_hit"] for r in compiles),
+             graph_hits=sum(r["cache_hit"] for r in compiles), boot_s=boot_one,
+             goodput=goodput_one)
+        start_s = booting.result()  # the three replicas' boot, all at once
+        lap("three_boot_wait")
+    except BaseException:
+        concurrent.futures.wait([f for f in (booting, booting_one) if f is not None])
+        one.stop()
+        sup.stop()
+        raise
+    finally:
+        pool.shutdown(wait=False)
+
+    # 2. the three replicas; the one fa routes to dies in its second dispatch
     sup_log = os.path.join(tmp, "supervisor.jsonl")
+    pgids = []
     with events_lib.capture(sup_log):
-        sup = FleetSupervisor(n=3, base_dir=os.path.join(tmp, "three"), k=FLEET_K,
-                              probe_interval_s=0.3, cache_dir=build_dir, device="cuda",
-                              chaos={victim: "kill:fleet_replica:2"}, extra_args=extra)
-        sup.start()
         try:
             boots = {name: rep.boot_s for name, rep in sup.replicas.items()}
-            survivors = sorted(set(sup.replicas) - {victim})
-            adopter = HashRing(survivors).lookup(victim)
+            pgids += [rep.proc.pid for rep in sup.replicas.values()]
+            grep = sup.replicas[adopter]
             vrep = sup.replicas[victim]
             marks = {}
 
@@ -4887,18 +4949,45 @@ def fleet_phase(cli, kernels, tmp, both0, ds) -> dict:
             finally:
                 fa_clients[0]["fa"].close()
             watcher.join(timeout=60)
-            rows = {**first["rows"], **rest["rows"]}
+            lap("kill_drill")
             if "adopted" not in marks:
                 raise AssertionError(f"no adoption of {victim}'s WAL: {marks}")
-            differ = [label for label, r in rows.items()
+            # the first row is the victim's (one process: bitwise), the rest
+            # the group's (across ranks: within SERVE_RANKS_TOL)
+            cfg_of = {label: cfg for _, label, cfg in specs}
+            differ = [label for label, r in first["rows"].items()
                       if wire_science(r["row"]) != wire_science(baseline["rows"][label]["row"])]
+            adopted_rows = {label: rows_within(r["row"], baseline["rows"][label]["row"],
+                                               cfg_of[label])
+                            for label, r in rest["rows"].items()}
+            differ += [label for label, r in adopted_rows.items()
+                       if not (r["control_plane_equal"] and r["within_tol"])]
             victim_rc = vrep.proc.poll()
             if (differ or victim_rc != chaos.KILL_EXIT or victim not in sup._dead_handled
                     or first["delivered"] + rest["delivered"] != len(fa)
                     or "adopted" not in marks):
                 raise AssertionError(f"kill: victim {victim} exit {victim_rc}, rows differ "
-                                     f"{differ}, delivered {first['delivered']} + "
-                                     f"{rest['delivered']}, marks {marks}")
+                                     f"{differ} ({adopted_rows}), delivered "
+                                     f"{first['delivered']} + {rest['delivered']}, marks {marks}")
+
+            # the group's own set through the router, by a tenant the
+            # survivors' ring maps to the group
+            tenant = tenant_routed_to(survivors, adopter, [
+                serve_queue.config_payload(cfg) for _, cfg in group_specs])
+            group_served = fleet_serve(sup.router.host, sup.router.port,
+                                       [(tenant, label, cfg) for label, cfg in group_specs],
+                                       grace_s=1.0)
+            group_rows = {label: rows_within(group_served["rows"][label]["row"],
+                                             journal_lib.summary_payload(group_ref[label].summary),
+                                             cfg)
+                          for label, cfg in group_specs}
+            bad = {label: r for label, r in group_rows.items()
+                   if not (r["control_plane_equal"] and r["within_tol"])}
+            if bad or group_served["delivered"] != len(group_specs):
+                raise AssertionError(f"group rows differ from one process: {bad}, delivered "
+                                     f"{group_served['delivered']}")
+            rdzv_before = grep.rendezvous
+            lap("group_set")
 
             # 3. rolling deploy under closed-loop load through the router:
             # batches of closed-loop requests until one ends after the
@@ -4936,6 +5025,7 @@ def fleet_phase(cli, kernels, tmp, both0, ds) -> dict:
                                       for led in o["tenants"].values())
             load_wall = time.perf_counter() - t0
             deployer.join(timeout=600)
+            lap("rolling_deploy")
             ledgers = [led for o in batches for led in o["tenants"].values()]
             statuses = {r["status"] for led in ledgers for r in led["rows_by_label"].values()}
             load = {k: sum(o[k] for o in batches) for k in ("lost", "duplicates")}
@@ -4952,13 +5042,30 @@ def fleet_phase(cli, kernels, tmp, both0, ds) -> dict:
                 raise AssertionError(f"rolling deploy: {deploy}, lost {load['lost']}, dups "
                                      f"{load['duplicates']}, statuses {statuses}, short {short}")
             rebooted = {name: sup.replicas[name].boot_s for name in survivors}
+            pgids += [sup.replicas[name].proc.pid for name in survivors]
+            if grep.rendezvous == rdzv_before or grep.restarts != 1:
+                raise AssertionError(f"the group did not re-form at a new rendezvous: "
+                                     f"{rdzv_before} -> {grep.rendezvous}")
 
             # 4. the same sets through the two survivors, after a warm-up set
             fleet_serve(sup.router.host, sup.router.port, fleet_specs(cli, shift=300),
                         grace_s=0)
             goodput_two = fleet_goodput(cli, sup.router.host, sup.router.port)
+            lap("goodput_two")
         finally:
             sup.stop()
+            lap("stop")
+    left = {pgid: group_pids(pgid) for pgid in pgids if group_pids(pgid)}
+    incarnations = rank_lines(grep)
+    group_launches = [inc["launches"] for inc in incarnations]
+    want_group = {**both0, "fused_glm_grad": FLEET_ROUNDS, "fused_block_decode": LAYER_ROUNDS}
+    if (left or len(incarnations) != 2 or grep.exit_codes != [0] * FLEET_GROUP_RANKS
+            or any(inc["followed"] != [inc["led"]] * (FLEET_GROUP_RANKS - 1)
+                   or any(n != inc["launches"][0] for n in inc["launches"])
+                   for inc in incarnations)
+            or group_launches[0][0] != want_group):
+        raise AssertionError(f"group replica: processes left {left}, incarnations "
+                             f"{incarnations}, exit codes {grep.exit_codes}")
     recs = [json.loads(line) for line in open(sup_log)]
     deaths = [r for r in recs if r["type"] == "fleet" and r["action"] == "declare_dead"]
     phases = {(r["replica"], r.get("phase")) for r in recs
@@ -4980,11 +5087,23 @@ def fleet_phase(cli, kernels, tmp, both0, ds) -> dict:
                              f"{adopter} adopts {adopts}, deploy phases {sorted(phases)}, "
                              f"build dir {files_before} -> {files_after}")
     emit("fleet_kill", replicas=3, victim=victim, victim_exit=victim_rc, adopter=adopter,
+         adopter_ranks=FLEET_GROUP_RANKS,
          declare_dead_streak=deaths[0]["streak"], k=FLEET_K,
-         adopted_records=adopts[adopter][0]["records"], rows_bitwise_one_replica=True,
+         adopted_records=adopts[adopter][0]["records"], first_row_bitwise_one_replica=True,
+         adopted_rows=adopted_rows,
          delivered=first["delivered"] + rest["delivered"],
          raw_result_lines=first["raw_lines"] + rest["raw_lines"],
-         death_to_adoption_s=marks["adopted"] - marks["death"], boot_s=boots)
+         death_to_adoption_s=marks["adopted"] - marks["death"], boot_s=boots, start_s=start_s)
+    emit("fleet_group", replica=adopter, ranks=FLEET_GROUP_RANKS, backend="gloo",
+         devices=["cuda:0"] * FLEET_GROUP_RANKS, tenant=tenant,
+         requests=[label for label, _ in group_specs], rows=group_rows,
+         max_rel_loss=max(r["max_rel_loss"] for r in group_rows.values()),
+         delivered=group_served["delivered"], wall_s=group_served["wall_s"],
+         rows_per_sec=len(group_specs) / group_served["wall_s"],
+         in_process_launches=group_ref_launches,
+         incarnations=incarnations, exit_codes=grep.exit_codes,
+         rendezvous=[rdzv_before, grep.rendezvous], boot_s=[boots[adopter], rebooted[adopter]],
+         process_groups_left=left)
     load_labels = {label for led in ledgers for label in led["rows_by_label"]}
     slowest = slowest_served({n: sup.replicas[n].events_path for n in survivors}, load_labels)
     deploy_t = {f"{r['replica']}_{r['phase']}": r["t"] for r in recs
@@ -4997,14 +5116,23 @@ def fleet_phase(cli, kernels, tmp, both0, ds) -> dict:
          boot_s_after_bounce=rebooted, slowest=slowest, deploy_phase_t=deploy_t)
     goodput = {"one_replica": goodput_one, "two_survivors": goodput_two}
     seconds = time.perf_counter() - t_phase
-    emit("fleet", seconds=seconds, goodput=goodput, build_files=files_after,
+    lap("checks")
+    emit("fleet", seconds=seconds, steps_s=laps, goodput=goodput, build_files=files_after,
          build_files_unchanged=True, logs_valid=len(logs), card=card_line(),
          # the rows' real_steps_per_sec are shared-device figures: every
          # replica's loop runs on the one card, time-sliced with its peers
          note="row real_steps_per_sec is per replica on a shared card")
     return dict(seconds=seconds, goodput=goodput, boot_s={"one": boot_one, **boots},
                 death_to_adoption_s=marks["adopted"] - marks["death"],
-                deploy_load_wall_s=load_wall, launches_by_run={"fleet_in_process": ref_launches})
+                deploy_load_wall_s=load_wall,
+                group={"boot_s": [boots[adopter], rebooted[adopter]],
+                       "rows_per_sec": len(group_specs) / group_served["wall_s"],
+                       "max_rel_loss": max(r["max_rel_loss"] for r in group_rows.values()),
+                       "launches_by_rank": group_launches[0]},
+                launches_by_run={
+                    "fleet_in_process": ref_launches, "fleet_group_in_process": group_ref_launches,
+                    **{f"fleet_group_{i}_rank{r}": n for i, inc in enumerate(group_launches)
+                       for r, n in enumerate(inc)}})
 
 
 # the native phase: the text loader's cold parse at a reference shape
@@ -5978,7 +6106,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels.load_library()
-    emit("build", kernels=sorted(kernels.LAUNCHES), seconds=time.perf_counter() - t0,
+    build_s = time.perf_counter() - t0
+    emit("build", kernels=sorted(kernels.LAUNCHES), seconds=build_s,
          library=os.path.relpath(str(kernels.library_path()), HERE))
 
     checks = []
@@ -6065,6 +6194,11 @@ def main() -> int:
             decode_error_mean=gpu["manifest"].get("decode_error_mean"),
             **compare_runs(gpu, cpu),
         )
+        # the host's speed, which sets most of this script's seconds: the
+        # kernel build (nvcc) and the main path's CPU reference
+        host = dict(nvcc_build_s=build_s,
+                    cpu_reference_steps_per_sec=cpu["manifest"]["steps_per_sec"])
+        emit("host", **host)
 
         # rows wider than one CTA holds through the trainer: 20,000 columns,
         # which a cluster of two CTAs splits, one B1 launch a round
@@ -6161,8 +6295,15 @@ def main() -> int:
     t_sweep = time.perf_counter()
     data_cache = data_cache_phase(kernels, experiments, cohort_ds, both0)
     with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-sweep-") as tmp:
-        journal_rec = journal_phase(kernels, experiments, cohort_ds, tmp, both0)
-        pipe = pipeline_phase(cli, kernels, tmp, both0)
+        # the journal's --resume-sweep process runs beside the pipeline phase
+        resuming, finish_journal = journal_phase(kernels, experiments, cohort_ds, tmp, both0)
+        try:
+            pipe = pipeline_phase(cli, kernels, tmp, both0)
+        except BaseException:
+            resuming.kill()
+            resuming.wait()
+            raise
+        journal_rec = finish_journal()
     sweep_phases_s = time.perf_counter() - t_sweep
     emit("sweep_runner", seconds=sweep_phases_s)
     sweep_launches = {
@@ -6215,9 +6356,7 @@ def main() -> int:
     # the fronts under load, the kill drill
     with tempfile.TemporaryDirectory(prefix="eh-chip-smoke-serve-") as tmp:
         served_rec = serve_phase(cli, kernels, tmp, both0, cohort_ds)
-        serve_ranks = served_rec["serve_ranks"]
     sweep_launches.update(served_rec["launches_by_run"])
-    sweep_launches.update(serve_ranks["launches_by_run"])
 
     # the serve fleet: replica processes on the card behind the router
     # (baseline, kill and adoption, rolling deploy under load, goodput);
@@ -6351,6 +6490,7 @@ def main() -> int:
     cohort_profile["aggregate_steps_per_sec"] = cohort_profile["warm_steps_per_sec"]
     emit("profile", path="compare_deduped_cohort", **cohort_profile)
     emit("profiler", lost_windows=LOST_WINDOWS)
+    emit("timeline", seconds_by_phase=timeline(), host=host)
 
     kernel_ms_best = min(kernel_ms, kernel_ms_2)
     line = {"kernels": [{
@@ -6504,7 +6644,8 @@ def main() -> int:
         # card), boot seconds, death to adoption; the native parser's
         # cold parse against np.loadtxt's
         "fleet": {k: fleet_rec[k] for k in (
-            "goodput", "boot_s", "death_to_adoption_s", "deploy_load_wall_s", "seconds")},
+            "goodput", "boot_s", "death_to_adoption_s", "deploy_load_wall_s", "group",
+            "seconds")},
         "native": {k: native_rec[k] for k in ("native_s", "loadtxt_s", "loadtxt_over_native")},
         # the worker mesh: a rank's stack at world size 2 (B1 there), the
         # main path's steps/s and peak bytes at world 1 under NCCL
@@ -6605,6 +6746,4 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-child"]:
         sys.exit(mesh_child(sys.argv[2]))
-    if sys.argv[1:2] == ["--serve-child"]:
-        sys.exit(serve_child(sys.argv[2]))
     sys.exit(main())

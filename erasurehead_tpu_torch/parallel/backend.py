@@ -11,6 +11,14 @@ One backend per run, chosen by the caller: ``nccl`` for ``cuda``, ``gloo``
 for ``cpu``, or an explicit ``backend=``. A group that does not form raises:
 nothing falls back from NCCL to gloo, or from the card to the CPU.
 
+Each rank of a host binds the card of its ``LOCAL_RANK``. Ranks share a card
+only when asked (:data:`SHARE_CARD_ENV` set to ``1`` in the rank's
+environment, as the serve fleet sets it for a replica asked to span more
+ranks than the host has cards): rank r then binds card
+``LOCAL_RANK mod cards`` and the group runs gloo, since NCCL refuses two
+ranks on one card; asking for NCCL as well is refused. A rank past the
+host's cards that did not ask is refused by name.
+
 With no cluster environment and no arguments this is a no-op, so entry points
 call it unconditionally at start; it is idempotent. An entry point that forms
 the group leaves it on the way out (:func:`joined`): a barrier once every
@@ -31,6 +39,14 @@ import torch.distributed as dist
 #: torchrun's environment: the rank, the world size, the rank on this node,
 #: and the rendezvous address
 CLUSTER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+#: set to ``1`` in a rank's environment: the ranks of this host may share its
+#: cards, under gloo (:func:`resolve_card`)
+SHARE_CARD_ENV = "ERASUREHEAD_SHARE_CARD"
+
+#: the rendezvous a rank joins when the caller passes neither ``init_method``
+#: nor ``store`` (e.g. ``file://DIR/rendezvous``; unset: ``env://``)
+INIT_METHOD_ENV = "ERASUREHEAD_INIT_METHOD"
 
 #: how long a collective may wait for a peer before it raises: a dead rank
 #: must end its survivors' runs, not hang them
@@ -68,11 +84,14 @@ def initialize_distributed(
     ``rank``/``world_size``/``local_rank`` default to torchrun's
     ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``; the rendezvous is ``store`` (a
     ``torch.distributed.Store``), ``init_method`` (``tcp://host:port`` or
-    ``file://path``) or ``env://`` (``MASTER_ADDR``/``MASTER_PORT``).
-    ``device`` is the run's device, ``cuda`` unless ``cpu`` is asked for
-    (raising without a card, as every entry point does); on the card the
-    process binds ``cuda:<local_rank>``. ``backend`` defaults to ``nccl``
-    on the card and ``gloo`` on the CPU.
+    ``file://path``), :data:`INIT_METHOD_ENV`, or ``env://``
+    (``MASTER_ADDR``/``MASTER_PORT``). ``device`` is the run's device,
+    ``cuda`` unless ``cpu`` is asked for (raising without a card, as every
+    entry point does); on the card the process binds the card
+    :func:`resolve_card` gives (``cuda:<local_rank>``, or a shared one when
+    :data:`SHARE_CARD_ENV` asks for it).
+    ``backend`` defaults to ``nccl`` on the card (``gloo`` when the ranks
+    share cards) and ``gloo`` on the CPU.
 
     A rank without a world size raises and names the missing variable (the
     JAX package's rule: a partial pair would fail deep inside the library).
@@ -104,8 +123,10 @@ def initialize_distributed(
     if local_rank is None:
         local_rank = _env_int("LOCAL_RANK") or 0
     if dev.type == "cuda":
-        torch.cuda.set_device(local_rank)
-        dev = torch.device("cuda", local_rank)
+        share_card = os.environ.get(SHARE_CARD_ENV, "") not in ("", "0")
+        card, backend = resolve_card(local_rank, share_card, backend)
+        torch.cuda.set_device(card)
+        dev = torch.device("cuda", card)
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
     kw = dict(backend=backend, world_size=world_size, rank=rank,
@@ -113,7 +134,7 @@ def initialize_distributed(
     if store is not None:
         kw["store"] = store
     else:
-        kw["init_method"] = init_method or "env://"
+        kw["init_method"] = init_method or os.environ.get(INIT_METHOD_ENV) or "env://"
     if backend == "nccl":
         # binds the communicator to this process's card at init, so the
         # first collective cannot pick another one
@@ -121,6 +142,32 @@ def initialize_distributed(
     dist.init_process_group(**kw)
     _device = dev
     return topology_info()
+
+
+def resolve_card(local_rank: int, share_card: bool = False,
+                 backend: Optional[str] = None) -> tuple:
+    """``(card index, backend)`` for a rank of this host on the card: the
+    card of its ``local_rank`` and the caller's ``backend``. With
+    ``share_card`` the rank binds card ``local_rank mod cards`` and the
+    backend is gloo (asking for NCCL as well raises: NCCL refuses two ranks
+    on one card). A rank past the host's cards that did not ask for a
+    shared one raises, naming the way to ask."""
+    cards = torch.cuda.device_count()
+    if share_card:
+        if backend not in (None, "gloo"):
+            raise ValueError(
+                f"ranks that share a card run gloo, not {backend!r}: NCCL "
+                "refuses two ranks on one card"
+            )
+        return local_rank % max(cards, 1), "gloo"
+    if local_rank >= cards:
+        raise ValueError(
+            f"rank with LOCAL_RANK {local_rank} has no card of its own: this "
+            f"host has {cards}; ranks share a card only when asked "
+            f"({SHARE_CARD_ENV}=1 in the rank's environment), and then run "
+            "gloo"
+        )
+    return local_rank, backend
 
 
 def group_device() -> Optional[torch.device]:

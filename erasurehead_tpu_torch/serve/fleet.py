@@ -5,31 +5,53 @@ intake WAL replays its accepted working set. This module makes it
 survive DEATH and upgrades without a maintenance window:
 
   - :class:`FleetSupervisor` spawns N ``python -m
-    erasurehead_tpu_torch.cli serve`` replicas as same-host subprocesses
+    erasurehead_tpu_torch.cli serve`` replicas as same-host process groups
     (stdlib only: ``subprocess`` + the HTTP front each replica already
     has), each with its own journal directory + intake WAL, fronted by one
     :class:`FleetRouter` (serve/router.py) that consistent-hashes
     submissions by (tenant, cohort_signature) so packable work keeps
     landing where its device data stacks are hot. Every replica runs on
     the device the supervisor is given (``device=``, the card unless
-    ``"cpu"`` is asked for): on one card each replica holds its own CUDA
-    context and its own copy of the data, and the card time-slices
-    between them. A replica that cannot reach its device exits, and the
-    supervisor raises with its log; nothing falls back to the CPU. The
-    replicas share one kernel build directory (``cache_dir``, passed as
+    ``"cpu"`` is asked for). A replica that cannot reach its device exits,
+    and the supervisor raises with its log; nothing falls back to the CPU.
+    The replicas share one kernel build directory (``cache_dir``, passed as
     ``--cache-dir``): one build serves them all (ops/kernels._build locks
     the directory across processes).
+  - **A replica is a rank group** (``ranks=``): the JAX package's replica
+    is one process whose dispatches spread over every local device (its
+    daemon's auto mesh); the port drives one card per process (the worker
+    mesh, parallel/mesh.py), so a replica that spans the host's cards is a
+    group of ``ranks`` processes of ``cli serve`` — rank 0 runs the fronts,
+    the WAL, admission and the adoption endpoint, the other ranks follow
+    its dispatches (serve/server.SweepServer.follow), one dispatch at a
+    time across the ranks (serve/server.py's deviation). The default,
+    ``ranks=None``, is every card of the host on ``cuda``
+    (``torch.cuda.device_count()``, the JAX auto mesh's reach) and 1 on the
+    CPU, so on a one-card host a replica is one process as before. Each
+    rank keeps its own card and NCCL; ranks share a card only when asked
+    (``share_card=True``, for more ranks than cards), and then run gloo
+    (parallel/backend.resolve_card): a deliberate deviation, since NCCL
+    refuses two ranks on one card. The group's ranks meet at a file store
+    under the replica's own directory, new to each incarnation (a bounced group
+    cannot meet at its previous store), and share one process group of
+    their own, which the supervisor signals as one: a dead, stopped or
+    bounced replica leaves no process behind. The supervisor reads rank
+    0's exit code from rank 0 itself. A chaos spec is armed on rank 0 only,
+    the one rank that runs the dispatch loop.
   - **Membership is evidential**, the same streak discipline the elastic
     controller applies to stragglers (elastic/controller.py,
     :class:`ProbeStreakDetector`): a replica is declared dead only after
     K CONSECUTIVE missed /healthz probes *while actually probing* —
     one timeout is a hiccup, a paused probe is not evidence, and any
-    answered probe resets the streak.
-  - **On declared death**, the next live replica in the dead one's ring
-    order ADOPTS its WAL (``POST /v1/adopt`` -> server.adopt_wal ->
-    wal.adopt): O_EXCL sentinel so the adoption race has one winner, a
-    final owner-/healthz refusal, dedup by request_digest against the
-    adopter's own acceptances. Accepted-never-lost now spans the fleet.
+    answered probe resets the streak. A group answers only when rank 0's
+    /healthz does and every rank's process runs.
+  - **On declared death**, the whole group is made dead, and the next
+    live replica in the dead one's ring order ADOPTS its WAL (``POST
+    /v1/adopt`` -> server.adopt_wal -> wal.adopt): O_EXCL sentinel so the
+    adoption race has one winner, a final owner-/healthz refusal, dedup by
+    request_digest against the adopter's own acceptances; an adopter that
+    is a group replays the records on its rank 0, which broadcasts their
+    dispatches to its followers. Accepted-never-lost now spans the fleet.
   - **Rolling deploy** (:meth:`FleetSupervisor.rolling_deploy`): each
     replica in turn is drained (out of the hash ring until it is back,
     whatever its probes answer meanwhile; in-flight work finishes),
@@ -51,6 +73,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -61,6 +84,7 @@ from typing import Optional
 from erasurehead_tpu_torch.elastic.controller import ProbeStreakDetector
 from erasurehead_tpu_torch.obs import events as events_lib
 from erasurehead_tpu_torch.obs.metrics import REGISTRY as _METRICS
+from erasurehead_tpu_torch.parallel import backend as backend_lib
 from erasurehead_tpu_torch.serve.router import FleetRouter, VNODES
 from erasurehead_tpu_torch.serve.wal import WAL_NAME
 
@@ -70,6 +94,16 @@ DEFAULT_K = 3
 #: default seconds between membership probe sweeps
 DEFAULT_PROBE_INTERVAL_S = 0.5
 
+#: seconds a dead rank 0's followers get to end by themselves (each ends at
+#: its next collective, once rank 0's connection closes) before they are
+#: killed
+FOLLOWER_GRACE_S = 5.0
+
+#: the variables that place a process in a group: the supervisor sets them
+#: for a group's ranks and clears them for a replica of one process
+_GROUP_ENV = (*backend_lib.CLUSTER_ENV, backend_lib.INIT_METHOD_ENV,
+              backend_lib.SHARE_CARD_ENV)
+
 #: the directory that holds the erasurehead_tpu_torch package
 _PKG_PARENT = os.path.dirname(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -77,16 +111,21 @@ _PKG_PARENT = os.path.dirname(
 
 
 class Replica:
-    """One fleet member: its process, endpoints, and durable state."""
+    """One fleet member: its processes, endpoints, and durable state. A
+    replica of ``ranks`` processes is a rank group: ``proc`` is rank 0 (the
+    fronts), ``followers`` the others in rank order, all in one process
+    group whose id is rank 0's pid."""
 
     def __init__(self, name: str, journal_dir: str, cache_dir: str,
-                 events_path: Optional[str], log_path: str):
+                 events_path: Optional[str], log_path: str, ranks: int = 1):
         self.name = name
         self.journal_dir = journal_dir
         self.cache_dir = cache_dir
         self.events_path = events_path
         self.log_path = log_path
+        self.ranks = int(ranks)
         self.proc: Optional[subprocess.Popen] = None
+        self.followers: list = []
         self.host: Optional[str] = None
         self.port: Optional[int] = None
         self.restarts = 0
@@ -96,6 +135,11 @@ class Replica:
         self.log_offset = 0
         #: seconds from the latest spawn to its first answered /healthz
         self.boot_s: Optional[float] = None
+        #: the latest incarnation's rendezvous (a group's file store)
+        self.rendezvous: Optional[str] = None
+        #: each rank's exit code once the latest incarnation ended
+        self.exit_codes: Optional[list] = None
+        self._t_launch = 0.0
 
     @property
     def wal_path(self) -> str:
@@ -105,15 +149,124 @@ class Replica:
     def hostport(self) -> str:
         return f"{self.host}:{self.port}"
 
+    @property
+    def procs(self) -> list:
+        """Every process of the latest incarnation, in rank order."""
+        return ([self.proc] if self.proc is not None else []) + list(self.followers)
+
+    def rank_log_path(self, rank: int) -> str:
+        """Rank 0 writes the replica's log; rank r > 0 its own beside it."""
+        if rank == 0:
+            return self.log_path
+        return f"{os.path.splitext(self.log_path)[0]}.rank{rank}.log"
+
+    def whole(self) -> bool:
+        """Does every process of the group still run? (True before a
+        spawn: nothing of it has ended.)"""
+        return all(p.poll() is None for p in self.procs)
+
+
+def group_pids(pgid: Optional[int]) -> list:
+    """The pids of every live process whose process group is ``pgid``, read
+    from /proc (empty where there is none, or no /proc)."""
+    if pgid is None:
+        return []
+    out = []
+    try:
+        entries = os.listdir("/proc")
+    except OSError:
+        return []
+    for entry in entries:
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # "pid (comm) state ppid pgrp ...": comm may hold spaces and parens
+        fields = stat[stat.rindex(")") + 2:].split()
+        if fields[0] != "Z" and int(fields[2]) == pgid:
+            out.append(int(entry))
+    return out
+
+
+#: ``subprocess.Popen(process_group=)`` exists from Python 3.11
+_POPEN_PROCESS_GROUP = sys.version_info >= (3, 11)
+
+
+def _process_group_kw(pgid: int) -> dict:
+    """Popen keywords that start the child in process group ``pgid`` (0: a
+    new group, led by the child). Before Python 3.11 the child joins it
+    itself, between fork and exec."""
+    if _POPEN_PROCESS_GROUP:
+        return {"process_group": pgid}
+    return {"preexec_fn": lambda: os.setpgid(0, pgid)}
+
+
+def _signal_group(rep: Replica, sig) -> None:
+    """``sig`` to rep's process group, while any of its ranks runs (the
+    group id is rank 0's pid, which cannot be reused while the group has a
+    member)."""
+    if rep.proc is None or (
+        all(p.poll() is not None for p in rep.procs)
+        and not group_pids(rep.proc.pid)
+    ):
+        return
+    try:
+        os.killpg(rep.proc.pid, sig)
+    except (ProcessLookupError, PermissionError):
+        pass
+
+
+def end_group(rep: Replica, sig=signal.SIGTERM, wait_s: float = 10.0) -> list:
+    """End every process of rep's group: ``sig`` to the group, up to
+    ``wait_s`` for each rank to exit, then SIGKILL to whatever of the group
+    is left (grandchildren too). Returns each rank's exit code (also kept as
+    ``rep.exit_codes``)."""
+    procs = rep.procs
+    if not procs:
+        return []
+    if sig is not None:
+        _signal_group(rep, sig)
+    deadline = time.monotonic() + wait_s
+    for p in procs:
+        try:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+    if any(p.poll() is None for p in procs) or group_pids(rep.proc.pid):
+        _signal_group(rep, signal.SIGKILL)
+        for p in procs:
+            p.wait(timeout=10)
+    rep.exit_codes = [p.returncode for p in procs]
+    return rep.exit_codes
+
 
 def _log_tail(rep: Replica, n: int = 4000) -> str:
-    """The last ``n`` characters this incarnation wrote to its log."""
-    try:
-        with open(rep.log_path) as f:
-            f.seek(rep.log_offset)
-            return f.read()[-n:]
-    except OSError as e:
-        return f"<log unreadable: {e}>"
+    """The last ``n`` characters this incarnation wrote to its log, and to
+    each follower's."""
+    out = []
+    for r in range(max(1, len(rep.procs))):
+        path = rep.rank_log_path(r)
+        try:
+            with open(path) as f:
+                f.seek(rep.log_offset if r == 0 else 0)
+                text = f.read()[-n:]
+        except OSError as e:
+            text = f"<log unreadable: {e}>"
+        out.append(text if r == 0 else f"--- rank {r} ({path}):\n{text}")
+    return "\n".join(out)
+
+
+def default_ranks(device: str) -> int:
+    """Ranks a replica by default (the JAX auto mesh's reach): every card
+    of the host on ``cuda`` (at least 1), 1 on the CPU."""
+    if device == "cpu":
+        return 1
+    import torch
+
+    return max(1, torch.cuda.device_count())
 
 
 def probe_healthz(host: str, port: int,
@@ -138,7 +291,18 @@ def probe_healthz(host: str, port: int,
 
 
 class FleetSupervisor:
-    """Spawns, probes, and bounces a same-host serve fleet."""
+    """Spawns, probes, and bounces a same-host serve fleet.
+
+    ``ranks``: processes a replica (module docstring), an int for every
+    replica or ``{name: ranks}`` for the named ones (the others take the
+    default); None is :func:`default_ranks`. More ranks than the host has
+    cards on ``cuda`` is refused unless ``share_card`` asks for ranks that
+    share a card (gloo)."""
+
+    #: the replica's command, before its flags (a caller may replace it,
+    #: e.g. with a ``-c`` program that prepares the process, then runs
+    #: ``cli.main(["serve", *sys.argv[1:]])``)
+    serve_cmd = (sys.executable, "-m", "erasurehead_tpu_torch.cli", "serve")
 
     def __init__(
         self,
@@ -154,10 +318,23 @@ class FleetSupervisor:
         chaos: Optional[dict] = None,
         extra_args: tuple = (),
         device: str = "cuda",
+        ranks=None,
+        share_card: bool = False,
     ):
         if device not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
         self.n = int(n)
+        self.device = device
+        self.share_card = bool(share_card)
+        default = default_ranks(device)
+        if ranks is None or isinstance(ranks, dict):
+            named = dict(ranks or {})
+        else:
+            named, default = {}, int(ranks)
+        self._default_ranks = default
+        self._named_ranks = {name: int(r) for name, r in named.items()}
+        for r in (default, *self._named_ranks.values()):
+            self._check_ranks(r)
         if base_dir is None:
             base_dir = tempfile.mkdtemp(prefix="eh-fleet-")
         self.base_dir = base_dir
@@ -165,12 +342,11 @@ class FleetSupervisor:
         # replica (and every replica after the first) loads the library
         # its peers already built
         self.cache_dir = cache_dir or os.path.join(base_dir, "cache")
-        self.device = device
         self.window_ms = float(window_ms)
         self.router = FleetRouter(router_host, router_port, vnodes=vnodes)
         self.detector = ProbeStreakDetector(k=k)
         self.probe_interval_s = float(probe_interval_s)
-        #: replica name -> chaos spec armed on ITS process only
+        #: replica name -> chaos spec armed on ITS rank 0 only
         self.chaos = dict(chaos or {})
         self.extra_args = tuple(extra_args)
         self.replicas: dict[str, Replica] = {}
@@ -180,11 +356,32 @@ class FleetSupervisor:
         self._stop = threading.Event()
         self._lock = threading.Lock()
 
+    def _check_ranks(self, ranks: int) -> None:
+        if ranks < 1:
+            raise ValueError(f"a replica needs at least one rank, got {ranks}")
+        if self.device != "cuda" or self.share_card:
+            return
+        import torch
+
+        cards = torch.cuda.device_count()
+        if ranks > max(1, cards):
+            raise ValueError(
+                f"{ranks} ranks a replica on a host with {cards} card(s): "
+                "each rank needs a card of its own unless share_card=True "
+                "asks for ranks that share one (gloo: NCCL refuses two "
+                "ranks on one card)"
+            )
+
+    def ranks_of(self, name: str) -> int:
+        """Processes of replica ``name``."""
+        return self._named_ranks.get(name, self._default_ranks)
+
     # ---- lifecycle -------------------------------------------------------
 
     def start(self, probe: bool = True) -> None:
-        for i in range(self.n):
-            self.spawn(f"r{i}")
+        # every replica boots at once; each joins the ring as it answers
+        for rep in [self._launch(f"r{i}") for i in range(self.n)]:
+            self._admit(rep)
         if probe:
             self._probe_thread = threading.Thread(
                 target=self._probe_loop, name="eh-fleet-probe",
@@ -196,6 +393,12 @@ class FleetSupervisor:
         """Launch one replica (or relaunch a bounced one on its same
         directories), wait for its HTTP front, and admit it to the
         ring with a clean probe slate."""
+        return self._admit(self._launch(name))
+
+    def _launch(self, name: str) -> Replica:
+        """Start replica ``name``'s processes: one ``cli serve``, or a rank
+        group of them meeting at a file store new to this incarnation, all
+        in one process group whose id is rank 0's pid."""
         rep = self.replicas.get(name)
         if rep is None:
             rep = Replica(
@@ -206,22 +409,36 @@ class FleetSupervisor:
                     self.base_dir, f"{name}.events.jsonl"
                 ),
                 log_path=os.path.join(self.base_dir, f"{name}.log"),
+                ranks=self.ranks_of(name),
             )
             self.replicas[name] = rep
         else:
             rep.restarts += 1
         os.makedirs(rep.journal_dir, exist_ok=True)
-        env = dict(os.environ)
+        env = {k: v for k, v in os.environ.items() if k not in _GROUP_ENV}
         # the replica imports this checkout's package wherever it runs
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (_PKG_PARENT, env.get("PYTHONPATH")) if p
         )
         env.pop("ERASUREHEAD_CHAOS", None)
-        if self.chaos.get(name):
-            env["ERASUREHEAD_CHAOS"] = self.chaos[name]
+        if rep.ranks > 1:
+            # a store no earlier incarnation met at
+            for old in os.listdir(rep.journal_dir):
+                path = os.path.join(rep.journal_dir, old)
+                if old.startswith("rendezvous.") and os.path.isfile(path):
+                    os.remove(path)
+            rep.rendezvous = os.path.join(
+                rep.journal_dir, f"rendezvous.{rep.restarts}"
+            )
+            env.update({
+                "WORLD_SIZE": str(rep.ranks),
+                backend_lib.INIT_METHOD_ENV: "file://" + rep.rendezvous,
+            })
+            if self.share_card and self.device == "cuda":
+                env[backend_lib.SHARE_CARD_ENV] = "1"
         sock = os.path.join(self.base_dir, f"{name}.sock")
         cmd = [
-            sys.executable, "-m", "erasurehead_tpu_torch.cli", "serve",
+            *self.serve_cmd,
             "--socket", sock,
             "--http", "127.0.0.1:0",
             "--replica-name", name,
@@ -237,13 +454,39 @@ class FleetSupervisor:
             if os.path.exists(rep.log_path) else 0
         )
         rep.host = rep.port = None  # a bounce gets a fresh kernel port
-        t0 = time.monotonic()
-        with open(rep.log_path, "a") as out:
-            rep.proc = subprocess.Popen(
-                cmd, env=env, stdout=out, stderr=subprocess.STDOUT
-            )
-        self._wait_front(rep)
-        rep.boot_s = time.monotonic() - t0
+        rep.proc, rep.followers, rep.exit_codes = None, [], None
+        rep._t_launch = time.monotonic()
+        for r in range(rep.ranks):
+            renv = dict(env)
+            if rep.ranks > 1:
+                renv.update(RANK=str(r), LOCAL_RANK=str(r))
+            if r == 0 and self.chaos.get(name):
+                renv["ERASUREHEAD_CHAOS"] = self.chaos[name]
+            try:
+                with open(rep.rank_log_path(r), "a") as out:
+                    proc = subprocess.Popen(
+                        cmd, env=renv, stdout=out, stderr=subprocess.STDOUT,
+                        **_process_group_kw(0 if r == 0 else rep.proc.pid),
+                    )
+            except OSError:
+                end_group(rep, signal.SIGKILL, 0.0)
+                raise
+            if r == 0:
+                rep.proc = proc
+            else:
+                rep.followers.append(proc)
+        return rep
+
+    def _admit(self, rep: Replica) -> Replica:
+        """Wait for a launched replica's front, then join it to the ring
+        with a clean probe slate."""
+        try:
+            self._wait_front(rep)
+        except RuntimeError:
+            end_group(rep, signal.SIGKILL, 0.0)
+            raise
+        rep.boot_s = time.monotonic() - rep._t_launch
+        name = rep.name
         self.router.add_replica(name, rep.host, rep.port)
         self.detector.add(name)
         self._dead_handled.discard(name)
@@ -252,15 +495,19 @@ class FleetSupervisor:
 
     def _wait_front(self, rep: Replica, timeout: float = 600.0) -> None:
         """Parse the replica's own startup line for its kernel-assigned
-        HTTP port, then wait until /healthz actually answers."""
+        HTTP port, then wait until /healthz actually answers. A group's
+        rank 0 listens only once every rank has joined."""
         deadline = time.time() + timeout
         marker = "serve: http front on "
         while time.time() < deadline:
-            if rep.proc.poll() is not None:
+            ended = [(r, p.returncode) for r, p in enumerate(rep.procs)
+                     if p.poll() is not None]
+            if ended:
+                r, code = ended[0]
                 raise RuntimeError(
-                    f"replica {rep.name} exited "
-                    f"{rep.proc.returncode} before listening "
-                    f"(log: {rep.log_path}):\n{_log_tail(rep)}"
+                    f"replica {rep.name} exited {code} before listening"
+                    + (f" (rank {r})" if rep.ranks > 1 else "")
+                    + f" (log: {rep.log_path}):\n{_log_tail(rep)}"
                 )
             try:
                 with open(rep.log_path) as f:
@@ -286,19 +533,16 @@ class FleetSupervisor:
         )
 
     def stop(self) -> None:
+        """Stop the probes, end every replica's group (SIGTERM to each
+        group at once; what is left after 10 s is killed), close the
+        router."""
         self._stop.set()
         if self._probe_thread is not None:
             self._probe_thread.join(timeout=5)
         for rep in self.replicas.values():
-            if rep.proc is not None and rep.proc.poll() is None:
-                rep.proc.terminate()
+            _signal_group(rep, signal.SIGTERM)
         for rep in self.replicas.values():
-            if rep.proc is not None:
-                try:
-                    rep.proc.wait(timeout=10)
-                except subprocess.TimeoutExpired:
-                    rep.proc.kill()
-                    rep.proc.wait(timeout=10)
+            end_group(rep, None, 10.0)
         self.router.close()
 
     # ---- membership ------------------------------------------------------
@@ -319,7 +563,9 @@ class FleetSupervisor:
         evidence of death. Nor does its answered probe put it back in
         the ring (the JAX supervisor's does): new work routed to a
         replica that is draining would keep its queue from emptying and
-        wait out its restart in the WAL; ``spawn`` re-admits it."""
+        wait out its restart in the WAL; ``spawn`` re-admits it. A group
+        answers only when rank 0's /healthz does and every rank runs: a
+        group that lost a rank cannot dispatch."""
         with self._lock:
             names = [
                 n for n in self.replicas
@@ -330,7 +576,7 @@ class FleetSupervisor:
             rep = self.replicas[name]
             body = (
                 probe_healthz(rep.host, rep.port)
-                if rep.port is not None
+                if rep.port is not None and rep.whole()
                 else None
             )
             ok = body is not None
@@ -357,7 +603,10 @@ class FleetSupervisor:
 
     def _declare_dead(self, name: str, streak: int) -> None:
         """K consecutive evidential misses: out of the ring, and the
-        next live peer in ITS ring order adopts its WAL."""
+        next live peer in ITS ring order adopts its WAL. The whole group
+        is made dead first when rank 0 still runs; when rank 0 is dead, its
+        followers get FOLLOWER_GRACE_S to end by themselves after the
+        adoption, then whatever is left of the group is killed."""
         with self._lock:
             if name in self._dead_handled:
                 return
@@ -369,15 +618,17 @@ class FleetSupervisor:
         rep = self.replicas[name]
         self.router.set_alive(name, False)
         if rep.proc is not None and rep.proc.poll() is None:
-            # unreachable but still running (wedged): make death true
-            # before a peer adopts its WAL
-            rep.proc.kill()
-            rep.proc.wait(timeout=10)
-        for peer in self.router.ring.ring_order(name):
-            if peer == name or peer in self._dead_handled:
-                continue
-            if self._command_adoption(peer, rep):
-                return
+            # unreachable but still running (wedged), or a rank of its
+            # group is gone: make death true before a peer adopts its WAL
+            end_group(rep, signal.SIGKILL, 0.0)
+        try:
+            for peer in self.router.ring.ring_order(name):
+                if peer == name or peer in self._dead_handled:
+                    continue
+                if self._command_adoption(peer, rep):
+                    return
+        finally:
+            end_group(rep, None, FOLLOWER_GRACE_S)
         events_lib.emit(
             "warning",
             kind="fleet_no_adopter",
@@ -395,8 +646,9 @@ class FleetSupervisor:
         import http.client
 
         ep = self.router.endpoint_of(peer)
-        if ep is None:
-            return False
+        peer_rep = self.replicas.get(peer)
+        if ep is None or (peer_rep is not None and not peer_rep.whole()):
+            return False  # a group that lost a rank cannot dispatch
         body = json.dumps(
             {
                 "path": dead.wal_path,
@@ -455,13 +707,7 @@ class FleetSupervisor:
                     "fleet", action="deploy_phase", replica=name,
                     phase="stop",
                 )
-                if rep.proc is not None and rep.proc.poll() is None:
-                    rep.proc.terminate()
-                    try:
-                        rep.proc.wait(timeout=30)
-                    except subprocess.TimeoutExpired:
-                        rep.proc.kill()
-                        rep.proc.wait(timeout=10)
+                end_group(rep, signal.SIGTERM, 30.0)
                 rep.host = rep.port = None
                 self.spawn(name)  # same dirs: WAL replays, cache warm
                 events_lib.emit(
@@ -488,7 +734,7 @@ class FleetSupervisor:
         deadline = time.monotonic() + timeout_s
         self.router.wait_proxies(rep.name, timeout_s)
         while time.monotonic() < deadline:
-            body = probe_healthz(rep.host, rep.port)
+            body = probe_healthz(rep.host, rep.port) if rep.whole() else None
             if body is None:
                 return  # already gone; WAL replay covers it
             if not body.get("queued") and not body.get("in_flight"):
@@ -532,7 +778,8 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where every replica trains (default: the card; "
                         "a replica without one exits and the fleet "
-                        "raises with its log)")
+                        "raises with its log). On the card a replica is "
+                        "a group of one rank per card of the host")
     p.add_argument("--k", type=int, default=DEFAULT_K,
                    help="evidential streak before a replica is "
                         f"declared dead (default {DEFAULT_K}; "
@@ -601,7 +848,8 @@ def main(argv=None) -> int:
         eps = sup.endpoints()
         print(
             f"fleet: router on {eps['router']} "
-            f"({ns.replicas} replicas, k={ns.k}, device {ns.device})",
+            f"({ns.replicas} replicas of {sup.ranks_of('r0')} rank(s), "
+            f"k={ns.k}, device {ns.device})",
             flush=True,
         )
         for name, hp in eps["replicas"].items():

@@ -67,7 +67,12 @@ threads overlap on one mesh: a deliberate deviation. A failure on one rank
 only, inside a dispatch's collectives, is seen by the others when their
 collectives time out (parallel/backend.DEFAULT_TIMEOUT_S); the daemon then
 answers that cohort with the error, and a group that lost a rank fails
-every later dispatch the same way. ``stop()`` ends the followers.
+every later dispatch the same way. ``stop()`` ends the followers. A follower
+whose rank 0 died ends at its next collective, whose connection closes
+(``cli serve`` exits 1 there). In ``cli serve`` across ranks a SIGTERM to
+rank 0 drains and stops the daemon as SIGINT does, so a group stops between
+dispatches and no rank is left inside a collective; a follower leaves both
+signals to rank 0 (the serve fleet signals a replica's whole group).
 
 ``cache_dir`` names the directory the kernel library is built into and
 loaded from, where the JAX package names its persistent compilation cache:
@@ -279,6 +284,9 @@ class SweepServer:
         self._rank_datasets: collections.OrderedDict = collections.OrderedDict()
         self._evictions_sent = _METRICS.counter("serve.evictions").value
         self._followers_released = False
+        #: dispatches rank 0 broadcast to the followers (each follower's
+        #: follow() returns the same count)
+        self.dispatches_led = 0
         self.admission = admission_lib.AdmissionController(budget_bytes)
         # admission-time ETA quotes from a what-if surface
         # (whatif/surface.Surface; None = quoting off): each accepted
@@ -1161,6 +1169,7 @@ class SweepServer:
             msg["evict"] = evictions != self._evictions_sent
             self._evictions_sent = evictions
             backend_lib.agree(msg, self._control)
+            self.dispatches_led += 1
             return self._agreed(lambda: None, run)
 
     @staticmethod
@@ -1529,13 +1538,19 @@ def main(argv=None) -> int:
 
 def _follow(ns) -> int:
     """``cli serve`` on a rank other than 0: follow rank 0's dispatches until
-    rank 0 drains and stops. An interrupt is rank 0's to handle (a signal
-    sent to the whole process group reaches every rank): this rank ends
-    when rank 0 releases it."""
+    rank 0 drains and stops. An interrupt or a SIGTERM is rank 0's to handle
+    (a signal sent to the whole process group reaches every rank): this rank
+    ends when rank 0 releases it (exit 0), or when rank 0 is gone (exit 1,
+    at its next collective). Its last line counts the dispatches it followed
+    and the kernels it launched."""
+    import json as json_lib
     import signal
+
+    from erasurehead_tpu_torch.ops import kernels as kernels_lib
 
     if threading.current_thread() is threading.main_thread():
         signal.signal(signal.SIGINT, signal.SIG_IGN)
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
     if ns.cache_dir is not None:
         from erasurehead_tpu_torch.ops import kernels as kernels_lib
 
@@ -1546,8 +1561,16 @@ def _follow(ns) -> int:
         f"(device {srv.device})",
         flush=True,
     )
-    n = srv.follow()
-    print(f"serve: rank {torch.distributed.get_rank()} followed {n} dispatches",
+    rank = torch.distributed.get_rank()
+    try:
+        n = srv.follow()
+    except RuntimeError as e:  # DistBackendError too
+        # e.g. rank 0's connection closed under a collective: it is gone
+        print(f"serve: rank {rank} ends: {type(e).__name__}: "
+              f"{str(e).splitlines()[0][:300]}", flush=True)
+        return 1
+    print(f"serve: rank {rank} followed {n} dispatches (launches "
+          f"{json_lib.dumps(dict(kernels_lib.LAUNCHES), sort_keys=True)})",
           flush=True)
     return 0
 
@@ -1569,12 +1592,22 @@ def _serve(ns, budget, max_cohort) -> int:
         if ns.events
         else contextlib.nullcontext()
     )
+    from erasurehead_tpu_torch.ops import kernels as kernels_lib
+
     if ns.cache_dir is not None:
         # before any kernel loads in this process: the daemon's start()
         # builds into (or loads from) this directory
-        from erasurehead_tpu_torch.ops import kernels as kernels_lib
-
         kernels_lib.set_build_dir(ns.cache_dir)
+    world = backend_lib.world_size()
+    if world > 1 and threading.current_thread() is threading.main_thread():
+        # across ranks a SIGTERM drains and stops as SIGINT does: the ranks
+        # stop between dispatches, none inside a collective
+        import signal
+
+        def _terminate(signum, frame):
+            raise KeyboardInterrupt
+
+        signal.signal(signal.SIGTERM, _terminate)
     with capture:
         srv = SweepServer(
             budget_bytes=budget,
@@ -1637,6 +1670,13 @@ def _serve(ns, budget, max_cohort) -> int:
                 http_front.close()
             front.close()
             srv.stop()
+        if world > 1:
+            import json as json_lib
+
+            print(f"serve: rank 0 led {srv.dispatches_led} dispatches across "
+                  f"{world} ranks (launches "
+                  f"{json_lib.dumps(dict(kernels_lib.LAUNCHES), sort_keys=True)})",
+                  flush=True)
     return 0
 
 
